@@ -36,6 +36,8 @@ SIGNATURES = {
     'tsc_deposit_cells': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
     # delta_k, seg, W, scale, n1d, nbins, out, stream
     'mode_bin_power': (_P, _P, _P, _F, _I, _I, _P, _P),
+    # fields (array of pointers), nfields, seg, W, scale, n1d, nbins, out, stream
+    'mode_bin_pairs': (ctypes.POINTER(_P), _I, _P, _P, _F, _I, _I, _P, _P),
 }
 
 

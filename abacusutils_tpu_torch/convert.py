@@ -4,24 +4,24 @@ The JAX package describes a fused HOD step by catalog dicts of (N,) arrays,
 an HOD parameter dict, a mode-bin plan ``(seg,)`` and the per-axis window
 compensation ``Wcomp``. :func:`inputs_from_numpy` turns each into the
 tensors the port's step takes, so both packages can compute on identical
-state. Arrays go through ``numpy.asarray``, which accepts JAX arrays without
-importing JAX.
+state. :func:`staged_state_from_numpy` builds the port's ``AbacusHOD`` on
+the staged state of a JAX ``AbacusHOD``. Arrays go through
+``numpy.asarray``, which accepts JAX arrays without importing JAX.
 """
 
 import numpy as np
 import torch
 
-__all__ = ['params_to_tensors', 'inputs_from_numpy']
+__all__ = ['params_to_tensors', 'inputs_from_numpy', 'staged_state_from_numpy']
 
 
 def params_to_tensors(params, device):
     """HOD parameters as 0-d float32 tensors on `device`, so the markers'
     scalar arithmetic runs in float32, as it does under jax.jit, and the step
-    copies nothing from the host."""
-    return {
-        k: torch.tensor(float(np.float32(v)), dtype=torch.float32, device=device)
-        for k, v in params.items()
-    }
+    copies nothing from the host. All values travel in one copy."""
+    keys = list(params)
+    vals = torch.tensor([float(np.float32(params[k])) for k in keys], dtype=torch.float32)
+    return dict(zip(keys, vals.to(device).unbind(0)))
 
 
 def _catalog(cat, device):
@@ -42,3 +42,27 @@ def inputs_from_numpy(halo, part, params, binplan, Wcomp, device):
         Wcomp = torch.from_numpy(np.array(Wcomp, np.float32)).to(device)
     params = params_to_tensors(params, device)
     return _catalog(halo, device), _catalog(part, device), params, seg, Wcomp
+
+
+def staged_state_from_numpy(halo_data, particle_data, params, tracers, flags, device):
+    """The port's ``AbacusHOD`` on the staged state of a JAX ``AbacusHOD``:
+    its ``halo_data`` and ``particle_data`` column dicts (as numpy arrays),
+    its ``params`` (``z``, ``Lbox``, ``velz2kms``, ``origin``), its tracer
+    dict and ``flags``, a dict of the ``want_ranks``, ``want_shear``,
+    ``want_expvel``, ``halo_lc`` and ``z_type`` settings. Each call of
+    ``run_hod_pk_fused`` turns the per-tracer HOD parameter dicts into 0-d
+    float32 tensors on `device` with :func:`params_to_tensors`, after
+    ``prepare_tracer_params``."""
+    from .models.hod.abacus_hod import AbacusHOD
+
+    params = dict(params)
+    if params.get('origin') is not None:
+        params['origin'] = np.asarray(params['origin'], np.float64)
+    return AbacusHOD(
+        {k: np.asarray(v) for k, v in halo_data.items()},
+        {k: np.asarray(v) for k, v in particle_data.items()},
+        params,
+        {t: dict(p) for t, p in tracers.items()},
+        device,
+        **flags,
+    )

@@ -1,15 +1,25 @@
-r"""Fused HOD-populate -> paint -> P(k) step (PyTorch + CUDA kernels).
+r"""Fused HOD-populate -> paint -> P(k) steps (PyTorch + CUDA kernels).
 
-Counterpart of abacusutils_tpu/models/pipeline.py for the single-tracer
-(LRG) step ``hod_pk_fused_yb``. The step is static-shape, as on the TPU:
-population produces a keep weight and an RSD z for every halo and particle,
-and the deposit consumes the weights, so no galaxy catalog is compacted and
-nothing waits for the host.
+Counterpart of abacusutils_tpu/models/pipeline.py for the fused route:
 
-The catalogs are staged once by :func:`group_inputs2d_device`: one stable
+- the single-tracer (LRG) step :func:`hod_pk_fused_yb`;
+- the multi-tracer step :func:`hod_pk_fused_multi` (LRG > ELG > QSO
+  priority codes, ELG conformity through the staged satellite -> host link,
+  every auto and cross spectrum), the box leg of
+  ``AbacusHOD.run_hod_pk_fused``;
+- the light-cone leg: :func:`populate_lc_multi` on flat catalogs, then
+  :func:`pk_grouped_multi` on the re-staged galaxies.
+
+The steps are static-shape, as on the TPU: population produces a keep
+weight and an RSD coordinate for every halo and particle, and the deposit
+consumes the weights, so no galaxy catalog is compacted and nothing waits
+for the host.
+
+Box catalogs are staged once by :func:`group_inputs2d_device`: one stable
 sort by (x-cell, y-block), both of which RSD along z never changes. The
-deposit kernel reads the sorted columns and the per-cell starts as they
-are; there is no padded (ncell, K) layout.
+deposit kernel (K1) reads the sorted columns and the per-cell starts as they
+are; there is no padded (ncell, K) layout. One all-pairs binning kernel (K3)
+turns the tracers' rfft meshes into every spectrum.
 """
 
 import numpy as np
@@ -17,31 +27,63 @@ import torch
 
 from ..convert import params_to_tensors
 from ..ops.grid import _f32, stage_grouped2d, tsc_deposit_cells
-from ..ops.power import bin_power_modes, get_k_mu_edges, mode_bin_plan
-from .hod.population import _cent_marker, _sat_base
+from ..ops.power import (
+    bin_pair_modes,
+    bin_power_modes,
+    field_pairs,
+    get_k_mu_edges,
+    mode_bin_plan,
+)
+from .hod.population import TRACER_ORDER, _apply_rsd, _cent_marker, _rank_multiplier, _sat_base
 
 __all__ = [
     'make_bin_plan_arrays',
     'populate_weights',
     'group_inputs2d_device',
+    'group_inputs2d_linked_device',
     'hod_pk_fused_yb',
+    'populate_weights_multi',
+    'hod_pk_fused_multi',
+    'populate_lc_multi',
+    'pk_grouped_multi',
     'make_example_inputs',
     'make_example_inputs_device',
 ]
+
+# mode-bin plans by (n1d, squared edges, poles, device), at most
+# _MAX_BIN_PLANS of them (ops/power.py:_get_mode_bin_plan's bounded cache)
+_BIN_PLANS = {}
+_MAX_BIN_PLANS = 4
+
 
 def make_bin_plan_arrays(nmesh, lbox, nbins_k, device):
     """Mode-binning plan of a monopole P(k) with `nbins_k` linear k bins up
     to the Nyquist frequency: (seg, counts), seg an int32 tensor on `device`
     with one bin per rfft mode, counts the (nbins_k,) float64 numpy mode
-    counts (models/pipeline.py:make_bin_plan_arrays)."""
+    counts, read-only (models/pipeline.py:make_bin_plan_arrays).
+
+    Plans are cached: a second call with the same arguments builds nothing
+    on the host and uploads nothing (``make_bin_plan_arrays.builds`` counts
+    the builds)."""
     kedges, muedges = get_k_mu_edges(lbox, np.pi * nmesh / lbox, nbins_k, 1, False)
     dk = 2 * np.pi / lbox
-    seg, counts = mode_bin_plan(
-        int(nmesh),
-        ((kedges / dk) ** 2).astype(np.float32),
-        (muedges**2).astype(np.float32),
-    )
-    return torch.from_numpy(seg).to(device), counts.reshape(-1)
+    kedges2 = ((kedges / dk) ** 2).astype(np.float32)
+    muedges2 = (muedges**2).astype(np.float32)
+    key = (int(nmesh), kedges2.tobytes(), muedges2.tobytes(), (), str(torch.device(device)))
+    plan = _BIN_PLANS.get(key)
+    if plan is None:
+        seg, counts = mode_bin_plan(int(nmesh), kedges2, muedges2)
+        counts = counts.reshape(-1)
+        counts.flags.writeable = False
+        plan = (torch.from_numpy(seg).to(device), counts)
+        if len(_BIN_PLANS) >= _MAX_BIN_PLANS:
+            _BIN_PLANS.clear()
+        _BIN_PLANS[key] = plan
+        make_bin_plan_arrays.builds += 1
+    return plan
+
+
+make_bin_plan_arrays.builds = 0
 
 
 def _cent_weight(p, mass, deltac, fenv, multis):
@@ -67,16 +109,42 @@ def populate_weights(halo, part, p, rsd, inv_velz2kms):
     return z_c, keep_c, z_s, keep_s
 
 
-def group_inputs2d_device(cat, nmesh, lbox, yb=32):
+def group_inputs2d_device(cat, nmesh, lbox, yb=32, return_order=False):
     """Sort a catalog dict by (x-cell, y-block of `yb`) of its box-centred
     x and y (models/pipeline.py:group_inputs2d_device, without padding).
-    Returns (sorted dict of float32 columns, int32 cell starts)."""
+    Returns (sorted dict, int32 cell starts); float columns become float32,
+    integer columns keep their type. With return_order=True the int64 sort
+    permutation comes third."""
     keys = list(cat)
-    cols = [cat[k].to(torch.float32) for k in keys]
-    staged, starts = stage_grouped2d(
-        cols, nmesh, lbox, yb, xi=keys.index('x'), yi=keys.index('y'), shift=lbox / 2
+    cols = [cat[k].to(torch.float32) if cat[k].is_floating_point() else cat[k] for k in keys]
+    staged, starts, *order = stage_grouped2d(
+        cols, nmesh, lbox, yb, xi=keys.index('x'), yi=keys.index('y'), shift=lbox / 2,
+        return_order=return_order,
     )
-    return dict(zip(keys, staged)), starts
+    return (dict(zip(keys, staged)), starts, *order)
+
+
+def group_inputs2d_linked_device(halo, part, nmesh, lbox, yb=32):
+    """Both catalogs staged by :func:`group_inputs2d_device`, plus
+    part_g['hkeep_at'], the int32 position of each particle's host halo in
+    the staged halo order (the ELG conformity link;
+    models/pipeline.py:group_inputs2d_linked_device). `part['hidx']` holds
+    the original host-halo indices. The link is integer arithmetic on the
+    halo sort's permutation, inv[order] = arange, then inv[hidx], staged
+    with the particles. Returns (halo_g, part_g, starts_h, starts_p)."""
+    halo_g, starts_h, order_h = group_inputs2d_device(halo, nmesh, lbox, yb, return_order=True)
+    n_halo = order_h.numel()
+    inv = torch.empty(n_halo, dtype=torch.int32, device=order_h.device)
+    inv[order_h] = torch.arange(n_halo, dtype=torch.int32, device=order_h.device)
+    part = dict(part)
+    part['hkeep_at'] = inv[part.pop('hidx')]
+    part_g, starts_p = group_inputs2d_device(part, nmesh, lbox, yb)
+    return halo_g, part_g, starts_h, starts_p
+
+
+def _delta_k(grid, n_gal):
+    """rfft of the overdensity of a deposited grid."""
+    return torch.fft.rfftn(grid * (grid.numel() / n_gal) - 1.0)
 
 
 def hod_pk_fused_yb(
@@ -115,10 +183,182 @@ def hod_pk_fused_yb(
             nmesh, yb, lbox, 0.0, err=err,
         )
 
-    delta = grid * (grid.numel() / n_gal) - 1.0
-    delta_k = torch.fft.rfftn(delta)
-    wsum = bin_power_modes(delta_k, seg, Wcomp, 1.0 / grid.numel(), nbins_k)
+    wsum = bin_power_modes(_delta_k(grid, n_gal), seg, Wcomp, 1.0 / grid.numel(), nbins_k)
     return torch.where(err == 0, wsum, torch.nan), n_gal
+
+
+def _cent_codes(halo, params, want):
+    """Central priority keep codes (int8) over stacked tracer markers (one
+    random per halo, reference gen_cent GRAND_HOD.py:213-252)."""
+    marker = torch.zeros_like(halo['mass'])
+    keep_c = torch.zeros(halo['mass'].shape, dtype=torch.int8, device=halo['mass'].device)
+    for code, tracer in enumerate(TRACER_ORDER, 1):
+        if tracer not in want:
+            continue
+        m = _cent_marker(
+            tracer, params[tracer], halo['mass'], halo['deltac'], halo['fenv'],
+            halo.get('shear', 0.0),
+        )
+        marker = marker + m * halo['multis']
+        keep_c.masked_fill_((keep_c == 0) & (halo['randoms'] <= marker), code)
+    return keep_c
+
+
+def _sat_codes(part, params, want, keep_cent_p):
+    """Satellite priority keep codes (int8; reference gen_sats
+    GRAND_HOD.py:948-1095); `keep_cent_p` is each particle's host-central
+    code (conformity). Rank decorations multiply the base rate when the
+    staged columns are present (reference GRAND_HOD.py:1042-1050)."""
+    marker = torch.zeros_like(part['hmass'])
+    keep_s = torch.zeros(part['hmass'].shape, dtype=torch.int8, device=part['hmass'].device)
+    for code, tracer in enumerate(TRACER_ORDER, 1):
+        if tracer not in want:
+            continue
+        p = params[tracer]
+        base = _sat_base(
+            tracer, p, part['hmass'], part['deltac'], part['fenv'],
+            part.get('shear', 0.0), keep_cent_p,
+        )
+        base = base * part['weights'] * p['ic']
+        if 'ranks' in part:
+            # multiply AFTER weights*ic, matching _sat_core's f32 rounding
+            base = base * _rank_multiplier(p, part)
+        marker = marker + base
+        keep_s.masked_fill_((keep_s == 0) & (part['randoms'] <= marker), code)
+    return keep_s
+
+
+def _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s):
+    """Per-tracer RSD z + 0/1 keep weights from the priority codes."""
+    out = {}
+    for code, tracer in enumerate(TRACER_ORDER, 1):
+        if tracer not in want:
+            continue
+        p = params[tracer]
+        vz_c = halo['vz'] + p['alpha_c'] * halo['vdevz']
+        z_c = halo['z'] + (vz_c * inv_velz2kms if rsd else 0.0)
+        w_c = (keep_c == code).to(torch.float32)
+        vz_s = part['hvelz'] + p['alpha_s'] * (part['vz'] - part['hvelz'])
+        z_s = part['z'] + (vz_s * inv_velz2kms if rsd else 0.0)
+        w_s = (keep_s == code).to(torch.float32)
+        out[tracer] = (z_c, w_c, z_s, w_s)
+    return out
+
+
+def populate_weights_multi(halo, part, params, want, rsd, inv_velz2kms):
+    """Multi-tracer populate pass: priority keep codes over stacked markers
+    (one random per object) and per-tracer RSD z. `params` maps tracer ->
+    0-d float32 parameter tensors (prepare_tracer_params, then
+    params_to_tensors); satellites see their host's central keep code
+    through part['hkeep_at'] (ELG conformity). Returns
+    {tracer: (z_c, w_c, z_s, w_s)} and the central keep codes
+    (models/pipeline.py:populate_weights_multi)."""
+    keep_c = _cent_codes(halo, params, want)
+    keep_s = _sat_codes(part, params, want, keep_c[part['hkeep_at']])
+    return _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s), keep_c
+
+
+def _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k, err):
+    """Every auto and cross bin sum of the tracers' meshes through one
+    binning launch, as {(t1, t2): (nbins_k,) float64}; NaN where the deposit
+    error word is non-zero."""
+    wsum = bin_pair_modes(deltas, seg, Wcomp, 1.0 / nmesh**3, nbins_k)
+    wsum = torch.where(err == 0, wsum, torch.nan)
+    pairs = [(want[i], want[j]) for i, j in field_pairs(len(want))]
+    return dict(zip(pairs, wsum.unbind(0)))
+
+
+def hod_pk_fused_multi(
+    halo_g, part_g, params, seg, Wcomp, lbox, velz2kms, want, nmesh, yb, nbins_k,
+    starts_h, starts_p, rsd=True, err=None,
+):
+    """Multi-tracer populate + TSC deposit + rfftn + every auto and cross
+    P(k) bin sum (models/pipeline.py:hod_pk_fused_multi).
+
+    halo_g/part_g and starts_h/starts_p come from
+    :func:`group_inputs2d_linked_device`; `params` maps each tracer of
+    `want` (in TRACER_ORDER order) to its 0-d float32 parameter tensors.
+    Each tracer takes two deposit launches (halos, particles) and one
+    rfftn; one binning launch gives all T(T+1)/2 spectra. Nothing waits for
+    the host; a non-zero deposit error word `err` turns every spectrum into
+    NaN (see :func:`hod_pk_fused_yb`).
+
+    Returns ({(t1, t2): wsum}, {tracer: n_gal}): (nbins_k,) float64 bin sums
+    (divide by the plan's counts for P(k)) and 0-d galaxy counts."""
+    # an f32 division, as under jax.jit
+    inv_velz2kms = _f32(np.float32(1.0) / np.float32(velz2kms))
+    tr, _ = populate_weights_multi(halo_g, part_g, params, want, rsd, inv_velz2kms)
+    half_l = _f32(np.float32(lbox) / 2)
+    device = halo_g['x'].device
+    if err is None:
+        err = torch.zeros(1, dtype=torch.int32, device=device)
+    xy = [
+        (halo_g['x'] + half_l, halo_g['y'] + half_l, starts_h),
+        (part_g['x'] + half_l, part_g['y'] + half_l, starts_p),
+    ]
+    deltas, n_gal = [], {}
+    for tracer in want:
+        z_c, w_c, z_s, w_s = tr[tracer]
+        grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
+        for (x, y, starts), z, w in zip(xy, (z_c, z_s), (w_c, w_s)):
+            tsc_deposit_cells(grid, x, y, z + half_l, w, starts, nmesh, yb, lbox, 0.0, err=err)
+        n_gal[tracer] = w_c.sum() + w_s.sum()
+        deltas.append(_delta_k(grid, n_gal[tracer]))
+    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k, err), n_gal
+
+
+def populate_lc_multi(halo, part, params, want, rsd, inv_velz2kms, origin):
+    """Light-cone multi-tracer populate pass on flat catalogs: priority keep
+    codes (as :func:`populate_weights_multi`, the host link is
+    part['hidx']) and per-galaxy line-of-sight RSD from `origin`, a (3,)
+    float32 tensor (models/pipeline.py:populate_lc_multi). The displacement
+    moves galaxies in all three coordinates, so they are staged after this.
+
+    halo: x/y/z, vx/vy/vz, vdevx/vdevy/vdevz, mass, multis, randoms,
+    deltac, fenv (+shear); part: x/y/z, vx/vy/vz, hvelx/hvely/hvelz, hmass,
+    weights, randoms, deltac, fenv, hidx (+shear, +rank columns).
+    Returns ({tracer: (xc, yc, zc, wc, xs, ys, zs, ws)}, {tracer: n_gal})."""
+    keep_c = _cent_codes(halo, params, want)
+    keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+    out, n_gal = {}, {}
+    for code, tracer in enumerate(TRACER_ORDER, 1):
+        if tracer not in want:
+            continue
+        p = params[tracer]
+        vc = [halo[f'v{a}'] + p['alpha_c'] * halo[f'vdev{a}'] for a in 'xyz']
+        xc, yc, zc = _apply_rsd(
+            halo['x'], halo['y'], halo['z'], *vc, rsd, inv_velz2kms, None, origin
+        )
+        wc = (keep_c == code).to(torch.float32)
+        vs = [
+            part[f'hvel{a}'] + p['alpha_s'] * (part[f'v{a}'] - part[f'hvel{a}']) for a in 'xyz'
+        ]
+        xs, ys, zs = _apply_rsd(
+            part['x'], part['y'], part['z'], *vs, rsd, inv_velz2kms, None, origin
+        )
+        ws = (keep_s == code).to(torch.float32)
+        out[tracer] = (xc, yc, zc, wc, xs, ys, zs, ws)
+        n_gal[tracer] = wc.sum() + ws.sum()
+    return out, n_gal
+
+
+def pk_grouped_multi(groups, n_gal, seg, Wcomp, lbox, nmesh, yb, nbins_k, want, err=None):
+    """Auto and cross P(k) bin sums of per-tracer staged galaxies:
+    groups[tracer] = (x, y, z, w, starts) from
+    ``stage_grouped2d(..., shift=0.0)``, painted at their raw coordinates
+    (each wrapped once into [0, lbox)). One deposit launch per tracer, one
+    binning launch (models/pipeline.py:pk_grouped_multi). Returns
+    ({(t1, t2): wsum}, n_gal) as :func:`hod_pk_fused_multi` does."""
+    device = groups[want[0]][0].device
+    if err is None:
+        err = torch.zeros(1, dtype=torch.int32, device=device)
+    deltas = []
+    for tracer in want:
+        x, y, z, w, starts = groups[tracer]
+        grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
+        tsc_deposit_cells(grid, x, y, z, w, starts, nmesh, yb, lbox, 0.0, err=err)
+        deltas.append(_delta_k(grid, n_gal[tracer]))
+    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k, err), n_gal
 
 
 _EXAMPLE_PARAMS = {
@@ -163,11 +403,13 @@ def make_example_inputs(n_halo, n_part, lbox, seed=0):
     return halo, part, dict(_EXAMPLE_PARAMS)
 
 
-def make_example_inputs_device(n_halo, n_part, lbox, generator, device):
+def make_example_inputs_device(n_halo, n_part, lbox, generator, device, link=False):
     """The distributions of :func:`make_example_inputs`, drawn on `device`
     with `generator` (a torch.Generator on that device), so a bench-scale
     catalog never crosses PCIe (models/pipeline.py:make_example_inputs_device).
-    Returns (halo, part, params), params as 0-d float32 tensors on `device`."""
+    link=True adds part['hidx'], each particle's int32 host-halo index (the
+    multi-tracer conformity link). Returns (halo, part, params), params as
+    0-d float32 tensors on `device`."""
     f32 = torch.float32
 
     def uniform(n):
@@ -201,4 +443,6 @@ def make_example_inputs_device(n_halo, n_part, lbox, generator, device):
         'deltac': torch.zeros(n_part, dtype=f32, device=device),
         'fenv': torch.zeros(n_part, dtype=f32, device=device),
     }
+    if link:
+        part['hidx'] = hidx.to(torch.int32)
     return halo, part, params_to_tensors(_EXAMPLE_PARAMS, device)

@@ -27,6 +27,7 @@ __all__ = [
     'paint_3d_plain',
     'tsc_deposit_cells',
     'check_deposit_err',
+    'default_yblock',
     'MAX_SMEM_BYTES',
 ]
 
@@ -46,6 +47,19 @@ def _inv_h(nmesh, box):
 def _tile_bytes(nmesh, yb):
     """Shared memory of one K1 block: the f32 (3, yb + 2, nmesh) tile."""
     return 4 * 3 * (yb + 2) * nmesh
+
+
+def default_yblock(nmesh):
+    """Largest power of two <= 32 that divides nmesh and whose K1 tile fits
+    the shared memory of one block (ops/grid.py:default_yblock, which stops
+    at the first divisor: its yb=32 tile at nmesh=1024 is 417,792 B). The
+    spectra do not depend on yb, only the order of summation does."""
+    yb = 32
+    while yb >= 1:
+        if nmesh % yb == 0 and _tile_bytes(nmesh, yb) <= MAX_SMEM_BYTES:
+            return yb
+        yb //= 2
+    raise ValueError(f'no y-block tile of nmesh={nmesh} fits {MAX_SMEM_BYTES} B of shared memory')
 
 
 def _wrap_once(p, box):
@@ -82,11 +96,15 @@ def cell_key_2d(px, py, nmesh, yb, box, offset=0.0, shift=0.0):
     return cells(px) * (nmesh // yb) + torch.div(cells(py), yb, rounding_mode='floor')
 
 
-def stage_grouped2d(cols, nmesh, box, yb, offset=0.0, xi=0, yi=1, shift=0.0):
+def stage_grouped2d(
+    cols, nmesh, box, yb, offset=0.0, xi=0, yi=1, shift=0.0, return_order=False
+):
     """Sort the columns by (x-cell, y-block) key (stable, so equal keys keep
     their input order) and return (sorted columns, starts): cell c's points
     are [starts[c], starts[c+1]) of every sorted column. `starts` is int32 of
-    length ncell + 1. Counterpart of ops/grid.py:_stage_sort_by_cell."""
+    length ncell + 1. With return_order=True the int64 sort permutation
+    `order` (sorted[i] = col[order[i]]) comes third. Counterpart of
+    ops/grid.py:_stage_sort_by_cell."""
     if nmesh % yb:
         raise ValueError(f'yb={yb} must divide nmesh={nmesh}')
     key = cell_key_2d(cols[xi], cols[yi], nmesh, yb, box, offset, shift)
@@ -94,7 +112,8 @@ def stage_grouped2d(cols, nmesh, box, yb, offset=0.0, xi=0, yi=1, shift=0.0):
     ncell = nmesh * (nmesh // yb)
     cells = torch.arange(ncell + 1, dtype=skey.dtype, device=skey.device)
     starts = torch.searchsorted(skey, cells).to(torch.int32)
-    return [c.index_select(0, order) for c in cols], starts
+    staged = [c.index_select(0, order) for c in cols]
+    return (staged, starts, order) if return_order else (staged, starts)
 
 
 def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0):

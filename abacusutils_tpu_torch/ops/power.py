@@ -13,7 +13,13 @@ step uses:
 - :func:`bin_power_modes` launches the fused CUDA kernel
   (``csrc/mode_bin.cu``) on CUDA tensors and runs the plain version on CPU
   tensors.
+- :func:`bin_pair_modes_plain` is the all-pairs bin sum of
+  ``_segsum_matmul_pairs`` (no pole weights) as one float64
+  ``torch.bincount`` per pair; :func:`bin_pair_modes` launches its CUDA
+  kernel (``csrc/mode_bin_pairs.cu``) on CUDA tensors.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -28,11 +34,17 @@ __all__ = [
     'mode_dup',
     'bin_power_modes_plain',
     'bin_power_modes',
+    'field_pairs',
+    'bin_pair_modes_plain',
+    'bin_pair_modes',
     'MAX_BINS',
+    'MAX_FIELDS',
 ]
 
 # bins whose f32 histogram fits the 227 KB of shared memory of one block
 MAX_BINS = MAX_SMEM_BYTES // 4
+# fields one all-pairs binning takes (csrc/mode_bin_pairs.cu instantiates 1..8)
+MAX_FIELDS = 8
 
 
 def get_k_mu_edges(Lbox, k_max, kbins, mubins, logk):
@@ -162,3 +174,88 @@ def bin_power_modes(delta_k, seg, W, scale, nbins):
 
 
 bin_power_modes.launches = 0
+
+
+def field_pairs(nfields):
+    """The (i, j), i <= j, pairs of `nfields` fields in i-major order: the
+    order of the spectra dicts of models/pipeline.py:hod_pk_fused_multi."""
+    return [(i, j) for i in range(nfields) for j in range(i, nfields)]
+
+
+def _check_fields(deltas, seg, W):
+    if not 1 <= len(deltas) <= MAX_FIELDS:
+        raise ValueError(f'bin_pair_modes takes 1 to {MAX_FIELDS} fields, not {len(deltas)}')
+    n1d = _check_mesh(deltas[0], seg, W)
+    for d in deltas[1:]:
+        if d.dtype != deltas[0].dtype or d.shape != deltas[0].shape:
+            raise ValueError('every field must be a complex64 rfft mesh of one shape')
+        if d.device != deltas[0].device:
+            raise ValueError(f'fields lie on {d.device} and {deltas[0].device}')
+    return n1d
+
+
+def bin_pair_modes_plain(deltas, seg, W, scale, nbins):
+    """For every pair (i, j), i <= j, of the (n1d, n1d, n1d/2+1) complex64
+    rfft meshes `deltas` (in :func:`field_pairs` order), sum
+    dup * Re(d_i conj(d_j)) over the modes of each bin, where
+    d = delta_k * scale / (W[ix] W[iy] W[kz]) (W=None: no compensation):
+    the contraction of ops/power.py:_segsum_matmul_pairs without pole
+    weights, accumulated in float64. Returns (npairs, nbins) float64."""
+    deltas = tuple(deltas)
+    n1d = _check_fields(deltas, seg, W)
+    kzlen = n1d // 2 + 1
+    scaled = []
+    for dk in deltas:
+        dk = dk * _f32(scale)
+        if W is not None:
+            dk = dk / (W[:, None, None] * W[None, :, None] * W[None, None, :kzlen])
+        scaled.append(dk)
+    dup = torch.from_numpy(mode_dup(n1d)).to(seg.device)
+    seg = seg.reshape(-1).long()
+    pairs = field_pairs(len(deltas))
+    out = torch.empty((len(pairs), nbins), dtype=torch.float64, device=seg.device)
+    for p, (i, j) in enumerate(pairs):
+        a, b = scaled[i], scaled[j]
+        v = (a.real * b.real + a.imag * b.imag).reshape(-1) * dup
+        out[p] = torch.bincount(seg, weights=v.double(), minlength=nbins + 1)[:nbins]
+    return out
+
+
+def bin_pair_modes(deltas, seg, W, scale, nbins):
+    """All auto and cross bin sums of the rfft meshes `deltas` in one pass
+    over the modes: (npairs, nbins) float64, the contract of
+    :func:`bin_pair_modes_plain`.
+
+    On CUDA tensors this launches K3 (csrc/mode_bin_pairs.cu) on the current
+    stream; on CPU tensors it runs :func:`bin_pair_modes_plain`."""
+    deltas = tuple(deltas)
+    if deltas and deltas[0].device.type == 'cpu':
+        return bin_pair_modes_plain(deltas, seg, W, scale, nbins)
+    n1d = _check_fields(deltas, seg, W)
+    npairs = len(deltas) * (len(deltas) + 1) // 2
+    if nbins <= 0 or 4 * npairs * nbins > MAX_SMEM_BYTES:
+        raise ValueError(
+            f'bin_pair_modes: {npairs} pairs x nbins={nbins} f32 histograms exceed the '
+            f'{MAX_SMEM_BYTES} B of shared memory a block may use'
+        )
+    device = deltas[0].device
+    for name, t in (('seg', seg), ('W', W)):
+        if t is not None and t.device != device:
+            raise ValueError(f'{name} is on {t.device}, the fields on {device}')
+    deltas = [d.contiguous() for d in deltas]
+    seg = seg.contiguous()
+    W = None if W is None else W.contiguous()
+    ptrs = (ctypes.c_void_p * MAX_FIELDS)(*[d.data_ptr() for d in deltas])
+    out = torch.zeros((npairs, nbins), dtype=torch.float64, device=device)
+    lib = _build.lib()
+    with torch.cuda.device(device):
+        code = lib.mode_bin_pairs(
+            ptrs, len(deltas), seg.data_ptr(), None if W is None else W.data_ptr(),
+            _f32(scale), n1d, nbins, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'mode_bin_pairs')
+    bin_pair_modes.launches += 1
+    return out
+
+
+bin_pair_modes.launches = 0

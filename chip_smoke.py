@@ -14,7 +14,16 @@ Phases, each printing what it measured:
    128 k-bins): staging, one warm and 3x5 timed steps through the kernels
    (both launch counters must rise by 2 and 1 per step), each kernel timed
    against its plain version at the step's shapes, and the whole step held
-   against the same step built from the plain versions.
+   against the same step built from the plain versions;
+5. ``AbacusHOD.run_hod_pk_fused``, box leg, LRG + ELG + QSO (6 spectra) on
+   the same catalog size with live assembly bias: staging cold and warm, one
+   cold and 3x5 timed warm calls (host to host, numpy clustering included;
+   K1 must launch 6 times and K3 once per call, the bin plan is never
+   rebuilt), the spectra held against the same spectra rebuilt from the
+   plain versions, and K3 timed against its plain version;
+6. the light-cone leg of the same call on the same catalog (3-D
+   velocities, an origin outside the box corner): the same, with one K1
+   launch per tracer.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or when any phase
@@ -30,22 +39,29 @@ import numpy as np
 import torch
 
 from abacusutils_tpu_torch import _build
+from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
 from abacusutils_tpu_torch.models.pipeline import (
     group_inputs2d_device,
     hod_pk_fused_yb,
     make_bin_plan_arrays,
     make_example_inputs_device,
+    populate_lc_multi,
     populate_weights,
+    populate_weights_multi,
 )
 from abacusutils_tpu_torch.ops.grid import (
+    _f32,
     check_deposit_err,
     paint_3d_plain,
     stage_grouped2d,
     tsc_deposit_cells,
 )
 from abacusutils_tpu_torch.ops.power import (
+    bin_pair_modes,
+    bin_pair_modes_plain,
     bin_power_modes,
     bin_power_modes_plain,
+    field_pairs,
     get_W_compensated,
 )
 from abacusutils_tpu_torch.testing import edge_points
@@ -59,6 +75,24 @@ NBINS_K = NMESH // 2
 VELZ2KMS = 100.0
 SEED = 42
 N_EDGE = 4_000_000
+WANT = ('LRG', 'ELG', 'QSO')
+# the tracers of tests/test_pipeline.py:37-49, with assembly bias switched on
+_AB = {'Acent': 0.05, 'Asat': -0.1, 'Bcent': 0.03, 'Bsat': 0.05}
+TRACERS = {
+    'LRG': {
+        'logM_cut': 12.8, 'logM1': 14.0, 'sigma': 0.3, 'alpha': 1.0, 'kappa': 0.4,
+        'alpha_c': 0.3, 'alpha_s': 1.0, 'ic': 1.0, **_AB,
+    },
+    'ELG': {
+        'logM_cut': 11.6, 'logM1': 13.5, 'sigma': 0.3, 'alpha': 0.8, 'kappa': 1.0,
+        'p_max': 0.1, 'Q': 100.0, 'gamma': 1.2, 'A_s': 1.0, 'alpha_c': 0.1, 'alpha_s': 1.0, **_AB,
+    },
+    'QSO': {
+        'logM_cut': 12.2, 'logM1': 13.8, 'sigma': 0.5, 'alpha': 0.8, 'kappa': 1.0,
+        'alpha_c': 0.2, 'alpha_s': 1.0, **_AB,
+    },
+}
+LC_ORIGIN = (-1010.0, -1010.0, -1010.0)  # 10 Mpc/h outside the box corner
 
 
 class PhaseError(RuntimeError):
@@ -193,17 +227,13 @@ def phase_step(dev, seg, W):
         )
 
     torch.cuda.reset_peak_memory_stats()
-    tsc_deposit_cells.launches = 0
-    bin_power_modes.launches = 0
+    reset_launches()
     (wsum, n_gal), t_warm = sync_seconds(step)
     n_iter, best = 5, float('inf')
     for _ in range(3):
         _, dt = sync_seconds(lambda: [step() for _ in range(n_iter)])
         best = min(best, dt / n_iter)
-    launches = {
-        'tsc_deposit_cells': tsc_deposit_cells.launches,
-        'bin_power_modes': bin_power_modes.launches,
-    }
+    launches = read_launches()
     n_steps = 1 + 3 * n_iter
     peak = torch.cuda.max_memory_allocated()
     check_deposit_err(err)
@@ -214,6 +244,7 @@ def phase_step(dev, seg, W):
     )
     require(launches['tsc_deposit_cells'] == 2 * n_steps, f'K1 launches {launches}')
     require(launches['bin_power_modes'] == n_steps, f'K2 launches {launches}')
+    require(launches['bin_pair_modes'] == 0, f'K3 launches {launches}')
     require(bool(torch.isfinite(wsum).all() & (wsum >= 0).all()), 'wsum not finite and >= 0')
     require(float(wsum.sum()) > 0 and n_gal_v > 0, 'empty step')
 
@@ -255,22 +286,210 @@ def phase_step(dev, seg, W):
     require(float(n_gal_p) == n_gal_v, 'n_gal differs from the plain step')
     require(bool(((wsum - wsum_p).abs() <= 1e-4 * wsum_p.abs()).all()), f'wsum rel {rel} > 1e-4')
 
-    return [
-        {
-            'name': 'tsc_deposit_cells', 'route': 'cuda',
-            'source': 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
-            'replaces': 'abacusutils_tpu/ops/grid_pallas.py:92',
-            'launches': launches['tsc_deposit_cells'], 'max_abs_err': k1_err,
-            'ms': k1_ms, 'plain_ms': p1_ms,
-        },
-        {
-            'name': 'bin_power_modes', 'route': 'cuda',
-            'source': 'abacusutils_tpu_torch/csrc/mode_bin.cu',
-            'replaces': 'abacusutils_tpu/ops/power.py:396',
-            'launches': launches['bin_power_modes'], 'max_abs_err': k2_err,
-            'ms': k2_ms, 'plain_ms': p2_ms,
-        },
-    ]
+    return launches, {
+        'tsc_deposit_cells': (k1_ms, p1_ms, k1_err),
+        'bin_power_modes': (k2_ms, p2_ms, k2_err),
+    }
+
+
+KERNELS = {
+    'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
+                          'abacusutils_tpu/ops/grid_pallas.py:92'),
+    'bin_power_modes': (bin_power_modes, 'abacusutils_tpu_torch/csrc/mode_bin.cu',
+                        'abacusutils_tpu/ops/power.py:396'),
+    'bin_pair_modes': (bin_pair_modes, 'abacusutils_tpu_torch/csrc/mode_bin_pairs.cu',
+                       'abacusutils_tpu/ops/power.py:451'),
+}
+
+
+def reset_launches():
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+def fused_state(dev):
+    """An AbacusHOD staged state at the bench size on the device: the
+    catalog of make_example_inputs_device(link=True) with 3-D velocities and
+    deltac / fenv drawn in [-0.5, 0.5]."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    halo, part, _ = make_example_inputs_device(N_HALO, N_PART, LBOX, gen, dev, link=True)
+
+    def draw(n, scale):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
+    def centred(n):
+        return torch.rand(n, generator=gen, device=dev) - 0.5
+
+    hidx = part['hidx'].long()
+    hvel = torch.stack([draw(N_HALO, 300.0), draw(N_HALO, 300.0), halo['vz']], 1)
+    halo_data = {
+        'hpos': torch.stack([halo['x'], halo['y'], halo['z']], 1),
+        'hvel': hvel,
+        'hveldev': torch.stack([draw(N_HALO, 100.0), draw(N_HALO, 100.0), halo['vdevz']], 1),
+        'hmass': halo['mass'], 'hmultis': halo['multis'], 'hrandoms': halo['randoms'],
+        'hdeltac': centred(N_HALO), 'hfenv': centred(N_HALO),
+    }
+    particle_data = {
+        'ppos': torch.stack([part['x'], part['y'], part['z']], 1),
+        'pvel': torch.stack([draw(N_PART, 300.0), draw(N_PART, 300.0), part['vz']], 1),
+        'phvel': hvel[hidx], 'phmass': part['hmass'], 'pweights': part['weights'],
+        'prandoms': part['randoms'], 'pdeltac': halo_data['hdeltac'][hidx],
+        'pfenv': halo_data['hfenv'][hidx], 'pinds': part['hidx'],
+    }
+    return halo_data, particle_data
+
+
+def plain_spectra(cats, n_gal, seg, W):
+    """Every pair's bin sums from the plain versions only: one plain deposit
+    per (x, y, z, w) catalog of each tracer, rfftn, plain pair binning."""
+    deltas = []
+    for tracer in WANT:
+        grid = torch.zeros((NMESH,) * 3, device=seg.device)
+        for x, y, z, w in cats[tracer]:
+            paint_3d_plain(grid, x, y, z, w, NMESH, LBOX)
+        deltas.append(torch.fft.rfftn(grid * (grid.numel() / n_gal[tracer]) - 1.0))
+    return deltas, bin_pair_modes_plain(deltas, seg, W, 1.0 / NMESH**3, NBINS_K)
+
+
+def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
+    """Stage cold and warm, one cold and 3x5 timed warm calls of
+    hod.run_hod_pk_fused, launch and plan checks, the spectra against the
+    plain rebuild, and K3 against its plain version. Returns (launches, K3
+    (ms, plain_ms, max_abs_err))."""
+    t_stage_cold = sync_seconds(stage_fn)[1]
+    hod._fused_stage = hod._fused_lc_stage = None
+    t_stage = sync_seconds(stage_fn)[1]
+
+    def call():
+        return hod.run_hod_pk_fused(nmesh=NMESH, nbins_k=NBINS_K, compensated=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    builds = make_bin_plan_arrays.builds
+    reset_launches()
+    (cl, n_gal), t_cold = sync_seconds(call)
+    n_iter, best = 5, float('inf')
+    for _ in range(3):
+        _, dt = sync_seconds(lambda: [call() for _ in range(n_iter)])
+        best = min(best, dt / n_iter)
+    launches = read_launches()
+    n_calls = 1 + 3 * n_iter
+    peak = torch.cuda.max_memory_allocated()
+    err_word = int(hod.deposit_err.item())
+    print(
+        f'phase {phase}: staging cold {t_stage_cold:.3f} s warm {t_stage:.3f} s, '
+        f'cold call {t_cold:.3f} s, seconds/call {best:.6f} (best mean of 3x{n_iter}), '
+        f'n_gal {n_gal}, peak memory {peak / 2**30:.3f} GiB, K1 error word {err_word}, '
+        f'plan builds {make_bin_plan_arrays.builds - builds}, launches {launches}'
+    )
+    require(err_word == 0, f'K1 error word {err_word}')
+    require(launches['tsc_deposit_cells'] == k1_per_call * n_calls, f'K1 launches {launches}')
+    require(launches['bin_pair_modes'] == n_calls, f'K3 launches {launches}')
+    require(launches['bin_power_modes'] == 0, f'K2 launches {launches}')
+    require(make_bin_plan_arrays.builds == builds, 'the bin plan was rebuilt')
+    require(all(n > 0 for n in n_gal.values()), f'empty tracer {n_gal}')
+
+    # the same spectra from the plain versions only
+    cats, ng_plain = cats_fn(hod)
+    deltas, wsum_p = plain_spectra(cats, ng_plain, seg, W)
+    seg_counts = make_bin_plan_arrays(NMESH, LBOX, NBINS_K, seg.device)[1]
+    P_p = {}
+    for (i, j), w in zip(field_pairs(len(WANT)), wsum_p.cpu().numpy()):
+        P_p[(WANT[i], WANT[j])] = np.divide(
+            w, seg_counts, out=np.zeros_like(w), where=seg_counts != 0) * LBOX**3
+    worst = 0.0
+    for (t1, t2), ref in P_p.items():
+        got = cl[f'{t1}_{t2}']
+        require(np.isfinite(got).all(), f'{t1}_{t2} not finite')
+        scale = np.abs(ref) if t1 == t2 else np.sqrt(np.abs(P_p[(t1, t1)] * P_p[(t2, t2)]))
+        rel = float(np.max(np.abs(got - ref) / np.maximum(scale, 1e-300)))
+        worst = max(worst, rel)
+        require(rel <= 1e-4, f'{t1}_{t2} differs from the plain rebuild by {rel:.3e} (> 1e-4)')
+    for tracer in WANT:
+        require(float(ng_plain[tracer]) == n_gal[tracer], f'{tracer} n_gal differs from plain')
+    print(f'phase {phase}: plain rebuild agrees, n_gal equal, worst spectrum |d|/scale {worst:.3e}')
+
+    scale = 1.0 / NMESH**3
+    k3_ms = event_ms(lambda: bin_pair_modes(deltas, seg, W, scale, NBINS_K))
+    p3_ms = event_ms(lambda: bin_pair_modes_plain(deltas, seg, W, scale, NBINS_K))
+    got = bin_pair_modes(deltas, seg, W, scale, NBINS_K)
+    k3_err = float((got - wsum_p).abs().max())
+    # autos at rtol 1e-5, crosses at 1e-5 sqrt(P_ii P_jj): per-block f32
+    # histograms summed with f64 atomics in a run-dependent order
+    pairs = field_pairs(len(WANT))
+    auto = {i: wsum_p[p].abs() for p, (i, j) in enumerate(pairs) if i == j}
+    tol = torch.stack([1e-5 * (auto[i] * auto[j]).sqrt() for i, j in pairs])
+    print(f'phase {phase} K3 at call shapes: {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms, '
+          f'max|d| {k3_err:.3e}')
+    require(bool(((got - wsum_p).abs() <= tol).all()), 'K3 disagrees with its plain version')
+    return launches, (k3_ms, p3_ms, k3_err)
+
+
+def box_cats(hod):
+    """Per tracer, the box leg's two deposits (box-frame coordinates) from
+    the staged catalogs, and n_gal."""
+    halo_g, part_g, _, _ = hod._box_stage(NMESH, YB)
+    tp = hod._tracer_tensors(TRACERS, WANT)
+    inv_v = float(np.float32(1.0) / np.float32(VELZ2KMS))
+    tr, _ = populate_weights_multi(halo_g, part_g, tp, WANT, True, inv_v)
+    half = float(np.float32(LBOX) / 2)
+    cats, n_gal = {}, {}
+    for tracer in WANT:
+        z_c, w_c, z_s, w_s = tr[tracer]
+        cats[tracer] = [
+            (halo_g['x'] + half, halo_g['y'] + half, z_c + half, w_c),
+            (part_g['x'] + half, part_g['y'] + half, z_s + half, w_s),
+        ]
+        n_gal[tracer] = w_c.sum() + w_s.sum()
+    return cats, n_gal
+
+
+def lc_cats(hod):
+    """Per tracer, the light-cone galaxies at their displaced raw
+    coordinates (centrals and satellites together), and n_gal."""
+    halo, part = hod._lc_stage()
+    tp = hod._tracer_tensors(TRACERS, WANT)
+    origin = torch.tensor(LC_ORIGIN, dtype=torch.float32, device=halo['x'].device)
+    tr, n_gal = populate_lc_multi(halo, part, tp, WANT, True, _f32(1.0 / VELZ2KMS), origin)
+    cats = {
+        tracer: [tuple(torch.cat([tr[tracer][k], tr[tracer][k + 4]]) for k in range(4))]
+        for tracer in WANT
+    }
+    return cats, n_gal
+
+
+def phase_fused(dev, seg, W):
+    state, t_in = sync_seconds(lambda: fused_state(dev))
+    print(f'phase 5 inputs {t_in:.3f} s: {N_HALO} halos, {N_PART} particles, '
+          f'tracers {WANT}, nmesh {NMESH}, {NBINS_K} k-bins, no cut')
+    params = {'z': 0.5, 'Lbox': LBOX, 'velz2kms': VELZ2KMS, 'origin': None}
+    hod = AbacusHOD(*state, params, TRACERS, dev)
+    box = check_fused(5, hod, lambda: hod._box_stage(NMESH, YB), 2 * len(WANT), box_cats, seg, W)
+    del hod
+    params_lc = dict(params, origin=np.array(LC_ORIGIN))
+    hod = AbacusHOD(*state, params_lc, TRACERS, dev, halo_lc=True, z_type='lightcone')
+    del state
+    lc = check_fused(6, hod, hod._lc_stage, len(WANT), lc_cats, seg, W)
+    return box, lc
+
+
+def kernel_line(paths, timing):
+    """The kernels JSON: per kernel its launches on each main path (summed
+    in `launches`) and its time against its plain version."""
+    out = []
+    for name, (_, source, replaces) in KERNELS.items():
+        by_path = {path: launches[name] for path, launches in paths.items()}
+        ms, plain_ms, err = timing[name]
+        out.append({
+            'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'launches': sum(by_path.values()), 'launches_by_path': by_path,
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+        })
+    return {'kernels': out}
 
 
 def main():
@@ -287,11 +506,19 @@ def main():
         grid = phase_k1(dev)
         phase_k2(grid, seg, W)
         del grid
-        kernels = phase_step(dev, seg, W)
+        step_launches, timing = phase_step(dev, seg, W)
+        (box_launches, k3_box), (lc_launches, k3_lc) = phase_fused(dev, seg, W)
+        timing['bin_pair_modes'] = k3_box
+        print(f'K3 at the light-cone call shapes: {k3_lc[0]:.4f} ms vs plain {k3_lc[1]:.4f} ms')
+        kernels = kernel_line({
+            'hod_pk_fused_yb': step_launches,
+            'AbacusHOD.run_hod_pk_fused': box_launches,
+            'AbacusHOD.run_hod_pk_fused (light cone)': lc_launches,
+        }, timing)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(json.dumps({'kernels': kernels}))
+    print(json.dumps(kernels))
     print(json.dumps({
         'ok': True,
         'device': {

@@ -21,13 +21,25 @@ from abacusutils_tpu_torch.ops.grid import (
     stage_grouped2d,
     tsc_deposit_cells,
 )
+from abacusutils_tpu_torch.convert import params_to_tensors, staged_state_from_numpy
+from abacusutils_tpu_torch.models.hod.population import prepare_tracer_params
 from abacusutils_tpu_torch.ops.power import (
+    bin_pair_modes,
+    bin_pair_modes_plain,
     bin_power_modes,
     bin_power_modes_plain,
+    field_pairs,
     get_W_compensated,
 )
 from abacusutils_tpu_torch.testing import edge_points
-from torch_helpers import cuda_device, t  # noqa: F401
+from torch_helpers import (  # noqa: F401
+    TRACERS,
+    catalog_tensors,
+    cuda_device,
+    linked_inputs,
+    staged_state,
+    t,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +121,119 @@ def test_deposit_kernel_counts_misstaged_points(cuda_device):
     grid = torch.zeros((nmesh,) * 3, device=cuda_device)
     with pytest.raises(RuntimeError, match='outside their staged cell'):
         tsc_deposit_cells(grid, x, y, z, ws, starts, nmesh, yb, box, offset=box / nmesh / 2)
+
+
+@pytest.mark.parametrize('nfields', [1, 2, 3, 5])
+@pytest.mark.parametrize('n1d', [48, 45])
+def test_pair_binning_kernel_matches_plain(cuda_device, nfields, n1d):
+    """K3 against its plain version, odd and even meshes, with and without
+    the window: autos at rtol 1e-5, crosses at 1e-5 sqrt(P_ii P_jj) (per-block
+    f32 histograms, summed with f64 atomics in any order)."""
+    lbox, nbins = 700.0, n1d // 2
+    seg, _ = tpipe.make_bin_plan_arrays(n1d, lbox, nbins, cuda_device)
+    rng = np.random.default_rng(n1d + nfields)
+    base = rng.normal(size=(n1d,) * 3).astype(np.float32)
+    dks = [
+        torch.fft.rfftn(t(base + 0.5 * rng.normal(size=base.shape).astype(np.float32))
+                        .to(cuda_device))
+        for _ in range(nfields)
+    ]
+    W = t(get_W_compensated(lbox, n1d, 'TSC', False).astype(np.float32)).to(cuda_device)
+    npairs = nfields * (nfields + 1) // 2
+    for Wc in (W, None):
+        before = bin_pair_modes.launches
+        got = bin_pair_modes(dks, seg, Wc, 1.0 / n1d**3, nbins)
+        assert bin_pair_modes.launches == before + 1
+        assert got.shape == (npairs, nbins) and got.dtype == torch.float64
+        ref = bin_pair_modes_plain(dks, seg, Wc, 1.0 / n1d**3, nbins).cpu().numpy()
+        got = got.cpu().numpy()
+        pairs = field_pairs(nfields)
+        auto = {i: ref[p] for p, (i, j) in enumerate(pairs) if i == j}
+        for p, (i, j) in enumerate(pairs):
+            if i == j:
+                npt.assert_allclose(got[p], ref[p], rtol=1e-5)
+            else:
+                assert (np.abs(got[p] - ref[p]) <= 1e-5 * np.sqrt(auto[i] * auto[j])).all(), (i, j)
+
+
+def _multi_inputs(device, seed=7):
+    halo, part, _ = linked_inputs(30_000, 120_000, 500.0, seed=seed)
+    tp = prepare_tracer_params(TRACERS, z=0.5)
+    return catalog_tensors(halo, device), catalog_tensors(part, device), {
+        k: params_to_tensors(v, device) for k, v in tp.items()
+    }
+
+
+def test_multi_step_on_card_matches_cpu(cuda_device):
+    """hod_pk_fused_multi through K1 (two launches a tracer) and K3 (one)
+    on the card against the same step from the plain versions on the CPU:
+    equal n_gal, autos at rtol 1e-4, crosses at 1e-4 sqrt(P_ii P_jj)."""
+    lbox, nmesh, yb, nbins = 500.0, 32, 8, 16
+    want = ('LRG', 'ELG', 'QSO')
+    out = {}
+    for device in (cuda_device, torch.device('cpu')):
+        halo, part, prm = _multi_inputs(device)
+        h_g, p_g, s_h, s_p = tpipe.group_inputs2d_linked_device(halo, part, nmesh, lbox, yb)
+        seg, _ = tpipe.make_bin_plan_arrays(nmesh, lbox, nbins, device)
+        W = t(get_W_compensated(lbox, nmesh, 'TSC', False).astype(np.float32)).to(device)
+        err = torch.zeros(1, dtype=torch.int32, device=device)
+        k1, k3 = tsc_deposit_cells.launches, bin_pair_modes.launches
+        out[device.type] = tpipe.hod_pk_fused_multi(
+            h_g, p_g, prm, seg, W, lbox, 100.0, want, nmesh, yb, nbins, s_h, s_p, err=err
+        )
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+            check_deposit_err(err)
+            assert (tsc_deposit_cells.launches - k1, bin_pair_modes.launches - k3) == (6, 1)
+    _assert_card_spectra(out['cuda'], out['cpu'], want)
+
+
+def _assert_card_spectra(card, cpu, want):
+    (sg, ng), (sc, nc) = card, cpu
+    for tr in want:
+        assert float(ng[tr]) == float(nc[tr]) > 0, tr
+    for (t1, t2), v in sg.items():
+        g, r = v.cpu().numpy(), sc[(t1, t2)].numpy()
+        if t1 == t2:
+            npt.assert_allclose(g, r, rtol=1e-4)
+        else:
+            scale = np.sqrt(np.abs(sc[(t1, t1)].numpy() * sc[(t2, t2)].numpy()))
+            assert (np.abs(g - r) <= 1e-4 * scale).all(), (t1, t2)
+
+
+@pytest.mark.parametrize('lc', [False, True])
+def test_abacus_hod_on_card_matches_cpu(cuda_device, lc):
+    """AbacusHOD.run_hod_pk_fused on the card against the same object on
+    the CPU (plain versions), box leg and light-cone leg (galaxies displaced
+    past the box edge, so K1 and the staging key each wrap them once):
+    equal keys, modes and n_gal, spectra within 1e-4 as above."""
+    state = staged_state(30_000, 120_000, 500.0, seed=31)
+    params = {'z': 0.5, 'Lbox': 500.0, 'velz2kms': 100.0,
+              'origin': np.array([-260.0, -260.0, -260.0]) if lc else None}
+    flags = dict(want_shear=True, want_ranks=True, halo_lc=lc)
+    tracers = {k: dict(v, Acent=0.05, s=0.3) for k, v in TRACERS.items()}
+    res = {}
+    for device in (cuda_device, 'cpu'):
+        hod = staged_state_from_numpy(*state, params, tracers, flags, device)
+        k1, k3 = tsc_deposit_cells.launches, bin_pair_modes.launches
+        res[str(device)] = hod.run_hod_pk_fused(nmesh=32, nbins_k=16)
+        if device != 'cpu':
+            assert tsc_deposit_cells.launches - k1 == (3 if lc else 6)
+            assert bin_pair_modes.launches - k3 == 1
+            assert int(hod.deposit_err) == 0
+    (cg, ng), (cc, nc) = res[str(cuda_device)], res['cpu']
+    assert set(cg) == set(cc) and ng == nc
+    for key in cc:
+        if key.endswith('_modes') or key == 'k_binc':
+            npt.assert_array_equal(cg[key], cc[key])
+    want = list(ng)
+    spectra = {}
+    for i, t1 in enumerate(want):
+        for t2 in want[i:]:
+            spectra[(t1, t2)] = (cg[f'{t1}_{t2}'], cc[f'{t1}_{t2}'])
+    for (t1, t2), (g, r) in spectra.items():
+        if t1 == t2:
+            npt.assert_allclose(g, r, rtol=1e-4)
+        else:
+            scale = np.sqrt(np.abs(cc[f'{t1}_{t1}'] * cc[f'{t2}_{t2}']))
+            assert (np.abs(g - r) <= 1e-4 * scale).all(), (t1, t2)

@@ -118,15 +118,23 @@ def test_lrg_markers_match():
 
 
 def test_other_tracers_not_ported():
-    pt = params_to_tensors(_params(), 'cpu')
-    x = torch.ones(3)
+    """ELG and QSO markers are ported now (their parity is in
+    tests/test_torch_multi.py): with prepared parameters they give float32
+    markers; a tracer the package does not know still raises."""
+    x = torch.full((3,), 1e12)
     for tracer in ('ELG', 'QSO'):
-        with pytest.raises(NotImplementedError):
-            tpop._cent_marker(tracer, pt, x, x, x, x)
-        with pytest.raises(NotImplementedError):
-            tpop._sat_base(tracer, pt, x, x, x, x, x)
+        p = jpop.prepare_tracer_params({tracer: dict(_params(), p_max=0.1, Q=100.0,
+                                                     gamma=1.2, A_s=1.0)}, z=0.5)[tracer]
+        pt = params_to_tensors(p, 'cpu')
+        keep = torch.zeros(3, dtype=torch.int8)
+        for m in (tpop._cent_marker(tracer, pt, x, x * 0, x * 0, 0.0),
+                  tpop._sat_base(tracer, pt, x, x * 0, x * 0, 0.0, keep)):
+            assert m.dtype == torch.float32 and torch.isfinite(m).all()
+    pt = params_to_tensors(_params(), 'cpu')
     with pytest.raises(ValueError):
         tpop._cent_marker('BGS', pt, x, x, x, x)
+    with pytest.raises(ValueError):
+        tpop._sat_base('BGS', pt, x, x, x, x, x)
 
 
 def test_wrap_centered_matches():
