@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). The library lands in
-``build/torch_kernels/`` at the repository root, named by a hash of the sources
-and the compiler flags, so an edited source never loads a stale library.
+Every ``csrc/*.cu`` file is compiled by its own nvcc process, all of them
+started together, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The library
+lands in ``build/torch_kernels/`` at the repository root, named by a hash of
+the sources and the compiler flags, so an edited source never loads a stale
+library.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an exception.
@@ -11,6 +13,7 @@ Nothing here runs when the module is imported: the CPU test suite imports every
 module of the port on machines without nvcc.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,20 +27,24 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'torch_kernels'
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+    '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
-    # grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, err, stream
-    'tsc_deposit_cells': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
+    # grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, kind, err, stream
+    'tsc_deposit_cells': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P),
     # delta_k, seg, W, scale, n1d, nbins, out, stream
     'mode_bin_power': (_P, _P, _P, _F, _I, _I, _P, _P),
-    # fields (array of pointers), nfields, seg, W, scale, n1d, nbins, out, stream
-    'mode_bin_pairs': (ctypes.POINTER(_P), _I, _P, _P, _F, _I, _I, _P, _P),
+    # fields (array of pointers), nfields, the fields' strides (x, y, z, in
+    # complex elements), seg, W, scale, n1d, nbins, nmu, pole degrees (array
+    # of ints), npoles, out, stream
+    'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _F, _I, _I, _I,
+                       ctypes.POINTER(_I), _I, _P, _P),
 }
 
 
@@ -66,16 +73,44 @@ def build():
     if out.exists():
         return out, 0.0, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sorted(CSRC.glob('*.cu')))]
+    nvcc = _nvcc()
+    stem = f'{out.with_suffix("")}.{os.getpid()}'
+    srcs = sorted(CSRC.glob('*.cu'))
+    objs = [f'{stem}.{src.stem}.o' for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)] for src, obj in zip(srcs, objs)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}\n{res.stdout}{res.stderr}'
-        )
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0, res.stdout + res.stderr
+    try:
+        # one nvcc per source, all started together, each logging to its own file
+        with contextlib.ExitStack() as stack:
+            logs = [stack.enter_context(open(f'{obj}.log', 'w+')) for obj in objs]
+            procs = [
+                subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+                for cmd, log in zip(cmds, logs)
+            ]
+            codes = [proc.wait() for proc in procs]
+            text = []
+            for log in logs:
+                log.seek(0)
+                text.append(log.read())
+        failed = [
+            f'nvcc failed ({code}):\n{" ".join(cmd)}\n{t}'
+            for code, cmd, t in zip(codes, cmds, text) if code != 0
+        ]
+        if failed:
+            raise RuntimeError('\n'.join(failed))
+        tmp = f'{stem}.tmp'
+        cmd = [nvcc, '-shared', '-o', tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f'nvcc link failed ({res.returncode}):\n{" ".join(cmd)}\n{res.stdout}{res.stderr}'
+            )
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [f'{obj}.log' for obj in objs]:
+            if os.path.exists(f):
+                os.remove(f)
+    return out, time.perf_counter() - t0, ''.join(text)
 
 
 @cache

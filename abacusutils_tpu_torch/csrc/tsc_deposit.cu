@@ -1,4 +1,4 @@
-// K1: TSC deposit of cell-sorted weighted points into a periodic nmesh^3 grid.
+// K1: TSC or CIC deposit of cell-sorted weighted points into a periodic nmesh^3 grid.
 //
 // Replaces the TPU deposit abacusutils_tpu/ops/grid_pallas.py:_deposit_kernel
 // (and its XLA twin ops/grid.py:paint_grouped_yb_multi + fold_ypad). On the
@@ -25,6 +25,12 @@
 // (ops/grid.py:cell_key_2d): every step of the index arithmetic uses the
 // _rn intrinsics so nvcc cannot contract it into an FMA, and a point whose
 // y lands outside the block is counted in *err instead of being written.
+//
+// KIND (a template parameter) is 0 for TSC and 1 for CIC. CIC uses the same
+// 3-point stencil and tile (weights max(d,0), 1-|d|, max(-d,0), as
+// abacusutils_tpu/ops/grid.py:_cloud_weights_cic) and the JAX package's CIC
+// convention: the position is not wrapped, so the cell is floor((p + offset)
+// * inv_h + 0.5) of the raw coordinate, taken modulo nmesh.
 
 #include <cuda_runtime.h>
 
@@ -32,23 +38,34 @@ namespace {
 
 __device__ __forceinline__ int floor_mod(int i, int n) { return ((i % n) + n) % n; }
 
-// One axis of the TSC cloud, the f32 arithmetic of ops/grid.py:_axis_cloud
-// (single periodic wrap, then round half up). Returns the centre index.
+// One axis of the cloud, the f32 arithmetic of ops/grid.py:_axis_cloud (TSC:
+// single periodic wrap, then round half up; CIC: no wrap). Returns the
+// centre index, not yet taken modulo nmesh.
+template <int KIND>
 __device__ __forceinline__ int axis_cloud(float p, float box, float offset, float inv_h,
                                           float w[3]) {
-    if (p >= box) p = __fsub_rn(p, box);
-    if (p < 0.f) p = __fadd_rn(p, box);
+    if (KIND == 0) {
+        if (p >= box) p = __fsub_rn(p, box);
+        if (p < 0.f) p = __fadd_rn(p, box);
+    }
     const float g = __fmul_rn(__fadd_rn(p, offset), inv_h);
     const float i0 = floorf(__fadd_rn(g, 0.5f));
     const float d = __fsub_rn(i0, g);
-    const float a = __fadd_rn(0.5f, d);
-    const float b = __fsub_rn(0.5f, d);
-    w[0] = __fmul_rn(0.5f, __fmul_rn(a, a));
-    w[1] = __fsub_rn(0.75f, __fmul_rn(d, d));
-    w[2] = __fmul_rn(0.5f, __fmul_rn(b, b));
+    if (KIND == 0) {
+        const float a = __fadd_rn(0.5f, d);
+        const float b = __fsub_rn(0.5f, d);
+        w[0] = __fmul_rn(0.5f, __fmul_rn(a, a));
+        w[1] = __fsub_rn(0.75f, __fmul_rn(d, d));
+        w[2] = __fmul_rn(0.5f, __fmul_rn(b, b));
+    } else {
+        w[0] = fmaxf(d, 0.f);
+        w[1] = __fsub_rn(1.f, fabsf(d));
+        w[2] = fmaxf(-d, 0.f);
+    }
     return (int)i0;
 }
 
+template <int KIND>
 __global__ void tsc_deposit_cells_kernel(float* __restrict__ grid,
                                          const float* __restrict__ x,
                                          const float* __restrict__ y,
@@ -76,9 +93,9 @@ __global__ void tsc_deposit_cells_kernel(float* __restrict__ grid,
         const float wp = w[p];
         if (wp == 0.f) continue;
         float wx[3], wy[3], wz[3];
-        axis_cloud(x[p], box, offset, inv_h, wx);
-        const int iy = axis_cloud(y[p], box, offset, inv_h, wy);
-        const int iz = axis_cloud(z[p], box, offset, inv_h, wz);
+        axis_cloud<KIND>(x[p], box, offset, inv_h, wx);
+        const int iy = axis_cloud<KIND>(y[p], box, offset, inv_h, wy);
+        const int iz = axis_cloud<KIND>(z[p], box, offset, inv_h, wz);
         const int ly = floor_mod(iy, nmesh) - y0 + 1;  // tile row of the centre
         if (ly < 1 || ly > yb) {
             atomicAdd(err, 1);
@@ -109,18 +126,31 @@ __global__ void tsc_deposit_cells_kernel(float* __restrict__ grid,
     }
 }
 
+template <int KIND>
+cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const float* w,
+                   const int* starts, int ncell, int nmesh, int yb, float box, float offset,
+                   int* err, cudaStream_t stream) {
+    const size_t smem = sizeof(float) * 3 * (size_t)(yb + 2) * nmesh;
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_cells_kernel<KIND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    tsc_deposit_cells_kernel<KIND><<<ncell, 256, smem, stream>>>(grid, x, y, z, w, starts, nmesh,
+                                                                 yb, box, offset, err);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // ---- host entry ----
 
 extern "C" int tsc_deposit_cells(float* grid, const float* x, const float* y, const float* z,
                                  const float* w, const int* starts, int ncell, int nmesh,
-                                 int yb, float box, float offset, int* err, void* stream) {
-    const size_t smem = sizeof(float) * 3 * (size_t)(yb + 2) * nmesh;
-    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_cells_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    tsc_deposit_cells_kernel<<<ncell, 256, smem, (cudaStream_t)stream>>>(
-        grid, x, y, z, w, starts, nmesh, yb, box, offset, err);
-    return (int)cudaGetLastError();
+                                 int yb, float box, float offset, int kind, int* err,
+                                 void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (kind) {
+        case 0: return (int)launch<0>(grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, err, s);
+        case 1: return (int)launch<1>(grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, err, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

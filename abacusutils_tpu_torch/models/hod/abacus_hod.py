@@ -1,10 +1,14 @@
-r"""AbacusHOD's fused P(k) route on PyTorch + CUDA.
+r"""AbacusHOD on PyTorch + CUDA: the fused P(k) route and the two-step route.
 
-Counterpart of abacusutils_tpu/models/hod/abacus_hod.py limited to
-``run_hod_pk_fused`` (the HOD-inference inner loop: one call per likelihood
-evaluation, LRG + ELG + QSO populated together, every auto and cross P(k)
-returned in the ``compute_power`` key schema), its light-cone leg
-``_run_hod_pk_fused_lc`` and ``_reseed_randoms``.
+Counterpart of abacusutils_tpu/models/hod/abacus_hod.py limited to:
+
+- ``run_hod_pk_fused`` (the HOD-inference inner loop: one call per
+  likelihood evaluation, LRG + ELG + QSO populated together, every auto and
+  cross P(k) returned in the ``compute_power`` key schema), its light-cone
+  leg ``_run_hod_pk_fused_lc`` and ``_reseed_randoms``;
+- the two-step route ``run_hod`` (galaxy catalogs on the host) ->
+  ``compute_power`` (P(k, mu) and Legendre poles of every tracer pair), and
+  the host mass-function integrals ``compute_ngal``.
 
 The object is built from the staged state that the JAX ``staging()``
 returns (``convert.staged_state_from_numpy`` carries a JAX object's state
@@ -21,7 +25,13 @@ import torch
 
 from ...convert import params_to_tensors
 from ...ops.grid import _f32, check_deposit_err, default_yblock, stage_grouped2d
-from ...ops.power import get_k_mu_edges, get_W_compensated
+from ...ops.power import (
+    _binned_spectra,
+    _field_fft,
+    _spectrum,
+    get_k_mu_edges,
+    get_W_compensated,
+)
 from ..pipeline import (
     group_inputs2d_linked_device,
     hod_pk_fused_multi,
@@ -29,14 +39,22 @@ from ..pipeline import (
     pk_grouped_multi,
     populate_lc_multi,
 )
-from .population import TRACER_ORDER, prepare_tracer_params
+from . import shapes_np
+from .population import (
+    _RANK_COLUMNS,
+    TRACER_ORDER,
+    _column,
+    _index,
+    _not_ported,
+    _or_zeros,
+    flat_catalogs,
+    populate_flat,
+    prepare_tracer_params,
+)
 
 __all__ = ['AbacusHOD']
 
 _log = logging.getLogger('AbacusHOD')
-
-_RANK_COLUMNS = (('ranks', 'pranks'), ('ranksv', 'pranksv'), ('ranksp', 'pranksp'),
-                 ('ranksr', 'pranksr'))
 
 
 def _host(a):
@@ -71,31 +89,18 @@ class AbacusHOD:
         self.halo_lc = halo_lc
         self.z_type = z_type
         self.lbox = float(self.params['Lbox'])
+        self.z_mock = self.params['z']
         self._fused_stage = None  # (key, box stage)
-        self._fused_lc_stage = None  # (key, flat light-cone catalogs)
+        self._flat_stage_cache = None  # (key, flat catalogs: light cone and run_hod)
+        hmass = _host(self.halo_data['hmass'])
+        self.logMbins = np.linspace(np.log10(np.min(hmass)), np.log10(np.max(hmass)), 101)
+        self.deltacbins = np.linspace(-0.5, 0.5, 101)
+        self.fenvbins = np.linspace(-0.5, 0.5, 101)
+        self.shearbins = np.linspace(-0.5, 0.5, 101)
         # the K1 error word of the last call (0: every point in its cell)
         self.deposit_err = torch.zeros(1, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
-    def _col(self, a, k=None):
-        """Column `a` (or column k of an (N, 3) array) as float32 on the device."""
-        if isinstance(a, torch.Tensor):
-            a = a if k is None else a[:, k]
-            return a.to(self.device, torch.float32).contiguous()
-        a = np.asarray(a) if k is None else np.asarray(a)[:, k]
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
-
-    def _idx(self, a):
-        """An index column as int32 on the device."""
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device, torch.int32)
-        return torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
-
-    def _col_or_zeros(self, data, key, n):
-        if key in data:
-            return self._col(data[key])
-        return torch.zeros(n, dtype=torch.float32, device=self.device)
-
     def _reseed_randoms(self, reseed):
         """Regenerate the pre-attached halo/particle randoms in place
         (reference run_hod:706-760 contract: same PCG64 stream order).
@@ -121,7 +126,7 @@ class AbacusHOD:
         )
         self.particle_data['prandoms'] = r3.astype(np.float64)
         self._fused_stage = None
-        self._fused_lc_stage = None
+        self._flat_stage_cache = None
         _log.info(f'Randoms generated in elapsed time {time.time() - start:.2f} s.')
 
     def _tracer_tensors(self, tracers, want):
@@ -136,23 +141,25 @@ class AbacusHOD:
         if self._fused_stage is not None and self._fused_stage[0] == key:
             return self._fused_stage[1]
         self._fused_stage = None  # free the old stage before building the new one
-        hd, pd = self.halo_data, self.particle_data
-        c = self._col
-        n_h, n_p = len(hd['hmass']), len(pd['phmass'])
+        hd, pd, dev = self.halo_data, self.particle_data, self.device
+
+        def c(a, k=None):
+            return _column(a, dev, k)
+
         halo = {
             'x': c(hd['hpos'], 0), 'y': c(hd['hpos'], 1), 'z': c(hd['hpos'], 2),
             'vz': c(hd['hvel'], 2), 'vdevz': c(hd['hveldev'], 2), 'mass': c(hd['hmass']),
             'multis': c(hd['hmultis']), 'randoms': c(hd['hrandoms']),
-            'deltac': self._col_or_zeros(hd, 'hdeltac', n_h),
-            'fenv': self._col_or_zeros(hd, 'hfenv', n_h),
+            'deltac': _or_zeros(hd, 'hdeltac', 'hmass', dev),
+            'fenv': _or_zeros(hd, 'hfenv', 'hmass', dev),
         }
         part = {
             'x': c(pd['ppos'], 0), 'y': c(pd['ppos'], 1), 'z': c(pd['ppos'], 2),
             'vz': c(pd['pvel'], 2), 'hvelz': c(pd['phvel'], 2), 'hmass': c(pd['phmass']),
             'weights': c(pd['pweights']), 'randoms': c(pd['prandoms']),
-            'deltac': self._col_or_zeros(pd, 'pdeltac', n_p),
-            'fenv': self._col_or_zeros(pd, 'pfenv', n_p),
-            'hidx': self._idx(pd['pinds']),
+            'deltac': _or_zeros(pd, 'pdeltac', 'phmass', dev),
+            'fenv': _or_zeros(pd, 'pfenv', 'phmass', dev),
+            'hidx': _index(pd['pinds'], dev),
         }
         if self.want_shear:
             halo['shear'] = c(hd['hshear'])
@@ -164,43 +171,19 @@ class AbacusHOD:
         self._fused_stage = (key, stage)
         return stage
 
-    def _lc_stage(self):
-        """Flat device catalogs of the light-cone leg, cached by
-        (want_shear, want_ranks, device)."""
-        key = (bool(self.want_shear), bool(self.want_ranks), self.device)
-        if self._fused_lc_stage is not None and self._fused_lc_stage[0] == key:
-            return self._fused_lc_stage[1]
-        self._fused_lc_stage = None
-        hd, pd = self.halo_data, self.particle_data
-        c = self._col
-        n_h, n_p = len(hd['hmass']), len(pd['phmass'])
-        halo = {
-            'mass': c(hd['hmass']), 'multis': c(hd['hmultis']), 'randoms': c(hd['hrandoms']),
-            'deltac': self._col_or_zeros(hd, 'hdeltac', n_h),
-            'fenv': self._col_or_zeros(hd, 'hfenv', n_h),
-        }
-        part = {
-            'hmass': c(pd['phmass']), 'weights': c(pd['pweights']),
-            'randoms': c(pd['prandoms']),
-            'deltac': self._col_or_zeros(pd, 'pdeltac', n_p),
-            'fenv': self._col_or_zeros(pd, 'pfenv', n_p),
-            'hidx': self._idx(pd['pinds']),
-        }
-        for i, a in enumerate('xyz'):
-            halo[a] = c(hd['hpos'], i)
-            halo[f'v{a}'] = c(hd['hvel'], i)
-            halo[f'vdev{a}'] = c(hd['hveldev'], i)
-            part[a] = c(pd['ppos'], i)
-            part[f'v{a}'] = c(pd['pvel'], i)
-            part[f'hvel{a}'] = c(pd['phvel'], i)
-        if self.want_shear:
-            halo['shear'] = c(hd['hshear'])
-            part['shear'] = c(pd['pshear'])
-        if self.want_ranks:
-            for k, col in _RANK_COLUMNS:
-                part[k] = c(pd[col])
-        self._fused_lc_stage = (key, (halo, part))
-        return halo, part
+    def _flat_stage(self, shear):
+        """Flat device catalogs in catalog order (population.flat_catalogs),
+        for the light-cone leg and run_hod, cached by (shear, want_ranks,
+        device)."""
+        key = (bool(shear), bool(self.want_ranks), self.device)
+        if self._flat_stage_cache is not None and self._flat_stage_cache[0] == key:
+            return self._flat_stage_cache[1]
+        self._flat_stage_cache = None
+        stage = flat_catalogs(
+            self.halo_data, self.particle_data, self.device, shear, self.want_ranks
+        )
+        self._flat_stage_cache = (key, stage)
+        return stage
 
     def _clustering(self, spectra, ng, want, nmesh, nbins_k, counts):
         """The compute_power key schema from the device bin sums (waits for
@@ -288,7 +271,7 @@ class AbacusHOD:
         yb = default_yblock(nmesh) if yb is None else yb
         nbins_k = nmesh // 2 if nbins_k is None else nbins_k
 
-        halo, part = self._lc_stage()
+        halo, part = self._flat_stage(self.want_shear)
         want = tuple(t for t in TRACER_ORDER if t in tracers)
         origin = torch.from_numpy(np.asarray(self.params['origin'], np.float32)).to(self.device)
         # 1.0 / velz2kms in f64 on the host, then f32 (abacus_hod.py:999)
@@ -310,3 +293,213 @@ class AbacusHOD:
             int(nbins_k), want, err=self.deposit_err,
         )
         return self._clustering(spectra, ng, want, nmesh, nbins_k, counts)
+
+    # ------------------------------------------------------------------
+    def run_hod(
+        self, tracers=None, want_rsd=True, want_nfw=False, NFW_draw=None, reseed=None,
+        write_to_disk=False, Nthread=None, verbose=False, fn_ext=None,
+    ):
+        """Populate the staged catalog with galaxies (abacus_hod.py:run_hod).
+        Returns the mock dict: per tracer {Ncent, x, y, z, vx, vy, vz, mass,
+        id} as numpy, centrals first.
+
+        The keep codes are those of run_hod_pk_fused (the same functions on
+        the same columns, so each tracer gets the same galaxy count); the
+        flat device catalogs are the light-cone leg's stage, cached; only
+        the kept rows are copied to the host, into page-locked memory. The
+        halo and particle shear columns are used where present, as the JAX
+        gen_gals uses them."""
+        if tracers is None:
+            tracers = self.tracers
+        if self.z_type == 'secondary' and not want_nfw:
+            raise RuntimeError(
+                'Secondary redshifts do not have particle pos/vel outputs; '
+                'only NFW profiles are supported'
+            )
+        if want_nfw:
+            raise _not_ported('NFW satellites (want_nfw=True)')
+        if write_to_disk:
+            raise _not_ported(
+                'write_to_disk=True (the ECSV Table writer lives in abacusutils_tpu.io.table)'
+            )
+        if reseed:
+            self._reseed_randoms(reseed)
+        start = time.time()
+        want = tuple(t for t in TRACER_ORDER if t in tracers)
+        tparams = prepare_tracer_params({t: tracers[t] for t in want}, self.params['z'])
+        halo, part = self._flat_stage(True)
+        mock = populate_flat(
+            halo, part, tparams, want, bool(want_rsd), self.params['velz2kms'], self.lbox,
+            self.params.get('origin'), verbose,
+        )
+        _log.info(f'HOD generated in elapsed time {time.time() - start:.2f} s.')
+        return mock
+
+    # ------------------------------------------------------------------
+    def _weighted_hist(self, dims, bins):
+        """Mass-function histogram plus per-bin weighted mean coordinates
+        over the occupied bins only (abacus_hod.py:_weighted_hist, host
+        numpy). Returns (H, [c_0, ..., c_{d-1}])."""
+        hd = self.halo_data
+        zerosH = np.zeros(len(hd['hmass']))
+        cols = {
+            'logM': np.log10(_host(hd['hmass'])),
+            'deltac': _host(hd['hdeltac']) if 'hdeltac' in hd else zerosH,
+            'fenv': _host(hd['hfenv']) if 'hfenv' in hd else zerosH,
+            'shear': _host(hd['hshear']) if 'hshear' in hd else zerosH,
+        }
+        flat = None
+        for d, name in enumerate(dims):
+            edges = np.asarray(bins[d])
+            x = cols[name]
+            idx = np.searchsorted(edges, x, side='right') - 1
+            # histogramdd convention: the rightmost edge belongs to the
+            # last bin; samples outside the range are dropped
+            idx[x == edges[-1]] = len(edges) - 2
+            valid_d = (idx >= 0) & (idx <= len(edges) - 2)
+            if flat is None:
+                flat = np.zeros(len(x), np.int64)
+                valid = valid_d
+            else:
+                valid &= valid_d
+            flat = flat * (len(edges) - 1) + np.clip(idx, 0, len(edges) - 2)
+        w = np.asarray(_host(hd['hmultis']), np.float64)[valid]
+        flat = flat[valid]
+        uniq, inv = np.unique(flat, return_inverse=True)
+        H = np.bincount(inv, weights=w, minlength=len(uniq))
+        centers = []
+        for name in dims:
+            Hd = np.bincount(inv, weights=w * cols[name][valid], minlength=len(uniq))
+            centers.append((Hd / H).astype(np.float32))
+        return H, centers
+
+    @property
+    def halo_mass_func(self):
+        if not hasattr(self, '_hmf'):
+            self._hmf = self._weighted_hist(
+                ('logM', 'deltac', 'fenv'), [self.logMbins, self.deltacbins, self.fenvbins]
+            )
+        return self._hmf[0]
+
+    @property
+    def hmf_centers(self):
+        self.halo_mass_func
+        return self._hmf[1]
+
+    @property
+    def halo_mass_func_wshear(self):
+        if not hasattr(self, '_hmf_wshear'):
+            self._hmf_wshear = self._weighted_hist(
+                ('logM', 'deltac', 'fenv', 'shear'),
+                [self.logMbins, self.deltacbins, self.fenvbins, self.shearbins],
+            )
+        return self._hmf_wshear[0]
+
+    @property
+    def hmf_centers_wshear(self):
+        self.halo_mass_func_wshear
+        return self._hmf_wshear[1]
+
+    def compute_ngal(self, tracers=None, Nthread=None):
+        """Expected tracer counts from the halo mass function histograms
+        (abacus_hod.py:compute_ngal, host numpy). Returns (ngal, fsat)."""
+        if tracers is None:
+            tracers = self.tracers
+        ngal_dict = {}
+        fsat_dict = {}
+        for etracer, hod in tracers.items():
+            Delta_a = 1.0 / (1 + self.z_mock) - 1.0 / (1 + hod.get('z_pivot', self.z_mock))
+            logM_cut = hod['logM_cut'] + hod.get('logM_cut_pr', 0) * Delta_a
+            logM1 = hod['logM1'] + hod.get('logM1_pr', 0) * Delta_a
+            ic = hod.get('ic', 1)
+            Ac, As_ = hod.get('Acent', 0), hod.get('Asat', 0)
+            Bc, Bs = hod.get('Bcent', 0), hod.get('Bsat', 0)
+
+            if etracer == 'ELG':
+                Cc, Cs = hod.get('Ccent', 0), hod.get('Csat', 0)
+                LOGM4, DC4, FE4, SH4 = self.hmf_centers_wshear
+                M = 10**LOGM4
+                lMc = logM_cut + Ac * DC4 + Bc * FE4 + Cc * SH4
+                M1 = 10 ** (logM1 + As_ * DC4 + Bs * FE4 + Cs * SH4)
+                ncent = shapes_np.N_cen_ELG_v1(
+                    M, hod['p_max'], hod['Q'], lMc, hod['sigma'], hod['gamma']
+                ) * ic
+                nsat = shapes_np.N_sat_elg(
+                    M, 10**lMc, hod['kappa'], M1, hod['alpha'], hod.get('A_s', 1)
+                ) * ic
+                M1_conf = 10 ** (hod.get('logM1_EE', logM1) + As_ * DC4 + Bs * FE4 + Cs * SH4)
+                nsat_conf = shapes_np.N_sat_elg(
+                    M, 10**lMc, hod['kappa'], M1_conf, hod.get('alpha_EE', hod['alpha']),
+                    hod.get('A_s', 1),
+                ) * ic
+                w = self.halo_mass_func_wshear
+                ngal_cent = float((w * ncent).sum())
+                ngal_sat = float((w * (nsat * (1 - ncent) + nsat_conf * ncent)).sum())
+            else:
+                LOGM3, DC3, FE3 = self.hmf_centers
+                M = 10**LOGM3
+                lMc = logM_cut + Ac * DC3 + Bc * FE3
+                M1 = 10 ** (logM1 + As_ * DC3 + Bs * FE3)
+                if etracer == 'LRG':
+                    ncent = shapes_np.n_cen_LRG(M, lMc, hod['sigma'])
+                    nsat = shapes_np.n_sat_LRG_modified(
+                        M, lMc, 10**lMc, M1, hod['sigma'], hod['alpha'], hod['kappa']
+                    )
+                elif etracer == 'QSO':
+                    ncent = shapes_np.N_cen_QSO(M, lMc, hod['sigma'])
+                    nsat = shapes_np.N_sat_generic(M, 10**lMc, hod['kappa'], M1, hod['alpha'])
+                else:
+                    continue
+                w = self.halo_mass_func
+                ngal_cent = float((w * ncent * ic).sum())
+                ngal_sat = float((w * nsat * ic).sum())
+
+            ngal_dict[etracer] = ngal_cent + ngal_sat
+            fsat_dict[etracer] = ngal_sat / (ngal_cent + ngal_sat)
+        return ngal_dict, fsat_dict
+
+    # ------------------------------------------------------------------
+    def compute_power(
+        self, mock_dict, nbins_k, nbins_mu, k_hMpc_max, logk, poles=(), paste='TSC',
+        num_cells=550, compensated=False, interlaced=False,
+    ):
+        """P(k, mu) and Legendre poles of every tracer pair
+        (abacus_hod.py:compute_power): each tracer's field is painted once
+        with K1 (twice when interlaced) and transformed once, then one K3
+        launch bins every auto and cross pair, applying the 1/N^3 scale and
+        the window per mode. Keys: '{t1}_{t2}', '_modes', '_ell',
+        '_ell_modes' for both orders of each pair, 'k_binc', 'mu_binc'."""
+        lbox = self.lbox
+        keys = list(mock_dict.keys())
+        poles = [int(p) for p in poles]
+        W = get_W_compensated(lbox, num_cells, paste, interlaced) if compensated else None
+        self.deposit_err.zero_()
+        ffts, scale = [], 1.0
+        for tr in keys:
+            d = mock_dict[tr]
+            F, scale = _field_fft(
+                (d['x'], d['y'], d['z']), lbox, num_cells, paste, d.get('w'), interlaced,
+                self.device, self.deposit_err,
+            )
+            ffts.append(F)
+        kbins, mubins = get_k_mu_edges(lbox, k_hMpc_max, nbins_k, nbins_mu, logk)
+        plan, dk, res = _binned_spectra(
+            ffts, W, scale, lbox, kbins, mubins, poles, err=self.deposit_err
+        )
+        clustering = {}
+        for i1, tr1 in enumerate(keys):
+            for i2 in range(i1, len(keys)):
+                tr2 = keys[i2]
+                P = _spectrum(plan, dk, *res[(i1, i2)], lbox, poles, True)
+                cols = {'': P['power'], '_modes': P['N_mode']}
+                if poles:
+                    cols['_ell'] = np.asarray(P['binned_poles']).T
+                    cols['_ell_modes'] = P['N_mode_poles']
+                for suffix, v in cols.items():
+                    clustering[f'{tr1}_{tr2}{suffix}'] = v
+                    if i1 != i2:
+                        clustering[f'{tr2}_{tr1}{suffix}'] = v
+        clustering['k_binc'] = (kbins[1:] + kbins[:-1]) * 0.5
+        mu_binc = (mubins[1:] + mubins[:-1]) * 0.5
+        clustering['mu_binc'] = np.broadcast_to(mu_binc, P['power'].shape)[0]
+        return clustering

@@ -1,10 +1,14 @@
-r"""Population markers and host-side tracer parameters (elementwise PyTorch).
+r"""Central/satellite galaxy population (elementwise PyTorch).
 
-Counterpart of the helpers of abacusutils_tpu/models/hod/population.py that
-the fused route uses: ``_wrap_centered``, ``_cent_marker`` and ``_sat_base``
-for LRG, ELG (with conformity and the shear terms) and QSO, ``_apply_rsd``
-(plane-parallel z and the light-cone line of sight), ``_rank_multiplier``
-and the host function ``prepare_tracer_params``.
+Counterpart of abacusutils_tpu/models/hod/population.py: the markers
+``_cent_marker`` and ``_sat_base`` for LRG, ELG (with conformity and the
+shear terms) and QSO, the priority keep codes ``_cent_codes`` /
+``_sat_codes`` (shared with the fused route of models/pipeline.py),
+``_apply_rsd`` (plane-parallel z and the light-cone line of sight),
+``_rank_multiplier``, the host function ``prepare_tracer_params``, and the
+two-step population ``gen_cent``, ``gen_sats`` and ``gen_gals`` with
+``_compact``, which selects each tracer's kept rows on the device and copies
+only those to the host.
 
 Markers take 0-d float32 parameter tensors (``convert.params_to_tensors``),
 so their scalar arithmetic runs in float32, as under jax.jit.
@@ -13,9 +17,19 @@ so their scalar arithmetic runs in float32, as under jax.jit.
 import numpy as np
 import torch
 
+from ...convert import params_to_tensors
 from . import shapes
 
-__all__ = ['TRACER_ORDER', 'prepare_tracer_params']
+__all__ = [
+    'TRACER_ORDER',
+    'prepare_tracer_params',
+    'flat_catalogs',
+    'gen_cent',
+    'gen_sats',
+    'gen_gals',
+    'wrap',
+    'fast_concatenate',
+]
 
 TRACER_ORDER = ('LRG', 'ELG', 'QSO')
 
@@ -131,3 +145,332 @@ def prepare_tracer_params(tracers, z):
             p.setdefault('nfw_rescale', 1.0)
         out[tracer] = p
     return out
+
+
+def _cent_codes(halo, params, want):
+    """Central priority keep codes (int8) over stacked tracer markers (one
+    random per halo, reference gen_cent GRAND_HOD.py:213-252)."""
+    marker = torch.zeros_like(halo['mass'])
+    keep_c = torch.zeros(halo['mass'].shape, dtype=torch.int8, device=halo['mass'].device)
+    for code, tracer in enumerate(TRACER_ORDER, 1):
+        if tracer not in want:
+            continue
+        m = _cent_marker(
+            tracer, params[tracer], halo['mass'], halo['deltac'], halo['fenv'],
+            halo.get('shear', 0.0),
+        )
+        marker = marker + m * halo['multis']
+        keep_c.masked_fill_((keep_c == 0) & (halo['randoms'] <= marker), code)
+    return keep_c
+
+
+def _sat_codes(part, params, want, keep_cent_p):
+    """Satellite priority keep codes (int8; reference gen_sats
+    GRAND_HOD.py:948-1095); `keep_cent_p` is each particle's host-central
+    code (conformity). Rank decorations multiply the base rate when the
+    staged columns are present (reference GRAND_HOD.py:1042-1050)."""
+    marker = torch.zeros_like(part['hmass'])
+    keep_s = torch.zeros(part['hmass'].shape, dtype=torch.int8, device=part['hmass'].device)
+    for code, tracer in enumerate(TRACER_ORDER, 1):
+        if tracer not in want:
+            continue
+        p = params[tracer]
+        base = _sat_base(
+            tracer, p, part['hmass'], part['deltac'], part['fenv'],
+            part.get('shear', 0.0), keep_cent_p,
+        )
+        base = base * part['weights'] * p['ic']
+        if 'ranks' in part:
+            # multiply AFTER weights*ic, matching _sat_core's f32 rounding
+            base = base * _rank_multiplier(p, part)
+        marker = marker + base
+        keep_s.masked_fill_((keep_s == 0) & (part['randoms'] <= marker), code)
+    return keep_s
+
+
+_RANK_COLUMNS = (('ranks', 'pranks'), ('ranksv', 'pranksv'), ('ranksp', 'pranksp'),
+                 ('ranksr', 'pranksr'))
+
+
+def _column(a, device, k=None):
+    """Column `a` (or column k of an (N, 3) array) as float32 on `device`;
+    numpy arrays and tensors alike."""
+    if isinstance(a, torch.Tensor):
+        a = a if k is None else a[:, k]
+        return a.to(device, torch.float32).contiguous()
+    a = np.asarray(a) if k is None else np.asarray(a)[:, k]
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+
+def _index(a, device):
+    """An index column as int32 on `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.int32)
+    return torch.from_numpy(np.asarray(a, np.int32)).to(device)
+
+
+def _or_zeros(data, key, like, device):
+    """Column `key` as float32 on `device`, or zeros as long as column `like`
+    where the data has no such column."""
+    if key in data:
+        return _column(data[key], device)
+    return torch.zeros(len(data[like]), dtype=torch.float32, device=device)
+
+
+def _exact(a, device):
+    """A column on `device` in its own dtype (the catalog's mass and id come
+    back exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def flat_catalogs(halo_data, particle_data, device, shear=False, ranks=False):
+    """The staged column dicts of AbacusHOD.staging() (``hpos``, ``hvel``,
+    ``hveldev``, ``hmass``, ``hid``, ... and ``ppos``, ``pvel``, ``phvel``,
+    ``phmass``, ``phid``, ``pinds``, ...) as flat tensors on `device`, in
+    catalog order: float32 x/y/z, vx/vy/vz and vdevx/... (halos) or
+    hvelx/... (particles), the marker columns (deltac and fenv as zeros
+    where absent), with `shear` the ``hshear`` / ``pshear`` columns that
+    exist, the four rank columns with `ranks`, part['hidx'], each
+    particle's int32 host index, and the catalog columns ``cat_mass`` and
+    ``cat_id`` in their own dtypes (run_hod's mass and id)."""
+    hd, pd = halo_data, particle_data
+
+    def c(a, k=None):
+        return _column(a, device, k)
+
+    halo = {
+        'mass': c(hd['hmass']), 'multis': c(hd['hmultis']), 'randoms': c(hd['hrandoms']),
+        'deltac': _or_zeros(hd, 'hdeltac', 'hmass', device),
+        'fenv': _or_zeros(hd, 'hfenv', 'hmass', device),
+        'cat_mass': _exact(hd['hmass'], device), 'cat_id': _exact(hd['hid'], device),
+    }
+    part = {
+        'hmass': c(pd['phmass']), 'weights': c(pd['pweights']), 'randoms': c(pd['prandoms']),
+        'deltac': _or_zeros(pd, 'pdeltac', 'phmass', device),
+        'fenv': _or_zeros(pd, 'pfenv', 'phmass', device),
+        'hidx': _index(pd['pinds'], device),
+        'cat_mass': _exact(pd['phmass'], device), 'cat_id': _exact(pd['phid'], device),
+    }
+    for i, a in enumerate('xyz'):
+        halo[a] = c(hd['hpos'], i)
+        halo[f'v{a}'] = c(hd['hvel'], i)
+        halo[f'vdev{a}'] = c(hd['hveldev'], i)
+        part[a] = c(pd['ppos'], i)
+        part[f'v{a}'] = c(pd['pvel'], i)
+        part[f'hvel{a}'] = c(pd['phvel'], i)
+    if shear:
+        for cat, data, key in ((halo, hd, 'hshear'), (part, pd, 'pshear')):
+            if key in data:
+                cat['shear'] = c(data[key])
+    if ranks:
+        for k, col in _RANK_COLUMNS:
+            part[k] = c(pd[col])
+    return halo, part
+
+
+def _phase_space(cat, params, want, rsd, inv_velz2kms, lbox, origin, central):
+    """Per tracer, the galaxy positions after RSD and velocities of every
+    object: centrals vel + alpha_c vdev, satellites hvel + alpha_s
+    (pvel - hvel) (_cent_core / _sat_core)."""
+    out = {}
+    for tracer in want:
+        p = params[tracer]
+        if central:
+            v = [cat[f'v{a}'] + p['alpha_c'] * cat[f'vdev{a}'] for a in 'xyz']
+        else:
+            v = [cat[f'hvel{a}'] + p['alpha_s'] * (cat[f'v{a}'] - cat[f'hvel{a}']) for a in 'xyz']
+        x, y, z = _apply_rsd(cat['x'], cat['y'], cat['z'], *v, rsd, inv_velz2kms, lbox, origin)
+        out[tracer] = (x, y, z, *v)
+    return out
+
+
+def _to_host(t):
+    """A tensor as a numpy array; from the device through a pinned buffer,
+    so the copy runs at DMA speed and the array stays in page-locked memory
+    (a later upload of it, in compute_power, is fast too)."""
+    if t.device.type == 'cpu':
+        return t.numpy()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    return buf.numpy()
+
+
+def _compact(parts, want):
+    """Each tracer's kept rows as a host numpy dict {Ncent, x, y, z, vx, vy,
+    vz, mass, id} (population.py:_compact and gen_gals' concatenation).
+    `parts` is a list of (keep codes, phase space, catalog mass, catalog
+    id) on the device, centrals first; Ncent counts the rows of the first.
+    The rows are selected on the device by the mask keep == code, in
+    flatnonzero order, gathered into one block per tracer, and only they
+    are copied to the host; id is int64."""
+    result = {}
+    for tracer in want:
+        code = TRACER_ORDER.index(tracer) + 1
+        sels = [torch.nonzero(keep == code).squeeze(1) for keep, *_ in parts]
+
+        def rows(get):
+            return torch.cat([get(part).index_select(0, s) for part, s in zip(parts, sels)])
+
+        phase = torch.stack([rows(lambda part, k=k: part[1][tracer][k]) for k in range(6)])
+        td = {'Ncent': int(sels[0].numel())}
+        td.update(zip(('x', 'y', 'z', 'vx', 'vy', 'vz'), _to_host(phase)))
+        td['mass'] = _to_host(rows(lambda part: part[2]))
+        td['id'] = _to_host(rows(lambda part: part[3]).to(torch.int64))
+        result[tracer] = td
+    return result
+
+
+def _tensor_params(tracer_params, want, device):
+    return {t: params_to_tensors(tracer_params[t], device) for t in want}
+
+
+def _origin(origin, device):
+    if origin is None:
+        return None
+    return torch.from_numpy(np.asarray(origin, np.float32).reshape(3)).to(device)
+
+
+def _inv_velz2kms(velz2kms):
+    # 1.0 / velz2kms on the host, then f32, as a jit argument rounds it
+    return float(np.float32(1.0 / float(velz2kms)))
+
+
+def _cols3(a, device):
+    return {ax: _column(a, device, i) for i, ax in enumerate('xyz')}
+
+
+def _one(cats):
+    """gen_cent / gen_sats catalogs: without gen_gals' Ncent."""
+    for td in cats.values():
+        del td['Ncent']
+    return cats
+
+
+def gen_cent(
+    pos, vel, mass, ids, multis, randoms, vdev, deltac, fenv, shear,
+    tracer_params, rsd, inv_velz2kms, lbox, want, origin=None, device='cpu',
+):
+    """Populate central galaxies on `device` (population.py:gen_cent).
+    tracer_params comes from :func:`prepare_tracer_params`. Returns (dict of
+    tracer -> catalog, keep codes as int8 numpy)."""
+    halo = {
+        'mass': _column(mass, device), 'multis': _column(multis, device),
+        'randoms': _column(randoms, device), 'deltac': _column(deltac, device),
+        'fenv': _column(fenv, device), 'shear': _column(shear, device),
+    }
+    halo.update(_cols3(pos, device))
+    for k, v in _cols3(vel, device).items():
+        halo[f'v{k}'] = v
+    for k, v in _cols3(vdev, device).items():
+        halo[f'vdev{k}'] = v
+    params = _tensor_params(tracer_params, want, device)
+    keep = _cent_codes(halo, params, want)
+    out = _phase_space(
+        halo, params, want, rsd, float(np.float32(inv_velz2kms)), lbox, _origin(origin, device),
+        True,
+    )
+    cats = _compact([(keep, out, _exact(mass, device), _exact(ids, device))], want)
+    return _one(cats), keep.cpu().numpy()
+
+
+def gen_sats(
+    ppos, pvel, hvel, hmass, hid, weights, randoms, hdeltac, hfenv, hshear,
+    enable_ranks, ranks, ranksv, ranksp, ranksr,
+    tracer_params, rsd, inv_velz2kms, lbox, want, origin, keep_cent, device='cpu',
+):
+    """Populate satellite galaxies on `device` (population.py:gen_sats);
+    `keep_cent` is each particle's host-central keep code (conformity).
+    Returns the dict of tracer -> catalog."""
+    part = {
+        'hmass': _column(hmass, device), 'weights': _column(weights, device),
+        'randoms': _column(randoms, device), 'deltac': _column(hdeltac, device),
+        'fenv': _column(hfenv, device), 'shear': _column(hshear, device),
+    }
+    part.update(_cols3(ppos, device))
+    for k, v in _cols3(pvel, device).items():
+        part[f'v{k}'] = v
+    for k, v in _cols3(hvel, device).items():
+        part[f'hvel{k}'] = v
+    if enable_ranks:
+        for k, a in zip(('ranks', 'ranksv', 'ranksp', 'ranksr'), (ranks, ranksv, ranksp, ranksr)):
+            part[k] = _column(a, device)
+    keep_cent = torch.as_tensor(np.asarray(keep_cent, np.int8)).to(device)
+    params = _tensor_params(tracer_params, want, device)
+    keep = _sat_codes(part, params, want, keep_cent)
+    out = _phase_space(
+        part, params, want, rsd, float(np.float32(inv_velz2kms)), lbox, _origin(origin, device),
+        False,
+    )
+    return _one(_compact([(keep, out, _exact(hmass, device), _exact(hid, device))], want))
+
+
+def _not_ported(what):
+    return NotImplementedError(
+        f'{what} is not ported yet: ROADMAP item 8 (what is left of the two-step route)'
+    )
+
+
+def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, verbose=False):
+    """The two-step population on flat device catalogs (:func:`flat_catalogs`):
+    the keep codes of the fused route (_cent_codes, then _sat_codes through
+    part['hidx']), the phase space of every object, and the compaction.
+    Returns the gen_gals mock dict: per tracer {Ncent, x, y, z, vx, vy, vz,
+    mass, id}, centrals first."""
+    device = halo['x'].device
+    params = _tensor_params(tracer_params, want, device)
+    inv = _inv_velz2kms(velz2kms)
+    org = _origin(origin, device)
+    keep_c = _cent_codes(halo, params, want)
+    keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+    mock = _compact([
+        (keep_c, _phase_space(halo, params, want, rsd, inv, lbox, org, True),
+         halo['cat_mass'], halo['cat_id']),
+        (keep_s, _phase_space(part, params, want, rsd, inv, lbox, org, False),
+         part['cat_mass'], part['cat_id']),
+    ], want)
+    if verbose:
+        for tracer, td in mock.items():
+            n = len(td['x'])
+            print(tracer, 'number of galaxies', n)
+            print('satellite fraction', (n - td['Ncent']) / max(n, 1))
+    return mock
+
+
+def gen_gals(
+    halos_array, subsample, tracers, params, Nthread=None, enable_ranks=False, rsd=True,
+    verbose=False, nfw=False, NFW_draw=None, device='cpu',
+):
+    """Multi-tracer population: centrals + satellites -> mock dict
+    (population.py:gen_gals): per tracer {Ncent, x, y, z, vx, vy, vz, mass,
+    id}, centrals first. The staged columns go to `device` once; only the
+    kept rows come back. NFW satellites are not ported."""
+    if nfw:
+        raise _not_ported('NFW satellites (nfw=True)')
+    want = tuple(t for t in TRACER_ORDER if t in tracers)
+    tparams = prepare_tracer_params({t: tracers[t] for t in want}, params['z'])
+    halo, part = flat_catalogs(halos_array, subsample, device, True, enable_ranks)
+    return populate_flat(
+        halo, part, tparams, want, rsd, params['velz2kms'], params['Lbox'], params['origin'],
+        verbose,
+    )
+
+
+def wrap(x, L):
+    """Scalar periodic wrap into [-L/2, L/2) (reference GRAND_HOD.py:129-136)."""
+    L2 = L / 2
+    if x >= L2:
+        return x - L
+    if x < -L2:
+        return x + L
+    return x
+
+
+def fast_concatenate(array1, array2, Nthread=1):
+    """Concatenate two arrays (population.py:fast_concatenate)."""
+    if len(array1) == 0:
+        return array2
+    if len(array2) == 0:
+        return array1
+    return np.concatenate([array1, array2])

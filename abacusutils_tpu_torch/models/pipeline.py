@@ -32,9 +32,16 @@ from ..ops.power import (
     bin_power_modes,
     field_pairs,
     get_k_mu_edges,
-    mode_bin_plan,
+    get_mode_bin_plan,
 )
-from .hod.population import TRACER_ORDER, _apply_rsd, _cent_marker, _rank_multiplier, _sat_base
+from .hod.population import (
+    TRACER_ORDER,
+    _apply_rsd,
+    _cent_codes,
+    _cent_marker,
+    _sat_base,
+    _sat_codes,
+)
 
 __all__ = [
     'make_bin_plan_arrays',
@@ -50,37 +57,24 @@ __all__ = [
     'make_example_inputs_device',
 ]
 
-# mode-bin plans by (n1d, squared edges, poles, device), at most
-# _MAX_BIN_PLANS of them (ops/power.py:_get_mode_bin_plan's bounded cache)
-_BIN_PLANS = {}
-_MAX_BIN_PLANS = 4
-
-
 def make_bin_plan_arrays(nmesh, lbox, nbins_k, device):
     """Mode-binning plan of a monopole P(k) with `nbins_k` linear k bins up
     to the Nyquist frequency: (seg, counts), seg an int32 tensor on `device`
     with one bin per rfft mode, counts the (nbins_k,) float64 numpy mode
     counts, read-only (models/pipeline.py:make_bin_plan_arrays).
 
-    Plans are cached: a second call with the same arguments builds nothing
-    on the host and uploads nothing (``make_bin_plan_arrays.builds`` counts
-    the builds)."""
+    The plan is built on `device` by ``ops.power.mode_bin_plan_device`` and
+    cached by ``ops.power.get_mode_bin_plan``: a second call with the same
+    arguments builds nothing (``make_bin_plan_arrays.builds`` counts the
+    builds made for it)."""
     kedges, muedges = get_k_mu_edges(lbox, np.pi * nmesh / lbox, nbins_k, 1, False)
     dk = 2 * np.pi / lbox
     kedges2 = ((kedges / dk) ** 2).astype(np.float32)
     muedges2 = (muedges**2).astype(np.float32)
-    key = (int(nmesh), kedges2.tobytes(), muedges2.tobytes(), (), str(torch.device(device)))
-    plan = _BIN_PLANS.get(key)
-    if plan is None:
-        seg, counts = mode_bin_plan(int(nmesh), kedges2, muedges2)
-        counts = counts.reshape(-1)
-        counts.flags.writeable = False
-        plan = (torch.from_numpy(seg).to(device), counts)
-        if len(_BIN_PLANS) >= _MAX_BIN_PLANS:
-            _BIN_PLANS.clear()
-        _BIN_PLANS[key] = plan
-        make_bin_plan_arrays.builds += 1
-    return plan
+    before = get_mode_bin_plan.builds
+    plan = get_mode_bin_plan(int(nmesh), kedges2, muedges2, (), device)
+    make_bin_plan_arrays.builds += get_mode_bin_plan.builds - before
+    return plan.seg, plan.counts.reshape(-1)
 
 
 make_bin_plan_arrays.builds = 0
@@ -185,47 +179,6 @@ def hod_pk_fused_yb(
 
     wsum = bin_power_modes(_delta_k(grid, n_gal), seg, Wcomp, 1.0 / grid.numel(), nbins_k)
     return torch.where(err == 0, wsum, torch.nan), n_gal
-
-
-def _cent_codes(halo, params, want):
-    """Central priority keep codes (int8) over stacked tracer markers (one
-    random per halo, reference gen_cent GRAND_HOD.py:213-252)."""
-    marker = torch.zeros_like(halo['mass'])
-    keep_c = torch.zeros(halo['mass'].shape, dtype=torch.int8, device=halo['mass'].device)
-    for code, tracer in enumerate(TRACER_ORDER, 1):
-        if tracer not in want:
-            continue
-        m = _cent_marker(
-            tracer, params[tracer], halo['mass'], halo['deltac'], halo['fenv'],
-            halo.get('shear', 0.0),
-        )
-        marker = marker + m * halo['multis']
-        keep_c.masked_fill_((keep_c == 0) & (halo['randoms'] <= marker), code)
-    return keep_c
-
-
-def _sat_codes(part, params, want, keep_cent_p):
-    """Satellite priority keep codes (int8; reference gen_sats
-    GRAND_HOD.py:948-1095); `keep_cent_p` is each particle's host-central
-    code (conformity). Rank decorations multiply the base rate when the
-    staged columns are present (reference GRAND_HOD.py:1042-1050)."""
-    marker = torch.zeros_like(part['hmass'])
-    keep_s = torch.zeros(part['hmass'].shape, dtype=torch.int8, device=part['hmass'].device)
-    for code, tracer in enumerate(TRACER_ORDER, 1):
-        if tracer not in want:
-            continue
-        p = params[tracer]
-        base = _sat_base(
-            tracer, p, part['hmass'], part['deltac'], part['fenv'],
-            part.get('shear', 0.0), keep_cent_p,
-        )
-        base = base * part['weights'] * p['ic']
-        if 'ranks' in part:
-            # multiply AFTER weights*ic, matching _sat_core's f32 rounding
-            base = base * _rank_multiplier(p, part)
-        marker = marker + base
-        keep_s.masked_fill_((keep_s == 0) & (part['randoms'] <= marker), code)
-    return keep_s
 
 
 def _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s):

@@ -1,50 +1,78 @@
-"""P(k) mode binning of an rfft mesh (PyTorch + a CUDA kernel).
+"""P(k) of painted catalogs: mode-bin plans, mode binning and the spectrum
+pipeline (PyTorch + CUDA kernels).
 
-Counterpart of the parts of abacusutils_tpu/ops/power.py that the fused HOD
-step uses:
+Counterpart of abacusutils_tpu/ops/power.py:
 
 - :func:`get_k_mu_edges`, :func:`get_W_compensated` and
   :func:`mode_bin_plan` are numpy copies of the host helpers
   (``get_k_mu_edges``, ``get_W_compensated`` and the host build of
   ``_ModeBinPlan``: each mode's bin ``seg`` and the dup-weighted bin
-  ``counts``).
+  ``counts``). :func:`mode_bin_plan` is the reference the device build is
+  tested against; no route calls it.
+- :func:`mode_bin_plan_device` builds the plan with torch on the device it
+  is given (``_mode_bin_plan_device`` and the host build's ``ksum`` and
+  Legendre pole weights); :func:`get_mode_bin_plan` caches its plans.
 - :func:`bin_power_modes_plain` is the bin sum of ``_segsum_matmul`` as one
-  float64 ``torch.bincount``.
-- :func:`bin_power_modes` launches the fused CUDA kernel
-  (``csrc/mode_bin.cu``) on CUDA tensors and runs the plain version on CPU
-  tensors.
+  float64 ``torch.bincount``; :func:`bin_power_modes` launches the fused
+  CUDA kernel K2 (``csrc/mode_bin.cu``) on CUDA tensors and runs the plain
+  version on CPU tensors.
 - :func:`bin_pair_modes_plain` is the all-pairs bin sum of
-  ``_segsum_matmul_pairs`` (no pole weights) as one float64
-  ``torch.bincount`` per pair; :func:`bin_pair_modes` launches its CUDA
-  kernel (``csrc/mode_bin_pairs.cu``) on CUDA tensors.
+  ``_segsum_matmul_pairs``, with the Legendre pole rows of
+  ``_bin_kmu_planned`` / ``_segsum_matmul`` when pole weights are given,
+  as float64 ``torch.bincount``; :func:`bin_pair_modes` launches its CUDA
+  kernel K3 (``csrc/mode_bin_pairs.cu``) on CUDA tensors.
+- :func:`get_field`, :func:`get_field_fft` (TSC or CIC, interlaced or
+  not), :func:`get_raw_power`, :func:`bin_kmu`, :func:`calc_pk_from_deltak`,
+  :func:`calc_pk_pairs_from_deltak` and :func:`calc_power`: the spectrum
+  pipeline, which paints with K1 (``ops/grid.py:paint_3d``) and bins every
+  pair of fields through one K3 launch.
 """
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _build
-from .grid import MAX_SMEM_BYTES, _f32
+from .grid import MAX_SMEM_BYTES, _f32, check_deposit_err, paint_3d
 
 __all__ = [
     'get_k_mu_edges',
     'get_W_compensated',
     'mode_bin_plan',
+    'mode_bin_plan_device',
+    'ModeBinPlan',
+    'get_mode_bin_plan',
     'mode_dup',
     'bin_power_modes_plain',
     'bin_power_modes',
     'field_pairs',
     'bin_pair_modes_plain',
     'bin_pair_modes',
+    'get_field',
+    'get_field_fft',
+    'get_interlaced_field_fft',
+    'get_raw_power',
+    'bin_kmu',
+    'calc_pk_from_deltak',
+    'calc_pk_pairs_from_deltak',
+    'calc_power',
+    'SpectrumTable',
     'MAX_BINS',
     'MAX_FIELDS',
+    'MAX_POLES',
+    'MAX_POLE_DEGREE',
 ]
 
 # bins whose f32 histogram fits the 227 KB of shared memory of one block
 MAX_BINS = MAX_SMEM_BYTES // 4
 # fields one all-pairs binning takes (csrc/mode_bin_pairs.cu instantiates 1..8)
 MAX_FIELDS = 8
+# non-zero Legendre poles K3 takes, and their largest degree
+MAX_POLES = 4
+MAX_POLE_DEGREE = 8
 
 
 def get_k_mu_edges(Lbox, k_max, kbins, mubins, logk):
@@ -74,6 +102,16 @@ def get_W_compensated(Lbox, nmesh, paste, interlaced):
     if paste == 'TSC':
         return (1 - s + 2.0 / 15 * s**2) ** 0.5
     return (1 - 2.0 / 3 * s) ** 0.5
+
+
+def _legendre_coeffs(n):
+    """[(coef, power)] with P_n(mu) = sum coef * mu^power, power = n - 2k
+    (ops/power.py:_legendre_coeffs)."""
+    out = []
+    for k in range(n // 2 + 1):
+        c = math.comb(n, k) * math.comb(2 * n - 2 * k, n) * (0.5**n) * (-1 if k % 2 else 1)
+        out.append((c, n - 2 * k))
+    return out
 
 
 def mode_dup(n1d):
@@ -115,6 +153,115 @@ def mode_bin_plan(n1d, kedges2, muedges2):
     return seg.astype(np.int32), counts.reshape(Nk, Nmu)
 
 
+def _mode_geometry(n1d, device):
+    """Flat f32 |k|^2 (in units of the fundamental mode), mu^2 and dup of
+    every rfft mode, in the host build's arithmetic: |k|^2 is the integer
+    sum of squares rounded once to f32, mu^2 = kz^2 / |k|^2 one IEEE f32
+    division (0 at k = 0)."""
+    kzlen = n1d // 2 + 1
+    i = torch.arange(n1d, dtype=torch.int32, device=device)
+    i2 = torch.where(i < n1d // 2, i, i - n1d) ** 2
+    kz = torch.arange(kzlen, dtype=torch.int32, device=device)
+    kz2 = kz * kz
+    kmag2 = (i2[:, None, None] + i2[None, :, None] + kz2[None, None, :]).to(torch.float32)
+    kz2f = kz2.to(torch.float32).expand_as(kmag2)
+    mu2 = torch.where(kmag2 > 0, kz2f / kmag2.clamp_min(1.0), 0.0)
+    single = (kz == 0) | ((kz == kzlen - 1) if n1d % 2 == 0 else False)
+    dup = torch.where(single, 1.0, 2.0).to(torch.float32).expand_as(kmag2)
+    return kmag2.reshape(-1), mu2.reshape(-1), dup.reshape(-1)
+
+
+def _pole_weight(mu2, dup, pole):
+    """(2l+1) L_l(mu) dup per mode in f32, summed as the host build sums
+    it (ops/power.py:_ModeBinPlan: odd powers through mu2 ** 0.5)."""
+    pw = torch.zeros_like(mu2)
+    for c, p in _legendre_coeffs(pole):
+        pw = pw + c * (mu2 ** (0.5 * p) if p % 2 else mu2 ** (p // 2))
+    return (2 * pole + 1) * pw * dup
+
+
+def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cpu'):
+    """The mode-bin plan of a (n1d, n1d, n1d/2+1) rfft mesh, built with
+    torch on `device` (ops/power.py:_mode_bin_plan_device and the host
+    build of _ModeBinPlan): squared k and mu edges in units of the
+    fundamental mode, float32.
+
+    Returns (seg, counts, ksum, pole_w), all on `device`: seg is int32 per
+    mode (Nk*Nmu outside every bin); counts and ksum the (Nk, Nmu) float64
+    dup-weighted mode counts and |k| sums; pole_w maps each non-zero pole
+    l to its f32 per-mode weight (2l+1) L_l(mu) dup. seg and counts are
+    bit-identical to :func:`mode_bin_plan` (the bin is
+    searchsorted(side='left') - 1 on the same f32 values)."""
+    kedges2 = np.asarray(kedges2, np.float32)
+    muedges2 = np.asarray(muedges2, np.float32)
+    Nk, Nmu = len(kedges2) - 1, len(muedges2) - 1
+    kflat, muflat, dup = _mode_geometry(int(n1d), device)
+    ke = torch.from_numpy(kedges2).to(device)
+    me = torch.from_numpy(muedges2).to(device)
+    valid = (kflat >= float(kedges2[0])) & (kflat < float(kedges2[-1]))
+    bk = (torch.searchsorted(ke, kflat, side='left') - 1).clamp_(0, Nk - 1)
+    bmu = (torch.searchsorted(me, muflat, side='left') - 1).clamp_(0, Nmu - 1)
+    nseg = Nk * Nmu
+    seg = torch.where(valid, bk * Nmu + bmu, nseg)
+    del bk, bmu, valid
+
+    def segsum(w):
+        return torch.bincount(seg, weights=w.double(), minlength=nseg + 1)[:nseg].reshape(Nk, Nmu)
+
+    counts = segsum(dup)
+    # an f32 sqrt rounded once, as numpy's (torch's CPU f32 sqrt is not
+    # correctly rounded); the f64 root rounded to f32 is
+    ksum = segsum(torch.sqrt(kflat.double()).float() * dup)
+    pole_w = {int(p): _pole_weight(muflat, dup, int(p)) for p in poles if p != 0}
+    return seg.to(torch.int32), counts, ksum, pole_w
+
+
+class ModeBinPlan(NamedTuple):
+    """A cached mode-bin plan: seg and pole_w on the device, counts and
+    ksum as read-only (Nk, Nmu) float64 numpy arrays."""
+
+    seg: torch.Tensor
+    counts: np.ndarray
+    ksum: np.ndarray
+    pole_w: dict
+    nk: int
+    nmu: int
+
+
+# plans by (n1d, squared edges, poles, device), at most _MAX_BIN_PLANS of
+# them (ops/power.py:_get_mode_bin_plan's bounded cache)
+_BIN_PLANS = {}
+_MAX_BIN_PLANS = 4
+
+
+def get_mode_bin_plan(n1d, kedges2, muedges2, poles, device):
+    """The :class:`ModeBinPlan` of :func:`mode_bin_plan_device`, cached by
+    (n1d, edges, poles, device) as ops/power.py:_get_mode_bin_plan keys it
+    (``get_mode_bin_plan.builds`` counts the builds)."""
+    kedges2 = np.asarray(kedges2, np.float32)
+    muedges2 = np.asarray(muedges2, np.float32)
+    poles = tuple(int(p) for p in poles)
+    device = torch.device(device)
+    key = (int(n1d), kedges2.tobytes(), muedges2.tobytes(), poles, str(device))
+    plan = _BIN_PLANS.get(key)
+    if plan is None:
+        seg, counts, ksum, pole_w = mode_bin_plan_device(n1d, kedges2, muedges2, poles, device)
+        host = []
+        for a in (counts, ksum):
+            a = a.cpu().numpy()
+            a.flags.writeable = False
+            host.append(a)
+        plan = ModeBinPlan(seg, *host, pole_w, len(kedges2) - 1, len(muedges2) - 1)
+        if len(_BIN_PLANS) >= _MAX_BIN_PLANS:
+            _BIN_PLANS.clear()
+        _BIN_PLANS[key] = plan
+        get_mode_bin_plan.builds += 1
+    return plan
+
+
+get_mode_bin_plan.builds = 0
+
+
 def _check_mesh(delta_k, seg, W):
     n1d = delta_k.shape[0]
     shape = (n1d, n1d, n1d // 2 + 1)
@@ -127,16 +274,21 @@ def _check_mesh(delta_k, seg, W):
     return n1d
 
 
+def _scaled(dk, scale, W):
+    """dk * scale / (W[ix] W[iy] W[kz]) in the kernels' f32 order."""
+    dk = dk * _f32(scale)
+    if W is None:
+        return dk
+    n1d = dk.shape[0]
+    return dk / (W[:, None, None] * W[None, :, None] * W[None, None, : n1d // 2 + 1])
+
+
 def bin_power_modes_plain(delta_k, seg, W, scale, nbins):
     """Sum dup * |delta_k * scale / (W[ix] W[iy] W[kz])|^2 over the modes of
     each bin (W=None: no compensation); the contraction of
     ops/power.py:_segsum_matmul, accumulated in float64. Returns (nbins,) f32."""
     n1d = _check_mesh(delta_k, seg, W)
-    dk = delta_k * _f32(scale)
-    if W is not None:
-        kzlen = n1d // 2 + 1
-        dk = dk / (W[:, None, None] * W[None, :, None] * W[None, None, :kzlen])
-    p3d = dk.abs() ** 2
+    p3d = _scaled(delta_k, scale, W).abs() ** 2
     dup = torch.from_numpy(mode_dup(n1d)).to(p3d.device)
     sums = torch.bincount(
         seg.reshape(-1).long(), weights=(p3d.reshape(-1) * dup).double(), minlength=nbins + 1
@@ -182,7 +334,7 @@ def field_pairs(nfields):
     return [(i, j) for i in range(nfields) for j in range(i, nfields)]
 
 
-def _check_fields(deltas, seg, W):
+def _check_fields(deltas, seg, W, nbins, pole_w, nmu):
     if not 1 <= len(deltas) <= MAX_FIELDS:
         raise ValueError(f'bin_pair_modes takes 1 to {MAX_FIELDS} fields, not {len(deltas)}')
     n1d = _check_mesh(deltas[0], seg, W)
@@ -191,71 +343,394 @@ def _check_fields(deltas, seg, W):
             raise ValueError('every field must be a complex64 rfft mesh of one shape')
         if d.device != deltas[0].device:
             raise ValueError(f'fields lie on {d.device} and {deltas[0].device}')
+    if pole_w:
+        if nmu < 1 or nbins % nmu:
+            raise ValueError(f'nbins={nbins} is not a multiple of nmu={nmu}')
+        for p, w in pole_w.items():
+            if not 0 < p <= MAX_POLE_DEGREE:
+                raise ValueError(f'pole {p} outside (0, {MAX_POLE_DEGREE}]')
+            if w.shape != seg.reshape(-1).shape or w.dtype != torch.float32:
+                raise ValueError(f'pole {p} weights must be float32, one per mode')
     return n1d
 
 
-def bin_pair_modes_plain(deltas, seg, W, scale, nbins):
+def bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     """For every pair (i, j), i <= j, of the (n1d, n1d, n1d/2+1) complex64
     rfft meshes `deltas` (in :func:`field_pairs` order), sum
     dup * Re(d_i conj(d_j)) over the modes of each bin, where
     d = delta_k * scale / (W[ix] W[iy] W[kz]) (W=None: no compensation):
-    the contraction of ops/power.py:_segsum_matmul_pairs without pole
-    weights, accumulated in float64. Returns (npairs, nbins) float64."""
+    the contraction of ops/power.py:_segsum_matmul_pairs, accumulated in
+    float64. Returns (npairs, nbins) float64.
+
+    With `pole_w`, the plan's {l: (2l+1) L_l(mu) dup} per-mode weights of
+    the non-zero poles (:func:`mode_bin_plan_device`), it also sums
+    pole_w[l] * Re(d_i conj(d_j)) into the k-bin seg // nmu of every mode
+    in a bin (ops/power.py:_bin_kmu_planned's kbounds) and returns
+    (sums, pole_sums), pole_sums (npairs, len(pole_w), nbins // nmu)."""
     deltas = tuple(deltas)
-    n1d = _check_fields(deltas, seg, W)
-    kzlen = n1d // 2 + 1
-    scaled = []
-    for dk in deltas:
-        dk = dk * _f32(scale)
-        if W is not None:
-            dk = dk / (W[:, None, None] * W[None, :, None] * W[None, None, :kzlen])
-        scaled.append(dk)
+    _check_fields(deltas, seg, W, nbins, pole_w, nmu)
+    scaled = [_scaled(dk, scale, W) for dk in deltas]
+    n1d = deltas[0].shape[0]
     dup = torch.from_numpy(mode_dup(n1d)).to(seg.device)
     seg = seg.reshape(-1).long()
     pairs = field_pairs(len(deltas))
     out = torch.empty((len(pairs), nbins), dtype=torch.float64, device=seg.device)
+    nk = nbins // nmu
+    kseg = torch.div(seg, nmu, rounding_mode='floor')  # nbins // nmu == nk for modes outside
+    poles = list(pole_w or {})
+    pout = torch.empty((len(pairs), len(poles), nk), dtype=torch.float64, device=seg.device)
     for p, (i, j) in enumerate(pairs):
         a, b = scaled[i], scaled[j]
-        v = (a.real * b.real + a.imag * b.imag).reshape(-1) * dup
-        out[p] = torch.bincount(seg, weights=v.double(), minlength=nbins + 1)[:nbins]
-    return out
+        v = (a.real * b.real + a.imag * b.imag).reshape(-1)
+        out[p] = torch.bincount(seg, weights=(v * dup).double(), minlength=nbins + 1)[:nbins]
+        for q, pole in enumerate(poles):
+            w = (v * pole_w[pole]).double()
+            pout[p, q] = torch.bincount(kseg, weights=w, minlength=nk + 1)[:nk]
+    return (out, pout) if pole_w else out
 
 
-def bin_pair_modes(deltas, seg, W, scale, nbins):
+def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     """All auto and cross bin sums of the rfft meshes `deltas` in one pass
-    over the modes: (npairs, nbins) float64, the contract of
-    :func:`bin_pair_modes_plain`.
+    over the modes, with the Legendre pole rows when `pole_w` is given:
+    the contract of :func:`bin_pair_modes_plain`.
 
     On CUDA tensors this launches K3 (csrc/mode_bin_pairs.cu) on the current
-    stream; on CPU tensors it runs :func:`bin_pair_modes_plain`."""
+    stream; the kernel evaluates each pole's weight in registers from the
+    mode's indices and uses only the degrees (the keys) of `pole_w`. On CPU
+    tensors it runs :func:`bin_pair_modes_plain`."""
     deltas = tuple(deltas)
     if deltas and deltas[0].device.type == 'cpu':
-        return bin_pair_modes_plain(deltas, seg, W, scale, nbins)
-    n1d = _check_fields(deltas, seg, W)
+        return bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w, nmu)
+    n1d = _check_fields(deltas, seg, W, nbins, pole_w, nmu)
+    poles = list(pole_w or {})
+    if len(poles) > MAX_POLES:
+        raise ValueError(f'bin_pair_modes takes at most {MAX_POLES} non-zero poles')
     npairs = len(deltas) * (len(deltas) + 1) // 2
-    if nbins <= 0 or 4 * npairs * nbins > MAX_SMEM_BYTES:
+    nk = nbins // nmu if poles else 0
+    row = nbins + len(poles) * nk
+    if nbins <= 0 or 4 * npairs * row > MAX_SMEM_BYTES:
         raise ValueError(
-            f'bin_pair_modes: {npairs} pairs x nbins={nbins} f32 histograms exceed the '
-            f'{MAX_SMEM_BYTES} B of shared memory a block may use'
+            f'bin_pair_modes: {npairs} pairs x ({nbins} bins + {len(poles)} poles x {nk} '
+            f'k-bins) f32 histograms exceed the {MAX_SMEM_BYTES} B of shared memory a block '
+            'may use'
         )
     device = deltas[0].device
     for name, t in (('seg', seg), ('W', W)):
         if t is not None and t.device != device:
             raise ValueError(f'{name} is on {t.device}, the fields on {device}')
-    deltas = [d.contiguous() for d in deltas]
+    # the kernel reads every field through one set of strides (cuFFT's output
+    # layout on the card); only fields of mixed layouts are copied
+    if len({d.stride() for d in deltas}) > 1:
+        deltas = [d.contiguous() for d in deltas]
     seg = seg.contiguous()
     W = None if W is None else W.contiguous()
     ptrs = (ctypes.c_void_p * MAX_FIELDS)(*[d.data_ptr() for d in deltas])
-    out = torch.zeros((npairs, nbins), dtype=torch.float64, device=device)
+    degs = (ctypes.c_int * MAX_POLES)(*poles)
+    out = torch.zeros((npairs, row), dtype=torch.float64, device=device)
     lib = _build.lib()
     with torch.cuda.device(device):
         code = lib.mode_bin_pairs(
-            ptrs, len(deltas), seg.data_ptr(), None if W is None else W.data_ptr(),
-            _f32(scale), n1d, nbins, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            ptrs, len(deltas), *deltas[0].stride(), seg.data_ptr(),
+            None if W is None else W.data_ptr(),
+            _f32(scale), n1d, nbins, max(int(nmu), 1), degs, len(poles), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, 'mode_bin_pairs')
     bin_pair_modes.launches += 1
-    return out
+    form = f'poles nmu={nmu}' if poles else 'no poles'
+    bin_pair_modes.launches_by_form[form] = bin_pair_modes.launches_by_form.get(form, 0) + 1
+    if not poles:
+        return out
+    return out[:, :nbins], out[:, nbins:].reshape(npairs, len(poles), nk)
 
 
 bin_pair_modes.launches = 0
+# launches of each form ('no poles', 'poles nmu=<Nmu>'), within `launches`
+bin_pair_modes.launches_by_form = {}
+
+
+# ---------------------------------------------------------------------------
+# The spectrum pipeline: paint -> rfftn -> one all-pairs binning launch
+# ---------------------------------------------------------------------------
+
+
+def _pos_columns(pos, device):
+    """(N, 3) array/tensor or a 3-sequence of columns -> three flat float32
+    tensors (numpy inputs go to `device`, CPU when None; tensors stay where
+    they are)."""
+    if isinstance(pos, (tuple, list)) and len(pos) == 3 and np.ndim(pos[0]) == 1:
+        cols = pos
+    else:
+        cols = [pos[:, i] for i in range(3)]
+    out = []
+    for c in cols:
+        if isinstance(c, torch.Tensor):
+            out.append(c.to(torch.float32).contiguous())
+        else:
+            a = np.ascontiguousarray(c, dtype=np.float32)
+            out.append(torch.from_numpy(a).to(device or 'cpu'))
+    return out
+
+
+def _weights(w, device):
+    if w is None:
+        return None
+    if isinstance(w, torch.Tensor):
+        return w.to(device, torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)).to(device)
+
+
+def get_field(pos, Lbox, nmesh, paste, w=None, d=0.0, device=None, err=None):
+    """Paint the catalog and normalise it to an overdensity,
+    field * (nmesh^3 / N) - 1 with N the number of points even when
+    weighted (ops/power.py:get_field). TSC wraps each coordinate once and
+    then adds the offset `d`; CIC takes pos + d unwrapped, as the JAX
+    package paints it (``paint_3d(..., wrap=False)``). On CUDA tensors the
+    paint is K1 (:func:`ops.grid.paint_3d`). Returns the (nmesh,)*3 f32
+    tensor."""
+    px, py, pz = _pos_columns(pos, device)
+    n_pos = px.shape[0]
+    field = paint_3d(
+        px, py, pz, nmesh, Lbox, weights=_weights(w, px.device), offset=d, kind=paste.lower(),
+        err=err,
+    )
+    return field * _f32(field.numel() / n_pos) - 1.0
+
+
+def _interlace_combine(field_fft, field_shift_fft, nmesh, Lbox, d):
+    """(F + F_shift * exp(i k.d/2)) * 0.5 / N^3 (ops/power.py:_interlace_combine)."""
+    dk = _f32(2.0 * np.pi / Lbox)
+    dev = field_fft.device
+    i = torch.arange(nmesh, device=dev)
+    kvec = torch.where(i < nmesh // 2, i, i - nmesh).to(torch.float32) * dk
+    kz = torch.arange(nmesh // 2 + 1, device=dev).to(torch.float32) * dk
+    theta = (kvec[:, None, None] + kvec[None, :, None] + kz[None, None, :]) * _f32(0.5 * d)
+    phase = torch.polar(torch.ones_like(theta), theta)
+    return (field_fft + field_shift_fft * phase) * _f32(0.5 / nmesh**3)
+
+
+def _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device=None, err=None):
+    """The Fourier field before its 1/N^3 scale and compensation, and that
+    scale: (rfftn(field), 1/N^3), or (the interlaced combination, which
+    carries its own 0.5/N^3, 1.0). K3 applies scale and window per mode.
+    Host columns are uploaded once, for both paints of an interlaced field."""
+    pos = _pos_columns(pos, device)
+    w = _weights(w, pos[0].device)
+    if interlaced:
+        return get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device, err), 1.0
+    field = get_field(pos, Lbox, nmesh, paste, w, device=device, err=err)
+    return torch.fft.rfftn(field), 1.0 / field.numel()
+
+
+def get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device=None, err=None):
+    """Interlaced Fourier field: a second paint at offset d/2, d = L/nmesh
+    (ops/power.py:get_interlaced_field_fft)."""
+    d = Lbox / nmesh
+    F = torch.fft.rfftn(get_field(pos, Lbox, nmesh, paste, w, device=device, err=err))
+    Fs = torch.fft.rfftn(get_field(pos, Lbox, nmesh, paste, w, d=0.5 * d, device=device, err=err))
+    return _interlace_combine(F, Fs, int(nmesh), float(Lbox), float(d))
+
+
+def get_field_fft(pos, Lbox, nmesh, paste, w, W, compensated, interlaced, device=None):
+    """Fourier overdensity field with optional compensation and interlacing
+    (ops/power.py:get_field_fft): the field the spectrum functions bin.
+    The pipeline itself hands scale and window to K3 instead of forming
+    this mesh."""
+    field_fft, scale = _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device)
+    if compensated:
+        if W is None:
+            raise ValueError('compensated=True needs the window W')
+        W = torch.as_tensor(np.asarray(W, np.float32), device=field_fft.device)
+        return _scaled(field_fft, scale, W)
+    return field_fft * _f32(scale) if scale != 1.0 else field_fft
+
+
+def get_raw_power(field_fft, field2_fft=None):
+    """|delta_k|^2, or Re[conj(delta1) delta2] (ops/power.py:get_raw_power)."""
+    if field2_fft is None:
+        return field_fft.abs() ** 2
+    return (field_fft.conj() * field2_fft).real
+
+
+def _plan_for(n1d, Lbox, kedges, muedges, poles, device):
+    dk = 2.0 * np.pi / Lbox
+    kedges2 = ((np.asarray(kedges) / dk) ** 2).astype(np.float32)
+    muedges2 = (np.asarray(muedges) ** 2).astype(np.float32)
+    return get_mode_bin_plan(int(n1d), kedges2, muedges2, poles, device), dk
+
+
+def _binned_spectra(ffts, W, scale, Lbox, kedges, muedges, poles, err=None):
+    """Every pair (i <= j) of the fields `ffts` through one K3 launch.
+    Returns (plan, dk, {(i, j): (wsum (Nk, Nmu), pole_sums (npoles_nz, Nk))})
+    as float64 numpy; a non-zero deposit error word `err` raises."""
+    n1d = int(ffts[0].shape[0])
+    device = ffts[0].device
+    poles = tuple(int(p) for p in poles)
+    plan, dk = _plan_for(n1d, Lbox, kedges, muedges, poles, device)
+    nbins = plan.nk * plan.nmu
+    pole_w = {p: plan.pole_w[p] for p in poles if p != 0}
+    Wt = None if W is None else torch.as_tensor(np.asarray(W, np.float32), device=device)
+    out = bin_pair_modes(ffts, plan.seg, Wt, scale, nbins, pole_w or None, plan.nmu)
+    if err is not None:
+        check_deposit_err(err)
+    sums, psums = out if pole_w else (out, None)
+    sums = sums.cpu().numpy().reshape(-1, plan.nk, plan.nmu)
+    psums = np.zeros((len(sums), 0, plan.nk)) if psums is None else psums.cpu().numpy()
+    return plan, dk, {ij: (sums[p], psums[p]) for p, ij in enumerate(field_pairs(len(ffts)))}
+
+
+def _bin_means(plan, dk, wsum, psums, poles, dtype=np.float32):
+    """The host tail of ops/power.py:bin_kmu from one pair's bin sums:
+    (weighted_counts, counts, weighted_counts_poles, counts_poles,
+    weighted_counts_k); the l = 0 pole is the (k, mu) sum over mu."""
+    counts = np.asarray(plan.counts, np.int64)
+    counts_poles = counts.sum(axis=1)
+    rows = iter(psums)
+    pole_sums = np.array([wsum.sum(axis=1) if p == 0 else next(rows) for p in poles])
+    pole_sums = pole_sums.reshape(len(poles), plan.nk)
+    with np.errstate(invalid='ignore', divide='ignore'):
+        means = np.where(counts != 0, wsum / counts, 0.0).astype(dtype)
+        k_avg = np.where(counts != 0, plan.ksum * dk / counts, 0.0).astype(dtype)
+        pole_means = np.where(counts_poles != 0, pole_sums / counts_poles, 0.0).astype(dtype)
+    return means, counts, pole_means, counts_poles, k_avg
+
+
+def _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis):
+    """calc_pk_from_deltak's dict from one pair's bin sums
+    (ops/power.py:calc_pk_from_deltak)."""
+    power, N_mode, binned_poles, N_mode_poles, k_avg = _bin_means(plan, dk, wsum, psums, poles)
+    power = power * Lbox**3
+    if len(poles):
+        binned_poles = binned_poles * Lbox**3
+    if squeeze_mu_axis and plan.nmu == 1:
+        power, N_mode, k_avg = power[:, 0], N_mode[:, 0], k_avg[:, 0]
+    return dict(
+        power=power, N_mode=N_mode, binned_poles=binned_poles, N_mode_poles=N_mode_poles,
+        k_avg=k_avg,
+    )
+
+
+def bin_kmu(n1d, L, kedges, muedges, weights, poles=(), fourier=True):
+    """Mean weights and mode counts in (k, mu) bins of an rfft-mesh weight
+    (ops/power.py:bin_kmu, fourier=True): (weighted_counts, counts,
+    weighted_counts_poles, counts_poles, weighted_counts_k). The weight
+    sums are the (weights, 1) cross of K3, Re(w * conj(1)) = w exactly."""
+    if not fourier:
+        raise NotImplementedError(
+            'bin_kmu(fourier=False) (separation binning for pk_to_xi) is not ported yet: '
+            'ROADMAP item 8'
+        )
+    poles = tuple(int(p) for p in np.asarray(poles).reshape(-1))
+    kzlen = int(n1d) // 2 + 1
+    w = torch.as_tensor(weights)[:, :, :kzlen].to(torch.float32)
+    zero = torch.zeros_like(w)
+    pair = [torch.complex(w, zero), torch.complex(torch.ones_like(w), zero)]
+    plan, dk, res = _binned_spectra(pair, None, 1.0, L, kedges, muedges, poles)
+    return _bin_means(plan, dk, *res[(0, 1)], poles)
+
+
+def calc_pk_from_deltak(
+    field_fft, Lbox, k_bin_edges, mu_bin_edges, field2_fft=None, poles=(), squeeze_mu_axis=True,
+):
+    """P(k, mu) (+ multipoles) of one field or one cross pair, through one
+    K3 launch (ops/power.py:calc_pk_from_deltak)."""
+    poles = tuple(int(p) for p in np.asarray(poles).reshape(-1))
+    ffts = [field_fft] if field2_fft is None else [field_fft, field2_fft]
+    plan, dk, res = _binned_spectra(ffts, None, 1.0, Lbox, k_bin_edges, mu_bin_edges, poles)
+    wsum, psums = res[(0, 0) if field2_fft is None else (0, 1)]
+    return _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis)
+
+
+def calc_pk_pairs_from_deltak(
+    ffts, Lbox, k_bin_edges, mu_bin_edges, poles=(), squeeze_mu_axis=True, pairs=None,
+):
+    """calc_pk_from_deltak for every auto and cross pair of a field stack
+    through ONE K3 launch, for any Nk * Nmu and poles
+    (ops/power.py:calc_pk_pairs_from_deltak, which falls back to a per-pair
+    loop at Nk * Nmu > 256). Returns {(i, j): dict}, i >= j (all pairs) or
+    the requested `pairs`; (i, j) and (j, i) are the same spectrum."""
+    poles = tuple(int(p) for p in np.asarray(poles).reshape(-1))
+    nf = len(ffts)
+    if pairs is None:
+        pairs = tuple((i, j) for i in range(nf) for j in range(i + 1))
+    plan, dk, res = _binned_spectra(list(ffts), None, 1.0, Lbox, k_bin_edges, mu_bin_edges, poles)
+    out = {}
+    for i, j in pairs:
+        wsum, psums = res[(min(i, j), max(i, j))]
+        out[(int(i), int(j))] = _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis)
+    return out
+
+
+class SpectrumTable(dict):
+    """calc_power's result: its columns by name (numpy arrays, the columns of
+    the JAX package's Table) and the run's settings in ``meta``."""
+
+    def __init__(self, columns, meta):
+        super().__init__(columns)
+        self.meta = meta
+
+
+def _spectrum_table(P, kbins, mubins, poles, return_mubins, meta):
+    """calc_power's SpectrumTable from one pair's spectrum dict
+    (ops/power.py:_spectrum_table)."""
+    k_binc = (kbins[1:] + kbins[:-1]) * 0.5
+    mu_binc = (mubins[1:] + mubins[:-1]) * 0.5
+    res = dict(
+        k_min=kbins[:-1], k_max=kbins[1:], k_mid=k_binc, k_avg=P['k_avg'], power=P['power'],
+        N_mode=P['N_mode'],
+    )
+    if len(poles) > 0:
+        res.update(poles=np.asarray(P['binned_poles']).T, N_mode_poles=P['N_mode_poles'])
+    if return_mubins:
+        shape = res['power'].shape
+        res.update(
+            mu_min=np.broadcast_to(mubins[:-1], shape).copy(),
+            mu_max=np.broadcast_to(mubins[1:], shape).copy(),
+            mu_mid=np.broadcast_to(mu_binc, shape).copy(),
+        )
+    return SpectrumTable({k: np.asarray(v) for k, v in res.items()}, meta)
+
+
+def _n_pos(pos):
+    return len(pos[0]) if isinstance(pos, (tuple, list)) else len(pos)
+
+
+def calc_power(
+    pos, Lbox, kbins=None, mubins=None, k_max=None, logk=False, paste='TSC', nmesh=128,
+    compensated=True, interlaced=True, w=None, pos2=None, w2=None, poles=None,
+    squeeze_mu_axis=True, device=None,
+):
+    """Paint -> rfftn -> bin (ops/power.py:calc_power): one or two catalogs
+    painted with K1, their auto (or cross) spectrum binned by one K3 launch
+    that applies the 1/N^3 scale and the window. numpy inputs go to
+    `device` (CPU when None); tensors stay where they are. Returns a
+    :class:`SpectrumTable` with the JAX Table's columns and meta."""
+    if kbins is None:
+        kbins = nmesh
+    if k_max is None:
+        k_max = np.pi * nmesh / Lbox
+    return_mubins = mubins is not None
+    if mubins is None:
+        mubins = 1
+    meta = dict(
+        Lbox=Lbox, logk=logk, paste=paste, nmesh=nmesh, compensated=compensated,
+        interlaced=interlaced, poles=poles, N_pos=_n_pos(pos), is_weighted=w is not None,
+        squeeze_mu_axis=squeeze_mu_axis,
+    )
+    if pos2 is not None:
+        meta['N_pos2'] = _n_pos(pos2)
+        meta['is_weighted2'] = w2 is not None
+    W = get_W_compensated(Lbox, nmesh, paste, interlaced) if compensated else None
+    poles = tuple(int(p) for p in np.asarray(poles if poles is not None else [], np.int64))
+    kbins, mubins = get_k_mu_edges(Lbox, k_max, kbins, mubins, logk)
+    dev = device
+    if dev is None and isinstance(pos, torch.Tensor):
+        dev = pos.device
+    F, scale = _field_fft(pos, Lbox, nmesh, paste, w, interlaced, dev)
+    ffts = [F]
+    if pos2 is not None:
+        ffts.append(_field_fft(pos2, Lbox, nmesh, paste, w2, interlaced, F.device)[0])
+    plan, dk, res = _binned_spectra(ffts, W, scale, Lbox, kbins, mubins, poles)
+    wsum, psums = res[(0, len(ffts) - 1)]
+    P = _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis)
+    return _spectrum_table(P, kbins, mubins, poles, return_mubins, meta)

@@ -23,7 +23,18 @@ Phases, each printing what it measured:
    plain versions, and K3 timed against its plain version;
 6. the light-cone leg of the same call on the same catalog (3-D
    velocities, an origin outside the box corner): the same, with one K1
-   launch per tracer.
+   launch per tracer;
+7. the two-step route on the box catalog of phase 5 (with halo and
+   particle ids): (a) ``AbacusHOD.run_hod``, timed host to host, each
+   tracer's galaxy count equal to phase 5's n_gal; (b) ``compute_power`` at
+   the settings of docs/hod.md (550^3 mesh, 128 k-bins to 0.5 h/Mpc, poles
+   0, 2, 4), cold (the bin plan built on the device) and warm, against the
+   same spectra from the plain versions, with K1, K3's pole form and the
+   device plan build timed against their plain versions; (c) at nmesh 256,
+   compensated, against phase 5's spectra at rtol 2e-3; (d) TSC and CIC,
+   interlaced, compensated, 4 mu bins, against the plain versions and the
+   monopole = band-mean invariant; (e) the cold ``run_hod_pk_fused`` at
+   nmesh 512, whose bin plan is built on the device once.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or when any phase
@@ -52,17 +63,24 @@ from abacusutils_tpu_torch.models.pipeline import (
 from abacusutils_tpu_torch.ops.grid import (
     _f32,
     check_deposit_err,
+    default_yblock,
     paint_3d_plain,
     stage_grouped2d,
     tsc_deposit_cells,
 )
 from abacusutils_tpu_torch.ops.power import (
+    _interlace_combine,
+    _spectrum,
     bin_pair_modes,
     bin_pair_modes_plain,
     bin_power_modes,
     bin_power_modes_plain,
     field_pairs,
+    get_k_mu_edges,
+    get_mode_bin_plan,
     get_W_compensated,
+    mode_bin_plan,
+    mode_bin_plan_device,
 )
 from abacusutils_tpu_torch.testing import edge_points
 
@@ -93,6 +111,13 @@ TRACERS = {
     },
 }
 LC_ORIGIN = (-1010.0, -1010.0, -1010.0)  # 10 Mpc/h outside the box corner
+# phase 7 (b): compute_power at the settings of docs/hod.md:33-40
+DOCS_NMESH = 550
+DOCS_NBINS_K = 128
+DOCS_KMAX = 0.5
+POLES = (0, 2, 4)
+# phase 7 (e): the mesh whose plan the port used to build on the host
+COLD_NMESH = 512
 
 
 class PhaseError(RuntimeError):
@@ -300,15 +325,34 @@ KERNELS = {
     'bin_pair_modes': (bin_pair_modes, 'abacusutils_tpu_torch/csrc/mode_bin_pairs.cu',
                        'abacusutils_tpu/ops/power.py:451'),
 }
+# the kernels line's entries: (kernel, form); a form's launches are its
+# wrapper's launches_by_form count (None: the wrapper's whole count)
+FORMS = {
+    'tsc_deposit_cells[tsc]': ('tsc_deposit_cells', 'tsc', 'abacusutils_tpu/ops/grid_pallas.py:92'),
+    'tsc_deposit_cells[cic]': ('tsc_deposit_cells', 'cic', 'abacusutils_tpu/ops/grid.py:94'),
+    'bin_power_modes': ('bin_power_modes', None, 'abacusutils_tpu/ops/power.py:396'),
+    'bin_pair_modes[no poles]': ('bin_pair_modes', 'no poles', 'abacusutils_tpu/ops/power.py:451'),
+    'bin_pair_modes[poles nmu=1]': ('bin_pair_modes', 'poles nmu=1',
+                                    'abacusutils_tpu/ops/power.py:451'),
+    'bin_pair_modes[poles nmu=4]': ('bin_pair_modes', 'poles nmu=4',
+                                    'abacusutils_tpu/ops/power.py:524'),
+}
 
 
 def reset_launches():
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, 'launches_by_form'):
+            for k in fn.launches_by_form:
+                fn.launches_by_form[k] = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    out = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    for form, (name, key, _) in FORMS.items():
+        if key is not None:
+            out[form] = KERNELS[name][0].launches_by_form.get(key, 0)
+    return out
 
 
 def fused_state(dev):
@@ -328,6 +372,7 @@ def fused_state(dev):
     hidx = part['hidx'].long()
     hvel = torch.stack([draw(N_HALO, 300.0), draw(N_HALO, 300.0), halo['vz']], 1)
     halo_data = {
+        'hid': torch.arange(N_HALO, dtype=torch.int64, device=dev),
         'hpos': torch.stack([halo['x'], halo['y'], halo['z']], 1),
         'hvel': hvel,
         'hveldev': torch.stack([draw(N_HALO, 100.0), draw(N_HALO, 100.0), halo['vdevz']], 1),
@@ -339,7 +384,7 @@ def fused_state(dev):
         'pvel': torch.stack([draw(N_PART, 300.0), draw(N_PART, 300.0), part['vz']], 1),
         'phvel': hvel[hidx], 'phmass': part['hmass'], 'pweights': part['weights'],
         'prandoms': part['randoms'], 'pdeltac': halo_data['hdeltac'][hidx],
-        'pfenv': halo_data['hfenv'][hidx], 'pinds': part['hidx'],
+        'pfenv': halo_data['hfenv'][hidx], 'pinds': part['hidx'], 'phid': hidx,
     }
     return halo_data, particle_data
 
@@ -362,7 +407,7 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     plain rebuild, and K3 against its plain version. Returns (launches, K3
     (ms, plain_ms, max_abs_err))."""
     t_stage_cold = sync_seconds(stage_fn)[1]
-    hod._fused_stage = hod._fused_lc_stage = None
+    hod._fused_stage = hod._flat_stage_cache = None
     t_stage = sync_seconds(stage_fn)[1]
 
     def call():
@@ -426,7 +471,7 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     print(f'phase {phase} K3 at call shapes: {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms, '
           f'max|d| {k3_err:.3e}')
     require(bool(((got - wsum_p).abs() <= tol).all()), 'K3 disagrees with its plain version')
-    return launches, (k3_ms, p3_ms, k3_err)
+    return launches, (k3_ms, p3_ms, k3_err), cl, n_gal
 
 
 def box_cats(hod):
@@ -451,7 +496,7 @@ def box_cats(hod):
 def lc_cats(hod):
     """Per tracer, the light-cone galaxies at their displaced raw
     coordinates (centrals and satellites together), and n_gal."""
-    halo, part = hod._lc_stage()
+    halo, part = hod._flat_stage(hod.want_shear)
     tp = hod._tracer_tensors(TRACERS, WANT)
     origin = torch.tensor(LC_ORIGIN, dtype=torch.float32, device=halo['x'].device)
     tr, n_gal = populate_lc_multi(halo, part, tp, WANT, True, _f32(1.0 / VELZ2KMS), origin)
@@ -467,25 +512,304 @@ def phase_fused(dev, seg, W):
     print(f'phase 5 inputs {t_in:.3f} s: {N_HALO} halos, {N_PART} particles, '
           f'tracers {WANT}, nmesh {NMESH}, {NBINS_K} k-bins, no cut')
     params = {'z': 0.5, 'Lbox': LBOX, 'velz2kms': VELZ2KMS, 'origin': None}
-    hod = AbacusHOD(*state, params, TRACERS, dev)
-    box = check_fused(5, hod, lambda: hod._box_stage(NMESH, YB), 2 * len(WANT), box_cats, seg, W)
-    del hod
+    box_hod = AbacusHOD(*state, params, TRACERS, dev)
+    box = check_fused(
+        5, box_hod, lambda: box_hod._box_stage(NMESH, YB), 2 * len(WANT), box_cats, seg, W
+    )
     params_lc = dict(params, origin=np.array(LC_ORIGIN))
     hod = AbacusHOD(*state, params_lc, TRACERS, dev, halo_lc=True, z_type='lightcone')
     del state
-    lc = check_fused(6, hod, hod._lc_stage, len(WANT), lc_cats, seg, W)
-    return box, lc
+    lc = check_fused(6, hod, lambda: hod._flat_stage(hod.want_shear), len(WANT), lc_cats, seg, W)
+    del hod
+    return box, lc, box_hod
+
+
+def mock_columns(mock, dev):
+    """Each tracer's run_hod positions as float32 device columns."""
+    return {
+        tr: [torch.from_numpy(np.ascontiguousarray(d[a], np.float32)).to(dev) for a in 'xyz']
+        for tr, d in mock.items()
+    }
+
+
+def plain_power(cols, nmesh, nbins_k, nbins_mu, k_max, paste, compensated, interlaced):
+    """compute_power's spectra rebuilt from the plain versions only (the
+    27-point scatter, rfftn, the float64 bincount pair binning with the
+    plan's pole weights). Returns (clustering-like {pair: spectrum dict},
+    fields, scale, W, plan)."""
+    kind = paste.lower()
+    dev = cols[WANT[0]][0].device
+
+    def field(c, off):
+        n = c[0].numel()
+        grid = paint_3d_plain(
+            torch.zeros((nmesh,) * 3, device=dev), *c, torch.ones(n, device=dev), nmesh, LBOX,
+            off, kind,
+        )
+        return torch.fft.rfftn(grid * _f32(grid.numel() / n) - 1.0)
+
+    d = LBOX / nmesh
+    ffts = []
+    for tr in WANT:
+        if interlaced:
+            ffts.append(_interlace_combine(field(cols[tr], 0.0), field(cols[tr], 0.5 * d),
+                                           nmesh, LBOX, d))
+        else:
+            ffts.append(field(cols[tr], 0.0))
+    scale = 1.0 if interlaced else 1.0 / nmesh**3
+    W = None
+    if compensated:
+        W = torch.from_numpy(
+            get_W_compensated(LBOX, nmesh, paste, interlaced).astype(np.float32)).to(dev)
+    kbins, mubins = get_k_mu_edges(LBOX, k_max, nbins_k, nbins_mu, False)
+    dk = 2 * np.pi / LBOX
+    plan = get_mode_bin_plan(nmesh, ((kbins / dk) ** 2).astype(np.float32),
+                             (mubins**2).astype(np.float32), POLES, dev)
+    pole_w = {p: plan.pole_w[p] for p in POLES if p}
+    sums, psums = bin_pair_modes_plain(ffts, plan.seg, W, scale, plan.nk * plan.nmu, pole_w,
+                                       plan.nmu)
+    sums = sums.cpu().numpy().reshape(-1, plan.nk, plan.nmu)
+    psums = psums.cpu().numpy()
+    spectra = {}
+    for p, (i, j) in enumerate(field_pairs(len(WANT))):
+        spectra[f'{WANT[i]}_{WANT[j]}'] = _spectrum(plan, dk, sums[p], psums[p], LBOX, POLES, True)
+    return spectra, ffts, scale, W, plan, pole_w
+
+
+def check_spectra(tag, cl, ref, tol):
+    """compute_power's columns against the plain rebuild: mode counts equal,
+    P within tol |P| (autos) or tol sqrt(P_ii P_jj) (crosses), each pole l
+    within tol (2l+1) sqrt(P0_ii P0_jj). Returns the worst |d|/scale."""
+    worst = 0.0
+    for key, P in ref.items():
+        t1, t2 = key.split('_')
+        require(np.array_equal(cl[key + '_modes'], P['N_mode']), f'{tag} {key} mode counts')
+        got = cl[key]
+        require(np.isfinite(got).all() and np.isfinite(cl[key + '_ell']).all(), f'{tag} {key}')
+        auto = [np.abs(ref[f'{t}_{t}']['power']).astype(np.float64) for t in (t1, t2)]
+        scale = np.sqrt(auto[0] * auto[1])
+        rel = float(np.max(np.abs(got - P['power']) / np.maximum(scale, 1e-300)))
+        m0 = [np.abs(ref[f'{t}_{t}']['binned_poles'][0]).astype(np.float64) for t in (t1, t2)]
+        for ip, ell in enumerate(POLES):
+            s_l = (2 * ell + 1) * np.sqrt(m0[0] * m0[1])
+            d = np.abs(cl[key + '_ell'][:, ip] - P['binned_poles'][ip])
+            rel = max(rel, float(np.max(d / np.maximum(s_l, 1e-300))))
+        worst = max(worst, rel)
+        require(rel <= tol, f'{tag} {key} differs from the plain rebuild by {rel:.3e} (> {tol})')
+    return worst
+
+
+def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
+    """K3 (pole form) and K1 (`kind`) at the call's shapes against their
+    plain versions: (k3 (ms, plain_ms, max|d|), k1 (ms, plain_ms, max|d|))."""
+    nbins, nmu = plan.nk * plan.nmu, plan.nmu
+    args = (ffts, plan.seg, W, scale, nbins, pole_w, nmu)
+    k3_ms = event_ms(lambda: bin_pair_modes(*args))
+    p3_ms = event_ms(lambda: bin_pair_modes_plain(*args))
+    npairs = len(ffts) * (len(ffts) + 1) // 2
+    got = torch.cat([a.reshape(npairs, -1) for a in bin_pair_modes(*args)], 1)
+    ref = torch.cat([a.reshape(npairs, -1) for a in bin_pair_modes_plain(*args)], 1)
+    k3_err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / ref.abs().amax(1, keepdim=True)).max())
+    yb = default_yblock(nmesh)
+    dev = plan.seg.device
+    staged = []
+    for tr in WANT:
+        c = cols[tr]
+        w = torch.ones_like(c[0])
+        (x, y, z, ws), starts = stage_grouped2d(c + [w], nmesh, LBOX, yb, 0.0, kind=kind)
+        staged.append((x, y, z, ws, starts, c, w))
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    grid_k = torch.zeros((nmesh,) * 3, device=dev)
+    grid_p = torch.zeros_like(grid_k)
+
+    def k1():
+        grid_k.zero_()
+        for x, y, z, ws, starts, _, _ in staged:
+            tsc_deposit_cells(grid_k, x, y, z, ws, starts, nmesh, yb, LBOX, 0.0, err=err, kind=kind)
+
+    def p1():
+        grid_p.zero_()
+        for *_, c, w in staged:
+            paint_3d_plain(grid_p, *c, w, nmesh, LBOX, 0.0, kind)
+
+    k1_ms, p1_ms = event_ms(k1), event_ms(p1)
+    check_deposit_err(err)
+    k1_err = float((grid_k - grid_p).abs().max())
+    gmax = float(grid_p.abs().max())
+    print(f'phase 7 {tag}: K3 poles nmu={nmu} {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms (max|d| '
+          f'{k3_err:.3e}, {rel:.3e} of its row); K1 {kind} yb={yb} {k1_ms:.4f} ms vs plain '
+          f'{p1_ms:.4f} ms (max|d| {k1_err:.3e} of max|grid| {gmax:.4f})')
+    require(rel <= 1e-5, f'K3 poles nmu={nmu} disagrees with its plain version ({rel:.3e})')
+    require(k1_err <= 1e-5 * gmax, f'K1 {kind} disagrees with its plain version')
+    return (k3_ms, p3_ms, k3_err), (k1_ms, p1_ms, k1_err)
+
+
+def phase_two_step(hod, n_gal5, cl5):
+    """Phase 7: run_hod -> compute_power on the phase-5 object (same
+    randoms). Returns ({path: launches}, {form: (ms, plain_ms, max_abs_err)})."""
+    dev = hod.device
+    paths, timing = {}, {}
+
+    # (a) run_hod
+    reset_launches()
+    mock, t_cold = sync_seconds(lambda: hod.run_hod(want_rsd=True))
+    best = float('inf')
+    for _ in range(3):
+        mock = None
+        mock, dt = sync_seconds(lambda: hod.run_hod(want_rsd=True))
+        best = min(best, dt)
+    paths['AbacusHOD.run_hod'] = read_launches()
+    counts = {tr: len(mock[tr]['x']) for tr in WANT}
+    print(f'phase 7 (a) run_hod: cold {t_cold:.3f} s, best of 3 {best:.3f} s host to host, '
+          f'galaxies {counts}, centrals {({tr: mock[tr]["Ncent"] for tr in WANT})}')
+    for tr in WANT:
+        td = mock[tr]
+        require(counts[tr] == n_gal5[tr], f'{tr}: run_hod {counts[tr]} != fused n_gal {n_gal5[tr]}')
+        require(td['id'].dtype == np.int64 and 0 < td['Ncent'] <= counts[tr], f'{tr} catalog')
+        for k in ('x', 'y', 'z', 'vx', 'vy', 'vz', 'mass'):
+            require(len(td[k]) == counts[tr] and np.isfinite(td[k]).all(), f'{tr} {k}')
+        require(np.abs(td['z']).max() <= LBOX / 2, f'{tr} z outside the box')
+    cols = mock_columns(mock, dev)
+
+    # (b) compute_power at the docs/hod.md settings, 550^3
+    def docs_call():
+        return hod.compute_power(mock, DOCS_NBINS_K, 1, DOCS_KMAX, False, poles=POLES,
+                                 num_cells=DOCS_NMESH)
+
+    builds = get_mode_bin_plan.builds
+    reset_launches()
+    cl_b, t_cold = sync_seconds(docs_call)
+    plan_builds = get_mode_bin_plan.builds - builds
+    best = float('inf')
+    for _ in range(3):
+        best = min(best, sync_seconds(docs_call)[1])
+    launches = read_launches()
+    paths['AbacusHOD.compute_power (docs/hod.md settings)'] = launches
+    print(f'phase 7 (b) compute_power nmesh {DOCS_NMESH}, {DOCS_NBINS_K} k-bins to {DOCS_KMAX}, '
+          f'poles {POLES}: cold {t_cold:.3f} s ({plan_builds} plan build), warm best of 3 '
+          f'{best:.3f} s, launches {launches}, K1 error word {int(hod.deposit_err.item())}')
+    require(plan_builds == 1, f'{plan_builds} plan builds in the cold call')
+    require(launches['tsc_deposit_cells[tsc]'] == 3 * 4, f'K1 launches {launches}')
+    require(launches['bin_pair_modes[poles nmu=1]'] == 4, f'K3 launches {launches}')
+    require(int(hod.deposit_err.item()) == 0, 'K1 error word')
+    ref, ffts, scale, W, plan, pole_w = plain_power(
+        cols, DOCS_NMESH, DOCS_NBINS_K, 1, DOCS_KMAX, 'TSC', False, False)
+    worst = check_spectra('(b)', cl_b, ref, 1e-4)
+    print(f'phase 7 (b) plain rebuild agrees: worst |d|/scale {worst:.3e} (<= 1e-4)')
+    timing['bin_pair_modes[poles nmu=1]'], k1_550 = time_kernels(
+        '(b)', ffts, scale, W, plan, pole_w, cols, DOCS_NMESH, 'tsc')
+    del ffts
+    print(f'phase 7 (b) K1 tsc at 550 (three tracers): {k1_550[0]:.4f} ms '
+          f'vs plain {k1_550[1]:.4f} ms')
+
+    # the device plan build against the numpy host build, at 550
+    ke2 = ((get_k_mu_edges(LBOX, DOCS_KMAX, DOCS_NBINS_K, 1, False)[0]
+            / (2 * np.pi / LBOX)) ** 2).astype(np.float32)
+    me2 = np.array([0.0, 1.0], np.float32)
+    def build():
+        return mode_bin_plan_device(DOCS_NMESH, ke2, me2, POLES, dev)
+
+    plan_dev, t_dev = sync_seconds(build)
+    t_dev = min(t_dev, sync_seconds(build)[1])
+    t0 = time.perf_counter()
+    seg_np, counts_np = mode_bin_plan(DOCS_NMESH, ke2, me2)
+    t_host = time.perf_counter() - t0
+    same = (np.array_equal(plan_dev[0].cpu().numpy(), seg_np)
+            and np.array_equal(plan_dev[1].cpu().numpy(), counts_np))
+    print(f'phase 7 (b) plan build at {DOCS_NMESH}^3 ({seg_np.size} modes, poles {POLES}): device '
+          f'{t_dev:.4f} s, numpy host build (seg, counts) {t_host:.3f} s, bit-equal {same}')
+    require(same, 'the device plan differs from the numpy build')
+    timing['mode_bin_plan_device'] = (t_dev * 1e3, t_host * 1e3, 0.0)
+    del plan_dev, seg_np, counts_np
+
+    # (c) nmesh 256, compensated, against phase 5's fused spectra
+    reset_launches()
+    kmax = np.pi * NMESH / LBOX
+    cl_c, t_c = sync_seconds(lambda: hod.compute_power(
+        mock, NBINS_K, 1, kmax, False, num_cells=NMESH, compensated=True))
+    launches = read_launches()
+    paths['AbacusHOD.compute_power (nmesh 256, compensated)'] = launches
+    require(launches['tsc_deposit_cells[tsc]'] == 3, f'K1 launches {launches}')
+    require(launches['bin_pair_modes[no poles]'] == 1, f'K3 launches {launches}')
+    worst = 0.0
+    for i, t1 in enumerate(WANT):
+        for t2 in WANT[i:]:
+            key = f'{t1}_{t2}'
+            good = cl_c[key + '_modes'] > 0
+            require(np.array_equal(cl_c[key + '_modes'], cl5[key + '_modes']), f'(c) {key} modes')
+            rel = np.abs(cl5[key][good] - cl_c[key][good]) / np.abs(cl_c[key][good])
+            worst = max(worst, float(rel.max()))
+    print(f'phase 7 (c) compute_power nmesh {NMESH} compensated {t_c:.3f} s vs phase 5 '
+          f'run_hod_pk_fused: worst rel {worst:.3e} (<= 2e-3), launches {launches}')
+    require(worst <= 2e-3, f'(c) the two routes differ by {worst:.3e}')
+
+    # (d) TSC and CIC, interlaced, compensated, 4 mu bins, poles
+    for paste in ('TSC', 'CIC'):
+        kind = paste.lower()
+        reset_launches()
+        cl_d, t_d = sync_seconds(lambda: hod.compute_power(
+            mock, NBINS_K, 4, kmax, False, poles=POLES, paste=paste, num_cells=NMESH,
+            compensated=True, interlaced=True))
+        launches = read_launches()
+        paths[f'AbacusHOD.compute_power ({paste}, interlaced, 4 mu bins)'] = launches
+        err_word = int(hod.deposit_err.item())
+        require(launches[f'tsc_deposit_cells[{kind}]'] == 6, f'K1 launches {launches}')
+        require(launches['bin_pair_modes[poles nmu=4]'] == 1, f'K3 launches {launches}')
+        require(err_word == 0, f'K1 error word {err_word}')
+        ref, ffts, scale, W, plan, pole_w = plain_power(cols, NMESH, NBINS_K, 4, kmax, paste,
+                                                        True, True)
+        worst = check_spectra(f'(d) {paste}', cl_d, ref, 1e-4)
+        inv = 0.0
+        for tr in WANT:
+            key = f'{tr}_{tr}'
+            P, N = cl_d[key], cl_d[key + '_modes']
+            ok = N.sum(axis=1) > 0
+            band = (P * N).sum(axis=1)[ok] / N.sum(axis=1)[ok]
+            inv = max(inv, float(np.max(np.abs(cl_d[key + '_ell'][ok, 0] - band) / np.abs(band))))
+        print(f'phase 7 (d) {paste}: {t_d:.3f} s a call, K1 error word {err_word}, worst '
+              f'|d|/scale vs plain {worst:.3e}, monopole vs band mean {inv:.3e} (<= 1e-5), '
+              f'launches {launches}')
+        require(inv <= 1e-5, f'(d) {paste} monopole != band mean ({inv:.3e})')
+        k3, k1 = time_kernels(f'(d) {paste}', ffts, scale, W, plan, pole_w, cols, NMESH, kind)
+        timing['bin_pair_modes[poles nmu=4]'] = k3
+        if kind == 'cic':
+            timing['tsc_deposit_cells[cic]'] = k1
+        del ffts
+
+    # (e) the cold run_hod_pk_fused at nmesh 512: its plan on the device, once
+    del mock, cols
+    builds = make_bin_plan_arrays.builds
+    reset_launches()
+    _, t_cold = sync_seconds(lambda: hod.run_hod_pk_fused(nmesh=COLD_NMESH))
+    b1 = make_bin_plan_arrays.builds - builds
+    _, t_warm = sync_seconds(lambda: hod.run_hod_pk_fused(nmesh=COLD_NMESH))
+    b2 = make_bin_plan_arrays.builds - builds - b1
+    paths['AbacusHOD.run_hod_pk_fused (nmesh 512, cold)'] = read_launches()
+    seg512, _ = make_bin_plan_arrays(COLD_NMESH, LBOX, COLD_NMESH // 2, dev)
+    ke2 = ((get_k_mu_edges(LBOX, np.pi * COLD_NMESH / LBOX, COLD_NMESH // 2, 1, False)[0]
+            / (2 * np.pi / LBOX)) ** 2).astype(np.float32)
+    _, t_plan = sync_seconds(lambda: mode_bin_plan_device(COLD_NMESH, ke2, me2, (), dev))
+    t0 = time.perf_counter()
+    mode_bin_plan(COLD_NMESH, ke2, me2)
+    t_host = time.perf_counter() - t0
+    print(f'phase 7 (e) run_hod_pk_fused nmesh {COLD_NMESH}: cold {t_cold:.3f} s (restage + '
+          f'{b1} plan build on {seg512.device}), second call {t_warm:.3f} s ({b2} builds); plan '
+          f'build alone on the device {t_plan:.4f} s, numpy host build {t_host:.3f} s')
+    require(b1 == 1 and b2 == 0 and seg512.device == dev, 'plan builds at 512')
+    return paths, timing
 
 
 def kernel_line(paths, timing):
-    """The kernels JSON: per kernel its launches on each main path (summed
-    in `launches`) and its time against its plain version."""
+    """The kernels JSON: per kernel and form its launches on each main path
+    (summed in `launches`) and its time against its plain version."""
     out = []
-    for name, (_, source, replaces) in KERNELS.items():
-        by_path = {path: launches[name] for path, launches in paths.items()}
-        ms, plain_ms, err = timing[name]
+    for form, (name, key, replaces) in FORMS.items():
+        col = name if key is None else form
+        by_path = {path: launches[col] for path, launches in paths.items()}
+        ms, plain_ms, err = timing[form]
         out.append({
-            'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'name': form, 'route': 'cuda', 'source': KERNELS[name][1], 'replaces': replaces,
             'launches': sum(by_path.values()), 'launches_by_path': by_path,
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
         })
@@ -498,6 +822,7 @@ def main():
         return 1
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
     try:
         phase_build()
         seg, _ = make_bin_plan_arrays(NMESH, LBOX, NBINS_K, dev)
@@ -507,17 +832,23 @@ def main():
         phase_k2(grid, seg, W)
         del grid
         step_launches, timing = phase_step(dev, seg, W)
-        (box_launches, k3_box), (lc_launches, k3_lc) = phase_fused(dev, seg, W)
-        timing['bin_pair_modes'] = k3_box
-        print(f'K3 at the light-cone call shapes: {k3_lc[0]:.4f} ms vs plain {k3_lc[1]:.4f} ms')
+        timing['tsc_deposit_cells[tsc]'] = timing.pop('tsc_deposit_cells')
+        box, lc, hod = phase_fused(dev, seg, W)
+        timing['bin_pair_modes[no poles]'] = box[1]
+        print(f'K3 at the light-cone call shapes: {lc[1][0]:.4f} ms vs plain {lc[1][1]:.4f} ms')
+        del seg, W
+        paths7, timing7 = phase_two_step(hod, box[3], box[2])
+        timing.update(timing7)
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
-            'AbacusHOD.run_hod_pk_fused': box_launches,
-            'AbacusHOD.run_hod_pk_fused (light cone)': lc_launches,
+            'AbacusHOD.run_hod_pk_fused': box[0],
+            'AbacusHOD.run_hod_pk_fused (light cone)': lc[0],
+            **paths7,
         }, timing)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
+    print(f'chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s')
     print(json.dumps(kernels))
     print(json.dumps({
         'ok': True,

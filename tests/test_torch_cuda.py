@@ -31,7 +31,8 @@ from abacusutils_tpu_torch.ops.power import (
     field_pairs,
     get_W_compensated,
 )
-from abacusutils_tpu_torch.testing import edge_points
+from abacusutils_tpu_torch.ops import power as tpow
+from abacusutils_tpu_torch.testing import edge_points, edge_points_centred
 from torch_helpers import (  # noqa: F401
     TRACERS,
     catalog_tensors,
@@ -237,3 +238,127 @@ def test_abacus_hod_on_card_matches_cpu(cuda_device, lc):
         else:
             scale = np.sqrt(np.abs(cc[f'{t1}_{t1}'] * cc[f'{t2}_{t2}']))
             assert (np.abs(g - r) <= 1e-4 * scale).all(), (t1, t2)
+
+
+def _pole_case(device, n1d, nmu, poles, nf, seed):
+    lbox, nk = 700.0, n1d // 4
+    ke, me = tpow.get_k_mu_edges(lbox, np.pi * n1d / lbox, nk, nmu, False)
+    dk = 2 * np.pi / lbox
+    plan = tpow.get_mode_bin_plan(
+        n1d, ((ke / dk) ** 2).astype(np.float32), (me**2).astype(np.float32), poles, device
+    )
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n1d,) * 3).astype(np.float32)
+    dks = [
+        torch.fft.rfftn(t(base + 0.5 * rng.normal(size=base.shape).astype(np.float32)).to(device))
+        for _ in range(nf)
+    ]
+    W = t(get_W_compensated(lbox, n1d, 'TSC', False).astype(np.float32)).to(device)
+    pole_w = {p: plan.pole_w[p] for p in poles if p}
+    return plan, dks, W, pole_w
+
+
+@pytest.mark.parametrize('nmu', [1, 4])
+@pytest.mark.parametrize('nfields', [1, 2, 3])
+def test_pair_binning_pole_rows_match_plain(cuda_device, nfields, nmu):
+    """K3 with pole rows, poles (0, 1, 2, 4), against its plain version (which
+    reads the plan's pole weights where the kernel evaluates them in
+    registers): the (k, mu) rows at rtol 1e-5 (autos) or 1e-5 sqrt(P_ii
+    P_jj) (crosses), each pole row within 1e-5 (2l+1) sqrt(A_i A_j), A the
+    auto sums of the k bin."""
+    n1d = 48
+    plan, dks, W, pole_w = _pole_case(cuda_device, n1d, nmu, (0, 1, 2, 4), nfields, nfields + nmu)
+    nbins = plan.nk * nmu
+    before = bin_pair_modes.launches
+    got, gotp = bin_pair_modes(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, nmu)
+    assert bin_pair_modes.launches == before + 1
+    ref, refp = bin_pair_modes_plain(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, nmu)
+    got, gotp, ref, refp = (a.cpu().numpy() for a in (got, gotp, ref, refp))
+    pairs = field_pairs(nfields)
+    auto = {i: ref[p] for p, (i, j) in enumerate(pairs) if i == j}
+    for p, (i, j) in enumerate(pairs):
+        scale = np.sqrt(auto[i] * auto[j])
+        assert (np.abs(got[p] - ref[p]) <= 1e-5 * scale).all(), (i, j)
+        kscale = np.sqrt(auto[i].reshape(-1, nmu).sum(1) * auto[j].reshape(-1, nmu).sum(1))
+        for q, ell in enumerate(pole_w):
+            err = np.abs(gotp[p, q] - refp[p, q])
+            assert (err <= 1e-5 * (2 * ell + 1) * kscale).all(), (i, j, ell)
+
+
+def test_pair_binning_no_pole_form_unchanged(cuda_device):
+    """The no-pole K3 (the form run_hod_pk_fused launches) gives what the
+    pole form gives in its (k, mu) rows, and its plain version's sums at
+    the tolerance it always had."""
+    n1d = 64
+    plan, dks, W, pole_w = _pole_case(cuda_device, n1d, 1, (0, 2, 4), 3, 9)
+    nbins = plan.nk
+    plain = bin_pair_modes(dks, plan.seg, W, 1.0 / n1d**3, nbins)
+    with_poles, _ = bin_pair_modes(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, 1)
+    ref = bin_pair_modes_plain(dks, plan.seg, W, 1.0 / n1d**3, nbins).cpu().numpy()
+    plain, with_poles = plain.cpu().numpy(), with_poles.cpu().numpy()
+    pairs = field_pairs(3)
+    auto = {i: ref[p] for p, (i, j) in enumerate(pairs) if i == j}
+    for p, (i, j) in enumerate(pairs):
+        scale = np.sqrt(auto[i] * auto[j])
+        assert (np.abs(plain[p] - ref[p]) <= 1e-5 * scale).all(), (i, j)
+        assert (np.abs(plain[p] - with_poles[p]) <= 1e-6 * scale).all(), (i, j)
+
+
+@pytest.mark.parametrize('layout', ['strided', 'mixed'])
+def test_pair_binning_reads_field_strides(cuda_device, layout):
+    """K3 reads its fields through their strides: fields that all share a
+    non-C layout (read in place) and fields of mixed layouts (copied) give
+    the sums of the C-contiguous fields."""
+    n1d = 32
+    plan, dks, W, pole_w = _pole_case(cuda_device, n1d, 4, (0, 2), 3, 5)
+    dks = [d.contiguous() for d in dks]
+    # the same values with the x axis fastest in memory
+    strided = [d.permute(2, 1, 0).contiguous().permute(2, 1, 0) for d in dks]
+    if layout == 'mixed':
+        strided[0] = dks[0]
+    assert not strided[1].is_contiguous()
+    args = (plan.seg, W, 1.0 / n1d**3, plan.nk * 4, pole_w, 4)
+    ref, refp = bin_pair_modes_plain(dks, *args)
+    got, gotp = bin_pair_modes(strided, *args)
+    for a, b in ((got, ref), (gotp, refp)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert (np.abs(a - b) <= 1e-5 * np.abs(b).max(axis=-1, keepdims=True)).all()
+
+
+@pytest.mark.parametrize('offset', [0.0, 0.5 * 77.0 / 128])
+def test_cic_deposit_kernel_matches_plain(cuda_device, offset):
+    """K1 with the CIC kind against paint_3d_plain(kind='cic') on box-centred
+    points placed on cell and y-block edges at negative and positive
+    coordinates and past the box edge, with error word 0."""
+    nmesh, yb, box = 128, 16, 77.0
+    rng = np.random.default_rng(11)
+    n = 300_000
+    pos = edge_points_centred(n, nmesh, yb, box, rng)
+    w = rng.random(n).astype(np.float32)
+    w[::7] = 0.0
+    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
+    wt = t(w).to(cuda_device)
+    (x, y, z, ws), starts = stage_grouped2d(cols + [wt], nmesh, box, yb, offset, kind='cic')
+    err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    grid = torch.zeros((nmesh,) * 3, device=cuda_device)
+    tsc_deposit_cells(grid, x, y, z, ws, starts, nmesh, yb, box, offset, err=err, kind='cic')
+    torch.cuda.synchronize()
+    assert int(err.item()) == 0
+    ref = paint_3d_plain(torch.zeros_like(grid), *cols, wt, nmesh, box, offset, 'cic')
+    scale = float(ref.abs().max())
+    npt.assert_allclose(grid.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
+
+
+def test_device_plan_at_550_matches_numpy(cuda_device):
+    """The plan built on the card at compute_power's default mesh (550^3,
+    83.5 million modes, 128 k-bins to k = 0.5 h/Mpc in a 2000 Mpc/h box)
+    is bit-equal to the numpy host build: seg and counts."""
+    n1d, lbox = 550, 2000.0
+    ke, me = tpow.get_k_mu_edges(lbox, 0.5, 128, 1, False)
+    dk = 2 * np.pi / lbox
+    ke2, me2 = ((ke / dk) ** 2).astype(np.float32), (me**2).astype(np.float32)
+    seg, counts, ksum, pole_w = tpow.mode_bin_plan_device(n1d, ke2, me2, (0, 2, 4), cuda_device)
+    assert seg.device.type == 'cuda' and set(pole_w) == {2, 4}
+    seg_np, counts_np = tpow.mode_bin_plan(n1d, ke2, me2)
+    npt.assert_array_equal(seg.cpu().numpy(), seg_np)
+    npt.assert_array_equal(counts.cpu().numpy(), counts_np)

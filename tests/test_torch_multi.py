@@ -469,20 +469,24 @@ def test_pair_binning_wrapper_never_falls_back(monkeypatch):
 
 
 def test_bin_plan_cache_builds_once(monkeypatch):
-    """A second call with the same arguments performs no host build and no
-    upload: the same tensor comes back. At most four plans are kept."""
-    monkeypatch.setattr(tpipe, '_BIN_PLANS', {})
+    """A second call with the same arguments builds no plan (the device
+    build, ops.power.mode_bin_plan_device, runs once): the same seg tensor
+    and read-only counts come back. At most four plans are kept."""
+    from abacusutils_tpu_torch.ops import power as tpow
+
+    monkeypatch.setattr(tpow, '_BIN_PLANS', {})
     calls = []
-    real = tpipe.mode_bin_plan
-    monkeypatch.setattr(tpipe, 'mode_bin_plan', lambda *a: calls.append(a) or real(*a))
+    real = tpow.mode_bin_plan_device
+    monkeypatch.setattr(tpow, 'mode_bin_plan_device', lambda *a: calls.append(a) or real(*a))
     before = tpipe.make_bin_plan_arrays.builds
     seg, counts = tpipe.make_bin_plan_arrays(24, LBOX, 12, 'cpu')
     seg2, counts2 = tpipe.make_bin_plan_arrays(24, LBOX, 12, 'cpu')
-    assert seg2 is seg and counts2 is counts and not counts.flags.writeable
+    assert seg2 is seg and not counts.flags.writeable and not counts2.flags.writeable
+    npt.assert_array_equal(counts2, counts)
     assert len(calls) == 1 and tpipe.make_bin_plan_arrays.builds == before + 1
     for n in (20, 22, 26, 28, 30):
         tpipe.make_bin_plan_arrays(n, LBOX, 10, 'cpu')
-    assert len(tpipe._BIN_PLANS) <= 4 and len(calls) == 6
+    assert len(tpow._BIN_PLANS) <= 4 and len(calls) == 6
 
 
 def test_default_yblock_fits_shared_memory():
