@@ -36,8 +36,12 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
-    # grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, kind, err, stream
-    'tsc_deposit_cells': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P),
+    # grid, x, y, z, w, work, nitems, nmesh, brick (x, y, z), margin (x, y, z),
+    # box, offset, kind, overflow, stream
+    'tsc_deposit_bricks': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                           _P, _P),
+    # kind, nmesh, tile bytes, out blocks
+    'tsc_deposit_blocks_per_sm': (_I, _I, _I, _P),
     # delta_k, seg, W, scale, n1d, nbins, out, stream
     'mode_bin_power': (_P, _P, _P, _F, _I, _I, _P, _P),
     # fields (array of pointers), nfields, the fields' strides (x, y, z, in
@@ -68,10 +72,13 @@ def _nvcc():
 
 def build():
     """Compile csrc/*.cu into build/torch_kernels/ unless a library for the
-    current sources exists. Returns (path, seconds spent, compiler log)."""
+    current sources exists. Returns (path, seconds spent, compiler log); the
+    log (ptxas's registers and spills of every kernel) is kept beside the
+    library and returned with it later too."""
     out = BUILD_DIR / f'libabacus_torch_{source_hash()}.so'
+    log_path = out.with_suffix('.log')
     if out.exists():
-        return out, 0.0, ''
+        return out, 0.0, log_path.read_text() if log_path.exists() else ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     stem = f'{out.with_suffix("")}.{os.getpid()}'
@@ -105,6 +112,7 @@ def build():
             raise RuntimeError(
                 f'nvcc link failed ({res.returncode}):\n{" ".join(cmd)}\n{res.stdout}{res.stderr}'
             )
+        log_path.write_text(''.join(text))
         os.replace(tmp, out)
     finally:
         for f in objs + [f'{obj}.log' for obj in objs]:

@@ -7,12 +7,26 @@ tensors the port's step takes, so both packages can compute on identical
 state. :func:`staged_state_from_numpy` builds the port's ``AbacusHOD`` on
 the staged state of a JAX ``AbacusHOD``. Arrays go through
 ``numpy.asarray``, which accepts JAX arrays without importing JAX.
+:func:`resolve_device` gives the device an entry point runs on when its
+caller names none: the card.
 """
 
 import numpy as np
 import torch
 
-__all__ = ['params_to_tensors', 'inputs_from_numpy', 'staged_state_from_numpy']
+__all__ = ['resolve_device', 'params_to_tensors', 'inputs_from_numpy', 'staged_state_from_numpy']
+
+
+def resolve_device(device='cuda'):
+    """`device` as a torch.device, the card when None. A CUDA device on a
+    machine without one raises: the port's entry points never fall back to
+    the CPU, which runs only when the caller asks for it."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'no CUDA device for {device}: pass device="cpu" to run the plain PyTorch versions'
+        )
+    return device
 
 
 def params_to_tensors(params, device):

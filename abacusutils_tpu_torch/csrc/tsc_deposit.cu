@@ -1,30 +1,46 @@
-// K1: TSC or CIC deposit of cell-sorted weighted points into a periodic nmesh^3 grid.
+// K1: TSC or CIC deposit of brick-sorted weighted points into a periodic nmesh^3 grid.
 //
 // Replaces the TPU deposit abacusutils_tpu/ops/grid_pallas.py:_deposit_kernel
-// (and its XLA twin ops/grid.py:paint_grouped_yb_multi + fold_ypad). On the
-// TPU a cell's deposit was a one-hot matrix product on the MXU, fed from a
-// padded (ncell, K) layout. Here the points stay in the cell-sorted order of
-// the staging sort, and each thread block owns one (x-cell, y-block) cell:
+// (and its XLA twins ops/grid.py:paint_grouped_yb_multi + fold_ypad and, for
+// CIC, ops/grid.py:_paint_3d_jit). On the TPU a cell's deposit was a one-hot
+// matrix product on the MXU, fed from a padded (ncell, K) layout. Here the
+// points stay in the order of one stable sort by the 3-D brick of their cell
+// (ops/grid.py:stage_bricks), and each thread block takes one work item, a
+// brick or a chunk of at most max_points of its points:
 //
-//   1. zero a shared-memory tile holding the cell's whole TSC footprint,
-//      3 x-planes x (yb + 2) y-rows x nmesh z-columns (104,448 B at
-//      nmesh=256, yb=32);
-//   2. threads stride over the cell's points [starts[c], starts[c+1]) and
-//      add the 27 stencil weights with shared-memory atomics;
-//   3. flush the tile's non-zero entries with global atomics, wrapping x and
-//      y periodically, so no ghost-row fold pass is needed.
+//   1. zero a shared-memory tile of the brick's bx x by x bz cells, one ghost
+//      layer on each side and a margin of m cells per axis for points that
+//      moved after staging: (bx+2+2mx) x (by+2+2my) x (bz+2+2mz) f32, 23,328 B
+//      for a 16^3 brick without margin, 28,512 B with mz = 2;
+//   2. each thread takes a contiguous run of the item's points and adds the
+//      27 stencil weights with shared-memory atomics; a point whose stencil
+//      leaves the tile (it moved more than the margin, or was staged with
+//      other arithmetic) adds its 27 weights straight into the grid with
+//      global atomics and is counted in *overflow, so any displacement is
+//      right and a large one only costs speed;
+//   3. flush the tile's non-zero entries with V-wide global atomics (float4
+//      where 4 divides nmesh, float2 where 2 does, else float) on the aligned
+//      groups of grid cells each tile row overlaps, wrapping every axis
+//      periodically, so no ghost fold pass is needed.
 //
-// What bounds it on the H100: the stencil adds. 27 shared atomics per kept
-// point are the inner loop; points of one halo land in the same few z
-// columns, so atomics on one address serialise. The design keeps all of
-// that traffic in shared memory (one device-memory read of x, y, z, w per
-// point, one global atomic per touched grid cell per block) and skips
-// points of zero weight, which are most of the catalog in the HOD step.
+// What bounds it on the H100: the bytes are few (the weight of every point,
+// x, y, z of the kept ones, each grid written once: 0.14 ms at 3.35 TB/s for
+// the bench step's 6e7 points), so the atomics are the limit: 27 shared adds
+// per kept point, which sm_90a compiles to a compare-and-swap loop
+// (ATOMS.CAST.SPIN: there is no native shared f32 add), and one global add
+// (REDG.E.ADD.F32) per flushed group. The design keeps the global flush near
+// 1.4 x the grid (the ghost layers; a tile of a whole z row, as a
+// (x-cell, y-block) tile would be, flushes 3-6 x the grid and at nmesh = 550
+// allows only two-row blocks); sizes the tile for four or more blocks an
+// SM; takes any nmesh (the last brick of an axis is ragged); cuts heavy
+// bricks into several items, so one dense region does not leave a block
+// running alone at the end; and spreads the lanes of a warp over points far
+// apart in the sorted order, so satellites of one halo, adjacent in a
+// catalog ordered by host, do not contend for one address in the CAS loop.
 //
-// The cell index must agree bit for bit with the staging key
-// (ops/grid.py:cell_key_2d): every step of the index arithmetic uses the
-// _rn intrinsics so nvcc cannot contract it into an FMA, and a point whose
-// y lands outside the block is counted in *err instead of being written.
+// The cell index uses the _rn intrinsics at every step so nvcc cannot contract
+// it into an FMA: it is then the staging key's cell bit for bit, and points
+// leave their tile only when they moved.
 //
 // KIND (a template parameter) is 0 for TSC and 1 for CIC. CIC uses the same
 // 3-point stencil and tile (weights max(d,0), 1-|d|, max(-d,0), as
@@ -36,7 +52,20 @@
 
 namespace {
 
-__device__ __forceinline__ int floor_mod(int i, int n) { return ((i % n) + n) % n; }
+constexpr int THREADS = 256;
+
+// the brick layout of a stage (ops/grid.py:BrickPlan)
+struct Bricks {
+    int nmesh;
+    int bx, by, bz;  // brick interior, cells
+    int nby, nbz;    // bricks along y and z
+    int mx, my, mz;  // margins, cells
+};
+
+__device__ __forceinline__ int floor_mod(int i, int n) {
+    const int r = i % n;
+    return r < 0 ? r + n : r;
+}
 
 // One axis of the cloud, the f32 arithmetic of ops/grid.py:_axis_cloud (TSC:
 // single periodic wrap, then round half up; CIC: no wrap). Returns the
@@ -65,92 +94,175 @@ __device__ __forceinline__ int axis_cloud(float p, float box, float offset, floa
     return (int)i0;
 }
 
-template <int KIND>
-__global__ void tsc_deposit_cells_kernel(float* __restrict__ grid,
-                                         const float* __restrict__ x,
-                                         const float* __restrict__ y,
-                                         const float* __restrict__ z,
-                                         const float* __restrict__ w,
-                                         const int* __restrict__ starts, int nmesh,
-                                         int yb, float box, float offset,
-                                         int* __restrict__ err) {
-    extern __shared__ float tile[];  // [3][yb + 2][nmesh]
-    const int c = blockIdx.x;
-    const int begin = starts[c];
-    const int end = starts[c + 1];
-    if (begin == end) return;  // uniform across the block
+template <int KIND, int V>
+__global__ void __launch_bounds__(THREADS)
+tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
+                          const float* __restrict__ y, const float* __restrict__ z,
+                          const float* __restrict__ w, const int* __restrict__ work, Bricks g,
+                          float box, float offset, int* __restrict__ overflow) {
+    extern __shared__ float tile[];
+    const int brick = work[3 * blockIdx.x];
+    const int begin = work[3 * blockIdx.x + 1];
+    const int end = work[3 * blockIdx.x + 2];
+    if (begin >= end) return;  // uniform across the block
 
-    const int nyb = nmesh / yb;
-    const int cx = c / nyb;
-    const int y0 = (c % nyb) * yb;
-    const int yw = yb + 2;
-    const int tile_n = 3 * yw * nmesh;
-    for (int i = threadIdx.x; i < tile_n; i += blockDim.x) tile[i] = 0.f;
+    const int n = g.nmesh;
+    // the unreduced grid cell of tile entry 0 along each axis
+    const int ox = (brick / (g.nby * g.nbz)) * g.bx - 1 - g.mx;
+    const int oy = ((brick / g.nbz) % g.nby) * g.by - 1 - g.my;
+    const int oz = (brick % g.nbz) * g.bz - 1 - g.mz;
+    const int tx = g.bx + 2 + 2 * g.mx;
+    const int ty = g.by + 2 + 2 * g.my;
+    const int tz = g.bz + 2 + 2 * g.mz;
+    const int tile_n = tx * ty * tz;
+    for (int i = threadIdx.x; i < tile_n; i += THREADS) tile[i] = 0.f;
     __syncthreads();
 
-    const float inv_h = __fdiv_rn((float)nmesh, box);
-    for (int p = begin + threadIdx.x; p < end; p += blockDim.x) {
+    const float inv_h = __fdiv_rn((float)n, box);
+    int over = 0;
+    // each thread takes a contiguous run of the item's points, so the lanes
+    // of a warp work on points far apart in the sorted order
+    const int chunk = (end - begin + THREADS - 1) / THREADS;
+    const int p1 = min(begin + (threadIdx.x + 1) * chunk, end);
+    for (int p = begin + threadIdx.x * chunk; p < p1; ++p) {
         const float wp = w[p];
         if (wp == 0.f) continue;
         float wx[3], wy[3], wz[3];
-        axis_cloud<KIND>(x[p], box, offset, inv_h, wx);
+        const int ix = axis_cloud<KIND>(x[p], box, offset, inv_h, wx);
         const int iy = axis_cloud<KIND>(y[p], box, offset, inv_h, wy);
         const int iz = axis_cloud<KIND>(z[p], box, offset, inv_h, wz);
-        const int ly = floor_mod(iy, nmesh) - y0 + 1;  // tile row of the centre
-        if (ly < 1 || ly > yb) {
-            atomicAdd(err, 1);
-            continue;
-        }
-        const int izm = floor_mod(iz, nmesh);
-        const int zc[3] = {izm == 0 ? nmesh - 1 : izm - 1, izm,
-                           izm == nmesh - 1 ? 0 : izm + 1};
-        for (int a = 0; a < 3; ++a) {
-            for (int b = 0; b < 3; ++b) {
-                const float wab = __fmul_rn(__fmul_rn(wx[a], wy[b]), wp);
-                float* row = tile + (a * yw + ly + b - 1) * nmesh;
-                for (int k = 0; k < 3; ++k) atomicAdd(row + zc[k], __fmul_rn(wab, wz[k]));
+        // tile entry of the stencil's first cell: entry t holds grid cell
+        // (o + t) mod n, so any periodic image of the cell will do
+        const int lx = floor_mod(ix - 1 - ox, n);
+        const int ly = floor_mod(iy - 1 - oy, n);
+        const int lz = floor_mod(iz - 1 - oz, n);
+        if (lx + 2 < tx && ly + 2 < ty && lz + 2 < tz) {
+            float* t0 = tile + (lx * ty + ly) * tz + lz;
+            for (int a = 0; a < 3; ++a) {
+                for (int b = 0; b < 3; ++b) {
+                    const float wab = __fmul_rn(__fmul_rn(wx[a], wy[b]), wp);
+                    float* row = t0 + (a * ty + b) * tz;
+                    for (int k = 0; k < 3; ++k) atomicAdd(row + k, __fmul_rn(wab, wz[k]));
+                }
+            }
+        } else {
+            ++over;
+            int gz[3];
+            for (int k = 0; k < 3; ++k) gz[k] = floor_mod(iz + k - 1, n);
+            for (int a = 0; a < 3; ++a) {
+                const size_t gx = floor_mod(ix + a - 1, n);
+                for (int b = 0; b < 3; ++b) {
+                    const float wab = __fmul_rn(__fmul_rn(wx[a], wy[b]), wp);
+                    float* row = grid + (gx * n + floor_mod(iy + b - 1, n)) * n;
+                    for (int k = 0; k < 3; ++k) atomicAdd(row + gz[k], __fmul_rn(wab, wz[k]));
+                }
             }
         }
     }
+    over = __reduce_add_sync(0xffffffffu, over);
+    if ((threadIdx.x & 31) == 0 && over) atomicAdd(overflow, over);
     __syncthreads();
 
-    for (int i = threadIdx.x; i < tile_n; i += blockDim.x) {
-        const float v = tile[i];
-        if (v == 0.f) continue;
-        const int iz = i % nmesh;
-        const int j = (i / nmesh) % yw;
-        const int a = i / (nmesh * yw);
-        const int gx = floor_mod(cx + a - 1, nmesh);
-        const int gy = floor_mod(y0 + j - 1, nmesh);
-        atomicAdd(grid + ((size_t)gx * nmesh + gy) * nmesh + iz, v);
+    // flush: V-wide atomics (float4, float2 or float) on the aligned groups of
+    // V grid cells that each tile row overlaps; V divides nmesh, so a group
+    // never straddles the wrap and a row's start is V-aligned
+    const int q0 = oz >= 0 ? oz / V : -((V - 1 - oz) / V);  // floor(oz / V)
+    const int nq = (oz + tz - 1 >= 0 ? (oz + tz - 1) / V : -((V - oz - tz) / V)) - q0 + 1;
+    for (int i = threadIdx.x; i < tx * ty * nq; i += THREADS) {
+        const int r = i / nq;
+        const int g0 = (q0 + i % nq) * V;  // unreduced grid z of the group's first cell
+        const float* row = tile + r * tz;
+        float v[V];
+        bool any = false;
+        for (int c = 0; c < V; ++c) {
+            const int k = g0 + c - oz;
+            v[c] = (k >= 0 && k < tz) ? row[k] : 0.f;
+            any |= v[c] != 0.f;
+        }
+        if (!any) continue;
+        const size_t gx = floor_mod(ox + r / ty, n);
+        const size_t gy = floor_mod(oy + r % ty, n);
+        float* dst = grid + (gx * n + gy) * n + floor_mod(g0, n);
+        if constexpr (V == 4) {
+            atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+        } else if constexpr (V == 2) {
+            atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+        } else {
+            atomicAdd(dst, v[0]);
+        }
+    }
+}
+
+template <int KIND, int V>
+cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const float* w,
+                   const int* work, int nitems, const Bricks& g, float box, float offset,
+                   int* overflow, cudaStream_t stream) {
+    const size_t smem = sizeof(float) * (size_t)(g.bx + 2 + 2 * g.mx) * (g.by + 2 + 2 * g.my) *
+                        (g.bz + 2 + 2 * g.mz);
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    tsc_deposit_bricks_kernel<KIND, V>
+        <<<nitems, THREADS, smem, stream>>>(grid, x, y, z, w, work, g, box, offset, overflow);
+    return cudaGetLastError();
+}
+
+template <int KIND, int V>
+cudaError_t blocks_per_sm(int smem, int* blocks) {
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, tsc_deposit_bricks_kernel<KIND, V>, THREADS, smem);
+}
+
+// the widest flush group that divides nmesh
+int flush_width(int nmesh) { return nmesh % 4 == 0 ? 4 : nmesh % 2 == 0 ? 2 : 1; }
+
+template <int KIND>
+cudaError_t launch_kind(float* grid, const float* x, const float* y, const float* z,
+                        const float* w, const int* work, int nitems, const Bricks& g, float box,
+                        float offset, int* overflow, cudaStream_t s) {
+    switch (flush_width(g.nmesh)) {
+        case 4: return launch<KIND, 4>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
+        case 2: return launch<KIND, 2>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
+        default: return launch<KIND, 1>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
     }
 }
 
 template <int KIND>
-cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const float* w,
-                   const int* starts, int ncell, int nmesh, int yb, float box, float offset,
-                   int* err, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * 3 * (size_t)(yb + 2) * nmesh;
-    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_cells_kernel<KIND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    tsc_deposit_cells_kernel<KIND><<<ncell, 256, smem, stream>>>(grid, x, y, z, w, starts, nmesh,
-                                                                 yb, box, offset, err);
-    return cudaGetLastError();
+cudaError_t blocks_per_sm_kind(int nmesh, int smem, int* blocks) {
+    switch (flush_width(nmesh)) {
+        case 4: return blocks_per_sm<KIND, 4>(smem, blocks);
+        case 2: return blocks_per_sm<KIND, 2>(smem, blocks);
+        default: return blocks_per_sm<KIND, 1>(smem, blocks);
+    }
 }
 
 }  // namespace
 
-// ---- host entry ----
+// ---- host entries ----
 
-extern "C" int tsc_deposit_cells(float* grid, const float* x, const float* y, const float* z,
-                                 const float* w, const int* starts, int ncell, int nmesh,
-                                 int yb, float box, float offset, int kind, int* err,
-                                 void* stream) {
+// kind: 0 TSC, 1 CIC
+extern "C" int tsc_deposit_bricks(float* grid, const float* x, const float* y, const float* z,
+                                  const float* w, const int* work, int nitems, int nmesh, int bx,
+                                  int by, int bz, int mx, int my, int mz, float box, float offset,
+                                  int kind, int* overflow, void* stream) {
+    const Bricks g{nmesh, bx, by, bz, (nmesh + by - 1) / by, (nmesh + bz - 1) / bz, mx, my, mz};
     const cudaStream_t s = (cudaStream_t)stream;
     switch (kind) {
-        case 0: return (int)launch<0>(grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, err, s);
-        case 1: return (int)launch<1>(grid, x, y, z, w, starts, ncell, nmesh, yb, box, offset, err, s);
+        case 0: return (int)launch_kind<0>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
+        case 1: return (int)launch_kind<1>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Resident blocks an SM can hold for a tile of `smem` bytes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+extern "C" int tsc_deposit_blocks_per_sm(int kind, int nmesh, int smem, int* blocks) {
+    switch (kind) {
+        case 0: return (int)blocks_per_sm_kind<0>(nmesh, smem, blocks);
+        case 1: return (int)blocks_per_sm_kind<1>(nmesh, smem, blocks);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ...convert import params_to_tensors
-from ...ops.grid import _f32, check_deposit_err, default_yblock, stage_grouped2d
+from ...ops.grid import _f32
 from ...ops.power import (
     _binned_spectra,
     _field_fft,
@@ -33,6 +33,7 @@ from ...ops.power import (
     get_W_compensated,
 )
 from ..pipeline import (
+    RSD_MARGIN,
     group_inputs2d_linked_device,
     hod_pk_fused_multi,
     make_bin_plan_arrays,
@@ -90,15 +91,17 @@ class AbacusHOD:
         self.z_type = z_type
         self.lbox = float(self.params['Lbox'])
         self.z_mock = self.params['z']
-        self._fused_stage = None  # (key, box stage)
-        self._flat_stage_cache = None  # (key, flat catalogs: light cone and run_hod)
+        self._fused_stage = None  # (key, brick stage of the box or light-cone leg)
+        self._flat_stage_cache = None  # (key, flat catalogs of run_hod)
         hmass = _host(self.halo_data['hmass'])
         self.logMbins = np.linspace(np.log10(np.min(hmass)), np.log10(np.max(hmass)), 101)
         self.deltacbins = np.linspace(-0.5, 0.5, 101)
         self.fenvbins = np.linspace(-0.5, 0.5, 101)
         self.shearbins = np.linspace(-0.5, 0.5, 101)
-        # the K1 error word of the last call (0: every point in its cell)
-        self.deposit_err = torch.zeros(1, dtype=torch.int32, device=self.device)
+        # K1's overflow word of the last call: the galaxies whose stencil
+        # left their brick's tile (RSD moved them further than the margin),
+        # deposited straight into the grid
+        self.deposit_overflow = torch.zeros(1, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
     def _reseed_randoms(self, reseed):
@@ -134,10 +137,11 @@ class AbacusHOD:
         return {t: params_to_tensors(tp[t], self.device) for t in want}
 
     def _box_stage(self, nmesh, yb):
-        """(halo_g, part_g, starts_h, starts_p) of the box leg, cached by
-        (nmesh, yb, want_shear, want_ranks, device): the staged column set
-        depends on the flags, so toggling one restages."""
-        key = (int(nmesh), int(yb), bool(self.want_shear), bool(self.want_ranks), self.device)
+        """(halo_g, part_g, plan_h, plan_p) of the box leg, staged by the
+        bricks of the objects' cells before RSD (with a z margin) and cached
+        by (nmesh, yb, want_shear, want_ranks, device): the staged column
+        set depends on the flags, so toggling one restages."""
+        key = (int(nmesh), yb, bool(self.want_shear), bool(self.want_ranks), self.device)
         if self._fused_stage is not None and self._fused_stage[0] == key:
             return self._fused_stage[1]
         self._fused_stage = None  # free the old stage before building the new one
@@ -171,26 +175,50 @@ class AbacusHOD:
         self._fused_stage = (key, stage)
         return stage
 
-    def _flat_stage(self, shear):
-        """Flat device catalogs in catalog order (population.flat_catalogs),
-        for the light-cone leg and run_hod, cached by (shear, want_ranks,
-        device)."""
-        key = (bool(shear), bool(self.want_ranks), self.device)
+    def _lc_stage(self, nmesh, yb):
+        """(halo_g, part_g, plan_h, plan_p) of the light-cone leg: the flat
+        catalogs (population.flat_catalogs, without the catalog mass and id)
+        staged by the bricks of the objects' raw positions before RSD, with a
+        margin of RSD_MARGIN cells on every axis (the line of sight moves all
+        three coordinates); part_g['hidx'] is each particle's host in the
+        staged halo order. Cached with the box leg's stage, by (nmesh, yb,
+        want_shear, want_ranks, device)."""
+        key = ('lc', int(nmesh), yb, bool(self.want_shear), bool(self.want_ranks), self.device)
+        if self._fused_stage is not None and self._fused_stage[0] == key:
+            return self._fused_stage[1]
+        self._fused_stage = None
+        halo, part = flat_catalogs(
+            self.halo_data, self.particle_data, self.device, self.want_shear, self.want_ranks
+        )
+        for cat in (halo, part):
+            del cat['cat_mass'], cat['cat_id']
+        halo_g, part_g, plan_h, plan_p = group_inputs2d_linked_device(
+            halo, part, nmesh, self.lbox, yb, margin=(RSD_MARGIN,) * 3, shift=0.0
+        )
+        part_g['hidx'] = part_g.pop('hkeep_at')
+        stage = (halo_g, part_g, plan_h, plan_p)
+        self._fused_stage = (key, stage)
+        return stage
+
+    def _flat_stage(self):
+        """Flat device catalogs in catalog order (population.flat_catalogs,
+        with the shear columns the state holds), for run_hod, cached by
+        (want_ranks, device)."""
+        key = (bool(self.want_ranks), self.device)
         if self._flat_stage_cache is not None and self._flat_stage_cache[0] == key:
             return self._flat_stage_cache[1]
         self._flat_stage_cache = None
         stage = flat_catalogs(
-            self.halo_data, self.particle_data, self.device, shear, self.want_ranks
+            self.halo_data, self.particle_data, self.device, True, self.want_ranks
         )
         self._flat_stage_cache = (key, stage)
         return stage
 
     def _clustering(self, spectra, ng, want, nmesh, nbins_k, counts):
         """The compute_power key schema from the device bin sums (waits for
-        the device; raises if the deposit counted misstaged points)."""
+        the device)."""
         wsum = torch.stack(list(spectra.values())).cpu().numpy()
         ng = torch.stack([ng[t] for t in want]).cpu().numpy()
-        check_deposit_err(self.deposit_err)
         lbox = self.lbox
         kedges, _ = get_k_mu_edges(lbox, np.pi * nmesh / lbox, nbins_k, 1, False)
         clustering = {'k_binc': 0.5 * (kedges[1:] + kedges[:-1])}
@@ -220,10 +248,13 @@ class AbacusHOD:
         staged catalogs and the bin plan are cached, so a repeated call with
         new HOD parameters pays only the device step.
 
-        Returns ``(clustering, n_gal)``: clustering has the compute_power
-        keys ('{t1}_{t2}', '{t1}_{t2}_modes', both orders of each cross
-        pair, 'k_binc') as numpy arrays; n_gal maps tracer -> galaxy count.
-        With ``halo_lc`` set, the light-cone leg runs instead."""
+        `yb` sets the y extent of the deposit's bricks (None:
+        ``ops.grid.BRICK``'s): it changes the order of summation, not the
+        results (JAX's `yb` is its y-block). Returns ``(clustering,
+        n_gal)``: clustering has the compute_power keys ('{t1}_{t2}',
+        '{t1}_{t2}_modes', both orders of each cross pair, 'k_binc') as
+        numpy arrays; n_gal maps tracer -> galaxy count. With ``halo_lc``
+        set, the light-cone leg runs instead."""
         if mesh is not None or slab is not None:
             raise NotImplementedError(
                 'sharded fused P(k) (mesh=, slab=) is not ported yet: ROADMAP item 12 (multi-GPU)'
@@ -241,37 +272,37 @@ class AbacusHOD:
             )
         if reseed:
             self._reseed_randoms(reseed)
-        yb = default_yblock(nmesh) if yb is None else yb
         nbins_k = nmesh // 2 if nbins_k is None else nbins_k
 
-        halo_g, part_g, starts_h, starts_p = self._box_stage(nmesh, yb)
+        halo_g, part_g, plan_h, plan_p = self._box_stage(nmesh, yb)
         seg, counts = make_bin_plan_arrays(nmesh, self.lbox, nbins_k, self.device)
         want = tuple(t for t in TRACER_ORDER if t in tracers)
-        self.deposit_err.zero_()
+        self.deposit_overflow.zero_()
         spectra, ng = hod_pk_fused_multi(
             halo_g, part_g, self._tracer_tensors(tracers, want), seg,
             self._wcomp(nmesh, compensated), self.lbox, float(self.params['velz2kms']), want,
-            int(nmesh), int(yb), int(nbins_k), starts_h, starts_p, rsd=bool(want_rsd),
-            err=self.deposit_err,
+            int(nmesh), yb, int(nbins_k), plan_h, plan_p, rsd=bool(want_rsd),
+            overflow=self.deposit_overflow,
         )
         return self._clustering(spectra, ng, want, nmesh, nbins_k, counts)
 
     def _run_hod_pk_fused_lc(
         self, tracers, want_rsd, nmesh, nbins_k, yb, reseed, compensated,
     ):
-        """Light-cone leg of run_hod_pk_fused: populate the flat catalogs
-        with per-galaxy line-of-sight RSD from the light-cone origin
-        (populate_lc_multi), re-stage each tracer's displaced galaxies
-        (centrals and satellites together, raw coordinates), then one
-        deposit launch per tracer and one binning launch
-        (pk_grouped_multi). The galaxies never reach the host."""
+        """Light-cone leg of run_hod_pk_fused: populate the cached
+        brick-staged catalogs (:meth:`_lc_stage`) with per-galaxy
+        line-of-sight RSD from the light-cone origin (populate_lc_multi),
+        then deposit each tracer's displaced centrals and satellites in the
+        stage's order, two launches per tracer, and bin every pair in one
+        launch (pk_grouped_multi). A galaxy displaced past its brick's margin
+        goes straight into the grid (the overflow word counts it). The
+        galaxies never reach the host."""
         if reseed:
             self._reseed_randoms(reseed)
         lbox = self.lbox
-        yb = default_yblock(nmesh) if yb is None else yb
         nbins_k = nmesh // 2 if nbins_k is None else nbins_k
 
-        halo, part = self._flat_stage(self.want_shear)
+        halo, part, plan_h, plan_p = self._lc_stage(nmesh, yb)
         want = tuple(t for t in TRACER_ORDER if t in tracers)
         origin = torch.from_numpy(np.asarray(self.params['origin'], np.float32)).to(self.device)
         # 1.0 / velz2kms in f64 on the host, then f32 (abacus_hod.py:999)
@@ -282,15 +313,13 @@ class AbacusHOD:
         groups = {}
         for tracer in want:
             xc, yc, zc, wc, xs, ys, zs, ws = tr.pop(tracer)
-            cols = [torch.cat(pair) for pair in ((xc, xs), (yc, ys), (zc, zs), (wc, ws))]
-            staged, starts = stage_grouped2d(cols, nmesh, lbox, yb, shift=0.0)
-            groups[tracer] = (*staged, starts)
+            groups[tracer] = [(xc, yc, zc, wc, plan_h), (xs, ys, zs, ws, plan_p)]
 
         seg, counts = make_bin_plan_arrays(nmesh, lbox, nbins_k, self.device)
-        self.deposit_err.zero_()
+        self.deposit_overflow.zero_()
         spectra, ng = pk_grouped_multi(
-            groups, ng, seg, self._wcomp(nmesh, compensated), lbox, int(nmesh), int(yb),
-            int(nbins_k), want, err=self.deposit_err,
+            groups, ng, seg, self._wcomp(nmesh, compensated), lbox, int(nmesh), yb,
+            int(nbins_k), want, overflow=self.deposit_overflow,
         )
         return self._clustering(spectra, ng, want, nmesh, nbins_k, counts)
 
@@ -327,7 +356,7 @@ class AbacusHOD:
         start = time.time()
         want = tuple(t for t in TRACER_ORDER if t in tracers)
         tparams = prepare_tracer_params({t: tracers[t] for t in want}, self.params['z'])
-        halo, part = self._flat_stage(True)
+        halo, part = self._flat_stage()
         mock = populate_flat(
             halo, part, tparams, want, bool(want_rsd), self.params['velz2kms'], self.lbox,
             self.params.get('origin'), verbose,
@@ -473,19 +502,17 @@ class AbacusHOD:
         keys = list(mock_dict.keys())
         poles = [int(p) for p in poles]
         W = get_W_compensated(lbox, num_cells, paste, interlaced) if compensated else None
-        self.deposit_err.zero_()
+        self.deposit_overflow.zero_()
         ffts, scale = [], 1.0
         for tr in keys:
             d = mock_dict[tr]
             F, scale = _field_fft(
                 (d['x'], d['y'], d['z']), lbox, num_cells, paste, d.get('w'), interlaced,
-                self.device, self.deposit_err,
+                self.device, self.deposit_overflow,
             )
             ffts.append(F)
         kbins, mubins = get_k_mu_edges(lbox, k_hMpc_max, nbins_k, nbins_mu, logk)
-        plan, dk, res = _binned_spectra(
-            ffts, W, scale, lbox, kbins, mubins, poles, err=self.deposit_err
-        )
+        plan, dk, res = _binned_spectra(ffts, W, scale, lbox, kbins, mubins, poles)
         clustering = {}
         for i1, tr1 in enumerate(keys):
             for i2 in range(i1, len(keys)):

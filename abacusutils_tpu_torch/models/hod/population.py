@@ -17,7 +17,7 @@ so their scalar arithmetic runs in float32, as under jax.jit.
 import numpy as np
 import torch
 
-from ...convert import params_to_tensors
+from ...convert import params_to_tensors, resolve_device
 from . import shapes
 
 __all__ = [
@@ -350,11 +350,13 @@ def _one(cats):
 
 def gen_cent(
     pos, vel, mass, ids, multis, randoms, vdev, deltac, fenv, shear,
-    tracer_params, rsd, inv_velz2kms, lbox, want, origin=None, device='cpu',
+    tracer_params, rsd, inv_velz2kms, lbox, want, origin=None, device='cuda',
 ):
-    """Populate central galaxies on `device` (population.py:gen_cent).
+    """Populate central galaxies on `device` (population.py:gen_cent; the
+    card unless the caller names another; raises where there is none).
     tracer_params comes from :func:`prepare_tracer_params`. Returns (dict of
     tracer -> catalog, keep codes as int8 numpy)."""
+    device = resolve_device(device)
     halo = {
         'mass': _column(mass, device), 'multis': _column(multis, device),
         'randoms': _column(randoms, device), 'deltac': _column(deltac, device),
@@ -378,11 +380,13 @@ def gen_cent(
 def gen_sats(
     ppos, pvel, hvel, hmass, hid, weights, randoms, hdeltac, hfenv, hshear,
     enable_ranks, ranks, ranksv, ranksp, ranksr,
-    tracer_params, rsd, inv_velz2kms, lbox, want, origin, keep_cent, device='cpu',
+    tracer_params, rsd, inv_velz2kms, lbox, want, origin, keep_cent, device='cuda',
 ):
-    """Populate satellite galaxies on `device` (population.py:gen_sats);
-    `keep_cent` is each particle's host-central keep code (conformity).
-    Returns the dict of tracer -> catalog."""
+    """Populate satellite galaxies on `device` (population.py:gen_sats; the
+    card unless the caller names another); `keep_cent` is each particle's
+    host-central keep code (conformity). Returns the dict of tracer ->
+    catalog."""
+    device = resolve_device(device)
     part = {
         'hmass': _column(hmass, device), 'weights': _column(weights, device),
         'randoms': _column(randoms, device), 'deltac': _column(hdeltac, device),
@@ -440,14 +444,16 @@ def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, 
 
 def gen_gals(
     halos_array, subsample, tracers, params, Nthread=None, enable_ranks=False, rsd=True,
-    verbose=False, nfw=False, NFW_draw=None, device='cpu',
+    verbose=False, nfw=False, NFW_draw=None, device='cuda',
 ):
     """Multi-tracer population: centrals + satellites -> mock dict
     (population.py:gen_gals): per tracer {Ncent, x, y, z, vx, vy, vz, mass,
-    id}, centrals first. The staged columns go to `device` once; only the
-    kept rows come back. NFW satellites are not ported."""
+    id}, centrals first. The staged columns go to `device` (the card unless
+    the caller names another) once; only the kept rows come back. NFW
+    satellites are not ported."""
     if nfw:
         raise _not_ported('NFW satellites (nfw=True)')
+    device = resolve_device(device)
     want = tuple(t for t in TRACER_ORDER if t in tracers)
     tparams = prepare_tracer_params({t: tracers[t] for t in want}, params['z'])
     halo, part = flat_catalogs(halos_array, subsample, device, True, enable_ranks)

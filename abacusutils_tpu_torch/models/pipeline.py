@@ -7,18 +7,22 @@ Counterpart of abacusutils_tpu/models/pipeline.py for the fused route:
   priority codes, ELG conformity through the staged satellite -> host link,
   every auto and cross spectrum), the box leg of
   ``AbacusHOD.run_hod_pk_fused``;
-- the light-cone leg: :func:`populate_lc_multi` on flat catalogs, then
-  :func:`pk_grouped_multi` on the re-staged galaxies.
+- the light-cone leg: :func:`populate_lc_multi` on brick-staged catalogs,
+  then :func:`pk_grouped_multi` on the displaced galaxies in that order.
 
 The steps are static-shape, as on the TPU: population produces a keep
 weight and an RSD coordinate for every halo and particle, and the deposit
 consumes the weights, so no galaxy catalog is compacted and nothing waits
 for the host.
 
-Box catalogs are staged once by :func:`group_inputs2d_device`: one stable
-sort by (x-cell, y-block), both of which RSD along z never changes. The
-deposit kernel (K1) reads the sorted columns and the per-cell starts as they
-are; there is no padded (ncell, K) layout. One all-pairs binning kernel (K3)
+Catalogs are staged once by :func:`group_inputs2d_device`: one stable sort
+by the 3-D brick of each object's cell before RSD. RSD moves galaxies on
+every call (along z in the box, along the line of sight in the light cone,
+so in all three coordinates), so the bricks carry a margin of
+:data:`RSD_MARGIN` cells on the axes it moves; the deposit kernel (K1) adds
+a galaxy that moved further straight into the grid and counts it in its
+overflow word. K1 reads the sorted columns and the work list as they are;
+there is no padded (ncell, K) layout. One all-pairs binning kernel (K3)
 turns the tracers' rfft meshes into every spectrum.
 """
 
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from ..convert import params_to_tensors
-from ..ops.grid import _f32, stage_grouped2d, tsc_deposit_cells
+from ..ops.grid import _f32, brick_shape, stage_bricks, tsc_deposit_cells
 from ..ops.power import (
     bin_pair_modes,
     bin_power_modes,
@@ -55,7 +59,14 @@ __all__ = [
     'pk_grouped_multi',
     'make_example_inputs',
     'make_example_inputs_device',
+    'RSD_MARGIN',
 ]
+
+# cells of margin of a catalog's bricks on each axis RSD moves galaxies
+# along after staging (a displacement of 3 Mpc/h is ~0.4 cells at nmesh 256
+# in a 2000 Mpc/h box)
+RSD_MARGIN = 2
+
 
 def make_bin_plan_arrays(nmesh, lbox, nbins_k, device):
     """Mode-binning plan of a monopole P(k) with `nbins_k` linear k bins up
@@ -103,37 +114,47 @@ def populate_weights(halo, part, p, rsd, inv_velz2kms):
     return z_c, keep_c, z_s, keep_s
 
 
-def group_inputs2d_device(cat, nmesh, lbox, yb=32, return_order=False):
-    """Sort a catalog dict by (x-cell, y-block of `yb`) of its box-centred
-    x and y (models/pipeline.py:group_inputs2d_device, without padding).
-    Returns (sorted dict, int32 cell starts); float columns become float32,
-    integer columns keep their type. With return_order=True the int64 sort
-    permutation comes third."""
+def group_inputs2d_device(
+    cat, nmesh, lbox, yb=None, return_order=False, margin=(0, 0, RSD_MARGIN), shift=None,
+):
+    """Sort a catalog dict by the brick of its x, y, z plus `shift` (None:
+    lbox / 2, for box-centred catalogs) (ops.grid.stage_bricks; the
+    counterpart of models/pipeline.py:group_inputs2d_device, which groups by
+    (x-cell, y-block of `yb`) with padding). `yb` sets the y extent of the
+    bricks (None: ops.grid.BRICK's), `margin` their room per axis, in cells,
+    for moves after staging. Returns (sorted dict, BrickPlan); float columns
+    become float32, integer columns keep their type. With return_order=True
+    the int64 sort permutation comes third."""
     keys = list(cat)
     cols = [cat[k].to(torch.float32) if cat[k].is_floating_point() else cat[k] for k in keys]
-    staged, starts, *order = stage_grouped2d(
-        cols, nmesh, lbox, yb, xi=keys.index('x'), yi=keys.index('y'), shift=lbox / 2,
-        return_order=return_order,
+    staged, plan, *order = stage_bricks(
+        cols, nmesh, lbox, brick_shape(nmesh, yb, margin), margin,
+        shift=lbox / 2 if shift is None else shift,
+        xi=keys.index('x'), yi=keys.index('y'), zi=keys.index('z'), return_order=return_order,
     )
-    return (dict(zip(keys, staged)), starts, *order)
+    return (dict(zip(keys, staged)), plan, *order)
 
 
-def group_inputs2d_linked_device(halo, part, nmesh, lbox, yb=32):
+def group_inputs2d_linked_device(halo, part, nmesh, lbox, yb=None, **stage):
     """Both catalogs staged by :func:`group_inputs2d_device`, plus
     part_g['hkeep_at'], the int32 position of each particle's host halo in
     the staged halo order (the ELG conformity link;
     models/pipeline.py:group_inputs2d_linked_device). `part['hidx']` holds
     the original host-halo indices. The link is integer arithmetic on the
     halo sort's permutation, inv[order] = arange, then inv[hidx], staged
-    with the particles. Returns (halo_g, part_g, starts_h, starts_p)."""
-    halo_g, starts_h, order_h = group_inputs2d_device(halo, nmesh, lbox, yb, return_order=True)
+    with the particles. `stage` (margin, shift) goes to
+    :func:`group_inputs2d_device`. Returns (halo_g, part_g, plan_h,
+    plan_p)."""
+    halo_g, plan_h, order_h = group_inputs2d_device(
+        halo, nmesh, lbox, yb, return_order=True, **stage
+    )
     n_halo = order_h.numel()
     inv = torch.empty(n_halo, dtype=torch.int32, device=order_h.device)
     inv[order_h] = torch.arange(n_halo, dtype=torch.int32, device=order_h.device)
     part = dict(part)
     part['hkeep_at'] = inv[part.pop('hidx')]
-    part_g, starts_p = group_inputs2d_device(part, nmesh, lbox, yb)
-    return halo_g, part_g, starts_h, starts_p
+    part_g, plan_p = group_inputs2d_device(part, nmesh, lbox, yb, **stage)
+    return halo_g, part_g, plan_h, plan_p
 
 
 def _delta_k(grid, n_gal):
@@ -143,22 +164,22 @@ def _delta_k(grid, n_gal):
 
 def hod_pk_fused_yb(
     halo_g, part_g, params, seg, Wcomp, lbox, velz2kms, nmesh, yb, nbins_k,
-    starts_h, starts_p, rsd=True, err=None,
+    plan_h, plan_p, rsd=True, overflow=None,
 ):
     """Populate + TSC deposit + rfftn + binned P(k), one step
     (models/pipeline.py:hod_pk_fused_yb).
 
-    halo_g/part_g and starts_h/starts_p come from
-    :func:`group_inputs2d_device`; params from
+    halo_g/part_g and plan_h/plan_p come from :func:`group_inputs2d_device`
+    (the plans carry the deposit's bricks, so `yb`, kept from the JAX
+    signature, has no effect here); params from
     ``convert.params_to_tensors``; seg from :func:`make_bin_plan_arrays`;
     Wcomp is the (nmesh,) float32 window compensation or None.
 
     On CUDA the deposit and the binning are the port's kernels, and nothing
-    waits for the host. The deposit counts points that fall outside their
-    staged cell in the int32 (1,) error word `err` (allocated when None;
-    read it with ``ops.grid.check_deposit_err`` after a sync); a non-zero
-    word turns wsum into NaN on the device. On CPU every stage runs its
-    plain version.
+    waits for the host. The deposit adds the galaxies that RSD moved out of
+    their brick's tile straight into the grid and counts them in the int32
+    (1,) word `overflow`, when given. On CPU every stage runs its plain
+    version.
 
     Returns (wsum, n_gal): the (nbins_k,) float32 bin sums of |delta_k|^2
     (divide by the plan's counts for P(k)) and the galaxy count, both 0-d
@@ -169,16 +190,14 @@ def hod_pk_fused_yb(
 
     half_l = _f32(np.float32(lbox) / 2)
     grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=keep_c.device)
-    if err is None:
-        err = torch.zeros(1, dtype=torch.int32, device=grid.device)
-    for cat, z, keep, starts in ((halo_g, z_c, keep_c, starts_h), (part_g, z_s, keep_s, starts_p)):
+    for cat, z, keep, plan in ((halo_g, z_c, keep_c, plan_h), (part_g, z_s, keep_s, plan_p)):
         tsc_deposit_cells(
-            grid, cat['x'] + half_l, cat['y'] + half_l, z + half_l, keep, starts,
-            nmesh, yb, lbox, 0.0, err=err,
+            grid, cat['x'] + half_l, cat['y'] + half_l, z + half_l, keep, plan, lbox, 0.0,
+            overflow,
         )
 
     wsum = bin_power_modes(_delta_k(grid, n_gal), seg, Wcomp, 1.0 / grid.numel(), nbins_k)
-    return torch.where(err == 0, wsum, torch.nan), n_gal
+    return wsum, n_gal
 
 
 def _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s):
@@ -211,30 +230,29 @@ def populate_weights_multi(halo, part, params, want, rsd, inv_velz2kms):
     return _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s), keep_c
 
 
-def _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k, err):
+def _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k):
     """Every auto and cross bin sum of the tracers' meshes through one
-    binning launch, as {(t1, t2): (nbins_k,) float64}; NaN where the deposit
-    error word is non-zero."""
+    binning launch, as {(t1, t2): (nbins_k,) float64}."""
     wsum = bin_pair_modes(deltas, seg, Wcomp, 1.0 / nmesh**3, nbins_k)
-    wsum = torch.where(err == 0, wsum, torch.nan)
     pairs = [(want[i], want[j]) for i, j in field_pairs(len(want))]
     return dict(zip(pairs, wsum.unbind(0)))
 
 
 def hod_pk_fused_multi(
     halo_g, part_g, params, seg, Wcomp, lbox, velz2kms, want, nmesh, yb, nbins_k,
-    starts_h, starts_p, rsd=True, err=None,
+    plan_h, plan_p, rsd=True, overflow=None,
 ):
     """Multi-tracer populate + TSC deposit + rfftn + every auto and cross
     P(k) bin sum (models/pipeline.py:hod_pk_fused_multi).
 
-    halo_g/part_g and starts_h/starts_p come from
-    :func:`group_inputs2d_linked_device`; `params` maps each tracer of
-    `want` (in TRACER_ORDER order) to its 0-d float32 parameter tensors.
-    Each tracer takes two deposit launches (halos, particles) and one
-    rfftn; one binning launch gives all T(T+1)/2 spectra. Nothing waits for
-    the host; a non-zero deposit error word `err` turns every spectrum into
-    NaN (see :func:`hod_pk_fused_yb`).
+    halo_g/part_g and plan_h/plan_p come from
+    :func:`group_inputs2d_linked_device` (`yb` has no effect here, as in
+    :func:`hod_pk_fused_yb`); `params` maps each tracer of `want` (in
+    TRACER_ORDER order) to its 0-d float32 parameter tensors. Each tracer
+    takes two deposit launches (halos, particles) and one rfftn; one
+    binning launch gives all T(T+1)/2 spectra. Nothing waits for the host;
+    `overflow` counts the galaxies RSD moved out of their brick's tile (see
+    :func:`hod_pk_fused_yb`).
 
     Returns ({(t1, t2): wsum}, {tracer: n_gal}): (nbins_k,) float64 bin sums
     (divide by the plan's counts for P(k)) and 0-d galaxy counts."""
@@ -243,29 +261,27 @@ def hod_pk_fused_multi(
     tr, _ = populate_weights_multi(halo_g, part_g, params, want, rsd, inv_velz2kms)
     half_l = _f32(np.float32(lbox) / 2)
     device = halo_g['x'].device
-    if err is None:
-        err = torch.zeros(1, dtype=torch.int32, device=device)
     xy = [
-        (halo_g['x'] + half_l, halo_g['y'] + half_l, starts_h),
-        (part_g['x'] + half_l, part_g['y'] + half_l, starts_p),
+        (halo_g['x'] + half_l, halo_g['y'] + half_l, plan_h),
+        (part_g['x'] + half_l, part_g['y'] + half_l, plan_p),
     ]
     deltas, n_gal = [], {}
     for tracer in want:
         z_c, w_c, z_s, w_s = tr[tracer]
         grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
-        for (x, y, starts), z, w in zip(xy, (z_c, z_s), (w_c, w_s)):
-            tsc_deposit_cells(grid, x, y, z + half_l, w, starts, nmesh, yb, lbox, 0.0, err=err)
+        for (x, y, plan), z, w in zip(xy, (z_c, z_s), (w_c, w_s)):
+            tsc_deposit_cells(grid, x, y, z + half_l, w, plan, lbox, 0.0, overflow)
         n_gal[tracer] = w_c.sum() + w_s.sum()
         deltas.append(_delta_k(grid, n_gal[tracer]))
-    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k, err), n_gal
+    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k), n_gal
 
 
 def populate_lc_multi(halo, part, params, want, rsd, inv_velz2kms, origin):
-    """Light-cone multi-tracer populate pass on flat catalogs: priority keep
-    codes (as :func:`populate_weights_multi`, the host link is
-    part['hidx']) and per-galaxy line-of-sight RSD from `origin`, a (3,)
+    """Light-cone multi-tracer populate pass: priority keep codes (as
+    :func:`populate_weights_multi`, the host link is part['hidx'], an index
+    into `halo`) and per-galaxy line-of-sight RSD from `origin`, a (3,)
     float32 tensor (models/pipeline.py:populate_lc_multi). The displacement
-    moves galaxies in all three coordinates, so they are staged after this.
+    moves galaxies in all three coordinates.
 
     halo: x/y/z, vx/vy/vz, vdevx/vdevy/vdevz, mass, multis, randoms,
     deltac, fenv (+shear); part: x/y/z, vx/vy/vz, hvelx/hvely/hvelz, hmass,
@@ -295,23 +311,23 @@ def populate_lc_multi(halo, part, params, want, rsd, inv_velz2kms, origin):
     return out, n_gal
 
 
-def pk_grouped_multi(groups, n_gal, seg, Wcomp, lbox, nmesh, yb, nbins_k, want, err=None):
+def pk_grouped_multi(groups, n_gal, seg, Wcomp, lbox, nmesh, yb, nbins_k, want, overflow=None):
     """Auto and cross P(k) bin sums of per-tracer staged galaxies:
-    groups[tracer] = (x, y, z, w, starts) from
-    ``stage_grouped2d(..., shift=0.0)``, painted at their raw coordinates
-    (each wrapped once into [0, lbox)). One deposit launch per tracer, one
-    binning launch (models/pipeline.py:pk_grouped_multi). Returns
-    ({(t1, t2): wsum}, n_gal) as :func:`hod_pk_fused_multi` does."""
-    device = groups[want[0]][0].device
-    if err is None:
-        err = torch.zeros(1, dtype=torch.int32, device=device)
+    groups[tracer] is a list of (x, y, z, w, plan) deposits into the
+    tracer's grid, each in the order of a ``ops.grid.stage_bricks`` plan (no
+    shift; the galaxies may have moved since), painted at their raw
+    coordinates (each wrapped once into [0, lbox)); `yb` has no effect, the
+    plans carry the bricks. One deposit launch per deposit, one binning
+    launch (models/pipeline.py:pk_grouped_multi). Returns ({(t1, t2): wsum},
+    n_gal) as :func:`hod_pk_fused_multi` does."""
+    device = groups[want[0]][0][0].device
     deltas = []
     for tracer in want:
-        x, y, z, w, starts = groups[tracer]
         grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
-        tsc_deposit_cells(grid, x, y, z, w, starts, nmesh, yb, lbox, 0.0, err=err)
+        for x, y, z, w, plan in groups[tracer]:
+            tsc_deposit_cells(grid, x, y, z, w, plan, lbox, 0.0, overflow)
         deltas.append(_delta_k(grid, n_gal[tracer]))
-    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k, err), n_gal
+    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k), n_gal
 
 
 _EXAMPLE_PARAMS = {

@@ -1,17 +1,22 @@
-"""TSC/CIC mass assignment on cell-sorted points (PyTorch + a CUDA kernel).
+"""TSC/CIC mass assignment on brick-sorted points (PyTorch + a CUDA kernel).
 
 Counterpart of abacusutils_tpu/ops/grid.py for the HOD and P(k) routes:
 
-- :func:`cell_key_2d` and :func:`stage_grouped2d` group points by
-  (x-cell, y-block) with one stable sort, as ``_stage_sort_by_cell`` does.
-  There is no padded (ncell, K) layout: the CUDA deposit reads the sorted
-  columns and the per-cell ``starts`` directly.
-- :func:`paint_3d_plain` is the 27-point scatter of ``_paint_3d_jit``.
-- :func:`tsc_deposit_cells` launches the shared-memory tile deposit K1
-  (``csrc/tsc_deposit.cu``) on CUDA tensors and runs
-  :func:`paint_3d_plain` on CPU tensors.
-- :func:`paint_3d` is the public paint (``ops/grid.py:paint_3d``): stage
-  and K1 on CUDA tensors, the plain scatter on CPU tensors.
+- :func:`stage_bricks` sorts points by the 3-D brick of their cell with one
+  stable sort and cuts the bricks into a work list of at most `max_points`
+  points an item (:class:`BrickPlan`), built on the points' device. It takes
+  the place of ``_stage_sort_by_cell``; its :func:`brick_key` with the brick
+  (1, yb, nmesh) is that function's (x-cell, y-block) key. There is no padded
+  (ncell, K) layout: the CUDA deposit reads the sorted columns and the work
+  list directly.
+- :func:`paint_3d_plain` is the 27-point scatter of ``_paint_3d_jit``;
+  :func:`overflow_count_plain` counts the points whose stencil leaves their
+  brick's tile, the kernel's overflow word.
+- :func:`tsc_deposit_cells` launches the brick-tile deposit K1
+  (``csrc/tsc_deposit.cu``) on CUDA tensors and runs the plain versions on
+  CPU tensors.
+- :func:`paint_3d` is the public paint (``ops/grid.py:paint_3d``): stage and
+  K1 on CUDA tensors, the plain scatter on CPU tensors.
 
 Both kinds use the 3-point stencil of the JAX package: TSC wraps each
 coordinate once into [0, box) and then adds the offset; CIC (weights
@@ -22,6 +27,10 @@ package forms it (an f32 division, then used as an exact Python float), so
 cell keys agree bit for bit.
 """
 
+import ctypes
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -29,14 +38,18 @@ from .. import _build
 
 __all__ = [
     'KINDS',
+    'BRICK',
+    'BrickPlan',
     'axis_cloud',
-    'cell_key_2d',
-    'stage_grouped2d',
+    'brick_key',
+    'brick_shape',
+    'tile_bytes',
+    'stage_bricks',
     'paint_3d_plain',
+    'overflow_count_plain',
     'paint_3d',
     'tsc_deposit_cells',
-    'check_deposit_err',
-    'default_yblock',
+    'blocks_per_sm',
     'MAX_SMEM_BYTES',
 ]
 
@@ -44,6 +57,12 @@ __all__ = [
 MAX_SMEM_BYTES = 232_448
 # the mass-assignment kinds; K1's template parameter is the index
 KINDS = ('tsc', 'cic')
+# the default brick interior (x, y, z), cells
+BRICK = (16, 16, 16)
+# a work item holds at most max(MIN_ITEM_POINTS, ITEM_SPLIT x the mean points
+# of a brick) points; heavier bricks are cut into several items
+MIN_ITEM_POINTS = 2048
+ITEM_SPLIT = 2
 
 
 def _f32(v):
@@ -53,24 +72,6 @@ def _f32(v):
 
 def _inv_h(nmesh, box):
     return float(np.float32(nmesh) / np.float32(box))
-
-
-def _tile_bytes(nmesh, yb):
-    """Shared memory of one K1 block: the f32 (3, yb + 2, nmesh) tile."""
-    return 4 * 3 * (yb + 2) * nmesh
-
-
-def default_yblock(nmesh):
-    """Largest power of two <= 32 that divides nmesh and whose K1 tile fits
-    the shared memory of one block (ops/grid.py:default_yblock, which stops
-    at the first divisor: its yb=32 tile at nmesh=1024 is 417,792 B). The
-    spectra do not depend on yb, only the order of summation does."""
-    yb = 32
-    while yb >= 1:
-        if nmesh % yb == 0 and _tile_bytes(nmesh, yb) <= MAX_SMEM_BYTES:
-            return yb
-        yb //= 2
-    raise ValueError(f'no y-block tile of nmesh={nmesh} fits {MAX_SMEM_BYTES} B of shared memory')
 
 
 def _wrap_once(p, box):
@@ -103,43 +104,137 @@ def axis_cloud(p1d, box, offset, nmesh, wrap=True, kind='tsc'):
     return i0.to(torch.int64), ws
 
 
-def cell_key_2d(px, py, nmesh, yb, box, offset=0.0, shift=0.0, kind='tsc'):
-    """(x-cell, y-block) grouping key (int32) of each point; `shift` is added
-    to both coordinates first (ops/grid.py:cell_key_2d). The cell is K1's
-    for `kind`: TSC wraps once before the offset, CIC does not wrap."""
-    boxf = _f32(box)
-    scale = _inv_h(nmesh, box)
-    wrap = _kind(kind) == 'tsc'
+def tile_bytes(brick, margin=(0, 0, 0)):
+    """Shared memory of one K1 block: the f32 tile of a brick interior, one
+    ghost layer and the margin on each side of every axis."""
+    return 4 * math.prod(b + 2 + 2 * m for b, m in zip(brick, margin))
 
-    def cells(p):
+
+def brick_shape(nmesh, yb=None, margin=(0, 0, 0)):
+    """The brick interior (bx, by, bz) K1 uses on an nmesh^3 grid: BRICK,
+    with `yb` for its y extent when given, each cut to nmesh. Raises if the
+    tile does not fit the shared memory of one block."""
+    brick = tuple(min(b, nmesh) for b in (BRICK[0], yb or BRICK[1], BRICK[2]))
+    if min(brick) < 1:
+        raise ValueError(f'brick {brick} must be at least one cell a side')
+    if tile_bytes(brick, margin) > MAX_SMEM_BYTES:
+        fits = [b for b in range(brick[1] - 1, 0, -1)
+                if tile_bytes((brick[0], b, brick[2]), margin) <= MAX_SMEM_BYTES]
+        raise ValueError(
+            f'the K1 tile of brick {brick} with margin {tuple(margin)} is '
+            f'{tile_bytes(brick, margin)} B, over the {MAX_SMEM_BYTES} B of shared memory a '
+            'block may use; ' + (f'use yb={fits[0]}' if fits else 'use a smaller margin')
+        )
+    return brick
+
+
+def _cells(p, nmesh, box, offset, shift, wrap):
+    """Cell index (int32, modulo nmesh) of each coordinate plus `shift`, in
+    K1's f32 arithmetic (ops/grid.py:cell_key_2d's `cells`; adding a zero
+    shift or offset changes no cell, so it is skipped)."""
+    if shift:
         p = p + _f32(shift)
-        if wrap:
-            p = _wrap_once(p, boxf)
-        q = (p + _f32(offset)) * scale
-        return torch.remainder(torch.floor(q + 0.5).to(torch.int32), nmesh)
+    if wrap:
+        p = _wrap_once(p, _f32(box))
+    if offset:
+        p = p + _f32(offset)
+    q = p * _inv_h(nmesh, box)
+    return torch.remainder(torch.floor(q + 0.5).to(torch.int32), nmesh)
 
-    return cells(px) * (nmesh // yb) + torch.div(cells(py), yb, rounding_mode='floor')
+
+def brick_key(px, py, pz, nmesh, brick, box, offset=0.0, shift=0.0, kind='tsc'):
+    """Brick index (int32) of each point's cell, x-major: ((cx // bx) * nby +
+    cy // by) * nbz + cz // bz, with nb = ceil(nmesh / b) bricks an axis (the
+    last one ragged). `shift` is added to each coordinate first. The cell is
+    K1's for `kind`: TSC wraps once before the offset, CIC does not wrap.
+    With brick (1, yb, nmesh) this is ops/grid.py:cell_key_2d."""
+    wrap = _kind(kind) == 'tsc'
+    bx, by, bz = brick
+    nby, nbz = -(-nmesh // by), -(-nmesh // bz)
+    key = torch.div(_cells(px, nmesh, box, offset, shift, wrap), bx, rounding_mode='floor')
+    key = key * nby + torch.div(_cells(py, nmesh, box, offset, shift, wrap), by,
+                                rounding_mode='floor')
+    return key * nbz + torch.div(_cells(pz, nmesh, box, offset, shift, wrap), bz,
+                                 rounding_mode='floor')
 
 
-def stage_grouped2d(
-    cols, nmesh, box, yb, offset=0.0, xi=0, yi=1, shift=0.0, return_order=False, kind='tsc'
+class BrickPlan(NamedTuple):
+    """K1's work over brick-sorted points: `work` is the (nitems, 3) int32
+    (brick, begin, end) list on the points' device (items past the last
+    hold begin = end = 0 and do nothing), the bricks tile an nmesh^3 grid
+    with interiors `brick` and per-axis `margin` cells for points that move
+    after staging."""
+
+    work: torch.Tensor
+    nmesh: int
+    brick: tuple
+    margin: tuple
+
+    @property
+    def nbricks(self):
+        return _nbricks(self.nmesh, self.brick)
+
+
+def _nbricks(nmesh, brick):
+    return math.prod(-(-nmesh // b) for b in brick)
+
+
+def _work_list(skey, nbricks, max_points):
+    """The (brick, begin, end) items of sorted brick keys, each brick cut
+    into ceil(count / max_points) items, built on the keys' device without
+    a host sync: its length is the bound min(nbricks, N) + ceil(N /
+    max_points), and the items past the last are empty."""
+    dev = skey.device
+    n = skey.numel()
+    starts = torch.searchsorted(
+        skey, torch.arange(nbricks + 1, dtype=skey.dtype, device=dev)
+    )
+    nchunk = torch.div(starts[1:] - starts[:-1] + max_points - 1, max_points,
+                       rounding_mode='floor')
+    last = torch.cumsum(nchunk, 0)
+    cap = min(nbricks, n) + -(-n // max_points)
+    item = torch.arange(cap, dtype=last.dtype, device=dev)
+    brick = torch.searchsorted(last, item, right=True)
+    real = brick < nbricks
+    brick = brick.clamp_(max=nbricks - 1)
+    begin = starts[brick] + (item - (last[brick] - nchunk[brick])) * max_points
+    end = torch.minimum(begin + max_points, starts[brick + 1])
+    zero = torch.zeros_like(begin)
+    work = torch.stack(
+        [torch.where(real, brick, zero), torch.where(real, begin, zero),
+         torch.where(real, end, zero)], 1
+    )
+    return work.to(torch.int32)
+
+
+def stage_bricks(
+    cols, nmesh, box, brick=None, margin=(0, 0, 0), offset=0.0, shift=0.0, kind='tsc',
+    xi=0, yi=1, zi=2, max_points=None, return_order=False,
 ):
-    """Sort the columns by (x-cell, y-block) key (stable, so equal keys keep
-    their input order) and return (sorted columns, starts): cell c's points
-    are [starts[c], starts[c+1]) of every sorted column. `starts` is int32 of
-    length ncell + 1. With return_order=True the int64 sort permutation
-    `order` (sorted[i] = col[order[i]]) comes third. `kind` picks K1's cell
-    convention (see :func:`cell_key_2d`). Counterpart of
-    ops/grid.py:_stage_sort_by_cell."""
-    if nmesh % yb:
-        raise ValueError(f'yb={yb} must divide nmesh={nmesh}')
-    key = cell_key_2d(cols[xi], cols[yi], nmesh, yb, box, offset, shift, kind)
+    """Sort the columns by the brick of their cell (:func:`brick_key` of
+    cols[xi], cols[yi], cols[zi]; stable, so points of one brick keep their
+    input order) and return (sorted columns, :class:`BrickPlan`); with
+    return_order=True the int64 permutation `order` (sorted[i] =
+    col[order[i]]) comes third.
+
+    brick: the interior (default :func:`brick_shape`); margin: cells of
+    room per axis for points that move after staging (a box catalog staged
+    before RSD carries a z margin); a point that moves further is still
+    deposited right, straight into the grid. max_points: the most points a
+    work item takes (default max(MIN_ITEM_POINTS, ITEM_SPLIT x N / the
+    number of bricks)). `kind`, `offset` and `shift` pick the cell as K1
+    computes it."""
+    margin = tuple(int(m) for m in margin)
+    brick = brick_shape(nmesh, margin=margin) if brick is None else tuple(int(b) for b in brick)
+    n = cols[0].shape[0]
+    nbricks = _nbricks(nmesh, brick)
+    if max_points is None:
+        max_points = max(MIN_ITEM_POINTS, ITEM_SPLIT * -(-n // nbricks))
+    key = brick_key(cols[xi], cols[yi], cols[zi], nmesh, brick, box, offset, shift, kind)
     skey, order = torch.sort(key, stable=True)
-    ncell = nmesh * (nmesh // yb)
-    cells = torch.arange(ncell + 1, dtype=skey.dtype, device=skey.device)
-    starts = torch.searchsorted(skey, cells).to(torch.int32)
+    plan = BrickPlan(_work_list(skey, nbricks, int(max_points)), nmesh, brick, margin)
     staged = [c.index_select(0, order) for c in cols]
-    return (staged, starts, order) if return_order else (staged, starts)
+    return (staged, plan, order) if return_order else (staged, plan)
 
 
 def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0, kind='tsc'):
@@ -165,76 +260,86 @@ def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0, kind='tsc'
     return grid
 
 
-def check_deposit_err(err):
-    """Raise if the deposit kernel counted points outside their cell's tile
-    (reads the error word, which waits for the device)."""
-    n = int(err.item())
-    if n:
-        raise RuntimeError(
-            f'tsc_deposit_cells: {n} points fell outside their staged cell '
-            '(staging key and kernel index disagree)'
-        )
-
-
-def tsc_deposit_cells(
-    grid, x, y, z, w, starts, nmesh, yb, box, offset=0.0, err=None, kind='tsc'
-):
-    """Add the TSC (or CIC) deposit of cell-sorted points into `grid` in place.
-
-    x, y, z, w: (N,) f32, sorted by :func:`stage_grouped2d` (same nmesh, yb,
-    box, offset, kind); starts: its (ncell + 1,) int32 cell starts; grid:
-    (nmesh, nmesh, nmesh) f32, contiguous.
-
-    On CUDA tensors this launches K1 (csrc/tsc_deposit.cu) on the current
-    stream. Points whose y falls outside their cell are counted in `err`
-    (an int32 (1,) CUDA tensor); with err=None the wrapper allocates one and
-    checks it at once, which waits for the device, so a caller that must not
-    sync passes its own and calls :func:`check_deposit_err` later.
-    On CPU tensors it runs :func:`paint_3d_plain`. Returns `grid`.
-    """
+def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc'):
+    """The overflow word of K1 for points staged by `plan`: the number of
+    points of non-zero weight whose 27-point stencil leaves their brick's
+    tile (the brick, one ghost layer and the margin on each side). Returns a
+    0-d int64 tensor."""
     kind = _kind(kind)
-    if grid.device.type == 'cpu':
-        return paint_3d_plain(grid, x, y, z, w, nmesh, box, offset, kind)
-    if nmesh % yb:
-        raise ValueError(f'yb={yb} must divide nmesh={nmesh}')
-    ncell = nmesh * (nmesh // yb)
-    if _tile_bytes(nmesh, yb) > MAX_SMEM_BYTES:
-        fits = [
-            b for b in range(1, yb) if nmesh % b == 0 and _tile_bytes(nmesh, b) <= MAX_SMEM_BYTES
-        ]
-        raise ValueError(
-            f'tsc_deposit_cells: the (3, yb+2, nmesh) tile is {_tile_bytes(nmesh, yb)} B, '
-            f'over the {MAX_SMEM_BYTES} B of shared memory a block may use; '
-            + (f'use yb={fits[-1]}' if fits else f'no yb fits nmesh={nmesh}')
-        )
-    n = x.shape[0]
-    for name, t in (('x', x), ('y', y), ('z', z), ('w', w)):
+    nmesh = plan.nmesh
+    work = plan.work.long()
+    # each point's brick, from the items that cover it
+    brick = torch.repeat_interleave(work[:, 0], work[:, 2] - work[:, 1], output_size=x.shape[0])
+    nb = [-(-nmesh // b) for b in plan.brick]
+    bidx = (torch.div(brick, nb[1] * nb[2], rounding_mode='floor'),
+            torch.div(brick, nb[2], rounding_mode='floor') % nb[1], brick % nb[2])
+    inside = w != 0
+    for p, b, m, j in zip((x, y, z), plan.brick, plan.margin, bidx):
+        i0, _ = axis_cloud(p, box, offset, nmesh, kind == 'tsc', kind)
+        first = torch.remainder(i0 - 1 - (j * b - 1 - m), nmesh)
+        inside = inside & (first + 2 < b + 2 + 2 * m)
+    return ((w != 0) & ~inside).sum()
+
+
+def _check_deposit(grid, cols, plan, nmesh, overflow):
+    n = cols[0].shape[0]
+    for name, t in zip('xyzw', cols):
         if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f'{name} must be a contiguous ({n},) float32 tensor')
         if t.device != grid.device:
             raise ValueError(f'{name} is on {t.device}, grid on {grid.device}')
     if grid.dtype != torch.float32 or grid.shape != (nmesh,) * 3 or not grid.is_contiguous():
         raise ValueError(f'grid must be a contiguous ({nmesh},)*3 float32 tensor')
-    if starts.dtype != torch.int32 or starts.shape != (ncell + 1,) or starts.device != grid.device:
-        raise ValueError(f'starts must be a ({ncell + 1},) int32 tensor on {grid.device}')
-    starts = starts.contiguous()
-    own_err = err is None
-    if own_err:
-        err = torch.zeros(1, dtype=torch.int32, device=grid.device)
-    elif err.dtype != torch.int32 or err.numel() != 1 or err.device != grid.device:
-        raise ValueError(f'err must be a one-element int32 tensor on {grid.device}')
+    work = plan.work
+    if work.dtype != torch.int32 or work.dim() != 2 or work.shape[1] != 3 or (
+        work.device != grid.device
+    ):
+        raise ValueError(f'plan.work must be an (nitems, 3) int32 tensor on {grid.device}')
+    if overflow is not None and (
+        overflow.dtype != torch.int32 or overflow.numel() != 1 or overflow.device != grid.device
+    ):
+        raise ValueError(f'overflow must be a one-element int32 tensor on {grid.device}')
+
+
+def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, kind='tsc'):
+    """Add the TSC (or CIC) deposit of brick-sorted points into `grid` in
+    place.
+
+    x, y, z, w: (N,) f32 in the order of :func:`stage_bricks`; plan: its
+    :class:`BrickPlan` (the points may have moved since: K1 deposits a point
+    whose stencil leaves its tile straight into the grid); grid:
+    (plan.nmesh,)*3 f32, contiguous. `overflow`, an int32 (1,) tensor, gains
+    the number of such points (:func:`overflow_count_plain`).
+
+    On CUDA tensors this launches K1 (csrc/tsc_deposit.cu) on the current
+    stream, without waiting for the device. On CPU tensors it runs
+    :func:`paint_3d_plain` (and :func:`overflow_count_plain` when
+    `overflow` is given). Returns `grid`."""
+    kind = _kind(kind)
+    nmesh = plan.nmesh
+    if grid.device.type == 'cpu':
+        if overflow is not None:
+            overflow += overflow_count_plain(x, y, z, w, plan, box, offset, kind).to(torch.int32)
+        return paint_3d_plain(grid, x, y, z, w, nmesh, box, offset, kind)
+    tile = tile_bytes(plan.brick, plan.margin)
+    if tile > MAX_SMEM_BYTES:
+        raise ValueError(f'tsc_deposit_cells: a {tile} B tile is over {MAX_SMEM_BYTES} B')
+    _check_deposit(grid, (x, y, z, w), plan, nmesh, overflow)
+    work = plan.work.contiguous()
+    if work.shape[0] == 0:  # no points: nothing to launch
+        return grid
+    if overflow is None:
+        overflow = torch.zeros(1, dtype=torch.int32, device=grid.device)
     lib = _build.lib()
     with torch.cuda.device(grid.device):
-        code = lib.tsc_deposit_cells(
+        code = lib.tsc_deposit_bricks(
             grid.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), w.data_ptr(),
-            starts.data_ptr(), ncell, nmesh, yb, _f32(box), _f32(offset), KINDS.index(kind),
-            err.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            work.data_ptr(), work.shape[0], nmesh, *plan.brick, *plan.margin, _f32(box),
+            _f32(offset), KINDS.index(kind), overflow.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(code, 'tsc_deposit_cells')
+    _build.check(code, 'tsc_deposit_bricks')
     tsc_deposit_cells.launches += 1
     tsc_deposit_cells.launches_by_form[kind] += 1
-    if own_err:
-        check_deposit_err(err)
     return grid
 
 
@@ -243,15 +348,27 @@ tsc_deposit_cells.launches = 0
 tsc_deposit_cells.launches_by_form = dict.fromkeys(KINDS, 0)
 
 
-def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', err=None):
+def blocks_per_sm(plan, kind='tsc'):
+    """Resident K1 blocks an SM holds for `plan`'s tile on the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = ctypes.c_int()
+    code = _build.lib().tsc_deposit_blocks_per_sm(
+        KINDS.index(_kind(kind)), plan.nmesh, tile_bytes(plan.brick, plan.margin),
+        ctypes.byref(out),
+    )
+    _build.check(code, 'tsc_deposit_blocks_per_sm')
+    return out.value
+
+
+def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', overflow=None):
     """Paint points onto a new (nmesh,)*3 float32 grid (ops/grid.py:paint_3d
     with TSC's wrap=True and CIC's wrap=False, as ops/power.py:get_field
     calls it). px, py, pz: (N,) tensors; weights: (N,) or None (unit).
 
-    On CUDA tensors the points are staged by (x-cell, y-block of
-    :func:`default_yblock`) with one stable sort and deposited by K1, for
-    every N; `err` is K1's error word (see
-    :func:`tsc_deposit_cells`). On CPU tensors this is the plain scatter."""
+    On CUDA tensors the points are staged by :func:`stage_bricks` (default
+    brick, no margin) and deposited by K1, for every N; `overflow` is K1's
+    overflow word (see :func:`tsc_deposit_cells`). On CPU tensors this is
+    the plain scatter."""
     kind = _kind(kind)
     cols = [c.to(torch.float32).contiguous() for c in (px, py, pz)]
     w = (
@@ -261,6 +378,5 @@ def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', err=N
     grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=cols[0].device)
     if grid.device.type == 'cpu':
         return paint_3d_plain(grid, *cols, w, nmesh, box, offset, kind)
-    yb = default_yblock(nmesh)
-    (x, y, z, ws), starts = stage_grouped2d(cols + [w], nmesh, box, yb, offset, kind=kind)
-    return tsc_deposit_cells(grid, x, y, z, ws, starts, nmesh, yb, box, offset, err, kind)
+    (x, y, z, ws), plan = stage_bricks(cols + [w], nmesh, box, offset=offset, kind=kind)
+    return tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow, kind)

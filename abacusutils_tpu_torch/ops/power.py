@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .grid import MAX_SMEM_BYTES, _f32, check_deposit_err, paint_3d
+from ..convert import resolve_device
+from .grid import MAX_SMEM_BYTES, _f32, paint_3d
 
 __all__ = [
     'get_k_mu_edges',
@@ -180,11 +181,12 @@ def _pole_weight(mu2, dup, pole):
     return (2 * pole + 1) * pw * dup
 
 
-def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cpu'):
+def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cuda'):
     """The mode-bin plan of a (n1d, n1d, n1d/2+1) rfft mesh, built with
-    torch on `device` (ops/power.py:_mode_bin_plan_device and the host
-    build of _ModeBinPlan): squared k and mu edges in units of the
-    fundamental mode, float32.
+    torch on `device`, the card unless the caller names another
+    (ops/power.py:_mode_bin_plan_device and the host build of
+    _ModeBinPlan): squared k and mu edges in units of the fundamental mode,
+    float32.
 
     Returns (seg, counts, ksum, pole_w), all on `device`: seg is int32 per
     mode (Nk*Nmu outside every bin); counts and ksum the (Nk, Nmu) float64
@@ -195,6 +197,7 @@ def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cpu'):
     kedges2 = np.asarray(kedges2, np.float32)
     muedges2 = np.asarray(muedges2, np.float32)
     Nk, Nmu = len(kedges2) - 1, len(muedges2) - 1
+    device = resolve_device(device)
     kflat, muflat, dup = _mode_geometry(int(n1d), device)
     ke = torch.from_numpy(kedges2).to(device)
     me = torch.from_numpy(muedges2).to(device)
@@ -456,8 +459,8 @@ bin_pair_modes.launches_by_form = {}
 
 def _pos_columns(pos, device):
     """(N, 3) array/tensor or a 3-sequence of columns -> three flat float32
-    tensors (numpy inputs go to `device`, CPU when None; tensors stay where
-    they are)."""
+    tensors (numpy inputs go to `device`, the card when None; tensors stay
+    where they are)."""
     if isinstance(pos, (tuple, list)) and len(pos) == 3 and np.ndim(pos[0]) == 1:
         cols = pos
     else:
@@ -468,7 +471,7 @@ def _pos_columns(pos, device):
             out.append(c.to(torch.float32).contiguous())
         else:
             a = np.ascontiguousarray(c, dtype=np.float32)
-            out.append(torch.from_numpy(a).to(device or 'cpu'))
+            out.append(torch.from_numpy(a).to(resolve_device(device)))
     return out
 
 
@@ -480,19 +483,20 @@ def _weights(w, device):
     return torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)).to(device)
 
 
-def get_field(pos, Lbox, nmesh, paste, w=None, d=0.0, device=None, err=None):
+def get_field(pos, Lbox, nmesh, paste, w=None, d=0.0, device=None, overflow=None):
     """Paint the catalog and normalise it to an overdensity,
     field * (nmesh^3 / N) - 1 with N the number of points even when
     weighted (ops/power.py:get_field). TSC wraps each coordinate once and
     then adds the offset `d`; CIC takes pos + d unwrapped, as the JAX
-    package paints it (``paint_3d(..., wrap=False)``). On CUDA tensors the
-    paint is K1 (:func:`ops.grid.paint_3d`). Returns the (nmesh,)*3 f32
-    tensor."""
+    package paints it (``paint_3d(..., wrap=False)``). numpy positions go to
+    `device` (the card when None); tensors stay where they are. On CUDA
+    tensors the paint is K1 (:func:`ops.grid.paint_3d`, `overflow` its
+    overflow word). Returns the (nmesh,)*3 f32 tensor."""
     px, py, pz = _pos_columns(pos, device)
     n_pos = px.shape[0]
     field = paint_3d(
         px, py, pz, nmesh, Lbox, weights=_weights(w, px.device), offset=d, kind=paste.lower(),
-        err=err,
+        overflow=overflow,
     )
     return field * _f32(field.numel() / n_pos) - 1.0
 
@@ -509,7 +513,7 @@ def _interlace_combine(field_fft, field_shift_fft, nmesh, Lbox, d):
     return (field_fft + field_shift_fft * phase) * _f32(0.5 / nmesh**3)
 
 
-def _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device=None, err=None):
+def _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device=None, overflow=None):
     """The Fourier field before its 1/N^3 scale and compensation, and that
     scale: (rfftn(field), 1/N^3), or (the interlaced combination, which
     carries its own 0.5/N^3, 1.0). K3 applies scale and window per mode.
@@ -517,25 +521,27 @@ def _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device=None, err=None):
     pos = _pos_columns(pos, device)
     w = _weights(w, pos[0].device)
     if interlaced:
-        return get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device, err), 1.0
-    field = get_field(pos, Lbox, nmesh, paste, w, device=device, err=err)
+        return get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device, overflow), 1.0
+    field = get_field(pos, Lbox, nmesh, paste, w, device=device, overflow=overflow)
     return torch.fft.rfftn(field), 1.0 / field.numel()
 
 
-def get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device=None, err=None):
+def get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device=None, overflow=None):
     """Interlaced Fourier field: a second paint at offset d/2, d = L/nmesh
-    (ops/power.py:get_interlaced_field_fft)."""
+    (ops/power.py:get_interlaced_field_fft). numpy positions go to `device`
+    (the card when None)."""
     d = Lbox / nmesh
-    F = torch.fft.rfftn(get_field(pos, Lbox, nmesh, paste, w, device=device, err=err))
-    Fs = torch.fft.rfftn(get_field(pos, Lbox, nmesh, paste, w, d=0.5 * d, device=device, err=err))
+    kw = dict(device=device, overflow=overflow)
+    F = torch.fft.rfftn(get_field(pos, Lbox, nmesh, paste, w, **kw))
+    Fs = torch.fft.rfftn(get_field(pos, Lbox, nmesh, paste, w, d=0.5 * d, **kw))
     return _interlace_combine(F, Fs, int(nmesh), float(Lbox), float(d))
 
 
 def get_field_fft(pos, Lbox, nmesh, paste, w, W, compensated, interlaced, device=None):
     """Fourier overdensity field with optional compensation and interlacing
     (ops/power.py:get_field_fft): the field the spectrum functions bin.
-    The pipeline itself hands scale and window to K3 instead of forming
-    this mesh."""
+    numpy positions go to `device` (the card when None). The pipeline
+    itself hands scale and window to K3 instead of forming this mesh."""
     field_fft, scale = _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device)
     if compensated:
         if W is None:
@@ -559,10 +565,10 @@ def _plan_for(n1d, Lbox, kedges, muedges, poles, device):
     return get_mode_bin_plan(int(n1d), kedges2, muedges2, poles, device), dk
 
 
-def _binned_spectra(ffts, W, scale, Lbox, kedges, muedges, poles, err=None):
+def _binned_spectra(ffts, W, scale, Lbox, kedges, muedges, poles):
     """Every pair (i <= j) of the fields `ffts` through one K3 launch.
     Returns (plan, dk, {(i, j): (wsum (Nk, Nmu), pole_sums (npoles_nz, Nk))})
-    as float64 numpy; a non-zero deposit error word `err` raises."""
+    as float64 numpy."""
     n1d = int(ffts[0].shape[0])
     device = ffts[0].device
     poles = tuple(int(p) for p in poles)
@@ -571,8 +577,6 @@ def _binned_spectra(ffts, W, scale, Lbox, kedges, muedges, poles, err=None):
     pole_w = {p: plan.pole_w[p] for p in poles if p != 0}
     Wt = None if W is None else torch.as_tensor(np.asarray(W, np.float32), device=device)
     out = bin_pair_modes(ffts, plan.seg, Wt, scale, nbins, pole_w or None, plan.nmu)
-    if err is not None:
-        check_deposit_err(err)
     sums, psums = out if pole_w else (out, None)
     sums = sums.cpu().numpy().reshape(-1, plan.nk, plan.nmu)
     psums = np.zeros((len(sums), 0, plan.nk)) if psums is None else psums.cpu().numpy()
@@ -703,7 +707,8 @@ def calc_power(
     """Paint -> rfftn -> bin (ops/power.py:calc_power): one or two catalogs
     painted with K1, their auto (or cross) spectrum binned by one K3 launch
     that applies the 1/N^3 scale and the window. numpy inputs go to
-    `device` (CPU when None); tensors stay where they are. Returns a
+    `device` (the card when None; raises where there is none); tensors
+    stay where they are. Returns a
     :class:`SpectrumTable` with the JAX Table's columns and meta."""
     if kbins is None:
         kbins = nmesh

@@ -8,8 +8,9 @@ __all__ = ['edge_points', 'edge_points_centred']
 def edge_points(n, nmesh, yb, box, rng):
     """(n, 3) float32 points in [0, box) with about half placed where the
     cell index is fragile: on TSC cell edges and their next float32 up,
-    on y-block edges, at 0 and at box, just below box, and just below 0
-    (which the single periodic wrap maps onto box)."""
+    on block edges (every `yb` cells: K1's brick edges), at 0 and at box,
+    just below box, and just below 0 (which the single periodic wrap maps
+    onto box)."""
     h = np.float32(box) / np.float32(nmesh)
     pos = (rng.random((n, 3)) * box).astype(np.float32)
     m = rng.random((n, 3))
@@ -35,8 +36,8 @@ def edge_points_centred(n, nmesh, yb, box, rng):
     """(n, 3) float32 points of a box-centred catalog, about [-box/2, box/2),
     for the unwrapped CIC paint: about half lie where the cell index
     floor(p * nmesh / box + 0.5) is fragile, on cell edges at negative and
-    positive coordinates and their next float32 up or down, on y-block
-    edges, at -box/2 and just below box/2, and up to a cell outside the box
+    positive coordinates and their next float32 up or down, on block
+    edges (every `yb` cells), at -box/2 and just below box/2, and up to a cell outside the box
     (galaxies displaced past the edge). Every point lies within one box
     length of [0, box), the domain of TSC's single periodic wrap."""
     h = np.float32(box) / np.float32(nmesh)

@@ -8,10 +8,11 @@ Phases, each printing what it measured:
 1. device, torch and CUDA versions, the card's name and power limit; build
    the CUDA kernels from ``abacusutils_tpu_torch/csrc`` (nvcc, sm_90a);
 2. K1, the TSC deposit, against its plain PyTorch version on ~4e6 points
-   placed on cell and y-block edges and across the periodic wrap;
+   placed on cell and brick edges and across the periodic wrap;
 3. K2, the P(k) mode binning, against its plain version on a 256^3 rfft mesh;
-4. the step at bench scale (1e7 halos + 5e7 particles, nmesh=256, yb=32,
-   128 k-bins): staging, one warm and 3x5 timed steps through the kernels
+4. the step at bench scale (1e7 halos + 5e7 particles, nmesh=256, 16^3
+   bricks with a z margin for RSD, 128 k-bins): staging, one warm and 3x5
+   timed steps through the kernels
    (both launch counters must rise by 2 and 1 per step), each kernel timed
    against its plain version at the step's shapes, and the whole step held
    against the same step built from the plain versions;
@@ -22,8 +23,9 @@ Phases, each printing what it measured:
    rebuilt), the spectra held against the same spectra rebuilt from the
    plain versions, and K3 timed against its plain version;
 6. the light-cone leg of the same call on the same catalog (3-D
-   velocities, an origin outside the box corner): the same, with one K1
-   launch per tracer;
+   velocities, an origin outside the box corner): the same, on catalogs
+   staged once by brick with a margin on every axis, two K1 launches per
+   tracer;
 7. the two-step route on the box catalog of phase 5 (with halo and
    particle ids): (a) ``AbacusHOD.run_hod``, timed host to host, each
    tracer's galaxy count equal to phase 5's n_gal; (b) ``compute_power`` at
@@ -36,12 +38,19 @@ Phases, each printing what it measured:
    monopole = band-mean invariant; (e) the cold ``run_hod_pk_fused`` at
    nmesh 512, whose bin plan is built on the device once.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without CUDA, or when any phase
-fails, the script exits non-zero before printing either.
+Each K1 line ("K1 <shape>: ...") gives, at one of the four shapes the main
+paths run (phases 4, 5, 7 b and 7 d), the time by CUDA events over 5 calls
+after a warm-up, the bound (the bytes the deposit must move at 3.35 TB/s)
+and its share of the time, the overflow share (galaxies deposited straight
+into the grid because they left their brick's tile), the resident blocks an
+SM holds, and ptxas's registers and spills. The line before the last is a
+JSON object describing each kernel; the last line is ``{"ok": true,
+"device": {...}}``. Without CUDA, or when any phase fails, the script exits
+non-zero before printing either.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,15 +70,19 @@ from abacusutils_tpu_torch.models.pipeline import (
     populate_weights_multi,
 )
 from abacusutils_tpu_torch.ops.grid import (
+    BRICK,
+    KINDS,
     _f32,
-    check_deposit_err,
-    default_yblock,
+    blocks_per_sm,
+    overflow_count_plain,
     paint_3d_plain,
-    stage_grouped2d,
+    stage_bricks,
+    tile_bytes,
     tsc_deposit_cells,
 )
 from abacusutils_tpu_torch.ops.power import (
     _interlace_combine,
+    _scaled,
     _spectrum,
     bin_pair_modes,
     bin_pair_modes_plain,
@@ -81,6 +94,7 @@ from abacusutils_tpu_torch.ops.power import (
     get_W_compensated,
     mode_bin_plan,
     mode_bin_plan_device,
+    mode_dup,
 )
 from abacusutils_tpu_torch.testing import edge_points
 
@@ -88,7 +102,7 @@ N_HALO = 10_000_000
 N_PART = 50_000_000
 LBOX = 2000.0
 NMESH = 256
-YB = 32
+YB = None  # the y extent of K1's bricks: the default brick
 NBINS_K = NMESH // 2
 VELZ2KMS = 100.0
 SEED = 42
@@ -118,6 +132,11 @@ DOCS_KMAX = 0.5
 POLES = (0, 2, 4)
 # phase 7 (e): the mesh whose plan the port used to build on the host
 COLD_NMESH = 512
+# the H100 SXM's memory rate (NVIDIA's data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+# ptxas's (registers, spill stores, spill loads) of each K1 instantiation,
+# by (kind, flush width)
+K1_PTXAS = {}
 
 
 class PhaseError(RuntimeError):
@@ -160,34 +179,93 @@ def phase_build():
     print('device:', torch.cuda.get_device_name(0), 'count', torch.cuda.device_count())
     path, secs, log = _build.build()
     for line in log.splitlines():
-        if 'registers' in line or 'Compiling entry' in line:
+        if 'registers' in line or 'Compiling entry' in line or 'spill' in line:
             print('ptxas:', line.strip())
+    K1_PTXAS.update(ptxas_k1(log))
     _build.lib()
-    print(f'phase 1 build: {path.name} in {secs:.2f} s')
+    print(f'phase 1 build: {path.name} in {secs:.2f} s; K1 (kind, flush width): '
+          f'(registers, spill stores, spill loads) {K1_PTXAS}')
+    require(len(K1_PTXAS) == 6, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 6')
+
+
+def ptxas_k1(log):
+    """{(kind, flush width): (registers, spill store bytes, spill load bytes)}
+    of the K1 instantiations in the build's -Xptxas -v log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)EE', m.group(1))
+            cur = (KINDS[int(k.group(1))], int(k.group(2))) if k else None
+            if cur:
+                out[cur] = [None, None, None]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def k1_bound(launches, ngrids, nmesh):
+    """The least time (ms) of K1's work at 3.35 TB/s: per launch the weight
+    of every point and x, y, z of the kept ones read once, and each grid
+    written once. `launches` is [(points, kept points)]; the stencil's
+    27 x 5 flops per kept point are far below the f32 rate, so bytes
+    bound it."""
+    nbytes = sum(4 * n + 12 * k for n, k in launches) + 4 * ngrids * nmesh**3
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def k1_line(tag, ms, launches, ngrids, nmesh, overflow, plan, kind='tsc'):
+    """Print the K1 line of one shape; returns its JSON record."""
+    bound, nbytes = k1_bound(launches, ngrids, nmesh)
+    kept = sum(k for _, k in launches)
+    width = next(v for v in (4, 2, 1) if nmesh % v == 0)
+    regs = K1_PTXAS.get((kind, width), (None, None, None))
+    rec = {
+        'shape': tag, 'ms': ms, 'bound_ms': bound, 'bound_share': bound / ms,
+        'overflow_share': overflow / max(kept, 1), 'blocks_per_sm': blocks_per_sm(plan, kind),
+        'brick': plan.brick, 'margin': plan.margin, 'tile_bytes': tile_bytes(plan.brick,
+                                                                            plan.margin),
+        'items': int(plan.work.shape[0]), 'launches': len(launches), 'kept': kept,
+        'registers': regs[0], 'spill_stores': regs[1], 'spill_loads': regs[2],
+        'flush_width': width,
+    }
+    print(f'K1 {tag}: {ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), '
+          f'share {bound / ms:.3f}; overflow share {rec["overflow_share"]:.3e} ({overflow} of '
+          f'{kept}); {rec["blocks_per_sm"]} blocks/SM (tile {rec["tile_bytes"]} B, brick '
+          f'{plan.brick}, margin {plan.margin}, {rec["items"]} items a launch); ptxas '
+          f'{regs[0]} registers, spill stores {regs[1]} B, loads {regs[2]} B')
+    return rec
 
 
 def phase_k1(dev):
     rng = np.random.default_rng(SEED)
-    pos = edge_points(N_EDGE, NMESH, YB, LBOX, rng)
+    pos = edge_points(N_EDGE, NMESH, BRICK[1], LBOX, rng)
     w = rng.random(N_EDGE).astype(np.float32)
     w[::5] = 0.0
     cols = [torch.from_numpy(pos[:, i].copy()).to(dev) for i in range(3)]
     wt = torch.from_numpy(w).to(dev)
-    (x, y, z, ws), starts = stage_grouped2d(cols + [wt], NMESH, LBOX, YB)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    (x, y, z, ws), plan = stage_bricks(cols + [wt], NMESH, LBOX)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     grid_k = torch.zeros((NMESH,) * 3, device=dev)
-    tsc_deposit_cells(grid_k, x, y, z, ws, starts, NMESH, YB, LBOX, 0.0, err=err)
+    tsc_deposit_cells(grid_k, x, y, z, ws, plan, LBOX, 0.0, overflow)
     grid_p = paint_3d_plain(torch.zeros_like(grid_k), *cols, wt, NMESH, LBOX)
     torch.cuda.synchronize()
-    n_err = int(err.item())
+    n_over = int(overflow.item())
     diff = float((grid_k - grid_p).abs().max())
     gmax = float(grid_p.abs().max())
     mass_k, mass_p = float(grid_k.double().sum()), float(grid_p.double().sum())
     print(
-        f'phase 2 K1 vs plain: {N_EDGE} edge points, err word {n_err}, '
+        f'phase 2 K1 vs plain: {N_EDGE} edge points, overflow word {n_over}, '
         f'max|d| {diff:.3e} (max|grid| {gmax:.4f}), mass {mass_k:.6f} vs {mass_p:.6f}'
     )
-    require(n_err == 0, f'K1 error word {n_err}')
+    require(n_over == 0, f'K1 overflow word {n_over}: the staging key and the kernel disagree')
     require(diff <= 1e-5 * gmax, f'K1 max|d| {diff} > 1e-5 * {gmax}')
     require(abs(mass_k - mass_p) <= 1e-6 * abs(mass_p), 'K1 total mass differs')
     return grid_p
@@ -207,8 +285,8 @@ def phase_k2(grid, seg, W):
 
 
 def deposit_inputs(halo_g, part_g, sh, sp, params):
-    """The step's populate pass, as (x, y, z, weight, starts) per catalog,
-    in the box frame the deposit takes."""
+    """The step's populate pass, as (x, y, z, weight, brick plan) per
+    catalog, in the box frame the deposit takes."""
     inv_v = float(np.float32(1.0) / np.float32(VELZ2KMS))
     half = float(np.float32(LBOX) / 2)
     z_c, keep_c, z_s, keep_s = populate_weights(halo_g, part_g, params, True, inv_v)
@@ -243,12 +321,12 @@ def phase_step(dev, seg, W):
     del halo, part
     print(f'phase 4 inputs {t_in:.3f} s, staging cold {t_stage_cold:.3f} s warm {t_stage:.3f} s')
 
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def step():
         return hod_pk_fused_yb(
             halo_g, part_g, params, seg, W, LBOX, VELZ2KMS, NMESH, YB, NBINS_K, sh, sp,
-            rsd=True, err=err,
+            rsd=True, overflow=overflow,
         )
 
     torch.cuda.reset_peak_memory_stats()
@@ -261,11 +339,12 @@ def phase_step(dev, seg, W):
     launches = read_launches()
     n_steps = 1 + 3 * n_iter
     peak = torch.cuda.max_memory_allocated()
-    check_deposit_err(err)
     n_gal_v = float(n_gal)
+    over_share = int(overflow.item()) / (n_gal_v * n_steps)
     print(
         f'phase 4 step: n_gal {n_gal_v:.0f}, step_seconds {best:.6f} (warm-up {t_warm:.3f} s), '
-        f'galaxies/s {n_gal_v / best:.6e}, peak memory {peak / 2**30:.3f} GiB, launches {launches}'
+        f'galaxies/s {n_gal_v / best:.6e}, peak memory {peak / 2**30:.3f} GiB, K1 overflow '
+        f'share {over_share:.3e}, launches {launches}'
     )
     require(launches['tsc_deposit_cells'] == 2 * n_steps, f'K1 launches {launches}')
     require(launches['bin_power_modes'] == n_steps, f'K2 launches {launches}')
@@ -278,30 +357,27 @@ def phase_step(dev, seg, W):
     grid_k = torch.zeros((NMESH,) * 3, device=dev)
     grid_p = torch.zeros_like(grid_k)
 
-    def k1():
-        grid_k.zero_()
-        for x, y, z, w, st in dep:
-            tsc_deposit_cells(grid_k, x, y, z, w, st, NMESH, YB, LBOX, 0.0, err=err)
-
-    def p1():
-        grid_p.zero_()
-        for x, y, z, w, _ in dep:
-            paint_3d_plain(grid_p, x, y, z, w, NMESH, LBOX)
-
-    k1_ms, p1_ms = event_ms(k1), event_ms(p1)
-    check_deposit_err(err)
-    k1_err = float((grid_k - grid_p).abs().max())
+    k1_ms, p1_ms, k1_err, k1_rec = time_k1(
+        'bench step (phase 4), 256^3, 2 launches, 1 grid', [dep], NMESH, 'tsc')
     print(f'phase 4 K1 at step shapes: {k1_ms:.4f} ms vs plain {p1_ms:.4f} ms, max|d| {k1_err:.3e}')
-    require(k1_err <= 1e-5 * float(grid_p.abs().max()), 'K1 disagrees at step shapes')
 
-    dk = torch.fft.rfftn(grid_k * (grid_k.numel() / n_gal) - 1.0)
-    scale = 1.0 / grid_k.numel()
+    dk = torch.fft.rfftn(k1_rec.pop('grid') * (NMESH**3 / n_gal) - 1.0)
+    scale = 1.0 / NMESH**3
     k2_ms = event_ms(lambda: bin_power_modes(dk, seg, W, scale, NBINS_K))
     p2_ms = event_ms(lambda: bin_power_modes_plain(dk, seg, W, scale, NBINS_K))
     got = bin_power_modes(dk, seg, W, scale, NBINS_K)
     ref = bin_power_modes_plain(dk, seg, W, scale, NBINS_K)
     k2_err = float((got - ref).abs().max())
-    print(f'phase 4 K2 at step shapes: {k2_ms:.4f} ms vs plain {p2_ms:.4f} ms, max|d| {k2_err:.3e}')
+    # the binning alone as one library call: bincount of precomputed weights
+    wmode = (_scaled(dk, scale, W).abs() ** 2 * mode_dup_t(NMESH, dk.device)).reshape(-1)
+    seg_l = seg.reshape(-1).long()
+    lib_ms = event_ms(lambda: torch.bincount(seg_l, weights=wmode, minlength=NBINS_K + 1))
+    del wmode, seg_l
+    modes = dk.numel()
+    k2_bound = (12 * modes + 4 * NMESH + 8 * NBINS_K) / HBM_BYTES_PER_S * 1e3
+    print(f'phase 4 K2 at step shapes: {k2_ms:.4f} ms vs plain {p2_ms:.4f} ms, max|d| {k2_err:.3e}; '
+          f'bound {k2_bound:.4f} ms (delta_k and seg read once); library (torch.bincount of '
+          f'precomputed weights, the binning only) {lib_ms:.4f} ms')
     require(bool(((got - ref).abs() <= 1e-5 * ref.abs()).all()), 'K2 disagrees at step shapes')
 
     # the whole step against the step built from the plain versions
@@ -312,9 +388,65 @@ def phase_step(dev, seg, W):
     require(bool(((wsum - wsum_p).abs() <= 1e-4 * wsum_p.abs()).all()), f'wsum rel {rel} > 1e-4')
 
     return launches, {
-        'tsc_deposit_cells': (k1_ms, p1_ms, k1_err),
-        'bin_power_modes': (k2_ms, p2_ms, k2_err),
+        'tsc_deposit_cells': dict(ms=k1_ms, plain_ms=p1_ms, max_abs_err=k1_err,
+                                  bound_ms=k1_rec['bound_ms'], bound_by='bytes', library_ms=None,
+                                  shapes=[k1_rec]),
+        'bin_power_modes': dict(ms=k2_ms, plain_ms=p2_ms, max_abs_err=k2_err, bound_ms=k2_bound,
+                                bound_by='bytes', library_ms=lib_ms,
+                                library_call=LIBRARY_CALL),
     }
+
+
+LIBRARY_CALL = ('torch.bincount(seg, weights=w, minlength=nbins + 1) on precomputed per-mode '
+                'weights: the binning only')
+
+
+def mode_dup_t(n1d, device):
+    """The Hermitian multiplicity of each rfft mode as a mesh on `device`."""
+    return torch.from_numpy(mode_dup(n1d)).to(device).reshape(n1d, n1d, n1d // 2 + 1)
+
+
+def time_k1(tag, grids, nmesh, kind, check_overflow=None):
+    """K1 at one shape of a main path against the plain scatter: `grids` is
+    a list, one per grid the path paints, of the (x, y, z, w, plan)
+    deposits into it. Times both by CUDA events (5 calls after a warm-up),
+    checks the kernel's grids against the plain ones (max|d| <= 1e-5
+    max|grid|: float atomics sum in a run-dependent order) and its overflow
+    word against the plain count, and prints the K1 line. Returns (ms,
+    plain_ms, max|d|, the K1 line's record with the first kernel grid)."""
+    dev = grids[0][0][0].device
+    gk = [torch.zeros((nmesh,) * 3, device=dev) for _ in grids]
+    gp = [torch.zeros((nmesh,) * 3, device=dev) for _ in grids]
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def k1():
+        for g, deps in zip(gk, grids):
+            g.zero_()
+            for x, y, z, w, plan in deps:
+                tsc_deposit_cells(g, x, y, z, w, plan, LBOX, 0.0, overflow, kind)
+
+    def p1():
+        for g, deps in zip(gp, grids):
+            g.zero_()
+            for x, y, z, w, _ in deps:
+                paint_3d_plain(g, x, y, z, w, nmesh, LBOX, 0.0, kind)
+
+    ms, plain_ms = event_ms(k1), event_ms(p1)
+    overflow.zero_()
+    k1()
+    n_over = int(overflow.item())
+    want = sum(int(overflow_count_plain(x, y, z, w, plan, LBOX, 0.0, kind))
+               for deps in grids for x, y, z, w, plan in deps)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    gmax = max(float(b.abs().max()) for b in gp)
+    require(n_over == want, f'K1 {tag}: overflow word {n_over} != plain count {want}')
+    if check_overflow is not None:
+        require(n_over == check_overflow, f'K1 {tag}: overflow word {n_over}')
+    require(err <= 1e-5 * gmax, f'K1 {tag} disagrees with the plain scatter ({err:.3e})')
+    launches = [(int(w.numel()), int((w != 0).sum())) for deps in grids for _, _, _, w, _ in deps]
+    rec = k1_line(tag, ms, launches, len(grids), nmesh, n_over, grids[0][0][4], kind)
+    rec.update(plain_ms=plain_ms, max_abs_err=err, grid=gk[0])
+    return ms, plain_ms, err, rec
 
 
 KERNELS = {
@@ -389,13 +521,32 @@ def fused_state(dev):
     return halo_data, particle_data
 
 
+def k3_extras(deltas, seg, nbins, pole_w=None, nmu=1):
+    """K3's bound (ms: the fields and seg read once, the sums written once,
+    at 3.35 TB/s; its few flops a mode and pair are far below the f32 rate)
+    and the time of one library call that bins every pair's (k, mu) rows:
+    torch.bincount over precomputed f32 per-mode weights (the binning only;
+    no pole rows)."""
+    npairs = len(deltas) * (len(deltas) + 1) // 2
+    modes = seg.numel()
+    row = nbins + (len(pole_w) * (nbins // nmu) if pole_w else 0)
+    bound = (8 * len(deltas) * modes + 4 * modes + 8 * npairs * row) / HBM_BYTES_PER_S * 1e3
+    dup = mode_dup_t(deltas[0].shape[0], seg.device)
+    w = torch.cat([(deltas[i].real * deltas[j].real + deltas[i].imag * deltas[j].imag)
+                   .mul_(dup).reshape(-1) for i, j in field_pairs(len(deltas))])
+    segs = torch.cat([seg.reshape(-1) + p * (nbins + 1) for p in range(npairs)])
+    lib_ms = event_ms(lambda: torch.bincount(segs, weights=w, minlength=npairs * (nbins + 1)))
+    return bound, lib_ms
+
+
 def plain_spectra(cats, n_gal, seg, W):
     """Every pair's bin sums from the plain versions only: one plain deposit
-    per (x, y, z, w) catalog of each tracer, rfftn, plain pair binning."""
+    per (x, y, z, w, plan) catalog of each tracer, rfftn, plain pair
+    binning."""
     deltas = []
     for tracer in WANT:
         grid = torch.zeros((NMESH,) * 3, device=seg.device)
-        for x, y, z, w in cats[tracer]:
+        for x, y, z, w, *_ in cats[tracer]:
             paint_3d_plain(grid, x, y, z, w, NMESH, LBOX)
         deltas.append(torch.fft.rfftn(grid * (grid.numel() / n_gal[tracer]) - 1.0))
     return deltas, bin_pair_modes_plain(deltas, seg, W, 1.0 / NMESH**3, NBINS_K)
@@ -404,8 +555,8 @@ def plain_spectra(cats, n_gal, seg, W):
 def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     """Stage cold and warm, one cold and 3x5 timed warm calls of
     hod.run_hod_pk_fused, launch and plan checks, the spectra against the
-    plain rebuild, and K3 against its plain version. Returns (launches, K3
-    (ms, plain_ms, max_abs_err))."""
+    plain rebuild, and K3 against its plain version. Returns (launches, K3's
+    timing record, clustering, n_gal, the plain rebuild's deposits)."""
     t_stage_cold = sync_seconds(stage_fn)[1]
     hod._fused_stage = hod._flat_stage_cache = None
     t_stage = sync_seconds(stage_fn)[1]
@@ -424,14 +575,14 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     launches = read_launches()
     n_calls = 1 + 3 * n_iter
     peak = torch.cuda.max_memory_allocated()
-    err_word = int(hod.deposit_err.item())
+    over = int(hod.deposit_overflow.item())  # of the last call
     print(
         f'phase {phase}: staging cold {t_stage_cold:.3f} s warm {t_stage:.3f} s, '
         f'cold call {t_cold:.3f} s, seconds/call {best:.6f} (best mean of 3x{n_iter}), '
-        f'n_gal {n_gal}, peak memory {peak / 2**30:.3f} GiB, K1 error word {err_word}, '
+        f'n_gal {n_gal}, peak memory {peak / 2**30:.3f} GiB, K1 overflow share '
+        f'{over / sum(n_gal.values()):.3e} ({over} galaxies), '
         f'plan builds {make_bin_plan_arrays.builds - builds}, launches {launches}'
     )
-    require(err_word == 0, f'K1 error word {err_word}')
     require(launches['tsc_deposit_cells'] == k1_per_call * n_calls, f'K1 launches {launches}')
     require(launches['bin_pair_modes'] == n_calls, f'K3 launches {launches}')
     require(launches['bin_power_modes'] == 0, f'K2 launches {launches}')
@@ -468,16 +619,20 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     pairs = field_pairs(len(WANT))
     auto = {i: wsum_p[p].abs() for p, (i, j) in enumerate(pairs) if i == j}
     tol = torch.stack([1e-5 * (auto[i] * auto[j]).sqrt() for i, j in pairs])
+    k3_bound, lib_ms = k3_extras(deltas, seg, NBINS_K)
     print(f'phase {phase} K3 at call shapes: {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms, '
-          f'max|d| {k3_err:.3e}')
+          f'max|d| {k3_err:.3e}; bound {k3_bound:.4f} ms, library (torch.bincount of '
+          f'precomputed weights, the binning only) {lib_ms:.4f} ms')
     require(bool(((got - wsum_p).abs() <= tol).all()), 'K3 disagrees with its plain version')
-    return launches, (k3_ms, p3_ms, k3_err), cl, n_gal
+    k3 = dict(ms=k3_ms, plain_ms=p3_ms, max_abs_err=k3_err, bound_ms=k3_bound, bound_by='bytes',
+              library_ms=lib_ms, library_call=LIBRARY_CALL)
+    return launches, k3, cl, n_gal, cats
 
 
 def box_cats(hod):
-    """Per tracer, the box leg's two deposits (box-frame coordinates) from
-    the staged catalogs, and n_gal."""
-    halo_g, part_g, _, _ = hod._box_stage(NMESH, YB)
+    """Per tracer, the box leg's two deposits (box-frame coordinates and
+    the stage's brick plan) from the staged catalogs, and n_gal."""
+    halo_g, part_g, plan_h, plan_p = hod._box_stage(NMESH, YB)
     tp = hod._tracer_tensors(TRACERS, WANT)
     inv_v = float(np.float32(1.0) / np.float32(VELZ2KMS))
     tr, _ = populate_weights_multi(halo_g, part_g, tp, WANT, True, inv_v)
@@ -486,24 +641,22 @@ def box_cats(hod):
     for tracer in WANT:
         z_c, w_c, z_s, w_s = tr[tracer]
         cats[tracer] = [
-            (halo_g['x'] + half, halo_g['y'] + half, z_c + half, w_c),
-            (part_g['x'] + half, part_g['y'] + half, z_s + half, w_s),
+            (halo_g['x'] + half, halo_g['y'] + half, z_c + half, w_c, plan_h),
+            (part_g['x'] + half, part_g['y'] + half, z_s + half, w_s, plan_p),
         ]
         n_gal[tracer] = w_c.sum() + w_s.sum()
     return cats, n_gal
 
 
 def lc_cats(hod):
-    """Per tracer, the light-cone galaxies at their displaced raw
-    coordinates (centrals and satellites together), and n_gal."""
-    halo, part = hod._flat_stage(hod.want_shear)
+    """Per tracer, the light-cone leg's two deposits (centrals and
+    satellites at their displaced raw coordinates, in the order of the
+    leg's brick stage, with its plans), and n_gal."""
+    halo, part, plan_h, plan_p = hod._lc_stage(NMESH, YB)
     tp = hod._tracer_tensors(TRACERS, WANT)
     origin = torch.tensor(LC_ORIGIN, dtype=torch.float32, device=halo['x'].device)
     tr, n_gal = populate_lc_multi(halo, part, tp, WANT, True, _f32(1.0 / VELZ2KMS), origin)
-    cats = {
-        tracer: [tuple(torch.cat([tr[tracer][k], tr[tracer][k + 4]]) for k in range(4))]
-        for tracer in WANT
-    }
+    cats = {t: [(*tr[t][:4], plan_h), (*tr[t][4:], plan_p)] for t in WANT}
     return cats, n_gal
 
 
@@ -516,12 +669,20 @@ def phase_fused(dev, seg, W):
     box = check_fused(
         5, box_hod, lambda: box_hod._box_stage(NMESH, YB), 2 * len(WANT), box_cats, seg, W
     )
+    *_, k1_rec = time_k1('fused box (phase 5), 256^3, 6 launches, 3 grids',
+                         [box[4][tr] for tr in WANT], NMESH, 'tsc')
+    k1_rec.pop('grid')
+    box = box[:4] + (k1_rec,)
     params_lc = dict(params, origin=np.array(LC_ORIGIN))
     hod = AbacusHOD(*state, params_lc, TRACERS, dev, halo_lc=True, z_type='lightcone')
     del state
-    lc = check_fused(6, hod, lambda: hod._flat_stage(hod.want_shear), len(WANT), lc_cats, seg, W)
+    lc = check_fused(6, hod, lambda: hod._lc_stage(NMESH, YB), 2 * len(WANT), lc_cats, seg, W)
+    *_, k1_lc = time_k1('fused light cone (phase 6), 256^3, 6 launches, 3 grids',
+                        [lc[4][tr] for tr in WANT], NMESH, 'tsc')
+    k1_lc.pop('grid')
+    require(k1_lc['overflow_share'] < 0.01, 'light cone: over 1 % of the galaxies left their tile')
     del hod
-    return box, lc, box_hod
+    return box, lc[:4] + (k1_lc,), box_hod
 
 
 def mock_columns(mock, dev):
@@ -600,8 +761,9 @@ def check_spectra(tag, cl, ref, tol):
 
 
 def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
-    """K3 (pole form) and K1 (`kind`) at the call's shapes against their
-    plain versions: (k3 (ms, plain_ms, max|d|), k1 (ms, plain_ms, max|d|))."""
+    """K3 (pole form) and K1 (`kind`, each tracer into its own grid, as
+    compute_power paints) at the call's shapes against their plain
+    versions. Returns (K3's timing record, K1's)."""
     nbins, nmu = plan.nk * plan.nmu, plan.nmu
     args = (ffts, plan.seg, W, scale, nbins, pole_w, nmu)
     k3_ms = event_ms(lambda: bin_pair_modes(*args))
@@ -611,38 +773,27 @@ def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
     ref = torch.cat([a.reshape(npairs, -1) for a in bin_pair_modes_plain(*args)], 1)
     k3_err = float((got - ref).abs().max())
     rel = float(((got - ref).abs() / ref.abs().amax(1, keepdim=True)).max())
-    yb = default_yblock(nmesh)
-    dev = plan.seg.device
-    staged = []
+    del got, ref
+    k3_bound, lib_ms = k3_extras(ffts, plan.seg, nbins, pole_w, nmu)
+    print(f'phase 7 {tag}: K3 poles nmu={nmu} {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms (max|d| '
+          f'{k3_err:.3e}, {rel:.3e} of its row); bound {k3_bound:.4f} ms, library '
+          f'(torch.bincount of precomputed weights, the (k, mu) rows only) {lib_ms:.4f} ms')
+    require(rel <= 1e-5, f'K3 poles nmu={nmu} disagrees with its plain version ({rel:.3e})')
+    grids = []
     for tr in WANT:
         c = cols[tr]
-        w = torch.ones_like(c[0])
-        (x, y, z, ws), starts = stage_grouped2d(c + [w], nmesh, LBOX, yb, 0.0, kind=kind)
-        staged.append((x, y, z, ws, starts, c, w))
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-    grid_k = torch.zeros((nmesh,) * 3, device=dev)
-    grid_p = torch.zeros_like(grid_k)
-
-    def k1():
-        grid_k.zero_()
-        for x, y, z, ws, starts, _, _ in staged:
-            tsc_deposit_cells(grid_k, x, y, z, ws, starts, nmesh, yb, LBOX, 0.0, err=err, kind=kind)
-
-    def p1():
-        grid_p.zero_()
-        for *_, c, w in staged:
-            paint_3d_plain(grid_p, *c, w, nmesh, LBOX, 0.0, kind)
-
-    k1_ms, p1_ms = event_ms(k1), event_ms(p1)
-    check_deposit_err(err)
-    k1_err = float((grid_k - grid_p).abs().max())
-    gmax = float(grid_p.abs().max())
-    print(f'phase 7 {tag}: K3 poles nmu={nmu} {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms (max|d| '
-          f'{k3_err:.3e}, {rel:.3e} of its row); K1 {kind} yb={yb} {k1_ms:.4f} ms vs plain '
-          f'{p1_ms:.4f} ms (max|d| {k1_err:.3e} of max|grid| {gmax:.4f})')
-    require(rel <= 1e-5, f'K3 poles nmu={nmu} disagrees with its plain version ({rel:.3e})')
-    require(k1_err <= 1e-5 * gmax, f'K1 {kind} disagrees with its plain version')
-    return (k3_ms, p3_ms, k3_err), (k1_ms, p1_ms, k1_err)
+        staged, bplan = stage_bricks(c + [torch.ones_like(c[0])], nmesh, LBOX, kind=kind)
+        grids.append([(*staged, bplan)])
+    k1_ms, p1_ms, k1_err, k1_rec = time_k1(
+        f'{tag} {kind} {nmesh}^3, {len(WANT)} launches, {len(WANT)} grids', grids, nmesh, kind,
+        check_overflow=0)
+    k1_rec.pop('grid')
+    print(f'phase 7 {tag}: K1 {kind} {k1_ms:.4f} ms vs plain {p1_ms:.4f} ms (max|d| {k1_err:.3e})')
+    k3 = dict(ms=k3_ms, plain_ms=p3_ms, max_abs_err=k3_err, bound_ms=k3_bound, bound_by='bytes',
+              library_ms=lib_ms, library_call=LIBRARY_CALL + ' of the (k, mu) rows')
+    k1 = dict(ms=k1_ms, plain_ms=p1_ms, max_abs_err=k1_err, bound_ms=k1_rec['bound_ms'],
+              bound_by='bytes', library_ms=None, shapes=[k1_rec])
+    return k3, k1
 
 
 def phase_two_step(hod, n_gal5, cl5):
@@ -688,20 +839,20 @@ def phase_two_step(hod, n_gal5, cl5):
     paths['AbacusHOD.compute_power (docs/hod.md settings)'] = launches
     print(f'phase 7 (b) compute_power nmesh {DOCS_NMESH}, {DOCS_NBINS_K} k-bins to {DOCS_KMAX}, '
           f'poles {POLES}: cold {t_cold:.3f} s ({plan_builds} plan build), warm best of 3 '
-          f'{best:.3f} s, launches {launches}, K1 error word {int(hod.deposit_err.item())}')
+          f'{best:.3f} s, launches {launches}, K1 overflow word '
+          f'{int(hod.deposit_overflow.item())}')
     require(plan_builds == 1, f'{plan_builds} plan builds in the cold call')
     require(launches['tsc_deposit_cells[tsc]'] == 3 * 4, f'K1 launches {launches}')
     require(launches['bin_pair_modes[poles nmu=1]'] == 4, f'K3 launches {launches}')
-    require(int(hod.deposit_err.item()) == 0, 'K1 error word')
+    require(int(hod.deposit_overflow.item()) == 0, 'K1 overflow word')
     ref, ffts, scale, W, plan, pole_w = plain_power(
         cols, DOCS_NMESH, DOCS_NBINS_K, 1, DOCS_KMAX, 'TSC', False, False)
     worst = check_spectra('(b)', cl_b, ref, 1e-4)
     print(f'phase 7 (b) plain rebuild agrees: worst |d|/scale {worst:.3e} (<= 1e-4)')
     timing['bin_pair_modes[poles nmu=1]'], k1_550 = time_kernels(
         '(b)', ffts, scale, W, plan, pole_w, cols, DOCS_NMESH, 'tsc')
+    timing['k1 shapes'] = k1_550['shapes']
     del ffts
-    print(f'phase 7 (b) K1 tsc at 550 (three tracers): {k1_550[0]:.4f} ms '
-          f'vs plain {k1_550[1]:.4f} ms')
 
     # the device plan build against the numpy host build, at 550
     ke2 = ((get_k_mu_edges(LBOX, DOCS_KMAX, DOCS_NBINS_K, 1, False)[0]
@@ -720,7 +871,7 @@ def phase_two_step(hod, n_gal5, cl5):
     print(f'phase 7 (b) plan build at {DOCS_NMESH}^3 ({seg_np.size} modes, poles {POLES}): device '
           f'{t_dev:.4f} s, numpy host build (seg, counts) {t_host:.3f} s, bit-equal {same}')
     require(same, 'the device plan differs from the numpy build')
-    timing['mode_bin_plan_device'] = (t_dev * 1e3, t_host * 1e3, 0.0)
+    timing['mode_bin_plan_device'] = dict(ms=t_dev * 1e3, plain_ms=t_host * 1e3)
     del plan_dev, seg_np, counts_np
 
     # (c) nmesh 256, compensated, against phase 5's fused spectra
@@ -753,10 +904,10 @@ def phase_two_step(hod, n_gal5, cl5):
             compensated=True, interlaced=True))
         launches = read_launches()
         paths[f'AbacusHOD.compute_power ({paste}, interlaced, 4 mu bins)'] = launches
-        err_word = int(hod.deposit_err.item())
+        over = int(hod.deposit_overflow.item())
         require(launches[f'tsc_deposit_cells[{kind}]'] == 6, f'K1 launches {launches}')
         require(launches['bin_pair_modes[poles nmu=4]'] == 1, f'K3 launches {launches}')
-        require(err_word == 0, f'K1 error word {err_word}')
+        require(over == 0, f'K1 overflow word {over}')
         ref, ffts, scale, W, plan, pole_w = plain_power(cols, NMESH, NBINS_K, 4, kmax, paste,
                                                         True, True)
         worst = check_spectra(f'(d) {paste}', cl_d, ref, 1e-4)
@@ -767,7 +918,7 @@ def phase_two_step(hod, n_gal5, cl5):
             ok = N.sum(axis=1) > 0
             band = (P * N).sum(axis=1)[ok] / N.sum(axis=1)[ok]
             inv = max(inv, float(np.max(np.abs(cl_d[key + '_ell'][ok, 0] - band) / np.abs(band))))
-        print(f'phase 7 (d) {paste}: {t_d:.3f} s a call, K1 error word {err_word}, worst '
+        print(f'phase 7 (d) {paste}: {t_d:.3f} s a call, K1 overflow word {over}, worst '
               f'|d|/scale vs plain {worst:.3e}, monopole vs band mean {inv:.3e} (<= 1e-5), '
               f'launches {launches}')
         require(inv <= 1e-5, f'(d) {paste} monopole != band mean ({inv:.3e})')
@@ -775,6 +926,7 @@ def phase_two_step(hod, n_gal5, cl5):
         timing['bin_pair_modes[poles nmu=4]'] = k3
         if kind == 'cic':
             timing['tsc_deposit_cells[cic]'] = k1
+            timing['k1 shapes'] += k1['shapes']
         del ffts
 
     # (e) the cold run_hod_pk_fused at nmesh 512: its plan on the device, once
@@ -802,16 +954,20 @@ def phase_two_step(hod, n_gal5, cl5):
 
 def kernel_line(paths, timing):
     """The kernels JSON: per kernel and form its launches on each main path
-    (summed in `launches`) and its time against its plain version."""
+    (summed in `launches`), its time against its plain version, its bound
+    and a library call's time (null where no PyTorch call computes the same
+    function)."""
     out = []
     for form, (name, key, replaces) in FORMS.items():
         col = name if key is None else form
         by_path = {path: launches[col] for path, launches in paths.items()}
-        ms, plain_ms, err = timing[form]
+        t = timing[form]
         out.append({
             'name': form, 'route': 'cuda', 'source': KERNELS[name][1], 'replaces': replaces,
             'launches': sum(by_path.values()), 'launches_by_path': by_path,
-            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'max_abs_err': t['max_abs_err'], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
+            'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
+            **{k: t[k] for k in ('library_call', 'shapes') if k in t},
         })
     return {'kernels': out}
 
@@ -835,10 +991,15 @@ def main():
         timing['tsc_deposit_cells[tsc]'] = timing.pop('tsc_deposit_cells')
         box, lc, hod = phase_fused(dev, seg, W)
         timing['bin_pair_modes[no poles]'] = box[1]
-        print(f'K3 at the light-cone call shapes: {lc[1][0]:.4f} ms vs plain {lc[1][1]:.4f} ms')
+        timing['tsc_deposit_cells[tsc]']['shapes'] += [box[4], lc[4]]
+        print(f'K3 at the light-cone call shapes: {lc[1]["ms"]:.4f} ms vs plain '
+              f'{lc[1]["plain_ms"]:.4f} ms')
         del seg, W
         paths7, timing7 = phase_two_step(hod, box[3], box[2])
+        shapes7 = timing7.pop('k1 shapes')
+        timing['tsc_deposit_cells[tsc]']['shapes'].append(shapes7[0])
         timing.update(timing7)
+        timing['tsc_deposit_cells[cic]']['shapes'] = shapes7[1:]
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],

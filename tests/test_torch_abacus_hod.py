@@ -100,7 +100,8 @@ def test_run_hod_pk_fused_matches_jax(lc, want_shear, want_ranks, compensated, r
     ref = jax_hod.run_hod_pk_fused(**kw)
     got = port.run_hod_pk_fused(**kw)
     _assert_clustering(got, ref)
-    assert int(port.deposit_err) == 0
+    # no galaxy moved further than its brick's margin at these widths
+    assert int(port.deposit_overflow) == 0
     if reseed:
         npt.assert_array_equal(port.halo_data['hrandoms'], jax_hod.halo_data['hrandoms'])
         npt.assert_array_equal(port.particle_data['prandoms'], jax_hod.particle_data['prandoms'])

@@ -16,9 +16,11 @@ import torch
 from abacusutils_tpu_torch.convert import inputs_from_numpy
 from abacusutils_tpu_torch.models import pipeline as tpipe
 from abacusutils_tpu_torch.ops.grid import (
-    check_deposit_err,
+    blocks_per_sm,
+    brick_shape,
+    overflow_count_plain,
     paint_3d_plain,
-    stage_grouped2d,
+    stage_bricks,
     tsc_deposit_cells,
 )
 from abacusutils_tpu_torch.convert import params_to_tensors, staged_state_from_numpy
@@ -45,24 +47,36 @@ from torch_helpers import (  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize('nmesh,yb,box,offset', [(64, 32, 2000.0, 0.0), (128, 16, 77.0, 0.3)])
-def test_deposit_kernel_matches_plain(cuda_device, nmesh, yb, box, offset):
+def _assert_grid(got, ref):
+    # float atomics sum in a run-dependent order: f32 round-off of the cell sums
+    scale = float(ref.abs().max())
+    npt.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize(
+    'nmesh,box,offset', [(64, 2000.0, 0.0), (96, 77.0, 0.3), (550, 2000.0, 0.0), (45, 90.0, 0.0)]
+)
+def test_deposit_kernel_matches_plain(cuda_device, nmesh, box, offset):
+    """K1 against the plain scatter on points placed on cell and brick
+    edges and across the periodic wrap, at meshes of 16^3 bricks with and
+    without a ragged last brick (96 = 6 x 16; 550 = 34 x 16 + 6; 45 =
+    2 x 16 + 13), which the float4 (64, 96), float2 (550) and float (45)
+    flush take; no point leaves its tile."""
     rng = np.random.default_rng(nmesh)
     n = 300_000
-    pos = edge_points(n, nmesh, yb, box, rng)
+    pos = edge_points(n, nmesh, 16, box, rng)
     w = rng.random(n).astype(np.float32)
     w[::9] = 0.0
     cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
     wt = t(w).to(cuda_device)
-    (x, y, z, ws), starts = stage_grouped2d(cols + [wt], nmesh, box, yb, offset)
+    (x, y, z, ws), plan = stage_bricks(cols + [wt], nmesh, box, offset=offset)
     before = tsc_deposit_cells.launches
     grid = torch.zeros((nmesh,) * 3, device=cuda_device)
-    got = tsc_deposit_cells(grid, x, y, z, ws, starts, nmesh, yb, box, offset)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow)
     assert got is grid and tsc_deposit_cells.launches == before + 1
-    ref = paint_3d_plain(torch.zeros_like(grid), *cols, wt, nmesh, box, offset)
-    # float atomics sum in a run-dependent order: f32 round-off of the cell sums
-    scale = float(ref.abs().max())
-    npt.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
+    assert int(overflow) == 0
+    _assert_grid(got, paint_3d_plain(torch.zeros_like(grid), *cols, wt, nmesh, box, offset))
 
 
 def test_binning_kernel_matches_plain(cuda_device):
@@ -90,38 +104,94 @@ def test_step_on_card_matches_cpu(cuda_device):
     seg, _ = tpipe.make_bin_plan_arrays(nmesh, lbox, nbins, 'cpu')
     Wc = get_W_compensated(lbox, nmesh, 'TSC', False)
 
-    def step(device, err=None):
+    def step(device, overflow):
         h, p, prm, sg, W = inputs_from_numpy(halo, part, params, seg.numpy(), Wc, device)
-        h_g, s_h = tpipe.group_inputs2d_device(h, nmesh, lbox, yb)
-        p_g, s_p = tpipe.group_inputs2d_device(p, nmesh, lbox, yb)
+        h_g, plan_h = tpipe.group_inputs2d_device(h, nmesh, lbox, yb)
+        p_g, plan_p = tpipe.group_inputs2d_device(p, nmesh, lbox, yb)
         return tpipe.hod_pk_fused_yb(
-            h_g, p_g, prm, sg, W, lbox, 100.0, nmesh, yb, nbins, s_h, s_p, err=err
+            h_g, p_g, prm, sg, W, lbox, 100.0, nmesh, yb, nbins, plan_h, plan_p,
+            overflow=overflow,
         )
 
-    err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    over = [torch.zeros(1, dtype=torch.int32, device=d) for d in (cuda_device, 'cpu')]
     k1, k2 = tsc_deposit_cells.launches, bin_power_modes.launches
-    wsum_g, n_gal_g = step(cuda_device, err)
+    wsum_g, n_gal_g = step(cuda_device, over[0])
     torch.cuda.synchronize()
-    check_deposit_err(err)
     assert (tsc_deposit_cells.launches - k1, bin_power_modes.launches - k2) == (2, 1)
-    wsum_c, n_gal_c = step('cpu')
+    wsum_c, n_gal_c = step('cpu', over[1])
+    assert int(over[0]) == int(over[1])  # the kernel's count is the plain count
     assert float(n_gal_g) == float(n_gal_c)
     npt.assert_allclose(wsum_g.cpu().numpy(), wsum_c.numpy(), rtol=1e-4)
 
 
 def test_deposit_kernel_counts_misstaged_points(cuda_device):
-    """Points staged with another offset than the deposit uses land outside
-    their cell's tile: the kernel counts them instead of writing them, and
-    the wrapper raises."""
-    nmesh, yb, box = 64, 16, 100.0
+    """Points staged with another offset than the deposit uses may leave
+    their brick's tile: the kernel deposits them straight into the grid and
+    counts them in its overflow word, the plain count exactly."""
+    nmesh, box = 64, 100.0
     rng = np.random.default_rng(3)
     pos = (rng.random((50_000, 3)) * box).astype(np.float32)
     cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
     w = torch.ones(50_000, device=cuda_device)
-    (x, y, z, ws), starts = stage_grouped2d(cols + [w], nmesh, box, yb, offset=0.0)
+    (x, y, z, ws), plan = stage_bricks(cols + [w], nmesh, box, offset=0.0)
     grid = torch.zeros((nmesh,) * 3, device=cuda_device)
-    with pytest.raises(RuntimeError, match='outside their staged cell'):
-        tsc_deposit_cells(grid, x, y, z, ws, starts, nmesh, yb, box, offset=box / nmesh / 2)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    off = box / nmesh / 2
+    tsc_deposit_cells(grid, x, y, z, ws, plan, box, off, overflow)
+    want = int(overflow_count_plain(x, y, z, ws, plan, box, off))
+    assert int(overflow) == want > 0
+    _assert_grid(grid, paint_3d_plain(torch.zeros_like(grid), x, y, z, ws, nmesh, box, off))
+
+
+@pytest.mark.parametrize('kind', ['tsc', 'cic'])
+def test_deposit_kernel_overflow_paths(cuda_device, kind):
+    """Points displaced past their brick's margin after staging (up to 4
+    cells on every axis, a margin of (1, 0, 2)), CIC points at negative
+    coordinates and points on cell and brick edges: the grid is the plain
+    scatter's and the overflow word the plain count."""
+    nmesh, box = 96, 77.0
+    rng = np.random.default_rng(21)
+    n = 200_000
+    pos = edge_points_centred(n, nmesh, 16, box, rng)
+    if kind == 'tsc':
+        pos = pos + np.float32(box / 2)
+    w = rng.random(n).astype(np.float32)
+    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)] + [t(w).to(cuda_device)]
+    margin = (1, 0, 2)
+    (x, y, z, ws), plan = stage_bricks(cols, nmesh, box, brick_shape(nmesh, margin=margin),
+                                       margin, kind=kind)
+    h = box / nmesh
+    move = torch.from_numpy((rng.uniform(-4, 4, (n, 3)) * h).astype(np.float32)).to(cuda_device)
+    move[n // 2:] = 0.0
+    x, y, z = x + move[:, 0], y + move[:, 1], z + move[:, 2]
+    grid = torch.zeros((nmesh,) * 3, device=cuda_device)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    tsc_deposit_cells(grid, x, y, z, ws, plan, box, 0.0, overflow, kind)
+    want = int(overflow_count_plain(x, y, z, ws, plan, box, 0.0, kind))
+    assert int(overflow) == want > n // 10
+    _assert_grid(grid, paint_3d_plain(torch.zeros_like(grid), x, y, z, ws, nmesh, box, 0.0, kind))
+
+
+def test_deposit_kernel_splits_heavy_brick(cuda_device):
+    """10^5 points in one cell, over a background of 10^5: the heavy brick
+    is cut into several work items (several blocks add into the same grid
+    cells) and the grid is the plain scatter's; the default brick's tile
+    leaves room for at least four blocks an SM."""
+    nmesh, box = 64, 100.0
+    rng = np.random.default_rng(8)
+    pos = (rng.random((200_000, 3)) * box).astype(np.float32)
+    pos[:100_000] = np.float32([30.1, 55.2, 70.3]) + (
+        rng.random((100_000, 3)) * 0.3 * box / nmesh).astype(np.float32)
+    w = rng.random(200_000).astype(np.float32)
+    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)] + [t(w).to(cuda_device)]
+    (x, y, z, ws), plan = stage_bricks(cols, nmesh, box)
+    work = plan.work.cpu().numpy()
+    heavy = work[(work[:, 2] > work[:, 1])][:, 0]
+    assert np.bincount(heavy).max() >= 10
+    grid = torch.zeros((nmesh,) * 3, device=cuda_device)
+    tsc_deposit_cells(grid, x, y, z, ws, plan, box)
+    _assert_grid(grid, paint_3d_plain(torch.zeros_like(grid), x, y, z, ws, nmesh, box))
+    assert blocks_per_sm(plan) >= 4
 
 
 @pytest.mark.parametrize('nfields', [1, 2, 3, 5])
@@ -177,14 +247,12 @@ def test_multi_step_on_card_matches_cpu(cuda_device):
         h_g, p_g, s_h, s_p = tpipe.group_inputs2d_linked_device(halo, part, nmesh, lbox, yb)
         seg, _ = tpipe.make_bin_plan_arrays(nmesh, lbox, nbins, device)
         W = t(get_W_compensated(lbox, nmesh, 'TSC', False).astype(np.float32)).to(device)
-        err = torch.zeros(1, dtype=torch.int32, device=device)
         k1, k3 = tsc_deposit_cells.launches, bin_pair_modes.launches
         out[device.type] = tpipe.hod_pk_fused_multi(
-            h_g, p_g, prm, seg, W, lbox, 100.0, want, nmesh, yb, nbins, s_h, s_p, err=err
+            h_g, p_g, prm, seg, W, lbox, 100.0, want, nmesh, yb, nbins, s_h, s_p
         )
         if device.type == 'cuda':
             torch.cuda.synchronize()
-            check_deposit_err(err)
             assert (tsc_deposit_cells.launches - k1, bin_pair_modes.launches - k3) == (6, 1)
     _assert_card_spectra(out['cuda'], out['cpu'], want)
 
@@ -219,9 +287,9 @@ def test_abacus_hod_on_card_matches_cpu(cuda_device, lc):
         k1, k3 = tsc_deposit_cells.launches, bin_pair_modes.launches
         res[str(device)] = hod.run_hod_pk_fused(nmesh=32, nbins_k=16)
         if device != 'cpu':
-            assert tsc_deposit_cells.launches - k1 == (3 if lc else 6)
+            assert tsc_deposit_cells.launches - k1 == 6
             assert bin_pair_modes.launches - k3 == 1
-            assert int(hod.deposit_err) == 0
+            assert int(hod.deposit_overflow) == 0
     (cg, ng), (cc, nc) = res[str(cuda_device)], res['cpu']
     assert set(cg) == set(cc) and ng == nc
     for key in cc:
@@ -328,25 +396,24 @@ def test_pair_binning_reads_field_strides(cuda_device, layout):
 @pytest.mark.parametrize('offset', [0.0, 0.5 * 77.0 / 128])
 def test_cic_deposit_kernel_matches_plain(cuda_device, offset):
     """K1 with the CIC kind against paint_3d_plain(kind='cic') on box-centred
-    points placed on cell and y-block edges at negative and positive
-    coordinates and past the box edge, with error word 0."""
-    nmesh, yb, box = 128, 16, 77.0
+    points placed on cell and brick edges at negative and positive
+    coordinates and past the box edge, with overflow word 0."""
+    nmesh, box = 128, 77.0
     rng = np.random.default_rng(11)
     n = 300_000
-    pos = edge_points_centred(n, nmesh, yb, box, rng)
+    pos = edge_points_centred(n, nmesh, 16, box, rng)
     w = rng.random(n).astype(np.float32)
     w[::7] = 0.0
     cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
     wt = t(w).to(cuda_device)
-    (x, y, z, ws), starts = stage_grouped2d(cols + [wt], nmesh, box, yb, offset, kind='cic')
-    err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    (x, y, z, ws), plan = stage_bricks(cols + [wt], nmesh, box, offset=offset, kind='cic')
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     grid = torch.zeros((nmesh,) * 3, device=cuda_device)
-    tsc_deposit_cells(grid, x, y, z, ws, starts, nmesh, yb, box, offset, err=err, kind='cic')
+    tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow, kind='cic')
     torch.cuda.synchronize()
-    assert int(err.item()) == 0
-    ref = paint_3d_plain(torch.zeros_like(grid), *cols, wt, nmesh, box, offset, 'cic')
-    scale = float(ref.abs().max())
-    npt.assert_allclose(grid.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
+    assert int(overflow.item()) == 0
+    _assert_grid(grid, paint_3d_plain(torch.zeros_like(grid), *cols, wt, nmesh, box, offset,
+                                      'cic'))
 
 
 def test_device_plan_at_550_matches_numpy(cuda_device):

@@ -26,12 +26,7 @@ from abacusutils_tpu_torch import _build
 from abacusutils_tpu_torch.convert import params_to_tensors
 from abacusutils_tpu_torch.models import pipeline as tpipe
 from abacusutils_tpu_torch.models.hod import population as tpop
-from abacusutils_tpu_torch.ops.grid import (
-    MAX_SMEM_BYTES,
-    _tile_bytes,
-    default_yblock,
-    stage_grouped2d,
-)
+from abacusutils_tpu_torch.ops.grid import MAX_SMEM_BYTES, brick_shape, stage_bricks
 from abacusutils_tpu_torch.ops.power import (
     MAX_FIELDS,
     bin_pair_modes,
@@ -219,7 +214,8 @@ def test_linked_staging_links_host():
     npt.assert_array_equal(
         halo_g['orig'][part_g['hkeep_at'].long()].numpy(), part_g['host'].numpy()
     )
-    assert int(s_h[-1]) == 30_000 and int(s_p[-1]) == 120_000
+    for plan, n in ((s_h, 30_000), (s_p, 120_000)):
+        assert int((plan.work[:, 2] - plan.work[:, 1]).sum()) == n
     npt.assert_array_equal(np.sort(halo_g['orig'].numpy()), halo['orig'])
 
 
@@ -234,7 +230,7 @@ def _jax_multi(halo, part, tp, want, Wcomp, yb=8):
     )
 
 
-def _port_multi(halo, part, tp, want, Wcomp, yb=8, err=None):
+def _port_multi(halo, part, tp, want, Wcomp, yb=8):
     halo_g, part_g, s_h, s_p = tpipe.group_inputs2d_linked_device(
         catalog_tensors(halo), catalog_tensors(part), NMESH, LBOX, yb
     )
@@ -242,7 +238,7 @@ def _port_multi(halo, part, tp, want, Wcomp, yb=8, err=None):
     W = None if Wcomp is None else t(Wcomp)
     return tpipe.hod_pk_fused_multi(
         halo_g, part_g, _tensors(tp), seg, W, LBOX, 100.0, want, NMESH, yb, NBINS_K,
-        s_h, s_p, rsd=True, err=err,
+        s_h, s_p, rsd=True,
     )
 
 
@@ -263,14 +259,6 @@ def test_hod_pk_fused_multi_matches_jax(window):
     for tracer in WANT:
         assert float(n_got[tracer]) == float(n_ref[tracer]) > 0, tracer
     _assert_spectra(got, ref, WANT)
-
-
-def test_multi_step_error_word_poisons_spectra():
-    halo, part, _ = linked_inputs(3_000, 9_000, LBOX, seed=2)
-    err = torch.ones(1, dtype=torch.int32)
-    got, n_gal = _port_multi(halo, part, _tracer_params(), WANT, None, err=err)
-    assert all(torch.isnan(v).all() for v in got.values())
-    assert all(float(v) > 0 for v in n_gal.values())
 
 
 def test_multi_tracer_priority_and_spectra():
@@ -360,14 +348,14 @@ def test_pk_grouped_multi_matches_jax():
     for tr in WANT:
         xc, yc, zc, wc, xs, ys, zs, ws = got_tr[tr]
         cols = [torch.cat(p) for p in ((xc, xs), (yc, ys), (zc, zs), (wc, ws))]
-        staged, starts = stage_grouped2d(cols, NMESH, LBOX, yb, shift=0.0)
-        groups_t[tr] = (*staged, starts)
+        staged, plan = stage_bricks(cols, NMESH, LBOX, brick_shape(NMESH, yb))
+        groups_t[tr] = [(*staged, plan)]
         sj, K = jgrid.stage_grouped2d(
             [c.numpy() for c in cols], NMESH, LBOX, yb, fills=(0.0,) * 4, chunk=128, shift=0.0
         )
         groups_j[tr] = tuple(sj)
         Ks.append(int(K))
-    assert float(torch.cat([g[0] for g in groups_t.values()]).abs().max()) > LBOX / 2
+    assert float(torch.cat([g[0][0] for g in groups_t.values()]).abs().max()) > LBOX / 2
     binplan, _ = jpipe.make_bin_plan_arrays(NMESH, LBOX, NBINS_K)
     Wcomp = get_W_compensated(LBOX, NMESH, 'TSC', False).astype(np.float32)
     ng_j = {k: jnp.float32(float(v)) for k, v in ng.items()}
@@ -489,24 +477,11 @@ def test_bin_plan_cache_builds_once(monkeypatch):
     assert len(tpow._BIN_PLANS) <= 4 and len(calls) == 6
 
 
-def test_default_yblock_fits_shared_memory():
-    """The default y-block tiles fit a block's shared memory, so the
-    deposit takes every mesh the JAX package runs; where the first
-    power-of-two divisor fits, it is the JAX default."""
-    assert default_yblock(1024) == 16 and _tile_bytes(1024, 16) == 221_184
-    assert jgrid.default_yblock(1024) == 32 and _tile_bytes(1024, 32) > MAX_SMEM_BYTES
-    for n in (32, 48, 96, 128, 200, 256, 512, 1024, 1536, 2048):
-        yb = default_yblock(n)
-        assert n % yb == 0 and _tile_bytes(n, yb) <= MAX_SMEM_BYTES
-        if _tile_bytes(n, jgrid.default_yblock(n)) <= MAX_SMEM_BYTES:
-            assert yb == jgrid.default_yblock(n)
-
-
 def test_stage_returns_order_and_example_link():
     rng = np.random.default_rng(1)
     x, y = (t((rng.random(5000) * LBOX).astype(np.float32)) for _ in range(2))
-    (xs, ys), starts, order = stage_grouped2d([x, y], NMESH, LBOX, 8, return_order=True)
-    assert order.dtype == torch.int64
+    (xs, ys), plan, order = stage_bricks([x, y], NMESH, LBOX, zi=1, return_order=True)
+    assert order.dtype == torch.int64 and plan.work.dtype == torch.int32
     npt.assert_array_equal(xs.numpy(), x[order].numpy())
     gen = torch.Generator(device='cpu')
     gen.manual_seed(2)

@@ -26,10 +26,11 @@ from abacusutils_tpu_torch import _build
 from abacusutils_tpu_torch.ops import power as tpow
 from abacusutils_tpu_torch.ops.grid import (
     MAX_SMEM_BYTES,
+    BrickPlan,
     axis_cloud,
-    cell_key_2d,
+    brick_key,
     paint_3d,
-    stage_grouped2d,
+    stage_bricks,
 )
 from abacusutils_tpu_torch.testing import edge_points_centred
 from torch_helpers import t
@@ -256,26 +257,28 @@ def test_paint_3d_matches_jax(kind, offset):
 
 @pytest.mark.parametrize('offset', [0.0, 0.5 * 60.0 / 24])
 def test_cic_staging_key_is_the_paint_cell(offset):
-    """K1 checks each point's y cell against its staged y-block: the CIC key
-    must give the cell of the unwrapped paint, including negative
-    coordinates on cell edges (where floor of the raw coordinate and of the
-    wrapped one differ in f32), and the sort keeps every point."""
+    """K1 deposits a point through its brick's tile only when the point's
+    stencil lies in it: the CIC brick key must give the cell of the
+    unwrapped paint, including negative coordinates on cell edges (where
+    floor of the raw coordinate and of the wrapped one differ in f32), and
+    the sort keeps every point."""
     nmesh, yb, box = 24, 4, 60.0
     rng = np.random.default_rng(5)
     pos = edge_points_centred(50_000, nmesh, yb, box, rng)
     cols = [t(pos[:, i]) for i in range(3)]
-    key = cell_key_2d(cols[0], cols[1], nmesh, yb, box, offset, kind='cic')
+    brick = (1, yb, nmesh)
+    key = brick_key(*cols, nmesh, brick, box, offset, kind='cic')
     ix, _ = axis_cloud(cols[0], box, offset, nmesh, wrap=False, kind='cic')
     iy, _ = axis_cloud(cols[1], box, offset, nmesh, wrap=False, kind='cic')
     want = torch.remainder(ix, nmesh) * (nmesh // yb) + torch.remainder(iy, nmesh) // yb
     npt.assert_array_equal(key.numpy(), want.numpy())
     # the raw and the wrapped coordinate do not always share a cell: a key
     # built with TSC's wrap would misstage some of these points
-    tsc_key = cell_key_2d(cols[0], cols[1], nmesh, yb, box, offset, kind='tsc')
+    tsc_key = brick_key(*cols, nmesh, brick, box, offset, kind='tsc')
     assert (tsc_key != key).any()
-    (xs, ys, _), starts = stage_grouped2d(cols, nmesh, box, yb, offset, kind='cic')
-    assert int(starts[-1]) == len(pos)
-    skey = cell_key_2d(xs, ys, nmesh, yb, box, offset, kind='cic')
+    staged, plan = stage_bricks(cols, nmesh, box, brick, offset=offset, kind='cic')
+    assert int((plan.work[:, 2] - plan.work[:, 1]).sum()) == len(pos)
+    skey = brick_key(*staged, nmesh, brick, box, offset, kind='cic')
     assert bool((skey[1:] >= skey[:-1]).all())
 
 
@@ -321,7 +324,7 @@ def test_calc_power_matches_jax(paste, compensated, interlaced, nbins_mu):
     args = (pos, Lbox, nmesh // 2, nbins_mu, np.pi * nmesh / Lbox + 1e-6, False, paste, nmesh,
             compensated, interlaced)
     ref = jpow.calc_power(*args, poles=(0, 2, 4))
-    got = tpow.calc_power(*args, poles=(0, 2, 4))
+    got = tpow.calc_power(*args, poles=(0, 2, 4), device='cpu')
     assert isinstance(got, tpow.SpectrumTable)
     assert got.meta == ref.meta
     _assert_table(got, ref)
@@ -359,7 +362,8 @@ def test_get_field_fft_and_pk_from_deltak_match_jax():
     cats = [(rng.random((6000, 3)) * Lbox).astype(np.float32) for _ in range(3)]
     W = tpow.get_W_compensated(Lbox, nmesh, 'CIC', True)
     fj = [np.asarray(jpow.get_field_fft(c, Lbox, nmesh, 'CIC', None, W, True, True)) for c in cats]
-    ft = [tpow.get_field_fft(c, Lbox, nmesh, 'CIC', None, W, True, True) for c in cats]
+    ft = [tpow.get_field_fft(c, Lbox, nmesh, 'CIC', None, W, True, True, device='cpu')
+          for c in cats]
     for a, b in zip(ft, fj):
         npt.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4 * np.abs(b).max())
     raw = tpow.get_raw_power(ft[0], ft[1]).numpy()
@@ -453,14 +457,14 @@ def test_cic_deposit_wrapper_never_falls_back(monkeypatch):
         raise NoKernel
 
     meta = dict(device='meta')
-    nmesh, yb = 16, 8
+    nmesh = 16
     grid = torch.empty((nmesh,) * 3, **meta)
     x, y, z, w = (torch.empty(100, **meta) for _ in range(4))
-    starts = torch.empty(nmesh * nmesh // yb + 1, dtype=torch.int32, **meta)
-    err = torch.empty(1, dtype=torch.int32, **meta)
+    plan = BrickPlan(torch.empty((3, 3), dtype=torch.int32, **meta), nmesh, (16, 8, 16), (0,) * 3)
+    overflow = torch.empty(1, dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match='unknown mass assignment'):
-        tsc_deposit_cells(grid, x, y, z, w, starts, nmesh, yb, 10.0, err=err, kind='ngp')
+        tsc_deposit_cells(grid, x, y, z, w, plan, 10.0, overflow=overflow, kind='ngp')
     monkeypatch.setattr(_build, 'lib', no_lib)
     for kind in ('tsc', 'cic'):
         with pytest.raises(NoKernel):
-            tsc_deposit_cells(grid, x, y, z, w, starts, nmesh, yb, 10.0, err=err, kind=kind)
+            tsc_deposit_cells(grid, x, y, z, w, plan, 10.0, overflow=overflow, kind=kind)

@@ -134,7 +134,7 @@ def test_gen_functions_match_jax():
     tracers = _tracers()
     params = _params(False)
     ref = jpop.gen_gals(halo, part, tracers, params, enable_ranks=True)
-    got = tpop.gen_gals(halo, part, tracers, params, enable_ranks=True)
+    got = tpop.gen_gals(halo, part, tracers, params, enable_ranks=True, device='cpu')
     _assert_mock(got, ref)
 
     want = ('LRG', 'ELG', 'QSO')
@@ -144,14 +144,14 @@ def test_gen_functions_match_jax():
              halo['hrandoms'], halo['hveldev'], halo['hdeltac'], halo['hfenv'], halo['hshear'],
              tp, True, inv, LBOX, want, ORIGIN)
     cent_j, keep_j = jpop.gen_cent(*cargs)
-    cent_t, keep_t = tpop.gen_cent(*cargs)
+    cent_t, keep_t = tpop.gen_cent(*cargs, device='cpu')
     npt.assert_array_equal(keep_t, keep_j)
     sargs = (part['ppos'], part['pvel'], part['phvel'], part['phmass'], part['phid'],
              part['pweights'], part['prandoms'], part['pdeltac'], part['pfenv'], part['pshear'],
              False, part['pranks'], part['pranksv'], part['pranksp'], part['pranksr'],
              tp, True, inv, LBOX, want, ORIGIN, keep_j[part['pinds']])
     sats_j = jpop.gen_sats(*sargs)
-    sats_t = tpop.gen_sats(*sargs)
+    sats_t = tpop.gen_sats(*sargs, device='cpu')
     for got, ref in ((cent_t, cent_j), (sats_t, sats_j)):
         for tracer in want:
             _assert_mock({tracer: dict(got[tracer], Ncent=0)}, {tracer: dict(ref[tracer], Ncent=0)})
@@ -198,8 +198,8 @@ def test_two_routes_agree(lc):
 
 
 def test_run_hod_stage_and_unported_options():
-    """run_hod reuses the flat device stage (shared with the light-cone leg
-    when shear is on) and builds none on a second call; NFW satellites and
+    """run_hod reuses the flat device stage and builds none on a second
+    call, and the light-cone leg leaves it alone; NFW satellites and
     write_to_disk name the roadmap item that ports them; a secondary
     redshift without NFW raises as in the JAX package."""
     _, port = _pair(staged_state(2_000, 8_000, LBOX, seed=3), True, False)
