@@ -42,13 +42,15 @@ SIGNATURES = {
                            _P, _P),
     # kind, nmesh, tile bytes, out blocks
     'tsc_deposit_blocks_per_sm': (_I, _I, _I, _P),
-    # delta_k, seg, W, scale, n1d, nbins, out, stream
-    'mode_bin_power': (_P, _P, _P, _F, _I, _I, _P, _P),
+    # nfields, npoles, warps, shared bytes, device, out blocks per SM
+    'mode_bin_pairs_occupancy': (_I, _I, _I, _I, _I, _P),
     # fields (array of pointers), nfields, the fields' strides (x, y, z, in
-    # complex elements), seg, W, scale, n1d, nbins, nmu, pole degrees (array
-    # of ints), npoles, out, stream
-    'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _F, _I, _I, _I,
-                       ctypes.POINTER(_I), _I, _P, _P),
+    # complex elements), seg, non-empty groups of four rows, their count, row
+    # spans, W, scale, n1d, nbins, nmu, pole degrees (array of ints), npoles,
+    # blocks, warps, histogram copies a warp, shared bytes, device, partials,
+    # out, out is f64, stream
+    'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _I, _P, _P, _F, _I, _I, _I,
+                       ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
 }
 
 

@@ -23,7 +23,8 @@ so in all three coordinates), so the bricks carry a margin of
 a galaxy that moved further straight into the grid and counts it in its
 overflow word. K1 reads the sorted columns and the work list as they are;
 there is no padded (ncell, K) layout. One all-pairs binning kernel (K3)
-turns the tracers' rfft meshes into every spectrum.
+turns the tracers' rfft meshes into every spectrum; the single-tracer step
+bins with the same kernel at one field (K2).
 """
 
 import numpy as np
@@ -75,9 +76,10 @@ def make_bin_plan_arrays(nmesh, lbox, nbins_k, device):
     counts, read-only (models/pipeline.py:make_bin_plan_arrays).
 
     The plan is built on `device` by ``ops.power.mode_bin_plan_device`` and
-    cached by ``ops.power.get_mode_bin_plan``: a second call with the same
-    arguments builds nothing (``make_bin_plan_arrays.builds`` counts the
-    builds made for it)."""
+    cached by ``ops.power.get_mode_bin_plan`` with its row spans, which the
+    binning kernel reads for this very seg tensor: a second call with the
+    same arguments builds nothing (``make_bin_plan_arrays.builds`` counts
+    the builds made for it)."""
     kedges, muedges = get_k_mu_edges(lbox, np.pi * nmesh / lbox, nbins_k, 1, False)
     dk = 2 * np.pi / lbox
     kedges2 = ((kedges / dk) ** 2).astype(np.float32)
@@ -176,7 +178,9 @@ def hod_pk_fused_yb(
     Wcomp is the (nmesh,) float32 window compensation or None.
 
     On CUDA the deposit and the binning are the port's kernels, and nothing
-    waits for the host. The deposit adds the galaxies that RSD moved out of
+    waits for the host: the binning reads the row spans cached with seg's
+    plan (another seg tensor costs a span build with a host sync, counted
+    in ``ops.power.mode_spans.builds``). The deposit adds the galaxies that RSD moved out of
     their brick's tile straight into the grid and counts them in the int32
     (1,) word `overflow`, when given. On CPU every stage runs its plain
     version.

@@ -11,16 +11,19 @@ Counterpart of abacusutils_tpu/ops/power.py:
   tested against; no route calls it.
 - :func:`mode_bin_plan_device` builds the plan with torch on the device it
   is given (``_mode_bin_plan_device`` and the host build's ``ksum`` and
-  Legendre pole weights); :func:`get_mode_bin_plan` caches its plans.
+  Legendre pole weights); :func:`get_mode_bin_plan` caches its plans with
+  their row spans (:class:`RowSpans`: the kz interval of each (ix, iy) row
+  that holds its in-bin modes), which :func:`mode_spans` hands to the
+  binning kernel.
 - :func:`bin_power_modes_plain` is the bin sum of ``_segsum_matmul`` as one
-  float64 ``torch.bincount``; :func:`bin_power_modes` launches the fused
-  CUDA kernel K2 (``csrc/mode_bin.cu``) on CUDA tensors and runs the plain
-  version on CPU tensors.
+  float64 ``torch.bincount``; :func:`bin_power_modes` launches the binning
+  kernel (``csrc/mode_bin_pairs.cu``) at one field without poles (K2) on
+  CUDA tensors and runs the plain version on CPU tensors.
 - :func:`bin_pair_modes_plain` is the all-pairs bin sum of
   ``_segsum_matmul_pairs``, with the Legendre pole rows of
   ``_bin_kmu_planned`` / ``_segsum_matmul`` when pole weights are given,
-  as float64 ``torch.bincount``; :func:`bin_pair_modes` launches its CUDA
-  kernel K3 (``csrc/mode_bin_pairs.cu``) on CUDA tensors.
+  as float64 ``torch.bincount``; :func:`bin_pair_modes` launches the same
+  kernel for every pair (K3) on CUDA tensors.
 - :func:`get_field`, :func:`get_field_fft` (TSC or CIC, interlaced or
   not), :func:`get_raw_power`, :func:`bin_kmu`, :func:`calc_pk_from_deltak`,
   :func:`calc_pk_pairs_from_deltak` and :func:`calc_power`: the spectrum
@@ -46,6 +49,9 @@ __all__ = [
     'mode_bin_plan_device',
     'ModeBinPlan',
     'get_mode_bin_plan',
+    'RowSpans',
+    'row_spans',
+    'mode_spans',
     'mode_dup',
     'bin_power_modes_plain',
     'bin_power_modes',
@@ -71,6 +77,13 @@ __all__ = [
 MAX_BINS = MAX_SMEM_BYTES // 4
 # fields one all-pairs binning takes (csrc/mode_bin_pairs.cu instantiates 1..8)
 MAX_FIELDS = 8
+# shared memory for the binning kernel's per-warp histograms in one block:
+# half an SM's, so two blocks fit
+HIST_BYTES = MAX_SMEM_BYTES // 2
+MAX_WARPS = 8
+# a warp keeps a histogram for each row of its tile (no merge of the rows'
+# sums) when the eight warps' copies fit in this many bytes
+ROW_COPY_BYTES = 48 * 1024
 # non-zero Legendre poles K3 takes, and their largest degree
 MAX_POLES = 4
 MAX_POLE_DEGREE = 8
@@ -219,9 +232,25 @@ def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cuda'):
     return seg.to(torch.int32), counts, ksum, pole_w
 
 
+# rows of one warp's tile in the binning kernel (csrc/mode_bin_pairs.cu kRows)
+SPAN_GROUP = 4
+
+
+class RowSpans(NamedTuple):
+    """Where a mesh's in-bin modes lie: `bounds` is the (n1d^2, 2) int32
+    [lo, hi) kz interval of each (ix, iy) row that holds its modes with
+    0 <= seg < nbins ([0, 0) for a row without one); `groups` the int32 ids
+    ix * ceil(n1d / 4) + iy // 4, in order, of the groups of four
+    neighbouring rows (iy // 4 alike) that hold any: the binning kernel's
+    work list, a group a warp."""
+
+    bounds: torch.Tensor
+    groups: torch.Tensor
+
+
 class ModeBinPlan(NamedTuple):
-    """A cached mode-bin plan: seg and pole_w on the device, counts and
-    ksum as read-only (Nk, Nmu) float64 numpy arrays."""
+    """A cached mode-bin plan: seg, pole_w and the row spans on the device,
+    counts and ksum as read-only (Nk, Nmu) float64 numpy arrays."""
 
     seg: torch.Tensor
     counts: np.ndarray
@@ -229,6 +258,7 @@ class ModeBinPlan(NamedTuple):
     pole_w: dict
     nk: int
     nmu: int
+    spans: RowSpans
 
 
 # plans by (n1d, squared edges, poles, device), at most _MAX_BIN_PLANS of
@@ -237,10 +267,57 @@ _BIN_PLANS = {}
 _MAX_BIN_PLANS = 4
 
 
+def _mesh_side(nmodes):
+    """n1d of an (n1d, n1d, n1d/2+1) rfft mesh of `nmodes` modes."""
+    guess = round((2 * nmodes) ** (1 / 3))
+    for n in range(max(guess - 2, 1), guess + 3):
+        if n * n * (n // 2 + 1) == nmodes:
+            return n
+    raise ValueError(f'{nmodes} modes are no (n1d, n1d, n1d/2+1) rfft mesh')
+
+
+def row_spans(seg, nbins):
+    """The :class:`RowSpans` of `seg` (one int32 bin per mode of an rfft
+    mesh), built with torch where seg lies (one host sync, for the count of
+    non-empty rows). A row's span runs from its first in-bin mode to its
+    last, so it holds every one of them whatever seg is; for a plan's seg
+    (bins by |k|, which grows with kz along a row) it holds nothing else."""
+    n1d = _mesh_side(seg.numel())
+    kzlen = n1d // 2 + 1
+    s = seg.reshape(n1d * n1d, kzlen)
+    valid = (s >= 0) & (s < nbins)
+    kz = torch.arange(kzlen, dtype=torch.int32, device=seg.device)
+    lo = torch.where(valid, kz, kzlen).amin(1)
+    hi = torch.where(valid, kz + 1, 0).amax(1)
+    lo = torch.where(hi > 0, lo, 0)
+    gpx = -(-n1d // SPAN_GROUP)
+    full = torch.zeros((n1d, gpx * SPAN_GROUP), dtype=torch.bool, device=seg.device)
+    full[:, :n1d] = (hi > 0).reshape(n1d, n1d)
+    groups = torch.nonzero(full.reshape(n1d * gpx, SPAN_GROUP).any(1)).reshape(-1)
+    return RowSpans(torch.stack([lo, hi], 1).to(torch.int32).contiguous(),
+                    groups.to(torch.int32))
+
+
+def mode_spans(seg, nbins):
+    """The row spans the binning kernel walks for `seg`: those of the cached
+    plan whose seg is this very tensor (identity, not equality) and whose
+    bins number `nbins`; otherwise built anew by :func:`row_spans`, each
+    build counted in ``mode_spans.builds``."""
+    for plan in _BIN_PLANS.values():
+        if plan.seg is seg and plan.nk * plan.nmu == nbins:
+            return plan.spans
+    mode_spans.builds += 1
+    return row_spans(seg, nbins)
+
+
+mode_spans.builds = 0
+
+
 def get_mode_bin_plan(n1d, kedges2, muedges2, poles, device):
-    """The :class:`ModeBinPlan` of :func:`mode_bin_plan_device`, cached by
-    (n1d, edges, poles, device) as ops/power.py:_get_mode_bin_plan keys it
-    (``get_mode_bin_plan.builds`` counts the builds)."""
+    """The :class:`ModeBinPlan` of :func:`mode_bin_plan_device` with its row
+    spans (:func:`row_spans`), cached by (n1d, edges, poles, device) as
+    ops/power.py:_get_mode_bin_plan keys it (``get_mode_bin_plan.builds``
+    counts the builds)."""
     kedges2 = np.asarray(kedges2, np.float32)
     muedges2 = np.asarray(muedges2, np.float32)
     poles = tuple(int(p) for p in poles)
@@ -254,7 +331,8 @@ def get_mode_bin_plan(n1d, kedges2, muedges2, poles, device):
             a = a.cpu().numpy()
             a.flags.writeable = False
             host.append(a)
-        plan = ModeBinPlan(seg, *host, pole_w, len(kedges2) - 1, len(muedges2) - 1)
+        nk, nmu = len(kedges2) - 1, len(muedges2) - 1
+        plan = ModeBinPlan(seg, *host, pole_w, nk, nmu, row_spans(seg, nk * nmu))
         if len(_BIN_PLANS) >= _MAX_BIN_PLANS:
             _BIN_PLANS.clear()
         _BIN_PLANS[key] = plan
@@ -299,33 +377,107 @@ def bin_power_modes_plain(delta_k, seg, W, scale, nbins):
     return sums[:nbins].float()
 
 
+def _hist_floats(nfields, npoles, nbins, nmu):
+    """Floats of one warp's histogram: every pair's bins and pole rows."""
+    nk = nbins // nmu if npoles else 0
+    return nfields * (nfields + 1) // 2 * (nbins + npoles * nk)
+
+
+def _check_smem(name, nfields, npoles, nbins, nmu, n1d):
+    """Raise unless one warp's histogram and the window's kz row fit the
+    shared memory of a block."""
+    H = _hist_floats(nfields, npoles, nbins, nmu)
+    if nbins <= 0 or 4 * (H + n1d // 2 + 1) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f'{name}: the f32 histogram of {H} floats ({nfields} fields, {nbins} bins, '
+            f'{npoles} pole rows) and {n1d // 2 + 1} window values exceed the '
+            f'{MAX_SMEM_BYTES} B of shared memory a block may use'
+        )
+
+
+# (warps a block, histogram copies a warp, dynamic shared bytes, most
+# resident blocks) of the binning kernel by (device, fields, poles,
+# histogram floats, kz length)
+_BIN_GRIDS = {}
+
+
+def _bin_grid(lib, device, nfields, npoles, H, kzlen):
+    """The binning kernel's block shape for one instance and histogram: a
+    histogram for each of the 4 rows of a warp's tile where ROW_COPY_BYTES
+    holds 8 warps' of them, else one a warp; as many warps (at most 8) as
+    HIST_BYTES holds histograms of; all the blocks the card keeps resident
+    at that shape (occupancy asked once)."""
+    key = (device.index, nfields, npoles, H, kzlen)
+    grid = _BIN_GRIDS.get(key)
+    if grid is None:
+        copies = SPAN_GROUP if 4 * H * SPAN_GROUP * MAX_WARPS <= ROW_COPY_BYTES else 1
+        warps = max(1, min(MAX_WARPS, HIST_BYTES // (4 * H * copies)))
+        smem = 4 * (kzlen + warps * copies * H)
+        per_sm = ctypes.c_int(0)
+        code = lib.mode_bin_pairs_occupancy(nfields, npoles, warps, smem, device.index,
+                                            ctypes.byref(per_sm))
+        _build.check(code, 'mode_bin_pairs_occupancy')
+        nsm = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = _BIN_GRIDS[key] = (warps, copies, smem, max(per_sm.value, 1) * nsm)
+    return grid
+
+
+def _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, out_dtype):
+    """Launch the binning kernel of csrc/mode_bin_pairs.cu over the row
+    spans of `seg` (:func:`mode_spans`) on the current stream, then its
+    fixed-order reduction. The fields are read through their strides; only
+    fields of mixed layouts are copied. Returns the flat (npairs x (nbins +
+    len(poles) x nbins / nmu)) sums as `out_dtype`."""
+    device = deltas[0].device
+    n1d = deltas[0].shape[0]
+    spans = mode_spans(seg, nbins)
+    if len({d.stride() for d in deltas}) > 1:
+        deltas = [d.contiguous() for d in deltas]
+    seg = seg.contiguous()
+    W = None if W is None else W.contiguous()
+    H = _hist_floats(len(deltas), len(poles), nbins, nmu)
+    with torch.cuda.device(device):
+        warps, copies, smem, most = _bin_grid(lib, device, len(deltas), len(poles), H,
+                                              n1d // 2 + 1)
+        ngroups = spans.groups.numel()
+        blocks = max(1, min(most, -(-ngroups // warps)))
+        partials = torch.empty(blocks * H, dtype=torch.float32, device=device)
+        out = torch.empty(H, dtype=out_dtype, device=device)
+        ptrs = (ctypes.c_void_p * MAX_FIELDS)(*[d.data_ptr() for d in deltas])
+        degs = (ctypes.c_int * MAX_POLES)(*poles)
+        code = lib.mode_bin_pairs(
+            ptrs, len(deltas), *deltas[0].stride(), seg.data_ptr(), spans.groups.data_ptr(),
+            ngroups, spans.bounds.data_ptr(), None if W is None else W.data_ptr(), _f32(scale), n1d,
+            nbins, max(int(nmu), 1), degs, len(poles), blocks, warps, copies, smem, device.index,
+            partials.data_ptr(), out.data_ptr(), int(out_dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'mode_bin_pairs')
+    return out
+
+
 def bin_power_modes(delta_k, seg, W, scale, nbins):
     """Binned power of a (n1d, n1d, n1d/2+1) complex64 rfft mesh: for each
     of `nbins` bins, the sum over its modes (seg == bin) of
     dup * |delta_k * scale / (W[ix] W[iy] W[kz])|^2. Returns (nbins,) f32.
 
-    On CUDA tensors this launches K2 (csrc/mode_bin.cu) on the current
-    stream; on CPU tensors it runs :func:`bin_power_modes_plain`."""
+    On CUDA tensors this launches the binning kernel at one field without
+    poles (K2, csrc/mode_bin_pairs.cu) on the current stream, reading
+    delta_k through its strides; on CPU tensors it runs
+    :func:`bin_power_modes_plain`."""
     if delta_k.device.type == 'cpu':
         return bin_power_modes_plain(delta_k, seg, W, scale, nbins)
     n1d = _check_mesh(delta_k, seg, W)
     if not 0 < nbins <= MAX_BINS:
         raise ValueError(f'bin_power_modes: nbins={nbins} outside (0, {MAX_BINS}]')
+    _check_smem('bin_power_modes', 1, 0, nbins, 1, n1d)
     for name, t in (('seg', seg), ('W', W)):
         if t is not None and t.device != delta_k.device:
             raise ValueError(f'{name} is on {t.device}, delta_k on {delta_k.device}')
-    delta_k, seg = delta_k.contiguous(), seg.contiguous()
-    W = None if W is None else W.contiguous()
-    out = torch.zeros(nbins, dtype=torch.float64, device=delta_k.device)
     lib = _build.lib()
-    with torch.cuda.device(delta_k.device):
-        code = lib.mode_bin_power(
-            delta_k.data_ptr(), seg.data_ptr(), None if W is None else W.data_ptr(),
-            _f32(scale), n1d, nbins, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, 'mode_bin_power')
+    out = _bin_launch(lib, [delta_k], seg, W, scale, nbins, (), 1, torch.float32)
     bin_power_modes.launches += 1
-    return out.float()
+    return out
 
 
 bin_power_modes.launches = 0
@@ -408,37 +560,16 @@ def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     poles = list(pole_w or {})
     if len(poles) > MAX_POLES:
         raise ValueError(f'bin_pair_modes takes at most {MAX_POLES} non-zero poles')
-    npairs = len(deltas) * (len(deltas) + 1) // 2
-    nk = nbins // nmu if poles else 0
-    row = nbins + len(poles) * nk
-    if nbins <= 0 or 4 * npairs * row > MAX_SMEM_BYTES:
-        raise ValueError(
-            f'bin_pair_modes: {npairs} pairs x ({nbins} bins + {len(poles)} poles x {nk} '
-            f'k-bins) f32 histograms exceed the {MAX_SMEM_BYTES} B of shared memory a block '
-            'may use'
-        )
+    _check_smem('bin_pair_modes', len(deltas), len(poles), nbins, nmu, n1d)
     device = deltas[0].device
     for name, t in (('seg', seg), ('W', W)):
         if t is not None and t.device != device:
             raise ValueError(f'{name} is on {t.device}, the fields on {device}')
-    # the kernel reads every field through one set of strides (cuFFT's output
-    # layout on the card); only fields of mixed layouts are copied
-    if len({d.stride() for d in deltas}) > 1:
-        deltas = [d.contiguous() for d in deltas]
-    seg = seg.contiguous()
-    W = None if W is None else W.contiguous()
-    ptrs = (ctypes.c_void_p * MAX_FIELDS)(*[d.data_ptr() for d in deltas])
-    degs = (ctypes.c_int * MAX_POLES)(*poles)
-    out = torch.zeros((npairs, row), dtype=torch.float64, device=device)
     lib = _build.lib()
-    with torch.cuda.device(device):
-        code = lib.mode_bin_pairs(
-            ptrs, len(deltas), *deltas[0].stride(), seg.data_ptr(),
-            None if W is None else W.data_ptr(),
-            _f32(scale), n1d, nbins, max(int(nmu), 1), degs, len(poles), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, 'mode_bin_pairs')
+    npairs = len(deltas) * (len(deltas) + 1) // 2
+    nk = nbins // nmu if poles else 0
+    out = _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, torch.float64)
+    out = out.reshape(npairs, nbins + len(poles) * nk)
     bin_pair_modes.launches += 1
     form = f'poles nmu={nmu}' if poles else 'no poles'
     bin_pair_modes.launches_by_form[form] = bin_pair_modes.launches_by_form.get(form, 0) + 1

@@ -9,7 +9,9 @@ Phases, each printing what it measured:
    the CUDA kernels from ``abacusutils_tpu_torch/csrc`` (nvcc, sm_90a);
 2. K1, the TSC deposit, against its plain PyTorch version on ~4e6 points
    placed on cell and brick edges and across the periodic wrap;
-3. K2, the P(k) mode binning, against its plain version on a 256^3 rfft mesh;
+3. K2, the P(k) mode binning (the binning kernel of
+   ``csrc/mode_bin_pairs.cu`` at one field), against its plain version on
+   a 256^3 rfft mesh as cuFFT lays it out (strided);
 4. the step at bench scale (1e7 halos + 5e7 particles, nmesh=256, 16^3
    bricks with a z margin for RSD, 128 k-bins): staging, one warm and 3x5
    timed steps through the kernels
@@ -43,8 +45,16 @@ paths run (phases 4, 5, 7 b and 7 d), the time by CUDA events over 5 calls
 after a warm-up, the bound (the bytes the deposit must move at 3.35 TB/s)
 and its share of the time, the overflow share (galaxies deposited straight
 into the grid because they left their brick's tile), the resident blocks an
-SM holds, and ptxas's registers and spills. The line before the last is a
-JSON object describing each kernel; the last line is ``{"ok": true,
+SM holds, and ptxas's registers and spills. Each binning line (phases 4, 5,
+6 and 7: "K2 at step shapes", "K3 at call shapes", "K3 poles ...") gives
+the wrapper's time by CUDA events (host work between launches included),
+the kernels' own device time by ``torch.profiler`` (the binning kernel and
+its fixed-order reduction), the in-bin share of the modes, and the bound:
+the bytes of the in-bin modes' seg and fields, the non-empty row groups'
+spans, W and the sums, at 3.35 TB/s, with its share of the kernel-only
+time. Every main path must leave ``mode_spans.builds`` unchanged: the
+binning reads the row spans cached with its plan. The line before the last
+is a JSON object describing each kernel; the last line is ``{"ok": true,
 "device": {...}}``. Without CUDA, or when any phase fails, the script exits
 non-zero before printing either.
 """
@@ -82,6 +92,7 @@ from abacusutils_tpu_torch.ops.grid import (
 )
 from abacusutils_tpu_torch.ops.power import (
     _interlace_combine,
+    _mesh_side,
     _scaled,
     _spectrum,
     bin_pair_modes,
@@ -95,6 +106,8 @@ from abacusutils_tpu_torch.ops.power import (
     mode_bin_plan,
     mode_bin_plan_device,
     mode_dup,
+    mode_spans,
+    row_spans,
 )
 from abacusutils_tpu_torch.testing import edge_points
 
@@ -167,6 +180,50 @@ def event_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, name='mode_bin', reps=5):
+    """Device time a call of the kernels whose names hold `name` that `fn`
+    launches, from torch.profiler's key_averages over `reps` calls after a
+    warm-up; None where the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
+            t = getattr(e, 'self_device_time_total', None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / reps / 1e3 if us > 0 else None
+
+
+def binning_bound(seg, nbins, nfields, windowed, out_bytes):
+    """The least time (ms) of a binning at 3.35 TB/s and its in-bin share:
+    seg and the nfields complex64 values of each mode in a bin read once,
+    each non-empty group of four rows' id and [lo, hi) spans, W (when
+    `windowed`) and the sums (`out_bytes`) once. Its few flops a mode and
+    pair are far below the f32 rate, so bytes bound it."""
+    n1d = _mesh_side(seg.numel())
+    n_in = int(((seg >= 0) & (seg < nbins)).sum())
+    groups = row_spans(seg, nbins).groups.numel()
+    nbytes = n_in * (4 + 8 * nfields) + 36 * groups + (4 * n1d if windowed else 0) + out_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3, n_in / seg.numel()
+
+
+def binning_line(tag, form, wrap_ms, k_ms, plain_ms, err, bound, share, lib_ms):
+    """Print one binning line; returns the kernels line's record of it."""
+    k_txt = 'not measured' if k_ms is None else f'{k_ms:.4f} ms, bound share {bound / k_ms:.3f}'
+    print(f'{tag}: {form} wrapper {wrap_ms:.4f} ms (events), kernel-only {k_txt} (profiler) vs '
+          f'plain {plain_ms:.4f} ms, max|d| {err:.3e}; in-bin share {share:.4f}, bound '
+          f'{bound:.4f} ms; library (torch.bincount of precomputed weights, the binning only) '
+          f'{lib_ms:.4f} ms')
+    return dict(ms=wrap_ms, kernel_ms=k_ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound,
+                bound_by='bytes', in_bin_share=share, library_ms=lib_ms,
+                library_call=LIBRARY_CALL)
 
 
 def phase_build():
@@ -276,12 +333,16 @@ def phase_k2(grid, seg, W):
     dk = torch.fft.rfftn(delta)
     scale = 1.0 / grid.numel()
     got = bin_power_modes(dk, seg, W, scale, NBINS_K)
+    again = bin_power_modes(dk, seg, W, scale, NBINS_K)
     ref = bin_power_modes_plain(dk, seg, W, scale, NBINS_K)
     torch.cuda.synchronize()
     rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max())
-    print(f'phase 3 K2 vs plain: {dk.numel()} modes, {NBINS_K} bins, max rel {rel:.3e}')
+    same = bool(torch.equal(got, again))
+    print(f'phase 3 K2 vs plain: {dk.numel()} modes (strides {dk.stride()}), {NBINS_K} bins, '
+          f'max rel {rel:.3e}; a second launch bit-identical: {same}')
     require(bool(torch.isfinite(got).all()), 'K2 output not finite')
     require(bool(((got - ref).abs() <= 1e-5 * ref.abs()).all()), f'K2 max rel {rel} > 1e-5')
+    require(same, 'two K2 launches on the same inputs differ')
 
 
 def deposit_inputs(halo_g, part_g, sh, sp, params):
@@ -331,6 +392,7 @@ def phase_step(dev, seg, W):
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    spans = mode_spans.builds
     (wsum, n_gal), t_warm = sync_seconds(step)
     n_iter, best = 5, float('inf')
     for _ in range(3):
@@ -349,6 +411,7 @@ def phase_step(dev, seg, W):
     require(launches['tsc_deposit_cells'] == 2 * n_steps, f'K1 launches {launches}')
     require(launches['bin_power_modes'] == n_steps, f'K2 launches {launches}')
     require(launches['bin_pair_modes'] == 0, f'K3 launches {launches}')
+    require(mode_spans.builds == spans, 'the step built row spans: its seg is not the plan\'s')
     require(bool(torch.isfinite(wsum).all() & (wsum >= 0).all()), 'wsum not finite and >= 0')
     require(float(wsum.sum()) > 0 and n_gal_v > 0, 'empty step')
 
@@ -364,6 +427,7 @@ def phase_step(dev, seg, W):
     dk = torch.fft.rfftn(k1_rec.pop('grid') * (NMESH**3 / n_gal) - 1.0)
     scale = 1.0 / NMESH**3
     k2_ms = event_ms(lambda: bin_power_modes(dk, seg, W, scale, NBINS_K))
+    k2_kernel = kernel_ms(lambda: bin_power_modes(dk, seg, W, scale, NBINS_K))
     p2_ms = event_ms(lambda: bin_power_modes_plain(dk, seg, W, scale, NBINS_K))
     got = bin_power_modes(dk, seg, W, scale, NBINS_K)
     ref = bin_power_modes_plain(dk, seg, W, scale, NBINS_K)
@@ -373,11 +437,9 @@ def phase_step(dev, seg, W):
     seg_l = seg.reshape(-1).long()
     lib_ms = event_ms(lambda: torch.bincount(seg_l, weights=wmode, minlength=NBINS_K + 1))
     del wmode, seg_l
-    modes = dk.numel()
-    k2_bound = (12 * modes + 4 * NMESH + 8 * NBINS_K) / HBM_BYTES_PER_S * 1e3
-    print(f'phase 4 K2 at step shapes: {k2_ms:.4f} ms vs plain {p2_ms:.4f} ms, max|d| {k2_err:.3e}; '
-          f'bound {k2_bound:.4f} ms (delta_k and seg read once); library (torch.bincount of '
-          f'precomputed weights, the binning only) {lib_ms:.4f} ms')
+    k2_bound, share = binning_bound(seg, NBINS_K, 1, True, 4 * NBINS_K)
+    k2 = binning_line(f'phase 4 K2 at step shapes (delta_k strides {dk.stride()})', '',
+                      k2_ms, k2_kernel, p2_ms, k2_err, k2_bound, share, lib_ms)
     require(bool(((got - ref).abs() <= 1e-5 * ref.abs()).all()), 'K2 disagrees at step shapes')
 
     # the whole step against the step built from the plain versions
@@ -391,9 +453,7 @@ def phase_step(dev, seg, W):
         'tsc_deposit_cells': dict(ms=k1_ms, plain_ms=p1_ms, max_abs_err=k1_err,
                                   bound_ms=k1_rec['bound_ms'], bound_by='bytes', library_ms=None,
                                   shapes=[k1_rec]),
-        'bin_power_modes': dict(ms=k2_ms, plain_ms=p2_ms, max_abs_err=k2_err, bound_ms=k2_bound,
-                                bound_by='bytes', library_ms=lib_ms,
-                                library_call=LIBRARY_CALL),
+        'bin_power_modes': k2,
     }
 
 
@@ -452,7 +512,7 @@ def time_k1(tag, grids, nmesh, kind, check_overflow=None):
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
-    'bin_power_modes': (bin_power_modes, 'abacusutils_tpu_torch/csrc/mode_bin.cu',
+    'bin_power_modes': (bin_power_modes, 'abacusutils_tpu_torch/csrc/mode_bin_pairs.cu',
                         'abacusutils_tpu/ops/power.py:396'),
     'bin_pair_modes': (bin_pair_modes, 'abacusutils_tpu_torch/csrc/mode_bin_pairs.cu',
                        'abacusutils_tpu/ops/power.py:451'),
@@ -521,22 +581,20 @@ def fused_state(dev):
     return halo_data, particle_data
 
 
-def k3_extras(deltas, seg, nbins, pole_w=None, nmu=1):
-    """K3's bound (ms: the fields and seg read once, the sums written once,
-    at 3.35 TB/s; its few flops a mode and pair are far below the f32 rate)
-    and the time of one library call that bins every pair's (k, mu) rows:
-    torch.bincount over precomputed f32 per-mode weights (the binning only;
-    no pole rows)."""
+def k3_extras(deltas, seg, nbins, W, pole_w=None, nmu=1):
+    """K3's bound (:func:`binning_bound`, the f64 sums of every pair's bins
+    and pole rows written once), its in-bin share and the time of one
+    library call that bins every pair's (k, mu) rows: torch.bincount over
+    precomputed f32 per-mode weights (the binning only; no pole rows)."""
     npairs = len(deltas) * (len(deltas) + 1) // 2
-    modes = seg.numel()
     row = nbins + (len(pole_w) * (nbins // nmu) if pole_w else 0)
-    bound = (8 * len(deltas) * modes + 4 * modes + 8 * npairs * row) / HBM_BYTES_PER_S * 1e3
+    bound, share = binning_bound(seg, nbins, len(deltas), W is not None, 8 * npairs * row)
     dup = mode_dup_t(deltas[0].shape[0], seg.device)
     w = torch.cat([(deltas[i].real * deltas[j].real + deltas[i].imag * deltas[j].imag)
                    .mul_(dup).reshape(-1) for i, j in field_pairs(len(deltas))])
     segs = torch.cat([seg.reshape(-1) + p * (nbins + 1) for p in range(npairs)])
     lib_ms = event_ms(lambda: torch.bincount(segs, weights=w, minlength=npairs * (nbins + 1)))
-    return bound, lib_ms
+    return bound, share, lib_ms
 
 
 def plain_spectra(cats, n_gal, seg, W):
@@ -566,6 +624,7 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
 
     torch.cuda.reset_peak_memory_stats()
     builds = make_bin_plan_arrays.builds
+    spans = mode_spans.builds
     reset_launches()
     (cl, n_gal), t_cold = sync_seconds(call)
     n_iter, best = 5, float('inf')
@@ -587,6 +646,7 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     require(launches['bin_pair_modes'] == n_calls, f'K3 launches {launches}')
     require(launches['bin_power_modes'] == 0, f'K2 launches {launches}')
     require(make_bin_plan_arrays.builds == builds, 'the bin plan was rebuilt')
+    require(mode_spans.builds == spans, 'the calls built row spans')
     require(all(n > 0 for n in n_gal.values()), f'empty tracer {n_gal}')
 
     # the same spectra from the plain versions only
@@ -611,6 +671,7 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
 
     scale = 1.0 / NMESH**3
     k3_ms = event_ms(lambda: bin_pair_modes(deltas, seg, W, scale, NBINS_K))
+    k3_kernel = kernel_ms(lambda: bin_pair_modes(deltas, seg, W, scale, NBINS_K))
     p3_ms = event_ms(lambda: bin_pair_modes_plain(deltas, seg, W, scale, NBINS_K))
     got = bin_pair_modes(deltas, seg, W, scale, NBINS_K)
     k3_err = float((got - wsum_p).abs().max())
@@ -619,13 +680,10 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     pairs = field_pairs(len(WANT))
     auto = {i: wsum_p[p].abs() for p, (i, j) in enumerate(pairs) if i == j}
     tol = torch.stack([1e-5 * (auto[i] * auto[j]).sqrt() for i, j in pairs])
-    k3_bound, lib_ms = k3_extras(deltas, seg, NBINS_K)
-    print(f'phase {phase} K3 at call shapes: {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms, '
-          f'max|d| {k3_err:.3e}; bound {k3_bound:.4f} ms, library (torch.bincount of '
-          f'precomputed weights, the binning only) {lib_ms:.4f} ms')
+    k3_bound, share, lib_ms = k3_extras(deltas, seg, NBINS_K, W)
+    k3 = binning_line(f'phase {phase} K3 at call shapes', 'no poles, 3 fields,', k3_ms,
+                      k3_kernel, p3_ms, k3_err, k3_bound, share, lib_ms)
     require(bool(((got - wsum_p).abs() <= tol).all()), 'K3 disagrees with its plain version')
-    k3 = dict(ms=k3_ms, plain_ms=p3_ms, max_abs_err=k3_err, bound_ms=k3_bound, bound_by='bytes',
-              library_ms=lib_ms, library_call=LIBRARY_CALL)
     return launches, k3, cl, n_gal, cats
 
 
@@ -767,6 +825,7 @@ def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
     nbins, nmu = plan.nk * plan.nmu, plan.nmu
     args = (ffts, plan.seg, W, scale, nbins, pole_w, nmu)
     k3_ms = event_ms(lambda: bin_pair_modes(*args))
+    k3_kernel = kernel_ms(lambda: bin_pair_modes(*args))
     p3_ms = event_ms(lambda: bin_pair_modes_plain(*args))
     npairs = len(ffts) * (len(ffts) + 1) // 2
     got = torch.cat([a.reshape(npairs, -1) for a in bin_pair_modes(*args)], 1)
@@ -774,10 +833,10 @@ def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
     k3_err = float((got - ref).abs().max())
     rel = float(((got - ref).abs() / ref.abs().amax(1, keepdim=True)).max())
     del got, ref
-    k3_bound, lib_ms = k3_extras(ffts, plan.seg, nbins, pole_w, nmu)
-    print(f'phase 7 {tag}: K3 poles nmu={nmu} {k3_ms:.4f} ms vs plain {p3_ms:.4f} ms (max|d| '
-          f'{k3_err:.3e}, {rel:.3e} of its row); bound {k3_bound:.4f} ms, library '
-          f'(torch.bincount of precomputed weights, the (k, mu) rows only) {lib_ms:.4f} ms')
+    k3_bound, share, lib_ms = k3_extras(ffts, plan.seg, nbins, W, pole_w, nmu)
+    k3 = binning_line(f'phase 7 {tag}', f'K3 poles nmu={nmu} ({rel:.3e} of its row),', k3_ms,
+                      k3_kernel, p3_ms, k3_err, k3_bound, share, lib_ms)
+    k3['library_call'] = LIBRARY_CALL + ' of the (k, mu) rows'
     require(rel <= 1e-5, f'K3 poles nmu={nmu} disagrees with its plain version ({rel:.3e})')
     grids = []
     for tr in WANT:
@@ -789,8 +848,6 @@ def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
         check_overflow=0)
     k1_rec.pop('grid')
     print(f'phase 7 {tag}: K1 {kind} {k1_ms:.4f} ms vs plain {p1_ms:.4f} ms (max|d| {k1_err:.3e})')
-    k3 = dict(ms=k3_ms, plain_ms=p3_ms, max_abs_err=k3_err, bound_ms=k3_bound, bound_by='bytes',
-              library_ms=lib_ms, library_call=LIBRARY_CALL + ' of the (k, mu) rows')
     k1 = dict(ms=k1_ms, plain_ms=p1_ms, max_abs_err=k1_err, bound_ms=k1_rec['bound_ms'],
               bound_by='bytes', library_ms=None, shapes=[k1_rec])
     return k3, k1
@@ -801,6 +858,7 @@ def phase_two_step(hod, n_gal5, cl5):
     randoms). Returns ({path: launches}, {form: (ms, plain_ms, max_abs_err)})."""
     dev = hod.device
     paths, timing = {}, {}
+    spans = mode_spans.builds
 
     # (a) run_hod
     reset_launches()
@@ -949,6 +1007,7 @@ def phase_two_step(hod, n_gal5, cl5):
           f'{b1} plan build on {seg512.device}), second call {t_warm:.3f} s ({b2} builds); plan '
           f'build alone on the device {t_plan:.4f} s, numpy host build {t_host:.3f} s')
     require(b1 == 1 and b2 == 0 and seg512.device == dev, 'plan builds at 512')
+    require(mode_spans.builds == spans, 'the two-step route built row spans')
     return paths, timing
 
 
@@ -967,7 +1026,7 @@ def kernel_line(paths, timing):
             'launches': sum(by_path.values()), 'launches_by_path': by_path,
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
-            **{k: t[k] for k in ('library_call', 'shapes') if k in t},
+            **{k: t[k] for k in ('kernel_ms', 'in_bin_share', 'library_call', 'shapes') if k in t},
         })
     return {'kernels': out}
 
@@ -1006,10 +1065,12 @@ def main():
             'AbacusHOD.run_hod_pk_fused (light cone)': lc[0],
             **paths7,
         }, timing)
+        require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s')
+    print(f'chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+          f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({
         'ok': True,

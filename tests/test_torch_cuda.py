@@ -429,3 +429,184 @@ def test_device_plan_at_550_matches_numpy(cuda_device):
     seg_np, counts_np = tpow.mode_bin_plan(n1d, ke2, me2)
     npt.assert_array_equal(seg.cpu().numpy(), seg_np)
     npt.assert_array_equal(counts.cpu().numpy(), counts_np)
+
+
+# ---- the binning kernel's row spans, runs, flush and forms ------------------
+
+
+def _span_plan(device, n1d, nk, nmu, poles, kmin_frac=0.1, kmax_frac=0.8, lbox=700.0):
+    """A plan whose k-bins run from kmin_frac to kmax_frac of the Nyquist
+    frequency, so rows and parts of rows hold no in-bin mode."""
+    kny = np.pi * n1d / lbox
+    ke = np.linspace(kmin_frac * kny, kmax_frac * kny, nk + 1)
+    me = np.linspace(0.0, 1.0, nmu + 1)
+    dk = 2 * np.pi / lbox
+    return tpow.get_mode_bin_plan(n1d, ((ke / dk) ** 2).astype(np.float32),
+                                  (me**2).astype(np.float32), poles, device)
+
+
+def _card_fields(device, n1d, nf, seed):
+    """nf correlated rfft meshes made on the card (cuFFT's strided layout)."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n1d,) * 3).astype(np.float32)
+    return [torch.fft.rfftn(t(base + 0.5 * rng.normal(size=base.shape).astype(np.float32))
+                            .to(device)) for _ in range(nf)]
+
+
+def _outside_spans(spans, n1d):
+    """A flat bool mask of the modes outside the row spans."""
+    kz = torch.arange(n1d // 2 + 1, dtype=torch.int32, device=spans.bounds.device)
+    b = spans.bounds
+    return ~((kz[None, :] >= b[:, :1]) & (kz[None, :] < b[:, 1:])).reshape(-1)
+
+
+def _assert_pair_sums(got, ref, nfields, nmu=1, pole_degrees=(), tol=1e-5):
+    """Autos at rtol tol, crosses within tol sqrt(P_ii P_jj); pole rows
+    within tol (2l+1) sqrt(A_i A_j), A the auto sums of the k bin."""
+    if pole_degrees:
+        (got, gotp), (ref, refp) = got, ref
+        gotp, refp = gotp.cpu().numpy(), refp.cpu().numpy()
+    got, ref = got.cpu().numpy().reshape(-1, ref.shape[-1]), ref.cpu().numpy().reshape(
+        -1, ref.shape[-1])
+    pairs = field_pairs(nfields)
+    auto = {i: ref[p] for p, (i, j) in enumerate(pairs) if i == j}
+    for p, (i, j) in enumerate(pairs):
+        scale = np.sqrt(np.abs(auto[i] * auto[j]))
+        assert (np.abs(got[p] - ref[p]) <= tol * scale).all(), (i, j)
+        kscale = np.sqrt(np.abs(auto[i].reshape(-1, nmu).sum(1) * auto[j].reshape(-1, nmu).sum(1)))
+        for q, ell in enumerate(pole_degrees):
+            err = np.abs(gotp[p, q] - refp[p, q])
+            assert (err <= tol * (2 * ell + 1) * kscale).all(), (i, j, ell)
+
+
+@pytest.mark.parametrize('form', ['power', 'pairs with poles'])
+def test_binning_kernel_skips_modes_outside_spans(cuda_device, form):
+    """Poison: every mode outside the plan's row spans is moved into bin 0 in
+    the plan's own seg. The kernel reads only in-span modes, so its sums do
+    not change by a bit, while the plain version over the poisoned seg does
+    change; no span is built for the plan's seg."""
+    n1d, poles = 40, ((0, 2, 4) if form != 'power' else ())
+    plan = _span_plan(cuda_device, n1d, 10, 1, poles, kmin_frac=0.25, kmax_frac=0.75)
+    nbins = plan.nk
+    dks = _card_fields(cuda_device, n1d, 1 if form == 'power' else 3, seed=17)
+    W = t(get_W_compensated(700.0, n1d, 'TSC', False).astype(np.float32)).to(cuda_device)
+    pole_w = {p: plan.pole_w[p] for p in poles if p} or None
+
+    def kernel():
+        if form == 'power':
+            return bin_power_modes(dks[0], plan.seg, W, 1.0 / n1d**3, nbins)
+        out = bin_pair_modes(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, 1)
+        return torch.cat([a.reshape(6, -1) for a in out], 1)
+
+    def plain():
+        if form == 'power':
+            return bin_power_modes_plain(dks[0], plan.seg, W, 1.0 / n1d**3, nbins)
+        out = bin_pair_modes_plain(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, 1)
+        return torch.cat([a.reshape(6, -1) for a in out], 1)
+
+    builds = tpow.mode_spans.builds
+    clean, clean_plain = kernel(), plain()
+    outside = _outside_spans(plan.spans, n1d)
+    assert 0 < int(outside.sum()) < outside.numel()
+    keep = plan.seg.clone()
+    try:
+        plan.seg[outside] = 0
+        poisoned, poisoned_plain = kernel(), plain()
+        torch.cuda.synchronize()
+    finally:
+        plan.seg.copy_(keep)
+    assert torch.equal(poisoned, clean)
+    assert not torch.allclose(poisoned_plain, clean_plain, rtol=1e-3)
+    assert tpow.mode_spans.builds == builds
+
+
+@pytest.mark.parametrize('nfields', [1, 3])
+@pytest.mark.parametrize('runs', ['longest', 'shortest'])
+def test_binning_kernel_longest_and_shortest_runs(cuda_device, runs, nfields):
+    """The longest runs (every in-span mode in bin 0: one run a row) and the
+    shortest (a bin per integer |k|^2 shell: a new bin at every kz) against
+    the plain version."""
+    n1d = 32
+    kzlen = n1d // 2 + 1
+    i = np.arange(n1d)
+    i2 = np.where(i < n1d // 2, i, i - n1d) ** 2
+    k2 = (i2[:, None, None] + i2[None, :, None] + np.arange(kzlen)[None, None, :] ** 2).reshape(-1)
+    nbins = (n1d // 2) ** 2
+    if runs == 'longest':
+        seg = np.where(k2 < nbins, 0, nbins)
+    else:
+        seg = np.where(k2 < nbins, k2, nbins)
+    seg = t(seg.astype(np.int32)).to(cuda_device)
+    dks = _card_fields(cuda_device, n1d, nfields, seed=nfields)
+    if nfields == 1:
+        got = bin_power_modes(dks[0], seg, None, 1.0 / n1d**3, nbins)
+        ref = bin_power_modes_plain(dks[0], seg, None, 1.0 / n1d**3, nbins)
+        npt.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5)
+    else:
+        got = bin_pair_modes(dks, seg, None, 1.0 / n1d**3, nbins)
+        ref = bin_pair_modes_plain(dks, seg, None, 1.0 / n1d**3, nbins)
+        _assert_pair_sums(got, ref, nfields)
+
+
+def test_power_binning_reads_strided_rfftn_without_copy(cuda_device):
+    """K2 on cuFFT's rfftn output, which is not C-contiguous: the result is
+    the plain version's, and the call allocates nothing near the size of the
+    mesh (it reads the field through its strides)."""
+    n1d, lbox, nbins = 128, 2000.0, 64
+    seg, _ = tpipe.make_bin_plan_arrays(n1d, lbox, nbins, cuda_device)
+    (dk,) = _card_fields(cuda_device, n1d, 1, seed=3)
+    assert not dk.is_contiguous()
+    W = t(get_W_compensated(lbox, n1d, 'TSC', False).astype(np.float32)).to(cuda_device)
+    bin_power_modes(dk, seg, W, 1.0 / n1d**3, nbins)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = bin_power_modes(dk, seg, W, 1.0 / n1d**3, nbins)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < dk.numel() * dk.element_size() // 8, extra
+    ref = bin_power_modes_plain(dk, seg, W, 1.0 / n1d**3, nbins)
+    npt.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize('form', ['power', 'pairs', 'pairs with poles, nmu 4'])
+def test_binning_launches_are_bit_identical(cuda_device, form):
+    """Two launches on the same inputs give the same bits: per-warp
+    histograms, no atomics, partials summed in a fixed order."""
+    n1d = 64
+    nmu, poles = (4, (0, 2, 4)) if 'poles' in form else (1, ())
+    plan = _span_plan(cuda_device, n1d, 16, nmu, poles, kmin_frac=0.0, kmax_frac=1.0)
+    nbins = plan.nk * plan.nmu
+    dks = _card_fields(cuda_device, n1d, 1 if form == 'power' else 3, seed=5)
+    pole_w = {p: plan.pole_w[p] for p in poles if p} or None
+    if form == 'power':
+        a, b = (bin_power_modes(dks[0], plan.seg, None, 1.0, nbins) for _ in range(2))
+        assert torch.equal(a, b)
+    else:
+        a, b = (bin_pair_modes(dks, plan.seg, None, 1.0, nbins, pole_w, nmu) for _ in range(2))
+        for x, y in zip(a if pole_w else [a], b if pole_w else [b]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize('npoles', [0, 1, 2, 3, 4])
+@pytest.mark.parametrize('nfields', [1, 2, 3, 4, 5, 6, 7, 8])
+def test_binning_kernel_forms(cuda_device, nfields, npoles):
+    """Every instance, T = 1..8 fields and NP = 0..4 pole rows, against the
+    plain version, on odd and even meshes, with and without the window, on a
+    plan with empty rows (k-bins from 0.2 to 0.7 of Nyquist)."""
+    n1d = 21 if (nfields + npoles) % 2 else 24
+    degrees = (2, 4, 1, 8)[:npoles]
+    nmu = 2 if npoles else 1
+    plan = _span_plan(cuda_device, n1d, 6, nmu, (0,) + degrees, kmin_frac=0.2, kmax_frac=0.7)
+    assert int((plan.spans.bounds[:, 1] == 0).sum()) > 0
+    nbins = plan.nk * plan.nmu
+    dks = _card_fields(cuda_device, n1d, nfields, seed=10 * nfields + npoles)
+    W = None
+    if nfields % 2:
+        W = t(get_W_compensated(700.0, n1d, 'TSC', False).astype(np.float32)).to(cuda_device)
+    pole_w = {p: plan.pole_w[p] for p in degrees} or None
+    before = bin_pair_modes.launches
+    got = bin_pair_modes(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, nmu)
+    assert bin_pair_modes.launches == before + 1
+    ref = bin_pair_modes_plain(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, nmu)
+    _assert_pair_sums(got, ref, nfields, nmu, degrees)
