@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
     # grid, x, y, z, w, work, nitems, nmesh, brick (x, y, z), margin (x, y, z),
@@ -51,6 +52,15 @@ SIGNATURES = {
     # out, out is f64, stream
     'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _I, _P, _P, _F, _I, _I, _I,
                        ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
+    # the first side's sorted x, y, z, the second side's, its cell starts, the
+    # work list, nitems, nc, lbox, squared edges, nb1, nb2, aux, mode,
+    # autocorr, use_wrap, out (int64), stream
+    'pair_count_cells': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _I, _F, _I, _I, _I,
+                         _P, _P),
+    # x1, y1, z1, n1, x2, y2, z2, n2, rows of the second set a block, lbox,
+    # squared edges, nb1, nb2, aux, mode, autocorr, is f64, out (int64), stream
+    'pair_count_all': (_P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _P, _I, _I, _D, _I, _I, _I, _P,
+                       _P),
 }
 
 
@@ -75,8 +85,9 @@ def _nvcc():
 def build():
     """Compile csrc/*.cu into build/torch_kernels/ unless a library for the
     current sources exists. Returns (path, seconds spent, compiler log); the
-    log (ptxas's registers and spills of every kernel) is kept beside the
-    library and returned with it later too."""
+    log (each source's nvcc seconds, then ptxas's registers and spills of
+    every kernel) is kept beside the library and returned with it later
+    too."""
     out = BUILD_DIR / f'libabacus_torch_{source_hash()}.so'
     log_path = out.with_suffix('.log')
     if out.exists():
@@ -96,8 +107,14 @@ def build():
                 subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
                 for cmd, log in zip(cmds, logs)
             ]
-            codes = [proc.wait() for proc in procs]
-            text = []
+            took = [None] * len(procs)
+            while None in took:
+                for i, proc in enumerate(procs):
+                    if took[i] is None and proc.poll() is not None:
+                        took[i] = time.perf_counter() - t0
+                time.sleep(0.05)
+            codes = [proc.returncode for proc in procs]
+            text = [f'nvcc {src.name}: {t:.2f} s\n' for src, t in zip(srcs, took)]
             for log in logs:
                 log.seek(0)
                 text.append(log.read())

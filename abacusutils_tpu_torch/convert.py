@@ -7,6 +7,8 @@ tensors the port's step takes, so both packages can compute on identical
 state. :func:`staged_state_from_numpy` builds the port's ``AbacusHOD`` on
 the staged state of a JAX ``AbacusHOD``. Arrays go through
 ``numpy.asarray``, which accepts JAX arrays without importing JAX.
+:func:`position_columns` and :func:`mock_from_numpy` carry a catalog of
+positions, or a ``run_hod`` mock, to the form the port's pair counts take.
 :func:`resolve_device` gives the device an entry point runs on when its
 caller names none: the card.
 """
@@ -14,7 +16,10 @@ caller names none: the card.
 import numpy as np
 import torch
 
-__all__ = ['resolve_device', 'params_to_tensors', 'inputs_from_numpy', 'staged_state_from_numpy']
+__all__ = [
+    'resolve_device', 'params_to_tensors', 'inputs_from_numpy', 'staged_state_from_numpy',
+    'position_columns', 'mock_from_numpy',
+]
 
 
 def resolve_device(device='cuda'):
@@ -80,3 +85,25 @@ def staged_state_from_numpy(halo_data, particle_data, params, tracers, flags, de
         device,
         **flags,
     )
+
+
+def position_columns(pos, device='cuda'):
+    """An (N, 3) array, or an (x, y, z) tuple of columns, as three 1-D
+    float32 tensors on `device`: the staged form of the port's pair counts
+    (``ops/tpcf.py``), whose cell stage is cached by these tensors."""
+    device = resolve_device(device)
+    cols = pos if isinstance(pos, (tuple, list)) else np.asarray(pos).T
+    return tuple(
+        torch.from_numpy(np.array(c, np.float32)).to(device) for c in cols
+    )
+
+
+def mock_from_numpy(mock_dict):
+    """A ``run_hod`` mock of the JAX package (tracer -> columns, numpy or JAX
+    arrays) as plain numpy column dicts, the input of the port's
+    ``compute_xirppi`` / ``compute_wp`` / ``compute_multipole`` /
+    ``compute_power``; ``Ncent`` stays an int."""
+    return {
+        tr: {k: (int(v) if k == 'Ncent' else np.asarray(v)) for k, v in cols.items()}
+        for tr, cols in mock_dict.items()
+    }

@@ -8,7 +8,11 @@ Counterpart of abacusutils_tpu/models/hod/abacus_hod.py limited to:
   leg ``_run_hod_pk_fused_lc`` and ``_reseed_randoms``;
 - the two-step route ``run_hod`` (galaxy catalogs on the host) ->
   ``compute_power`` (P(k, mu) and Legendre poles of every tracer pair), and
-  the host mass-function integrals ``compute_ngal``.
+  the host mass-function integrals ``compute_ngal``;
+- the configuration-space statistics of a ``run_hod`` mock,
+  ``compute_xirppi``, ``compute_wp`` and ``compute_multipole`` (and
+  ``compute_clustering``, which picks one by ``clustering_type``), through
+  the pair counts of ``ops/tpcf.py``.
 
 The object is built from the staged state that the JAX ``staging()``
 returns (``convert.staged_state_from_numpy`` carries a JAX object's state
@@ -32,6 +36,7 @@ from ...ops.power import (
     get_k_mu_edges,
     get_W_compensated,
 )
+from ...ops.tpcf import calc_multipole_fast, calc_wp_fast, calc_xirppi_fast
 from ..pipeline import (
     RSD_MARGIN,
     group_inputs2d_linked_device,
@@ -77,7 +82,7 @@ class AbacusHOD:
     def __init__(
         self, halo_data, particle_data, params, tracers, device, *,
         want_ranks=False, want_shear=False, want_expvel=False, halo_lc=False,
-        z_type='primary',
+        z_type='primary', clustering_type=None,
     ):
         self.halo_data = dict(halo_data)
         self.particle_data = dict(particle_data)
@@ -89,6 +94,7 @@ class AbacusHOD:
         self.want_expvel = want_expvel
         self.halo_lc = halo_lc
         self.z_type = z_type
+        self.clustering_type = clustering_type
         self.lbox = float(self.params['Lbox'])
         self.z_mock = self.params['z']
         self._fused_stage = None  # (key, brick stage of the box or light-cone leg)
@@ -488,6 +494,73 @@ class AbacusHOD:
         return ngal_dict, fsat_dict
 
     # ------------------------------------------------------------------
+    def compute_clustering(self, mock_dict, *args, **kwargs):
+        """The statistic named by ``clustering_type`` ('xirppi', 'wp' or
+        'multipole'), with that method's arguments."""
+        if self.clustering_type == 'xirppi':
+            return self.compute_xirppi(mock_dict, *args, **kwargs)
+        if self.clustering_type == 'wp':
+            return self.compute_wp(mock_dict, *args, **kwargs)
+        if self.clustering_type == 'multipole':
+            return self.compute_multipole(mock_dict, *args, **kwargs)
+        raise ValueError(
+            'clustering_type not implemented or not specified, use xirppi, wp, multipole'
+        )
+
+    def _pair_loop(self, mock_dict, fn, symmetrize=True):
+        """Run fn(pos1, pos2) over every tracer pair (pos2 None for an auto)
+        and return {'{t1}_{t2}': result}, a cross under both orders. Each
+        tracer's x, y, z go to the device once as three 1-D float32 tensors;
+        the pair counts cache their cell stage by those tensors, so the autos
+        and crosses of a mock (and wp, xi and the multipoles within one call)
+        share one stage a tracer (abacus_hod.py:_pair_loop)."""
+        def col(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device, torch.float32)
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+
+        staged = {tr: tuple(col(d[c]) for c in ('x', 'y', 'z')) for tr, d in mock_dict.items()}
+        out = {}
+        keys = list(mock_dict.keys())
+        for i1, tr1 in enumerate(keys):
+            for i2 in range(i1, len(keys)):
+                tr2 = keys[i2]
+                out[f'{tr1}_{tr2}'] = fn(staged[tr1], None if i1 == i2 else staged[tr2])
+                if i1 != i2 and symmetrize:
+                    out[f'{tr2}_{tr1}'] = out[f'{tr1}_{tr2}']
+        return out
+
+    def compute_xirppi(self, mock_dict, rpbins, pimax, pi_bin_size, Nthread=None):
+        """xi(rp, pi) of every tracer pair (abacus_hod.py:compute_xirppi)."""
+        def fn(p1, p2):
+            return calc_xirppi_fast(
+                rpbins=rpbins, pimax=pimax, pi_bin_size=pi_bin_size, lbox=self.lbox,
+                pos1=p1, pos2=p2,
+            )
+
+        return self._pair_loop(mock_dict, fn)
+
+    def compute_wp(self, mock_dict, rpbins, pimax, pi_bin_size=None, Nthread=None):
+        """wp(rp) of every tracer pair (abacus_hod.py:compute_wp)."""
+        def fn(p1, p2):
+            return calc_wp_fast(rpbins=rpbins, pimax=pimax, lbox=self.lbox, pos1=p1, pos2=p2)
+
+        return self._pair_loop(mock_dict, fn)
+
+    def compute_multipole(
+        self, mock_dict, rpbins, pimax, sbins, nbins_mu, orders=(0, 2), Nthread=None
+    ):
+        """wp(rp) followed by the multipoles xi_ell(s) of every tracer pair,
+        concatenated (abacus_hod.py:compute_multipole)."""
+        def fn(p1, p2):
+            multi = calc_multipole_fast(
+                sbins=sbins, lbox=self.lbox, nbins_mu=nbins_mu, orders=orders, pos1=p1, pos2=p2,
+            )
+            wp = calc_wp_fast(rpbins=rpbins, pimax=pimax, lbox=self.lbox, pos1=p1, pos2=p2)
+            return np.concatenate((wp, multi))
+
+        return self._pair_loop(mock_dict, fn)
+
     def compute_power(
         self, mock_dict, nbins_k, nbins_mu, k_hMpc_max, logk, poles=(), paste='TSC',
         num_cells=550, compensated=False, interlaced=False,

@@ -45,6 +45,7 @@ __all__ = [
     'brick_shape',
     'tile_bytes',
     'stage_bricks',
+    'work_items',
     'paint_3d_plain',
     'overflow_count_plain',
     'paint_3d',
@@ -184,24 +185,32 @@ def _work_list(skey, nbricks, max_points):
     into ceil(count / max_points) items, built on the keys' device without
     a host sync: its length is the bound min(nbricks, N) + ceil(N /
     max_points), and the items past the last are empty."""
-    dev = skey.device
-    n = skey.numel()
     starts = torch.searchsorted(
-        skey, torch.arange(nbricks + 1, dtype=skey.dtype, device=dev)
+        skey, torch.arange(nbricks + 1, dtype=skey.dtype, device=skey.device)
     )
+    return work_items(starts, skey.numel(), max_points)
+
+
+def work_items(starts, n, max_points):
+    """The int32 (group, begin, end) items over `n` sorted rows whose groups
+    begin at `starts` (ngroups + 1 offsets): each group is cut into
+    ceil(count / max_points) items, an empty group gets none. The list has
+    the fixed length min(ngroups, n) + ceil(n / max_points), so no host
+    sync is needed; the items past the last hold begin = end = 0."""
+    ngroups = starts.numel() - 1
     nchunk = torch.div(starts[1:] - starts[:-1] + max_points - 1, max_points,
                        rounding_mode='floor')
     last = torch.cumsum(nchunk, 0)
-    cap = min(nbricks, n) + -(-n // max_points)
-    item = torch.arange(cap, dtype=last.dtype, device=dev)
-    brick = torch.searchsorted(last, item, right=True)
-    real = brick < nbricks
-    brick = brick.clamp_(max=nbricks - 1)
-    begin = starts[brick] + (item - (last[brick] - nchunk[brick])) * max_points
-    end = torch.minimum(begin + max_points, starts[brick + 1])
+    cap = min(ngroups, n) + -(-n // max_points)
+    item = torch.arange(cap, dtype=last.dtype, device=starts.device)
+    group = torch.searchsorted(last, item, right=True)
+    real = group < ngroups
+    group = group.clamp_(max=ngroups - 1)
+    begin = starts[group] + (item - (last[group] - nchunk[group])) * max_points
+    end = torch.minimum(begin + max_points, starts[group + 1])
     zero = torch.zeros_like(begin)
     work = torch.stack(
-        [torch.where(real, brick, zero), torch.where(real, begin, zero),
+        [torch.where(real, group, zero), torch.where(real, begin, zero),
          torch.where(real, end, zero)], 1
     )
     return work.to(torch.int32)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's fused HOD step on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k) and pair-count paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,13 @@ Phases, each printing what it measured:
    placed on cell and brick edges and across the periodic wrap;
 3. K2, the P(k) mode binning (the binning kernel of
    ``csrc/mode_bin_pairs.cu`` at one field), against its plain version on
-   a 256^3 rfft mesh as cuFFT lays it out (strided);
+   a 256^3 rfft mesh as cuFFT lays it out (strided); then K4, the cell-pair
+   count, and K5, the all-pairs count (``csrc/pair_count.cu``), each in its
+   (rp, pi) and (s, mu) modes, auto and cross, against its plain version
+   with every bin equal, on clustered catalogs made on the device (2e5
+   points at the 66^3 grid of the main path for K4, dense 13^3 and 4^3
+   grids, rp edges that start at 0; 2e4 points in float32 and float64 for
+   K5), two launches equal, and K4 equal to K5 on one catalog;
 4. the step at bench scale (1e7 halos + 5e7 particles, nmesh=256, 16^3
    bricks with a z margin for RSD, 128 k-bins): staging, one warm and 3x5
    timed steps through the kernels
@@ -38,7 +44,27 @@ Phases, each printing what it measured:
    compensated, against phase 5's spectra at rtol 2e-3; (d) TSC and CIC,
    interlaced, compensated, 4 mu bins, against the plain versions and the
    monopole = band-mean invariant; (e) the cold ``run_hod_pk_fused`` at
-   nmesh 512, whose bin plan is built on the device once.
+   nmesh 512, whose bin plan is built on the device once;
+8. pair counting on phase 7's ``run_hod`` mock (LRG + ELG + QSO with RSD in
+   the (2000 Mpc/h)^3 box): ``compute_xirppi``, ``compute_wp`` and
+   ``compute_multipole`` at rp, s < 30 Mpc/h in 8 log bins, pimax 30 and 20
+   mu bins (docs/hod.md), each cold from the host mock (upload, one cell
+   stage a tracer, six K4 launches a statistic) and warm on device-held
+   columns (0 restages required); wp = 2 sum_pi xi at unit pi bins; the
+   autocorrelation's 14-offset doubled walk against the 27-offset walk on a
+   clone of one tracer; the stage alone; K4 at each of the six pairs'
+   shapes and both modes against its plain version (every bin equal) and
+   its bound; then a QSO sample of 8e4 points, which the dispatch gives to
+   K5, with K5 against its plain version and bound at that shape.
+
+Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
+work items, the candidate pairs the walk evaluates and the in-range pairs
+with their rates, and the bound: the candidates' f32 operations up to the
+reject test (12 or 13 a pair, K4_PAIR_OPS) at 67e12 operations/s, or the
+bytes at 3.35 TB/s where those take longer. Phase 1 prints ptxas's
+registers and spills of the eight pair-count instances and the FFMA/DFMA
+count of their SASS: the (rp, pi) form with the item-constant wrap, which
+has no quotient and no root, must hold none.
 
 Each K1 line ("K1 <shape>: ...") gives, at one of the four shapes the main
 paths run (phases 4, 5, 7 b and 7 d), the time by CUDA events over 5 calls
@@ -61,6 +87,7 @@ non-zero before printing either.
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,6 +96,7 @@ import numpy as np
 import torch
 
 from abacusutils_tpu_torch import _build
+from abacusutils_tpu_torch.convert import position_columns
 from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
 from abacusutils_tpu_torch.models.pipeline import (
     group_inputs2d_device,
@@ -108,6 +136,18 @@ from abacusutils_tpu_torch.ops.power import (
     mode_dup,
     mode_spans,
     row_spans,
+)
+from abacusutils_tpu_torch.ops import tpcf
+from abacusutils_tpu_torch.ops.tpcf import (
+    calc_xirppi_fast,
+    candidate_pairs,
+    count_pairs_all,
+    count_pairs_all_plain,
+    count_pairs_cells,
+    count_pairs_cells_plain,
+    edges_f32,
+    pair_counts_rppi,
+    stage_cells,
 )
 from abacusutils_tpu_torch.testing import edge_points
 
@@ -150,6 +190,31 @@ HBM_BYTES_PER_S = 3.35e12
 # ptxas's (registers, spill stores, spill loads) of each K1 instantiation,
 # by (kind, flush width)
 K1_PTXAS = {}
+# pair counting (phase 8): rp and s edges, pimax, the pi bin of xi(rp, pi)
+# and the mu bins of docs/hod.md:36-38 and scripts/tpcf/bench.py:46-48
+PAIR_BINS = np.logspace(-1, np.log10(30.0), 9)
+PIMAX, PI_BIN, NMU = 30, 5, 20
+PAIR_RMAX = 30.0
+N_K4_CHECK = 200_000
+N_K5_CHECK = 20_000
+# a QSO sample at survey density in the box: under the cell engine's 1e5
+# points, so the all-pairs engine counts it
+N_SPARSE = 80_000
+# the H100 SXM's f32 and f64 rates outside the tensor cores (NVIDIA's data
+# sheet), operations/s
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+# operations a candidate pair costs up to the reject test, counted from
+# csrc/pair_count.cu. K4 (item-constant wrap): 3 differences, 3 wrap
+# subtractions, the products and sums of r2 (rppi 2 + 1, smu 3 + 2), the
+# compares (rppi 3: dz and two edges; smu 2). K5: 3 differences and a
+# quotient, a round, a product and a difference an axis, then the same
+K4_PAIR_OPS = {'rppi': 12, 'smu': 13}
+K5_PAIR_OPS = {'rppi': 21, 'smu': 22}
+# ptxas's (registers, spill stores, spill loads) and the SASS FFMA/DFMA count
+# of each pair-count kernel instance, by its name in the build log
+PAIR_PTXAS = {}
+PAIR_FMA = {}
 
 
 class PhaseError(RuntimeError):
@@ -236,13 +301,24 @@ def phase_build():
     print('device:', torch.cuda.get_device_name(0), 'count', torch.cuda.device_count())
     path, secs, log = _build.build()
     for line in log.splitlines():
-        if 'registers' in line or 'Compiling entry' in line or 'spill' in line:
+        if line.startswith('nvcc '):
+            print('build:', line.strip())
+        elif 'registers' in line or 'Compiling entry' in line or 'spill' in line:
             print('ptxas:', line.strip())
     K1_PTXAS.update(ptxas_k1(log))
+    PAIR_PTXAS.update(ptxas_pairs(log))
     _build.lib()
     print(f'phase 1 build: {path.name} in {secs:.2f} s; K1 (kind, flush width): '
           f'(registers, spill stores, spill loads) {K1_PTXAS}')
     require(len(K1_PTXAS) == 6, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 6')
+    PAIR_FMA.update(sass_fma(path))
+    print(f'phase 1 build: K4/K5 (registers, spill stores, spill loads) {PAIR_PTXAS}; '
+          f'FFMA + DFMA in their SASS (a quotient or a root expands into some) {PAIR_FMA}')
+    require(len(PAIR_PTXAS) == 8, f'ptxas reported {len(PAIR_PTXAS)} pair-count instances, not 8')
+    # the form the main path runs has no quotient and no root: any FMA in
+    # it would be a contracted product and sum of the pair arithmetic
+    require(PAIR_FMA.get('K4[rppi, wrap]', 0) == 0,
+            f'K4\'s rppi form holds fused multiply-adds: {PAIR_FMA}')
 
 
 def ptxas_k1(log):
@@ -266,6 +342,59 @@ def ptxas_k1(log):
         if m:
             out[cur][0] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
+
+
+def pair_kernel_name(mangled):
+    """'K4[rppi, wrap]' / 'K5[smu, f64]' for a pair-count kernel's mangled
+    name, else None."""
+    m = re.search(r'pair_count_cells_kernelILi(\d)ELb(\d)EE', mangled)
+    if m:
+        return f'K4[{tpcf.MODES[int(m.group(1))]}, {"wrap" if m.group(2) == "1" else "round"}]'
+    m = re.search(r'pair_count_all_kernelI([fd])Li(\d)EE', mangled)
+    if m:
+        return f'K5[{tpcf.MODES[int(m.group(2))]}, {"f32" if m.group(1) == "f" else "f64"}]'
+    return None
+
+
+def ptxas_pairs(log):
+    """{instance: (registers, spill store bytes, spill load bytes)} of the
+    pair-count kernels in the build's -Xptxas -v log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = pair_kernel_name(m.group(1))
+            if cur:
+                out[cur] = [None, None, None]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def sass_fma(lib):
+    """{instance: FFMA + DFMA instructions} of the pair-count kernels in the
+    library's SASS (cuobjdump -sass)."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    res = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True)
+    require(res.returncode == 0, f'cuobjdump failed: {res.stderr[-300:]}')
+    func, counts = None, {}
+    for line in res.stdout.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            func = pair_kernel_name(m.group(1))
+            if func:
+                counts[func] = 0
+            continue
+        if func and re.search(r'\b[FD]FMA\b', line):
+            counts[func] += 1
+    return counts
 
 
 def k1_bound(launches, ngrids, nmesh):
@@ -509,6 +638,294 @@ def time_k1(tag, grids, nmesh, kind, check_overflow=None):
     return ms, plain_ms, err, rec
 
 
+def clustered_points(n, lbox, gen, dev):
+    """The clustered sample of scripts/tpcf/bench.py:18-27 drawn on the
+    device: n // 8 uniform centres, each point on a shell of radius 0.3 x
+    Exp(1) around a random centre, wrapped into the box. Returns x, y, z."""
+    n_halo = n // 8
+    centres = torch.rand((n_halo, 3), generator=gen, device=dev) * lbox
+    parent = torch.randint(0, n_halo, (n,), generator=gen, device=dev)
+    r = -0.3 * torch.log1p(-torch.rand(n, generator=gen, device=dev))
+    offs = torch.randn((n, 3), generator=gen, device=dev)
+    offs = offs * (r / offs.norm(dim=1))[:, None]
+    pos = torch.remainder(centres[parent] + offs, lbox)
+    return [pos[:, i].contiguous() for i in range(3)]
+
+
+def pair_modes():
+    """(mode, nb2, aux) of the two binnings at the main path's widths."""
+    return [('rppi', PIMAX, float(PIMAX)), ('smu', NMU, float(NMU))]
+
+
+def k4_bound(stage1, stage2, mode, nbins):
+    """The least time (ms) of one K4 launch, its limiter and the candidate
+    pairs: the larger of the candidates' f32 operations (K4_PAIR_OPS) at 67
+    TFLOP/s and the bytes (both sides' columns, the cell starts, the work
+    list, the int64 counts) at 3.35 TB/s."""
+    cand = candidate_pairs(stage1, stage2)
+    b = stage1 if stage2 is None else stage2
+    nbytes = 12 * stage1.n + 12 * b.n + 4 * b.starts.numel() + 12 * stage1.work.shape[0] + 8 * nbins
+    t_ops = cand * K4_PAIR_OPS[mode] / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes', cand
+
+
+def k5_bound(n1, n2, mode, nbins, dtype):
+    size, rate = (4, F32_OPS_PER_S) if dtype == torch.float32 else (8, F64_OPS_PER_S)
+    t_ops = n1 * n2 * K5_PAIR_OPS[mode] / rate * 1e3
+    t_bytes = (3 * size * (n1 + n2) + 8 * nbins) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def check_k4(tag, cols1, cols2, lbox, edges, time_it=False):
+    """K4 in both modes on one pair of catalogs (cols2 None: auto) against
+    its plain version, bin for bin, and a second launch against the first.
+    Returns {mode: (counts, stage1, stage2, ms, plain_ms)}."""
+    nc = min(int(lbox // PAIR_RMAX), 128)
+    s1 = stage_cells(*(torch.remainder(c, _f32(lbox)) for c in cols1), lbox, nc)
+    s2 = None if cols2 is None else stage_cells(
+        *(torch.remainder(c, _f32(lbox)) for c in cols2), lbox, nc)
+    thr = edges_f32(np.asarray(edges, np.float64) ** 2)
+    out = {}
+    for mode, nb2, aux in pair_modes():
+        got = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
+        again = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
+        (ref, t_plain) = sync_seconds(lambda: count_pairs_cells_plain(
+            s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24))
+        bad = int((got != ref).sum())
+        ms = event_ms(lambda: count_pairs_cells(s1, s2, thr, nb2, mode, aux)) if time_it else None
+        print(f'{tag} {mode}: nc {nc}, {s1.n} x {s1.n if s2 is None else s2.n} points, '
+              f'{s1.work.shape[0]} items, largest cell {s1.max_occ}, candidates '
+              f'{candidate_pairs(s1, s2)}, in-range pairs {int(got.sum())}, bins that differ '
+              f'from plain {bad}, second launch equal {bool(torch.equal(got, again))}, plain '
+              f'{t_plain * 1e3:.1f} ms' + (f', kernel {ms:.4f} ms' if time_it else ''))
+        require(bad == 0, f'{tag} {mode}: K4 differs from its plain version in {bad} bins')
+        require(bool(torch.equal(got, again)), f'{tag} {mode}: two K4 launches differ')
+        require(int(got.sum()) > 0, f'{tag} {mode}: no pair in range')
+        out[mode] = (got, s1, s2, ms, t_plain * 1e3)
+    return out
+
+
+def check_k5(tag, cols1, cols2, lbox, edges, dtype, time_it=False):
+    """K5 in both modes against its plain version, bin for bin, in `dtype`.
+    Returns {mode: (counts, ms, plain_ms, max |kernel - plain|)}."""
+    c1 = [c.to(dtype) for c in cols1]
+    c2 = None if cols2 is None else [c.to(dtype) for c in cols2]
+    e2 = np.asarray(edges, np.float64) ** 2
+    thr = edges_f32(e2) if dtype == torch.float32 else e2
+    out = {}
+    for mode, nb2, aux in pair_modes():
+        got = count_pairs_all(c1, c2, thr, nb2, mode, lbox, aux)
+        again = count_pairs_all(c1, c2, thr, nb2, mode, lbox, aux)
+        ref, t_plain = sync_seconds(lambda: count_pairs_all_plain(
+            c1, c2, thr, nb2, mode, lbox, aux, max_pairs=1 << 24))
+        bad = int((got != ref).sum())
+        ms = event_ms(lambda: count_pairs_all(c1, c2, thr, nb2, mode, lbox, aux)) if time_it else None
+        n2 = c1[0].numel() if c2 is None else c2[0].numel()
+        print(f'{tag} {mode} {str(dtype).split(".")[1]}: {c1[0].numel()} x {n2} points, in-range '
+              f'pairs {int(got.sum())}, bins that differ from plain {bad}, second launch equal '
+              f'{bool(torch.equal(got, again))}, plain {t_plain * 1e3:.1f} ms'
+              + (f', kernel {ms:.4f} ms' if time_it else ''))
+        require(bad == 0, f'{tag} {mode}: K5 differs from its plain version in {bad} bins')
+        require(bool(torch.equal(got, again)), f'{tag} {mode}: two K5 launches differ')
+        require(int(got.sum()) > 0, f'{tag} {mode}: no pair in range')
+        out[mode] = (got, ms, t_plain * 1e3, float((got - ref).abs().max()))
+    return out
+
+
+def phase_pair_kernels(dev):
+    """K4 and K5 against their plain versions, exact equality of every bin,
+    on clustered catalogs the plain versions can finish."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    # K4 at the main path's grid (nc = 66 in the 2000 Mpc/h box), auto and cross
+    big = clustered_points(N_K4_CHECK, LBOX, gen, dev)
+    other = clustered_points(N_K4_CHECK // 2, LBOX, gen, dev)
+    check_k4('phase 3 K4 auto', big, None, LBOX, PAIR_BINS)
+    check_k4('phase 3 K4 cross', big, other, LBOX, PAIR_BINS)
+    # an rp edge list that starts at 0: the pair i == j would fall in bin (0, 0)
+    edges0 = np.concatenate([[0.0], PAIR_BINS[1:]])
+    check_k4('phase 3 K4 auto, edges from 0', big, None, LBOX, edges0)
+    # dense cells cut into several items (400 Mpc/h, 13^3 cells) and the
+    # per-pair round of a 4^3 grid (125 Mpc/h)
+    dense = clustered_points(N_K4_CHECK // 2, 400.0, gen, dev)
+    check_k4('phase 3 K4 dense auto', dense, None, 400.0, edges0)
+    check_k4('phase 3 K4 dense cross', dense,
+             clustered_points(N_K4_CHECK // 4, 400.0, gen, dev), 400.0, PAIR_BINS)
+    small = clustered_points(N_K5_CHECK, 125.0, gen, dev)
+    check_k4('phase 3 K4 4^3 cells auto', small, None, 125.0, edges0)
+    # K5, float32 and float64, auto and cross, and against K4 on one catalog
+    cat = clustered_points(N_K5_CHECK, 400.0, gen, dev)
+    cat2 = clustered_points(N_K5_CHECK // 2, 400.0, gen, dev)
+    for dtype in (torch.float32, torch.float64):
+        check_k5('phase 3 K5 auto', cat, None, 400.0, edges0, dtype)
+        check_k5('phase 3 K5 cross', cat, cat2, 400.0, PAIR_BINS, dtype)
+    k5 = check_k5('phase 3 K5 auto', cat, None, 400.0, PAIR_BINS, torch.float32)
+    k4 = check_k4('phase 3 K4 on K5\'s catalog', cat, None, 400.0, PAIR_BINS)
+    for mode in k5:
+        same = bool(torch.equal(k4[mode][0], k5[mode][0]))
+        print(f'phase 3 K4 == K5 on {N_K5_CHECK} points, {mode}: {same}')
+        require(same, f'K4 and K5 disagree ({mode})')
+
+
+def pair_record(ms, plain_ms, bound, by, err=0.0, **extra):
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
+                library_ms=None, **extra)
+
+
+def phase_pairs(hod, mock):
+    """Phase 8: compute_xirppi / compute_wp / compute_multipole on the
+    run_hod mock at full width, and the same on a sparse QSO sample.
+    Returns ({path: launches}, {form: timing record})."""
+    dev = hod.device
+    paths, timing = {}, {}
+    tracers = list(mock)
+    counts = {tr: len(mock[tr]['x']) for tr in tracers}
+    nc = int(LBOX // PAIR_RMAX)
+    calls = {
+        'compute_xirppi': (lambda m: hod.compute_xirppi(m, PAIR_BINS, PIMAX, PI_BIN),
+                           {'pair_count_cells[rppi]': 6}),
+        'compute_wp': (lambda m: hod.compute_wp(m, PAIR_BINS, PIMAX),
+                       {'pair_count_cells[rppi]': 6}),
+        'compute_multipole': (lambda m: hod.compute_multipole(m, PAIR_BINS, PIMAX, PAIR_BINS, NMU),
+                              {'pair_count_cells[rppi]': 6, 'pair_count_cells[smu]': 6}),
+    }
+    # the mock held on the device: uploaded once, staged by the first call
+    dmock, t_up = sync_seconds(lambda: {
+        tr: dict(zip('xyz', position_columns((d['x'], d['y'], d['z']), dev)))
+        for tr, d in mock.items()})
+    print(f'phase 8 mock {counts}, box {LBOX}, rp and s < {PAIR_RMAX}, pimax {PIMAX}: nc {nc}, '
+          f'{nc**3} cells; upload of x, y, z {t_up:.3f} s')
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, (fn, want) in calls.items():
+        tpcf._stage_cache.clear()
+        builds = stage_cells.builds
+        reset_launches()
+        res, t_cold = sync_seconds(lambda: fn(mock))
+        launches = read_launches()
+        paths[f'AbacusHOD.{name}'] = launches
+        cold_builds = stage_cells.builds - builds
+        fn(dmock)  # stages the device-held columns
+        builds = stage_cells.builds
+        res_w, t_warm = sync_seconds(lambda: fn(dmock))
+        warm_builds = stage_cells.builds - builds
+        print(f'phase 8 {name}: cold {t_cold:.3f} s host to host (upload, {cold_builds} stages, '
+              f'count), warm {t_warm:.3f} s ({warm_builds} stages), launches '
+              f'{({k: v for k, v in launches.items() if v})}')
+        for form, n in want.items():
+            require(launches[form] == n, f'{name}: {form} launched {launches[form]} times, not {n}')
+        require(launches['pair_count_all[rppi]'] + launches['pair_count_all[smu]'] == 0,
+                f'{name} took the all-pairs engine: {launches}')
+        require(cold_builds == len(tracers), f'{name}: {cold_builds} stages in the cold call')
+        require(warm_builds == 0, f'{name}: {warm_builds} restages in the warm call')
+        require(set(res) == {f'{a}_{b}' for a in tracers for b in tracers}, f'{name} keys')
+        for key, v in res.items():
+            require(np.isfinite(v).all(), f'{name} {key} not finite')
+            require(np.array_equal(v, res_w[key]), f'{name} {key}: warm differs from cold')
+            a, b = key.split('_')
+            require(np.array_equal(v, res[f'{b}_{a}']), f'{name} {key} not symmetrised')
+        results[name] = res
+    peak = torch.cuda.max_memory_allocated()
+    nrp = len(PAIR_BINS) - 1
+    require(results['compute_xirppi']['LRG_LRG'].shape == (nrp, PIMAX // PI_BIN), 'xirppi shape')
+    require(results['compute_multipole']['LRG_ELG'].shape == (3 * nrp,), 'multipole shape')
+    print(f'phase 8 peak device memory {peak / 2**30:.3f} GiB (the HOD stages of phases 5 and 7 '
+          f'included)')
+
+    # wp = 2 sum_pi xi at pi_bin_size 1, and the auto walk against the cross walk
+    t1 = tracers[0]
+    p1 = tuple(dmock[t1][a] for a in 'xyz')
+    xi1 = calc_xirppi_fast(rpbins=PAIR_BINS, pimax=PIMAX, pi_bin_size=1, lbox=LBOX, pos1=p1)
+    wp = results['compute_wp'][f'{t1}_{t1}']
+    rel = float(np.max(np.abs(wp - 2 * xi1.sum(axis=1)) / np.abs(wp)))
+    auto = pair_counts_rppi(p1, PAIR_BINS, PIMAX, LBOX)
+    clone = tuple(c.clone() for c in p1)
+    cross, t_cross = sync_seconds(lambda: pair_counts_rppi(p1, PAIR_BINS, PIMAX, LBOX, pos2=clone))
+    # (the first edge is above 0, so the clone's i == j pairs fall below every bin)
+    same = bool(np.array_equal(auto, cross))
+    print(f'phase 8 {t1}: wp vs 2 sum_pi xi(pi_bin_size=1) max rel {rel:.3e} (<= 1e-10); '
+          f'14-offset doubled walk == 27-offset walk on a clone: {same} ({int(auto.sum())} '
+          f'pairs; cross call {t_cross:.3f} s)')
+    require(rel <= 1e-10, 'wp != 2 sum_pi xi')
+    require(same, 'the auto walk and the cross walk on a clone differ')
+    del clone
+
+    # the stage alone, and K4 at every pair's shape against plain and bound
+    big = max(tracers, key=counts.get)
+    cols = [torch.remainder(c, _f32(LBOX)) for c in (dmock[big][a] for a in 'xyz')]
+    st, t_stage = sync_seconds(lambda: stage_cells(*cols, LBOX, nc))
+    print(f'phase 8 stage of {big} ({counts[big]} points): {t_stage:.3f} s, {st.work.shape[0]} '
+          f'work items, largest cell {st.max_occ}, mean {counts[big] / nc**3:.1f}')
+    del st, cols
+    thr = edges_f32(PAIR_BINS**2)
+    stages = {tr: tpcf._get_stage(tuple(dmock[tr][a] for a in 'xyz'), LBOX, nc) for tr in tracers}
+    for mode, nb2, aux in pair_modes():
+        shapes = []
+        for i, a in enumerate(tracers):
+            for b in tracers[i:]:
+                s1, s2 = stages[a], (None if a == b else stages[b])
+                ms = event_ms(lambda: count_pairs_cells(s1, s2, thr, nb2, mode, aux), reps=2)
+                got = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
+                ref, t_plain = sync_seconds(lambda: count_pairs_cells_plain(
+                    s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24))
+                bad = int((got != ref).sum())
+                err = float((got - ref).abs().max())
+                bound, by, cand = k4_bound(s1, s2, mode, nrp * nb2)
+                inr = int(got.sum())
+                print(f'K4 {mode} {a}_{b}: {ms:.4f} ms, {s1.work.shape[0]} items, candidates '
+                      f'{cand} ({cand / ms * 1e3:.4e}/s), in-range pairs {inr} '
+                      f'({inr / ms * 1e3:.4e}/s, {inr / cand:.4f} of the candidates), bound '
+                      f'{bound:.4f} ms by {by} (share {bound / ms:.3f}); plain {t_plain * 1e3:.1f} '
+                      f'ms, bins that differ {bad}')
+                require(bad == 0, f'K4 {mode} {a}_{b} differs from its plain version')
+                shapes.append(dict(pair=f'{a}_{b}', ms=ms, plain_ms=t_plain * 1e3, err=err,
+                                   bound_ms=bound,
+                                   bound_by=by, candidates=cand, in_range=inr,
+                                   items=int(s1.work.shape[0])))
+        top = max(shapes, key=lambda r: r['candidates'])
+        regs = PAIR_PTXAS.get(f'K4[{mode}, wrap]', (None,) * 3)
+        timing[f'pair_count_cells[{mode}]'] = pair_record(
+            top['ms'], top['plain_ms'], top['bound_ms'], top['bound_by'], top['err'],
+            shape=top['pair'],
+            shapes=shapes, registers=regs[0], spill_stores=regs[1], spill_loads=regs[2])
+    del stages
+
+    # a QSO sample at survey density: the all-pairs engine
+    rng = np.random.default_rng(SEED)
+    last = tracers[-1]
+    pick = np.sort(rng.choice(counts[last], N_SPARSE, replace=False))
+    sparse = {last: {a: mock[last][a][pick] for a in 'xyz'}}
+    reset_launches()
+    (wp_s, mp_s), t_sparse = sync_seconds(lambda: (
+        hod.compute_wp(sparse, PAIR_BINS, PIMAX),
+        hod.compute_multipole(sparse, PAIR_BINS, PIMAX, PAIR_BINS, NMU)))
+    launches = read_launches()
+    paths[f'AbacusHOD.compute_wp + compute_multipole ({N_SPARSE} {last})'] = launches
+    print(f'phase 8 sparse {last} ({N_SPARSE} points): compute_wp + compute_multipole '
+          f'{t_sparse:.3f} s host to host, launches {({k: v for k, v in launches.items() if v})}')
+    require(launches['pair_count_all[rppi]'] == 2 and launches['pair_count_all[smu]'] == 1,
+            f'sparse sample: K5 launches {launches}')
+    require(launches['pair_count_cells[rppi]'] + launches['pair_count_cells[smu]'] == 0,
+            f'sparse sample took the cell engine: {launches}')
+    key = f'{last}_{last}'
+    require(np.isfinite(wp_s[key]).all() and np.isfinite(mp_s[key]).all(), 'sparse results')
+    require(np.array_equal(mp_s[key][:nrp], wp_s[key]), 'sparse wp differs between the calls')
+    cols = position_columns(tuple(sparse[last][a] for a in 'xyz'), dev)
+    k5 = check_k5(f'K5 at the sparse {last} shape', cols, None, LBOX, PAIR_BINS, torch.float32,
+                  time_it=True)
+    for mode, (got, ms, plain_ms, err) in k5.items():
+        bound, by = k5_bound(N_SPARSE, N_SPARSE, mode, got.numel(), torch.float32)
+        print(f'K5 {mode}: {ms:.4f} ms, {N_SPARSE**2 / ms * 1e3:.4e} pairs/s, bound {bound:.4f} ms '
+              f'by {by} (share {bound / ms:.3f})')
+        regs = PAIR_PTXAS.get(f'K5[{mode}, f32]', (None,) * 3)
+        timing[f'pair_count_all[{mode}]'] = pair_record(
+            ms, plain_ms, bound, by, err, shape=f'{N_SPARSE} x {N_SPARSE}', registers=regs[0],
+            spill_stores=regs[1], spill_loads=regs[2])
+    tpcf._stage_cache.clear()
+    return paths, timing
+
+
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
@@ -516,6 +933,10 @@ KERNELS = {
                         'abacusutils_tpu/ops/power.py:396'),
     'bin_pair_modes': (bin_pair_modes, 'abacusutils_tpu_torch/csrc/mode_bin_pairs.cu',
                        'abacusutils_tpu/ops/power.py:451'),
+    'count_pairs_cells': (count_pairs_cells, 'abacusutils_tpu_torch/csrc/pair_count.cu',
+                          'abacusutils_tpu/ops/tpcf.py:330'),
+    'count_pairs_all': (count_pairs_all, 'abacusutils_tpu_torch/csrc/pair_count.cu',
+                        'abacusutils_tpu/ops/tpcf.py:39'),
 }
 # the kernels line's entries: (kernel, form); a form's launches are its
 # wrapper's launches_by_form count (None: the wrapper's whole count)
@@ -528,6 +949,10 @@ FORMS = {
                                     'abacusutils_tpu/ops/power.py:451'),
     'bin_pair_modes[poles nmu=4]': ('bin_pair_modes', 'poles nmu=4',
                                     'abacusutils_tpu/ops/power.py:524'),
+    'pair_count_cells[rppi]': ('count_pairs_cells', 'rppi', 'abacusutils_tpu/ops/tpcf.py:330'),
+    'pair_count_cells[smu]': ('count_pairs_cells', 'smu', 'abacusutils_tpu/ops/tpcf.py:330'),
+    'pair_count_all[rppi]': ('count_pairs_all', 'rppi', 'abacusutils_tpu/ops/tpcf.py:39'),
+    'pair_count_all[smu]': ('count_pairs_all', 'smu', 'abacusutils_tpu/ops/tpcf.py:84'),
 }
 
 
@@ -855,7 +1280,7 @@ def time_kernels(tag, ffts, scale, W, plan, pole_w, cols, nmesh, kind):
 
 def phase_two_step(hod, n_gal5, cl5):
     """Phase 7: run_hod -> compute_power on the phase-5 object (same
-    randoms). Returns ({path: launches}, {form: (ms, plain_ms, max_abs_err)})."""
+    randoms). Returns ({path: launches}, {form: timing record}, the mock)."""
     dev = hod.device
     paths, timing = {}, {}
     spans = mode_spans.builds
@@ -988,7 +1413,7 @@ def phase_two_step(hod, n_gal5, cl5):
         del ffts
 
     # (e) the cold run_hod_pk_fused at nmesh 512: its plan on the device, once
-    del mock, cols
+    del cols
     builds = make_bin_plan_arrays.builds
     reset_launches()
     _, t_cold = sync_seconds(lambda: hod.run_hod_pk_fused(nmesh=COLD_NMESH))
@@ -1008,7 +1433,7 @@ def phase_two_step(hod, n_gal5, cl5):
           f'build alone on the device {t_plan:.4f} s, numpy host build {t_host:.3f} s')
     require(b1 == 1 and b2 == 0 and seg512.device == dev, 'plan builds at 512')
     require(mode_spans.builds == spans, 'the two-step route built row spans')
-    return paths, timing
+    return paths, timing, mock
 
 
 def kernel_line(paths, timing):
@@ -1021,12 +1446,14 @@ def kernel_line(paths, timing):
         col = name if key is None else form
         by_path = {path: launches[col] for path, launches in paths.items()}
         t = timing[form]
+        require(sum(by_path.values()) > 0, f'no main path launched {form}')
         out.append({
             'name': form, 'route': 'cuda', 'source': KERNELS[name][1], 'replaces': replaces,
             'launches': sum(by_path.values()), 'launches_by_path': by_path,
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
-            **{k: t[k] for k in ('kernel_ms', 'in_bin_share', 'library_call', 'shapes') if k in t},
+            **{k: t[k] for k in ('kernel_ms', 'in_bin_share', 'library_call', 'shape', 'shapes',
+                                  'registers', 'spill_stores', 'spill_loads') if k in t},
         })
     return {'kernels': out}
 
@@ -1046,6 +1473,7 @@ def main():
         grid = phase_k1(dev)
         phase_k2(grid, seg, W)
         del grid
+        phase_pair_kernels(dev)
         step_launches, timing = phase_step(dev, seg, W)
         timing['tsc_deposit_cells[tsc]'] = timing.pop('tsc_deposit_cells')
         box, lc, hod = phase_fused(dev, seg, W)
@@ -1054,22 +1482,25 @@ def main():
         print(f'K3 at the light-cone call shapes: {lc[1]["ms"]:.4f} ms vs plain '
               f'{lc[1]["plain_ms"]:.4f} ms')
         del seg, W
-        paths7, timing7 = phase_two_step(hod, box[3], box[2])
+        paths7, timing7, mock = phase_two_step(hod, box[3], box[2])
         shapes7 = timing7.pop('k1 shapes')
         timing['tsc_deposit_cells[tsc]']['shapes'].append(shapes7[0])
         timing.update(timing7)
         timing['tsc_deposit_cells[cic]']['shapes'] = shapes7[1:]
+        paths8, timing8 = phase_pairs(hod, mock)
+        timing.update(timing8)
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
             'AbacusHOD.run_hod_pk_fused (light cone)': lc[0],
             **paths7,
+            **paths8,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

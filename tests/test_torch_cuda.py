@@ -34,6 +34,7 @@ from abacusutils_tpu_torch.ops.power import (
     get_W_compensated,
 )
 from abacusutils_tpu_torch.ops import power as tpow
+from abacusutils_tpu_torch.ops import tpcf as ttpcf
 from abacusutils_tpu_torch.testing import edge_points, edge_points_centred
 from torch_helpers import (  # noqa: F401
     TRACERS,
@@ -610,3 +611,120 @@ def test_binning_kernel_forms(cuda_device, nfields, npoles):
     assert bin_pair_modes.launches == before + 1
     ref = bin_pair_modes_plain(dks, plan.seg, W, 1.0 / n1d**3, nbins, pole_w, nmu)
     _assert_pair_sums(got, ref, nfields, nmu, degrees)
+
+
+# ---- the pair-count kernels -------------------------------------------------
+
+PAIR_EDGES = np.logspace(-1, np.log10(30.0), 9)
+PAIR_EDGES0 = np.concatenate([[0.0], PAIR_EDGES[1:]])
+
+
+def _clustered(n, lbox, seed, device):
+    """Half the points in 40 Gaussian clumps (sigma 5), half uniform, with
+    coincident distinct points and points on the box faces."""
+    rng = np.random.default_rng(seed)
+    cen = rng.random((40, 3)) * lbox
+    half = n // 2
+    pos = np.concatenate([
+        (cen[rng.integers(0, 40, half)] + rng.normal(0, 5, (half, 3))) % lbox,
+        rng.random((n - half, 3)) * lbox,
+    ]).astype(np.float32)
+    pos[:40] = pos[40:80]
+    pos[80:120, 0] = 0.0
+    pos[120:160, 2] = np.nextafter(np.float32(lbox), np.float32(0))
+    return [t(np.mod(pos[:, i], np.float32(lbox))).to(device) for i in range(3)]
+
+
+def _pair_modes():
+    return [('rppi', 30, 30.0), ('smu', 20, 20.0)]
+
+
+@pytest.mark.parametrize('cross', [False, True], ids=['auto', 'cross'])
+@pytest.mark.parametrize('lbox,nc', [(95.0, 3), (125.0, 4), (160.0, 5), (400.0, 13)])
+def test_cell_pair_kernel_equals_plain(cuda_device, lbox, nc, cross):
+    """K4 against its plain version, every bin equal, in both modes: grids
+    of 3 and 4 cells a side (the per-pair round) and of 5 and 13 (the
+    item-constant wrap), edges that start at 0 (the pair i == j is skipped
+    by index), cells cut into several work items; two launches agree."""
+    cols = _clustered(60_000, lbox, nc, cuda_device)
+    s1 = ttpcf.stage_cells(*cols, lbox, nc)
+    s2 = ttpcf.stage_cells(*_clustered(25_000, lbox, nc + 50, cuda_device), lbox, nc) if cross \
+        else None
+    assert s1.nc == int(lbox // 30) == nc and s1.max_occ > ttpcf.CHUNK
+    thr = ttpcf.edges_f32(PAIR_EDGES0**2)
+    for mode, nb2, aux in _pair_modes():
+        before = ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_cells.launches_by_form[mode]
+        got = ttpcf.count_pairs_cells(s1, s2, thr, nb2, mode, aux)
+        assert ttpcf.count_pairs_cells.launches == before[0] + 1
+        assert ttpcf.count_pairs_cells.launches_by_form[mode] == before[1] + 1
+        assert got.dtype == torch.int64 and got.shape == (8 * nb2,) and int(got.sum()) > 0
+        ref = ttpcf.count_pairs_cells_plain(s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24)
+        assert torch.equal(got, ref), (mode, int((got != ref).sum()))
+        assert torch.equal(got, ttpcf.count_pairs_cells(s1, s2, thr, nb2, mode, aux))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64], ids=['f32', 'f64'])
+@pytest.mark.parametrize('cross', [False, True], ids=['auto', 'cross'])
+def test_all_pairs_kernel_equals_plain(cuda_device, dtype, cross):
+    """K5 against its plain version, every bin equal, in both modes and both
+    types, on positions that are not wrapped into the box (the per-pair
+    minimum image takes them as they are); two launches agree."""
+    lbox = 400.0
+    cols = [c.to(dtype) - 0.5 * lbox for c in _clustered(12_000, lbox, 3, cuda_device)]
+    cols2 = [c.to(dtype) for c in _clustered(5_000, lbox, 4, cuda_device)] if cross else None
+    e2 = PAIR_EDGES0**2
+    thr = ttpcf.edges_f32(e2) if dtype == torch.float32 else e2
+    for mode, nb2, aux in _pair_modes():
+        before = ttpcf.count_pairs_all.launches
+        got = ttpcf.count_pairs_all(cols, cols2, thr, nb2, mode, lbox, aux)
+        assert ttpcf.count_pairs_all.launches == before + 1
+        ref = ttpcf.count_pairs_all_plain(cols, cols2, thr, nb2, mode, lbox, aux,
+                                          max_pairs=1 << 24)
+        assert int(got.sum()) > 0 and torch.equal(got, ref), (mode, int((got != ref).sum()))
+        assert torch.equal(got, ttpcf.count_pairs_all(cols, cols2, thr, nb2, mode, lbox, aux))
+
+
+def test_pair_engines_agree_and_self_pairs_are_skipped(cuda_device):
+    """On one wrapped catalog K4 and K5 count alike, and both equal the
+    plain counts on the CPU; with a first edge of 0 the n pairs i == j stay
+    out while the coincident distinct points count (both orders)."""
+    lbox = 400.0
+    cols = _clustered(20_000, lbox, 9, cuda_device)
+    stage = ttpcf.stage_cells(*cols, lbox, 13)
+    cpu = [c.cpu() for c in cols]
+    thr = ttpcf.edges_f32(PAIR_EDGES0**2)
+    for mode, nb2, aux in _pair_modes():
+        k4 = ttpcf.count_pairs_cells(stage, None, thr, nb2, mode, aux)
+        k5 = ttpcf.count_pairs_all(cols, None, thr, nb2, mode, lbox, aux)
+        assert torch.equal(k4, k5), mode
+        assert torch.equal(k5.cpu(), ttpcf.count_pairs_all_plain(cpu, None, thr, nb2, mode, lbox,
+                                                                 aux))
+        assert 80 <= int(k4[0]) < 20_000
+
+
+def test_pair_counts_entry_points_on_card(cuda_device):
+    """pair_counts_rppi / pair_counts_smu from host data with no device named
+    run on the card: the cell engine above 100,000 points (one K4 launch, the
+    stage of a tensor input cached), the all-pairs engine below, and the
+    14-offset doubled walk equals the 27-offset walk on a clone."""
+    lbox = 700.0
+    cols = _clustered(150_000, lbox, 21, cuda_device)
+    host = np.stack([c.cpu().numpy() for c in cols], 1)
+    ttpcf._stage_cache.clear()
+    k4, k5, builds = (ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_all.launches,
+                      ttpcf.stage_cells.builds)
+    auto = ttpcf.pair_counts_rppi(tuple(cols), PAIR_EDGES, 30, lbox)
+    smu = ttpcf.pair_counts_smu(tuple(cols), PAIR_EDGES, 20, lbox)
+    assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5,
+            ttpcf.stage_cells.builds - builds) == (2, 0, 1)
+    npt.assert_array_equal(auto, ttpcf.pair_counts_rppi(host, PAIR_EDGES, 30, lbox))
+    clone = tuple(c.clone() for c in cols)
+    npt.assert_array_equal(auto, ttpcf.pair_counts_rppi(tuple(cols), PAIR_EDGES, 30, lbox,
+                                                        pos2=clone))
+    assert auto.dtype == np.int64 and auto.shape == (8, 30) and smu.shape == (8, 20)
+    few = host[:30_000]
+    k4, k5 = ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_all.launches
+    small = ttpcf.pair_counts_smu(few, PAIR_EDGES, 20, lbox)
+    assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5) == (0, 1)
+    npt.assert_array_equal(small, ttpcf.pair_counts_smu(few, PAIR_EDGES, 20, lbox, method='cell'))
+    ttpcf._stage_cache.clear()

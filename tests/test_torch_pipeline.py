@@ -144,6 +144,6 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == 'ok' and len(mods) >= 10
-    for m in ('ops.power', 'ops.grid', 'models.hod.population', 'models.hod.abacus_hod',
+    for m in ('ops.power', 'ops.grid', 'ops.tpcf', 'models.hod.population', 'models.hod.abacus_hod',
               'models.hod.shapes_np', 'testing'):
         assert f'abacusutils_tpu_torch.{m}' in mods
