@@ -53,14 +53,18 @@ SIGNATURES = {
     'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _I, _P, _P, _F, _I, _I, _I,
                        ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
     # the first side's sorted x, y, z, the second side's, its cell starts, the
-    # work list, nitems, nc, lbox, squared edges, nb1, nb2, aux, mode,
-    # autocorr, use_wrap, out (int64), stream
-    'pair_count_cells': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _I, _F, _I, _I, _I,
-                         _P, _P),
+    # work list, nitems, the walk's rows, nrows, nc, groups a row, nc / lbox,
+    # lbox, squared edges, nb1, nb2, aux, mode, use_wrap, skip_self, histogram
+    # copies, the bin table's edges and counts, its cells, shift and first
+    # key, out (int64), stream
+    'pair_count_cells': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _P, _I, _I,
+                         _F, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
     # x1, y1, z1, n1, x2, y2, z2, n2, rows of the second set a block, lbox,
-    # squared edges, nb1, nb2, aux, mode, autocorr, is f64, out (int64), stream
-    'pair_count_all': (_P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _P, _I, _I, _D, _I, _I, _I, _P,
-                       _P),
+    # the round's threshold, squared edges, nb1, nb2, aux, mode, skip_self,
+    # is f64, one period, histogram copies, the bin table (as above), out
+    # (int64), stream
+    'pair_count_all': (_P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _D, _P, _I, _I, _D, _I, _I, _I, _I,
+                       _I, _P, _P, _I, _I, _I, _P, _P),
 }
 
 

@@ -14,10 +14,17 @@ Phases, each printing what it measured:
    a 256^3 rfft mesh as cuFFT lays it out (strided); then K4, the cell-pair
    count, and K5, the all-pairs count (``csrc/pair_count.cu``), each in its
    (rp, pi) and (s, mu) modes, auto and cross, against its plain version
-   with every bin equal, on clustered catalogs made on the device (2e5
-   points at the 66^3 grid of the main path for K4, dense 13^3 and 4^3
-   grids, rp edges that start at 0; 2e4 points in float32 and float64 for
-   K5), two launches equal, and K4 equal to K5 on one catalog;
+   with every bin equal and two launches equal, on clustered catalogs made
+   on the device: for K4 2e5 points in the main path's box on its 66^3 grid
+   and on the finer 133^3 grid (a reach of 2 cells, pruned rows, items of
+   two cells), rp edges that start at 0, dense 13^3 and 26^3 grids (items of
+   3 cells), a clump whose cells hold far over 64 points beside empty ones, a 4^3
+   grid (the per-pair round), a 5^3 grid walked with a reach of 2 (every
+   cell once) and a 4^3 one that such a walk would visit twice (refused), a
+   catalog pressed against the z faces (items whose reach wraps), positions
+   exactly on cell edges and on lbox; for K5 2e4 points in float32 and
+   float64, within one period (the compare form of the round) and spread
+   over several (the division); and K4 equal to K5 on one catalog;
 4. the step at bench scale (1e7 halos + 5e7 particles, nmesh=256, 16^3
    bricks with a z margin for RSD, 128 k-bins): staging, one warm and 3x5
    timed steps through the kernels
@@ -50,21 +57,29 @@ Phases, each printing what it measured:
    ``compute_multipole`` at rp, s < 30 Mpc/h in 8 log bins, pimax 30 and 20
    mu bins (docs/hod.md), each cold from the host mock (upload, one cell
    stage a tracer, six K4 launches a statistic) and warm on device-held
-   columns (0 restages required); wp = 2 sum_pi xi at unit pi bins; the
-   autocorrelation's 14-offset doubled walk against the 27-offset walk on a
-   clone of one tracer; the stage alone; K4 at each of the six pairs'
-   shapes and both modes against its plain version (every bin equal) and
-   its bound; then a QSO sample of 8e4 points, which the dispatch gives to
-   K5, with K5 against its plain version and bound at that shape.
+   columns (0 restages required; a tracer is staged once a grid, and the
+   dispatch gives the pairs with the sparse QSOs the 66^3 grid and the
+   others the 133^3 one); wp = 2 sum_pi xi at unit pi bins; the
+   autocorrelation's half walk, doubled, against the full walk on a clone of
+   one tracer; the stage alone against its byte bound; K4 at each of the six
+   pairs' shapes and both modes against its plain version (every bin equal)
+   and its bound; then a QSO sample of 8e4 points, which the dispatch gives
+   to the cell engine too, counted again with ``method='tile'`` (K5), the two
+   engines equal on the wrapped sample (and the bins counted in which they
+   differ on the sample as RSD left it, past the faces), and K5 against its
+   plain version and bound at that shape.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
-work items, the candidate pairs the walk evaluates and the in-range pairs
-with their rates, and the bound: the candidates' f32 operations up to the
-reject test (12 or 13 a pair, K4_PAIR_OPS) at 67e12 operations/s, or the
-bytes at 3.35 TB/s where those take longer. Phase 1 prints ptxas's
-registers and spills of the eight pair-count instances and the FFMA/DFMA
-count of their SASS: the (rp, pi) form with the item-constant wrap, which
-has no quotient and no root, must hold none.
+grid and the work items, the candidate pairs the walk evaluates and the
+in-range pairs with their rates, and the bound. The bound is stated for the
+same work whatever grid the kernel walks: the candidates of the 27-cell walk
+(14 cells for an autocorrelation) of the grid of lbox // rmax cells, times
+their f32 operations up to the reject test (12 or 13 a pair, K4_PAIR_OPS) at
+67e12 operations/s, or the bytes at 3.35 TB/s where those take longer. Phase
+1 prints ptxas's registers and spills of the 30 pair-count instances and the
+FFMA/DFMA count of their SASS: the (rp, pi) forms without a quotient and a
+root (K4 with the item-constant wrap, K5 in float32 within one period) must
+hold none.
 
 Each K1 line ("K1 <shape>: ...") gives, at one of the four shapes the main
 paths run (phases 4, 5, 7 b and 7 d), the time by CUDA events over 5 calls
@@ -141,6 +156,7 @@ from abacusutils_tpu_torch.ops import tpcf
 from abacusutils_tpu_torch.ops.tpcf import (
     calc_xirppi_fast,
     candidate_pairs,
+    candidate_pairs_coarse,
     count_pairs_all,
     count_pairs_all_plain,
     count_pairs_cells,
@@ -197,8 +213,8 @@ PIMAX, PI_BIN, NMU = 30, 5, 20
 PAIR_RMAX = 30.0
 N_K4_CHECK = 200_000
 N_K5_CHECK = 20_000
-# a QSO sample at survey density in the box: under the cell engine's 1e5
-# points, so the all-pairs engine counts it
+# a QSO sample at survey density in the box: the dispatch gives it to the
+# cell engine; method='tile' counts it with the all-pairs engine
 N_SPARSE = 80_000
 # the H100 SXM's f32 and f64 rates outside the tensor cores (NVIDIA's data
 # sheet), operations/s
@@ -314,11 +330,17 @@ def phase_build():
     PAIR_FMA.update(sass_fma(path))
     print(f'phase 1 build: K4/K5 (registers, spill stores, spill loads) {PAIR_PTXAS}; '
           f'FFMA + DFMA in their SASS (a quotient or a root expands into some) {PAIR_FMA}')
-    require(len(PAIR_PTXAS) == 8, f'ptxas reported {len(PAIR_PTXAS)} pair-count instances, not 8')
-    # the form the main path runs has no quotient and no root: any FMA in
-    # it would be a contracted product and sum of the pair arithmetic
-    require(PAIR_FMA.get('K4[rppi, wrap]', 0) == 0,
-            f'K4\'s rppi form holds fused multiply-adds: {PAIR_FMA}')
+    # 24 instances that bin by the table and one general instance a mode
+    # (K4) or a type and mode (K5) that compares against every edge
+    require(len(PAIR_PTXAS) == 30, f'ptxas reported {len(PAIR_PTXAS)} pair-count instances, not 30')
+    require(len(PAIR_FMA) == 30, f'the SASS holds {len(PAIR_FMA)} pair-count kernels, not 30')
+    # the forms without a quotient and a root (K4's (rp, pi) with the
+    # item-constant wrap, the main path's; K5's f32 (rp, pi) within one
+    # period): any FMA there would be a contracted product and sum of the
+    # pair arithmetic
+    for skip in ('pairs', 'self'):
+        for name in (f'K4[rppi, wrap, {skip}, table]', f'K5[rppi, f32, period, {skip}, table]'):
+            require(PAIR_FMA[name] == 0, f'{name} holds fused multiply-adds: {PAIR_FMA}')
 
 
 def ptxas_k1(log):
@@ -345,14 +367,22 @@ def ptxas_k1(log):
 
 
 def pair_kernel_name(mangled):
-    """'K4[rppi, wrap]' / 'K5[smu, f64]' for a pair-count kernel's mangled
-    name, else None."""
-    m = re.search(r'pair_count_cells_kernelILi(\d)ELb(\d)EE', mangled)
+    """'K4[rppi, wrap, pairs, table]' / 'K5[smu, f64, period, self, edges]'
+    for a pair-count kernel's mangled name ('self': the instance that skips
+    the pair of a point with itself by index; 'table': the bin from the table
+    over r2's leading bits, 'edges': from a compare against every edge),
+    else None."""
+    m = re.search(r'pair_count_cells_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)EE', mangled)
     if m:
-        return f'K4[{tpcf.MODES[int(m.group(1))]}, {"wrap" if m.group(2) == "1" else "round"}]'
-    m = re.search(r'pair_count_all_kernelI([fd])Li(\d)EE', mangled)
+        return (f'K4[{tpcf.MODES[int(m.group(1))]}, {"wrap" if m.group(2) == "1" else "round"}, '
+                f'{"self" if m.group(3) == "1" else "pairs"}, '
+                f'{"table" if m.group(4) == "1" else "edges"}]')
+    m = re.search(r'pair_count_all_kernelI([fd])Li(\d)ELb(\d)ELb(\d)ELb(\d)EE', mangled)
     if m:
-        return f'K5[{tpcf.MODES[int(m.group(2))]}, {"f32" if m.group(1) == "f" else "f64"}]'
+        return (f'K5[{tpcf.MODES[int(m.group(2))]}, {"f32" if m.group(1) == "f" else "f64"}, '
+                f'{"period" if m.group(3) == "1" else "round"}, '
+                f'{"self" if m.group(4) == "1" else "pairs"}, '
+                f'{"table" if m.group(5) == "1" else "edges"}]')
     return None
 
 
@@ -657,12 +687,14 @@ def pair_modes():
     return [('rppi', PIMAX, float(PIMAX)), ('smu', NMU, float(NMU))]
 
 
-def k4_bound(stage1, stage2, mode, nbins):
+def k4_bound(stage1, stage2, mode, nbins, lbox=None):
     """The least time (ms) of one K4 launch, its limiter and the candidate
-    pairs: the larger of the candidates' f32 operations (K4_PAIR_OPS) at 67
-    TFLOP/s and the bytes (both sides' columns, the cell starts, the work
-    list, the int64 counts) at 3.35 TB/s."""
-    cand = candidate_pairs(stage1, stage2)
+    pairs it is stated for: those of the 27-cell walk (14 for an
+    autocorrelation) of the grid of lbox // PAIR_RMAX cells on the stages'
+    points, whatever grid the kernel walks. The larger of their f32
+    operations (K4_PAIR_OPS) at 67 TFLOP/s and the bytes (both sides'
+    columns, the cell starts, the work list, the int64 counts) at 3.35 TB/s."""
+    cand = candidate_pairs_coarse(stage1, stage2, int((lbox or stage1.lbox) // PAIR_RMAX))
     b = stage1 if stage2 is None else stage2
     nbytes = 12 * stage1.n + 12 * b.n + 4 * b.starts.numel() + 12 * stage1.work.shape[0] + 8 * nbins
     t_ops = cand * K4_PAIR_OPS[mode] / F32_OPS_PER_S * 1e3
@@ -677,32 +709,37 @@ def k5_bound(n1, n2, mode, nbins, dtype):
     return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
-def check_k4(tag, cols1, cols2, lbox, edges, time_it=False):
+def check_k4(tag, cols1, cols2, lbox, edges, nc=None, span=None):
     """K4 in both modes on one pair of catalogs (cols2 None: auto) against
-    its plain version, bin for bin, and a second launch against the first.
-    Returns {mode: (counts, stage1, stage2, ms, plain_ms)}."""
-    nc = min(int(lbox // PAIR_RMAX), 128)
-    s1 = stage_cells(*(torch.remainder(c, _f32(lbox)) for c in cols1), lbox, nc)
+    its plain version, bin for bin, and a second launch against the first,
+    on the grid the dispatch would take (or of `nc` cells, items of `span`).
+    Returns {mode: counts}."""
+    if nc is None:
+        n2 = cols1[0].numel() if cols2 is None else cols2[0].numel()
+        nc, refine = tpcf.cell_grid(lbox, PAIR_RMAX, min(cols1[0].numel(), n2))
+        span = tpcf.default_span(nc, refine, cols1[0].numel())
+    s1 = stage_cells(*(torch.remainder(c, _f32(lbox)) for c in cols1), lbox, nc, span)
     s2 = None if cols2 is None else stage_cells(
-        *(torch.remainder(c, _f32(lbox)) for c in cols2), lbox, nc)
+        *(torch.remainder(c, _f32(lbox)) for c in cols2), lbox, nc, span)
     thr = edges_f32(np.asarray(edges, np.float64) ** 2)
     out = {}
     for mode, nb2, aux in pair_modes():
+        walk = tpcf.walk_rows(nc, float(lbox), float(thr[-1]), nb2, mode, s2 is None)
         got = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
         again = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
         (ref, t_plain) = sync_seconds(lambda: count_pairs_cells_plain(
             s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24))
         bad = int((got != ref).sum())
-        ms = event_ms(lambda: count_pairs_cells(s1, s2, thr, nb2, mode, aux)) if time_it else None
-        print(f'{tag} {mode}: nc {nc}, {s1.n} x {s1.n if s2 is None else s2.n} points, '
-              f'{s1.work.shape[0]} items, largest cell {s1.max_occ}, candidates '
-              f'{candidate_pairs(s1, s2)}, in-range pairs {int(got.sum())}, bins that differ '
-              f'from plain {bad}, second launch equal {bool(torch.equal(got, again))}, plain '
-              f'{t_plain * 1e3:.1f} ms' + (f', kernel {ms:.4f} ms' if time_it else ''))
+        print(f'{tag} {mode}: nc {nc}, span {s1.span}, {len(walk.rows)} rows of reach {walk.reach} '
+              f'({"wrap" if walk.use_wrap else "round"}), {s1.n} x {s1.n if s2 is None else s2.n} '
+              f'points, {s1.work.shape[0]} items, largest cell {s1.max_occ}, candidates '
+              f'{candidate_pairs(s1, s2, thr, nb2, mode)}, in-range pairs {int(got.sum())}, bins '
+              f'that differ from plain {bad}, second launch equal '
+              f'{bool(torch.equal(got, again))}, plain {t_plain * 1e3:.1f} ms')
         require(bad == 0, f'{tag} {mode}: K4 differs from its plain version in {bad} bins')
         require(bool(torch.equal(got, again)), f'{tag} {mode}: two K4 launches differ')
         require(int(got.sum()) > 0, f'{tag} {mode}: no pair in range')
-        out[mode] = (got, s1, s2, ms, t_plain * 1e3)
+        out[mode] = got
     return out
 
 
@@ -738,33 +775,90 @@ def phase_pair_kernels(dev):
     on clustered catalogs the plain versions can finish."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
-    # K4 at the main path's grid (nc = 66 in the 2000 Mpc/h box), auto and cross
+    # K4 in the 2000 Mpc/h box of the main path, auto and cross: on the grid
+    # the dispatch takes for 2e5 points (66^3, a reach of 1) and on the finer
+    # one it takes for the main path's dense tracers (133^3, a reach of 2
+    # cells), items of two cells
     big = clustered_points(N_K4_CHECK, LBOX, gen, dev)
     other = clustered_points(N_K4_CHECK // 2, LBOX, gen, dev)
     check_k4('phase 3 K4 auto', big, None, LBOX, PAIR_BINS)
     check_k4('phase 3 K4 cross', big, other, LBOX, PAIR_BINS)
+    nc = int(LBOX * 2 // PAIR_RMAX)
+    check_k4('phase 3 K4 auto, cells of rmax/2', big, None, LBOX, PAIR_BINS, nc, 2)
+    check_k4('phase 3 K4 cross, cells of rmax/2', big, other, LBOX, PAIR_BINS, nc, 2)
     # an rp edge list that starts at 0: the pair i == j would fall in bin (0, 0)
     edges0 = np.concatenate([[0.0], PAIR_BINS[1:]])
     check_k4('phase 3 K4 auto, edges from 0', big, None, LBOX, edges0)
-    # dense cells cut into several items (400 Mpc/h, 13^3 cells) and the
-    # per-pair round of a 4^3 grid (125 Mpc/h)
+    # dense cells cut into several items (400 Mpc/h, 13^3 cells), the same on
+    # 26^3 cells, a clump of 6000 points in an almost empty box (cells far
+    # over 64 points beside empty ones), and the per-pair round of a 4^3 grid
+    # (125 Mpc/h)
     dense = clustered_points(N_K4_CHECK // 2, 400.0, gen, dev)
-    check_k4('phase 3 K4 dense auto', dense, None, 400.0, edges0)
-    check_k4('phase 3 K4 dense cross', dense,
-             clustered_points(N_K4_CHECK // 4, 400.0, gen, dev), 400.0, PAIR_BINS)
+    dense2 = clustered_points(N_K4_CHECK // 4, 400.0, gen, dev)
+    check_k4('phase 3 K4 dense auto', dense, None, 400.0, edges0, 13, 2)
+    check_k4('phase 3 K4 dense cross', dense, dense2, 400.0, PAIR_BINS, 13, 2)
+    check_k4('phase 3 K4 dense auto, cells of rmax/2', dense, None, 400.0, edges0, 26, 2)
+    check_k4('phase 3 K4 dense cross, cells of rmax/2, items of 3 cells', dense, dense2, 400.0,
+             PAIR_BINS, 26, 3)
+    clump = [torch.remainder(torch.cat([
+        200.0 + 3.0 * torch.randn(6_000, generator=gen, device=dev),
+        400.0 * torch.rand(500, generator=gen, device=dev)]), 400.0) for _ in range(3)]
+    check_k4('phase 3 K4 full cells beside empty ones', clump, None, 400.0, edges0, 26, 2)
+    check_k4('phase 3 K4 full cells beside empty ones, cross', clump, dense2, 400.0, PAIR_BINS,
+             26, 2)
     small = clustered_points(N_K5_CHECK, 125.0, gen, dev)
-    check_k4('phase 3 K4 4^3 cells auto', small, None, 125.0, edges0)
-    # K5, float32 and float64, auto and cross, and against K4 on one catalog
+    check_k4('phase 3 K4 4^3 cells auto', small, None, 125.0, edges0, 4, 1)
+    # 5 cells of 25 for a reach of 2 (2 reach + 1: every cell once, the
+    # per-pair round); 4 cells of 31 for rp < 40 would visit a cell twice and
+    # are refused
+    check_k4('phase 3 K4 5^3 cells, reach 2', small, None, 125.0, edges0, 5, 1)
+    st4 = stage_cells(*small, 125.0, 4, 1)
+    try:
+        count_pairs_cells(st4, None, edges_f32([0.0, 40.0**2]), PIMAX, 'rppi')
+        require(False, 'a 4^3 grid with a reach of 2 cells was not refused')
+    except ValueError as err:
+        print(f'phase 3 K4 4^3 cells, reach 2: refused ({err})')
+    # points on the faces: half the catalog within 20 Mpc/h of z = 0 or lbox,
+    # items of 3 cells whose reach wraps; then positions exactly on cell edges
+    # and on lbox itself
+    face = [c.clone() for c in clustered_points(N_K5_CHECK * 2, 400.0, gen, dev)]
+    face[2] = torch.where(face[2] < 200.0, face[2] * 0.1, 400.0 - (400.0 - face[2]) * 0.1)
+    check_k4('phase 3 K4 items at the box faces', face, None, 400.0, edges0, 26, 3)
+    check_k4('phase 3 K4 items at the box faces, cross', face, dense2, 400.0, PAIR_BINS, 26, 2)
+    cell = 400.0 / 26
+    edge = [torch.round(c / cell) * cell for c in clustered_points(N_K5_CHECK * 2, 400.0, gen, dev)]
+    edge[0][:100] = 400.0
+    edge[2][100:200] = 400.0
+    check_k4('phase 3 K4 points on cell edges and on lbox', edge, None, 400.0, edges0, 26, 2)
+    # K5, float32 and float64, auto and cross, on columns within one period
+    # (the compare form of the round) and spread over several (the division),
+    # and against K4 on one catalog
     cat = clustered_points(N_K5_CHECK, 400.0, gen, dev)
     cat2 = clustered_points(N_K5_CHECK // 2, 400.0, gen, dev)
+    shift = [400.0 * torch.randint(-3, 4, (N_K5_CHECK,), generator=gen, device=dev).float()
+             for _ in range(3)]
+    far = [c + d for c, d in zip(cat, shift)]
+    near = [c - 100.0 for c in cat]
     for dtype in (torch.float32, torch.float64):
+        before = count_pairs_all.launches, count_pairs_all.launches_one_period
         check_k5('phase 3 K5 auto', cat, None, 400.0, edges0, dtype)
         check_k5('phase 3 K5 cross', cat, cat2, 400.0, PAIR_BINS, dtype)
+        check_k5('phase 3 K5 cross, first set around 0', near, cat2, 400.0, PAIR_BINS, dtype)
+        n_all, n_one = (count_pairs_all.launches - before[0],
+                        count_pairs_all.launches_one_period - before[1])
+        require(n_all == n_one == 12, f'K5 took the division on columns in one period: {n_one}')
+        check_k5('phase 3 K5 auto, several periods', far, None, 400.0, edges0, dtype)
+        check_k5('phase 3 K5 cross, several periods', far, cat2, 400.0, PAIR_BINS, dtype)
+        require(count_pairs_all.launches_one_period - before[1] == n_one,
+                'K5 took the compare form on columns over several periods')
     k5 = check_k5('phase 3 K5 auto', cat, None, 400.0, PAIR_BINS, torch.float32)
-    k4 = check_k4('phase 3 K4 on K5\'s catalog', cat, None, 400.0, PAIR_BINS)
+    k5far = check_k5('phase 3 K5 auto, several periods', far, None, 400.0, PAIR_BINS, torch.float32)
+    k4 = check_k4('phase 3 K4 on K5\'s catalog', cat, None, 400.0, PAIR_BINS, 26, 2)
     for mode in k5:
-        same = bool(torch.equal(k4[mode][0], k5[mode][0]))
-        print(f'phase 3 K4 == K5 on {N_K5_CHECK} points, {mode}: {same}')
+        same = bool(torch.equal(k4[mode], k5[mode][0]))
+        print(f'phase 3 K4 == K5 on {N_K5_CHECK} points, {mode}: {same}; K5 on the same points '
+              f'moved by whole boxes: {int((k5far[mode][0] != k5[mode][0]).sum())} bins differ '
+              f'(the differences round otherwise there)')
         require(same, f'K4 and K5 disagree ({mode})')
 
 
@@ -781,7 +875,10 @@ def phase_pairs(hod, mock):
     paths, timing = {}, {}
     tracers = list(mock)
     counts = {tr: len(mock[tr]['x']) for tr in tracers}
-    nc = int(LBOX // PAIR_RMAX)
+    # the grid the dispatch takes for each pair (the sparser side decides)
+    grids = {(a, b): tpcf.cell_grid(LBOX, PAIR_RMAX, min(counts[a], counts[b]))
+             for i, a in enumerate(tracers) for b in tracers[i:]}
+    n_stages = len({(tr, g) for pair, g in grids.items() for tr in pair})
     calls = {
         'compute_xirppi': (lambda m: hod.compute_xirppi(m, PAIR_BINS, PIMAX, PI_BIN),
                            {'pair_count_cells[rppi]': 6}),
@@ -794,8 +891,9 @@ def phase_pairs(hod, mock):
     dmock, t_up = sync_seconds(lambda: {
         tr: dict(zip('xyz', position_columns((d['x'], d['y'], d['z']), dev)))
         for tr, d in mock.items()})
-    print(f'phase 8 mock {counts}, box {LBOX}, rp and s < {PAIR_RMAX}, pimax {PIMAX}: nc {nc}, '
-          f'{nc**3} cells; upload of x, y, z {t_up:.3f} s')
+    print(f'phase 8 mock {counts}, box {LBOX}, rp and s < {PAIR_RMAX}, pimax {PIMAX}: (cells a '
+          f'side, refinement) {({f"{a}_{b}": g for (a, b), g in grids.items()})}, {n_stages} '
+          f'stages; upload of x, y, z {t_up:.3f} s')
     results = {}
     torch.cuda.reset_peak_memory_stats()
     for name, (fn, want) in calls.items():
@@ -817,7 +915,7 @@ def phase_pairs(hod, mock):
             require(launches[form] == n, f'{name}: {form} launched {launches[form]} times, not {n}')
         require(launches['pair_count_all[rppi]'] + launches['pair_count_all[smu]'] == 0,
                 f'{name} took the all-pairs engine: {launches}')
-        require(cold_builds == len(tracers), f'{name}: {cold_builds} stages in the cold call')
+        require(cold_builds == n_stages, f'{name}: {cold_builds} stages in the cold call')
         require(warm_builds == 0, f'{name}: {warm_builds} restages in the warm call')
         require(set(res) == {f'{a}_{b}' for a in tracers for b in tracers}, f'{name} keys')
         for key, v in res.items():
@@ -853,45 +951,71 @@ def phase_pairs(hod, mock):
 
     # the stage alone, and K4 at every pair's shape against plain and bound
     big = max(tracers, key=counts.get)
+    nc, refine = grids[(big, big)]
     cols = [torch.remainder(c, _f32(LBOX)) for c in (dmock[big][a] for a in 'xyz')]
-    st, t_stage = sync_seconds(lambda: stage_cells(*cols, LBOX, nc))
-    print(f'phase 8 stage of {big} ({counts[big]} points): {t_stage:.3f} s, {st.work.shape[0]} '
-          f'work items, largest cell {st.max_occ}, mean {counts[big] / nc**3:.1f}')
+    span = tpcf.default_span(nc, refine, counts[big])
+    st, t_stage = sync_seconds(lambda: stage_cells(*cols, LBOX, nc, span))
+    ms_stage = event_ms(lambda: stage_cells(*cols, LBOX, nc, span), reps=3)
+    # the stage's bytes: the key pass (12 B read, 4 B written a point), the
+    # sort's radix passes over an int32 key and an int64 index (as many passes
+    # of 8 bits as the largest key has bytes, 12 B read and written each),
+    # three gathers (8 B index, 4 B value read, 4 B written), the count of the
+    # keys (4 B a point, 8 B a cell), its running sum and the starts (8 + 4 B
+    # a cell)
+    n_big, cells = counts[big], nc**3
+    passes = -(-(cells - 1).bit_length() // 8)
+    stage_bytes = n_big * (16 + passes * 24 + 3 * 16 + 4) + cells * 28
+    stage_bound = stage_bytes / HBM_BYTES_PER_S * 1e3
+    print(f'phase 8 stage of {big} ({n_big} points, {nc}^3 cells, items of {span} cells): '
+          f'{t_stage:.3f} s host to host, {ms_stage:.4f} ms by events, bound {stage_bound:.4f} ms '
+          f'by bytes, {passes} radix passes (share {stage_bound / ms_stage:.3f}); '
+          f'{st.work.shape[0]} work items, largest '
+          f'cell {st.max_occ}, mean {n_big / cells:.1f}')
+    timing['stage_cells'] = dict(ms=ms_stage, bound_ms=stage_bound, bound_by='bytes',
+                                 points=n_big, cells=cells, items=int(st.work.shape[0]))
     del st, cols
     thr = edges_f32(PAIR_BINS**2)
-    stages = {tr: tpcf._get_stage(tuple(dmock[tr][a] for a in 'xyz'), LBOX, nc) for tr in tracers}
+
+    def stage_of(tr, grid):
+        return tpcf._get_stage(tuple(dmock[tr][a] for a in 'xyz'), LBOX, grid[0],
+                               span=tpcf.default_span(*grid, counts[tr]))
+
     for mode, nb2, aux in pair_modes():
         shapes = []
-        for i, a in enumerate(tracers):
-            for b in tracers[i:]:
-                s1, s2 = stages[a], (None if a == b else stages[b])
-                ms = event_ms(lambda: count_pairs_cells(s1, s2, thr, nb2, mode, aux), reps=2)
-                got = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
-                ref, t_plain = sync_seconds(lambda: count_pairs_cells_plain(
-                    s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24))
-                bad = int((got != ref).sum())
-                err = float((got - ref).abs().max())
-                bound, by, cand = k4_bound(s1, s2, mode, nrp * nb2)
-                inr = int(got.sum())
-                print(f'K4 {mode} {a}_{b}: {ms:.4f} ms, {s1.work.shape[0]} items, candidates '
-                      f'{cand} ({cand / ms * 1e3:.4e}/s), in-range pairs {inr} '
-                      f'({inr / ms * 1e3:.4e}/s, {inr / cand:.4f} of the candidates), bound '
-                      f'{bound:.4f} ms by {by} (share {bound / ms:.3f}); plain {t_plain * 1e3:.1f} '
-                      f'ms, bins that differ {bad}')
-                require(bad == 0, f'K4 {mode} {a}_{b} differs from its plain version')
-                shapes.append(dict(pair=f'{a}_{b}', ms=ms, plain_ms=t_plain * 1e3, err=err,
-                                   bound_ms=bound,
-                                   bound_by=by, candidates=cand, in_range=inr,
-                                   items=int(s1.work.shape[0])))
-        top = max(shapes, key=lambda r: r['candidates'])
-        regs = PAIR_PTXAS.get(f'K4[{mode}, wrap]', (None,) * 3)
+        for (a, b), grid in grids.items():
+            s1, s2 = stage_of(a, grid), (None if a == b else stage_of(b, grid))
+            ms = event_ms(lambda: count_pairs_cells(s1, s2, thr, nb2, mode, aux), reps=3)
+            got = count_pairs_cells(s1, s2, thr, nb2, mode, aux)
+            ref, t_plain = sync_seconds(lambda: count_pairs_cells_plain(
+                s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24))
+            bad = int((got != ref).sum())
+            err = float((got - ref).abs().max())
+            bound, by, coarse = k4_bound(s1, s2, mode, nrp * nb2)
+            cand = candidate_pairs(s1, s2, thr, nb2, mode)
+            inr = int(got.sum())
+            print(f'K4 {mode} {a}_{b}: {ms:.4f} ms, {grid[0]}^3 cells, {s1.work.shape[0]} items, '
+                  f'candidates {cand} ({cand / ms * 1e3:.4e}/s), in-range pairs {inr} '
+                  f'({inr / ms * 1e3:.4e}/s, {inr / cand:.4f} of the candidates); bound '
+                  f'{bound:.4f} ms by {by} for the {coarse} candidates of the '
+                  f'{int(LBOX // PAIR_RMAX)}^3 grid\'s 27-cell walk (share {bound / ms:.3f}, '
+                  f'{inr / coarse:.4f} of those in range); plain {t_plain * 1e3:.1f} ms, bins '
+                  f'that differ {bad}')
+            require(bad == 0, f'K4 {mode} {a}_{b} differs from its plain version')
+            shapes.append(dict(pair=f'{a}_{b}', ms=ms, plain_ms=t_plain * 1e3, err=err,
+                               bound_ms=bound, bound_by=by, candidates=cand,
+                               coarse_candidates=coarse, in_range=inr, nc=grid[0],
+                               items=int(s1.work.shape[0])))
+        top = max(shapes, key=lambda r: r['coarse_candidates'])
+        regs = PAIR_PTXAS.get(f'K4[{mode}, wrap, pairs, table]', (None,) * 3)
         timing[f'pair_count_cells[{mode}]'] = pair_record(
             top['ms'], top['plain_ms'], top['bound_ms'], top['bound_by'], top['err'],
-            shape=top['pair'],
+            shape=top['pair'], total_ms=sum(r['ms'] for r in shapes),
             shapes=shapes, registers=regs[0], spill_stores=regs[1], spill_loads=regs[2])
-    del stages
+        print(f'K4 {mode}: the six pairs sum to {sum(r["ms"] for r in shapes):.4f} ms')
 
-    # a QSO sample at survey density: the all-pairs engine
+    # a QSO sample at survey density: the dispatch gives it to the cell
+    # engine; method='tile' counts it with the all-pairs engine, equal bin
+    # for bin
     rng = np.random.default_rng(SEED)
     last = tracers[-1]
     pick = np.sort(rng.choice(counts[last], N_SPARSE, replace=False))
@@ -904,21 +1028,52 @@ def phase_pairs(hod, mock):
     paths[f'AbacusHOD.compute_wp + compute_multipole ({N_SPARSE} {last})'] = launches
     print(f'phase 8 sparse {last} ({N_SPARSE} points): compute_wp + compute_multipole '
           f'{t_sparse:.3f} s host to host, launches {({k: v for k, v in launches.items() if v})}')
-    require(launches['pair_count_all[rppi]'] == 2 and launches['pair_count_all[smu]'] == 1,
-            f'sparse sample: K5 launches {launches}')
-    require(launches['pair_count_cells[rppi]'] + launches['pair_count_cells[smu]'] == 0,
-            f'sparse sample took the cell engine: {launches}')
+    require(launches['pair_count_cells[rppi]'] == 2 and launches['pair_count_cells[smu]'] == 1,
+            f'sparse sample: K4 launches {launches}')
+    require(launches['pair_count_all[rppi]'] + launches['pair_count_all[smu]'] == 0,
+            f'sparse sample took the all-pairs engine: {launches}')
     key = f'{last}_{last}'
     require(np.isfinite(wp_s[key]).all() and np.isfinite(mp_s[key]).all(), 'sparse results')
     require(np.array_equal(mp_s[key][:nrp], wp_s[key]), 'sparse wp differs between the calls')
     cols = position_columns(tuple(sparse[last][a] for a in 'xyz'), dev)
+    reset_launches()
+    (dd_t, ds_t), t_tile = sync_seconds(lambda: (
+        pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX, method='tile'),
+        tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX, method='tile')))
+    launches = read_launches()
+    paths[f'pair_counts_rppi + pair_counts_smu, method=tile ({N_SPARSE} {last})'] = launches
+    require(launches['pair_count_all[rppi]'] == 1 and launches['pair_count_all[smu]'] == 1,
+            f'method=tile: K5 launches {launches}')
+    require(dd_t.sum() > 0 and ds_t.sum() > 0, 'method=tile counted no pair')
+    # the two engines on one catalog: wrapped into the box first, as the cell
+    # engine wraps what it is given (the all-pairs engine takes positions as
+    # they are, and a galaxy that RSD moved past a face differences otherwise)
+    wrapped = tuple(torch.remainder(torch.remainder(c, _f32(LBOX)), _f32(LBOX)) for c in cols)
+    same = bool(
+        np.array_equal(pair_counts_rppi(wrapped, PAIR_BINS, PIMAX, LBOX, method='tile'),
+                       pair_counts_rppi(wrapped, PAIR_BINS, PIMAX, LBOX))
+        and np.array_equal(tpcf.pair_counts_smu(wrapped, PAIR_BINS, NMU, LBOX, method='tile'),
+                           tpcf.pair_counts_smu(wrapped, PAIR_BINS, NMU, LBOX)))
+    # as RSD left the sample: how far the default dispatch (the cell engine)
+    # lies from the all-pairs engine on positions past the faces
+    past = int(sum(((c < 0) | (c >= LBOX)).sum() for c in cols))
+    dd_c = pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX)
+    ds_c = tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX)
+    print(f'phase 8 sparse {last}, method=tile: {t_tile:.3f} s for both counts, launches '
+          f'{({k: v for k, v in launches.items() if v})}; on the wrapped columns the all-pairs '
+          f'and the cell engine count alike: {same}; on the columns as they are ({past} '
+          f'coordinates outside [0, lbox)) they differ in {int((dd_c != dd_t).sum())} of '
+          f'{dd_t.size} (rp, pi) bins by {int(np.abs(dd_c - dd_t).sum())} of {int(dd_t.sum())} '
+          f'pairs and in {int((ds_c != ds_t).sum())} of {ds_t.size} (s, mu) bins by '
+          f'{int(np.abs(ds_c - ds_t).sum())} of {int(ds_t.sum())} pairs')
+    require(same, 'the all-pairs and the cell engine disagree on the wrapped sparse sample')
     k5 = check_k5(f'K5 at the sparse {last} shape', cols, None, LBOX, PAIR_BINS, torch.float32,
                   time_it=True)
     for mode, (got, ms, plain_ms, err) in k5.items():
         bound, by = k5_bound(N_SPARSE, N_SPARSE, mode, got.numel(), torch.float32)
         print(f'K5 {mode}: {ms:.4f} ms, {N_SPARSE**2 / ms * 1e3:.4e} pairs/s, bound {bound:.4f} ms '
               f'by {by} (share {bound / ms:.3f})')
-        regs = PAIR_PTXAS.get(f'K5[{mode}, f32]', (None,) * 3)
+        regs = PAIR_PTXAS.get(f'K5[{mode}, f32, period, pairs, table]', (None,) * 3)
         timing[f'pair_count_all[{mode}]'] = pair_record(
             ms, plain_ms, bound, by, err, shape=f'{N_SPARSE} x {N_SPARSE}', registers=regs[0],
             spill_stores=regs[1], spill_loads=regs[2])
@@ -1453,7 +1608,8 @@ def kernel_line(paths, timing):
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             **{k: t[k] for k in ('kernel_ms', 'in_bin_share', 'library_call', 'shape', 'shapes',
-                                  'registers', 'spill_stores', 'spill_loads') if k in t},
+                                  'total_ms', 'registers', 'spill_stores', 'spill_loads')
+               if k in t},
         })
     return {'kernels': out}
 

@@ -6,7 +6,8 @@ tests/test_torch_run_hod.py does).
 
 The mock is the JAX run_hod's, carried over with convert.mock_from_numpy, so
 both packages count the same float32 positions. The test catalogs are far
-below the 100,000 points at which the dispatch picks the cell engine, so
+below the 25,000 points at which the port's dispatch picks the cell engine
+(100,000 in the JAX package), so
 `_CELL_MIN_N` is lowered in both packages for the tests that mean that
 engine: it is the one a real mock takes, it computes in float32 in both
 packages whatever JAX's x64 flag says, and the counts are then equal.
@@ -119,7 +120,7 @@ def test_multipole_holds_wp_then_the_poles(hods, cell_engine):
 
 
 def test_sparse_tracer_takes_the_all_pairs_engine(hods):
-    """Without the lowered threshold a tracer under 100,000 points is
+    """Without the lowered threshold a tracer under 25,000 points is
     counted by the all-pairs engine (K5 on the card), in float32 on the
     positions as they are."""
     jax_hod, port, mock = hods
@@ -138,3 +139,20 @@ def test_sparse_tracer_takes_the_all_pairs_engine(hods):
     with jax.enable_x64(False):  # JAX's tiled engine in float32 as well
         ref = jax_hod.compute_wp(one, RPBINS, PIMAX)['QSO_QSO']
     npt.assert_allclose(got, np.asarray(ref), rtol=1e-12, err_msg='JAX x64 off')
+
+
+@pytest.mark.parametrize('stat,refine', [('wp', 1), ('wp', 2), ('multipole', 2)])
+def test_clustering_methods_on_finer_grids(hods, cell_engine, monkeypatch, stat, refine):
+    """The statistics do not depend on the cell grid: with the dispatch made
+    to refine it (cells of rmax / 2, whatever the mock's density) or kept
+    from it (cells of rmax) they equal the JAX package's, and every tracer
+    is staged once a grid."""
+    jax_hod, port, mock = hods
+    monkeypatch.setattr(ttpcf, '_FINE_MIN_OCC', 0.0 if refine == 2 else np.inf)
+    assert ttpcf.cell_grid(LBOX, 30.0, 300)[1] == refine
+    builds = ttpcf.stage_cells.builds
+    got = getattr(port, f'compute_{stat}')(mock, *CALLS[stat])
+    assert ttpcf.stage_cells.builds - builds == 3
+    ref = getattr(jax_hod, f'compute_{stat}')(mock, *CALLS[stat])
+    nrp = len(RPBINS) - 1
+    _assert_same(got, ref, {'wp': (nrp,), 'multipole': (3 * nrp,)}[stat])

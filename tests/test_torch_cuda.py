@@ -651,16 +651,76 @@ def test_cell_pair_kernel_equals_plain(cuda_device, lbox, nc, cross):
     s2 = ttpcf.stage_cells(*_clustered(25_000, lbox, nc + 50, cuda_device), lbox, nc) if cross \
         else None
     assert s1.nc == int(lbox // 30) == nc and s1.max_occ > ttpcf.CHUNK
-    thr = ttpcf.edges_f32(PAIR_EDGES0**2)
+    _check_k4(s1, s2, PAIR_EDGES0)
+
+
+def _check_k4(s1, s2, edges):
+    thr = ttpcf.edges_f32(edges**2)
     for mode, nb2, aux in _pair_modes():
         before = ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_cells.launches_by_form[mode]
         got = ttpcf.count_pairs_cells(s1, s2, thr, nb2, mode, aux)
         assert ttpcf.count_pairs_cells.launches == before[0] + 1
         assert ttpcf.count_pairs_cells.launches_by_form[mode] == before[1] + 1
-        assert got.dtype == torch.int64 and got.shape == (8 * nb2,) and int(got.sum()) > 0
+        assert got.dtype == torch.int64 and got.shape == ((len(edges) - 1) * nb2,)
+        assert int(got.sum()) > 0
         ref = ttpcf.count_pairs_cells_plain(s1, s2, thr, nb2, mode, aux, max_pairs=1 << 24)
         assert torch.equal(got, ref), (mode, int((got != ref).sum()))
         assert torch.equal(got, ttpcf.count_pairs_cells(s1, s2, thr, nb2, mode, aux))
+
+
+@pytest.mark.parametrize('cross', [False, True], ids=['auto', 'cross'])
+@pytest.mark.parametrize('shape', ['cells of rmax/2', 'reach of 3 cells along z, items of 3 cells',
+                                   '2 reach + 1 cells a side', 'full cells beside empty ones',
+                                   'items at the box faces', 'points on cell edges and on lbox',
+                                   'edges too fine for the bin table'])
+def test_cell_pair_kernel_on_fine_grids(cuda_device, shape, cross):
+    """K4 against its plain version at the shapes a grid finer than rmax
+    brings: a reach of 2 cells with pruned rows, 3 x 3 rows that reach 3
+    cells along z (a walk of over 25 rows is refused), a grid of exactly
+    2 reach + 1 cells (the per-pair round; one cell less is refused), a
+    clump far over 64 points a cell in an almost empty box, items whose reach
+    wraps around a face, positions on cell edges and on lbox itself, and 20
+    linear bins, which the one general instance a mode bins by comparing
+    against every edge (auto: the index test; cross: no pair skipped)."""
+    lbox, edges = 400.0, PAIR_EDGES0
+    nc, span, seed = 26, 2, 31
+    cols = None
+    if shape == 'reach of 3 cells along z, items of 3 cells':
+        nc, span = 39, 3
+        st = ttpcf.stage_cells(*_clustered(5_000, lbox, 1, cuda_device), lbox, nc, span)
+        with pytest.raises(ValueError, match="exceeds the kernel's 25"):
+            ttpcf.count_pairs_cells(st, st, ttpcf.edges_f32(edges**2), 20, 'smu', 20.0)
+        edges = np.concatenate([[0.0], np.logspace(-1, 1, 9)[1:]])  # rp, s < 10 = one cell
+        walk = ttpcf.walk_rows(nc, lbox, float(ttpcf.edges_f32(edges**2)[-1]), 30, 'rppi', False)
+        assert walk.reach_z == 3 and len(walk.rows) == 9
+    elif shape == '2 reach + 1 cells a side':
+        lbox, nc, span = 125.0, 5, 1
+        st = ttpcf.stage_cells(*_clustered(5_000, lbox, 1, cuda_device), lbox, 4, 1)
+        with pytest.raises(ValueError, match='visited twice'):
+            ttpcf.count_pairs_cells(st, None, ttpcf.edges_f32([0.0, 40.0**2]), 30, 'rppi')
+    elif shape == 'full cells beside empty ones':
+        rng = np.random.default_rng(5)
+        pos = np.concatenate([rng.normal(200.0, 3.0, (6_000, 3)), rng.random((500, 3)) * lbox])
+        cols = [t(np.mod(pos[:, i], lbox).astype(np.float32)).to(cuda_device) for i in range(3)]
+    elif shape == 'items at the box faces':
+        cols = _clustered(30_000, lbox, 32, cuda_device)
+        cols[2] = torch.where(cols[2] < 200.0, cols[2] * 0.1, 400.0 - (400.0 - cols[2]) * 0.1)
+        span = 3
+    elif shape == 'points on cell edges and on lbox':
+        cell = lbox / nc
+        cols = [torch.remainder(torch.round(c / cell) * cell, np.float32(lbox))
+                for c in _clustered(30_000, lbox, 33, cuda_device)]
+    elif shape == 'edges too fine for the bin table':
+        edges = np.concatenate([[0.0, 1e-3, 1.001e-3], np.linspace(1.0, 30.0, 18)])
+        assert ttpcf.bin_lut(ttpcf.edges_f32(edges**2)) is None
+    if cols is None:
+        cols = _clustered(30_000, lbox, seed, cuda_device)
+    s1 = ttpcf.stage_cells(*cols, lbox, nc, span)
+    s2 = ttpcf.stage_cells(*_clustered(12_000, lbox, seed + 50, cuda_device), lbox, nc, span) \
+        if cross else None
+    if shape == 'full cells beside empty ones':
+        assert s1.max_occ > 4 * ttpcf.CHUNK
+    _check_k4(s1, s2, edges)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64], ids=['f32', 'f64'])
@@ -684,6 +744,33 @@ def test_all_pairs_kernel_equals_plain(cuda_device, dtype, cross):
         assert torch.equal(got, ttpcf.count_pairs_all(cols, cols2, thr, nb2, mode, lbox, aux))
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64], ids=['f32', 'f64'])
+@pytest.mark.parametrize('periods', ['one', 'several'])
+def test_all_pairs_kernel_round_forms(cuda_device, dtype, periods):
+    """K5 takes the round of d / lbox from two compares where both sets lie
+    within one period, and from the division where they do not; both equal
+    the plain version, which always divides."""
+    lbox = 400.0
+    cols = [c.to(dtype) for c in _clustered(9_000, lbox, 6, cuda_device)]
+    cols2 = [c.to(dtype) - 100.0 for c in _clustered(4_000, lbox, 7, cuda_device)]
+    if periods == 'several':
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        cols = [c + lbox * torch.randint(-3, 4, c.shape, generator=gen, device=cuda_device)
+                for c in cols]
+    e2 = PAIR_EDGES0**2
+    thr = ttpcf.edges_f32(e2) if dtype == torch.float32 else e2
+    for other in (None, cols2):
+        for mode, nb2, aux in _pair_modes():
+            before = ttpcf.count_pairs_all.launches, ttpcf.count_pairs_all.launches_one_period
+            got = ttpcf.count_pairs_all(cols, other, thr, nb2, mode, lbox, aux)
+            assert ttpcf.count_pairs_all.launches == before[0] + 1
+            assert ttpcf.count_pairs_all.launches_one_period - before[1] == (periods == 'one')
+            ref = ttpcf.count_pairs_all_plain(cols, other, thr, nb2, mode, lbox, aux,
+                                              max_pairs=1 << 24)
+            assert int(got.sum()) > 0 and torch.equal(got, ref), (mode, int((got != ref).sum()))
+    ttpcf._span_cache.clear()
+
+
 def test_pair_engines_agree_and_self_pairs_are_skipped(cuda_device):
     """On one wrapped catalog K4 and K5 count alike, and both equal the
     plain counts on the CPU; with a first edge of 0 the n pairs i == j stay
@@ -704,27 +791,38 @@ def test_pair_engines_agree_and_self_pairs_are_skipped(cuda_device):
 
 def test_pair_counts_entry_points_on_card(cuda_device):
     """pair_counts_rppi / pair_counts_smu from host data with no device named
-    run on the card: the cell engine above 100,000 points (one K4 launch, the
-    stage of a tensor input cached), the all-pairs engine below, and the
-    14-offset doubled walk equals the 27-offset walk on a clone."""
+    run on the card: the cell engine from _CELL_MIN_N points on (one K4
+    launch a call, the stage of a tensor input cached, on the finer grid its
+    density allows), the all-pairs engine below, the two equal, and the
+    half walk of an autocorrelation equal to the full walk on a clone."""
     lbox = 700.0
-    cols = _clustered(150_000, lbox, 21, cuda_device)
+    cols = _clustered(250_000, lbox, 21, cuda_device)
     host = np.stack([c.cpu().numpy() for c in cols], 1)
+    assert ttpcf.cell_grid(lbox, 30.0, 250_000) == (46, 2)
     ttpcf._stage_cache.clear()
     k4, k5, builds = (ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_all.launches,
                       ttpcf.stage_cells.builds)
+    by_form = dict(ttpcf.count_pairs_cells.launches_by_form)
     auto = ttpcf.pair_counts_rppi(tuple(cols), PAIR_EDGES, 30, lbox)
     smu = ttpcf.pair_counts_smu(tuple(cols), PAIR_EDGES, 20, lbox)
     assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5,
             ttpcf.stage_cells.builds - builds) == (2, 0, 1)
+    assert {m: n - by_form[m] for m, n in ttpcf.count_pairs_cells.launches_by_form.items()} == {
+        'rppi': 1, 'smu': 1}
+    assert ttpcf._stage_cache[0][1] == (lbox, 46, 4)
     npt.assert_array_equal(auto, ttpcf.pair_counts_rppi(host, PAIR_EDGES, 30, lbox))
     clone = tuple(c.clone() for c in cols)
     npt.assert_array_equal(auto, ttpcf.pair_counts_rppi(tuple(cols), PAIR_EDGES, 30, lbox,
                                                         pos2=clone))
     assert auto.dtype == np.int64 and auto.shape == (8, 30) and smu.shape == (8, 20)
-    few = host[:30_000]
+    few = host[: ttpcf._CELL_MIN_N - 1]
     k4, k5 = ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_all.launches
     small = ttpcf.pair_counts_smu(few, PAIR_EDGES, 20, lbox)
     assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5) == (0, 1)
     npt.assert_array_equal(small, ttpcf.pair_counts_smu(few, PAIR_EDGES, 20, lbox, method='cell'))
+    more = host[: ttpcf._CELL_MIN_N]
+    k4, k5 = ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_all.launches
+    cells = ttpcf.pair_counts_smu(more, PAIR_EDGES, 20, lbox)
+    assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5) == (1, 0)
+    npt.assert_array_equal(cells, ttpcf.pair_counts_smu(more, PAIR_EDGES, 20, lbox, method='tile'))
     ttpcf._stage_cache.clear()

@@ -359,7 +359,9 @@ def test_stage_cache_hits_restages_and_is_bounded():
 def test_stage_and_work_list():
     """stage_cells: the cell key of JAX's _stage_cells, a stable sort, cell
     starts, and a work list that covers every point once in chunks of at
-    most CHUNK; candidate_pairs counts what the walks evaluate."""
+    most CHUNK, each inside one group of `span` cells of a row;
+    candidate_pairs counts what the walk evaluates, candidate_pairs_coarse
+    what the 27-cell walk of a coarse grid would."""
     rng = np.random.default_rng(8)
     nc, lbox = 7, 210.0
     pos = (rng.random((3000, 3)) * lbox).astype(np.float32)
@@ -373,21 +375,377 @@ def test_stage_and_work_list():
     npt.assert_array_equal(st.xs.numpy(), np.asarray(xs_j))
     npt.assert_array_equal(st.zs.numpy(), np.asarray(zs_j))
     assert st.max_occ == int(np.asarray(occ_j).max()) >= 500 and st.n == 3000
+    assert st.span == ttpcf.SPAN == 2 and st.groups_per_row == 4
     work = st.work.numpy()
     assert (work[:, 2] > work[:, 1]).all() and (work[:, 2] - work[:, 1]).max() == ttpcf.CHUNK
     covered = np.concatenate([np.arange(b, e) for _, b, e in work])
     npt.assert_array_equal(np.sort(covered), np.arange(3000))
     starts = st.starts.numpy()
-    assert all(starts[c] <= b and e <= starts[c + 1] for c, b, e in work)
+    for g, b, e in work:
+        row, kb = divmod(g, st.groups_per_row)
+        first, last = row * nc + kb * st.span, row * nc + min((kb + 1) * st.span, nc)
+        assert starts[first] <= b and e <= starts[last]
+    for span in (1, 3):
+        other = ttpcf.stage_cells(*cols, lbox, nc, span=span)
+        assert other.span == span and other.work.shape[0] != work.shape[0]
+        npt.assert_array_equal(other.starts.numpy(), starts)
     occ = np.diff(starts).reshape(nc, nc, nc)
     near = sum(np.roll(occ, (-a, -b, -c), (0, 1, 2))
                for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
-    assert ttpcf.candidate_pairs(st, st) == int((occ * near).sum())
-    assert ttpcf.candidate_pairs(st) < ttpcf.candidate_pairs(st, st)
+    assert ttpcf.candidate_pairs_coarse(st, st, nc) == int((occ * near).sum())
+    assert ttpcf.candidate_pairs_coarse(st, None, nc) < ttpcf.candidate_pairs_coarse(st, st, nc)
+    thr = ttpcf.edges_f32(RPBINS**2)
+    one = ttpcf.stage_cells(*cols, lbox, nc, span=1)
+    # items of one cell and a reach of one cell: the same 27 cells
+    assert ttpcf.candidate_pairs(one, one, thr, PIMAX, 'rppi') == int((occ * near).sum())
+    assert ttpcf.candidate_pairs(st, st, thr, PIMAX, 'rppi') > int((occ * near).sum())
+    assert ttpcf.candidate_pairs(st, None, thr, PIMAX, 'rppi') < ttpcf.candidate_pairs(
+        st, st, thr, PIMAX, 'rppi')
     empty = ttpcf.stage_cells(*(c[:0] for c in cols), lbox, nc)
     assert empty.work.shape == (0, 3) and empty.max_occ == 0
-    out = ttpcf.count_pairs_cells(empty, st, ttpcf.edges_f32(RPBINS**2), PIMAX, 'rppi')
+    out = ttpcf.count_pairs_cells(empty, st, thr, PIMAX, 'rppi')
     assert out.shape == (8 * PIMAX,) and int(out.sum()) == 0
+
+
+@pytest.fixture
+def fine_grid(monkeypatch):
+    """Let the dispatch refine the grid whatever the density of the catalog."""
+    monkeypatch.setattr(ttpcf, '_FINE_MIN_OCC', 0.0)
+    ttpcf._stage_cache.clear()
+    yield monkeypatch
+    ttpcf._stage_cache.clear()
+
+
+@pytest.mark.parametrize('cross', [False, True], ids=['auto', 'cross'])
+@pytest.mark.parametrize('mode', ['rppi', 'smu'])
+@pytest.mark.parametrize('refine', [1, 2])
+def test_fine_grids_match_jax_and_brute(fine_grid, refine, mode, cross):
+    """The plain version on grids of rmax and rmax / 2 cells (a reach of 1
+    and 2 cells, items of two cells, the pruned rows) equals JAX's cell
+    engine and the f32 brute force bin for bin."""
+    if refine == 1:
+        fine_grid.setattr(ttpcf, '_FINE_MIN_OCC', np.inf)
+    rng = np.random.default_rng(20 + refine + 4 * cross)
+    lbox = 200.0
+    pos = _points(1500, rng, lbox)
+    pos[:30, 2] = 0.0
+    pos[30:60, 0] = np.nextafter(np.float32(lbox), np.float32(0))
+    pos2 = _points(700, rng, lbox) if cross else None
+    edges, nb2 = (RP0, PIMAX) if mode == 'rppi' else (SBINS, NMU)
+    rmax = 30.0 if mode == 'rppi' else 25.0
+    nc, got_refine = ttpcf.cell_grid(lbox, rmax, 700)
+    assert got_refine == refine and nc == int(lbox * refine // rmax)
+    walk = ttpcf.walk_rows(nc, lbox, float(ttpcf.edges_f32(edges**2)[-1]), nb2, mode, not cross)
+    assert walk.reach == refine and walk.use_wrap
+    got, ref = _both(mode, pos, edges, nb2, lbox=lbox, pos2=pos2, method='cell')
+    assert ttpcf._stage_cache == [] and got.sum() > 0
+    assert _rules_agree(pos, pos2, edges, nb2, mode, lbox)
+    npt.assert_array_equal(got, ref, err_msg=_mode())
+    npt.assert_array_equal(got, _brute(pos, pos2, edges, nb2, mode, lbox))
+
+
+@pytest.mark.parametrize('cross', [False, True], ids=['auto', 'cross'])
+@pytest.mark.parametrize('mode', ['rppi', 'smu'])
+def test_reach_of_three_cells(mode, cross):
+    """Cells of a third of the largest separation. In (rp, pi) with rp under
+    one cell and pimax of three, the walk is 3 x 3 rows of cells that reach
+    three cells along z; in (s, mu) the half walk of an autocorrelation is
+    25 of the 7 x 7 rows. The plain version on those stages equals JAX's cell
+    engine (on its own grid: the counts do not depend on it) and the f32
+    brute force. The full (s, mu) walk of a cross-correlation is 49 rows:
+    more than the kernel's 25, refused."""
+    rng = np.random.default_rng(60 + cross)
+    lbox, nc = 200.0, 20
+    pos = _points(1500, rng, lbox)
+    pos[:30, 2] = 0.0
+    pos2 = _points(700, rng, lbox) if cross else None
+    wrap = lambda p: [t(np.mod(p, lbox).astype(np.float32)[:, i]) for i in range(3)]  # noqa: E731
+    s1 = ttpcf.stage_cells(*wrap(pos), lbox, nc, span=2)
+    s2 = ttpcf.stage_cells(*wrap(pos2), lbox, nc, span=2) if cross else None
+    edges, nb2 = (np.array([0.0, 0.5, 3.0, 10.0]), PIMAX) if mode == 'rppi' else (
+        np.linspace(0.1, 30, 7), NMU)
+    thr = ttpcf.edges_f32(edges**2)
+    walk = ttpcf.walk_rows(nc, lbox, float(thr[-1]), nb2, mode, not cross)
+    assert walk.reach_z == 3 and walk.use_wrap
+    assert len(walk.rows) == {'rppi': (5, 9), 'smu': (25, 49)}[mode][cross]
+    if len(walk.rows) > ttpcf.K4_MAX_ROWS:
+        with pytest.raises(ValueError, match="exceeds the kernel's 25"):
+            ttpcf.count_pairs_cells(s1, s2, thr, nb2, mode, float(nb2))
+        return
+    got = ttpcf.count_pairs_cells(s1, s2, thr, nb2, mode, float(nb2)).numpy()
+    jax_counts = jtpcf.pair_counts_rppi if mode == 'rppi' else jtpcf.pair_counts_smu
+    ref = jax_counts(pos, edges, nb2, lbox, pos2=pos2, method='cell')
+    assert _rules_agree(pos, pos2, edges, nb2, mode, lbox) and got.sum() > 0
+    npt.assert_array_equal(got.reshape(ref.shape), ref, err_msg=_mode())
+    npt.assert_array_equal(got.reshape(ref.shape), _brute(pos, pos2, edges, nb2, mode, lbox))
+
+
+@pytest.mark.parametrize('nc_max,want', [(16, (13, 2)), (12, (6, 1)), (5, (5, 1))])
+def test_fine_grid_falls_back_to_a_coarser_one(fine_grid, nc_max, want):
+    """A grid of rmax / 2 cells over _NC_MAX cells a side is not taken: the
+    grid of rmax cells is, capped at _NC_MAX; the counts stay."""
+    fine_grid.setattr(ttpcf, '_NC_MAX', nc_max)
+    lbox = 200.0
+    assert ttpcf.cell_grid(lbox, 30.0, 10**9) == want
+    rng = np.random.default_rng(31)
+    pos = _points(1200, rng, lbox)
+    for mode, edges, nb2 in (('rppi', RPBINS, PIMAX), ('smu', np.linspace(0.1, 30, 7), NMU)):
+        got, ref = _both(mode, pos, edges, nb2, lbox=lbox, method='cell')
+        assert _rules_agree(pos, None, edges, nb2, mode, lbox)
+        npt.assert_array_equal(got, ref, err_msg=f'{mode} {_mode()}')
+        npt.assert_array_equal(got, _brute(pos, None, edges, nb2, mode, lbox))
+
+
+def test_density_picks_the_grid(monkeypatch):
+    """cell_grid refines only while the sparser side fills the cells."""
+    assert ttpcf._FINE_MIN_OCC == 2.0 and ttpcf._NC_MAX == 160 and ttpcf.K4_MAX_ROWS == 25
+    assert ttpcf.cell_grid(2000.0, 30.0, 14_000_000) == (133, 2)
+    assert ttpcf.cell_grid(2000.0, 30.0, 1_200_000) == (66, 1)
+    assert ttpcf.cell_grid(2000.0, 30.0, 10**8) == (133, 2)
+    assert ttpcf.cell_grid(2000.0, 20.0, 10**9) == (100, 1)
+    assert ttpcf.cell_grid(2000.0, 5.0, 10**9) == (160, 1)
+    assert ttpcf.cell_grid(100.0, 30.0, 10**6) == (6, 2)
+    assert ttpcf.default_span(3, 1) == 1 and ttpcf.default_span(6, 2) == 2
+    assert ttpcf.default_span(133, 2, 14_000_000) == 3 and ttpcf.default_span(66, 1, 80_000) == 4
+    assert ttpcf.default_span(66, 1, 10**8) == 1 and ttpcf.default_span(5, 2, 10) == 1
+
+
+@pytest.mark.parametrize('seed', range(6))
+def test_pruned_rows_hold_every_pair_in_range(seed):
+    """No pair within the largest edge (and pimax) lies in a cell the walk
+    skips: a seeded sweep over grids, bins and random points, the cells
+    taken from the stage's own cell index."""
+    rng = np.random.default_rng(100 + seed)
+    lbox = float(rng.uniform(100, 300))
+    rmax = float(rng.uniform(12, lbox / 3.2))
+    refine = int(rng.integers(1, 4))  # 3: finer than the dispatch goes
+    nc = int(lbox * refine // rmax)
+    mode = ('rppi', 'smu')[seed % 2]
+    nb2 = int(rmax * rng.uniform(0.4, 1.0)) if mode == 'rppi' else 10
+    e2max = float(ttpcf.edges_f32([rmax**2])[0])
+    walk = ttpcf.walk_rows(nc, lbox, e2max, nb2, mode, False)
+    kd = {(int(a), int(b)): int(k) for a, b, k, _ in walk.rows}
+    half = ttpcf.walk_rows(nc, lbox, e2max, nb2, mode, True)
+    assert {(a, b) for a, b in kd if (a, b) >= (0, 0)} == {(int(a), int(b)) for a, b, *_ in half.rows}
+    assert [int(m) for *_, m in half.rows] == [1] + [2] * (len(half.rows) - 1)
+    p = (rng.random((1500, 3)) * lbox).astype(np.float32)
+    # points on cell boundaries too
+    p[:300] = (np.round(p[:300] / (lbox / nc)) * (lbox / nc)).astype(np.float32) % np.float32(lbox)
+    cell = np.stack([ttpcf.cell_index(t(p[:, i]), lbox, nc).numpy() for i in range(3)], 1)
+    d = p[:, None, :] - p[None, :, :]
+    d = d - np.float32(lbox) * np.round(d / np.float32(lbox))
+    r2 = d[..., 0] ** 2 + d[..., 1] ** 2
+    if mode == 'smu':
+        ok = r2 + d[..., 2] ** 2 < e2max
+    else:
+        ok = (r2 < e2max) & (np.abs(d[..., 2]) < nb2)
+    i, j = np.nonzero(ok)
+    off = cell[j] - cell[i]
+    off = (off + nc // 2) % nc - nc // 2  # the nearest image of the offset
+    assert len(i) > 1500
+    for di, dj, dk in np.unique(off, axis=0):
+        assert (di, dj) in kd and abs(dk) <= kd[(di, dj)], (di, dj, dk, nc, mode)
+
+
+@pytest.mark.parametrize('f64', [False, True], ids=['f32', 'f64'])
+@pytest.mark.parametrize('lbox', [2000.0, 400.0, 95.0, 333.3, 1.0, 1e-3 + 7.0])
+def test_round_threshold_equals_the_rounded_quotient(lbox, f64):
+    """round(d / lbox) == (d > t) - (d < -t) for every value within 4000 ulps
+    of +-lbox / 2 (and a coarse sweep of |d| < 1.5 lbox), with the rounded
+    division of the type; and d - lbox * round(d / lbox) equals the kernel's
+    d - lbox, d + lbox or d."""
+    T = np.float64 if f64 else np.float32
+    lb = T(lbox)
+    thr = T(ttpcf.round_threshold(float(lb), f64))
+    assert np.round(thr / lb) == 0 and np.round(np.nextafter(thr, T(np.inf)) / lb) == 1
+    near = T(0.5) * lb + np.arange(-4000, 4001).astype(T) * np.spacing(T(0.5) * lb)
+    sweep = np.linspace(-1.499, 1.499, 20001).astype(T) * lb
+    for d in (near, -near, sweep):
+        want = np.round(d / lb)
+        got = (d > thr).astype(T) - (d < -thr).astype(T)
+        npt.assert_array_equal(got, want)
+        kernel = np.where(d > thr, d - lb, np.where(d < -thr, d + lb, d))
+        npt.assert_array_equal(kernel, d - lb * want)
+    assert set(np.round(near / lb)) == {0.0, 1.0}
+
+
+_EDGE_SETS = {
+    'log rp': np.logspace(-1, np.log10(30), 9),
+    'linear s': np.linspace(0.1, 25, 9),
+    'from 0': RP0,
+    'linear from 0': S0,
+    'one bin': np.array([0.5, 2.0]),
+    'twenty bins': np.linspace(0.0, 40.0, 21),
+    'close edges': np.array([0.0, 1.0, 1.02, 1.04, 7.0]),
+}
+
+
+@pytest.mark.parametrize('f64', [False, True], ids=['f32', 'f64'])
+@pytest.mark.parametrize('name', list(_EDGE_SETS))
+def test_bin_table_equals_searchsorted(name, f64):
+    """bin_lut: the kernels' table lookup (a shift of r2's leading bits, the
+    inner edges below the cell, one compare with the edge inside it) gives
+    searchsorted's bin for every r2 in [lo, hi): at every edge and its two
+    neighbours, and on uniform and log-uniform samples."""
+    T = np.float64 if f64 else np.float32
+    e2 = _EDGE_SETS[name] ** 2
+    e = np.asarray(e2 if f64 else ttpcf.edges_f32(e2), T)
+    lut = ttpcf.bin_lut(e, f64)
+    assert lut is not None
+    edge, base, shift, key0 = lut
+    assert edge.dtype == T and base.dtype == np.int32 and len(edge) == len(base) <= 2048
+    rng = np.random.default_rng(len(name))
+    floor = max(float(e[0]), 1e-12)
+    r2 = np.concatenate([
+        e, np.nextafter(e, T(np.inf)), np.nextafter(e, T(-np.inf)),
+        rng.uniform(e[0], e[-1], 100_000).astype(T),
+        np.exp(rng.uniform(np.log(floor), np.log(e[-1]), 100_000)).astype(T)])
+    r2 = r2[(r2 >= e[0]) & (r2 < e[-1])]
+    lead = (r2.view(np.int64) >> 32) if f64 else r2.view(np.int32).astype(np.int64)
+    key = np.maximum((lead >> shift) - key0, 0)
+    assert key.max() < len(edge)
+    got = base[key] + (r2 >= edge[key])
+    npt.assert_array_equal(got, np.searchsorted(e, r2, side='right') - 1)
+
+
+def test_bin_table_declines_what_it_cannot_hold():
+    """Edges closer than 2048 cells can tell apart, unsorted, negative or
+    non-finite edges get no table: the kernels then compare against every
+    edge."""
+    fine = np.array([1.0, 1.0 + 2.0**-20, 1.0 + 2.0**-19, 2.0], np.float32)
+    assert ttpcf.bin_lut(fine) is None
+    assert ttpcf.bin_lut(np.array([0.0, 1e-6, 1.001e-6, 900.0], np.float32)) is None
+    assert ttpcf.bin_lut(np.array([1.0, 0.5, 2.0], np.float32)) is None
+    assert ttpcf.bin_lut(np.array([-1.0, 0.5], np.float32)) is None
+    assert ttpcf.bin_lut(np.array([0.0, np.inf], np.float32)) is None
+    assert ttpcf.bin_lut(np.linspace(0, 150, 301) ** 2) is None
+
+
+@pytest.mark.parametrize('nmu', [1, 20, 100])
+def test_mu_bin_estimate_is_safe(nmu):
+    """K4's mu bin: floor of an estimate adz * rsqrt(r2) * nmu whose
+    reciprocal root may be off by 2^-22.9, taken only where it lies further
+    than nmu * 2^-18 from an integer; there it always equals the bin of the
+    exact chain int((adz / sqrt(r2)) * nmu), each step rounded to float32. The
+    rest (and r2 = 0) take the exact chain."""
+    rng = np.random.default_rng(nmu)
+    n = 400_000
+    r2 = np.exp(rng.uniform(np.log(1e-4), np.log(900.0), n)).astype(np.float32)
+    mu = rng.random(n).astype(np.float32)
+    mu[: n // 4] = (rng.integers(0, nmu + 1, n // 4) / nmu).astype(np.float32)  # on the boundaries
+    adz = np.minimum((mu * np.sqrt(r2)).astype(np.float32), np.sqrt(r2).astype(np.float32))
+    aux = np.float32(nmu)
+    exact = ((adz / np.sqrt(r2)).astype(np.float32) * aux).astype(np.float32).astype(np.int64)
+    margin = np.float32(aux * np.float32(2.0**-18))
+    taken = 0
+    for err in (-2.0**-22.9, 0.0, 2.0**-22.9):
+        rs = (1.0 / np.sqrt(r2.astype(np.float64)) * (1.0 + err)).astype(np.float32)
+        v = ((adz * rs).astype(np.float32) * aux).astype(np.float32)
+        frac = v - np.floor(v)
+        safe = (frac > margin) & (frac < np.float32(1.0) - margin)
+        npt.assert_array_equal(np.floor(v[safe]).astype(np.int64), exact[safe])
+        taken += int(safe.sum())
+    assert taken > 2 * n  # the estimate decides nearly every pair off the boundaries
+
+
+def test_dispatch_threshold(monkeypatch):
+    """Below _CELL_MIN_N points the all-pairs engine counts, from it on the
+    cell engine; one catalog counts alike on either side of the threshold."""
+    assert ttpcf._CELL_MIN_N == 25_000
+    taken = []
+    zeros = torch.zeros(8 * PIMAX, dtype=torch.int64)
+    monkeypatch.setattr(ttpcf, 'count_pairs_all', lambda *a, **k: taken.append('all') or zeros)
+    monkeypatch.setattr(ttpcf, 'count_pairs_cells', lambda *a, **k: taken.append('cells') or zeros)
+    rng = np.random.default_rng(12)
+    big = rng.random((ttpcf._CELL_MIN_N, 3)) * LBOX
+    ttpcf.pair_counts_rppi(big[:-1], RPBINS, PIMAX, LBOX, device='cpu')
+    ttpcf.pair_counts_rppi(big, RPBINS, PIMAX, LBOX, device='cpu')
+    ttpcf.pair_counts_rppi(big, RPBINS, PIMAX, 80.0, device='cpu')  # under three cells
+    assert taken == ['all', 'cells', 'all']
+    monkeypatch.undo()
+    pos = _points(2000, rng)
+    monkeypatch.setattr(ttpcf, '_CELL_MIN_N', 2001)
+    below = ttpcf.pair_counts_rppi(pos, RPBINS, PIMAX, LBOX, device='cpu')
+    monkeypatch.setattr(ttpcf, '_CELL_MIN_N', 2000)
+    builds = ttpcf.stage_cells.builds
+    above = ttpcf.pair_counts_rppi(pos, RPBINS, PIMAX, LBOX, device='cpu')
+    assert ttpcf.stage_cells.builds == builds + 1
+    npt.assert_array_equal(below, above)
+
+
+@pytest.mark.parametrize('method', ['cell', 'tile'])
+@pytest.mark.parametrize('mode', ['rppi', 'smu'])
+def test_positions_outside_the_box_follow_jax_engine_by_engine(mode, method, monkeypatch):
+    """Positions past the faces (RSD along z, and a few points a whole box
+    off): the cell engine wraps them first and the all-pairs engine
+    differences them as they are, in both packages, so each engine of the
+    port equals JAX's engine of the same name, auto and cross. The default
+    dispatch sends a catalog of _CELL_MIN_N points or more to the cell
+    engine: it follows JAX's method='cell' there."""
+    rng = np.random.default_rng(70)
+    pos = _points(2500, rng)
+    pos[:, 2] += rng.normal(0, 12, len(pos))
+    pos[:60, 0] += LBOX
+    pos[60:120, 1] -= LBOX
+    pos2 = rng.random((1200, 3)) * LBOX
+    pos2[:, 2] += rng.normal(0, 12, len(pos2))
+    assert (pos[:, 2] < 0).sum() > 10 and (pos[:, 2] >= LBOX).sum() > 10
+    edges, nb2 = (RP0, PIMAX) if mode == 'rppi' else (S0, NMU)
+    for p2 in (pos2, None):
+        got, ref = _both(mode, pos, edges, nb2, pos2=p2, method=method)
+        assert _rules_agree(pos, p2, edges, nb2, mode) and got.sum() > 0
+        npt.assert_array_equal(got, ref, err_msg=f'{method} {_mode()}')
+        if method == 'cell':
+            npt.assert_array_equal(got, _brute(pos, p2, edges, nb2, mode))
+    if method == 'cell':
+        monkeypatch.setattr(ttpcf, '_CELL_MIN_N', len(pos))
+        kw = dict(device='cpu', dtype=_tile_dtype()[1])
+        fn = ttpcf.pair_counts_rppi if mode == 'rppi' else ttpcf.pair_counts_smu
+        npt.assert_array_equal(fn(pos, edges, nb2, LBOX, **kw), got)
+
+
+@pytest.mark.parametrize('shape', ['grid under 2 reach + 1', 'full cell beside empty ones',
+                                   'item across a box face', 'points on cell edges and on lbox'])
+def test_risky_stage_shapes(shape):
+    """The shapes the finer grid makes risky, each through the plain version
+    against the f32 brute force, auto and cross, both modes."""
+    rng = np.random.default_rng(40)
+    lbox, nc, span = 120.0, 8, 2  # cells of 15 for rp, s < 30: a reach of 2
+    edges = np.array([0.0, 3.0, 12.0, 30.0])
+    pos2 = rng.random((600, 3)) * lbox
+    if shape == 'grid under 2 reach + 1':
+        # 4 cells of 30 for rp < 50 (a reach of 2), and 6 cells of 20 with
+        # items of 3 cells (3 + 2 * 2 cells along z): refused
+        pos = rng.random((500, 3)) * lbox
+        cols = [t(np.float32(pos[:, i])) for i in range(3)]
+        st = ttpcf.stage_cells(*cols, lbox, 4, span=1)
+        with pytest.raises(ValueError, match='visited twice'):
+            ttpcf.count_pairs_cells(st, None, ttpcf.edges_f32([0.0, 50.0**2]), 30, 'rppi')
+        st = ttpcf.stage_cells(*cols, lbox, 6, span=3)
+        with pytest.raises(ValueError, match='visited twice'):
+            ttpcf.count_pairs_cells(st, None, ttpcf.edges_f32(edges**2), 30, 'rppi')
+        nc, span = 5, 1  # 2 reach + 1 cells exactly: every cell once, the per-pair round
+    elif shape == 'full cell beside empty ones':
+        pos = np.concatenate([rng.random((150, 3)) * 8.0 + 40.0, rng.random((150, 3)) * 8.0,
+                              rng.random((60, 3)) * lbox])
+    elif shape == 'item across a box face':
+        pos = rng.random((700, 3)) * lbox
+        pos[:, 2] = np.where(rng.random(700) < 0.5, rng.random(700) * 15, lbox - rng.random(700) * 15)
+        nc, span = 8, 3  # the last group, cells 6..7, reaches 0..1 across the face
+    else:
+        pos = rng.random((700, 3)) * lbox
+        pos[:400] = np.round(pos[:400] / 15.0) * 15.0  # cell edges of the 8^3 grid, and lbox
+        pos2[:300] = np.round(pos2[:300] / 15.0) * 15.0
+    wrap = lambda p: [t(np.mod(p, lbox).astype(np.float32)[:, i]) for i in range(3)]  # noqa: E731
+    s1 = ttpcf.stage_cells(*wrap(pos), lbox, nc, span=span)
+    s2 = ttpcf.stage_cells(*wrap(pos2), lbox, nc, span=span)
+    thr = ttpcf.edges_f32(edges**2)
+    for mode, nb2 in (('rppi', 30), ('smu', 7)):
+        for other, p2 in ((None, None), (s2, pos2)):
+            got = ttpcf.count_pairs_cells(s1, other, thr, nb2, mode, float(nb2)).numpy()
+            want = _brute(pos, p2, edges, nb2, mode, lbox)
+            npt.assert_array_equal(got.reshape(3, nb2), want, err_msg=f'{shape} {mode}')
+            assert got.sum() > 0
 
 
 def test_edge_rounding_rule_against_both_jax_modes():
