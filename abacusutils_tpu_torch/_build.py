@@ -38,9 +38,9 @@ _D = ctypes.c_double
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
     # grid, x, y, z, w, work, nitems, nmesh, brick (x, y, z), margin (x, y, z),
-    # box, offset, kind, overflow, stream
+    # box, offset, kind, wrap, overflow, stream
     'tsc_deposit_bricks': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                           _P, _P),
+                           _I, _P, _P),
     # kind, nmesh, tile bytes, out blocks
     'tsc_deposit_blocks_per_sm': (_I, _I, _I, _P),
     # nfields, npoles, warps, shared bytes, device, out blocks per SM
@@ -65,6 +65,13 @@ SIGNATURES = {
     # (int64), stream
     'pair_count_all': (_P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _D, _P, _I, _I, _D, _I, _I, _I, _I,
                        _I, _P, _P, _I, _I, _I, _P, _P),
+    # x, y, z (f32), query, work, nitems, pstart, pnum, nn_d2 (f64), stream
+    'nn_within_halo': (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    # x, y, z, m, rin2 (f64, sorted by cell), starts, ukeys or null, nu, the
+    # three neighbour tables, cells along each axis, periodic, lbox, r_out^2,
+    # mcut, work, nitems, out (f64), stream
+    'menv_annulus': (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L, _L, _I, _D, _D, _D, _P,
+                     _I, _P, _P),
 }
 
 

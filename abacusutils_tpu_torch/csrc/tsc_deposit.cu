@@ -44,8 +44,10 @@
 //
 // KIND (a template parameter) is 0 for TSC and 1 for CIC. CIC uses the same
 // 3-point stencil and tile (weights max(d,0), 1-|d|, max(-d,0), as
-// abacusutils_tpu/ops/grid.py:_cloud_weights_cic) and the JAX package's CIC
-// convention: the position is not wrapped, so the cell is floor((p + offset)
+// abacusutils_tpu/ops/grid.py:_cloud_weights_cic). `wrap` (an argument) says
+// whether a coordinate is first wrapped once into [0, box): the JAX
+// package's TSC does so by default, its CIC does not, and tsc_parallel's
+// wrap=False paints TSC unwrapped; an unwrapped cell is floor((p + offset)
 // * inv_h + 0.5) of the raw coordinate, taken modulo nmesh.
 
 #include <cuda_runtime.h>
@@ -67,13 +69,13 @@ __device__ __forceinline__ int floor_mod(int i, int n) {
     return r < 0 ? r + n : r;
 }
 
-// One axis of the cloud, the f32 arithmetic of ops/grid.py:_axis_cloud (TSC:
-// single periodic wrap, then round half up; CIC: no wrap). Returns the
-// centre index, not yet taken modulo nmesh.
+// One axis of the cloud, the f32 arithmetic of ops/grid.py:_axis_cloud (an
+// optional single periodic wrap, then round half up). Returns the centre
+// index, not yet taken modulo nmesh.
 template <int KIND>
 __device__ __forceinline__ int axis_cloud(float p, float box, float offset, float inv_h,
-                                          float w[3]) {
-    if (KIND == 0) {
+                                          bool wrap, float w[3]) {
+    if (wrap) {
         if (p >= box) p = __fsub_rn(p, box);
         if (p < 0.f) p = __fadd_rn(p, box);
     }
@@ -99,7 +101,7 @@ __global__ void __launch_bounds__(THREADS)
 tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
                           const float* __restrict__ y, const float* __restrict__ z,
                           const float* __restrict__ w, const int* __restrict__ work, Bricks g,
-                          float box, float offset, int* __restrict__ overflow) {
+                          float box, float offset, int wrap, int* __restrict__ overflow) {
     extern __shared__ float tile[];
     const int brick = work[3 * blockIdx.x];
     const int begin = work[3 * blockIdx.x + 1];
@@ -128,9 +130,9 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
         const float wp = w[p];
         if (wp == 0.f) continue;
         float wx[3], wy[3], wz[3];
-        const int ix = axis_cloud<KIND>(x[p], box, offset, inv_h, wx);
-        const int iy = axis_cloud<KIND>(y[p], box, offset, inv_h, wy);
-        const int iz = axis_cloud<KIND>(z[p], box, offset, inv_h, wz);
+        const int ix = axis_cloud<KIND>(x[p], box, offset, inv_h, wrap, wx);
+        const int iy = axis_cloud<KIND>(y[p], box, offset, inv_h, wrap, wy);
+        const int iz = axis_cloud<KIND>(z[p], box, offset, inv_h, wrap, wz);
         // tile entry of the stencil's first cell: entry t holds grid cell
         // (o + t) mod n, so any periodic image of the cell will do
         const int lx = floor_mod(ix - 1 - ox, n);
@@ -196,14 +198,15 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
 template <int KIND, int V>
 cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const float* w,
                    const int* work, int nitems, const Bricks& g, float box, float offset,
-                   int* overflow, cudaStream_t stream) {
+                   int wrap, int* overflow, cudaStream_t stream) {
     const size_t smem = sizeof(float) * (size_t)(g.bx + 2 + 2 * g.mx) * (g.by + 2 + 2 * g.my) *
                         (g.bz + 2 + 2 * g.mz);
     cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     tsc_deposit_bricks_kernel<KIND, V>
-        <<<nitems, THREADS, smem, stream>>>(grid, x, y, z, w, work, g, box, offset, overflow);
+        <<<nitems, THREADS, smem, stream>>>(grid, x, y, z, w, work, g, box, offset, wrap,
+                                           overflow);
     return cudaGetLastError();
 }
 
@@ -222,11 +225,14 @@ int flush_width(int nmesh) { return nmesh % 4 == 0 ? 4 : nmesh % 2 == 0 ? 2 : 1;
 template <int KIND>
 cudaError_t launch_kind(float* grid, const float* x, const float* y, const float* z,
                         const float* w, const int* work, int nitems, const Bricks& g, float box,
-                        float offset, int* overflow, cudaStream_t s) {
+                        float offset, int wrap, int* overflow, cudaStream_t s) {
     switch (flush_width(g.nmesh)) {
-        case 4: return launch<KIND, 4>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
-        case 2: return launch<KIND, 2>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
-        default: return launch<KIND, 1>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
+        case 4: return launch<KIND, 4>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                           overflow, s);
+        case 2: return launch<KIND, 2>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                           overflow, s);
+        default: return launch<KIND, 1>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                           overflow, s);
     }
 }
 
@@ -243,16 +249,18 @@ cudaError_t blocks_per_sm_kind(int nmesh, int smem, int* blocks) {
 
 // ---- host entries ----
 
-// kind: 0 TSC, 1 CIC
+// kind: 0 TSC, 1 CIC; wrap: 1 wraps each coordinate once into [0, box)
 extern "C" int tsc_deposit_bricks(float* grid, const float* x, const float* y, const float* z,
                                   const float* w, const int* work, int nitems, int nmesh, int bx,
                                   int by, int bz, int mx, int my, int mz, float box, float offset,
-                                  int kind, int* overflow, void* stream) {
+                                  int kind, int wrap, int* overflow, void* stream) {
     const Bricks g{nmesh, bx, by, bz, (nmesh + by - 1) / by, (nmesh + bz - 1) / bz, mx, my, mz};
     const cudaStream_t s = (cudaStream_t)stream;
     switch (kind) {
-        case 0: return (int)launch_kind<0>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
-        case 1: return (int)launch_kind<1>(grid, x, y, z, w, work, nitems, g, box, offset, overflow, s);
+        case 0: return (int)launch_kind<0>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                                  overflow, s);
+        case 1: return (int)launch_kind<1>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                                  overflow, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

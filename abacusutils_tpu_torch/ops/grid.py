@@ -17,12 +17,18 @@ Counterpart of abacusutils_tpu/ops/grid.py for the HOD and P(k) routes:
   CPU tensors.
 - :func:`paint_3d` is the public paint (``ops/grid.py:paint_3d``): stage and
   K1 on CUDA tensors, the plain scatter on CPU tensors.
+- :func:`tsc_parallel`, :func:`cic_serial` and :func:`rightwrap` are the
+  reference-compatible wrappers of ``ops/grid.py`` that prepare_sim's shear
+  field paints through: an int, tuple or ndarray ``densgrid``, cubic grids
+  through K1, ``cic_serial``'s non-cubic grids (the 2-D ``gz == 1`` mode
+  among them) on the host.
 
 Both kinds use the 3-point stencil of the JAX package: TSC wraps each
 coordinate once into [0, box) and then adds the offset; CIC (weights
 max(d, 0), 1 - |d|, max(-d, 0)) paints p + offset unwrapped, as
 ``get_field`` paints it (``paint_3d(..., kind='cic', wrap=False)``), and
-takes its cell index modulo nmesh. Every f32 constant is formed as the JAX
+takes its cell index modulo nmesh. ``wrap`` (None: the kind's default)
+overrides either, as the JAX package's ``wrap`` argument does. Every f32 constant is formed as the JAX
 package forms it (an f32 division, then used as an exact Python float), so
 cell keys agree bit for bit.
 """
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..convert import resolve_device
 
 __all__ = [
     'KINDS',
@@ -50,6 +57,9 @@ __all__ = [
     'overflow_count_plain',
     'paint_3d',
     'tsc_deposit_cells',
+    'tsc_parallel',
+    'cic_serial',
+    'rightwrap',
     'blocks_per_sm',
     'MAX_SMEM_BYTES',
 ]
@@ -86,6 +96,12 @@ def _kind(kind):
     if kind not in KINDS:
         raise ValueError(f'unknown mass assignment {kind!r}, not one of {KINDS}')
     return kind
+
+
+def _wrap(kind, wrap):
+    """Whether coordinates are wrapped once: `wrap`, or where it is None the
+    JAX package's default for the kind (TSC wraps, CIC does not)."""
+    return _kind(kind) == 'tsc' if wrap is None else bool(wrap)
 
 
 def axis_cloud(p1d, box, offset, nmesh, wrap=True, kind='tsc'):
@@ -143,13 +159,14 @@ def _cells(p, nmesh, box, offset, shift, wrap):
     return torch.remainder(torch.floor(q + 0.5).to(torch.int32), nmesh)
 
 
-def brick_key(px, py, pz, nmesh, brick, box, offset=0.0, shift=0.0, kind='tsc'):
+def brick_key(px, py, pz, nmesh, brick, box, offset=0.0, shift=0.0, kind='tsc', wrap=None):
     """Brick index (int32) of each point's cell, x-major: ((cx // bx) * nby +
     cy // by) * nbz + cz // bz, with nb = ceil(nmesh / b) bricks an axis (the
     last one ragged). `shift` is added to each coordinate first. The cell is
-    K1's for `kind`: TSC wraps once before the offset, CIC does not wrap.
-    With brick (1, yb, nmesh) this is ops/grid.py:cell_key_2d."""
-    wrap = _kind(kind) == 'tsc'
+    K1's for `kind` and `wrap` (by default TSC wraps once before the offset,
+    CIC does not wrap). With brick (1, yb, nmesh) this is
+    ops/grid.py:cell_key_2d."""
+    wrap = _wrap(kind, wrap)
     bx, by, bz = brick
     nby, nbz = -(-nmesh // by), -(-nmesh // bz)
     key = torch.div(_cells(px, nmesh, box, offset, shift, wrap), bx, rounding_mode='floor')
@@ -218,7 +235,7 @@ def work_items(starts, n, max_points):
 
 def stage_bricks(
     cols, nmesh, box, brick=None, margin=(0, 0, 0), offset=0.0, shift=0.0, kind='tsc',
-    xi=0, yi=1, zi=2, max_points=None, return_order=False,
+    xi=0, yi=1, zi=2, max_points=None, return_order=False, wrap=None,
 ):
     """Sort the columns by the brick of their cell (:func:`brick_key` of
     cols[xi], cols[yi], cols[zi]; stable, so points of one brick keep their
@@ -231,27 +248,27 @@ def stage_bricks(
     before RSD carries a z margin); a point that moves further is still
     deposited right, straight into the grid. max_points: the most points a
     work item takes (default max(MIN_ITEM_POINTS, ITEM_SPLIT x N / the
-    number of bricks)). `kind`, `offset` and `shift` pick the cell as K1
-    computes it."""
+    number of bricks)). `kind`, `wrap`, `offset` and `shift` pick the cell as
+    K1 computes it."""
     margin = tuple(int(m) for m in margin)
     brick = brick_shape(nmesh, margin=margin) if brick is None else tuple(int(b) for b in brick)
     n = cols[0].shape[0]
     nbricks = _nbricks(nmesh, brick)
     if max_points is None:
         max_points = max(MIN_ITEM_POINTS, ITEM_SPLIT * -(-n // nbricks))
-    key = brick_key(cols[xi], cols[yi], cols[zi], nmesh, brick, box, offset, shift, kind)
+    key = brick_key(cols[xi], cols[yi], cols[zi], nmesh, brick, box, offset, shift, kind, wrap)
     skey, order = torch.sort(key, stable=True)
     plan = BrickPlan(_work_list(skey, nbricks, int(max_points)), nmesh, brick, margin)
     staged = [c.index_select(0, order) for c in cols]
     return (staged, plan, order) if return_order else (staged, plan)
 
 
-def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0, kind='tsc'):
+def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0, kind='tsc', wrap=None):
     """Accumulate the 27-point cloud of every weighted point into the
     (nmesh, nmesh, nmesh) f32 `grid` in place (the contract of
-    ops/grid.py:_paint_3d_jit): TSC wraps each coordinate once, CIC paints
-    it unwrapped (wrap=False). Returns `grid`."""
-    wrap = _kind(kind) == 'tsc'
+    ops/grid.py:_paint_3d_jit): by default TSC wraps each coordinate once,
+    CIC paints it unwrapped (wrap=False). Returns `grid`."""
+    wrap = _wrap(kind, wrap)
     ix, wx = axis_cloud(px, box, offset, nmesh, wrap, kind)
     iy, wy = axis_cloud(py, box, offset, nmesh, wrap, kind)
     iz, wz = axis_cloud(pz, box, offset, nmesh, wrap, kind)
@@ -269,12 +286,12 @@ def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0, kind='tsc'
     return grid
 
 
-def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc'):
+def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc', wrap=None):
     """The overflow word of K1 for points staged by `plan`: the number of
     points of non-zero weight whose 27-point stencil leaves their brick's
     tile (the brick, one ghost layer and the margin on each side). Returns a
     0-d int64 tensor."""
-    kind = _kind(kind)
+    kind, wrap = _kind(kind), _wrap(kind, wrap)
     nmesh = plan.nmesh
     work = plan.work.long()
     # each point's brick, from the items that cover it
@@ -284,7 +301,7 @@ def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc'):
             torch.div(brick, nb[2], rounding_mode='floor') % nb[1], brick % nb[2])
     inside = w != 0
     for p, b, m, j in zip((x, y, z), plan.brick, plan.margin, bidx):
-        i0, _ = axis_cloud(p, box, offset, nmesh, kind == 'tsc', kind)
+        i0, _ = axis_cloud(p, box, offset, nmesh, wrap, kind)
         first = torch.remainder(i0 - 1 - (j * b - 1 - m), nmesh)
         inside = inside & (first + 2 < b + 2 + 2 * m)
     return ((w != 0) & ~inside).sum()
@@ -310,7 +327,8 @@ def _check_deposit(grid, cols, plan, nmesh, overflow):
         raise ValueError(f'overflow must be a one-element int32 tensor on {grid.device}')
 
 
-def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, kind='tsc'):
+def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, kind='tsc',
+                      wrap=None):
     """Add the TSC (or CIC) deposit of brick-sorted points into `grid` in
     place.
 
@@ -318,18 +336,20 @@ def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, ki
     :class:`BrickPlan` (the points may have moved since: K1 deposits a point
     whose stencil leaves its tile straight into the grid); grid:
     (plan.nmesh,)*3 f32, contiguous. `overflow`, an int32 (1,) tensor, gains
-    the number of such points (:func:`overflow_count_plain`).
+    the number of such points (:func:`overflow_count_plain`). `wrap`: see
+    :func:`paint_3d_plain`; the points must have been staged with it.
 
     On CUDA tensors this launches K1 (csrc/tsc_deposit.cu) on the current
     stream, without waiting for the device. On CPU tensors it runs
     :func:`paint_3d_plain` (and :func:`overflow_count_plain` when
     `overflow` is given). Returns `grid`."""
-    kind = _kind(kind)
+    kind, wrap = _kind(kind), _wrap(kind, wrap)
     nmesh = plan.nmesh
     if grid.device.type == 'cpu':
         if overflow is not None:
-            overflow += overflow_count_plain(x, y, z, w, plan, box, offset, kind).to(torch.int32)
-        return paint_3d_plain(grid, x, y, z, w, nmesh, box, offset, kind)
+            overflow += overflow_count_plain(x, y, z, w, plan, box, offset, kind, wrap).to(
+                torch.int32)
+        return paint_3d_plain(grid, x, y, z, w, nmesh, box, offset, kind, wrap)
     tile = tile_bytes(plan.brick, plan.margin)
     if tile > MAX_SMEM_BYTES:
         raise ValueError(f'tsc_deposit_cells: a {tile} B tile is over {MAX_SMEM_BYTES} B')
@@ -344,7 +364,8 @@ def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, ki
         code = lib.tsc_deposit_bricks(
             grid.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), w.data_ptr(),
             work.data_ptr(), work.shape[0], nmesh, *plan.brick, *plan.margin, _f32(box),
-            _f32(offset), KINDS.index(kind), overflow.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            _f32(offset), KINDS.index(kind), int(wrap), overflow.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, 'tsc_deposit_bricks')
     tsc_deposit_cells.launches += 1
@@ -369,10 +390,12 @@ def blocks_per_sm(plan, kind='tsc'):
     return out.value
 
 
-def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', overflow=None):
-    """Paint points onto a new (nmesh,)*3 float32 grid (ops/grid.py:paint_3d
-    with TSC's wrap=True and CIC's wrap=False, as ops/power.py:get_field
-    calls it). px, py, pz: (N,) tensors; weights: (N,) or None (unit).
+def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', overflow=None,
+             wrap=None):
+    """Paint points onto a new (nmesh,)*3 float32 grid (ops/grid.py:paint_3d;
+    `wrap` None takes TSC's wrap=True and CIC's wrap=False, as
+    ops/power.py:get_field calls it). px, py, pz: (N,) tensors; weights: (N,)
+    or None (unit).
 
     On CUDA tensors the points are staged by :func:`stage_bricks` (default
     brick, no margin) and deposited by K1, for every N; `overflow` is K1's
@@ -386,6 +409,89 @@ def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', overf
     )
     grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=cols[0].device)
     if grid.device.type == 'cpu':
-        return paint_3d_plain(grid, *cols, w, nmesh, box, offset, kind)
-    (x, y, z, ws), plan = stage_bricks(cols + [w], nmesh, box, offset=offset, kind=kind)
-    return tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow, kind)
+        return paint_3d_plain(grid, *cols, w, nmesh, box, offset, kind, wrap)
+    (x, y, z, ws), plan = stage_bricks(cols + [w], nmesh, box, offset=offset, kind=kind, wrap=wrap)
+    return tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow, kind, wrap)
+
+
+# ---------------------------------------------------------------------------
+# reference-compatible wrappers (ops/grid.py:740-842)
+# ---------------------------------------------------------------------------
+
+
+def _paint_pos(pos, nmesh, box, weights, offset, kind, wrap, device):
+    """paint_3d of an (N, 3) numpy array or tensor; numpy goes to `device`
+    (None: the card), a tensor is painted where it lies."""
+    if isinstance(pos, torch.Tensor):
+        dev = pos.device
+    else:
+        dev = resolve_device(device)
+        pos = torch.from_numpy(np.ascontiguousarray(pos, np.float32)).to(dev)
+    if weights is not None:
+        weights = torch.as_tensor(weights).to(dev, torch.float32)
+    return paint_3d(pos[:, 0], pos[:, 1], pos[:, 2], nmesh, box, weights, offset, kind,
+                    wrap=wrap)
+
+
+def tsc_parallel(pos, densgrid, box, weights=None, nthread=-1, wrap=True, npartition=None,
+                 sort=False, coord=0, verbose=False, offset=0.0, device=None):
+    """TSC mass assignment with the reference's calling convention
+    (ops/grid.py:tsc_parallel). `nthread`, `npartition`, `sort`, `coord` and
+    `verbose` are accepted for compatibility; K1 needs no striping.
+
+    pos: (N, 3) numpy array (painted on `device`, None: the card) or tensor
+    (painted where it lies). densgrid: an int or a tuple (the cubic shape to
+    allocate; returns the grid as a float32 numpy array), or a cubic ndarray
+    to accumulate into (returns None)."""
+    if isinstance(densgrid, (int, np.integer)):
+        densgrid = (int(densgrid),) * 3
+    if isinstance(densgrid, tuple):
+        nmesh = densgrid[0]
+        assert all(n == nmesh for n in densgrid), 'only cubic grids on device'
+        return _paint_pos(pos, nmesh, box, weights, offset, 'tsc', wrap, device).cpu().numpy()
+    nmesh = densgrid.shape[0]
+    assert densgrid.ndim == 3 and all(n == nmesh for n in densgrid.shape)
+    out = _paint_pos(pos, nmesh, box, weights, offset, 'tsc', wrap, device).cpu().numpy()
+    densgrid += out
+    return None
+
+
+def rightwrap(x, L):
+    """x - L where x >= L (reference cic.py:7-10; scalars or arrays)."""
+    res = np.where(np.asarray(x) >= L, np.asarray(x) - L, x)
+    return res.item() if res.ndim == 0 else res
+
+
+def cic_serial(positions, density, boxsize, weights=None, device=None):
+    """CIC mass assignment (ops/grid.py:cic_serial: accumulates into the
+    ndarray `density` in place; indices wrap). Cubic grids go through K1
+    (unwrapped CIC, on `device` for numpy positions, None: the card);
+    non-cubic grids, the 2-D gz == 1 projected mode among them, take the
+    host path of the JAX package, the same nearest-centre stencil."""
+    gx, gy, gz = density.shape
+    if gx == gy == gz:
+        out = _paint_pos(positions, gx, boxsize, weights, 0.0, 'cic', False, device)
+        density += out.cpu().numpy()
+        return
+    pos = np.asarray(positions)
+    w_pt = np.asarray(weights, np.float64) if weights is not None else 1.0
+    axes = []
+    for d, g in zip(range(3), (gx, gy, gz)):
+        if d == 2 and gz == 1:
+            # 2-D projected mode: the z cloud is the single plane, weight 1
+            axes.append(([np.zeros(len(pos), np.int64)], [1.0]))
+            continue
+        p = pos[:, d] / boxsize * g
+        i = np.floor(p + 0.5)  # nearest cell centre
+        d_c = i - p  # in (-0.5, 0.5]
+        ii = i.astype(np.int64)
+        axes.append((
+            [(ii - 1) % g, ii % g, (ii + 1) % g],
+            [np.where(d_c > 0, d_c, 0.0), 1.0 - np.abs(d_c), np.where(d_c > 0, 0.0, -d_c)],
+        ))
+    (xi, xw), (yi, yw), (zi, zw) = axes
+    for a in range(len(xi)):
+        for b in range(len(yi)):
+            wab = xw[a] * yw[b] * w_pt
+            for c in range(len(zi)):
+                np.add.at(density, (xi[a], yi[b], zi[c]), wab * zw[c])

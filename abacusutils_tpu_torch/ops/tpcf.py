@@ -41,10 +41,11 @@ first and the all-pairs engine differences the coordinates as they are, so a
 pair's float32 ``r2`` can differ in its last bits and a pair at a bin edge
 can change its bin. The JAX package sends catalogs under 100,000 points to
 its tiled engine; this package sends those from :data:`_CELL_MIN_N` = 25,000
-points on to the cell engine, which is faster on the card. So for 25,000 to
-100,000 points with positions outside the box the default dispatch follows
-JAX's **cell** engine (``method='cell'`` there), not its tiled one;
-``method='tile'`` here gives JAX's tiled counts at any size.
+points on to the cell engine, which is faster on the card, unless a
+coordinate of either side lies outside ``[0, lbox)``: those go to the
+all-pairs engine, so the default counts equal JAX's default counts at every
+size. ``method='tile'`` gives JAX's tiled counts at any size,
+``method='cell'`` its cell counts.
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (:func:`count_pairs_cells_plain`, :func:`count_pairs_all_plain`); on CUDA
@@ -122,6 +123,11 @@ MAX_SMEM_BYTES = 232_448
 # fills the card
 K5_MIN_BLOCKS = 1024
 _CELL_MIN_N = 25_000  # below this the all-pairs engine wins on latency
+# below this many points JAX's default is its tiled engine
+# (abacusutils_tpu/ops/tpcf.py:_CELL_MIN_N); from _CELL_MIN_N up to it the
+# default dispatch sends catalogs with a coordinate outside [0, lbox) to the
+# all-pairs engine too, whose counts equal JAX's tiled ones there
+_JAX_CELL_MIN_N = 100_000
 # the cell starts hold nc^3 + 1 offsets a stage (16 MB at 160^3); the finest
 # grid measured on the card is the main path's 133^3
 _NC_MAX = 160
@@ -810,24 +816,39 @@ def round_threshold(lbox, f64=False):
     return float(t)
 
 
-def _one_period(cols1, cols2, lbox):
-    """True where every difference of a coordinate of the two sets (cols2
-    None: of cols1 with itself) lies within 1.49 lbox, from one min/max
+def _col_range(cols1, cols2):
+    """The least and the greatest coordinate of the two sets (cols2 None:
+    cols1 alone), per axis, as float64 numpy (3,) arrays, from one min/max
     reduction on the device, cached (at most 8) by the columns' identity and
     version."""
     both = list(cols1) + ([] if cols2 is None else list(cols2))
-    key = tuple((id(c), c._version) for c in both) + (float(lbox),)
+    key = tuple((id(c), c._version) for c in both)
     for ent in _span_cache:
         if ent[0] == key:
             return ent[1]
     lo = torch.stack([c.min() for c in both])
     hi = torch.stack([c.max() for c in both])
     lo, hi = torch.stack([lo, hi]).double().cpu().reshape(2, -1, 3).unbind(0)
-    ok = bool(((hi.max(0).values - lo.min(0).values) < 1.49 * lbox).all())
+    rng = (lo.min(0).values.numpy(), hi.max(0).values.numpy())
     # hold the columns so the ids in the key cannot be recycled
-    _span_cache.insert(0, (key, ok, both))
+    _span_cache.insert(0, (key, rng, both))
     del _span_cache[_STAGE_CACHE_LEN:]
-    return ok
+    return rng
+
+
+def _one_period(cols1, cols2, lbox):
+    """True where every difference of a coordinate of the two sets (cols2
+    None: of cols1 with itself) lies within 1.49 lbox."""
+    lo, hi = _col_range(cols1, cols2)
+    return bool(((hi - lo) < 1.49 * lbox).all())
+
+
+def _outside_box(cols1, cols2, lbox):
+    """True where a coordinate of either set lies outside [0, lbox), in
+    its own type or in float32 (the cell engine wraps float32 values)."""
+    lo, hi = _col_range(cols1, cols2)
+    return bool((lo < 0).any() or (hi >= lbox).any()
+                or (hi.astype(np.float32) >= np.float32(lbox)).any())
 
 
 def count_pairs_all(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0):
@@ -951,14 +972,24 @@ def _pair_counts(pos1, pos2, edges, nb2, mode, lbox, rmax, aux, method, device, 
         pos1 = np.asarray(pos1, np.float64)
     edges2 = np.asarray(edges).astype(np.float64) ** 2
     nb1 = len(edges2) - 1
-    cell = _cell_pair_counts(pos1, pos2, lbox, rmax, edges2, aux, mode, nb1, nb2, method, device)
+    autocorr = pos2 is None
+    cols1 = cols2 = None
+    engine = method
+    if method is None and _CELL_MIN_N <= _npoints(pos1) < _JAX_CELL_MIN_N:
+        # JAX's default counts these with its tiled engine, which does not
+        # wrap: follow it where wrapping would move a point
+        cols1 = _raw_columns(pos1, dtype, device)
+        cols2 = None if autocorr else _raw_columns(pos2, dtype, cols1[0].device)
+        if _outside_box(cols1, cols2, lbox):
+            engine = 'tile'
+    cell = _cell_pair_counts(pos1, pos2, lbox, rmax, edges2, aux, mode, nb1, nb2, engine, device)
     if cell is not None:
         return cell
-    autocorr = pos2 is None
     _check_tiled_feasible(_npoints(pos1), _npoints(pos1 if autocorr else pos2), lbox, rmax,
                           method=method)
-    cols1 = _raw_columns(pos1, dtype, device)
-    cols2 = None if autocorr else _raw_columns(pos2, dtype, cols1[0].device)
+    if cols1 is None:
+        cols1 = _raw_columns(pos1, dtype, device)
+        cols2 = None if autocorr else _raw_columns(pos2, dtype, cols1[0].device)
     thr = edges_f32(edges2) if dtype == torch.float32 else edges2
     counts = count_pairs_all(cols1, cols2, thr, nb2, mode, lbox, aux)
     return counts.cpu().numpy().reshape(nb1, nb2)

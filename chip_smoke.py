@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HOD, P(k) and pair-count paths on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count and prepare_sim paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -64,10 +64,31 @@ Phases, each printing what it measured:
    one tracer; the stage alone against its byte bound; K4 at each of the six
    pairs' shapes and both modes against its plain version (every bin equal)
    and its bound; then a QSO sample of 8e4 points, which the dispatch gives
-   to the cell engine too, counted again with ``method='tile'`` (K5), the two
+   to K5, as JAX's default does (fewer than 100,000 points, coordinates
+   outside [0, lbox)), counted again with ``method='tile'``, the two
    engines equal on the wrapped sample (and the bins counted in which they
-   differ on the sample as RSD left it, past the faces), and K5 against its
-   plain version and bound at that shape.
+   differ on the sample as RSD left it, past the faces), both counts timed
+   by the default's engine and by the cell engine, and K5 against its plain
+   version and bound at that shape;
+9. K6, the nearest-neighbour distance of prepare_sim's ranks, bit-equal to
+   its plain version on a 1.2e5-particle slab of scripts/hod/bench_ranks.py
+   (seed 17), and K7, the annulus mass sums of Menv, against its plain
+   all-pairs version (rtol 1e-12, the same zeros) on 5e4 clumped halos in a
+   box and in a light cone (``csrc/prepare_sim.cu``);
+10. the engines at real size: ``rank_fields_device`` on the bench_ranks slab
+   (1.2e6 particles) and ten times it, host to host, K6 by CUDA events
+   against its bound, lane occupancy, peak memory, at the first size all
+   five rank fields held to the host per-halo loop (tie-aware) and K6 to its
+   plain version; ``do_menv_device`` on 2e6 clumped halos (docs/
+   performance.md:309) in a box and an octant light cone, K7 by events
+   against its bound and on 2,000 sampled centres against its plain version,
+   both engines on a 5e5 subset; ``shearmark_from_positions`` on 1e8
+   particles at N_dim 1000, R 2 (prepare_sim's defaults), its K1 deposit,
+   host Gaussian filter and ``get_shear`` timed, then K1 at nmesh 1000
+   against the plain scatter;
+11. ``prepare_slab_tables`` on a box slab of 2e5 halos and ~1.2e6 particles
+   with ranks, Menv and the shear rank, with the device engines and with the
+   'host' engines: every column equal (ranksc tie-aware, Menv rtol 1e-12).
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -81,8 +102,8 @@ FFMA/DFMA count of their SASS: the (rp, pi) forms without a quotient and a
 root (K4 with the item-constant wrap, K5 in float32 within one period) must
 hold none.
 
-Each K1 line ("K1 <shape>: ...") gives, at one of the four shapes the main
-paths run (phases 4, 5, 7 b and 7 d), the time by CUDA events over 5 calls
+Each K1 line ("K1 <shape>: ...") gives, at one of the shapes the main
+paths run (phases 4, 5, 6, 7 b, 7 d and 10), the time by CUDA events over 5 calls
 after a warm-up, the bound (the bytes the deposit must move at 3.35 TB/s)
 and its share of the time, the overflow share (galaxies deposited straight
 into the grid because they left their brick's tile), the resident blocks an
@@ -165,6 +186,10 @@ from abacusutils_tpu_torch.ops.tpcf import (
     pair_counts_rppi,
     stage_cells,
 )
+from abacusutils_tpu_torch.models.hod import menv_device, prepare_sim, ranks_device
+from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
+from abacusutils_tpu_torch.ops import grid as tgrid
+from abacusutils_tpu_torch.ops import shear as tshear
 from abacusutils_tpu_torch.testing import edge_points
 
 N_HALO = 10_000_000
@@ -231,6 +256,34 @@ K5_PAIR_OPS = {'rppi': 21, 'smu': 22}
 # of each pair-count kernel instance, by its name in the build log
 PAIR_PTXAS = {}
 PAIR_FMA = {}
+# prepare_sim (phases 9-11): the ranks slab sizes of scripts/hod/bench_ranks.py
+# (its default, and ten times it, nearer a base-box slab after prepare_sim's
+# halo down-sampling), the K6 check slab; Menv at docs/performance.md:309
+# (2e6 halos in 20,000 clumps of sigma 8 Mpc/h in a (2000 Mpc/h)^3 box,
+# r_outer 10, r_inner per halo), held to the host tree on a subset, and the
+# K7 check catalog; the shear field at prepare_sim's defaults shear_N,
+# shear_R and partdown (prepare_sim.py:955-957: a 3 % A subsample of 6912^3
+# particles divided by 100); the slab of phase 11
+N_RANKS = (1_200_000, 12_000_000)
+N_RANKS_CHECK = 120_000
+N_MENV = 2_000_000
+N_MENV_CLUMPS = 20_000
+MENV_SIGMA = 8.0
+MENV_ROUT = 10.0
+N_MENV_HOST = 500_000
+N_MENV_CHECK = 50_000
+N_MENV_SAMPLE = 2_000  # centres held to the plain version at the full size
+N_SHEAR = 100_000_000
+SHEAR_N = 1000
+SHEAR_R = 2.0
+N_SLAB_HALOS = 200_000
+N_SLAB_PARTS = 1_200_000
+MPART = 2.1e9
+HUBBLE = 0.6736
+# float64 operations a K6 pair (3 differences, 3 products, 2 sums) and a K7
+# candidate (the same and the compare) cost, csrc/prepare_sim.cu
+K6_PAIR_OPS = 8
+K7_PAIR_OPS = 9
 
 
 class PhaseError(RuntimeError):
@@ -1013,13 +1066,17 @@ def phase_pairs(hod, mock):
             shapes=shapes, registers=regs[0], spill_stores=regs[1], spill_loads=regs[2])
         print(f'K4 {mode}: the six pairs sum to {sum(r["ms"] for r in shapes):.4f} ms')
 
-    # a QSO sample at survey density: the dispatch gives it to the cell
-    # engine; method='tile' counts it with the all-pairs engine, equal bin
-    # for bin
+    # a QSO sample at survey density: with coordinates outside [0, lbox)
+    # (the mock's frame, and RSD past the faces) and under JAX's 100,000
+    # points, the dispatch gives it to the all-pairs engine, as JAX's
+    # default does; method='cell' counts it with the cell engine
     rng = np.random.default_rng(SEED)
     last = tracers[-1]
     pick = np.sort(rng.choice(counts[last], N_SPARSE, replace=False))
     sparse = {last: {a: mock[last][a][pick] for a in 'xyz'}}
+    past = int(sum(((sparse[last][a] < 0) | (sparse[last][a] >= LBOX)).sum() for a in 'xyz'))
+    engine, other = ('pair_count_all', 'pair_count_cells') if past else (
+        'pair_count_cells', 'pair_count_all')
     reset_launches()
     (wp_s, mp_s), t_sparse = sync_seconds(lambda: (
         hod.compute_wp(sparse, PAIR_BINS, PIMAX),
@@ -1028,10 +1085,10 @@ def phase_pairs(hod, mock):
     paths[f'AbacusHOD.compute_wp + compute_multipole ({N_SPARSE} {last})'] = launches
     print(f'phase 8 sparse {last} ({N_SPARSE} points): compute_wp + compute_multipole '
           f'{t_sparse:.3f} s host to host, launches {({k: v for k, v in launches.items() if v})}')
-    require(launches['pair_count_cells[rppi]'] == 2 and launches['pair_count_cells[smu]'] == 1,
-            f'sparse sample: K4 launches {launches}')
-    require(launches['pair_count_all[rppi]'] + launches['pair_count_all[smu]'] == 0,
-            f'sparse sample took the all-pairs engine: {launches}')
+    require(launches[f'{engine}[rppi]'] == 2 and launches[f'{engine}[smu]'] == 1,
+            f'sparse sample ({past} coordinates outside [0, lbox)): {engine} launches {launches}')
+    require(launches[f'{other}[rppi]'] + launches[f'{other}[smu]'] == 0,
+            f'sparse sample took {other}: {launches}')
     key = f'{last}_{last}'
     require(np.isfinite(wp_s[key]).all() and np.isfinite(mp_s[key]).all(), 'sparse results')
     require(np.array_equal(mp_s[key][:nrp], wp_s[key]), 'sparse wp differs between the calls')
@@ -1054,11 +1111,19 @@ def phase_pairs(hod, mock):
                        pair_counts_rppi(wrapped, PAIR_BINS, PIMAX, LBOX))
         and np.array_equal(tpcf.pair_counts_smu(wrapped, PAIR_BINS, NMU, LBOX, method='tile'),
                            tpcf.pair_counts_smu(wrapped, PAIR_BINS, NMU, LBOX)))
-    # as RSD left the sample: how far the default dispatch (the cell engine)
-    # lies from the all-pairs engine on positions past the faces
-    past = int(sum(((c < 0) | (c >= LBOX)).sum() for c in cols))
-    dd_c = pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX)
-    ds_c = tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX)
+    # as RSD left the sample: how far the cell engine lies from the all-pairs
+    # engine (the default here) on positions past the faces, and what the
+    # default's engine costs against the cell engine's, warm, host to host
+    dd_c = pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX, method='cell')
+    ds_c = tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX, method='cell')
+    dd_d = pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX)
+    ds_d = tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX)
+    t_both = {}
+    for meth in ('cell', None):
+        t_both[meth] = min(sync_seconds(lambda: (
+            pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX, method=meth),
+            tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX, method=meth)))[1]
+            for _ in range(3))
     print(f'phase 8 sparse {last}, method=tile: {t_tile:.3f} s for both counts, launches '
           f'{({k: v for k, v in launches.items() if v})}; on the wrapped columns the all-pairs '
           f'and the cell engine count alike: {same}; on the columns as they are ({past} '
@@ -1066,7 +1131,13 @@ def phase_pairs(hod, mock):
           f'{dd_t.size} (rp, pi) bins by {int(np.abs(dd_c - dd_t).sum())} of {int(dd_t.sum())} '
           f'pairs and in {int((ds_c != ds_t).sum())} of {ds_t.size} (s, mu) bins by '
           f'{int(np.abs(ds_c - ds_t).sum())} of {int(ds_t.sum())} pairs')
+    print(f'phase 8 sparse {last}, the cost of following JAX\'s default: both counts warm, '
+          f'host to host, least of 3: default ({engine}) {t_both[None]:.4f} s, method=cell '
+          f'{t_both["cell"]:.4f} s')
     require(same, 'the all-pairs and the cell engine disagree on the wrapped sparse sample')
+    if past:
+        require(np.array_equal(dd_d, dd_t) and np.array_equal(ds_d, ds_t),
+                'the default dispatch differs from the all-pairs engine past the faces')
     k5 = check_k5(f'K5 at the sparse {last} shape', cols, None, LBOX, PAIR_BINS, torch.float32,
                   time_it=True)
     for mode, (got, ms, plain_ms, err) in k5.items():
@@ -1081,6 +1152,494 @@ def phase_pairs(hod, mock):
     return paths, timing
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: prepare_sim's engines
+# ---------------------------------------------------------------------------
+
+
+def synth_slab(n_target, seed=17):
+    """scripts/hod/bench_ranks.py:synth_slab: halos of power-law sizes (P(n) ~
+    n^-2 over [20, 4000] particles), each a Gaussian clump of particles, 70 %
+    of them selected (at least two a halo)."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(int(n_target / 55) * 2)
+    lo, hi = 20.0, 4000.0
+    sizes = (lo ** -1 - u * (lo ** -1 - hi ** -1)) ** -1
+    pn = sizes.astype(np.int64)
+    pn = pn[np.cumsum(pn) <= n_target]
+    ps = np.concatenate([[0], np.cumsum(pn)])[:-1]
+    n = int(pn.sum())
+    n_halo = len(pn)
+    hpos = (rng.random((n_halo, 3)) * 500).astype(np.float32)
+    hvel = rng.normal(0, 300, (n_halo, 3)).astype(np.float32)
+    N = (pn * rng.uniform(5, 20, n_halo)).astype(np.int64)
+    r25 = (rng.random(n_halo) * 0.2 + 0.05).astype(np.float32)
+    r98 = (r25 * rng.uniform(1.5, 5.5, n_halo)).astype(np.float32)
+    ppos = np.empty((n, 3), np.float32)
+    pvel = np.empty((n, 3), np.float32)
+    submask = np.zeros(n, bool)
+    for j in range(n_halo):
+        sl = slice(ps[j], ps[j] + pn[j])
+        ppos[sl] = hpos[j] + rng.normal(0, 0.4, (pn[j], 3)).astype(np.float32)
+        pvel[sl] = hvel[j] + rng.normal(0, 120, (pn[j], 3)).astype(np.float32)
+        m = rng.random(pn[j]) < 0.7
+        if m.sum() < 2:
+            m[:2] = True
+        submask[sl] = m
+    return ps, pn, n, hpos, hvel, N, r25, r98, ppos, pvel, submask
+
+
+def rank_args(slab):
+    """rank_fields_device's arguments for a synth_slab, every halo ranked
+    (scripts/hod/bench_ranks.py:run's per-particle columns)."""
+    ps, pn, n, hpos, hvel, N, r25, r98, ppos, pvel, submask = slab
+    owner = np.repeat(np.arange(len(pn)), pn)
+    nsub = np.bincount(owner, weights=submask, minlength=len(pn))
+    return (ppos, pvel, submask, owner.astype(np.int32), nsub[owner], ps, pn, hpos[owner],
+            hvel[owner], (N * MPART)[owner].astype(np.float64), r25[owner], r98[owner], HUBBLE)
+
+
+def k6_inputs(args, dev):
+    """K6's tensors for rank_fields_device's arguments: (x, y, z, query,
+    work, pstart, pnum, seg) on `dev`."""
+    ppos, _, submask, seg, _, ps, pn = args[:7]
+    x, y, z = (torch.from_numpy(ppos[:, a].copy()).to(dev) for a in range(3))
+    seg_d = torch.from_numpy(seg).to(dev)
+    query, work = ranks_device.nn_work(seg_d, torch.from_numpy(submask).to(dev), len(ps))
+    ps_d, pn_d = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (ps, pn))
+    return x, y, z, query, work, ps_d, pn_d, seg_d
+
+
+def k6_plain(inp):
+    x, y, z, query, _, ps_d, pn_d, seg_d = inp
+    return ranks_device.nn_within_halo_plain(x, y, z, query, ps_d, pn_d, seg_d)
+
+
+def k6_bound(args):
+    """The least time (ms) of K6's work: its pairs (each query against its
+    halo's window) at 8 float64 operations (K6_PAIR_OPS) at 34 TFLOP/s, or
+    its bytes (x, y, z of every particle, each query's index and result) at
+    3.35 TB/s where those take longer. Returns (ms, bound_by, pairs)."""
+    submask, seg, ps, pn = args[2], args[3], args[5], args[6]
+    q = np.bincount(seg[submask & (seg >= 0)], minlength=len(ps))
+    pairs = float((q * pn).sum())
+    t_ops = pairs * K6_PAIR_OPS / F64_OPS_PER_S * 1e3
+    t_bytes = (12 * len(seg) + 12 * float(q.sum())) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes', pairs
+
+
+def k6_occupancy(work, pnum, small=64):
+    """Busy threads of K6's blocks (queries over K6_QUERIES an item), over all
+    items and over the items of halos of at most `small` particles."""
+    w = work.long()
+    nq = w[:, 2] - w[:, 1]
+    real = nq > 0
+    size = pnum.long()[w[:, 0]]
+
+    def occ(m):
+        return float(nq[m].sum()) / max(int(m.sum()) * ranks_device.K6_QUERIES, 1)
+
+    return occ(real), occ(real & (size <= small))
+
+
+def check_ranks_host(dev_ranks, host_ranks, args, dev):
+    """The five fields against the host loop's, tie-aware: the same ranks a
+    halo, and equal wherever the particle's key is shared by no other
+    selected particle of its halo (numpy's argsort orders ties as it likes;
+    float32 keys tie by chance in halos of thousands, mutual nearest
+    neighbours tie always). Returns the number of tied keys of each field."""
+    submask, seg = args[2], args[3]
+    keys = list(ranks_device._host_rank_keys(*args[:2], *args[7:]))
+    keys = [keys[0], keys[1], keys[3], keys[2]]  # ranks, ranksv, ranksp, ranksr
+    keys.append(np.sqrt(ranks_device.nn_within_halo(*k6_inputs(args, dev)).cpu().numpy()))
+    sel = np.flatnonzero(submask & (seg >= 0))
+    n_tied = []
+    for name, a, b, key in zip(('ranks', 'ranksv', 'ranksp', 'ranksr', 'ranksc'), dev_ranks,
+                               host_ranks, keys):
+        o = np.lexsort((key[sel], seg[sel]))
+        s_seg, s_key = seg[sel][o], key[sel][o]
+        same = (s_seg[1:] == s_seg[:-1]) & (s_key[1:] == s_key[:-1])
+        tied = np.zeros(len(sel), bool)
+        tied[1:] |= same
+        tied[:-1] |= same
+        untied = sel[o][~tied]
+        bad = int((a[untied] != b[untied]).sum())
+        require(bad == 0, f'{name}: {bad} untied ranks differ from the host loop')
+        oa = np.lexsort((a[sel], seg[sel]))
+        ob = np.lexsort((b[sel], seg[sel]))
+        require(np.array_equal(a[sel][oa], b[sel][ob]),
+                f'{name}: the rank multisets of a halo differ from the host loop')
+        n_tied.append(int(tied.sum()))
+    return n_tied
+
+
+def host_rank_loop(slab):
+    """The 'host' engine: prepare_sim._rank_fields halo by halo."""
+    ps, pn, n, hpos, hvel, N, r25, r98, ppos, pvel, submask = slab
+    out = [np.full(n, -1.0) for _ in range(5)]
+    with np.errstate(invalid='ignore', divide='ignore'):
+        for j in range(len(ps)):
+            sl = slice(ps[j], ps[j] + pn[j])
+            m = submask[sl]
+            prepare_sim._rank_fields(
+                np.arange(ps[j], ps[j] + pn[j])[m], ppos[sl][m], pvel[sl][m], ppos[sl], hpos[j],
+                hvel[j], N[j] * MPART, r25[j], r98[j], HUBBLE, *out)
+    return out
+
+
+def menv_catalog(n, nclump, lc, seed):
+    """Clumped halos for the Menv engine: nclump centres, each halo Gaussian
+    (sigma MENV_SIGMA) about one, in the (LBOX)^3 box centred on 0 or, for a
+    light cone, in an octant shell 500 to 1500 Mpc/h from the origin; masses
+    from 10^10.8 to 10^15 Msun/h with dN/dM ~ M^-2 (mcut 1e11 keeps 63 %),
+    r_inner the r98 of such a halo (1 Mpc/h at 10^14)."""
+    rng = np.random.default_rng(seed)
+    if lc:
+        u = np.abs(rng.normal(size=(nclump, 3)))
+        cen = u / np.linalg.norm(u, axis=1)[:, None] * rng.uniform(500, 1500, nclump)[:, None]
+    else:
+        cen = rng.random((nclump, 3)) * LBOX - LBOX / 2
+    pos = cen[rng.integers(0, nclump, n)] + rng.normal(0, MENV_SIGMA, (n, 3))
+    if not lc:
+        pos = np.mod(pos + LBOX / 2, LBOX) - LBOX / 2
+    lo, hi = 10.0**10.8, 1e15
+    mass = 1.0 / (1.0 / lo - rng.random(n) * (1.0 / lo - 1.0 / hi))
+    r_inner = (1.0 * (mass / 1e14) ** (1 / 3)).astype(np.float32)
+    return dict(pos=pos.astype(np.float32), mass=mass, r_inner=r_inner, r_outer=MENV_ROUT,
+                halo_lc=lc, Lbox=LBOX, mcut=1e11)
+
+
+def k7_call(st, kw):
+    cols, starts, ukeys, nbrs, ncs, periodic, work, _ = st
+    return lambda: menv_device.menv_annulus(  # noqa: E731
+        cols, starts, ukeys, nbrs, ncs, periodic, kw['Lbox'] if periodic else 0.0,
+        kw['r_outer'] ** 2, kw['mcut'], work)
+
+
+def k7_candidates(st, mcut):
+    """The halos in the 27 neighbour cells of every centre above mcut: the
+    pairs K7's walk evaluates (None where the cells are indexed densely)."""
+    cols, starts, ukeys, nbrs, ncs, periodic, work, _ = st
+    if ukeys is not None:
+        return None
+    occ = torch.diff(starts.long())
+    counts = occ.double().reshape(*[int(c) for c in ncs])
+    n27 = torch.zeros_like(counts)
+    pad = torch.nn.functional.pad(counts[None, None], (1, 1, 1, 1, 1, 1))[0, 0]
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                if periodic:
+                    n27 += torch.roll(counts, (dx, dy, dz), (0, 1, 2))
+                else:
+                    n27 += pad[1 + dx:1 + dx + counts.shape[0], 1 + dy:1 + dy + counts.shape[1],
+                               1 + dz:1 + dz + counts.shape[2]]
+    cell = torch.repeat_interleave(torch.arange(counts.numel(), device=starts.device), occ)
+    return float(n27.reshape(-1)[cell][cols[3] > mcut].sum())
+
+
+def k7_bound(cand, n):
+    """The least time (ms) of K7's work: its candidates at 9 float64
+    operations (K7_PAIR_OPS) at 34 TFLOP/s, or the bytes (x, y, z, m, r_in^2
+    of every halo read and its Menv written) at 3.35 TB/s where those take
+    longer."""
+    t_ops = cand * K7_PAIR_OPS / F64_OPS_PER_S * 1e3
+    t_bytes = 48 * n / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def check_k7(tag, kw, dev, centres=None):
+    """K7 against its plain version on the catalog `kw` (all centres, or a
+    sample of `centres` of them): rtol 1e-12 and the same zeros. Returns
+    (K7 ms, plain ms, max|d|, the stage)."""
+    st = menv_device.stage_menv(kw['pos'], kw['mass'], kw['r_inner'], kw['r_outer'],
+                                kw['halo_lc'], kw['Lbox'], dev)
+    cols, periodic = st[0], st[5]
+    k7 = k7_call(st, kw)
+    got = k7()
+    sample = None
+    if centres is not None:
+        cand = torch.nonzero(cols[3] > kw['mcut']).flatten()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        sample = cand[torch.randperm(cand.numel(), generator=gen, device=dev)[:centres]]
+
+    def plain():
+        return menv_device.menv_annulus_plain(
+            *cols, periodic, kw['Lbox'] if periodic else 0.0, kw['r_outer'] ** 2, kw['mcut'],
+            centres=sample)
+
+    ref = plain()
+    torch.cuda.synchronize()
+    got_c, ref_c = (got, ref) if sample is None else (got[sample], ref[sample])
+    err = float((got_c - ref_c).abs().max())
+    rel = float(((got_c - ref_c).abs() / ref_c.abs().clamp_min(1e-300)).max())
+    zeros = bool(torch.equal(got_c == 0, ref_c == 0))
+    ms = event_ms(k7, reps=3)
+    plain_ms = event_ms(plain, reps=1)
+    print(f'{tag}: K7 {ms:.4f} ms vs plain {plain_ms:.4f} ms ({got_c.numel()} centres held), '
+          f'max|d| {err:.3e}, max rel {rel:.3e}, same zeros {zeros}, nonzero '
+          f'{int((got_c != 0).sum())}')
+    require(zeros and bool(((got_c - ref_c).abs() <= 1e-12 * ref_c.abs()).all()),
+            f'{tag}: K7 disagrees with its plain version (max rel {rel:.3e}, zeros {zeros})')
+    return ms, plain_ms, err, st
+
+
+def phase_prep_kernels(dev):
+    """Phase 9: K6 and K7 against their plain versions."""
+    t0 = time.perf_counter()
+    slab = synth_slab(N_RANKS_CHECK)
+    inp = k6_inputs(rank_args(slab), dev)
+    got = ranks_device.nn_within_halo(*inp)
+    ref = k6_plain(inp)
+    q = inp[3].long()
+    same = bool(torch.equal(got[q], ref[q]))
+    ms = event_ms(lambda: ranks_device.nn_within_halo(*inp), 3)
+    plain_ms = event_ms(lambda: k6_plain(inp), 1)
+    print(f'phase 9 K6 vs plain: {slab[2]} particles in {len(slab[0])} halos (seed 17), '
+          f'{q.numel()} queries, NN d^2 bit-equal {same}; K6 {ms:.4f} ms, plain {plain_ms:.4f} ms')
+    require(same, 'K6 and its plain version differ')
+    for lc in (False, True):
+        kw = menv_catalog(N_MENV_CHECK, N_MENV_CHECK // 100, lc, SEED + 3)
+        check_k7(f'phase 9 K7 vs plain, {N_MENV_CHECK} clumped halos, '
+                 f'{"light cone" if lc else "box"}', kw, dev)
+    print(f'phase 9 in {time.perf_counter() - t0:.1f} s')
+
+
+def phase_ranks(dev, paths, timing):
+    """Phase 10 (a): rank_fields_device at the bench_ranks slab and ten times
+    it, host to host (host keys, upload, K6, five sorts, download), K6 by
+    CUDA events, peak memory; at the first size all five fields held to the
+    host loop and K6 to its plain version."""
+    recs = []
+    for n_target in N_RANKS:
+        slab, t_syn = sync_seconds(lambda: synth_slab(n_target))
+        args = rank_args(slab)
+        n, nh = slab[2], len(slab[0])
+        tag = f'rank_fields_device ({n} particles, {nh} halos)'
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        dev_ranks, t_cold = sync_seconds(lambda: ranks_device.rank_fields_device(*args))
+        paths[tag] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        require(paths[tag]['nn_within_halo'] == 1, f'{tag}: K6 launches {paths[tag]}')
+        _, t_warm = sync_seconds(lambda: ranks_device.rank_fields_device(*args))
+        inp = k6_inputs(args, dev)
+        ms = event_ms(lambda: ranks_device.nn_within_halo(*inp), 3)
+        bound, by, pairs = k6_bound(args)
+        occ, occ_small = k6_occupancy(inp[4], inp[6])
+        rec = dict(shape=f'{n} particles, {nh} halos', ms=ms, bound_ms=bound, bound_by=by,
+                   bound_share=bound / ms, pairs=pairs, lane_occupancy=occ,
+                   lane_occupancy_small_halos=occ_small, host_to_host_cold_s=t_cold,
+                   host_to_host_warm_s=t_warm, peak_bytes=peak)
+        line = (f'phase 10 {tag}: host to host cold {t_cold:.3f} s, warm {t_warm:.3f} s '
+                f'(slab built in {t_syn:.1f} s); K6 {ms:.4f} ms, bound {bound:.4f} ms by {by} '
+                f'({pairs:.4e} pairs), share {bound / ms:.3f}; lane occupancy {occ:.3f}, on '
+                f'halos of at most 64 particles {occ_small:.3f}; peak memory '
+                f'{peak / 2**30:.3f} GiB')
+        if n_target == N_RANKS[0]:
+            got = ranks_device.nn_within_halo(*inp)
+            ref = k6_plain(inp)
+            q = inp[3].long()
+            require(bool(torch.equal(got[q], ref[q])), f'{tag}: K6 and its plain version differ')
+            rec['plain_ms'] = event_ms(lambda: k6_plain(inp), 1)
+            rec['max_abs_err'] = 0.0
+            # seg_rank (two stable sorts, no kernel) on the NN key: bytes read
+            # once (seg 4 B, sel 1 B, key 8 B) and the rank written (8 B)
+            sel_d = torch.from_numpy(args[2]).to(dev)
+            rec['seg_rank_ms'] = event_ms(lambda: ranks_device.seg_rank(inp[7], sel_d, got), 3)
+            rec['seg_rank_bound_ms'] = 21 * n / HBM_BYTES_PER_S * 1e3
+            line += (f'; seg_rank {rec["seg_rank_ms"]:.4f} ms (bound '
+                     f'{rec["seg_rank_bound_ms"]:.4f} ms by bytes)')
+            host, t_host = sync_seconds(lambda: host_rank_loop(slab))
+            n_tied = check_ranks_host(dev_ranks, host, args, dev)
+            line += (f'; plain K6 {rec["plain_ms"]:.1f} ms; host loop {t_host:.3f} s, all five '
+                     f'fields equal (tied keys of each: {n_tied})')
+            rec['host_loop_s'] = t_host
+        print(line)
+        recs.append(rec)
+    top = recs[0]
+    timing['nn_within_halo'] = dict(
+        ms=top['ms'], plain_ms=top['plain_ms'], max_abs_err=top['max_abs_err'],
+        bound_ms=top['bound_ms'], bound_by=top['bound_by'], library_ms=None, shape=top['shape'],
+        shapes=recs)
+
+
+def phase_menv(dev, paths):
+    """Phase 10 (b): do_menv_device on 2e6 clumped halos, box and light cone,
+    host to host; K7 by CUDA events against its bound and, on sampled
+    centres, against its plain version; both engines on a 5e5 subset.
+    Returns K7's records, box first."""
+    import os
+
+    recs = []
+    nthread = len(os.sched_getaffinity(0))
+    for lc in (False, True):
+        form = 'light cone' if lc else 'box'
+        kw = menv_catalog(N_MENV, N_MENV_CLUMPS, lc, SEED + 5)
+        tag = f'do_menv_device ({N_MENV} clumped halos, {form})'
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        menv, t_cold = sync_seconds(lambda: menv_device.do_menv_device(**kw))
+        paths[tag] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        require(paths[tag]['menv_annulus'] == 1, f'{tag}: K7 launches {paths[tag]}')
+        require(np.isfinite(menv).all() and (menv != 0).mean() > 0.5, f'{tag}: Menv {menv[:5]}')
+        _, t_warm = sync_seconds(lambda: menv_device.do_menv_device(**kw))
+        ms, plain_ms, err, st = check_k7(f'phase 10 {tag}', kw, dev, centres=N_MENV_SAMPLE)
+        cand = k7_candidates(st, kw['mcut'])
+        bound, by = k7_bound(cand, N_MENV)
+        del st
+        sub = dict(kw, pos=kw['pos'][:N_MENV_HOST], mass=kw['mass'][:N_MENV_HOST],
+                   r_inner=kw['r_inner'][:N_MENV_HOST])
+        d_sub, t_dsub = sync_seconds(lambda: menv_device.do_menv_device(**sub))
+        h_sub, t_hsub = sync_seconds(lambda: do_Menv_from_tree(**sub, nthread=nthread))
+        rel = float(np.max(np.abs(d_sub - h_sub) / np.maximum(np.abs(h_sub), 1e-300)))
+        zeros = bool(np.array_equal(d_sub == 0, h_sub == 0))
+        print(f'phase 10 {tag}: host to host cold {t_cold:.3f} s, warm {t_warm:.3f} s; K7 '
+              f'{ms:.4f} ms, bound {bound:.4f} ms by {by} ({cand:.4e} candidates), share '
+              f'{bound / ms:.3f}; peak memory {peak / 2**30:.3f} GiB; {N_MENV_HOST} subset: device '
+              f'{t_dsub:.3f} s, host tree ({nthread} threads) {t_hsub:.3f} s, max rel '
+              f'{rel:.3e}, same zeros {zeros}')
+        require(zeros and rel <= 1e-12, f'{tag}: the subset differs from the host tree')
+        recs.append(dict(shape=f'{N_MENV} halos, {form}', ms=ms, bound_ms=bound, bound_by=by,
+                         bound_share=bound / ms, candidates=cand, max_abs_err=err,
+                         sampled_centres=N_MENV_SAMPLE, plain_sample_ms=plain_ms,
+                         host_to_host_cold_s=t_cold, host_to_host_warm_s=t_warm,
+                         peak_bytes=peak, subset_device_s=t_dsub, subset_host_tree_s=t_hsub))
+    return recs
+
+
+def phase_shear(dev, paths):
+    """Phase 10 (c): the shear field of 1e8 particles at N_dim 1000, R 2 through
+    shearmark_from_positions (K1, the host Gaussian filter, get_shear), each
+    step timed; then K1 at nmesh 1000 against the plain scatter. Returns
+    (the shear field, K1's record)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    pos = torch.rand((N_SHEAR, 3), generator=gen, device=dev) * LBOX - LBOX / 2
+    half = N_SHEAR // 2
+    cen = torch.rand((N_SHEAR // 1000, 3), generator=gen, device=dev) * LBOX - LBOX / 2
+    pick = torch.randint(0, cen.shape[0], (half,), generator=gen, device=dev)
+    pos[:half] = cen[pick] + torch.randn((half, 3), generator=gen, device=dev) * 2.0
+    del pick, cen
+    steps = {}
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            out, steps[name] = sync_seconds(lambda: fn(*a, **k))
+            return out
+
+        return mod, name, fn, run
+
+    wrapped = [timed(tgrid, 'tsc_parallel'), timed(tshear, 'smooth_density'),
+               timed(tshear, 'get_shear')]
+    tag = f'shearmark_from_positions ({N_SHEAR} particles, {SHEAR_N}^3, R {SHEAR_R})'
+    for mod, name, _, run in wrapped:
+        setattr(mod, name, run)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        shearmark, t_total = sync_seconds(
+            lambda: prepare_sim.shearmark_from_positions(pos, SHEAR_N, SHEAR_R, LBOX))
+        paths[tag] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for mod, name, fn, _ in wrapped:
+            setattr(mod, name, fn)
+    require(paths[tag]['tsc_deposit_cells[tsc]'] == 1, f'{tag}: K1 launches {paths[tag]}')
+    require(shearmark.shape == (SHEAR_N,) * 3 and shearmark.dtype == np.float32
+            and bool(np.isfinite(shearmark).all()) and shearmark.max() > 0, 'shear field')
+    dsmo = torch.randn((SHEAR_N,) * 3, generator=gen, device=dev)
+    karr = np.fft.fftfreq(SHEAR_N, d=LBOX / (2 * np.pi * SHEAR_N)).astype(np.float32)
+    karr = torch.from_numpy(karr).to(dev)
+    shear_ms = event_ms(lambda: tshear.shear_grid(dsmo, karr, SHEAR_N), 1)
+    del dsmo
+    print(f'phase 10 {tag}: {t_total:.3f} s host to host: tsc_parallel (stage, K1, download) '
+          f'{steps["tsc_parallel"]:.3f} s, host Gaussian filter {steps["smooth_density"]:.3f} s, '
+          f'get_shear (upload, FFTs, download) {steps["get_shear"]:.3f} s; the shear of a grid '
+          f'on the card {shear_ms:.1f} ms; peak memory {peak / 2**30:.3f} GiB')
+    cols = [pos[:, a].contiguous() for a in range(3)]
+    del pos
+    w = torch.ones_like(cols[0])
+    (x, y, z, ws), plan = stage_bricks(cols + [w], SHEAR_N, LBOX)
+    del cols, w
+    _, _, _, rec = time_k1(f'shear field (phase 10), {SHEAR_N}^3, 1 launch, 1 grid',
+                           [[(x, y, z, ws, plan)]], SHEAR_N, 'tsc')
+    rec.pop('grid')
+    rec.update(host_filter_s=steps['smooth_density'], get_shear_s=steps['get_shear'],
+               tsc_parallel_s=steps['tsc_parallel'], shear_grid_ms=shear_ms, peak_bytes=peak)
+    return shearmark, rec
+
+
+def slab_catalog(seed):
+    """A box slab of N_SLAB_HALOS halos (N ~ N^-2 over [20, 1e5] particles of
+    MPART) in 20,000 clumps of sigma 8 Mpc/h, with about N_SLAB_PARTS A
+    particles (3.5 % of N) laid out halo by halo."""
+    rng = np.random.default_rng(seed)
+    n = N_SLAB_HALOS
+    N = (1.0 / (1 / 20 - rng.random(n) * (1 / 20 - 1e-5))).astype(np.int64)
+    cen = rng.random((N_MENV_CLUMPS, 3)) * LBOX - LBOX / 2
+    pos = cen[rng.integers(0, N_MENV_CLUMPS, n)] + rng.normal(0, MENV_SIGMA, (n, 3))
+    pos = (np.mod(pos + LBOX / 2, LBOX) - LBOX / 2).astype(np.float32)
+    npout = np.round(N * 0.035).astype(np.int64)
+    halos = {
+        'N': N, 'x_L2com': pos, 'v_L2com': rng.normal(0, 300, (n, 3)).astype(np.float32),
+        'r90_L2com': rng.uniform(0.1, 0.8, n).astype(np.float32),
+        'r25_L2com': rng.uniform(0.03, 0.2, n).astype(np.float32),
+        'r98_L2com': rng.uniform(0.3, 1.5, n).astype(np.float32),
+        'npstartA': np.concatenate([[0], np.cumsum(npout)[:-1]]), 'npoutA': npout,
+        'id': np.arange(n, dtype=np.int64) + 10**9,
+        'sigmav3d_L2com': rng.uniform(50, 400, n).astype(np.float32),
+    }
+    owner = np.repeat(np.arange(n), npout)
+    parts = {'pos': (pos[owner] + rng.normal(0, 0.3, (len(owner), 3))).astype(np.float32),
+             'vel': rng.normal(0, 200, (len(owner), 3)).astype(np.float32)}
+    return halos, parts
+
+
+def phase_slab(paths, shearmark):
+    """Phase 11: prepare_slab_tables on a box slab with ranks, the env and the
+    shear rank, with the device engines and with the 'host' engines: the
+    same tables (ranksc tie-aware, Menv at rtol 1e-12)."""
+    halos, parts = slab_catalog(SEED + 11)
+    header = {'BoxSizeHMpc': LBOX, 'ParticleMassHMsun': MPART, 'H0': 100 * HUBBLE}
+    kw = dict(i=0, MT=True, want_ranks=True, want_AB=True, want_shear=True, shearmark=shearmark,
+              newseed=600, halo_lc=False)
+    tag = (f'prepare_slab_tables ({N_SLAB_HALOS} halos, {len(parts["pos"])} particles, box, '
+           'device engines)')
+    reset_launches()
+    dev_out, t_dev = sync_seconds(lambda: prepare_sim.prepare_slab_tables(halos, parts, header,
+                                                                          **kw))
+    paths[tag] = read_launches()
+    require(paths[tag]['nn_within_halo'] == 1 and paths[tag]['menv_annulus'] == 1,
+            f'{tag}: launches {paths[tag]}')
+    host_out, t_host = sync_seconds(lambda: prepare_sim.prepare_slab_tables(
+        halos, parts, header, ranks_engine='host', menv_engine='host', **kw))
+    for part in ('halos', 'particles'):
+        a, b = dev_out[part], host_out[part]
+        require(list(a) == list(b), f'{part}: columns differ')
+        for k in a:
+            if k != 'ranksc':
+                require(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                        f'{part} {k} differs between the engines')
+    pa, pb = dev_out['particles'], host_out['particles']
+    oa = np.lexsort((pa['ranksc'], pa['halo_id']))
+    ob = np.lexsort((pb['ranksc'], pb['halo_id']))
+    require(np.array_equal(pa['ranksc'][oa], pb['ranksc'][ob]), 'ranksc multisets differ')
+    same_c = float((pa['ranksc'] == pb['ranksc']).mean())
+    ea, eb = dev_out['env']['Menv'], host_out['env']['Menv']
+    rel = float(np.max(np.abs(ea - eb) / np.maximum(np.abs(eb), 1e-300)))
+    require(np.array_equal(ea == 0, eb == 0) and rel <= 1e-12, f'env Menv rel {rel:.3e}')
+    print(f'phase 11 {tag}: {t_dev:.3f} s host to host, with the host engines {t_host:.3f} s; '
+          f'{len(dev_out["halos"]["id"])} halos and {len(pa["pos"])} particles kept, '
+          f'{int((pa["ranks"] > -1).sum())} with ranks; every column equal, ranksc equal at '
+          f'{same_c:.4f} of the particles and as multisets a halo; Menv max rel {rel:.3e}, '
+          f'{int((ea != 0).sum())} nonzero')
+
+
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
@@ -1092,6 +1651,10 @@ KERNELS = {
                           'abacusutils_tpu/ops/tpcf.py:330'),
     'count_pairs_all': (count_pairs_all, 'abacusutils_tpu_torch/csrc/pair_count.cu',
                         'abacusutils_tpu/ops/tpcf.py:39'),
+    'nn_within_halo': (ranks_device.nn_within_halo, 'abacusutils_tpu_torch/csrc/prepare_sim.cu',
+                       'abacusutils_tpu/models/hod/ranks_device.py:271'),
+    'menv_annulus': (menv_device.menv_annulus, 'abacusutils_tpu_torch/csrc/prepare_sim.cu',
+                     'abacusutils_tpu/models/hod/menv_device.py:152'),
 }
 # the kernels line's entries: (kernel, form); a form's launches are its
 # wrapper's launches_by_form count (None: the wrapper's whole count)
@@ -1108,6 +1671,8 @@ FORMS = {
     'pair_count_cells[smu]': ('count_pairs_cells', 'smu', 'abacusutils_tpu/ops/tpcf.py:330'),
     'pair_count_all[rppi]': ('count_pairs_all', 'rppi', 'abacusutils_tpu/ops/tpcf.py:39'),
     'pair_count_all[smu]': ('count_pairs_all', 'smu', 'abacusutils_tpu/ops/tpcf.py:84'),
+    'nn_within_halo': ('nn_within_halo', None, 'abacusutils_tpu/models/hod/ranks_device.py:271'),
+    'menv_annulus': ('menv_annulus', None, 'abacusutils_tpu/models/hod/menv_device.py:152'),
 }
 
 
@@ -1608,7 +2173,8 @@ def kernel_line(paths, timing):
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'], 'plain_ms': t['plain_ms'],
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             **{k: t[k] for k in ('kernel_ms', 'in_bin_share', 'library_call', 'shape', 'shapes',
-                                  'total_ms', 'registers', 'spill_stores', 'spill_loads')
+                                  'plain_shape', 'total_ms', 'registers', 'spill_stores',
+                                  'spill_loads')
                if k in t},
         })
     return {'kernels': out}
@@ -1645,18 +2211,39 @@ def main():
         timing['tsc_deposit_cells[cic]']['shapes'] = shapes7[1:]
         paths8, timing8 = phase_pairs(hod, mock)
         timing.update(timing8)
+        del hod, mock
+        phase_prep_kernels(dev)
+        paths10 = {}
+        t10 = time.perf_counter()
+        phase_ranks(dev, paths10, timing)
+        menv_recs = phase_menv(dev, paths10)
+        shearmark, k1_rec = phase_shear(dev, paths10)
+        timing['tsc_deposit_cells[tsc]']['shapes'].append(k1_rec)
+        print(f'phase 10 in {time.perf_counter() - t10:.1f} s')
+        # K7's kernels-line entry: the box's time at its main path's shape,
+        # the plain version's on the sampled centres of that shape
+        top = menv_recs[0]
+        timing['menv_annulus'] = dict(
+            ms=top['ms'], plain_ms=top['plain_sample_ms'], max_abs_err=top['max_abs_err'],
+            bound_ms=top['bound_ms'], bound_by=top['bound_by'], library_ms=None,
+            shape=top['shape'], plain_shape=f'{N_MENV_SAMPLE} sampled centres of {top["shape"]}',
+            shapes=menv_recs)
+        t11 = time.perf_counter()
+        phase_slab(paths10, shearmark)
+        print(f'phase 11 in {time.perf_counter() - t11:.1f} s')
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
             'AbacusHOD.run_hod_pk_fused (light cone)': lc[0],
             **paths7,
             **paths8,
+            **paths10,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

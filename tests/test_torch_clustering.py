@@ -7,9 +7,10 @@ tests/test_torch_run_hod.py does).
 The mock is the JAX run_hod's, carried over with convert.mock_from_numpy, so
 both packages count the same float32 positions. The test catalogs are far
 below the 25,000 points at which the port's dispatch picks the cell engine
-(100,000 in the JAX package), so
-`_CELL_MIN_N` is lowered in both packages for the tests that mean that
-engine: it is the one a real mock takes, it computes in float32 in both
+(100,000 in the JAX package, which the port follows for catalogs outside
+[0, lbox), as the mock's are: `_JAX_CELL_MIN_N`), so
+`_CELL_MIN_N` is lowered in both packages, and with it the port's
+`_JAX_CELL_MIN_N`, for the tests that mean that engine: it is the one a real mock takes, it computes in float32 in both
 packages whatever JAX's x64 flag says, and the counts are then equal.
 Tolerance: rtol 1e-12 (equal integer counts, then the same float64 host
 arithmetic in another order of operations). The unpatched dispatch (the
@@ -52,6 +53,7 @@ def hods():
 def cell_engine(monkeypatch):
     monkeypatch.setattr(jtpcf, '_CELL_MIN_N', 100)
     monkeypatch.setattr(ttpcf, '_CELL_MIN_N', 100)
+    monkeypatch.setattr(ttpcf, '_JAX_CELL_MIN_N', 100)
     ttpcf._stage_cache.clear()
     yield
     ttpcf._stage_cache.clear()

@@ -826,3 +826,142 @@ def test_pair_counts_entry_points_on_card(cuda_device):
     assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5) == (1, 0)
     npt.assert_array_equal(cells, ttpcf.pair_counts_smu(more, PAIR_EDGES, 20, lbox, method='tile'))
     ttpcf._stage_cache.clear()
+
+
+# ---------------------------------------------------------------------------
+# prepare_sim: K6, K7 and the engines around them
+# ---------------------------------------------------------------------------
+
+
+def _rank_slab(sizes, seed):
+    """Halos of the given particle counts, each a Gaussian clump, with a
+    duplicated position in the first (a zero NN distance) and 70 % of the
+    particles selected; returns the per-particle arguments of
+    rank_fields_device."""
+    rng = np.random.default_rng(seed)
+    pn = np.asarray(sizes, np.int64)
+    ps = np.concatenate([[0], np.cumsum(pn)[:-1]])
+    n = int(pn.sum())
+    owner = np.repeat(np.arange(len(pn)), pn)
+    hpos = (rng.random((len(pn), 3)) * 500).astype(np.float32)
+    hvel = rng.normal(0, 300, (len(pn), 3)).astype(np.float32)
+    ppos = (hpos[owner] + rng.normal(0, 0.4, (n, 3))).astype(np.float32)
+    pvel = (hvel[owner] + rng.normal(0, 120, (n, 3))).astype(np.float32)
+    ppos[1] = ppos[0]
+    submask = rng.random(n) < 0.7
+    submask[ps] = submask[ps + 1] = True
+    nsub = np.bincount(owner, weights=submask, minlength=len(pn))
+    r25 = (rng.random(len(pn)) * 0.2 + 0.05).astype(np.float32)
+    r98 = (r25 * rng.uniform(1.5, 5.5, len(pn))).astype(np.float32)
+    mass = pn * rng.uniform(5, 20, len(pn)) * 2.1e9
+    return (ppos, pvel, submask, owner.astype(np.int32), nsub[owner], ps, pn, hpos[owner],
+            hvel[owner], mass[owner], r25[owner], r98[owner], 0.6736)
+
+
+def test_nn_kernel_matches_plain(cuda_device):
+    """K6 against its plain version bit for bit: small halos, a halo of
+    several shared tiles (K6_TILE = 256) and of several work items
+    (K6_QUERIES = 128 queries), a duplicated position."""
+    from abacusutils_tpu_torch.models.hod import ranks_device as trd
+
+    args = _rank_slab([2, 3, 20, 64, 129, 700, 2500, 40], 5)
+    ppos, _, submask, seg, _, ps, pn = args[:7]
+    x, y, z = (torch.from_numpy(ppos[:, a].copy()).to(cuda_device) for a in range(3))
+    seg_d = torch.from_numpy(seg).to(cuda_device)
+    sel_d = torch.from_numpy(submask).to(cuda_device)
+    query, work = trd.nn_work(seg_d, sel_d, len(ps))
+    ps_d = torch.from_numpy(ps.astype(np.int32)).to(cuda_device)
+    pn_d = torch.from_numpy(pn.astype(np.int32)).to(cuda_device)
+    before = trd.nn_within_halo.launches
+    got = trd.nn_within_halo(x, y, z, query, work, ps_d, pn_d, seg_d)
+    assert trd.nn_within_halo.launches == before + 1
+    ref = trd.nn_within_halo_plain(x, y, z, query, ps_d, pn_d, seg_d)
+    q = query.long()
+    assert torch.equal(got[q], ref[q]) and float(got[0]) == 0.0
+    assert bool(torch.isfinite(got[q]).all())
+    cpu = trd.rank_fields_device(*args, device='cpu')
+    card = trd.rank_fields_device(*args)
+    for a, b in zip(card, cpu):
+        npt.assert_array_equal(a, b)
+
+
+def _menv_case(name, n, seed):
+    rng = np.random.default_rng(seed)
+    L = {'box': 300.0, 'small box': 25.0, 'light cone': 800.0}[name]
+    c = rng.random((n // 50, 3)) * L
+    pos = c[rng.integers(0, len(c), n)] + rng.normal(0, 4.0, (n, 3))
+    if name == 'light cone':
+        # an octant shell: open faces on every side of the grid
+        u = np.abs(rng.normal(size=(n, 3)))
+        pos = u / np.linalg.norm(u, axis=1)[:, None] * rng.uniform(300, 700, n)[:, None]
+        pos[: n // 2] = pos[n // 2:][: n // 2] + rng.normal(0, 3.0, (n // 2, 3))
+    else:
+        pos = np.mod(pos, L) - L / 2
+    mass = np.exp(rng.normal(27, 1.5, n))
+    return dict(pos=pos.astype(np.float32), mass=mass,
+                r_inner=(rng.random(n) * 0.8 + 0.1).astype(np.float32), r_outer=10.0,
+                halo_lc=name == 'light cone', Lbox=L, mcut=float(np.median(mass)))
+
+
+@pytest.mark.parametrize('dense', [False, True], ids=['cell starts', 'dense ids'])
+@pytest.mark.parametrize('name', ['box', 'small box', 'light cone'])
+def test_menv_kernel_matches_plain(cuda_device, name, dense, monkeypatch):
+    """K7 against its plain all-pairs version (rtol 1e-12, the same zeros)
+    in a box, a box of two cells a side and an octant light cone, through
+    the cell starts and through the dense ids; and against the host tree."""
+    from abacusutils_tpu_torch.models.hod import menv_device as tmd
+    from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
+
+    if dense:
+        monkeypatch.setattr(tmd, '_DENSE_MIN_CELLS', 0)
+    kw = _menv_case(name, 3000 if name == 'small box' else 20_000, 8)
+    before = tmd.menv_annulus.launches
+    got = tmd.do_menv_device(**kw)
+    assert tmd.menv_annulus.launches == before + 1
+    ref = tmd.do_menv_device(**kw, device='cpu')
+    assert np.count_nonzero(ref) > len(ref) // 4
+    npt.assert_allclose(got, ref, rtol=1e-12, atol=0.0)
+    npt.assert_array_equal(got == 0, ref == 0)
+    tree = do_Menv_from_tree(**kw)
+    npt.assert_allclose(got, tree, rtol=1e-12, atol=0.0)
+    npt.assert_array_equal(got == 0, tree == 0)
+
+
+def test_out_of_box_catalog_goes_to_all_pairs(cuda_device):
+    """30,000 points in [-lbox/2, lbox/2), between the port's threshold and
+    JAX's: the default dispatch counts them with K5 (JAX's default engine),
+    and the same catalog inside the box with K4."""
+    lbox = 700.0
+    host = np.stack([c.cpu().numpy() for c in _clustered(30_000, lbox, 23, cuda_device)], 1)
+    for shift, want in ((-lbox / 2, (0, 1)), (0.0, (1, 0))):
+        pos = host + np.float32(shift)
+        k4, k5 = ttpcf.count_pairs_cells.launches, ttpcf.count_pairs_all.launches
+        got = ttpcf.pair_counts_rppi(pos, PAIR_EDGES, 30, lbox)
+        assert (ttpcf.count_pairs_cells.launches - k4, ttpcf.count_pairs_all.launches - k5) == want
+        npt.assert_array_equal(got, ttpcf.pair_counts_rppi(pos, PAIR_EDGES, 30, lbox,
+                                                           method='tile'))
+    ttpcf._stage_cache.clear()
+    ttpcf._span_cache.clear()
+
+
+@pytest.mark.parametrize('wrap', [True, False])
+def test_tsc_parallel_on_card(cuda_device, wrap):
+    """tsc_parallel at a mesh that is not a power of two, with positions
+    past the faces, wrapped once or not, against the plain scatter."""
+    from abacusutils_tpu_torch.ops.grid import tsc_parallel
+
+    rng = np.random.default_rng(4)
+    n, L = 100, 250.0
+    pos = (rng.random((400_000, 3)) * 1.2 * L - 0.1 * L).astype(np.float32)
+    got = tsc_parallel(pos, n, L, wrap=wrap)
+    ref = tsc_parallel(pos, n, L, wrap=wrap, device='cpu')
+    _assert_grid(torch.from_numpy(got), torch.from_numpy(ref))
+
+
+def test_shear_on_card(cuda_device):
+    from abacusutils_tpu_torch.ops.shear import get_shear
+
+    dens = np.random.default_rng(2).lognormal(0, 0.8, (64, 64, 64)).astype(np.float32)
+    got = get_shear(dens, 64, 100.0, R=2.0)
+    ref = get_shear(dens, 64, 100.0, R=2.0, device='cpu')
+    npt.assert_allclose(got, ref, rtol=2e-4, atol=1e-5 * float(np.abs(ref).max()))

@@ -123,7 +123,8 @@ def test_inputs_from_numpy():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax and the JAX package blocked."""
+    """Every module of the port imports with jax and the JAX package blocked,
+    and none imports h5py, yaml or asdf (the GPU machine has none)."""
     mods = sorted(
         '.'.join(f.relative_to(REPO).with_suffix('').parts).removesuffix('.__init__')
         for f in (REPO / 'abacusutils_tpu_torch').rglob('*.py')
@@ -137,6 +138,7 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'abacusutils_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
+        "assert not any(k in sys.modules for k in ('h5py', 'yaml', 'asdf'))\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -144,6 +146,7 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == 'ok' and len(mods) >= 10
-    for m in ('ops.power', 'ops.grid', 'ops.tpcf', 'models.hod.population', 'models.hod.abacus_hod',
-              'models.hod.shapes_np', 'testing'):
+    for m in ('ops.power', 'ops.grid', 'ops.tpcf', 'ops.shear', 'models.hod.population',
+              'models.hod.abacus_hod', 'models.hod.shapes_np', 'models.hod.prepare_sim',
+              'models.hod.menv', 'models.hod.ranks_device', 'models.hod.menv_device', 'testing'):
         assert f'abacusutils_tpu_torch.{m}' in mods

@@ -681,7 +681,9 @@ def test_positions_outside_the_box_follow_jax_engine_by_engine(mode, method, mon
     differences them as they are, in both packages, so each engine of the
     port equals JAX's engine of the same name, auto and cross. The default
     dispatch sends a catalog of _CELL_MIN_N points or more to the cell
-    engine: it follows JAX's method='cell' there."""
+    engine, unless a coordinate lies outside [0, lbox) and the catalog has
+    fewer than JAX's 100,000 points: then it follows JAX's default, the
+    tiled engine."""
     rng = np.random.default_rng(70)
     pos = _points(2500, rng)
     pos[:, 2] += rng.normal(0, 12, len(pos))
@@ -697,11 +699,55 @@ def test_positions_outside_the_box_follow_jax_engine_by_engine(mode, method, mon
         npt.assert_array_equal(got, ref, err_msg=f'{method} {_mode()}')
         if method == 'cell':
             npt.assert_array_equal(got, _brute(pos, p2, edges, nb2, mode))
+    monkeypatch.setattr(ttpcf, '_CELL_MIN_N', len(pos))
+    kw = dict(device='cpu', dtype=_tile_dtype()[1])
+    fn = ttpcf.pair_counts_rppi if mode == 'rppi' else ttpcf.pair_counts_smu
     if method == 'cell':
-        monkeypatch.setattr(ttpcf, '_CELL_MIN_N', len(pos))
-        kw = dict(device='cpu', dtype=_tile_dtype()[1])
-        fn = ttpcf.pair_counts_rppi if mode == 'rppi' else ttpcf.pair_counts_smu
-        npt.assert_array_equal(fn(pos, edges, nb2, LBOX, **kw), got)
+        monkeypatch.setattr(ttpcf, '_JAX_CELL_MIN_N', len(pos))
+    npt.assert_array_equal(fn(pos, edges, nb2, LBOX, **kw), got)
+
+
+@pytest.mark.parametrize('cross', [False, True], ids=['auto', 'cross'])
+def test_default_dispatch_equals_jax_default(cross, monkeypatch):
+    """Between the two packages' thresholds (lowered here, as
+    test_wrappers_match_jax lowers them: the port's cell engine from 100
+    points, JAX's from 3,000), the port's default calc_xirppi_fast and
+    calc_multipole_fast equal JAX's default, its tiled engine in float32,
+    bin for bin on coordinates in [-lbox/2, lbox/2), without staging a
+    cell grid; on the same catalog shifted into [0, lbox) the port takes
+    the cell engine and still equals JAX."""
+    monkeypatch.setattr(jtpcf, '_CELL_MIN_N', 3000)
+    monkeypatch.setattr(ttpcf, '_CELL_MIN_N', 100)
+    monkeypatch.setattr(ttpcf, '_JAX_CELL_MIN_N', 3000)
+    rng = np.random.default_rng(31)
+    pos = _points(2500, rng) - LBOX / 2
+    pos2 = rng.random((1500, 3)) * LBOX - LBOX / 2
+    kw = dict(device='cpu')
+    for shift, builds in ((0.0, 0), (LBOX / 2, 1 + cross)):
+        x, y, z = (pos + shift).T
+        other = dict(x2=pos2[:, 0] + shift, y2=pos2[:, 1] + shift, z2=pos2[:, 2] + shift) if (
+            cross) else {}
+        p2 = pos2 + shift if cross else None
+        assert _rules_agree(pos + shift, p2, RPBINS, PIMAX, 'rppi')
+        assert _rules_agree(pos + shift, p2, SBINS, NMU, 'smu')
+        before = ttpcf.stage_cells.builds
+        ttpcf._stage_cache.clear()
+        with jax.enable_x64(False):
+            npt.assert_array_equal(
+                ttpcf.pair_counts_rppi(pos + shift, RPBINS, PIMAX, LBOX, pos2=p2, **kw),
+                jtpcf.pair_counts_rppi(pos + shift, RPBINS, PIMAX, LBOX, pos2=p2))
+            npt.assert_array_equal(
+                ttpcf.pair_counts_smu(pos + shift, SBINS, NMU, LBOX, pos2=p2, **kw),
+                jtpcf.pair_counts_smu(pos + shift, SBINS, NMU, LBOX, pos2=p2))
+            npt.assert_allclose(
+                ttpcf.calc_xirppi_fast(x, y, z, RPBINS, PIMAX, 5, LBOX, **other, **kw),
+                jtpcf.calc_xirppi_fast(x, y, z, RPBINS, PIMAX, 5, LBOX, **other), rtol=1e-12)
+            npt.assert_allclose(
+                ttpcf.calc_multipole_fast(x, y, z, SBINS, LBOX, nbins_mu=NMU, orders=(0, 2),
+                                          **other, **kw),
+                jtpcf.calc_multipole_fast(x, y, z, SBINS, LBOX, nbins_mu=NMU, orders=(0, 2),
+                                          **other), rtol=1e-12)
+        assert (ttpcf.stage_cells.builds > before) == bool(builds), shift
 
 
 @pytest.mark.parametrize('shape', ['grid under 2 reach + 1', 'full cell beside empty ones',
