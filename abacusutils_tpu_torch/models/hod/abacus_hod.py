@@ -561,6 +561,15 @@ class AbacusHOD:
 
         return self._pair_loop(mock_dict, fn)
 
+    def apply_zcv(self, mock_dict, config, zcv, load_presaved=False):
+        """Variance-reduced P_ell(k) of the mock's tracers by Zel'dovich
+        control variates (abacus_hod.py:apply_zcv) on the in-memory products
+        `zcv` of models/zcv/precompute.py:zcv_products; see
+        models/zcv/apply.py:apply_zcv."""
+        from ..zcv.apply import apply_zcv
+
+        return apply_zcv(self, mock_dict, config, zcv, load_presaved=load_presaved)
+
     def compute_power(
         self, mock_dict, nbins_k, nbins_mu, k_hMpc_max, logk, poles=(), paste='TSC',
         num_cells=550, compensated=False, interlaced=False,

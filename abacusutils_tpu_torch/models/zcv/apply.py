@@ -1,0 +1,90 @@
+r"""apply_zcv: the ZCV-reduced P_ell(k) of an HOD mock (the k-level part of
+abacusutils_tpu/models/zcv/apply.py), on the in-memory products of
+:func:`precompute.zcv_products` instead of ``zcv_dir``'s files.
+``apply_zcv_xi`` (field level) is not ported."""
+
+import numpy as np
+
+from ...ops.power import get_k_mu_edges
+from .tools_cv import run_zcv
+from .tracer_power import get_tracer_power
+
+__all__ = ['apply_zcv']
+
+
+def _tracer_cols(tr):
+    return tuple(np.asarray(tr[c], np.float32) for c in ('x', 'y', 'z'))
+
+
+def apply_zcv(ball, mock_dict, config, zcv, load_presaved=False):
+    """Variance-reduced P_ell(k) via Zel'dovich control variates
+    (apply.py:apply_zcv).
+
+    Each tracer's auto spectrum is reduced on its own; with one tracer the
+    flat zcv dict is returned, with several a dict keyed by tracer. When
+    config's want_rsd is on, the real-space counterparts come from one
+    ``ball.run_hod(ball.tracers, want_rsd=False)``. zcv: the
+    :class:`precompute.ZCVProducts` of the simulation; the tracer spectra
+    this call measures are kept in ``zcv.tracer_spectra``. load_presaved:
+    take the tracer spectra from ``zcv.tracer_spectra`` instead (raises
+    where they are missing)."""
+    assert len(config['power_params']['poles']) <= 3
+    assert config['power_params']['nbins_mu'] == 1
+    if 'nmesh' not in config['power_params']:
+        config['power_params']['nmesh'] = config['zcv_params']['nmesh']
+    assert config['zcv_params']['nmesh'] == config['power_params']['nmesh']
+
+    want_rsd = config['HOD_params']['want_rsd']
+    tracers = list(mock_dict)
+    pos_rsd = {t: _tracer_cols(mock_dict[t]) for t in tracers}
+
+    pos_real = {}
+    if want_rsd and not load_presaved:
+        mock_real = ball.run_hod(ball.tracers, want_rsd=False, reseed=None, write_to_disk=False)
+        pos_real = {t: _tracer_cols(mock_real[t]) for t in tracers if t in mock_real}
+        del mock_real
+        missing = [t for t in tracers if t not in pos_real]
+        assert not missing, (
+            f'tracers {missing} in mock_dict but not in ball.tracers; '
+            'cannot repopulate their real-space counterparts'
+        )
+
+    single = len(tracers) == 1
+    results = {}
+    for t in tracers:
+        tag = '' if single else t
+        results[t] = _apply_zcv_one(ball, pos_rsd.pop(t), pos_real.pop(t, None), config, tag,
+                                    zcv, load_presaved)
+    return results[tracers[0]] if single else results
+
+
+def _apply_zcv_one(ball, pos_rsd, pos_real, config, tag, zcv, load_presaved):
+    """The ZCV reduction of one tracer's auto spectrum."""
+    pp = config['power_params']
+    want_rsd = config['HOD_params']['want_rsd']
+    k_bin_edges, _ = get_k_mu_edges(ball.lbox, pp['k_hMpc_max'], pp['nbins_k'], pp['nbins_mu'],
+                                    pp['logk'])
+    k_binc = 0.5 * (k_bin_edges[1:] + k_bin_edges[:-1])
+    if not np.allclose(k_binc, zcv.k_binc):
+        raise ValueError('the ZCV products were made for another k binning')
+    if not np.isclose(zcv.kcut, config['zcv_params']['kcut']):
+        raise ValueError(f'the ZCV products were made with kcut {zcv.kcut}, not '
+                         f'{config["zcv_params"]["kcut"]}')
+
+    spaces = (want_rsd, False) if want_rsd else (False,)
+    if load_presaved:
+        missing = [rsd for rsd in spaces if (tag, rsd) not in zcv.tracer_spectra]
+        if missing:
+            raise KeyError(f'load_presaved: zcv holds no tracer spectra of {tag or "the tracer"!r} '
+                           f'with want_rsd {missing}')
+    else:
+        for rsd, pos in zip(spaces, (pos_rsd, pos_real)):
+            fields = zcv.field_ffts[rsd]
+            zcv.tracer_spectra[(tag, rsd)] = get_tracer_power(
+                pos, rsd, config, fields, zcv.meta, device=fields['1cb'].device)
+    pk_rsd_tr_dict = zcv.tracer_spectra[(tag, want_rsd)]
+    pk_tr_dict = zcv.tracer_spectra[(tag, False)] if want_rsd else None
+    pk_ij_dict = zcv.pk_ij[False] if want_rsd else None
+    return run_zcv(pk_rsd_tr_dict, zcv.pk_ij[want_rsd], pk_tr_dict, pk_ij_dict, config,
+                   window=zcv.window, keff=zcv.keff, pk_ij_zenbu=zcv.templates[want_rsd],
+                   lbox=zcv.meta['BoxSize'])

@@ -17,6 +17,10 @@ Counterpart of abacusutils_tpu/ops/grid.py for the HOD and P(k) routes:
   CPU tensors.
 - :func:`paint_3d` is the public paint (``ops/grid.py:paint_3d``): stage and
   K1 on CUDA tensors, the plain scatter on CPU tensors.
+- :func:`tsc_deposit_cells_multi` is K1's multi-weight form, the
+  counterpart of ``paint_grouped_yb_multiw``: up to MAX_WEIGHTS weight
+  columns on one brick-sorted point set, each into its own grid, in one
+  launch; :func:`paint_3d_multi` stages and paints them.
 - :func:`tsc_parallel`, :func:`cic_serial` and :func:`rightwrap` are the
   reference-compatible wrappers of ``ops/grid.py`` that prepare_sim's shear
   field paints through: an int, tuple or ndarray ``densgrid``, cubic grids
@@ -57,6 +61,11 @@ __all__ = [
     'overflow_count_plain',
     'paint_3d',
     'tsc_deposit_cells',
+    'tsc_deposit_cells_multi',
+    'paint_3d_multi',
+    'multi_brick_shape',
+    'MAX_WEIGHTS',
+    'MULTI_BRICK',
     'tsc_parallel',
     'cic_serial',
     'rightwrap',
@@ -70,6 +79,12 @@ MAX_SMEM_BYTES = 232_448
 KINDS = ('tsc', 'cic')
 # the default brick interior (x, y, z), cells
 BRICK = (16, 16, 16)
+# weight columns K1's multi-weight form takes in one launch
+MAX_WEIGHTS = 5
+# the brick of the multi-weight form: its NF tiles share a block's shared
+# memory, so a 16^3 brick's five tiles (116,640 B) would leave one block an
+# SM; 8 x 16 x 16 keeps three (64,800 B)
+MULTI_BRICK = (8, 16, 16)
 # a work item holds at most max(MIN_ITEM_POINTS, ITEM_SPLIT x the mean points
 # of a brick) points; heavier bricks are cut into several items
 MIN_ITEM_POINTS = 2048
@@ -309,7 +324,9 @@ def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc', wrap=Non
 
 def _check_deposit(grid, cols, plan, nmesh, overflow):
     n = cols[0].shape[0]
-    for name, t in zip('xyzw', cols):
+    names = ['x', 'y', 'z'] + (['w'] if len(cols) == 4 else
+                               [f'weight column {i}' for i in range(len(cols) - 3)])
+    for name, t in zip(names, cols):
         if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f'{name} must be a contiguous ({n},) float32 tensor')
         if t.device != grid.device:
@@ -325,6 +342,24 @@ def _check_deposit(grid, cols, plan, nmesh, overflow):
         overflow.dtype != torch.int32 or overflow.numel() != 1 or overflow.device != grid.device
     ):
         raise ValueError(f'overflow must be a one-element int32 tensor on {grid.device}')
+
+
+def _launch(grids, x, y, z, ws, plan, box, offset, overflow, kind, wrap):
+    """One K1 launch of the columns `ws` (a None column is a unit weight)
+    into the len(ws) grids held one after another in `grids`."""
+    if overflow is None:
+        overflow = torch.zeros(1, dtype=torch.int32, device=grids.device)
+    work = plan.work.contiguous()
+    wptr = (ctypes.c_void_p * len(ws))(*[None if w is None else w.data_ptr() for w in ws])
+    lib = _build.lib()
+    with torch.cuda.device(grids.device):
+        code = lib.tsc_deposit_bricks(
+            grids.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), wptr, len(ws),
+            work.data_ptr(), work.shape[0], plan.nmesh, *plan.brick, *plan.margin, _f32(box),
+            _f32(offset), KINDS.index(kind), int(wrap), overflow.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'tsc_deposit_bricks')
 
 
 def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, kind='tsc',
@@ -354,20 +389,9 @@ def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, ki
     if tile > MAX_SMEM_BYTES:
         raise ValueError(f'tsc_deposit_cells: a {tile} B tile is over {MAX_SMEM_BYTES} B')
     _check_deposit(grid, (x, y, z, w), plan, nmesh, overflow)
-    work = plan.work.contiguous()
-    if work.shape[0] == 0:  # no points: nothing to launch
+    if plan.work.shape[0] == 0:  # no points: nothing to launch
         return grid
-    if overflow is None:
-        overflow = torch.zeros(1, dtype=torch.int32, device=grid.device)
-    lib = _build.lib()
-    with torch.cuda.device(grid.device):
-        code = lib.tsc_deposit_bricks(
-            grid.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), w.data_ptr(),
-            work.data_ptr(), work.shape[0], nmesh, *plan.brick, *plan.margin, _f32(box),
-            _f32(offset), KINDS.index(kind), int(wrap), overflow.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, 'tsc_deposit_bricks')
+    _launch(grid, x, y, z, [w], plan, box, offset, overflow, kind, wrap)
     tsc_deposit_cells.launches += 1
     tsc_deposit_cells.launches_by_form[kind] += 1
     return grid
@@ -378,12 +402,13 @@ tsc_deposit_cells.launches = 0
 tsc_deposit_cells.launches_by_form = dict.fromkeys(KINDS, 0)
 
 
-def blocks_per_sm(plan, kind='tsc'):
-    """Resident K1 blocks an SM holds for `plan`'s tile on the current card
+def blocks_per_sm(plan, kind='tsc', nf=1):
+    """Resident K1 blocks an SM holds for `plan`'s tiles (`nf` of them, the
+    multi-weight form's columns) on the current card
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     out = ctypes.c_int()
     code = _build.lib().tsc_deposit_blocks_per_sm(
-        KINDS.index(_kind(kind)), plan.nmesh, tile_bytes(plan.brick, plan.margin),
+        KINDS.index(_kind(kind)), plan.nmesh, nf, nf * tile_bytes(plan.brick, plan.margin),
         ctypes.byref(out),
     )
     _build.check(code, 'tsc_deposit_blocks_per_sm')
@@ -412,6 +437,96 @@ def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', overf
         return paint_3d_plain(grid, *cols, w, nmesh, box, offset, kind, wrap)
     (x, y, z, ws), plan = stage_bricks(cols + [w], nmesh, box, offset=offset, kind=kind, wrap=wrap)
     return tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow, kind, wrap)
+
+
+def multi_brick_shape(nmesh, nf):
+    """The brick of the multi-weight form for `nf` columns: MULTI_BRICK (BRICK
+    for one column), each axis cut to nmesh. Raises if the nf tiles do not
+    fit the shared memory of one block."""
+    brick = tuple(min(b, nmesh) for b in (BRICK if nf == 1 else MULTI_BRICK))
+    if nf * tile_bytes(brick) > MAX_SMEM_BYTES:
+        raise ValueError(f'{nf} K1 tiles of brick {brick} need {nf * tile_bytes(brick)} B, '
+                         f'over the {MAX_SMEM_BYTES} B of shared memory a block may use')
+    return brick
+
+
+def _check_weights(ws):
+    if not 1 <= len(ws) <= MAX_WEIGHTS:
+        raise ValueError(f'K1 takes 1 to {MAX_WEIGHTS} weight columns, not {len(ws)}')
+    return [w if w is None else w.to(torch.float32).contiguous() for w in ws]
+
+
+def tsc_deposit_cells_multi(grids, x, y, z, ws, plan, box, offset=0.0, overflow=None):
+    """Add the TSC deposit of brick-sorted points, once for each weight
+    column of `ws`, into the grids of `grids` in place: K1's multi-weight
+    form, the counterpart of ops/grid.py:paint_grouped_yb_multiw.
+
+    grids: (F, nmesh, nmesh, nmesh) f32, contiguous; ws: F (N,) f32 weight
+    columns in the staged order (None: a unit weight), F <= MAX_WEIGHTS;
+    x, y, z, plan, box, offset, overflow: as :func:`tsc_deposit_cells` (TSC,
+    wrapped). The overflow word counts the points with a non-zero weight in
+    some column whose stencil leaves their tile.
+
+    On CUDA tensors this launches K1 once, on the current stream: a block
+    computes each point's stencil weights once and adds them into F
+    shared-memory tiles. On CPU tensors it runs :func:`paint_3d_plain` once
+    a column (and :func:`overflow_count_plain`). Returns `grids`."""
+    ws = _check_weights(ws)
+    nmesh = plan.nmesh
+    if grids.shape != (len(ws),) + (nmesh,) * 3:
+        raise ValueError(f'grids must be ({len(ws)}, {nmesh}, {nmesh}, {nmesh}), not '
+                         f'{tuple(grids.shape)}')
+    if grids.device.type == 'cpu':
+        ones = torch.ones_like(x)
+        if overflow is not None:
+            # a point counts where some column weighs it
+            given = [w for w in ws if w is not None]
+            nonzero = ones if len(given) < len(ws) else (torch.stack(given) != 0).any(0).float()
+            overflow += overflow_count_plain(x, y, z, nonzero, plan, box, offset).to(torch.int32)
+        for f, w in enumerate(ws):
+            paint_3d_plain(grids[f], x, y, z, ones if w is None else w, nmesh, box, offset)
+        return grids
+    tile = len(ws) * tile_bytes(plan.brick, plan.margin)
+    if tile > MAX_SMEM_BYTES:
+        raise ValueError(f'tsc_deposit_cells_multi: {len(ws)} tiles of {tile} B are over '
+                         f'{MAX_SMEM_BYTES} B')
+    _check_deposit(grids[0], (x, y, z) + tuple(w for w in ws if w is not None), plan, nmesh,
+                   overflow)
+    if not grids.is_contiguous():
+        raise ValueError('grids must be contiguous')
+    if plan.work.shape[0] == 0:
+        return grids
+    _launch(grids, x, y, z, ws, plan, box, offset, overflow, 'tsc', True)
+    tsc_deposit_cells_multi.launches += 1
+    return grids
+
+
+tsc_deposit_cells_multi.launches = 0
+
+
+def paint_3d_multi(px, py, pz, nmesh, box, weights, offset=0.0, overflow=None):
+    """TSC-paint one point set once for each weight column onto a new
+    (F, nmesh, nmesh, nmesh) float32 stack (F = len(weights); a None column
+    is a unit weight): the multi-weight :func:`paint_3d`.
+
+    On CUDA tensors the points and the columns are staged once by
+    :func:`stage_bricks` (brick :func:`multi_brick_shape`, no margin) and
+    deposited by one :func:`tsc_deposit_cells_multi` launch. On CPU tensors
+    this is the plain scatter once a column."""
+    cols = [c.to(torch.float32).contiguous() for c in (px, py, pz)]
+    ws = _check_weights([w if w is None else w.to(cols[0].device) for w in weights])
+    grids = torch.zeros((len(ws),) + (nmesh,) * 3, dtype=torch.float32, device=cols[0].device)
+    if grids.device.type == 'cpu':
+        ones = torch.ones_like(cols[0])
+        for f, w in enumerate(ws):
+            paint_3d_plain(grids[f], *cols, ones if w is None else w, nmesh, box, offset)
+        return grids
+    given = [w for w in ws if w is not None]
+    staged, plan = stage_bricks(cols + given, nmesh, box,
+                                brick=multi_brick_shape(nmesh, len(ws)), offset=offset)
+    it = iter(staged[3:])
+    sw = [None if w is None else next(it) for w in ws]
+    return tsc_deposit_cells_multi(grids, *staged[:3], sw, plan, box, offset, overflow)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,9 @@ Counterpart of abacusutils_tpu/ops/power.py:
   as float64 ``torch.bincount``; :func:`bin_pair_modes` launches the same
   kernel for every pair (K3) on CUDA tensors.
 - :func:`get_field`, :func:`get_field_fft` (TSC or CIC, interlaced or
-  not), :func:`get_raw_power`, :func:`bin_kmu`, :func:`calc_pk_from_deltak`,
+  not), :func:`get_field_ffts` (F TSC weight columns of one point set, each
+  stage deposited by one launch of K1's multi-weight form),
+  :func:`get_raw_power`, :func:`bin_kmu`, :func:`calc_pk_from_deltak`,
   :func:`calc_pk_pairs_from_deltak` and :func:`calc_power`: the spectrum
   pipeline, which paints with K1 (``ops/grid.py:paint_3d``) and bins every
   pair of fields through one K3 launch.
@@ -40,7 +42,7 @@ import torch
 
 from .. import _build
 from ..convert import resolve_device
-from .grid import MAX_SMEM_BYTES, _f32, paint_3d
+from .grid import MAX_SMEM_BYTES, _f32, paint_3d, paint_3d_multi
 
 __all__ = [
     'get_k_mu_edges',
@@ -60,6 +62,7 @@ __all__ = [
     'bin_pair_modes',
     'get_field',
     'get_field_fft',
+    'get_field_ffts',
     'get_interlaced_field_fft',
     'get_raw_power',
     'bin_kmu',
@@ -680,6 +683,44 @@ def get_field_fft(pos, Lbox, nmesh, paste, w, W, compensated, interlaced, device
         W = torch.as_tensor(np.asarray(W, np.float32), device=field_fft.device)
         return _scaled(field_fft, scale, W)
     return field_fft * _f32(scale) if scale != 1.0 else field_fft
+
+
+def _fields_multi(cols, Lbox, nmesh, ws, d, overflow):
+    """get_field for each weight column of one point set: the (F, nmesh,
+    nmesh, nmesh) stack of field * (nmesh^3 / N) - 1, painted by one
+    multi-weight K1 launch (TSC)."""
+    grids = paint_3d_multi(*cols, nmesh, Lbox, ws, offset=d, overflow=overflow)
+    return grids.mul_(_f32(nmesh**3 / cols[0].shape[0])).sub_(1.0)
+
+
+def get_field_ffts(pos, Lbox, nmesh, paste, ws, W, compensated, interlaced, device=None,
+                   overflow=None):
+    """:func:`get_field_fft` of one point set for each weight column of `ws`
+    (None: unit weight), as a list of F complex64 rfft meshes: equal to F
+    separate get_field_fft calls. The points are staged once (and once more
+    at the interlacing shift) and each stage's F fields are deposited by one
+    launch of K1's multi-weight form (TSC only), then transformed one by one.
+    numpy positions and weights go to `device` (the card when None)."""
+    if paste.upper() != 'TSC':
+        raise NotImplementedError(f'the multi-weight deposit is TSC only, not {paste}')
+    cols = _pos_columns(pos, device)
+    ws = [_weights(w, cols[0].device) for w in ws]
+    nmesh = int(nmesh)
+    ffts = [torch.fft.rfftn(g) for g in _fields_multi(cols, Lbox, nmesh, ws, 0.0, overflow)]
+    scale = 1.0 / nmesh**3
+    if interlaced:
+        d = Lbox / nmesh
+        shifted = _fields_multi(cols, Lbox, nmesh, ws, 0.5 * d, overflow)
+        ffts = [_interlace_combine(F, torch.fft.rfftn(g), nmesh, float(Lbox), float(d))
+                for F, g in zip(ffts, shifted)]
+        del shifted
+        scale = 1.0
+    if compensated:
+        if W is None:
+            raise ValueError('compensated=True needs the window W')
+        W = torch.as_tensor(np.asarray(W, np.float32), device=ffts[0].device)
+        return [_scaled(F, scale, W) for F in ffts]
+    return [F * _f32(scale) if scale != 1.0 else F for F in ffts]
 
 
 def get_raw_power(field_fft, field2_fft=None):

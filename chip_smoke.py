@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count and prepare_sim paths on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim and ZCV paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -88,7 +88,19 @@ Phases, each printing what it measured:
    against the plain scatter;
 11. ``prepare_slab_tables`` on a box slab of 2e5 halos and ~1.2e6 particles
    with ranks, Menv and the shear rank, with the device engines and with the
-   'host' engines: every column equal (ranksc tie-aware, Menv rtol 1e-12).
+   'host' engines: every column equal (ranksc tie-aware, Menv rtol 1e-12);
+12. K1's multi-weight form (``tsc_deposit_cells_multi``) on the 512^3 lattice
+   with a unit column and four weight columns against the plain scatter and
+   five single-column K1 launches, at its 8 x 16 x 16 brick and at 16^3; K8
+   (``csrc/zcv_window.cu``, the window's mode sums) at nmesh 256 and 512
+   against its plain version (counts equal, two launches bit-equal) and one
+   ``torch.bincount``;
+13. the ZCV cell: ``zcv_products`` (the IC filter, ``get_fields``, the
+   advection and five field FFTs in RSD and real space, 15 P_ij each, the
+   window on K8, the ZA templates in a host process a core) on a
+   Gaussian IC at 512^3 in the (2000 Mpc/h)^3 box, then ``apply_zcv`` on a
+   tracer of ~1e7 points drawn from the advected lattice, every stage timed;
+   outputs finite and rho_tr_ZD >= 0.9 on the monopole's bins 1-5.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -122,6 +134,7 @@ non-zero before printing either.
 """
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -153,6 +166,7 @@ from abacusutils_tpu_torch.ops.grid import (
     stage_bricks,
     tile_bytes,
     tsc_deposit_cells,
+    tsc_deposit_cells_multi,
 )
 from abacusutils_tpu_torch.ops.power import (
     _interlace_combine,
@@ -187,6 +201,13 @@ from abacusutils_tpu_torch.ops.tpcf import (
     stage_cells,
 )
 from abacusutils_tpu_torch.models.hod import menv_device, prepare_sim, ranks_device
+from abacusutils_tpu_torch.models.zcv import advect_fields as zcv_adv
+from abacusutils_tpu_torch.models.zcv import apply as zcv_apply
+from abacusutils_tpu_torch.models.zcv import cosmo as zcv_cosmo
+from abacusutils_tpu_torch.models.zcv import ic_fields as zcv_ic
+from abacusutils_tpu_torch.models.zcv import precompute as zcv_pre
+from abacusutils_tpu_torch.models.zcv import zenbu_window as tzw
+from abacusutils_tpu_torch.models.zcv.tools_cv import ZCV_FIELDS
 from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
 from abacusutils_tpu_torch.ops import grid as tgrid
 from abacusutils_tpu_torch.ops import shear as tshear
@@ -379,7 +400,8 @@ def phase_build():
     _build.lib()
     print(f'phase 1 build: {path.name} in {secs:.2f} s; K1 (kind, flush width): '
           f'(registers, spill stores, spill loads) {K1_PTXAS}')
-    require(len(K1_PTXAS) == 6, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 6')
+    # TSC and CIC at three flush widths, and TSC of 2 to 5 columns at each
+    require(len(K1_PTXAS) == 18, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 18')
     PAIR_FMA.update(sass_fma(path))
     print(f'phase 1 build: K4/K5 (registers, spill stores, spill loads) {PAIR_PTXAS}; '
           f'FFMA + DFMA in their SASS (a quotient or a root expands into some) {PAIR_FMA}')
@@ -398,13 +420,17 @@ def phase_build():
 
 def ptxas_k1(log):
     """{(kind, flush width): (registers, spill store bytes, spill load bytes)}
-    of the K1 instantiations in the build's -Xptxas -v log."""
+    of the single-column K1 instantiations in the build's -Xptxas -v log,
+    and {('tsc', flush width, columns): ...} of the multi-weight ones."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)EE', m.group(1))
-            cur = (KINDS[int(k.group(1))], int(k.group(2))) if k else None
+            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)ELi(\d)EE', m.group(1))
+            cur = None
+            if k:
+                kind, width, nf = KINDS[int(k.group(1))], int(k.group(2)), int(k.group(3))
+                cur = (kind, width) if nf == 1 else (kind, width, nf)
             if cur:
                 out[cur] = [None, None, None]
             continue
@@ -1470,8 +1496,6 @@ def phase_menv(dev, paths):
     host to host; K7 by CUDA events against its bound and, on sampled
     centres, against its plain version; both engines on a 5e5 subset.
     Returns K7's records, box first."""
-    import os
-
     recs = []
     nthread = len(os.sched_getaffinity(0))
     for lc in (False, True):
@@ -1640,6 +1664,349 @@ def phase_slab(paths, shearmark):
           f'{int((ea != 0).sum())} nonzero')
 
 
+# ---------------------------------------------------------------------------
+# phases 12 and 13: the ZCV kernels and the ZCV cell
+# ---------------------------------------------------------------------------
+
+# the ZCV cell (the JAX package's zcv scale, docs/performance.md:56-112)
+ZCV_SIM = 'AbacusSummit_base_c000_ph000'
+ZCV_Z = 0.5
+ZCV_NMESH = 512
+ZCV_NTRACER = 10_000_000
+K8_NMESH = (256, 512)
+# f32 operations of one mode in K8 besides the bin search's compares: |k|
+# (2), mu (1), L2 (4), L4 (7), dup (1), the weight rows (7); and its f64 adds
+K8_F32_OPS = 22
+K8_F64_OPS = 7
+K8_LIBRARY_CALL = ('torch.bincount(bin + row * (nkout + 1), weights=w, minlength=7 * (nkout + 1)) '
+                   'over the whole mesh, on precomputed per-mode f64 weight rows')
+
+
+def zcv_config(nmesh=ZCV_NMESH):
+    """The ZCV cell's config: poles 0, 2, 4, one mu bin, nmesh / 2 k-bins to
+    the Nyquist k, TSC, compensated, interlaced, RSD on, kcut = pi nmesh /
+    Lbox / 2."""
+    kmax = np.pi * nmesh / LBOX
+    return {
+        'sim_params': {'sim_name': ZCV_SIM, 'z_mock': ZCV_Z},
+        'HOD_params': {'want_rsd': True},
+        'zcv_params': {'nmesh': nmesh, 'kcut': kmax / 2, 'fields': list(ZCV_FIELDS)},
+        'power_params': {'nbins_k': nmesh // 2, 'nbins_mu': 1, 'poles': [0, 2, 4],
+                         'k_hMpc_max': kmax, 'logk': False, 'paste': 'TSC',
+                         'compensated': True, 'interlaced': True, 'nmesh': nmesh},
+    }
+
+
+def k1m_bound(n, nfields, nmesh):
+    """The least time (ms) of the multi-weight deposit at 3.35 TB/s: x, y, z
+    and the nfields - 1 weight columns of every point read once (the first
+    column is a unit weight), each of the nfields grids written once."""
+    nbytes = n * 4 * (3 + nfields - 1) + 4 * nfields * nmesh**3
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_zcv_kernels(dev):
+    """Phase 12: K1's multi-weight form on the 512^3 lattice (moved by up to
+    half a cell) with a unit column and four weight columns, against the
+    plain scatter once a column and against five single-column K1 launches,
+    at the main path's brick and at the 16^3 brick; K8 at nmesh 256 and 512
+    against its plain version (counts equal, other rows within 1e-6 of the
+    bin's count), two launches bit-equal. Returns the kernels line's
+    records of both."""
+    t0 = time.perf_counter()
+    n, nf = ZCV_NMESH, 5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    h = LBOX / n
+    lat = torch.arange(n, device=dev, dtype=torch.float32) * h
+    cols = []
+    for ax in range(3):
+        shape = [1, 1, 1]
+        shape[ax] = n
+        p = lat.view(shape).expand(n, n, n).reshape(-1)
+        p = p + (torch.rand(n**3, generator=gen, device=dev) - 0.5) * h
+        cols.append(torch.remainder(p, LBOX))
+    ws = [None] + [torch.randn(n**3, generator=gen, device=dev) for _ in range(nf - 1)]
+    ones = torch.ones(n**3, device=dev)
+    grids = torch.zeros((nf,) + (n,) * 3, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    rec = {'shape': f'{n}^3 lattice, {nf} columns (one unit), 1 launch', 'bricks': {}}
+    for brick in (tgrid.multi_brick_shape(n, nf), BRICK):
+        staged, plan = stage_bricks(cols + ws[1:], n, LBOX, brick=brick)
+        sw = [None] + staged[3:]
+
+        def k1m():
+            grids.zero_()
+            tsc_deposit_cells_multi(grids, *staged[:3], sw, plan, LBOX, 0.0, overflow)
+
+        ms = event_ms(k1m)
+        overflow.zero_()
+        k1m()
+        bps = blocks_per_sm(plan, 'tsc', nf)
+        rec['bricks'][str(brick)] = dict(ms=ms, blocks_per_sm=bps, items=int(plan.work.shape[0]),
+                                         overflow=int(overflow.item()),
+                                         tile_bytes=nf * tile_bytes(brick))
+        require(int(overflow.item()) == 0, f'K1 multi-weight overflow {overflow.item()} at {brick}')
+        del staged, sw, plan
+    main = str(tgrid.multi_brick_shape(n, nf))
+    got = grids.clone()
+    # five single-column launches at the default brick
+    staged, plan = stage_bricks(cols + ws[1:] + [ones], n, LBOX)
+    single = torch.zeros_like(grids)
+
+    def k1s():
+        single.zero_()
+        for f in range(nf):
+            tsc_deposit_cells(single[f], *staged[:3], staged[3 + f - 1] if f else staged[-1], plan,
+                              LBOX)
+
+    single_ms = event_ms(k1s, 2)
+    k1s()
+    del staged, plan
+    plain = torch.zeros_like(grids)
+
+    def p1():
+        plain.zero_()
+        for f in range(nf):
+            paint_3d_plain(plain[f], *cols, ones if ws[f] is None else ws[f], n, LBOX)
+
+    _, plain_s = sync_seconds(p1)
+    err = float((got - plain).abs().max())
+    scale = float(plain.abs().max())
+    err_single = float((got - single).abs().max())
+    del single, plain
+    bound, nbytes = k1m_bound(n**3, nf, n)
+    ms = rec['bricks'][main]['ms']
+    print(f'phase 12 K1 multi-weight {rec["shape"]}: {ms:.4f} ms at brick {main} '
+          f'({rec["bricks"][main]["blocks_per_sm"]} blocks/SM); at brick {BRICK}: '
+          f'{rec["bricks"][str(BRICK)]["ms"]:.4f} ms ({rec["bricks"][str(BRICK)]["blocks_per_sm"]} '
+          f'blocks/SM); five single-column launches {single_ms:.4f} ms; plain {plain_s * 1e3:.1f} '
+          f'ms; bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s), share {bound / ms:.3f}; '
+          f'max|d| vs plain {err:.3e} ({err / scale:.3e} of max|grid|), vs single launches '
+          f'{err_single:.3e}; overflow 0')
+    require(err <= 1e-5 * scale, f'K1 multi-weight disagrees with the plain scatter ({err:.3e})')
+    require(err_single <= 1e-5 * scale, f'K1 multi-weight disagrees with single K1 ({err_single})')
+    k1m_rec = dict(ms=ms, plain_ms=plain_s * 1e3, max_abs_err=err, max_rel_err=err / scale,
+                   bound_ms=bound, bound_by='bytes', library_ms=None, single_ms=single_ms,
+                   single_max_abs_err=err_single, overflow=0, **rec)
+    del got, grids, cols, ws, ones
+
+    k8_recs = []
+    for nm in K8_NMESH:
+        kout = np.linspace(0.0, np.pi * nm / LBOX, nm // 2 + 1)
+        nk = nm // 2
+        kv, kz = (torch.from_numpy(a).to(dev) for a in tzw._mode_kgrids(nm, LBOX))
+        edges = torch.from_numpy(tzw._f32_ge_edges(kout)).to(dev)
+        k8 = lambda: tzw.window_mode_sums(kv, kz, edges, nk)  # noqa: E731
+        ms8 = event_ms(k8)
+        a, b = k8(), k8()
+        ref, p_s = sync_seconds(lambda: tzw.window_mode_sums_plain(kv, kz, edges, nk))
+        same = bool(torch.equal(a, b))
+        counts_equal = bool(torch.equal(a[0], ref[0]))
+        rel = float(((a - ref).abs() / ref[0].clamp_min(1.0)).max())
+        # the library call: one bincount of the whole mesh's precomputed rows
+        knorm, rows = tzw._mode_rows(kv[:, None, None], kv[None, :, None], kz[None, None, :])
+        idx = torch.searchsorted(edges, knorm.reshape(-1), right=True) - 1
+        idx = torch.where((idx >= 0) & (idx < nk), idx, nk)
+        n_in = int((idx < nk).sum())
+        segs = torch.cat([idx + r * (nk + 1) for r in range(len(rows))])
+        wts = torch.cat([w.reshape(-1).double() for w in rows])
+        del knorm, rows, idx
+        lib_ms = event_ms(lambda: torch.bincount(segs, weights=wts, minlength=7 * (nk + 1)), 3)
+        del segs, wts
+        search = int(np.ceil(np.log2(nk + 2)))
+        nmodes = nm * nm * (nm // 2 + 1)
+        t32 = (nmodes * (3 + search) + n_in * (K8_F32_OPS - 3)) / F32_OPS_PER_S * 1e3
+        t64 = n_in * K8_F64_OPS / F64_OPS_PER_S * 1e3
+        tb = (4 * (2 * nm + nk + 1) + 8 * 7 * nk) / HBM_BYTES_PER_S * 1e3
+        bound = max(t32, t64, tb)
+        by = 'bytes' if tb >= max(t32, t64) else 'operations'
+        r = dict(shape=f'nmesh {nm}, {nk} bins', ms=ms8, plain_ms=p_s * 1e3, library_ms=lib_ms,
+                 max_rel_err=rel, max_abs_err=float((a - ref).abs().max()), bound_ms=bound,
+                 bound_by=by, modes=nmodes, in_bin=n_in, repeat_equal=same)
+        k8_recs.append(r)
+        print(f'phase 12 K8 nmesh {nm} ({nmodes} modes, {n_in} in {nk} bins): {ms8:.4f} ms vs plain '
+              f'{p_s * 1e3:.1f} ms; library ({K8_LIBRARY_CALL}) {lib_ms:.4f} ms; bound {bound:.4f} '
+              f'ms ({by}), share {bound / ms8:.3f}; counts equal {counts_equal}, max |d| / count '
+              f'{rel:.3e}, two launches equal {same}')
+        require(counts_equal, f'K8 counts differ from the plain version at nmesh {nm}')
+        require(rel <= 1e-6, f'K8 rows differ from the plain version at nmesh {nm}: {rel:.3e}')
+        require(same, f'K8 is not deterministic at nmesh {nm}')
+    top = k8_recs[-1]
+    k8_rec = dict(ms=top['ms'], plain_ms=top['plain_ms'], max_abs_err=top['max_abs_err'],
+                  bound_ms=top['bound_ms'], bound_by=top['bound_by'], library_ms=top['library_ms'],
+                  library_call=K8_LIBRARY_CALL, shape=top['shape'], shapes=k8_recs)
+    print(f'phase 12 in {time.perf_counter() - t0:.1f} s')
+    return k1m_rec, k8_rec
+
+
+def gaussian_ic(nmesh, meta, gen, dev):
+    """A Gaussian linear density at the initial redshift with the extract's
+    CLASS P(k) (scaled from z = 1 by the growth table), fixed amplitudes
+    and seeded phases, and its Zel'dovich displacement in units of the box
+    (tests/test_zenbu_native.py:119-160, scripts/power/bench_advect512.py),
+    built on the card. Returns (delta, (disp_x, disp_y, disp_z)), f32."""
+    kf = 2 * np.pi / LBOX
+    i = torch.arange(nmesh, device=dev, dtype=torch.float64)
+    kv = torch.where(i < nmesh // 2, i, i - nmesh) * kf
+    kz = torch.arange(nmesh // 2 + 1, device=dev, dtype=torch.float64) * kf
+    ks = (kv[:, None, None], kv[None, :, None], kz[None, None, :])
+    k2 = ks[0] ** 2 + ks[1] ** 2 + ks[2] ** 2
+    gt = meta['GrowthTable']
+    spec = meta['CLASS_power_spectrum']
+    lk = torch.from_numpy(np.log(np.asarray(spec['k (h/Mpc)']))).to(dev)
+    lp = torch.from_numpy(np.log(np.asarray(spec['P (Mpc/h)^3']))).to(dev)
+    x = 0.5 * torch.log(k2.clamp_min(1e-30))
+    j = torch.searchsorted(lk, x).clamp(1, lk.numel() - 1)
+    t = (x - lk[j - 1]) / (lk[j] - lk[j - 1])
+    pk = torch.exp(lp[j - 1] + t * (lp[j] - lp[j - 1])) * (gt[meta['InitialRedshift']] / gt[1.0]) ** 2
+    pk[0, 0, 0] = 0.0
+    amp = torch.sqrt(pk * nmesh**6 / LBOX**3)
+    del pk, x, j, t
+    wk = torch.fft.rfftn(torch.randn((nmesh,) * 3, generator=gen, device=dev))
+    dk = (wk / wk.abs().clamp_min(1e-30)) * amp.float()
+    del wk, amp
+    shape = (nmesh,) * 3
+    inv_k2 = torch.where(k2 > 0, 1.0 / k2.clamp_min(1e-30), 0.0).float()
+    disp = tuple(torch.fft.irfftn(dk * (1j * ka.float() * inv_k2), s=shape) / LBOX for ka in ks)
+    return torch.fft.irfftn(dk, s=shape), disp
+
+
+class LatticeTracers:
+    """The object apply_zcv re-populates from: its run_hod(want_rsd=False)
+    returns the tracer at its real-space positions, as AbacusHOD.run_hod
+    returns a mock."""
+
+    lbox = LBOX
+    tracers = {'LRG': {}}
+
+    def __init__(self, real):
+        self.real = real
+
+    def run_hod(self, tracers, want_rsd=True, reseed=None, write_to_disk=False):
+        require(not want_rsd and list(tracers) == ['LRG'], 'apply_zcv asked for another mock')
+        return {'LRG': dict(self.real)}
+
+
+def phase_zcv(dev, paths, timing):
+    """Phase 13: the ZCV cell at full width. A Gaussian IC at 512^3 in the
+    (2000 Mpc/h)^3 box; zcv_products (the IC filter, get_fields, the
+    advection and five field FFTs in RSD and real space, the 15 P_ij of
+    each, the window on K8 and the ZA templates in a host process a
+    core); then AbacusHOD-style apply_zcv on a tracer of
+    ~1e7 points Poisson-sampled from the advected lattice with weight
+    1 + 2 delta (its real-space counterpart from the same draws), which
+    measures get_tracer_power twice and runs run_zcv. Every stage is timed
+    host to host; the outputs must be finite and rho_tr_ZD >= 0.9 on the
+    monopole's five lowest bins above the k = 0 bin."""
+    t0 = time.perf_counter()
+    n = ZCV_NMESH
+    config = zcv_config(n)
+    kcut = config['zcv_params']['kcut']
+    meta = zcv_cosmo.get_meta(ZCV_SIM, redshift=ZCV_Z)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    (dens, disp), t_ic = sync_seconds(lambda: gaussian_ic(n, meta, gen, dev))
+
+    # the tracer: Poisson draws on the lattice with weight 1 + 2 delta(z)
+    D, f_growth = zcv_cosmo.growth_from_meta(meta, ZCV_Z)
+    dfilt = zcv_ic.gaussian_filter(dens, n, LBOX, kcut)
+    lam = (1.0 + 2.0 * D * dfilt.reshape(-1)).clamp_min_(0.0)
+    lam *= ZCV_NTRACER / float(lam.sum())
+    counts = torch.poisson(lam, generator=gen).long()
+    del lam, dfilt
+    pick = torch.repeat_interleave(torch.arange(n**3, device=dev), counts)
+    del counts
+    dfl = [zcv_ic.gaussian_filter(d, n, LBOX, kcut) for d in disp]
+    mocks = {}
+    for rsd in (True, False):
+        pos = zcv_adv.advected_positions(dfl, LBOX, n, D, f_growth if rsd else 0.0)
+        mocks[rsd] = {c: (p[pick] - LBOX / 2).cpu().numpy() for c, p in zip('xyz', pos)}
+        del pos
+    n_tr = int(pick.numel())
+    del pick, dfl
+
+    steps, calls = {}, {}
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            out, s = sync_seconds(lambda: fn(*a, **k))
+            steps[name] = steps.get(name, 0.0) + s
+            calls[name] = calls.get(name, 0) + 1
+            return out
+
+        return mod, name, fn, run
+
+    wrapped = [timed(zcv_pre, 'gaussian_filter'), timed(zcv_pre, 'get_fields'),
+               timed(zcv_pre, 'advected_field_ffts'), timed(zcv_pre, 'power_ij'),
+               timed(tzw, 'periodic_window_function'), timed(tzw, '_templates'),
+               timed(zcv_apply, 'get_tracer_power'), timed(zcv_apply, 'run_zcv')]
+    tag = f'zcv_products + apply_zcv ({n}^3, {n_tr} tracers)'
+    for mod, name, _, run in wrapped:
+        setattr(mod, name, run)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        zcv, t_pre = sync_seconds(lambda: zcv_pre.zcv_products(
+            dens, disp, LBOX, n, config, meta, filter_ic=True, engine='device', device=dev))
+        out, t_apply = sync_seconds(lambda: zcv_apply.apply_zcv(
+            LatticeTracers(mocks[False]), {'LRG': mocks[True]}, config, zcv))
+        paths[tag] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for mod, name, fn, _ in wrapped:
+            setattr(mod, name, fn)
+    launches = paths[tag]
+    require(launches['tsc_deposit_cells_multi'] == 4, f'{tag}: multi-weight K1 {launches}')
+    require(launches['window_mode_sums'] == 1, f'{tag}: K8 launches {launches}')
+    require(launches['tsc_deposit_cells[tsc]'] == 4, f'{tag}: tracer K1 launches {launches}')
+    require(launches['bin_pair_modes'] == 4, f'{tag}: K3 launches {launches}')
+    for k, v in out.items():
+        require(bool(np.isfinite(np.asarray(v, np.float64)).all()), f'{tag}: {k} is not finite')
+    for d in (*zcv.pk_ij.values(), *zcv.tracer_spectra.values()):
+        for k, v in d.items():
+            require(bool(np.isfinite(np.asarray(v, np.float64)).all()), f'{tag}: {k} not finite')
+    rho = np.asarray(out['rho_tr_ZD'])[0]
+    require((rho[1:6] >= 0.9).all(), f'{tag}: rho_tr_ZD {rho[:8]} below 0.9 at low k')
+    stages = {
+        'IC (Gaussian field, displacement)': t_ic,
+        'IC filter (4 fields)': steps['gaussian_filter'],
+        'get_fields': steps['get_fields'],
+        'advection + 5 field FFTs (RSD and real)': steps['advected_field_ffts'],
+        '15 P_ij (RSD and real)': steps['power_ij'],
+        'window (K8)': steps['periodic_window_function'],
+        f'templates (host, {len(os.sched_getaffinity(0))} cores)': steps['_templates'],
+        'get_tracer_power x2': steps['get_tracer_power'],
+        'run_zcv': steps['run_zcv'],
+        'zcv_products': t_pre,
+        'apply_zcv': t_apply,
+    }
+    print(f'phase 13 {tag}: ' + '; '.join(f'{k} {v:.3f} s' for k, v in stages.items())
+          + f'; peak memory {peak / 2**30:.3f} GiB; launches {launches}')
+    print(f'phase 13 rho_tr_ZD (monopole, bins 0-7) {np.round(rho[:8], 4).tolist()}; bias '
+          f'{np.round(np.asarray(out["bias"]), 4).tolist()}')
+    # K3 at the 15 P_ij's shape, inside the chain
+    ffts = list(zcv.field_ffts[True].values())
+    W = get_W_compensated(LBOX, n, 'TSC', True)
+    kbins, mubins = get_k_mu_edges(LBOX, np.pi * n / LBOX, n // 2, 1, False)
+    dk = 2 * np.pi / LBOX
+    plan = get_mode_bin_plan(n, ((kbins / dk) ** 2).astype(np.float32),
+                             (mubins**2).astype(np.float32), (0, 2, 4), dev)
+    pole_w = {p: plan.pole_w[p] for p in (2, 4)}
+    args = (ffts, plan.seg, None, 1.0, plan.nk, pole_w, 1)
+    k3_ms = event_ms(lambda: bin_pair_modes(*args), 3)
+    k3_kernel = kernel_ms(lambda: bin_pair_modes(*args), reps=3)
+    print(f'phase 13 K3 at the 15 P_ij ({n}^3, 5 fields, poles 0 2 4): wrapper {k3_ms:.4f} ms, '
+          f'kernel-only {"not measured" if k3_kernel is None else f"{k3_kernel:.4f} ms"}')
+    timing['bin_pair_modes[poles nmu=1]'].setdefault('shapes', []).append(
+        dict(shape=f'15 P_ij at {n}^3, poles 0 2 4', ms=k3_ms, kernel_ms=k3_kernel))
+    del ffts, zcv, out, W
+    print(f'phase 13 in {time.perf_counter() - t0:.1f} s')
+    return dict(stages=stages, peak_bytes=peak, tracers=n_tr, rho=rho[:8].tolist())
+
+
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
@@ -1655,6 +2022,11 @@ KERNELS = {
                        'abacusutils_tpu/models/hod/ranks_device.py:271'),
     'menv_annulus': (menv_device.menv_annulus, 'abacusutils_tpu_torch/csrc/prepare_sim.cu',
                      'abacusutils_tpu/models/hod/menv_device.py:152'),
+    'tsc_deposit_cells_multi': (tsc_deposit_cells_multi,
+                                'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
+                                'abacusutils_tpu/ops/grid.py:485'),
+    'window_mode_sums': (tzw.window_mode_sums, 'abacusutils_tpu_torch/csrc/zcv_window.cu',
+                         'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
 }
 # the kernels line's entries: (kernel, form); a form's launches are its
 # wrapper's launches_by_form count (None: the wrapper's whole count)
@@ -1673,6 +2045,10 @@ FORMS = {
     'pair_count_all[smu]': ('count_pairs_all', 'smu', 'abacusutils_tpu/ops/tpcf.py:84'),
     'nn_within_halo': ('nn_within_halo', None, 'abacusutils_tpu/models/hod/ranks_device.py:271'),
     'menv_annulus': ('menv_annulus', None, 'abacusutils_tpu/models/hod/menv_device.py:152'),
+    'tsc_deposit_cells[tsc multi-weight]': ('tsc_deposit_cells_multi', None,
+                                            'abacusutils_tpu/ops/grid.py:485'),
+    'window_mode_sums': ('window_mode_sums', None,
+                         'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
 }
 
 
@@ -2231,6 +2607,11 @@ def main():
         t11 = time.perf_counter()
         phase_slab(paths10, shearmark)
         print(f'phase 11 in {time.perf_counter() - t11:.1f} s')
+        del shearmark
+        timing['tsc_deposit_cells[tsc multi-weight]'], timing['window_mode_sums'] = (
+            phase_zcv_kernels(dev))
+        paths13 = {}
+        phase_zcv(dev, paths13, timing)
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -2238,12 +2619,13 @@ def main():
             **paths7,
             **paths8,
             **paths10,
+            **paths13,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

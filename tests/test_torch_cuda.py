@@ -965,3 +965,111 @@ def test_shear_on_card(cuda_device):
     got = get_shear(dens, 64, 100.0, R=2.0)
     ref = get_shear(dens, 64, 100.0, R=2.0, device='cpu')
     npt.assert_allclose(got, ref, rtol=2e-4, atol=1e-5 * float(np.abs(ref).max()))
+
+
+# ---------------------------------------------------------------------------
+# the ZCV kernels: K1's multi-weight form and K8
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('nf,nmesh', [(2, 64), (5, 64), (5, 45), (3, 550)])
+def test_multiweight_deposit_matches_plain(cuda_device, nf, nmesh):
+    """K1's multi-weight form (a unit column first, then nf - 1 weight
+    columns with zeros in them) against the plain scatter once a column and
+    against nf single-column K1 launches, on points on cell and brick edges,
+    at the multi-weight brick; no point leaves its tile."""
+    from abacusutils_tpu_torch.ops.grid import multi_brick_shape, tsc_deposit_cells_multi
+
+    box = 2000.0
+    rng = np.random.default_rng(nf * nmesh)
+    n = 200_000
+    pos = edge_points(n, nmesh, 16, box, rng)
+    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
+    ws = [None] + [t(rng.normal(size=n).astype(np.float32)).to(cuda_device)
+                   for _ in range(nf - 1)]
+    if nf > 1:
+        ws[1][::7] = 0.0
+    given = [w for w in ws if w is not None]
+    brick = multi_brick_shape(nmesh, nf)
+    staged, plan = stage_bricks(cols + given, nmesh, box, brick=brick)
+    sw = [None] + staged[3:]
+    grids = torch.zeros((nf,) + (nmesh,) * 3, device=cuda_device)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = tsc_deposit_cells_multi.launches
+    got = tsc_deposit_cells_multi(grids, *staged[:3], sw, plan, box, 0.0, overflow)
+    assert got is grids and tsc_deposit_cells_multi.launches == before + 1
+    assert int(overflow) == 0
+    ones = torch.ones(n, device=cuda_device)
+    for f, w in enumerate(ws):
+        ref = paint_3d_plain(torch.zeros((nmesh,) * 3, device=cuda_device), *cols,
+                             ones if w is None else w, nmesh, box)
+        _assert_grid(got[f], ref)
+        single = torch.zeros_like(ref)
+        tsc_deposit_cells(single, *staged[:3], ones if w is None else sw[f], plan, box)
+        _assert_grid(got[f], single)
+    assert blocks_per_sm(plan, 'tsc', nf) >= 2
+
+
+def test_multiweight_deposit_overflow(cuda_device):
+    """Points moved up to 4 cells after staging: every column's grid is the
+    plain scatter's and the overflow word counts the moved points."""
+    from abacusutils_tpu_torch.ops.grid import tsc_deposit_cells_multi
+
+    nmesh, box, n = 96, 77.0, 100_000
+    rng = np.random.default_rng(23)
+    pos = (rng.random((n, 3)) * box).astype(np.float32)
+    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
+    ws = [t(rng.random(n).astype(np.float32)).to(cuda_device) for _ in range(3)]
+    staged, plan = stage_bricks(cols + ws, nmesh, box, brick=(8, 16, 16))
+    h = box / nmesh
+    move = torch.from_numpy((rng.uniform(-4, 4, (n, 3)) * h).astype(np.float32)).to(cuda_device)
+    move[n // 2:] = 0.0
+    x, y, z = (staged[i] + move[:, i] for i in range(3))
+    grids = torch.zeros((3,) + (nmesh,) * 3, device=cuda_device)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    tsc_deposit_cells_multi(grids, x, y, z, staged[3:], plan, box, 0.0, overflow)
+    want = int(overflow_count_plain(x, y, z, staged[3], plan, box))
+    assert int(overflow) == want > n // 10
+    for f in range(3):
+        _assert_grid(grids[f], paint_3d_plain(torch.zeros((nmesh,) * 3, device=cuda_device),
+                                              x, y, z, staged[3 + f], nmesh, box))
+
+
+def test_field_ffts_on_card_match_cpu(cuda_device):
+    """get_field_ffts (two stages, one multi-weight launch each) on the card
+    against the same call on the CPU (the plain deposit)."""
+    n, nmesh, lbox = 50_000, 48, 500.0
+    rng = np.random.default_rng(2)
+    pos = (rng.random((n, 3)) * lbox).astype(np.float32)
+    ws = [None] + [rng.normal(size=n).astype(np.float32) for _ in range(4)]
+    W = get_W_compensated(lbox, nmesh, 'TSC', True)
+    got = tpow.get_field_ffts(pos, lbox, nmesh, 'TSC', ws, W, True, True, device=cuda_device)
+    ref = tpow.get_field_ffts(pos, lbox, nmesh, 'TSC', ws, W, True, True, device='cpu')
+    for g, r in zip(got, ref):
+        r = r.numpy()
+        npt.assert_allclose(g.cpu().numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.parametrize('nmesh,nkout', [(64, 32), (63, 20), (128, 64), (256, 128)])
+def test_window_kernel_matches_plain(cuda_device, nmesh, nkout):
+    """K8 against its plain version (a torch bincount a kx plane) on the
+    card, at even and odd meshes: the counts row exact, the other rows
+    within 1e-12 of the bin's count (f64 sums of the same f32 weights in
+    another order), bins past the last mode empty; two launches give the
+    same bits."""
+    from abacusutils_tpu_torch.models.zcv import zenbu_window as tzw
+
+    lbox = 1000.0
+    kout = np.linspace(0.0, np.sqrt(3) * np.pi * nmesh / lbox * 0.8, nkout + 1)
+    kv, kz = (torch.from_numpy(a).to(cuda_device) for a in tzw._mode_kgrids(nmesh, lbox))
+    edges = torch.from_numpy(tzw._f32_ge_edges(kout)).to(cuda_device)
+    before = tzw.window_mode_sums.launches
+    got = tzw.window_mode_sums(kv, kz, edges, nkout)
+    again = tzw.window_mode_sums(kv, kz, edges, nkout)
+    assert tzw.window_mode_sums.launches == before + 2
+    ref = tzw.window_mode_sums_plain(kv, kz, edges, nkout)
+    got, again, ref = (a.cpu().numpy() for a in (got, again, ref))
+    npt.assert_array_equal(got, again)
+    npt.assert_array_equal(got[0], ref[0])
+    assert (np.abs(got - ref) <= 1e-12 * np.maximum(ref[0], 1.0)).all()
+    assert ref[0].sum() > 0

@@ -124,7 +124,8 @@ def test_inputs_from_numpy():
 
 def test_port_imports_without_jax():
     """Every module of the port imports with jax and the JAX package blocked,
-    and none imports h5py, yaml or asdf (the GPU machine has none)."""
+    and none imports h5py, yaml, asdf, msgpack or zstandard (the GPU machine
+    has none)."""
     mods = sorted(
         '.'.join(f.relative_to(REPO).with_suffix('').parts).removesuffix('.__init__')
         for f in (REPO / 'abacusutils_tpu_torch').rglob('*.py')
@@ -138,7 +139,8 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'abacusutils_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
-        "assert not any(k in sys.modules for k in ('h5py', 'yaml', 'asdf'))\n"
+        "assert not any(k in sys.modules for k in ('h5py', 'yaml', 'asdf', 'msgpack', "
+        "'zstandard'))\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -148,5 +150,8 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == 'ok' and len(mods) >= 10
     for m in ('ops.power', 'ops.grid', 'ops.tpcf', 'ops.shear', 'models.hod.population',
               'models.hod.abacus_hod', 'models.hod.shapes_np', 'models.hod.prepare_sim',
-              'models.hod.menv', 'models.hod.ranks_device', 'models.hod.menv_device', 'testing'):
+              'models.hod.menv', 'models.hod.ranks_device', 'models.hod.menv_device', 'testing',
+              'models.zcv.cosmo', 'models.zcv.ic_fields', 'models.zcv.advect_fields',
+              'models.zcv.tracer_power', 'models.zcv.zenbu_native', 'models.zcv.zenbu_window',
+              'models.zcv.tools_cv', 'models.zcv.precompute', 'models.zcv.apply'):
         assert f'abacusutils_tpu_torch.{m}' in mods
