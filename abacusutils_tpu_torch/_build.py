@@ -37,13 +37,17 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
-    # grids, x, y, z, weight columns (array of pointers), their count, work,
-    # nitems, nmesh, brick (x, y, z), margin (x, y, z), box, offset, kind, wrap,
-    # overflow, stream
-    'tsc_deposit_bricks': (_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _I, _I, _P, _P),
-    # kind, nmesh, weight columns, shared bytes, out blocks
-    'tsc_deposit_blocks_per_sm': (_I, _I, _I, _I, _P),
+    # grid, x, y, z, w, work, nitems, nmesh, brick (x, y, z), margin (x, y,
+    # z), box, offset, kind, wrap, overflow, stream
+    'tsc_deposit_bricks': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                           _P, _P),
+    # kind, nmesh, shared bytes, out blocks
+    'tsc_deposit_blocks_per_sm': (_I, _I, _I, _P),
+    # grids, packed points, weight columns, unit grid first, starts, nmesh,
+    # brick (x, y, z), stream
+    'tsc_gather_cells': (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
+    # weight columns, unit grid first, out blocks
+    'tsc_gather_blocks_per_sm': (_I, _I, _P),
     # nfields, npoles, warps, shared bytes, device, out blocks per SM
     'mode_bin_pairs_occupancy': (_I, _I, _I, _I, _I, _P),
     # fields (array of pointers), nfields, the fields' strides (x, y, z, in
@@ -71,11 +75,11 @@ SIGNATURES = {
     'zcv_window_sums': (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # x, y, z (f32), query, work, nitems, pstart, pnum, nn_d2 (f64), stream
     'nn_within_halo': (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
-    # x, y, z, m, rin2 (f64, sorted by cell), starts, ukeys or null, nu, the
-    # three neighbour tables, cells along each axis, periodic, lbox, r_out^2,
-    # mcut, work, nitems, out (f64), stream
-    'menv_annulus': (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L, _L, _I, _D, _D, _D, _P,
-                     _I, _P, _P),
+    # x, y, z, m, rin2 (f64, sorted by cell), cells (3, n), n, starts, ukeys
+    # or null, nu, cells along each axis, periodic, lbox, r_out^2, query,
+    # work, nitems, threads a block, round, out (f64), stream
+    'menv_annulus': (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _D, _D, _P, _P, _I,
+                     _I, _I, _P, _P),
 }
 
 

@@ -15,7 +15,8 @@
 // query's minimum in a register.
 //
 // K7 menv_annulus: for each centre i whose mass exceeds mcut,
-//   Menv[i] = sum_j m_j ([d2 <= r_out^2] - [d2 <= r_in,i^2]),
+//   Menv[i] = sum_j m_j ([d2 <= r_out^2] - [d2 <= r_in,i^2])
+// over the halos j of the 27 cells around i's (the JAX package's sum),
 // both balls closed (the self term cancels), d the periodic minimum image
 // dx - L rint(dx / L) in a box (rint rounds half to even, as jnp.round) and
 // the plain difference in a light cone; every other centre gets 0. Replaces
@@ -23,13 +24,28 @@
 // global-capacity (rows, 4 capG) layout, all cells against each of the 27
 // neighbour rows as (cblock, capG, capG) tiles), :_menv_class (per-cell
 // dynamic slices in (row, window) capacity classes) and the layouts of
-// :_menv_vec_layouts. Here the halos are sorted by cell once; a block takes
-// at most K7_THREADS centres of one cell, finds its 27 neighbour cells from
-// the per-axis neighbour tables (wrapped and deduplicated for periodic axes,
-// -1 for the open faces of a light cone) and the cell starts, and streams
-// each neighbour cell through shared memory in a fixed order. One thread a
-// centre sums in a float64 register, with no atomics: the result is the same
-// on every run.
+// :_menv_vec_layouts. Here the halos are sorted by cell once (cells of edge
+// >= r_outer, so the 27 cells hold every ball of radius r_outer) and the
+// centres are cut into work items (models/hod/menv_device.py:_row_runs): a
+// run of occupied cells k0..k1 along z in one (i, j) row, up to the block's
+// threads of centres. A block takes an item; its first warp finds the 9
+// neighbour rows (i +- 1, j +- 1, wrapped and deduplicated for periodic
+// axes of fewer than 3 cells, absent past an open face), each over cells
+// k0 - 1 .. k1 + 1 cut at the periodic seam into at most 3 pieces: 27
+// ranges, each contiguous in the sorted order (two cell starts, or in a
+// light cone with dense ids two binary searches over them). The ranges are
+// laid end to end and streamed through full shared tiles of x, y, z, m and
+// the candidate's z cell; a candidate outside its centre's own 27 cells (a
+// z cell more than one away) is skipped, so the sum is the 27-cell sum for
+// any r_in. One thread a centre sums in a float64 register in the tiles'
+// fixed order, with no atomics: the result is the same on every run.
+//
+// Where every axis has 5 cells or more, the minimum image of a candidate is
+// its piece's wrap: rint(dx / L) is 0 within a row that did not wrap and
+// +-1 across the seam (|dx| < 2 cells <= 0.4 L, or > 0.6 L), so dx - L
+// rint(dx / L) is dx minus the piece's shift of 0 or +-L bit for bit, and
+// the division goes (ROUND = false; a light cone has no shift). On a box of
+// fewer cells the division stays (ROUND = true).
 //
 // Arithmetic: every product, quotient and sum is written with the _rn
 // intrinsics, so nvcc cannot contract a product and a sum into an FMA. The
@@ -40,13 +56,19 @@
 // What bounds them on the H100: float64 operations. K6 does 8 a pair
 // (3 differences, 3 products, 2 sums) over sum of (queries x window) pairs;
 // K7 9 a candidate (3 differences, 3 products, 2 sums and the compare; the
-// box's minimum image adds a quotient, a round, a product and a difference
-// an axis) over the candidates of the 27-cell walk. The bytes they read are
-// a few per pair from shared memory and 12 or 40 a point from device
-// memory. The H100's f64 rate outside the tensor cores is 34 TFLOP/s, half
-// the f32 rate, so the design keeps each pair's work to those operations and
-// a register compare; it makes no attempt yet to keep more lanes busy on
-// small halos (a 20-particle halo fills 14 of a block's 128 threads).
+// small box's minimum image adds a quotient, a round, a product and a
+// difference an axis) over the candidates of the 27-cell walk. The bytes
+// they read are a few per pair from shared memory and 12 or 40 a point from
+// device memory. The H100's f64 rate outside the tensor cores is 34
+// TFLOP/s, half the f32 rate, so the design keeps each pair's work to those
+// operations and a register compare. K6 makes no attempt yet to keep more
+// lanes busy on small halos (a 20-particle halo fills 14 of a block's 128
+// threads); K7's items gather the centres of a run of cells for that, but
+// at 2e6 clumped halos they hold 5 centres on average (lane occupancy 0.16
+// in a box), so each item's chain of dependent loads (its first centre's
+// cell, the 27 ranges' starts, the first tile) sets K7's time, at about 0.02
+// of the operation bound; items of 64 or 128 centres, most lanes idle, were
+// slower than a warp an item (scripts/torch/k1m_k7_compare.py).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -55,8 +77,6 @@ namespace {
 
 constexpr int K6_THREADS = 128;  // queries of a work item
 constexpr int K6_TILE = 256;     // window particles a shared tile holds
-constexpr int K7_THREADS = 64;   // centres of a work item
-constexpr int K7_TILE = 64;      // neighbour halos a shared tile holds
 
 __device__ __forceinline__ double sq3(double dx, double dy, double dz) {
     return __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)), __dmul_rn(dz, dz));
@@ -104,107 +124,186 @@ nn_within_halo_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (active) nn_d2[qi] = best;
 }
 
+constexpr int K7_MAX_THREADS = 128;  // centres a work item may hold
+constexpr int K7_TILE = 256;         // candidates a shared tile holds
+constexpr int K7_SLOTS = 27;         // 9 neighbour rows x 3 pieces along z
+
 struct MenvGrid {
-    long long nc0, nc1, nc2;  // cells along each axis
+    int nc0, nc1, nc2;  // cells along each axis
     int periodic;
     double lbox;
     double rout2;
-    double mcut;
 };
 
-// the slot of raw cell id `wc` among the nu sorted occupied cells `ukeys`, or -1
-__device__ __forceinline__ long long dense_slot(const long long* ukeys, int nu, long long wc) {
+// the first of the nu sorted occupied cells `ukeys` at or above raw id wc
+__device__ __forceinline__ int lower_slot(const long long* ukeys, int nu, long long wc) {
     int lo = 0, hi = nu;
     while (lo < hi) {
         const int mid = (lo + hi) >> 1;
         if (ukeys[mid] < wc) lo = mid + 1;
         else hi = mid;
     }
-    return (lo < nu && ukeys[lo] == wc) ? lo : -1;
+    return lo;
 }
 
 __device__ __forceinline__ double min_image(double d, double lbox) {
     return __dsub_rn(d, __dmul_rn(lbox, rint(__ddiv_rn(d, lbox))));
 }
 
-__global__ void __launch_bounds__(K7_THREADS)
+// The neighbour of cell c at offset d (-1, 0, 1) on an axis of n cells
+// (.x, -1 where there is none) and its wrap (.y: the neighbour's image lies
+// .y * L away from the cell): wrapped on a periodic axis, where fewer than 3
+// cells alias the offsets and only the distinct ones are kept
+// (abacusutils_tpu/models/hod/menv_device.py:_axis_neighbors), absent past
+// an open face.
+__device__ __forceinline__ int2 neighbour(int c, int d, int n, bool periodic) {
+    const int m = c + d;
+    if (!periodic) return make_int2((m >= 0 && m < n) ? m : -1, 0);
+    if (n < 3 && (n == 1 ? d != 0 : d < 0)) return make_int2(-1, 0);
+    if (m < 0) return make_int2(m + n, -1);
+    if (m >= n) return make_int2(m - n, 1);
+    return make_int2(m, 0);
+}
+
+template <bool ROUND>
+__global__ void __launch_bounds__(K7_MAX_THREADS)
 menv_annulus_kernel(const double* __restrict__ x, const double* __restrict__ y,
                     const double* __restrict__ z, const double* __restrict__ m,
-                    const double* __restrict__ rin2, const int* __restrict__ starts,
-                    const long long* __restrict__ ukeys, int nu, const int* __restrict__ nbr0,
-                    const int* __restrict__ nbr1, const int* __restrict__ nbr2,
-                    const int* __restrict__ work, MenvGrid g, double* __restrict__ out) {
-    __shared__ double sx[K7_TILE], sy[K7_TILE], sz[K7_TILE], sm[K7_TILE];
-    __shared__ int wstart[27], wlen[27];
-    const int cell = work[3 * blockIdx.x];
-    const int begin = work[3 * blockIdx.x + 1];
-    const int end = work[3 * blockIdx.x + 2];
-    if (begin >= end) return;  // uniform across the block
+                    const double* __restrict__ rin2, const int* __restrict__ cells, int n,
+                    const int* __restrict__ starts, const long long* __restrict__ ukeys, int nu,
+                    const int* __restrict__ query, const int* __restrict__ work, MenvGrid g,
+                    double* __restrict__ out) {
+    __shared__ double tx[K7_TILE], ty[K7_TILE], tz[K7_TILE], tm[K7_TILE];
+    __shared__ int tk[K7_TILE];      // the candidate's z cell
+    __shared__ int tslot[K7_TILE];   // its range
+    __shared__ int seg_cum[K7_SLOTS + 1];
+    __shared__ int seg_sb[K7_SLOTS];
+    __shared__ double3 seg_w[K7_SLOTS];
+    const int qb = work[2 * blockIdx.x], qe = work[2 * blockIdx.x + 1];
+    const int t = threadIdx.x;
+    const int* ck = cells + 2 * (size_t)n;  // the z cells
 
-    if (threadIdx.x < 27) {
-        const long long raw = ukeys ? ukeys[cell] : (long long)cell;
-        const long long ci = raw / (g.nc1 * g.nc2);
-        const long long cj = (raw / g.nc2) % g.nc1;
-        const long long ck = raw % g.nc2;
-        const int t = threadIdx.x;
-        const int wi = nbr0[3 * ci + t / 9];
-        const int wj = nbr1[3 * cj + (t / 3) % 3];
-        const int wk = nbr2[3 * ck + t % 3];
-        int s = 0, l = 0;
-        if (wi >= 0 && wj >= 0 && wk >= 0) {
-            const long long wc = ((long long)wi * g.nc1 + wj) * g.nc2 + wk;
-            const long long slot = ukeys ? dense_slot(ukeys, nu, wc) : wc;
-            if (slot >= 0) {
-                s = starts[slot];
-                l = starts[slot + 1] - s;
+    if (t < 32) {
+        // the item's row and its first and last cell along z
+        const int i0 = query[qb], i1 = query[qe - 1];
+        const int ci = cells[i0], cj = cells[n + i0], k0 = ck[i0], k1 = ck[i1];
+        const bool per = g.periodic != 0;
+        int sb = 0, len = 0, wi = 0, wj = 0, wk = 0;
+        if (t < K7_SLOTS) {
+            const int r = t / 3, piece = t % 3;
+            const int2 nbi = neighbour(ci, r / 3 - 1, g.nc0, per);
+            const int2 nbj = neighbour(cj, r % 3 - 1, g.nc1, per);
+            const int ni = nbi.x, nj = nbj.x;
+            wi = nbi.y;
+            wj = nbj.y;
+            int ka = 0, kb = -1;
+            if (per && g.nc2 < 3) {
+                if (piece == 0) ka = 0, kb = g.nc2 - 1;  // the whole row, once
+            } else if (piece == 0) {
+                ka = max(k0 - 1, 0), kb = min(k1 + 1, g.nc2 - 1);
+            } else if (piece == 1 && per && k0 == 0) {
+                ka = kb = g.nc2 - 1, wk = -1;
+            } else if (piece == 2 && per && k1 == g.nc2 - 1) {
+                ka = kb = 0, wk = 1;
+            }
+            if (ni >= 0 && nj >= 0 && ka <= kb) {
+                const long long base = ((long long)ni * g.nc1 + nj) * g.nc2;
+                int lo, hi;
+                if (ukeys) {
+                    lo = lower_slot(ukeys, nu, base + ka);
+                    hi = lower_slot(ukeys, nu, base + kb + 1);
+                } else {
+                    lo = (int)(base + ka);
+                    hi = (int)(base + kb + 1);
+                }
+                sb = starts[lo];
+                len = starts[hi] - sb;
             }
         }
-        wstart[t] = s;
-        wlen[t] = l;
+        // exclusive prefix sum of the ranges' lengths
+        int inc = len;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, inc, o);
+            if (t >= o) inc += v;
+        }
+        if (t < K7_SLOTS) {
+            seg_cum[t] = inc - len;
+            seg_sb[t] = sb;
+            seg_w[t] = make_double3(wi * g.lbox, wj * g.lbox, wk * g.lbox);
+        }
+        if (t == K7_SLOTS - 1) seg_cum[K7_SLOTS] = inc;
     }
     __syncthreads();
+    const int total = seg_cum[K7_SLOTS];
 
-    const int i = begin + threadIdx.x;
-    const bool active = i < end && m[i] > g.mcut;
+    const bool active = t < qe - qb;
+    const int i = active ? query[qb + t] : 0;
     double xi = 0.0, yi = 0.0, zi = 0.0, ri2 = 0.0;
+    int ki = 0;
     if (active) {
         xi = x[i];
         yi = y[i];
         zi = z[i];
         ri2 = rin2[i];
+        ki = ck[i];
     }
     double acc = 0.0;
-    for (int w = 0; w < 27; ++w) {
-        const int s = wstart[w];
-        const int l = wlen[w];
-        for (int t0 = 0; t0 < l; t0 += K7_TILE) {
-            const int nt = min(K7_TILE, l - t0);
-            __syncthreads();  // the previous tile is consumed
-            for (int k = threadIdx.x; k < nt; k += K7_THREADS) {
-                sx[k] = x[s + t0 + k];
-                sy[k] = y[s + t0 + k];
-                sz[k] = z[s + t0 + k];
-                sm[k] = m[s + t0 + k];
+    for (int p0 = 0; p0 < total; p0 += K7_TILE) {
+        const int nt = min(K7_TILE, total - p0);
+        __syncthreads();  // the previous tile is consumed
+        int shifted = 0;
+        for (int u = t; u < nt; u += blockDim.x) {
+            const int pos = p0 + u;
+            // the last range that begins at or before pos (an empty range
+            // shares its begin with the next one)
+            int lo = 0, hi = K7_SLOTS;
+            while (hi - lo > 1) {
+                const int mid = (lo + hi) >> 1;
+                if (seg_cum[mid] <= pos) lo = mid;
+                else hi = mid;
             }
-            __syncthreads();
-            if (!active) continue;
-            for (int k = 0; k < nt; ++k) {
-                double dx = __dsub_rn(xi, sx[k]);
-                double dy = __dsub_rn(yi, sy[k]);
-                double dz = __dsub_rn(zi, sz[k]);
-                if (g.periodic) {
-                    dx = min_image(dx, g.lbox);
-                    dy = min_image(dy, g.lbox);
-                    dz = min_image(dz, g.lbox);
-                }
-                const double d2 = sq3(dx, dy, dz);
-                const int ann = (d2 <= g.rout2) - (d2 <= ri2);
-                if (ann > 0) acc = __dadd_rn(acc, sm[k]);
-                else if (ann < 0) acc = __dsub_rn(acc, sm[k]);
+            const int j = seg_sb[lo] + (pos - seg_cum[lo]);
+            tx[u] = x[j];
+            ty[u] = y[j];
+            tz[u] = z[j];
+            tm[u] = m[j];
+            tk[u] = ck[j];
+            tslot[u] = lo;
+            const double3 w = seg_w[lo];
+            shifted |= (w.x != 0.0) | (w.y != 0.0) | (w.z != 0.0);
+        }
+        // tiles without a wrapped range (all but the items at the box's
+        // faces, every tile of a light cone) subtract no shift
+        const bool any_shift = __syncthreads_or(shifted) != 0;
+        if (!active) continue;
+        for (int k = 0; k < nt; ++k) {
+            int dk = tk[k] - ki;
+            if (g.periodic) {
+                if (dk > 1) dk -= g.nc2;
+                else if (dk < -1) dk += g.nc2;
             }
+            if (dk < -1 || dk > 1) continue;  // outside the centre's 27 cells
+            double dx = __dsub_rn(xi, tx[k]);
+            double dy = __dsub_rn(yi, ty[k]);
+            double dz = __dsub_rn(zi, tz[k]);
+            if (ROUND) {
+                dx = min_image(dx, g.lbox);
+                dy = min_image(dy, g.lbox);
+                dz = min_image(dz, g.lbox);
+            } else if (any_shift) {
+                const double3 w = seg_w[tslot[k]];
+                dx = __dsub_rn(dx, w.x);
+                dy = __dsub_rn(dy, w.y);
+                dz = __dsub_rn(dz, w.z);
+            }
+            const double d2 = sq3(dx, dy, dz);
+            const int ann = (d2 <= g.rout2) - (d2 <= ri2);
+            if (ann > 0) acc = __dadd_rn(acc, tm[k]);
+            else if (ann < 0) acc = __dsub_rn(acc, tm[k]);
         }
     }
-    if (i < end) out[i] = active ? acc : 0.0;
+    if (active) out[i] = acc;
 }
 
 }  // namespace
@@ -224,19 +323,31 @@ extern "C" int nn_within_halo(const float* x, const float* y, const float* z, co
     return (int)cudaGetLastError();
 }
 
-// x, y, z, m, rin2: float64 columns sorted by cell; starts: int32 offsets of
-// the cells (ncells + 1); ukeys: the raw id of each of the nu occupied cells
-// when starts indexes them densely, else null (starts indexes raw ids);
-// nbr0/1/2: (nc, 3) int32 neighbour tables, -1 for an absent neighbour;
-// work: (nitems, 3) int32 (cell, begin, end); out: float64, in sorted order.
+// x, y, z, m, rin2: float64 columns sorted by cell; cells: (3, n) int32,
+// each halo's cell along each axis; starts: int32 offsets of the cells
+// (ncells + 1); ukeys: the raw id of each of the nu occupied cells when
+// starts indexes them densely, else null (starts indexes raw ids); query:
+// the int32 index of every centre above mcut, in sorted order; work:
+// (nitems, 2) int32 (begin, end) into query, one run of cells of one row
+// each, at most `threads` centres; round: 1 for the minimum image by
+// division (a periodic grid of fewer than 5 cells an axis); out: float64, in
+// sorted order, written at the centres only.
 extern "C" int menv_annulus(const double* x, const double* y, const double* z, const double* m,
-                            const double* rin2, const int* starts, const long long* ukeys, int nu,
-                            const int* nbr0, const int* nbr1, const int* nbr2, long long nc0,
-                            long long nc1, long long nc2, int periodic, double lbox, double rout2,
-                            double mcut, const int* work, int nitems, double* out, void* stream) {
+                            const double* rin2, const int* cells, int n, const int* starts,
+                            const long long* ukeys, int nu, int nc0, int nc1, int nc2,
+                            int periodic, double lbox, double rout2, const int* query,
+                            const int* work, int nitems, int threads, int round, double* out,
+                            void* stream) {
     if (nitems <= 0) return (int)cudaSuccess;
-    const MenvGrid g{nc0, nc1, nc2, periodic, lbox, rout2, mcut};
-    menv_annulus_kernel<<<nitems, K7_THREADS, 0, (cudaStream_t)stream>>>(
-        x, y, z, m, rin2, starts, ukeys, nu, nbr0, nbr1, nbr2, work, g, out);
+    if (threads < 32 || threads > K7_MAX_THREADS || threads % 32) return (int)cudaErrorInvalidValue;
+    const MenvGrid g{nc0, nc1, nc2, periodic, lbox, rout2};
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (round) {
+        menv_annulus_kernel<true><<<nitems, threads, 0, s>>>(x, y, z, m, rin2, cells, n, starts,
+                                                             ukeys, nu, query, work, g, out);
+    } else {
+        menv_annulus_kernel<false><<<nitems, threads, 0, s>>>(x, y, z, m, rin2, cells, n, starts,
+                                                              ukeys, nu, query, work, g, out);
+    }
     return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@
 // x, y, z of the kept ones, each grid written once: 0.14 ms at 3.35 TB/s for
 // the bench step's 6e7 points), so the atomics are the limit: 27 shared adds
 // per kept point, which sm_90a compiles to a compare-and-swap loop
-// (ATOMS.CAST.SPIN: there is no native shared f32 add), and one global add
+// (ATOMS.CAST.SPIN in the SASS: there is no native shared f32 add), and one
+// global add
 // (REDG.E.ADD.F32) per flushed group. The design keeps the global flush near
 // 1.4 x the grid (the ghost layers; a tile of a whole z row, as a
 // (x-cell, y-block) tile would be, flushes 3-6 x the grid and at nmesh = 550
@@ -42,15 +43,9 @@
 // it into an FMA: it is then the staging key's cell bit for bit, and points
 // leave their tile only when they moved.
 //
-// The multi-weight form (NF > 1, TSC) is the counterpart of
-// abacusutils_tpu/ops/grid.py:paint_grouped_yb_multiw: NF weight columns on
-// one brick-sorted point set (the ZCV advection: five bias fields on the
-// Zel'dovich lattice) each deposit into their own grid, one after another
-// in memory. A block keeps NF tiles, computes a point's stencil weights once
-// and adds them, times each column's weight, into every tile; a null column
-// is a unit weight (the 1cb field). The tiles cost NF times the shared memory
-// of one, so the wrapper picks a smaller brick for NF > 1 (ops/grid.py:
-// MULTI_BRICK) to keep more than one block an SM.
+// K1's multi-weight form (the ZCV advection's five weight columns on one
+// point set) is a separate kernel, a gather without atomics:
+// csrc/tsc_gather.cu.
 //
 // KIND (a template parameter) is 0 for TSC and 1 for CIC. CIC uses the same
 // 3-point stencil and tile (weights max(d,0), 1-|d|, max(-d,0), as
@@ -62,18 +57,9 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int THREADS = 256;
-// weight columns one launch takes
-constexpr int MAX_FIELDS = 5;
-
-// the weight columns of a launch; a null column is a unit weight
-struct Weights {
-    const float* w[MAX_FIELDS];
-};
 
 // the brick layout of a stage (ops/grid.py:BrickPlan)
 struct Bricks {
@@ -115,11 +101,11 @@ __device__ __forceinline__ int axis_cloud(float p, float box, float offset, floa
     return (int)i0;
 }
 
-template <int KIND, int V, int NF>
+template <int KIND, int V>
 __global__ void __launch_bounds__(THREADS)
-tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
-                          const float* __restrict__ x, const float* __restrict__ y,
-                          const float* __restrict__ z, Weights W, const int* __restrict__ work,
+tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
+                          const float* __restrict__ y, const float* __restrict__ z,
+                          const float* __restrict__ w, const int* __restrict__ work,
                           Bricks g, float box, float offset, int wrap, int* __restrict__ overflow) {
     extern __shared__ float tile[];
     const int brick = work[3 * blockIdx.x];
@@ -136,7 +122,7 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
     const int ty = g.by + 2 + 2 * g.my;
     const int tz = g.bz + 2 + 2 * g.mz;
     const int tile_n = tx * ty * tz;
-    for (int i = threadIdx.x; i < NF * tile_n; i += THREADS) tile[i] = 0.f;
+    for (int i = threadIdx.x; i < tile_n; i += THREADS) tile[i] = 0.f;
     __syncthreads();
 
     const float inv_h = __fdiv_rn((float)n, box);
@@ -146,13 +132,8 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
     const int chunk = (end - begin + THREADS - 1) / THREADS;
     const int p1 = min(begin + (threadIdx.x + 1) * chunk, end);
     for (int p = begin + threadIdx.x * chunk; p < p1; ++p) {
-        float wp[NF];
-        bool any = false;
-        for (int f = 0; f < NF; ++f) {
-            wp[f] = W.w[f] ? W.w[f][p] : 1.f;
-            any |= wp[f] != 0.f;
-        }
-        if (!any) continue;
+        const float wp = w[p];
+        if (wp == 0.f) continue;
         float wx[3], wy[3], wz[3];
         const int ix = axis_cloud<KIND>(x[p], box, offset, inv_h, wrap, wx);
         const int iy = axis_cloud<KIND>(y[p], box, offset, inv_h, wrap, wy);
@@ -166,12 +147,9 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
             float* t0 = tile + (lx * ty + ly) * tz + lz;
             for (int a = 0; a < 3; ++a) {
                 for (int b = 0; b < 3; ++b) {
-                    const float wxy = __fmul_rn(wx[a], wy[b]);
-                    for (int f = 0; f < NF; ++f) {
-                        const float wab = __fmul_rn(wxy, wp[f]);
-                        float* row = t0 + f * tile_n + (a * ty + b) * tz;
-                        for (int k = 0; k < 3; ++k) atomicAdd(row + k, __fmul_rn(wab, wz[k]));
-                    }
+                    const float wab = __fmul_rn(__fmul_rn(wx[a], wy[b]), wp);
+                    float* row = t0 + (a * ty + b) * tz;
+                    for (int k = 0; k < 3; ++k) atomicAdd(row + k, __fmul_rn(wab, wz[k]));
                 }
             }
         } else {
@@ -181,13 +159,9 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
             for (int a = 0; a < 3; ++a) {
                 const size_t gx = floor_mod(ix + a - 1, n);
                 for (int b = 0; b < 3; ++b) {
-                    const float wxy = __fmul_rn(wx[a], wy[b]);
-                    const size_t r = (gx * n + floor_mod(iy + b - 1, n)) * n;
-                    for (int f = 0; f < NF; ++f) {
-                        const float wab = __fmul_rn(wxy, wp[f]);
-                        float* row = grid + f * grid_stride + r;
-                        for (int k = 0; k < 3; ++k) atomicAdd(row + gz[k], __fmul_rn(wab, wz[k]));
-                    }
+                    const float wab = __fmul_rn(__fmul_rn(wx[a], wy[b]), wp);
+                    float* row = grid + (gx * n + floor_mod(iy + b - 1, n)) * n;
+                    for (int k = 0; k < 3; ++k) atomicAdd(row + gz[k], __fmul_rn(wab, wz[k]));
                 }
             }
         }
@@ -201,12 +175,10 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
     // never straddles the wrap and a row's start is V-aligned
     const int q0 = oz >= 0 ? oz / V : -((V - 1 - oz) / V);  // floor(oz / V)
     const int nq = (oz + tz - 1 >= 0 ? (oz + tz - 1) / V : -((V - oz - tz) / V)) - q0 + 1;
-    const int per_tile = tx * ty * nq;
-    for (int i = threadIdx.x; i < NF * per_tile; i += THREADS) {
-        const int f = i / per_tile;
-        const int r = (i % per_tile) / nq;
+    for (int i = threadIdx.x; i < tx * ty * nq; i += THREADS) {
+        const int r = i / nq;
         const int g0 = (q0 + i % nq) * V;  // unreduced grid z of the group's first cell
-        const float* row = tile + f * tile_n + r * tz;
+        const float* row = tile + r * tz;
         float v[V];
         bool any = false;
         for (int c = 0; c < V; ++c) {
@@ -217,7 +189,7 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
         if (!any) continue;
         const size_t gx = floor_mod(ox + r / ty, n);
         const size_t gy = floor_mod(oy + r % ty, n);
-        float* dst = grid + f * grid_stride + (gx * n + gy) * n + floor_mod(g0, n);
+        float* dst = grid + (gx * n + gy) * n + floor_mod(g0, n);
         if constexpr (V == 4) {
             atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
         } else if constexpr (V == 2) {
@@ -228,103 +200,81 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, size_t grid_stride,
     }
 }
 
-template <int KIND, int V, int NF>
-cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const Weights& W,
+template <int KIND, int V>
+cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const float* w,
                    const int* work, int nitems, const Bricks& g, float box, float offset,
                    int wrap, int* overflow, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * NF * (size_t)(g.bx + 2 + 2 * g.mx) *
-                        (g.by + 2 + 2 * g.my) * (g.bz + 2 + 2 * g.mz);
-    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V, NF>,
+    const size_t smem = sizeof(float) * (size_t)(g.bx + 2 + 2 * g.mx) * (g.by + 2 + 2 * g.my) *
+                        (g.bz + 2 + 2 * g.mz);
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    const size_t stride = (size_t)g.nmesh * g.nmesh * g.nmesh;
-    tsc_deposit_bricks_kernel<KIND, V, NF>
-        <<<nitems, THREADS, smem, stream>>>(grid, stride, x, y, z, W, work, g, box, offset, wrap,
-                                           overflow);
+    tsc_deposit_bricks_kernel<KIND, V><<<nitems, THREADS, smem, stream>>>(
+        grid, x, y, z, w, work, g, box, offset, wrap, overflow);
     return cudaGetLastError();
 }
 
-template <int KIND, int V, int NF>
+template <int KIND, int V>
 cudaError_t blocks_per_sm(int smem, int* blocks) {
-    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V, NF>,
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, tsc_deposit_bricks_kernel<KIND, V, NF>, THREADS, smem);
+        blocks, tsc_deposit_bricks_kernel<KIND, V>, THREADS, smem);
 }
 
 // the widest flush group that divides nmesh
 int flush_width(int nmesh) { return nmesh % 4 == 0 ? 4 : nmesh % 2 == 0 ? 2 : 1; }
 
-// One dispatch over the instantiated (KIND, V, NF): TSC takes 1..MAX_FIELDS
-// columns, CIC one. F is called with the instance as a template argument.
-template <int KIND, int V, typename F>
-cudaError_t by_fields(int nf, F&& fn) {
-    if (KIND == 1 && nf != 1) return cudaErrorInvalidValue;
-    switch (nf) {
-        case 1: return fn(std::integral_constant<int, 1>{});
-        case 2: if constexpr (KIND == 0) return fn(std::integral_constant<int, 2>{}); break;
-        case 3: if constexpr (KIND == 0) return fn(std::integral_constant<int, 3>{}); break;
-        case 4: if constexpr (KIND == 0) return fn(std::integral_constant<int, 4>{}); break;
-        case 5: if constexpr (KIND == 0) return fn(std::integral_constant<int, 5>{}); break;
+// One dispatch over the instantiated (KIND, V): F is called with the
+// instance's launch or occupancy function.
+#define K1_DISPATCH(KIND_, NMESH_, FN_, ...)                                  \
+    switch (flush_width(NMESH_)) {                                            \
+        case 4: return FN_<KIND_, 4>(__VA_ARGS__);                            \
+        case 2: return FN_<KIND_, 2>(__VA_ARGS__);                            \
+        default: return FN_<KIND_, 1>(__VA_ARGS__);                           \
     }
-    return cudaErrorInvalidValue;
+
+template <int KIND>
+cudaError_t launch_kind(int nmesh, float* grid, const float* x, const float* y, const float* z,
+                        const float* w, const int* work, int nitems, const Bricks& g, float box,
+                        float offset, int wrap, int* overflow, cudaStream_t stream) {
+    K1_DISPATCH(KIND, nmesh, launch, grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                overflow, stream)
 }
 
-template <int KIND, typename F>
-cudaError_t by_width(int nmesh, int nf, F&& fn) {
-    switch (flush_width(nmesh)) {
-        case 4:
-            return by_fields<KIND, 4>(nf, [&](auto c) {
-                return fn(std::integral_constant<int, 4>{}, c); });
-        case 2:
-            return by_fields<KIND, 2>(nf, [&](auto c) {
-                return fn(std::integral_constant<int, 2>{}, c); });
-        default:
-            return by_fields<KIND, 1>(nf, [&](auto c) {
-                return fn(std::integral_constant<int, 1>{}, c); });
-    }
-}
-
-template <typename F>
-cudaError_t by_instance(int kind, int nmesh, int nf, F&& fn) {
-    switch (kind) {
-        case 0: return by_width<0>(nmesh, nf, [&](auto v, auto c) {
-            return fn(std::integral_constant<int, 0>{}, v, c); });
-        case 1: return by_width<1>(nmesh, nf, [&](auto v, auto c) {
-            return fn(std::integral_constant<int, 1>{}, v, c); });
-        default: return cudaErrorInvalidValue;
-    }
+template <int KIND>
+cudaError_t blocks_kind(int nmesh, int smem, int* blocks) {
+    K1_DISPATCH(KIND, nmesh, blocks_per_sm, smem, blocks)
 }
 
 }  // namespace
 
 // ---- host entries ----
 
-// grid: nf grids of nmesh^3 one after another; w: nf weight column pointers
-// (host array; a null entry is a unit weight); kind: 0 TSC (nf 1..5), 1 CIC
-// (nf 1); wrap: 1 wraps each coordinate once into [0, box)
+// grid: nmesh^3 f32; w: the weight column; kind: 0 TSC, 1 CIC; wrap: 1 wraps
+// each coordinate once into [0, box)
 extern "C" int tsc_deposit_bricks(float* grid, const float* x, const float* y, const float* z,
-                                  const float* const* w, int nf, const int* work, int nitems,
-                                  int nmesh, int bx, int by, int bz, int mx, int my, int mz,
-                                  float box, float offset, int kind, int wrap, int* overflow,
-                                  void* stream) {
-    if (nf < 1 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
+                                  const float* w, const int* work, int nitems, int nmesh, int bx,
+                                  int by, int bz, int mx, int my, int mz, float box, float offset,
+                                  int kind, int wrap, int* overflow, void* stream) {
     const Bricks g{nmesh, bx, by, bz, (nmesh + by - 1) / by, (nmesh + bz - 1) / bz, mx, my, mz};
-    Weights W{};
-    for (int f = 0; f < nf; ++f) W.w[f] = w[f];
     const cudaStream_t s = (cudaStream_t)stream;
-    return (int)by_instance(kind, nmesh, nf, [&](auto k, auto v, auto c) {
-        return launch<decltype(k)::value, decltype(v)::value, decltype(c)::value>(
-            grid, x, y, z, W, work, nitems, g, box, offset, wrap, overflow, s);
-    });
+    switch (kind) {
+        case 0: return (int)launch_kind<0>(nmesh, grid, x, y, z, w, work, nitems, g, box, offset,
+                                           wrap, overflow, s);
+        case 1: return (int)launch_kind<1>(nmesh, grid, x, y, z, w, work, nitems, g, box, offset,
+                                           wrap, overflow, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-// Resident blocks an SM can hold for nf tiles of `smem` bytes in all
+// Resident blocks an SM can hold for a tile of `smem` bytes
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
-extern "C" int tsc_deposit_blocks_per_sm(int kind, int nmesh, int nf, int smem, int* blocks) {
-    return (int)by_instance(kind, nmesh, nf, [&](auto k, auto v, auto c) {
-        return blocks_per_sm<decltype(k)::value, decltype(v)::value, decltype(c)::value>(
-            smem, blocks);
-    });
+extern "C" int tsc_deposit_blocks_per_sm(int kind, int nmesh, int smem, int* blocks) {
+    switch (kind) {
+        case 0: return (int)blocks_kind<0>(nmesh, smem, blocks);
+        case 1: return (int)blocks_kind<1>(nmesh, smem, blocks);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

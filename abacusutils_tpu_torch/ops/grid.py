@@ -19,8 +19,11 @@ Counterpart of abacusutils_tpu/ops/grid.py for the HOD and P(k) routes:
   K1 on CUDA tensors, the plain scatter on CPU tensors.
 - :func:`tsc_deposit_cells_multi` is K1's multi-weight form, the
   counterpart of ``paint_grouped_yb_multiw``: up to MAX_WEIGHTS weight
-  columns on one brick-sorted point set, each into its own grid, in one
-  launch; :func:`paint_3d_multi` stages and paints them.
+  columns on one point set, each into its own grid, in one launch of a
+  gather without atomics (``csrc/tsc_gather.cu``) over the points sorted by
+  the cell of their stencil centre (:func:`stage_gather`, a
+  :class:`CellPlan`); :func:`gather_deposit_plain` is that walk in PyTorch;
+  :func:`paint_3d_multi` stages and paints them.
 - :func:`tsc_parallel`, :func:`cic_serial` and :func:`rightwrap` are the
   reference-compatible wrappers of ``ops/grid.py`` that prepare_sim's shear
   field paints through: an int, tuple or ndarray ``densgrid``, cubic grids
@@ -63,9 +66,13 @@ __all__ = [
     'tsc_deposit_cells',
     'tsc_deposit_cells_multi',
     'paint_3d_multi',
-    'multi_brick_shape',
+    'CellPlan',
+    'GATHER_BRICK',
     'MAX_WEIGHTS',
-    'MULTI_BRICK',
+    'gather_blocks_per_sm',
+    'gather_deposit_plain',
+    'gather_key',
+    'stage_gather',
     'tsc_parallel',
     'cic_serial',
     'rightwrap',
@@ -81,10 +88,10 @@ KINDS = ('tsc', 'cic')
 BRICK = (16, 16, 16)
 # weight columns K1's multi-weight form takes in one launch
 MAX_WEIGHTS = 5
-# the brick of the multi-weight form: its NF tiles share a block's shared
-# memory, so a 16^3 brick's five tiles (116,640 B) would leave one block an
-# SM; 8 x 16 x 16 keeps three (64,800 B)
-MULTI_BRICK = (8, 16, 16)
+# the brick of output cells a block of the multi-weight gather takes, whose
+# cells are one contiguous run of the stage's keys (csrc/tsc_gather.cu's
+# GX, GY, GZ: a warp a brick row of 32 cells along z)
+GATHER_BRICK = (8, 8, 32)
 # a work item holds at most max(MIN_ITEM_POINTS, ITEM_SPLIT x the mean points
 # of a brick) points; heavier bricks are cut into several items
 MIN_ITEM_POINTS = 2048
@@ -119,18 +126,36 @@ def _wrap(kind, wrap):
     return _kind(kind) == 'tsc' if wrap is None else bool(wrap)
 
 
+def _axis_centre(p1d, box, offset, nmesh, wrap):
+    """The stencil centre (f32, not yet taken modulo nmesh) of each
+    coordinate and its offset d = centre - g from it, g = (p + offset) *
+    nmesh / box after the optional single wrap: K1's f32 steps."""
+    p1d = p1d.to(torch.float32)
+    if wrap:
+        p1d = _wrap_once(p1d, _f32(box))
+    if offset:  # adding 0 changes no centre and no offset
+        p1d = p1d + _f32(offset)
+    p = p1d * _inv_h(nmesh, box)
+    i0 = torch.floor(p + 0.5)
+    return i0, i0 - p
+
+
+def _tsc_weight(slot, d):
+    """The TSC weight of stencil slot 0, 1 or 2 (offset -1, 0, +1 from the
+    centre) of a point at offset d, in K1's f32 association."""
+    if slot == 1:
+        return 0.75 - d * d
+    s = 0.5 + d if slot == 0 else 0.5 - d
+    return 0.5 * (s * s)
+
+
 def axis_cloud(p1d, box, offset, nmesh, wrap=True, kind='tsc'):
     """Per-axis centre index (int64, not yet taken modulo nmesh) and the
     three stencil weights for offsets (-1, 0, +1); the f32 arithmetic of
     ops/grid.py:_axis_cloud."""
-    p1d = p1d.to(torch.float32)
-    if wrap:
-        p1d = _wrap_once(p1d, _f32(box))
-    p = (p1d + _f32(offset)) * _inv_h(nmesh, box)
-    i0 = torch.floor(p + 0.5)
-    d = i0 - p
+    i0, d = _axis_centre(p1d, box, offset, nmesh, wrap)
     if _kind(kind) == 'tsc':
-        ws = (0.5 * (0.5 + d) ** 2, 0.75 - d * d, 0.5 * (0.5 - d) ** 2)
+        ws = tuple(_tsc_weight(a, d) for a in range(3))
     else:
         ws = (d.clamp_min(0.0), 1.0 - d.abs(), (-d).clamp_min(0.0))
     return i0.to(torch.int64), ws
@@ -324,9 +349,7 @@ def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc', wrap=Non
 
 def _check_deposit(grid, cols, plan, nmesh, overflow):
     n = cols[0].shape[0]
-    names = ['x', 'y', 'z'] + (['w'] if len(cols) == 4 else
-                               [f'weight column {i}' for i in range(len(cols) - 3)])
-    for name, t in zip(names, cols):
+    for name, t in zip(('x', 'y', 'z', 'w'), cols):
         if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f'{name} must be a contiguous ({n},) float32 tensor')
         if t.device != grid.device:
@@ -344,17 +367,15 @@ def _check_deposit(grid, cols, plan, nmesh, overflow):
         raise ValueError(f'overflow must be a one-element int32 tensor on {grid.device}')
 
 
-def _launch(grids, x, y, z, ws, plan, box, offset, overflow, kind, wrap):
-    """One K1 launch of the columns `ws` (a None column is a unit weight)
-    into the len(ws) grids held one after another in `grids`."""
+def _launch(grid, x, y, z, w, plan, box, offset, overflow, kind, wrap):
+    """One K1 launch of the weight column `w` into `grid`."""
     if overflow is None:
-        overflow = torch.zeros(1, dtype=torch.int32, device=grids.device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=grid.device)
     work = plan.work.contiguous()
-    wptr = (ctypes.c_void_p * len(ws))(*[None if w is None else w.data_ptr() for w in ws])
     lib = _build.lib()
-    with torch.cuda.device(grids.device):
+    with torch.cuda.device(grid.device):
         code = lib.tsc_deposit_bricks(
-            grids.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), wptr, len(ws),
+            grid.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), w.data_ptr(),
             work.data_ptr(), work.shape[0], plan.nmesh, *plan.brick, *plan.margin, _f32(box),
             _f32(offset), KINDS.index(kind), int(wrap), overflow.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -391,7 +412,7 @@ def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, ki
     _check_deposit(grid, (x, y, z, w), plan, nmesh, overflow)
     if plan.work.shape[0] == 0:  # no points: nothing to launch
         return grid
-    _launch(grid, x, y, z, [w], plan, box, offset, overflow, kind, wrap)
+    _launch(grid, x, y, z, w, plan, box, offset, overflow, kind, wrap)
     tsc_deposit_cells.launches += 1
     tsc_deposit_cells.launches_by_form[kind] += 1
     return grid
@@ -402,13 +423,12 @@ tsc_deposit_cells.launches = 0
 tsc_deposit_cells.launches_by_form = dict.fromkeys(KINDS, 0)
 
 
-def blocks_per_sm(plan, kind='tsc', nf=1):
-    """Resident K1 blocks an SM holds for `plan`'s tiles (`nf` of them, the
-    multi-weight form's columns) on the current card
+def blocks_per_sm(plan, kind='tsc'):
+    """Resident K1 blocks an SM holds for `plan`'s tile on the current card
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     out = ctypes.c_int()
     code = _build.lib().tsc_deposit_blocks_per_sm(
-        KINDS.index(_kind(kind)), plan.nmesh, nf, nf * tile_bytes(plan.brick, plan.margin),
+        KINDS.index(_kind(kind)), plan.nmesh, tile_bytes(plan.brick, plan.margin),
         ctypes.byref(out),
     )
     _build.check(code, 'tsc_deposit_blocks_per_sm')
@@ -439,64 +459,167 @@ def paint_3d(px, py, pz, nmesh, box, weights=None, offset=0.0, kind='tsc', overf
     return tsc_deposit_cells(grid, x, y, z, ws, plan, box, offset, overflow, kind, wrap)
 
 
-def multi_brick_shape(nmesh, nf):
-    """The brick of the multi-weight form for `nf` columns: MULTI_BRICK (BRICK
-    for one column), each axis cut to nmesh. Raises if the nf tiles do not
-    fit the shared memory of one block."""
-    brick = tuple(min(b, nmesh) for b in (BRICK if nf == 1 else MULTI_BRICK))
-    if nf * tile_bytes(brick) > MAX_SMEM_BYTES:
-        raise ValueError(f'{nf} K1 tiles of brick {brick} need {nf * tile_bytes(brick)} B, '
-                         f'over the {MAX_SMEM_BYTES} B of shared memory a block may use')
-    return brick
+class CellPlan(NamedTuple):
+    """The multi-weight gather's stage of N points (:func:`stage_gather`):
+    `points`, an (N, 4) or (N, 8) f32 row a point in the sorted order: its
+    offset d = centre - g from its TSC stencil centre along x, y and z (K1's
+    f32 steps), then its `nweights` weight columns, zero-padded to one or
+    two 16-byte vectors; `starts`, the int32 first point of every key of
+    :func:`gather_key` and the end (nbricks x the cells of
+    :data:`GATHER_BRICK` + 1 entries); the grid's `nmesh`."""
+
+    points: torch.Tensor
+    starts: torch.Tensor
+    nmesh: int
+    nweights: int
 
 
-def _check_weights(ws):
-    if not 1 <= len(ws) <= MAX_WEIGHTS:
-        raise ValueError(f'K1 takes 1 to {MAX_WEIGHTS} weight columns, not {len(ws)}')
-    return [w if w is None else w.to(torch.float32).contiguous() for w in ws]
+def _gather_bricks(nmesh):
+    return [-(-nmesh // b) for b in GATHER_BRICK]
 
 
-def tsc_deposit_cells_multi(grids, x, y, z, ws, plan, box, offset=0.0, overflow=None):
-    """Add the TSC deposit of brick-sorted points, once for each weight
-    column of `ws`, into the grids of `grids` in place: K1's multi-weight
-    form, the counterpart of ops/grid.py:paint_grouped_yb_multiw.
+def _gather_keys(nmesh):
+    return math.prod(_gather_bricks(nmesh)) * math.prod(GATHER_BRICK)
 
-    grids: (F, nmesh, nmesh, nmesh) f32, contiguous; ws: F (N,) f32 weight
-    columns in the staged order (None: a unit weight), F <= MAX_WEIGHTS;
-    x, y, z, plan, box, offset, overflow: as :func:`tsc_deposit_cells` (TSC,
-    wrapped). The overflow word counts the points with a non-zero weight in
-    some column whose stencil leaves their tile.
 
-    On CUDA tensors this launches K1 once, on the current stream: a block
-    computes each point's stencil weights once and adds them into F
-    shared-memory tiles. On CPU tensors it runs :func:`paint_3d_plain` once
-    a column (and :func:`overflow_count_plain`). Returns `grids`."""
-    ws = _check_weights(ws)
-    nmesh = plan.nmesh
-    if grids.shape != (len(ws),) + (nmesh,) * 3:
-        raise ValueError(f'grids must be ({len(ws)}, {nmesh}, {nmesh}, {nmesh}), not '
+def gather_key(cx, cy, cz, nmesh):
+    """The brick-major key of cells (cx, cy, cz) of an nmesh^3 grid (int64
+    tensors in [0, nmesh)): the index of the cell's :data:`GATHER_BRICK`
+    brick (x-major, ceil(nmesh / b) bricks an axis, the last one ragged)
+    times the brick's cells, plus the cell's index inside it, z fastest.
+    A brick's cells are one run of keys, and so are its rows along z."""
+    gx, gy, gz = GATHER_BRICK
+    _, nby, nbz = _gather_bricks(nmesh)
+    brick = ((cx // gx) * nby + cy // gy) * nbz + cz // gz
+    return brick * (gx * gy * gz) + ((cx % gx) * gy + cy % gy) * gz + cz % gz
+
+
+def stage_gather(cols, nmesh, box, offset=0.0, return_order=False):
+    """Sort the points cols[0], cols[1], cols[2] (x, y, z) by the TSC
+    stencil centre cell (each coordinate wrapped once, K1's cell bit for
+    bit) in the order of :func:`gather_key` (stable, so the points of one
+    cell keep their input order), with the weight columns cols[3:] (at most
+    MAX_WEIGHTS) packed beside their offsets. Returns the
+    :class:`CellPlan`; with return_order=True (plan, the int64 permutation
+    `order`: sorted[i] = col[order[i]])."""
+    nw = len(cols) - 3
+    if not 0 <= nw <= MAX_WEIGHTS:
+        raise ValueError(f'the gather packs 0 to {MAX_WEIGHTS} weight columns, not {nw}')
+    nkeys = _gather_keys(nmesh)
+    if nkeys >= 2**31 - 1:
+        raise ValueError(f'an nmesh of {nmesh} has {nkeys} cell keys, over the int32 starts')
+    cells, row = [], []
+    for p in cols[:3]:
+        i0, d = _axis_centre(p, box, offset, nmesh, True)
+        cells.append(torch.remainder(i0.to(torch.int32), nmesh))
+        row.append(d)
+    key = gather_key(*cells, nmesh)  # int32: nkeys < 2^31
+    del cells
+    order = torch.sort(key, stable=True)[1]
+    starts = torch.zeros(nkeys + 1, dtype=torch.int32, device=key.device)
+    starts[1:] = torch.cumsum(torch.bincount(key, minlength=nkeys), 0)
+    del key
+    # gather each column into a row of a (width, N) block, then transpose it
+    # once (a strided stack, or a row gather of packed points, takes several
+    # times longer)
+    row += [w.to(torch.float32) for w in cols[3:]]
+    block = torch.empty((4 if 3 + nw <= 4 else 8, len(order)), dtype=torch.float32,
+                        device=order.device)
+    for j, c in enumerate(row):
+        torch.index_select(c, 0, order, out=block[j])
+    block[len(row):].zero_()
+    del row
+    plan = CellPlan(block.t().contiguous(), starts, nmesh, nw)
+    return (plan, order) if return_order else plan
+
+
+def _unit_first(grids, plan):
+    """Whether `grids` holds a unit-weight grid before the plan's weight
+    columns' (F = nweights + 1) or only theirs (F = nweights); raises
+    otherwise."""
+    nmesh, nw = plan.nmesh, plan.nweights
+    f = grids.shape[0] if grids.dim() == 4 else -1
+    if grids.shape[1:] != (nmesh,) * 3 or f not in (nw, nw + 1) or not 1 <= f <= MAX_WEIGHTS:
+        raise ValueError(f'grids must be ({nw} or {nw + 1}, {nmesh}, {nmesh}, {nmesh}) for a plan '
+                         f'of {nw} weight columns (1 to {MAX_WEIGHTS} grids), not '
                          f'{tuple(grids.shape)}')
+    return f == nw + 1
+
+
+def gather_deposit_plain(grids, plan):
+    """The multi-weight gather in PyTorch: every cell of every grid of
+    `grids` (see :func:`tsc_deposit_cells_multi`) is written with the sum,
+    over the 27 source cells of its stencil in the kernel's order (x offset
+    -1, 0, +1, then y, then z, wrapped) and over each source cell's points
+    in the staged order, of ((wx wy) w_f) wz. The same f32 steps and order
+    as ``csrc/tsc_gather.cu``, so its bits are the kernel's. Returns
+    `grids`."""
+    unit = _unit_first(grids, plan)
+    n = plan.nmesh
+    dev = grids.device
+    starts = plan.starts.long()
+    pts = plan.points
+    c = torch.arange(n, device=dev)
+    cx, cy, cz = (a.reshape(-1) for a in torch.meshgrid(c, c, c, indexing='ij'))
+    acc = torch.zeros((grids.shape[0], n**3), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(3):
+        for j in range(3):
+            for k in range(3):
+                key = gather_key((cx + i - 1) % n, (cy + j - 1) % n, (cz + k - 1) % n, n)
+                s, e = starts[key], starts[key + 1]
+                for t in range(int((e - s).max())):
+                    valid = s + t < e
+                    p = pts[torch.where(valid, s + t, 0)]
+                    wxy = _tsc_weight(2 - i, p[:, 0]) * _tsc_weight(2 - j, p[:, 1])
+                    wz = _tsc_weight(2 - k, p[:, 2])
+                    for f in range(grids.shape[0]):
+                        wab = wxy if unit and f == 0 else wxy * p[:, 3 + f - unit]
+                        acc[f] += torch.where(valid, wab * wz, zero)
+    grids.copy_(acc.view(grids.shape))
+    return grids
+
+
+def tsc_deposit_cells_multi(grids, plan):
+    """Write the TSC deposit of cell-staged points into the grids of
+    `grids`, once for each weight column of the stage: K1's multi-weight
+    form, the counterpart of ops/grid.py:paint_grouped_yb_multiw. Every
+    cell of every grid is written; what the grids held is replaced.
+
+    grids: (F, nmesh, nmesh, nmesh) f32, contiguous: F = plan.nweights, the
+    stage's weight columns in order, or F = plan.nweights + 1, a
+    unit-weight grid first, F <= MAX_WEIGHTS; plan: the :class:`CellPlan`
+    of :func:`stage_gather` (TSC, each coordinate wrapped once, the stage's
+    offset).
+
+    On CUDA tensors this launches the gather (csrc/tsc_gather.cu) once, on
+    the current stream: each grid cell pulls the points of its 27 source
+    cells in a fixed order and is stored once, so two launches give the same
+    bits. On CPU tensors it runs :func:`gather_deposit_plain`. Returns
+    `grids`."""
+    unit = _unit_first(grids, plan)
     if grids.device.type == 'cpu':
-        ones = torch.ones_like(x)
-        if overflow is not None:
-            # a point counts where some column weighs it
-            given = [w for w in ws if w is not None]
-            nonzero = ones if len(given) < len(ws) else (torch.stack(given) != 0).any(0).float()
-            overflow += overflow_count_plain(x, y, z, nonzero, plan, box, offset).to(torch.int32)
-        for f, w in enumerate(ws):
-            paint_3d_plain(grids[f], x, y, z, ones if w is None else w, nmesh, box, offset)
-        return grids
-    tile = len(ws) * tile_bytes(plan.brick, plan.margin)
-    if tile > MAX_SMEM_BYTES:
-        raise ValueError(f'tsc_deposit_cells_multi: {len(ws)} tiles of {tile} B are over '
-                         f'{MAX_SMEM_BYTES} B')
-    _check_deposit(grids[0], (x, y, z) + tuple(w for w in ws if w is not None), plan, nmesh,
-                   overflow)
-    if not grids.is_contiguous():
-        raise ValueError('grids must be contiguous')
-    if plan.work.shape[0] == 0:
-        return grids
-    _launch(grids, x, y, z, ws, plan, box, offset, overflow, 'tsc', True)
+        return gather_deposit_plain(grids, plan)
+    pts, starts = plan.points, plan.starts
+    width = 4 if 3 + plan.nweights <= 4 else 8
+    if (pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[1] != width
+            or not pts.is_contiguous() or pts.device != grids.device):
+        raise ValueError(f'plan.points must be a contiguous (N, {width}) float32 tensor on '
+                         f'{grids.device}')
+    nkeys = _gather_keys(plan.nmesh)
+    if (starts.dtype != torch.int32 or starts.shape != (nkeys + 1,) or not starts.is_contiguous()
+            or starts.device != grids.device):
+        raise ValueError(f'plan.starts must be a contiguous ({nkeys + 1},) int32 tensor on '
+                         f'{grids.device}')
+    if grids.dtype != torch.float32 or not grids.is_contiguous():
+        raise ValueError('grids must be a contiguous float32 tensor')
+    lib = _build.lib()
+    with torch.cuda.device(grids.device):
+        code = lib.tsc_gather_cells(
+            grids.data_ptr(), pts.data_ptr(), plan.nweights, int(unit), starts.data_ptr(),
+            plan.nmesh, *GATHER_BRICK, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'tsc_gather_cells')
     tsc_deposit_cells_multi.launches += 1
     return grids
 
@@ -504,29 +627,47 @@ def tsc_deposit_cells_multi(grids, x, y, z, ws, plan, box, offset=0.0, overflow=
 tsc_deposit_cells_multi.launches = 0
 
 
-def paint_3d_multi(px, py, pz, nmesh, box, weights, offset=0.0, overflow=None):
+def gather_blocks_per_sm(nweights, unit):
+    """Resident blocks of the multi-weight gather an SM holds on the current
+    card for `nweights` weight columns and a unit grid when `unit`
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().tsc_gather_blocks_per_sm(nweights, int(unit), ctypes.byref(out)),
+                 'tsc_gather_blocks_per_sm')
+    return out.value
+
+
+def paint_3d_multi(px, py, pz, nmesh, box, weights, offset=0.0):
     """TSC-paint one point set once for each weight column onto a new
-    (F, nmesh, nmesh, nmesh) float32 stack (F = len(weights); a None column
-    is a unit weight): the multi-weight :func:`paint_3d`.
+    (F, nmesh, nmesh, nmesh) float32 stack (F = len(weights) <= MAX_WEIGHTS;
+    a None column is a unit weight): the multi-weight :func:`paint_3d`, the
+    counterpart of ops/grid.py:paint_grouped_yb_multiw.
 
     On CUDA tensors the points and the columns are staged once by
-    :func:`stage_bricks` (brick :func:`multi_brick_shape`, no margin) and
-    deposited by one :func:`tsc_deposit_cells_multi` launch. On CPU tensors
-    this is the plain scatter once a column."""
+    :func:`stage_gather` and deposited by one :func:`tsc_deposit_cells_multi`
+    launch, which writes every cell (the unit grid first; a stack in another
+    order is a copy of it). On CPU tensors this is the plain scatter once a
+    column."""
+    if not 1 <= len(weights) <= MAX_WEIGHTS:
+        raise ValueError(f'K1 takes 1 to {MAX_WEIGHTS} weight columns, not {len(weights)}')
     cols = [c.to(torch.float32).contiguous() for c in (px, py, pz)]
-    ws = _check_weights([w if w is None else w.to(cols[0].device) for w in weights])
-    grids = torch.zeros((len(ws),) + (nmesh,) * 3, dtype=torch.float32, device=cols[0].device)
-    if grids.device.type == 'cpu':
+    ws = [w if w is None else w.to(cols[0].device, torch.float32).contiguous() for w in weights]
+    if cols[0].device.type == 'cpu':
+        grids = torch.zeros((len(ws),) + (nmesh,) * 3, dtype=torch.float32)
         ones = torch.ones_like(cols[0])
         for f, w in enumerate(ws):
             paint_3d_plain(grids[f], *cols, ones if w is None else w, nmesh, box, offset)
         return grids
-    given = [w for w in ws if w is not None]
-    staged, plan = stage_bricks(cols + given, nmesh, box,
-                                brick=multi_brick_shape(nmesh, len(ws)), offset=offset)
-    it = iter(staged[3:])
-    sw = [None if w is None else next(it) for w in ws]
-    return tsc_deposit_cells_multi(grids, *staged[:3], sw, plan, box, offset, overflow)
+    given = [f for f, w in enumerate(ws) if w is not None]
+    unit = len(given) < len(ws)
+    plan = stage_gather(cols + [ws[f] for f in given], nmesh, box, offset)
+    del cols
+    grids = torch.empty((len(given) + unit,) + (nmesh,) * 3, dtype=torch.float32,
+                        device=plan.starts.device)
+    tsc_deposit_cells_multi(grids, plan)
+    # the kernel's grid of each column: the unit one first, then the given
+    order = [0 if w is None else unit + given.index(f) for f, w in enumerate(ws)]
+    return grids if order == list(range(len(grids))) else grids[order]
 
 
 # ---------------------------------------------------------------------------

@@ -685,16 +685,15 @@ def get_field_fft(pos, Lbox, nmesh, paste, w, W, compensated, interlaced, device
     return field_fft * _f32(scale) if scale != 1.0 else field_fft
 
 
-def _fields_multi(cols, Lbox, nmesh, ws, d, overflow):
+def _fields_multi(cols, Lbox, nmesh, ws, d):
     """get_field for each weight column of one point set: the (F, nmesh,
     nmesh, nmesh) stack of field * (nmesh^3 / N) - 1, painted by one
     multi-weight K1 launch (TSC)."""
-    grids = paint_3d_multi(*cols, nmesh, Lbox, ws, offset=d, overflow=overflow)
+    grids = paint_3d_multi(*cols, nmesh, Lbox, ws, offset=d)
     return grids.mul_(_f32(nmesh**3 / cols[0].shape[0])).sub_(1.0)
 
 
-def get_field_ffts(pos, Lbox, nmesh, paste, ws, W, compensated, interlaced, device=None,
-                   overflow=None):
+def get_field_ffts(pos, Lbox, nmesh, paste, ws, W, compensated, interlaced, device=None):
     """:func:`get_field_fft` of one point set for each weight column of `ws`
     (None: unit weight), as a list of F complex64 rfft meshes: equal to F
     separate get_field_fft calls. The points are staged once (and once more
@@ -706,11 +705,11 @@ def get_field_ffts(pos, Lbox, nmesh, paste, ws, W, compensated, interlaced, devi
     cols = _pos_columns(pos, device)
     ws = [_weights(w, cols[0].device) for w in ws]
     nmesh = int(nmesh)
-    ffts = [torch.fft.rfftn(g) for g in _fields_multi(cols, Lbox, nmesh, ws, 0.0, overflow)]
+    ffts = [torch.fft.rfftn(g) for g in _fields_multi(cols, Lbox, nmesh, ws, 0.0)]
     scale = 1.0 / nmesh**3
     if interlaced:
         d = Lbox / nmesh
-        shifted = _fields_multi(cols, Lbox, nmesh, ws, 0.5 * d, overflow)
+        shifted = _fields_multi(cols, Lbox, nmesh, ws, 0.5 * d)
         ffts = [_interlace_combine(F, torch.fft.rfftn(g), nmesh, float(Lbox), float(d))
                 for F, g in zip(ffts, shifted)]
         del shifted

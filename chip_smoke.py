@@ -73,8 +73,9 @@ Phases, each printing what it measured:
 9. K6, the nearest-neighbour distance of prepare_sim's ranks, bit-equal to
    its plain version on a 1.2e5-particle slab of scripts/hod/bench_ranks.py
    (seed 17), and K7, the annulus mass sums of Menv, against its plain
-   all-pairs version (rtol 1e-12, the same zeros) on 5e4 clumped halos in a
-   box and in a light cone (``csrc/prepare_sim.cu``);
+   version (the 27-cell sum by all pairs; rtol 1e-12, the same zeros, two
+   launches bit-equal) on 5e4 clumped halos in a box, in a light cone and
+   in a box with r_inner past r_outer (``csrc/prepare_sim.cu``);
 10. the engines at real size: ``rank_fields_device`` on the bench_ranks slab
    (1.2e6 particles) and ten times it, host to host, K6 by CUDA events
    against its bound, lane occupancy, peak memory, at the first size all
@@ -88,10 +89,12 @@ Phases, each printing what it measured:
    against the plain scatter;
 11. ``prepare_slab_tables`` on a box slab of 2e5 halos and ~1.2e6 particles
    with ranks, Menv and the shear rank, with the device engines and with the
-   'host' engines: every column equal (ranksc tie-aware, Menv rtol 1e-12);
-12. K1's multi-weight form (``tsc_deposit_cells_multi``) on the 512^3 lattice
-   with a unit column and four weight columns against the plain scatter and
-   five single-column K1 launches, at its 8 x 16 x 16 brick and at 16^3; K8
+   'host' engines: every column equal (ranksc tie-aware, Menv rtol 1e-12),
+   then K7 on the catalog the env engine was handed;
+12. K1's multi-weight form (``tsc_deposit_cells_multi``, the gather of
+   ``csrc/tsc_gather.cu``) on the 512^3 lattice with a unit column and four
+   weight columns against the plain scatter, five single-column K1
+   launches and its plain walk (bit-equal), and at one column beside K1; K8
    (``csrc/zcv_window.cu``, the window's mode sums) at nmesh 256 and 512
    against its plain version (counts equal, two launches bit-equal) and one
    ``torch.bincount``;
@@ -114,6 +117,11 @@ FFMA/DFMA count of their SASS: the (rp, pi) forms without a quotient and a
 root (K4 with the item-constant wrap, K5 in float32 within one period) must
 hold none.
 
+Each K7 line (phases 9-11) gives its time by CUDA events, the bound (the
+candidates of the 27-cell walk of the r_outer grid at 9 float64 operations,
+K7_PAIR_OPS, at 34e12/s, or the bytes), the candidates the row walk visits,
+its items and lane occupancy (the centres over the items' threads).
+
 Each K1 line ("K1 <shape>: ...") gives, at one of the shapes the main
 paths run (phases 4, 5, 6, 7 b, 7 d and 10), the time by CUDA events over 5 calls
 after a warm-up, the bound (the bytes the deposit must move at 3.35 TB/s)
@@ -133,6 +141,7 @@ is a JSON object describing each kernel; the last line is ``{"ok": true,
 non-zero before printing either.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -161,9 +170,12 @@ from abacusutils_tpu_torch.ops.grid import (
     KINDS,
     _f32,
     blocks_per_sm,
+    gather_blocks_per_sm,
+    gather_deposit_plain,
     overflow_count_plain,
     paint_3d_plain,
     stage_bricks,
+    stage_gather,
     tile_bytes,
     tsc_deposit_cells,
     tsc_deposit_cells_multi,
@@ -211,7 +223,7 @@ from abacusutils_tpu_torch.models.zcv.tools_cv import ZCV_FIELDS
 from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
 from abacusutils_tpu_torch.ops import grid as tgrid
 from abacusutils_tpu_torch.ops import shear as tshear
-from abacusutils_tpu_torch.testing import edge_points
+from abacusutils_tpu_torch.testing import edge_points, menv_ranges
 
 N_HALO = 10_000_000
 N_PART = 50_000_000
@@ -252,6 +264,9 @@ HBM_BYTES_PER_S = 3.35e12
 # ptxas's (registers, spill stores, spill loads) of each K1 instantiation,
 # by (kind, flush width)
 K1_PTXAS = {}
+# {(grids, unit grid first): (registers, spill store bytes, spill load
+# bytes)} of the multi-weight gather's instances
+GATHER_PTXAS = {}
 # pair counting (phase 8): rp and s edges, pimax, the pi bin of xi(rp, pi)
 # and the mu bins of docs/hod.md:36-38 and scripts/tpcf/bench.py:46-48
 PAIR_BINS = np.logspace(-1, np.log10(30.0), 9)
@@ -396,12 +411,21 @@ def phase_build():
         elif 'registers' in line or 'Compiling entry' in line or 'spill' in line:
             print('ptxas:', line.strip())
     K1_PTXAS.update(ptxas_k1(log))
+    GATHER_PTXAS.update(ptxas_gather(log))
     PAIR_PTXAS.update(ptxas_pairs(log))
     _build.lib()
     print(f'phase 1 build: {path.name} in {secs:.2f} s; K1 (kind, flush width): '
-          f'(registers, spill stores, spill loads) {K1_PTXAS}')
-    # TSC and CIC at three flush widths, and TSC of 2 to 5 columns at each
-    require(len(K1_PTXAS) == 18, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 18')
+          f'(registers, spill stores, spill loads) {K1_PTXAS}; the multi-weight gather '
+          f'(grids, unit grid first): {GATHER_PTXAS}')
+    # TSC and CIC at three flush widths; the gather of 1 to 5 grids with and
+    # without a unit grid
+    require(len(K1_PTXAS) == 6, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 6')
+    require(len(GATHER_PTXAS) == 10, f'ptxas reported {len(GATHER_PTXAS)} gather instances, not 10')
+    atomics = sass_atomics(path)
+    print(f'phase 1 build: atomic opcodes in the SASS of K1 and its multi-weight gather {atomics}')
+    gathers = {k: v for k, v in atomics.items() if k.startswith('gather')}
+    require(len(gathers) == 10 and not any(gathers.values()),
+            f'the multi-weight gather holds atomics: {atomics}')
     PAIR_FMA.update(sass_fma(path))
     print(f'phase 1 build: K4/K5 (registers, spill stores, spill loads) {PAIR_PTXAS}; '
           f'FFMA + DFMA in their SASS (a quotient or a root expands into some) {PAIR_FMA}')
@@ -420,17 +444,34 @@ def phase_build():
 
 def ptxas_k1(log):
     """{(kind, flush width): (registers, spill store bytes, spill load bytes)}
-    of the single-column K1 instantiations in the build's -Xptxas -v log,
-    and {('tsc', flush width, columns): ...} of the multi-weight ones."""
+    of the K1 instantiations in the build's -Xptxas -v log."""
+    def name(entry):
+        k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)EE', entry)
+        return k and (KINDS[int(k.group(1))], int(k.group(2)))
+
+    return ptxas_of(log, name)
+
+
+def ptxas_gather(log):
+    """{(grids, unit grid first): (registers, spill store bytes, spill load
+    bytes)} of the multi-weight gather's instances in the build's -Xptxas
+    -v log."""
+
+    def name(entry):
+        k = re.search(r'tsc_gather_kernelILi(\d)ELb(\d)EE', entry)
+        return k and (int(k.group(1)), k.group(2) == '1')
+
+    return ptxas_of(log, name)
+
+
+def ptxas_of(log, name_of):
+    """{name_of(entry): (registers, spill store bytes, spill load bytes)} of
+    the kernels of the -Xptxas -v log that name_of names (None: skipped)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)ELi(\d)EE', m.group(1))
-            cur = None
-            if k:
-                kind, width, nf = KINDS[int(k.group(1))], int(k.group(2)), int(k.group(3))
-                cur = (kind, width) if nf == 1 else (kind, width, nf)
+            cur = name_of(m.group(1)) or None
             if cur:
                 out[cur] = [None, None, None]
             continue
@@ -468,23 +509,32 @@ def pair_kernel_name(mangled):
 def ptxas_pairs(log):
     """{instance: (registers, spill store bytes, spill load bytes)} of the
     pair-count kernels in the build's -Xptxas -v log."""
-    out, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+    return ptxas_of(log, pair_kernel_name)
+
+
+def sass_atomics(lib):
+    """{kernel: {opcode: count}} of the atomic and reduction opcodes in the
+    SASS (cuobjdump -sass) of K1's instances ('K1[kind, width]') and of the
+    multi-weight gather's ('gather[grids, unit 0 or 1]'); a kernel without
+    any maps to an empty dict."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    res = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True)
+    require(res.returncode == 0, f'cuobjdump failed: {res.stderr[-300:]}')
+    func, out = None, {}
+    for line in res.stdout.splitlines():
+        m = re.search(r'Function : (\S+)', line)
         if m:
-            cur = pair_kernel_name(m.group(1))
-            if cur:
-                out[cur] = [None, None, None]
+            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)EE', m.group(1))
+            g = re.search(r'tsc_gather_kernelILi(\d)ELb(\d)EE', m.group(1))
+            func = (f'K1[{KINDS[int(k.group(1))]}, {k.group(2)}]' if k
+                    else f'gather[{g.group(1)}, unit {g.group(2)}]' if g else None)
+            if func:
+                out[func] = {}
             continue
-        if cur is None:
-            continue
-        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        m = func and re.search(r'\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Za-z0-9_.]+)', line)
         if m:
-            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r'Used (\d+) registers', line)
-        if m:
-            out[cur][0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
+            out[func][m.group(1)] = out[func].get(m.group(1), 0) + 1
+    return out
 
 
 def sass_fma(lib):
@@ -1336,32 +1386,46 @@ def menv_catalog(n, nclump, lc, seed):
 
 
 def k7_call(st, kw):
-    cols, starts, ukeys, nbrs, ncs, periodic, work, _ = st
-    return lambda: menv_device.menv_annulus(  # noqa: E731
-        cols, starts, ukeys, nbrs, ncs, periodic, kw['Lbox'] if periodic else 0.0,
-        kw['r_outer'] ** 2, kw['mcut'], work)
+    lbox = kw['Lbox'] if st.periodic else 0.0
+    return lambda: menv_device.menv_annulus(st, lbox, kw['r_outer'] ** 2)  # noqa: E731
 
 
-def k7_candidates(st, mcut):
-    """The halos in the 27 neighbour cells of every centre above mcut: the
-    pairs K7's walk evaluates (None where the cells are indexed densely)."""
-    cols, starts, ukeys, nbrs, ncs, periodic, work, _ = st
-    if ukeys is not None:
-        return None
-    occ = torch.diff(starts.long())
-    counts = occ.double().reshape(*[int(c) for c in ncs])
-    n27 = torch.zeros_like(counts)
-    pad = torch.nn.functional.pad(counts[None, None], (1, 1, 1, 1, 1, 1))[0, 0]
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dz in (-1, 0, 1):
-                if periodic:
-                    n27 += torch.roll(counts, (dx, dy, dz), (0, 1, 2))
-                else:
-                    n27 += pad[1 + dx:1 + dx + counts.shape[0], 1 + dy:1 + dy + counts.shape[1],
-                               1 + dz:1 + dz + counts.shape[2]]
-    cell = torch.repeat_interleave(torch.arange(counts.numel(), device=starts.device), occ)
-    return float(n27.reshape(-1)[cell][cols[3] > mcut].sum())
+def k7_candidates(st):
+    """The halos in the 27 neighbour cells of every centre above mcut (the
+    JAX package's cells: wrapped and deduplicated on a periodic axis,
+    absent past an open face): the pairs the bound counts."""
+    occ = torch.diff(st.starts.long())
+    cells = st.cells.long()[:, st.query.long()]
+    ncs = st.ncs
+    total = 0.0
+    for off in np.ndindex(3, 3, 3):
+        nb, ok = [], torch.ones(cells.shape[1], dtype=torch.bool, device=cells.device)
+        for a, d in enumerate(off):
+            c, n = cells[a] + d - 1, ncs[a]
+            if st.periodic:
+                ok &= n >= 3 or (d == 1 if n == 1 else d >= 1)
+                c = torch.remainder(c, n)
+            else:
+                ok &= (c >= 0) & (c < n)
+            nb.append(c.clamp(0, n - 1))
+        raw = (nb[0] * ncs[1] + nb[1]) * ncs[2] + nb[2]
+        if st.ukeys is not None:
+            slot = torch.searchsorted(st.ukeys, raw).clamp_max(st.ukeys.numel() - 1)
+            ok &= st.ukeys[slot] == raw
+            raw = slot
+        total += float(torch.where(ok, occ[raw], 0).sum())
+    return total
+
+
+def k7_walk(st):
+    """(the candidates K7's row walk visits: each item's centres times the
+    length of its 27 ranges, summed; lane occupancy: the centres over the
+    items' threads; the items)."""
+    _, length, _ = menv_ranges(st)
+    work = st.work.long()
+    nq = work[:, 1] - work[:, 0]
+    visits = float((nq * length.sum(1)).sum())
+    return visits, float(nq.sum()) / max(work.shape[0] * menv_device.K7_CENTRES, 1), work.shape[0]
 
 
 def k7_bound(cand, n):
@@ -1376,26 +1440,28 @@ def k7_bound(cand, n):
 
 def check_k7(tag, kw, dev, centres=None):
     """K7 against its plain version on the catalog `kw` (all centres, or a
-    sample of `centres` of them): rtol 1e-12 and the same zeros. Returns
-    (K7 ms, plain ms, max|d|, the stage)."""
+    sample of `centres` of them): rtol 1e-12 and the same zeros; two
+    launches bit-equal. Prints K7's time, the bound's candidates, those the
+    row walk visits, the bound, lane occupancy and items. Returns its
+    record."""
     st = menv_device.stage_menv(kw['pos'], kw['mass'], kw['r_inner'], kw['r_outer'],
-                                kw['halo_lc'], kw['Lbox'], dev)
-    cols, periodic = st[0], st[5]
+                                kw['halo_lc'], kw['Lbox'], dev, kw['mcut'])
     k7 = k7_call(st, kw)
     got = k7()
     sample = None
     if centres is not None:
-        cand = torch.nonzero(cols[3] > kw['mcut']).flatten()
+        cand = st.query.long()
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         sample = cand[torch.randperm(cand.numel(), generator=gen, device=dev)[:centres]]
 
     def plain():
         return menv_device.menv_annulus_plain(
-            *cols, periodic, kw['Lbox'] if periodic else 0.0, kw['r_outer'] ** 2, kw['mcut'],
-            centres=sample)
+            *st.cols, st.cells, st.ncs, st.periodic, kw['Lbox'] if st.periodic else 0.0,
+            kw['r_outer'] ** 2, kw['mcut'], centres=sample)
 
     ref = plain()
+    same = bool(torch.equal(got, k7()))
     torch.cuda.synchronize()
     got_c, ref_c = (got, ref) if sample is None else (got[sample], ref[sample])
     err = float((got_c - ref_c).abs().max())
@@ -1403,12 +1469,22 @@ def check_k7(tag, kw, dev, centres=None):
     zeros = bool(torch.equal(got_c == 0, ref_c == 0))
     ms = event_ms(k7, reps=3)
     plain_ms = event_ms(plain, reps=1)
+    cand = k7_candidates(st)
+    visits, occ, items = k7_walk(st)
+    bound, by = k7_bound(cand, st.cols[0].numel())
     print(f'{tag}: K7 {ms:.4f} ms vs plain {plain_ms:.4f} ms ({got_c.numel()} centres held), '
-          f'max|d| {err:.3e}, max rel {rel:.3e}, same zeros {zeros}, nonzero '
-          f'{int((got_c != 0).sum())}')
+          f'max|d| {err:.3e}, max rel {rel:.3e}, same zeros {zeros}, two launches equal {same}, '
+          f'nonzero {int((got_c != 0).sum())}; bound {bound:.4f} ms by {by} ({cand:.4e} '
+          f'candidates in the 27 cells), share {bound / ms:.3f}; the row walk visits '
+          f'{visits:.4e} candidates; {items} items of at most {menv_device.K7_CENTRES} '
+          f'centres, lane occupancy {occ:.3f}')
     require(zeros and bool(((got_c - ref_c).abs() <= 1e-12 * ref_c.abs()).all()),
             f'{tag}: K7 disagrees with its plain version (max rel {rel:.3e}, zeros {zeros})')
-    return ms, plain_ms, err, st
+    require(same, f'{tag}: two K7 launches differ')
+    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
+               bound_share=bound / ms, candidates=cand, walk_candidates=visits,
+               lane_occupancy=occ, items=items, centres=int(st.query.numel()))
+    return rec
 
 
 def phase_prep_kernels(dev):
@@ -1429,6 +1505,12 @@ def phase_prep_kernels(dev):
         kw = menv_catalog(N_MENV_CHECK, N_MENV_CHECK // 100, lc, SEED + 3)
         check_k7(f'phase 9 K7 vs plain, {N_MENV_CHECK} clumped halos, '
                  f'{"light cone" if lc else "box"}', kw, dev)
+    # an inner radius past the outer one, past the cell edge: the 27 cells
+    # bound the sum, not the ball
+    kw = menv_catalog(N_MENV_CHECK, N_MENV_CHECK // 100, False, SEED + 4)
+    kw['r_inner'] = np.full(N_MENV_CHECK, 2.5 * MENV_ROUT, np.float32)
+    check_k7(f'phase 9 K7 vs plain, {N_MENV_CHECK} clumped halos, box, r_inner '
+             f'{2.5 * MENV_ROUT} > r_outer', kw, dev)
     print(f'phase 9 in {time.perf_counter() - t0:.1f} s')
 
 
@@ -1445,8 +1527,9 @@ def phase_ranks(dev, paths, timing):
         tag = f'rank_fields_device ({n} particles, {nh} halos)'
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        dev_ranks, t_cold = sync_seconds(lambda: ranks_device.rank_fields_device(*args))
-        paths[tag] = read_launches()
+        with calls_of(ranks_device, 'seg_rank') as ranked:
+            dev_ranks, t_cold = sync_seconds(lambda: ranks_device.rank_fields_device(*args))
+        paths[tag] = dict(read_launches(), seg_rank=ranked[0])
         peak = torch.cuda.max_memory_allocated()
         require(paths[tag]['nn_within_halo'] == 1, f'{tag}: K6 launches {paths[tag]}')
         _, t_warm = sync_seconds(lambda: ranks_device.rank_fields_device(*args))
@@ -1510,10 +1593,7 @@ def phase_menv(dev, paths):
         require(paths[tag]['menv_annulus'] == 1, f'{tag}: K7 launches {paths[tag]}')
         require(np.isfinite(menv).all() and (menv != 0).mean() > 0.5, f'{tag}: Menv {menv[:5]}')
         _, t_warm = sync_seconds(lambda: menv_device.do_menv_device(**kw))
-        ms, plain_ms, err, st = check_k7(f'phase 10 {tag}', kw, dev, centres=N_MENV_SAMPLE)
-        cand = k7_candidates(st, kw['mcut'])
-        bound, by = k7_bound(cand, N_MENV)
-        del st
+        rec = check_k7(f'phase 10 {tag}', kw, dev, centres=N_MENV_SAMPLE)
         sub = dict(kw, pos=kw['pos'][:N_MENV_HOST], mass=kw['mass'][:N_MENV_HOST],
                    r_inner=kw['r_inner'][:N_MENV_HOST])
         d_sub, t_dsub = sync_seconds(lambda: menv_device.do_menv_device(**sub))
@@ -1521,16 +1601,14 @@ def phase_menv(dev, paths):
         rel = float(np.max(np.abs(d_sub - h_sub) / np.maximum(np.abs(h_sub), 1e-300)))
         zeros = bool(np.array_equal(d_sub == 0, h_sub == 0))
         print(f'phase 10 {tag}: host to host cold {t_cold:.3f} s, warm {t_warm:.3f} s; K7 '
-              f'{ms:.4f} ms, bound {bound:.4f} ms by {by} ({cand:.4e} candidates), share '
-              f'{bound / ms:.3f}; peak memory {peak / 2**30:.3f} GiB; {N_MENV_HOST} subset: device '
-              f'{t_dsub:.3f} s, host tree ({nthread} threads) {t_hsub:.3f} s, max rel '
-              f'{rel:.3e}, same zeros {zeros}')
+              f'{rec["ms"]:.4f} ms, share {rec["bound_share"]:.3f} of its bound; peak memory '
+              f'{peak / 2**30:.3f} GiB; {N_MENV_HOST} subset: device {t_dsub:.3f} s, host tree '
+              f'({nthread} threads) {t_hsub:.3f} s, max rel {rel:.3e}, same zeros {zeros}')
         require(zeros and rel <= 1e-12, f'{tag}: the subset differs from the host tree')
-        recs.append(dict(shape=f'{N_MENV} halos, {form}', ms=ms, bound_ms=bound, bound_by=by,
-                         bound_share=bound / ms, candidates=cand, max_abs_err=err,
-                         sampled_centres=N_MENV_SAMPLE, plain_sample_ms=plain_ms,
-                         host_to_host_cold_s=t_cold, host_to_host_warm_s=t_warm,
-                         peak_bytes=peak, subset_device_s=t_dsub, subset_host_tree_s=t_hsub))
+        recs.append(dict(rec, shape=f'{N_MENV} halos, {form}', sampled_centres=N_MENV_SAMPLE,
+                         plain_sample_ms=rec['plain_ms'], host_to_host_cold_s=t_cold,
+                         host_to_host_warm_s=t_warm, peak_bytes=peak, subset_device_s=t_dsub,
+                         subset_host_tree_s=t_hsub))
     return recs
 
 
@@ -1581,10 +1659,14 @@ def phase_shear(dev, paths):
     karr = torch.from_numpy(karr).to(dev)
     shear_ms = event_ms(lambda: tshear.shear_grid(dsmo, karr, SHEAR_N), 1)
     del dsmo
+    # one forward and six inverse FFTs, the invariant reading six components
+    shear_bound, shear_bytes = fft_bound(SHEAR_N, 7, 6, 1)
     print(f'phase 10 {tag}: {t_total:.3f} s host to host: tsc_parallel (stage, K1, download) '
           f'{steps["tsc_parallel"]:.3f} s, host Gaussian filter {steps["smooth_density"]:.3f} s, '
           f'get_shear (upload, FFTs, download) {steps["get_shear"]:.3f} s; the shear of a grid '
-          f'on the card {shear_ms:.1f} ms; peak memory {peak / 2**30:.3f} GiB')
+          f'on the card {shear_ms:.1f} ms, bound {shear_bound:.4f} ms ({shear_bytes / 1e9:.2f} GB '
+          f'at 3.35 TB/s), share {shear_bound / shear_ms:.3f}; peak memory '
+          f'{peak / 2**30:.3f} GiB')
     cols = [pos[:, a].contiguous() for a in range(3)]
     del pos
     w = torch.ones_like(cols[0])
@@ -1594,8 +1676,20 @@ def phase_shear(dev, paths):
                            [[(x, y, z, ws, plan)]], SHEAR_N, 'tsc')
     rec.pop('grid')
     rec.update(host_filter_s=steps['smooth_density'], get_shear_s=steps['get_shear'],
-               tsc_parallel_s=steps['tsc_parallel'], shear_grid_ms=shear_ms, peak_bytes=peak)
+               tsc_parallel_s=steps['tsc_parallel'], shear_grid_ms=shear_ms,
+               shear_grid_bound_ms=shear_bound, peak_bytes=peak)
     return shearmark, rec
+
+
+def fft_bound(n, ffts, reads, writes):
+    """The least time (ms) and bytes of a chain of `ffts` real FFTs of an
+    n^3 grid (each reading its input and writing its output once: the n^3
+    f32 grid and the n^2 (n/2 + 1) complex64 half spectrum) and elementwise
+    passes reading `reads` and writing `writes` f32 grids, at 3.35 TB/s
+    (the k-space factors folded into the FFTs' inputs)."""
+    real, half = 4 * n**3, 8 * n * n * (n // 2 + 1)
+    nbytes = ffts * (real + half) + (reads + writes) * real
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
 def slab_catalog(seed):
@@ -1624,7 +1718,7 @@ def slab_catalog(seed):
     return halos, parts
 
 
-def phase_slab(paths, shearmark):
+def phase_slab(paths, shearmark, dev):
     """Phase 11: prepare_slab_tables on a box slab with ranks, the env and the
     shear rank, with the device engines and with the 'host' engines: the
     same tables (ranksc tie-aware, Menv at rtol 1e-12)."""
@@ -1635,9 +1729,21 @@ def phase_slab(paths, shearmark):
     tag = (f'prepare_slab_tables ({N_SLAB_HALOS} halos, {len(parts["pos"])} particles, box, '
            'device engines)')
     reset_launches()
-    dev_out, t_dev = sync_seconds(lambda: prepare_sim.prepare_slab_tables(halos, parts, header,
-                                                                          **kw))
-    paths[tag] = read_launches()
+    menv_calls = []
+    do_menv = menv_device.do_menv_device
+
+    def recorded(pos, mass, **args):
+        menv_calls.append(dict(args, pos=pos, mass=mass))
+        return do_menv(pos, mass, **args)
+
+    menv_device.do_menv_device = recorded
+    try:
+        with calls_of(ranks_device, 'seg_rank') as ranked:
+            dev_out, t_dev = sync_seconds(lambda: prepare_sim.prepare_slab_tables(
+                halos, parts, header, **kw))
+    finally:
+        menv_device.do_menv_device = do_menv
+    paths[tag] = dict(read_launches(), seg_rank=ranked[0])
     require(paths[tag]['nn_within_halo'] == 1 and paths[tag]['menv_annulus'] == 1,
             f'{tag}: launches {paths[tag]}')
     host_out, t_host = sync_seconds(lambda: prepare_sim.prepare_slab_tables(
@@ -1662,6 +1768,11 @@ def phase_slab(paths, shearmark):
           f'{int((pa["ranks"] > -1).sum())} with ranks; every column equal, ranksc equal at '
           f'{same_c:.4f} of the particles and as multisets a halo; Menv max rel {rel:.3e}, '
           f'{int((ea != 0).sum())} nonzero')
+    # K7 on the catalog the slab's env engine handed it
+    args = dict(menv_calls[0])
+    args.pop('device', None)
+    check_k7(f'phase 11 K7 on the slab\'s env catalog ({len(args["mass"])} halos)', args, dev,
+             centres=N_MENV_SAMPLE)
 
 
 # ---------------------------------------------------------------------------
@@ -1706,13 +1817,15 @@ def k1m_bound(n, nfields, nmesh):
 
 
 def phase_zcv_kernels(dev):
-    """Phase 12: K1's multi-weight form on the 512^3 lattice (moved by up to
-    half a cell) with a unit column and four weight columns, against the
-    plain scatter once a column and against five single-column K1 launches,
-    at the main path's brick and at the 16^3 brick; K8 at nmesh 256 and 512
-    against its plain version (counts equal, other rows within 1e-6 of the
-    bin's count), two launches bit-equal. Returns the kernels line's
-    records of both."""
+    """Phase 12: K1's multi-weight gather on the 512^3 lattice (moved by up
+    to half a cell) with a unit column and four weight columns: its time,
+    bound and share, blocks/SM, registers and spills; within 1e-5 of
+    max|grid| of the plain scatter once a column and of five single-column
+    K1 launches on their own brick stage, bit-equal to its plain walk
+    (gather_deposit_plain) and to a second launch; its one-column time
+    beside K1's. K8 at nmesh 256 and 512 against its plain version (counts
+    equal, other rows within 1e-6 of the bin's count), two launches
+    bit-equal. Returns the kernels line's records of both."""
     t0 = time.perf_counter()
     n, nf = ZCV_NMESH, 5
     gen = torch.Generator(device=dev)
@@ -1728,42 +1841,37 @@ def phase_zcv_kernels(dev):
         cols.append(torch.remainder(p, LBOX))
     ws = [None] + [torch.randn(n**3, generator=gen, device=dev) for _ in range(nf - 1)]
     ones = torch.ones(n**3, device=dev)
-    grids = torch.zeros((nf,) + (n,) * 3, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    rec = {'shape': f'{n}^3 lattice, {nf} columns (one unit), 1 launch', 'bricks': {}}
-    for brick in (tgrid.multi_brick_shape(n, nf), BRICK):
-        staged, plan = stage_bricks(cols + ws[1:], n, LBOX, brick=brick)
-        sw = [None] + staged[3:]
+    plan, stage_s = sync_seconds(lambda: stage_gather(cols + ws[1:], n, LBOX))
+    got = torch.empty((nf,) + (n,) * 3, device=dev)
+    ms = event_ms(lambda: tsc_deposit_cells_multi(got, plan))
+    unit_plan = stage_gather(cols, n, LBOX)
+    one = torch.empty((1,) + (n,) * 3, device=dev)
+    ms_one = event_ms(lambda: tsc_deposit_cells_multi(one, unit_plan))
+    del one, unit_plan
+    again = torch.empty_like(got)
+    tsc_deposit_cells_multi(again, plan)
+    repeat_equal = bool(torch.equal(got, again))
+    walk, walk_s = sync_seconds(lambda: gather_deposit_plain(again, plan))
+    walk_equal = bool(torch.equal(got, walk))
+    del again, walk, plan
+    # K1 once a column on its own brick stage: five launches, and the unit
+    # column alone
+    staged, bplan = stage_bricks(cols + ws[1:] + [ones], n, LBOX)
+    single = torch.zeros_like(got)
 
-        def k1m():
-            grids.zero_()
-            tsc_deposit_cells_multi(grids, *staged[:3], sw, plan, LBOX, 0.0, overflow)
-
-        ms = event_ms(k1m)
-        overflow.zero_()
-        k1m()
-        bps = blocks_per_sm(plan, 'tsc', nf)
-        rec['bricks'][str(brick)] = dict(ms=ms, blocks_per_sm=bps, items=int(plan.work.shape[0]),
-                                         overflow=int(overflow.item()),
-                                         tile_bytes=nf * tile_bytes(brick))
-        require(int(overflow.item()) == 0, f'K1 multi-weight overflow {overflow.item()} at {brick}')
-        del staged, sw, plan
-    main = str(tgrid.multi_brick_shape(n, nf))
-    got = grids.clone()
-    # five single-column launches at the default brick
-    staged, plan = stage_bricks(cols + ws[1:] + [ones], n, LBOX)
-    single = torch.zeros_like(grids)
-
-    def k1s():
-        single.zero_()
+    def k1s(nf=nf):
+        single[:nf].zero_()
         for f in range(nf):
-            tsc_deposit_cells(single[f], *staged[:3], staged[3 + f - 1] if f else staged[-1], plan,
-                              LBOX)
+            tsc_deposit_cells(single[f], *staged[:3], staged[3 + f - 1] if f else staged[-1],
+                              bplan, LBOX)
 
     single_ms = event_ms(k1s, 2)
+    single_one_ms = event_ms(lambda: k1s(1), 3)
     k1s()
-    del staged, plan
-    plain = torch.zeros_like(grids)
+    del staged, bplan
+    err_single = float((got - single).abs().max())
+    plain = single
+    del single
 
     def p1():
         plain.zero_()
@@ -1773,23 +1881,31 @@ def phase_zcv_kernels(dev):
     _, plain_s = sync_seconds(p1)
     err = float((got - plain).abs().max())
     scale = float(plain.abs().max())
-    err_single = float((got - single).abs().max())
-    del single, plain
+    del plain
     bound, nbytes = k1m_bound(n**3, nf, n)
-    ms = rec['bricks'][main]['ms']
-    print(f'phase 12 K1 multi-weight {rec["shape"]}: {ms:.4f} ms at brick {main} '
-          f'({rec["bricks"][main]["blocks_per_sm"]} blocks/SM); at brick {BRICK}: '
-          f'{rec["bricks"][str(BRICK)]["ms"]:.4f} ms ({rec["bricks"][str(BRICK)]["blocks_per_sm"]} '
-          f'blocks/SM); five single-column launches {single_ms:.4f} ms; plain {plain_s * 1e3:.1f} '
-          f'ms; bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s), share {bound / ms:.3f}; '
-          f'max|d| vs plain {err:.3e} ({err / scale:.3e} of max|grid|), vs single launches '
-          f'{err_single:.3e}; overflow 0')
+    bps = gather_blocks_per_sm(nf - 1, True)
+    regs = GATHER_PTXAS.get((nf, True), (None, None, None))
+    print(f'phase 12 K1 multi-weight gather, {n}^3 lattice, {nf} columns (one unit): {ms:.4f} ms '
+          f'({bps} blocks/SM, ptxas {regs[0]} registers, spill stores {regs[1]} B, loads '
+          f'{regs[2]} B); one column {ms_one:.4f} ms against one single-column K1 launch '
+          f'{single_one_ms:.4f} ms; five single-column K1 launches {single_ms:.4f} ms; stage '
+          f'{stage_s * 1e3:.1f} ms; bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s), '
+          f'share {bound / ms:.3f}; max|d| vs the plain scatter ({plain_s * 1e3:.1f} ms) '
+          f'{err:.3e} ({err / scale:.3e} of max|grid|), vs the single launches {err_single:.3e}; '
+          f'bit-equal to its plain walk ({walk_s * 1e3:.1f} ms) {walk_equal}, two launches '
+          f'bit-equal {repeat_equal}')
     require(err <= 1e-5 * scale, f'K1 multi-weight disagrees with the plain scatter ({err:.3e})')
     require(err_single <= 1e-5 * scale, f'K1 multi-weight disagrees with single K1 ({err_single})')
-    k1m_rec = dict(ms=ms, plain_ms=plain_s * 1e3, max_abs_err=err, max_rel_err=err / scale,
-                   bound_ms=bound, bound_by='bytes', library_ms=None, single_ms=single_ms,
-                   single_max_abs_err=err_single, overflow=0, **rec)
-    del got, grids, cols, ws, ones
+    require(walk_equal, 'K1 multi-weight differs from its plain walk')
+    require(repeat_equal, 'two K1 multi-weight launches differ')
+    k1m_rec = dict(ms=ms, plain_ms=walk_s * 1e3, max_abs_err=0.0, bound_ms=bound,
+                   bound_by='bytes', library_ms=None, shape=f'{n}^3 lattice, {nf} columns',
+                   plain_shape='gather_deposit_plain, bit-equal', scatter_ms=plain_s * 1e3,
+                   scatter_max_abs_err=err, scatter_max_rel_err=err / scale, one_column_ms=ms_one,
+                   single_ms=single_ms, single_one_ms=single_one_ms,
+                   single_max_abs_err=err_single, blocks_per_sm=bps, stage_ms=stage_s * 1e3,
+                   registers=regs[0], spill_stores=regs[1], spill_loads=regs[2])
+    del got, cols, ws, ones
 
     k8_recs = []
     for nm in K8_NMESH:
@@ -1985,6 +2101,16 @@ def phase_zcv(dev, paths, timing):
     }
     print(f'phase 13 {tag}: ' + '; '.join(f'{k} {v:.3f} s' for k, v in stages.items())
           + f'; peak memory {peak / 2**30:.3f} GiB; launches {launches}')
+    # get_fields: the forward FFT, six inverse for s_ij and one for nabla^2
+    # delta; delta and delta^2 from delta, s^2 from six components. The IC
+    # filter: a forward and an inverse FFT a field, four fields
+    fields_bound, fields_bytes = fft_bound(n, 8, 7, 3)
+    filter_bound, filter_bytes = fft_bound(n, 8, 0, 0)
+    print(f'phase 13 bounds at 3.35 TB/s: get_fields {fields_bound:.4f} ms '
+          f'({fields_bytes / 1e9:.2f} GB), share {fields_bound / 1e3 / steps["get_fields"]:.3f} '
+          f'of its host-to-host time; the IC filter (4 fields) {filter_bound:.4f} ms '
+          f'({filter_bytes / 1e9:.2f} GB), share '
+          f'{filter_bound / 1e3 / steps["gaussian_filter"]:.3f}')
     print(f'phase 13 rho_tr_ZD (monopole, bins 0-7) {np.round(rho[:8], 4).tolist()}; bias '
           f'{np.round(np.asarray(out["bias"]), 4).tolist()}')
     # K3 at the 15 P_ij's shape, inside the chain
@@ -2023,7 +2149,7 @@ KERNELS = {
     'menv_annulus': (menv_device.menv_annulus, 'abacusutils_tpu_torch/csrc/prepare_sim.cu',
                      'abacusutils_tpu/models/hod/menv_device.py:152'),
     'tsc_deposit_cells_multi': (tsc_deposit_cells_multi,
-                                'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
+                                'abacusutils_tpu_torch/csrc/tsc_gather.cu',
                                 'abacusutils_tpu/ops/grid.py:485'),
     'window_mode_sums': (tzw.window_mode_sums, 'abacusutils_tpu_torch/csrc/zcv_window.cu',
                          'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
@@ -2058,6 +2184,24 @@ def reset_launches():
         if hasattr(fn, 'launches_by_form'):
             for k in fn.launches_by_form:
                 fn.launches_by_form[k] = 0
+
+
+@contextlib.contextmanager
+def calls_of(mod, name):
+    """Count the calls of mod.name (a function without a kernel of its own,
+    so without a launch counter) while the block runs: yields a one-element
+    list holding the count."""
+    fn, count = getattr(mod, name), [0]
+
+    def counted(*a, **k):
+        count[0] += 1
+        return fn(*a, **k)
+
+    setattr(mod, name, counted)
+    try:
+        yield count
+    finally:
+        setattr(mod, name, fn)
 
 
 def read_launches():
@@ -2605,8 +2749,10 @@ def main():
             shape=top['shape'], plain_shape=f'{N_MENV_SAMPLE} sampled centres of {top["shape"]}',
             shapes=menv_recs)
         t11 = time.perf_counter()
-        phase_slab(paths10, shearmark)
-        print(f'phase 11 in {time.perf_counter() - t11:.1f} s')
+        phase_slab(paths10, shearmark, dev)
+        print(f'phase 11 in {time.perf_counter() - t11:.1f} s; seg_rank (two stable sorts, no '
+              f'kernel) called {sum(p.get("seg_rank", 0) for p in paths10.values())} times on the '
+              f'main paths of phases 10-11')
         del shearmark
         timing['tsc_deposit_cells[tsc multi-weight]'], timing['window_mode_sums'] = (
             phase_zcv_kernels(dev))

@@ -887,7 +887,8 @@ def test_nn_kernel_matches_plain(cuda_device):
 
 def _menv_case(name, n, seed):
     rng = np.random.default_rng(seed)
-    L = {'box': 300.0, 'small box': 25.0, 'light cone': 800.0}[name]
+    L = {'box': 300.0, 'small box': 25.0, 'light cone': 800.0, 'box nc 1': 15.0,
+         'box nc 3': 35.0, 'box nc 5': 55.0, 'box r_inner > r_outer': 300.0}[name]
     c = rng.random((n // 50, 3)) * L
     pos = c[rng.integers(0, len(c), n)] + rng.normal(0, 4.0, (n, 3))
     if name == 'light cone':
@@ -898,23 +899,33 @@ def _menv_case(name, n, seed):
     else:
         pos = np.mod(pos, L) - L / 2
     mass = np.exp(rng.normal(27, 1.5, n))
-    return dict(pos=pos.astype(np.float32), mass=mass,
-                r_inner=(rng.random(n) * 0.8 + 0.1).astype(np.float32), r_outer=10.0,
+    rin = (rng.random(n) * 0.8 + 0.1).astype(np.float32)
+    if name == 'box r_inner > r_outer':
+        rin = np.full(n, 25.0, np.float32)
+    return dict(pos=pos.astype(np.float32), mass=mass, r_inner=rin, r_outer=10.0,
                 halo_lc=name == 'light cone', Lbox=L, mcut=float(np.median(mass)))
 
 
+MENV_CASES = ['box', 'small box', 'light cone', 'box nc 1', 'box nc 3', 'box nc 5',
+              'box r_inner > r_outer']
+
+
 @pytest.mark.parametrize('dense', [False, True], ids=['cell starts', 'dense ids'])
-@pytest.mark.parametrize('name', ['box', 'small box', 'light cone'])
+@pytest.mark.parametrize('name', MENV_CASES)
 def test_menv_kernel_matches_plain(cuda_device, name, dense, monkeypatch):
-    """K7 against its plain all-pairs version (rtol 1e-12, the same zeros)
-    in a box, a box of two cells a side and an octant light cone, through
-    the cell starts and through the dense ids; and against the host tree."""
+    """K7 against its plain version (the 27-cell sum by all pairs; rtol
+    1e-12, the same zeros) in boxes of 1 to 15 cells a side (the minimum
+    image by division below 5 cells, by each range's wrap from 5), an octant
+    light cone and a box whose r_inner passes the cell edge, through the
+    cell starts and through the dense ids; bit-equal to its CPU walk and to
+    a second launch; and against the host tree where r_inner <= r_outer."""
     from abacusutils_tpu_torch.models.hod import menv_device as tmd
     from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
+    from abacusutils_tpu_torch.testing import menv_walk
 
     if dense:
         monkeypatch.setattr(tmd, '_DENSE_MIN_CELLS', 0)
-    kw = _menv_case(name, 3000 if name == 'small box' else 20_000, 8)
+    kw = _menv_case(name, 20_000 if name in ('box', 'light cone') else 3000, 8)
     before = tmd.menv_annulus.launches
     got = tmd.do_menv_device(**kw)
     assert tmd.menv_annulus.launches == before + 1
@@ -922,9 +933,19 @@ def test_menv_kernel_matches_plain(cuda_device, name, dense, monkeypatch):
     assert np.count_nonzero(ref) > len(ref) // 4
     npt.assert_allclose(got, ref, rtol=1e-12, atol=0.0)
     npt.assert_array_equal(got == 0, ref == 0)
-    tree = do_Menv_from_tree(**kw)
-    npt.assert_allclose(got, tree, rtol=1e-12, atol=0.0)
-    npt.assert_array_equal(got == 0, tree == 0)
+    st = tmd.stage_menv(kw['pos'], kw['mass'], kw['r_inner'], kw['r_outer'], kw['halo_lc'],
+                        kw['Lbox'], cuda_device, kw['mcut'])
+    lbox = kw['Lbox'] if st.periodic else 0.0
+    card = tmd.menv_annulus(st, lbox, kw['r_outer'] ** 2)
+    assert torch.equal(card, tmd.menv_annulus(st, lbox, kw['r_outer'] ** 2))
+    cpu = st._replace(cols=[c.cpu() for c in st.cols], cells=st.cells.cpu(),
+                      starts=st.starts.cpu(), ukeys=None if st.ukeys is None else st.ukeys.cpu(),
+                      query=st.query.cpu(), work=st.work.cpu())
+    assert torch.equal(card.cpu(), menv_walk(cpu, lbox, kw['r_outer'] ** 2))
+    if name != 'box r_inner > r_outer':
+        tree = do_Menv_from_tree(**kw)
+        npt.assert_allclose(got, tree, rtol=1e-12, atol=0.0)
+        npt.assert_array_equal(got == 0, tree == 0)
 
 
 def test_out_of_box_catalog_goes_to_all_pairs(cuda_device):
@@ -972,67 +993,79 @@ def test_shear_on_card(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize('nf,nmesh', [(2, 64), (5, 64), (5, 45), (3, 550)])
-def test_multiweight_deposit_matches_plain(cuda_device, nf, nmesh):
-    """K1's multi-weight form (a unit column first, then nf - 1 weight
-    columns with zeros in them) against the plain scatter once a column and
-    against nf single-column K1 launches, on points on cell and brick edges,
-    at the multi-weight brick; no point leaves its tile."""
-    from abacusutils_tpu_torch.ops.grid import multi_brick_shape, tsc_deposit_cells_multi
+def _lattice(nmesh, box, jitter, rng, dev):
+    """The points of an nmesh^3 lattice, each moved by up to `jitter`
+    cells on every axis, wrapped into [0, box)."""
+    h = box / nmesh
+    c = (np.arange(nmesh, dtype=np.float32) * np.float32(h))
+    pos = np.stack(np.meshgrid(c, c, c, indexing='ij'), -1).reshape(-1, 3)
+    pos = pos + (rng.uniform(-jitter, jitter, pos.shape) * h).astype(np.float32)
+    return [t(np.mod(pos[:, i], np.float32(box)).astype(np.float32)).to(dev) for i in range(3)]
 
+
+def _check_gather(cols, ws, nmesh, box, dev):
+    """K1's multi-weight gather against the plain scatter once a column
+    (1e-5 of max|grid|: f32 sums in another order), bit-equal to its plain
+    walk and to a second launch, one launch counted; and paint_3d_multi,
+    which stages and launches it, in the columns' order."""
+    from abacusutils_tpu_torch.ops.grid import (
+        gather_deposit_plain,
+        paint_3d_multi,
+        stage_gather,
+        tsc_deposit_cells_multi,
+    )
+
+    nf = len(ws)
+    assert all(w is not None for w in ws[1:])
+    plan = stage_gather(cols + [w for w in ws if w is not None], nmesh, box)
+    grids = torch.full((nf,) + (nmesh,) * 3, 7.0, device=dev)
+    before = tsc_deposit_cells_multi.launches
+    assert tsc_deposit_cells_multi(grids, plan) is grids
+    assert tsc_deposit_cells_multi.launches == before + 1
+    again = torch.empty_like(grids)
+    tsc_deposit_cells_multi(again, plan)
+    assert torch.equal(grids, again)
+    assert torch.equal(grids, gather_deposit_plain(again, plan))
+    ones = torch.ones_like(cols[0])
+    for f, w in enumerate(ws):
+        ref = paint_3d_plain(torch.zeros((nmesh,) * 3, device=dev), *cols,
+                             ones if w is None else w, nmesh, box)
+        scale = float(ref.abs().max())
+        npt.assert_allclose(grids[f].cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * scale)
+    # the unit column last: the same grids in that order
+    turned = ws[1:] + ws[:1]
+    painted = paint_3d_multi(*cols, nmesh, box, turned)
+    assert torch.equal(painted, grids[list(range(1, nf)) + [0]] if ws[0] is None else grids)
+
+
+@pytest.mark.parametrize('nf', [1, 2, 3, 4, 5])
+@pytest.mark.parametrize('nmesh', [7, 16, 33, 64])
+def test_multiweight_deposit_matches_plain(cuda_device, nf, nmesh):
+    """K1's multi-weight gather (a unit column first, then nf - 1 weight
+    columns with zeros in them) on a lattice moved by up to half a cell and
+    on clumped points on cell and brick edges, at even and odd meshes with
+    ragged last bricks."""
     box = 2000.0
     rng = np.random.default_rng(nf * nmesh)
-    n = 200_000
-    pos = edge_points(n, nmesh, 16, box, rng)
-    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
-    ws = [None] + [t(rng.normal(size=n).astype(np.float32)).to(cuda_device)
-                   for _ in range(nf - 1)]
-    if nf > 1:
-        ws[1][::7] = 0.0
-    given = [w for w in ws if w is not None]
-    brick = multi_brick_shape(nmesh, nf)
-    staged, plan = stage_bricks(cols + given, nmesh, box, brick=brick)
-    sw = [None] + staged[3:]
-    grids = torch.zeros((nf,) + (nmesh,) * 3, device=cuda_device)
-    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    before = tsc_deposit_cells_multi.launches
-    got = tsc_deposit_cells_multi(grids, *staged[:3], sw, plan, box, 0.0, overflow)
-    assert got is grids and tsc_deposit_cells_multi.launches == before + 1
-    assert int(overflow) == 0
-    ones = torch.ones(n, device=cuda_device)
-    for f, w in enumerate(ws):
-        ref = paint_3d_plain(torch.zeros((nmesh,) * 3, device=cuda_device), *cols,
-                             ones if w is None else w, nmesh, box)
-        _assert_grid(got[f], ref)
-        single = torch.zeros_like(ref)
-        tsc_deposit_cells(single, *staged[:3], ones if w is None else sw[f], plan, box)
-        _assert_grid(got[f], single)
-    assert blocks_per_sm(plan, 'tsc', nf) >= 2
+    for cols in (_lattice(nmesh, box, 0.5, rng, cuda_device),
+                 [t(c).to(cuda_device) for c in edge_points(100_000, nmesh, 8, box, rng).T]):
+        n = cols[0].numel()
+        ws = [None] + [t(rng.normal(size=n).astype(np.float32)).to(cuda_device)
+                       for _ in range(nf - 1)]
+        if nf > 1:
+            ws[1][::7] = 0.0
+        _check_gather(cols, ws, nmesh, box, cuda_device)
 
 
-def test_multiweight_deposit_overflow(cuda_device):
-    """Points moved up to 4 cells after staging: every column's grid is the
-    plain scatter's and the overflow word counts the moved points."""
-    from abacusutils_tpu_torch.ops.grid import tsc_deposit_cells_multi
-
-    nmesh, box, n = 96, 77.0, 100_000
+@pytest.mark.parametrize('nmesh', [16, 33])
+def test_multiweight_deposit_far_points(cuda_device, nmesh):
+    """Lattice points moved up to 4 cells from their sites: cells hold from
+    none to many points, and the gather still equals the scatter."""
     rng = np.random.default_rng(23)
-    pos = (rng.random((n, 3)) * box).astype(np.float32)
-    cols = [t(pos[:, i]).to(cuda_device) for i in range(3)]
-    ws = [t(rng.random(n).astype(np.float32)).to(cuda_device) for _ in range(3)]
-    staged, plan = stage_bricks(cols + ws, nmesh, box, brick=(8, 16, 16))
-    h = box / nmesh
-    move = torch.from_numpy((rng.uniform(-4, 4, (n, 3)) * h).astype(np.float32)).to(cuda_device)
-    move[n // 2:] = 0.0
-    x, y, z = (staged[i] + move[:, i] for i in range(3))
-    grids = torch.zeros((3,) + (nmesh,) * 3, device=cuda_device)
-    overflow = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    tsc_deposit_cells_multi(grids, x, y, z, staged[3:], plan, box, 0.0, overflow)
-    want = int(overflow_count_plain(x, y, z, staged[3], plan, box))
-    assert int(overflow) == want > n // 10
-    for f in range(3):
-        _assert_grid(grids[f], paint_3d_plain(torch.zeros((nmesh,) * 3, device=cuda_device),
-                                              x, y, z, staged[3 + f], nmesh, box))
+    cols = _lattice(nmesh, 77.0, 4.0, rng, cuda_device)
+    n = cols[0].numel()
+    ws = [None] + [t(rng.random(n).astype(np.float32)).to(cuda_device) for _ in range(3)]
+    _check_gather(cols, ws, nmesh, 77.0, cuda_device)
 
 
 def test_field_ffts_on_card_match_cpu(cuda_device):

@@ -560,7 +560,7 @@ def test_zcv_kernel_wrappers_never_fall_back(monkeypatch):
     missing kernel library is not replaced by the plain versions, and
     shapes and column counts the kernels do not take are refused."""
     from abacusutils_tpu_torch import _build
-    from abacusutils_tpu_torch.ops.grid import BrickPlan, tsc_deposit_cells_multi
+    from abacusutils_tpu_torch.ops.grid import CellPlan, tsc_deposit_cells_multi
 
     class NoKernel(RuntimeError):
         pass
@@ -570,23 +570,22 @@ def test_zcv_kernel_wrappers_never_fall_back(monkeypatch):
 
     meta = dict(device='meta')
     nmesh, n = 32, 100
-    x, y, z = (torch.empty(n, **meta) for _ in range(3))
-    ws = [None, torch.empty(n, **meta)]
-    plan = BrickPlan(torch.empty((3, 3), dtype=torch.int32, **meta), nmesh, (8, 16, 16), (0,) * 3)
+    # one weight column; 4 x 4 x 1 bricks of 8 x 8 x 32 cells
+    plan = CellPlan(torch.empty((n, 4), **meta), torch.empty(32**3 + 1, dtype=torch.int32, **meta),
+                    nmesh, 1)
     grids = torch.empty((2,) + (nmesh,) * 3, **meta)
-    with pytest.raises(ValueError, match='1 to 5 weight columns'):
-        tsc_deposit_cells_multi(grids, x, y, z, [None] * 6, plan, 10.0)
     with pytest.raises(ValueError, match='grids must be'):
-        tsc_deposit_cells_multi(grids[:1], x, y, z, ws, plan, 10.0)
-    with pytest.raises(ValueError, match='weight column 1 must be'):
-        tsc_deposit_cells_multi(torch.empty((3,) + (nmesh,) * 3, **meta), x, y, z,
-                                ws + [torch.empty(n - 1, **meta)], plan, 10.0)
+        tsc_deposit_cells_multi(torch.empty((3,) + (nmesh,) * 3, **meta), plan)
+    with pytest.raises(ValueError, match='plan.points must be'):
+        tsc_deposit_cells_multi(grids, plan._replace(points=torch.empty((n, 8), **meta)))
+    with pytest.raises(ValueError, match='plan.starts must be'):
+        tsc_deposit_cells_multi(grids, plan._replace(starts=plan.starts[1:]))
     kv = torch.empty(nmesh, **meta)
     kz = torch.empty(nmesh // 2 + 1, **meta)
     with pytest.raises(ValueError, match='edges must be'):
         tzw.window_mode_sums(kv, kz, torch.empty(5, **meta), 8)
     monkeypatch.setattr(_build, 'lib', no_lib)
     with pytest.raises(NoKernel):
-        tsc_deposit_cells_multi(grids, x, y, z, ws, plan, 10.0)
+        tsc_deposit_cells_multi(grids, plan)
     with pytest.raises(NoKernel):
         tzw.window_mode_sums(kv, kz, torch.empty(9, **meta), 8)
