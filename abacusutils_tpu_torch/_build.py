@@ -73,6 +73,10 @@ SIGNATURES = {
     # kv, kzv, edges (f32), nmesh, nkout, row groups, warps, shared bytes,
     # partials, out (f64), stream
     'zcv_window_sums': (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # weights, their x and y strides (elements), n1d, kz in a pi bin, the
+    # Nyquist kz, rows, items, nitems, item starts, pi bins' first kz, nk,
+    # npi, threads a block, partials, out (f64), stream
+    'kppi_bin': (_P, _L, _L, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P),
     # x, y, z (f32), query, work, nitems, pstart, pnum, nn_d2 (f64), stream
     'nn_within_halo': (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     # x, y, z, m, rin2 (f64, sorted by cell), cells (3, n), n, starts, ukeys

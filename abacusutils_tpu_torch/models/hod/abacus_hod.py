@@ -594,7 +594,8 @@ class AbacusHOD:
             )
             ffts.append(F)
         kbins, mubins = get_k_mu_edges(lbox, k_hMpc_max, nbins_k, nbins_mu, logk)
-        plan, dk, res = _binned_spectra(ffts, W, scale, lbox, kbins, mubins, poles)
+        dk = 2.0 * np.pi / lbox
+        plan, res = _binned_spectra(ffts, W, scale, dk, kbins, mubins, poles)
         clustering = {}
         for i1, tr1 in enumerate(keys):
             for i2 in range(i1, len(keys)):

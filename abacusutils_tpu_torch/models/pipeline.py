@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..convert import params_to_tensors
-from ..ops.grid import _f32, brick_shape, stage_bricks, tsc_deposit_cells
+from ..ops.grid import RSD_MARGIN, _f32, brick_shape, stage_bricks, tsc_deposit_cells
 from ..ops.power import (
     bin_pair_modes,
     bin_power_modes,
@@ -62,12 +62,6 @@ __all__ = [
     'make_example_inputs_device',
     'RSD_MARGIN',
 ]
-
-# cells of margin of a catalog's bricks on each axis RSD moves galaxies
-# along after staging (a displacement of 3 Mpc/h is ~0.4 cells at nmesh 256
-# in a 2000 Mpc/h box)
-RSD_MARGIN = 2
-
 
 def make_bin_plan_arrays(nmesh, lbox, nbins_k, device):
     """Mode-binning plan of a monopole P(k) with `nbins_k` linear k bins up

@@ -31,7 +31,7 @@ import torch
 from ... import _build
 from ...convert import resolve_device
 from ...ops.grid import MAX_SMEM_BYTES
-from ...ops.power import get_k_mu_edges
+from ...ops.power import _sqrt_rn_f32, get_k_mu_edges
 from .zenbu_native import zenbu_spectra_native
 
 __all__ = [
@@ -114,8 +114,9 @@ def _f32_ge_edges(kout):
 
 def _mode_rows(kx, ky, kz):
     """(bin-free) |k| and the seven f32 weight rows of the modes of one kx
-    plane, in K8's arithmetic (_window_sums_impl's association)."""
-    knorm = torch.sqrt(kx * kx + ky * ky + kz * kz)
+    plane, in K8's arithmetic (_window_sums_impl's association; the root
+    correctly rounded, as K8's __fsqrt_rn, on every CPU)."""
+    knorm = _sqrt_rn_f32(kx * kx + ky * ky + kz * kz)
     mu = torch.where(knorm > 0, kz / torch.where(knorm > 0, knorm, 1.0), 0.0)
     L2 = (3 * mu * mu - 1) / 2
     m2 = mu * mu

@@ -78,6 +78,7 @@ __all__ = [
     'rightwrap',
     'blocks_per_sm',
     'MAX_SMEM_BYTES',
+    'RSD_MARGIN',
 ]
 
 # dynamic shared memory one H100 block may use (227 KB)
@@ -92,6 +93,10 @@ MAX_WEIGHTS = 5
 # cells are one contiguous run of the stage's keys (csrc/tsc_gather.cu's
 # GX, GY, GZ: a warp a brick row of 32 cells along z)
 GATHER_BRICK = (8, 8, 32)
+# cells of margin of a catalog's bricks on each axis RSD moves points along
+# after staging (a displacement of 3 Mpc/h is ~0.4 cells at nmesh 256 in a
+# 2000 Mpc/h box)
+RSD_MARGIN = 2
 # a work item holds at most max(MIN_ITEM_POINTS, ITEM_SPLIT x the mean points
 # of a brick) points; heavier bricks are cut into several items
 MIN_ITEM_POINTS = 2048

@@ -31,6 +31,26 @@ Counterpart of abacusutils_tpu/ops/power.py:
   :func:`calc_pk_pairs_from_deltak` and :func:`calc_power`: the spectrum
   pipeline, which paints with K1 (``ops/grid.py:paint_3d``) and bins every
   pair of fields through one K3 launch.
+- :func:`bin_kmu` with ``fourier=False`` bins a real mesh by separation (a
+  plan of edges in units of the cell L / n1d, the same K3 launch);
+  :func:`project_3d_to_poles` and :func:`pk_to_xi` (``torch.fft.irfftn``,
+  then that binning) are built on it.
+- :func:`bin_kppi` bins an rfft mesh in (k_perp, pi) through a separable
+  host plan (:class:`KppiPlan`: the rows of each k_perp bin, the kz range of
+  each pi bin, the exact counts) and :func:`bin_kppi_sums`, which launches
+  K9 (``csrc/kppi_bin.cu``) on CUDA tensors and runs
+  :func:`bin_kppi_sums_plain` on CPU tensors; it replaces the one-hot
+  matmuls of ``_bin_kppi_sums``.
+- :class:`StagedPower` stages a catalog once on K1's brick stage and
+  measures P(k) many times, a z column per call gathered into the stage.
+- The host helpers (:func:`factorial`, :func:`factorial_slow`,
+  :func:`n_choose_k`, :func:`P_n`, :func:`linear_interp`) are numpy, the
+  field helpers (:func:`normalize_field`, :func:`shift_field_fft`,
+  :func:`get_smoothing`, :func:`get_delta_mu2`,
+  :func:`expand_poles_to_3d`) elementwise torch on the device.
+
+Entry points that take numpy send it to `device`, the card when None, and
+raise where there is none; tensors stay where they are.
 """
 
 import ctypes
@@ -42,7 +62,15 @@ import torch
 
 from .. import _build
 from ..convert import resolve_device
-from .grid import MAX_SMEM_BYTES, _f32, paint_3d, paint_3d_multi
+from .grid import (
+    MAX_SMEM_BYTES,
+    RSD_MARGIN,
+    _f32,
+    paint_3d,
+    paint_3d_multi,
+    stage_bricks,
+    tsc_deposit_cells,
+)
 
 __all__ = [
     'get_k_mu_edges',
@@ -74,6 +102,26 @@ __all__ = [
     'MAX_FIELDS',
     'MAX_POLES',
     'MAX_POLE_DEGREE',
+    'factorial',
+    'factorial_slow',
+    'n_choose_k',
+    'P_n',
+    'linear_interp',
+    'normalize_field',
+    'shift_field_fft',
+    'get_smoothing',
+    'get_delta_mu2',
+    'expand_poles_to_3d',
+    'project_3d_to_poles',
+    'pk_to_xi',
+    'KppiPlan',
+    'KPPI_ITEM_ROWS',
+    'kppi_plan',
+    'get_kppi_plan',
+    'bin_kppi_sums_plain',
+    'bin_kppi_sums',
+    'bin_kppi',
+    'StagedPower',
 ]
 
 # bins whose f32 histogram fits the 227 KB of shared memory of one block
@@ -131,6 +179,69 @@ def _legendre_coeffs(n):
     return out
 
 
+def factorial(n):
+    """n! for 0 <= n <= 20 (ops/power.py:factorial)."""
+    if n < 0 or n > 20:
+        raise ValueError('n must be in [0, 20]')
+    return math.factorial(int(n))
+
+
+def factorial_slow(x):
+    """Brute-force factorial (ops/power.py:factorial_slow)."""
+    out = 1
+    for i in range(2, int(x) + 1):
+        out *= i
+    return out
+
+
+def n_choose_k(n, k):
+    """Binomial coefficient (ops/power.py:n_choose_k)."""
+    return factorial(n) // (factorial(k) * factorial(n - k))
+
+
+def _P_n(mu2, n):
+    """Legendre P_n at mu = sqrt(mu2), elementwise on a tensor, in the JAX
+    program's f32 terms (ops/power.py:_P_n): f32(c) (mu2)^(p/2), an integer
+    power for even p, mu2 ** f32(p/2) for odd p, added in order."""
+    tot = torch.zeros_like(mu2)
+    for c, p in _legendre_coeffs(n):
+        c = _f32(c)
+        if p == 0:
+            tot = tot + c
+        elif p % 2 == 0:
+            tot = tot + c * mu2 ** (p // 2)
+        else:
+            tot = tot + c * mu2 ** _f32(0.5 * p)
+    return tot
+
+
+def P_n(x, n, dtype=np.float32):
+    """Legendre polynomial P_n of a SQUARED variable x = mu^2, as a numpy
+    array (ops/power.py:P_n; a host helper, computed on the CPU)."""
+    x = torch.from_numpy(np.ascontiguousarray(x, dtype))
+    return _P_n(x, int(n)).numpy().astype(dtype, copy=False)
+
+
+def linear_interp(xd, x, y):
+    """Linear interpolation on an equidistant monotonic grid, clamped to the
+    endpoint values (ops/power.py:linear_interp; numpy)."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    f = np.clip((np.asarray(xd) - x[0]) / (x[1] - x[0]), 0.0, len(x) - 1.000001)
+    fl = np.floor(f).astype(np.int64)
+    out = y[fl] + (f - fl) * (y[fl + 1] - y[fl])
+    return np.where(xd <= x[0], y[0], np.where(xd >= x[-1], y[-1], out))
+
+
+def _device_tensor(a, device, dtype=None):
+    """A tensor stays where it is (cast to `dtype` if given); anything else
+    goes through numpy to `device`, the card when None."""
+    if isinstance(a, torch.Tensor):
+        return a if dtype is None else a.to(dtype)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(resolve_device(device))
+    return t if dtype is None else t.to(dtype)
+
+
 def mode_dup(n1d):
     """Hermitian multiplicity of each rfft mode, flat f32: 1 on the kz=0
     plane and on the kz=n1d/2 plane of an even mesh, 2 elsewhere
@@ -168,6 +279,17 @@ def mode_bin_plan(n1d, kedges2, muedges2):
     seg = np.where(valid, bk * Nmu + bmu, Nk * Nmu)
     counts = np.bincount(seg, weights=mode_dup(n1d), minlength=Nk * Nmu + 1)[: Nk * Nmu]
     return seg.astype(np.int32), counts.reshape(Nk, Nmu)
+
+
+def _sqrt_rn_f32(x):
+    """The correctly rounded f32 square root of the f32 tensor `x`, as
+    numpy's and CUDA's: the f64 root rounded once to f32. torch's CPU f32
+    sqrt is not correctly rounded on every host (its AVX-512 path differs
+    from numpy on thousands of a 32^3 mesh's |k|), and one ulp moves a mode
+    whose |k| sits on a bin edge into the next bin. An f64 root within an
+    ulp of the true one rounds to the right f32, since the root of an f32
+    never lies within 2^-51 of an f32 rounding midpoint."""
+    return torch.sqrt(x.double()).float()
 
 
 def _mode_geometry(n1d, device):
@@ -228,9 +350,7 @@ def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cuda'):
         return torch.bincount(seg, weights=w.double(), minlength=nseg + 1)[:nseg].reshape(Nk, Nmu)
 
     counts = segsum(dup)
-    # an f32 sqrt rounded once, as numpy's (torch's CPU f32 sqrt is not
-    # correctly rounded); the f64 root rounded to f32 is
-    ksum = segsum(torch.sqrt(kflat.double()).float() * dup)
+    ksum = segsum(_sqrt_rn_f32(kflat) * dup)
     pole_w = {int(p): _pole_weight(muflat, dup, int(p)) for p in poles if p != 0}
     return seg.to(torch.int32), counts, ksum, pole_w
 
@@ -647,6 +767,34 @@ def _interlace_combine(field_fft, field_shift_fft, nmesh, Lbox, d):
     return (field_fft + field_shift_fft * phase) * _f32(0.5 / nmesh**3)
 
 
+def shift_field_fft(field_fft, field_shift_fft, n1d, L, d, dtype=np.float32, device=None):
+    """Interlaced Fourier field (F + F_shift e^{ik.d/2}) / (2 N^3)
+    (ops/power.py:shift_field_fft), a complex64 tensor. numpy meshes go to
+    `device` (the card when None); tensors stay where they are."""
+    F, Fs = (_device_tensor(f, device, torch.complex64) for f in (field_fft, field_shift_fft))
+    return _interlace_combine(F, Fs.to(F.device), int(n1d), float(L), float(d))
+
+
+def normalize_field(field, tot_weight=None, inplace=False, nthread=None, device=None):
+    """Overdensity field * (size / tot_weight) - 1 in f32
+    (ops/power.py:normalize_field: np.multiply(..., dtype=float32) - 1).
+    tot_weight defaults to the field's sum: numpy's for a numpy field, as
+    the JAX package sums it, a float64 torch sum for a tensor. numpy fields
+    go to `device` (the card when None); `inplace` writes the result back
+    into `field` and returns it."""
+    if tot_weight is None:
+        tot_weight = float(field.sum(dtype=torch.float64) if isinstance(field, torch.Tensor)
+                           else np.asarray(field).sum())
+    f = _device_tensor(field, device)
+    out = f.to(torch.float32) * _f32(f.numel() / tot_weight) - 1.0
+    if not inplace:
+        return out
+    if isinstance(field, torch.Tensor):
+        return field.copy_(out)
+    field[...] = out.cpu().numpy()
+    return field
+
+
 def _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device=None, overflow=None):
     """The Fourier field before its 1/N^3 scale and compensation, and that
     scale: (rfftn(field), 1/N^3), or (the interlaced combination, which
@@ -729,21 +877,23 @@ def get_raw_power(field_fft, field2_fft=None):
     return (field_fft.conj() * field2_fft).real
 
 
-def _plan_for(n1d, Lbox, kedges, muedges, poles, device):
-    dk = 2.0 * np.pi / Lbox
+def _plan_for(n1d, dk, kedges, muedges, poles, device):
+    """The cached plan of edges in units of `dk`: the fundamental mode 2 pi /
+    L of a Fourier mesh, or the cell L / n1d of a real one."""
     kedges2 = ((np.asarray(kedges) / dk) ** 2).astype(np.float32)
     muedges2 = (np.asarray(muedges) ** 2).astype(np.float32)
-    return get_mode_bin_plan(int(n1d), kedges2, muedges2, poles, device), dk
+    return get_mode_bin_plan(int(n1d), kedges2, muedges2, poles, device)
 
 
-def _binned_spectra(ffts, W, scale, Lbox, kedges, muedges, poles):
-    """Every pair (i <= j) of the fields `ffts` through one K3 launch.
-    Returns (plan, dk, {(i, j): (wsum (Nk, Nmu), pole_sums (npoles_nz, Nk))})
-    as float64 numpy."""
+def _binned_spectra(ffts, W, scale, dk, kedges, muedges, poles):
+    """Every pair (i <= j) of the fields `ffts` through one K3 launch, the
+    edges in units of `dk` (2 pi / L for Fourier meshes). Returns (plan,
+    {(i, j): (wsum (Nk, Nmu), pole_sums (npoles_nz, Nk))}) as float64
+    numpy."""
     n1d = int(ffts[0].shape[0])
     device = ffts[0].device
     poles = tuple(int(p) for p in poles)
-    plan, dk = _plan_for(n1d, Lbox, kedges, muedges, poles, device)
+    plan = _plan_for(n1d, dk, kedges, muedges, poles, device)
     nbins = plan.nk * plan.nmu
     pole_w = {p: plan.pole_w[p] for p in poles if p != 0}
     Wt = None if W is None else torch.as_tensor(np.asarray(W, np.float32), device=device)
@@ -751,7 +901,7 @@ def _binned_spectra(ffts, W, scale, Lbox, kedges, muedges, poles):
     sums, psums = out if pole_w else (out, None)
     sums = sums.cpu().numpy().reshape(-1, plan.nk, plan.nmu)
     psums = np.zeros((len(sums), 0, plan.nk)) if psums is None else psums.cpu().numpy()
-    return plan, dk, {ij: (sums[p], psums[p]) for p, ij in enumerate(field_pairs(len(ffts)))}
+    return plan, {ij: (sums[p], psums[p]) for p, ij in enumerate(field_pairs(len(ffts)))}
 
 
 def _bin_means(plan, dk, wsum, psums, poles, dtype=np.float32):
@@ -785,23 +935,309 @@ def _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis):
     )
 
 
-def bin_kmu(n1d, L, kedges, muedges, weights, poles=(), fourier=True):
-    """Mean weights and mode counts in (k, mu) bins of an rfft-mesh weight
-    (ops/power.py:bin_kmu, fourier=True): (weighted_counts, counts,
-    weighted_counts_poles, counts_poles, weighted_counts_k). The weight
-    sums are the (weights, 1) cross of K3, Re(w * conj(1)) = w exactly."""
-    if not fourier:
-        raise NotImplementedError(
-            'bin_kmu(fourier=False) (separation binning for pk_to_xi) is not ported yet: '
-            'ROADMAP item 8'
-        )
+def bin_kmu(n1d, L, kedges, muedges, weights, poles=(), dtype=np.float32, fourier=True,
+            nthread=None, device=None):
+    """Mean weights and mode counts in (k, mu) bins of the modes of an rfft
+    mesh (fourier=True, k in units of 2 pi / L) or in (r, mu) bins of a real
+    mesh (fourier=False, r in units of the cell L / n1d; separation binning
+    for pk_to_xi), read as the JAX package reads it: the [:, :, :n1d/2+1]
+    half with the rfft mesh's dup factors (ops/power.py:bin_kmu). Returns
+    (weighted_counts, counts, weighted_counts_poles, counts_poles,
+    weighted_counts_k). The weight sums are the (weights, 1) cross of K3,
+    Re(w * conj(1)) = w exactly. numpy weights go to `device` (the card
+    when None); tensors stay where they are."""
     poles = tuple(int(p) for p in np.asarray(poles).reshape(-1))
     kzlen = int(n1d) // 2 + 1
-    w = torch.as_tensor(weights)[:, :, :kzlen].to(torch.float32)
+    w = _device_tensor(weights, device)[:, :, :kzlen].to(torch.float32)
     zero = torch.zeros_like(w)
     pair = [torch.complex(w, zero), torch.complex(torch.ones_like(w), zero)]
-    plan, dk, res = _binned_spectra(pair, None, 1.0, L, kedges, muedges, poles)
-    return _bin_means(plan, dk, *res[(0, 1)], poles)
+    dk = 2.0 * np.pi / L if fourier else L / n1d
+    plan, res = _binned_spectra(pair, None, 1.0, dk, kedges, muedges, poles)
+    return _bin_means(plan, dk, *res[(0, 1)], poles, dtype)
+
+
+def project_3d_to_poles(k_bin_edges, raw_p3d, Lbox, poles, device=None):
+    """3-D power on an rfft mesh -> its Legendre multipoles in k bins, times
+    Lbox^3 (ops/power.py:project_3d_to_poles): (binned_poles, Npoles)."""
+    _, _, binned_poles, Npoles, _ = bin_kmu(
+        raw_p3d.shape[0], Lbox, k_bin_edges, np.array([0.0, 1.0]), raw_p3d, poles, device=device
+    )
+    return binned_poles * Lbox**3, Npoles
+
+
+def pk_to_xi(Pk, Lbox, r_bins, poles=(0, 2, 4), device=None):
+    """3-D P(k) on the rfft half mesh -> xi_l(r): irfftn (cuFFT on the card),
+    then the real mesh's separation binning (:func:`bin_kmu`,
+    fourier=False), times nmesh^3 (ops/power.py:pk_to_xi). Returns (r_binc,
+    binned_poles, Npoles). numpy input goes to `device` (the card when
+    None), as float32 (complex64 when complex)."""
+    P = _device_tensor(Pk, device)
+    P = P.to(torch.complex64 if P.is_complex() else torch.float32)
+    Xi = torch.fft.irfftn(P)
+    r_bins = np.asarray(r_bins)
+    r_binc = (r_bins[1:] + r_bins[:-1]) * 0.5
+    nmesh = Xi.shape[0]
+    _, _, binned_poles, Npoles, _ = bin_kmu(
+        nmesh, Lbox, r_bins, np.array([0.0, 1.0]), Xi, poles, fourier=False
+    )
+    return r_binc, binned_poles * nmesh**3, Npoles
+
+
+def get_smoothing(n1d, L, R, dtype=np.float32, device=None):
+    """The Gaussian kernel exp(-k^2 R^2 / 2) on the (n1d, n1d, n1d/2+1) rfft
+    mesh, f32 on `device` (the card when None): exp(-|k|^2 f32(dk^2 R^2) / 2)
+    with |k|^2 in units of the fundamental mode (ops/power.py:get_smoothing)."""
+    n1d = int(n1d)
+    kmag2, _, _ = _mode_geometry(n1d, resolve_device(device))
+    dk = 2.0 * np.pi / L
+    out = torch.exp(-kmag2 * _f32(dk**2 * R**2) / 2.0)
+    return out.reshape(n1d, n1d, n1d // 2 + 1)
+
+
+def get_delta_mu2(delta, n1d, dtype_c=np.complex64, dtype_f=np.float32, device=None):
+    """delta * mu^2 on the rfft mesh, mu^2 = kz^2 / |k|^2 one f32 division
+    (ops/power.py:get_delta_mu2). numpy input goes to `device` (the card
+    when None)."""
+    n1d = int(n1d)
+    delta = _device_tensor(delta, device, torch.complex64)
+    _, mu2, _ = _mode_geometry(n1d, delta.device)
+    return delta * mu2.reshape(n1d, n1d, n1d // 2 + 1)
+
+
+def expand_poles_to_3d(k_ell, P_ell, n1d, L, poles, dtype=np.float32, device=None):
+    """P(k, mu) = sum_l P_l(|k|) L_l(mu) on the (n1d, n1d, n1d/2+1) rfft
+    mesh, f32 on `device` (the card when None): each pole linearly
+    interpolated on its equidistant k table and clamped to the end values,
+    the poles added in order (ops/power.py:expand_poles_to_3d and
+    _expand_poles_jit, in their f32 steps; |k| from the correctly rounded
+    root)."""
+    k_ell = np.asarray(k_ell, dtype=dtype)
+    P_ell = np.atleast_2d(np.asarray(P_ell, dtype=dtype))
+    if not abs((k_ell[1] - k_ell[0]) - (k_ell[-1] - k_ell[-2])) < 1.0e-6:
+        raise ValueError('expand_poles_to_3d needs equidistant k_ell')
+    n1d = int(n1d)
+    dev = resolve_device(device)
+    kmag2, mu2, _ = _mode_geometry(n1d, dev)
+    kmag = _sqrt_rn_f32(kmag2) * _f32(2 * np.pi / L)
+    x0, xn = _f32(k_ell[0]), _f32(k_ell[-1])
+    dx = _f32(np.float32(k_ell[1]) - np.float32(k_ell[0]))
+    f = ((kmag - x0) / dx).clamp(0.0, _f32(len(k_ell) - 1.000001))
+    fl = torch.floor(f).to(torch.int64)
+    frac = f - fl.to(torch.float32)
+    Pk = torch.zeros_like(kmag)
+    for ip, pole in enumerate(int(p) for p in np.asarray(poles).reshape(-1)):
+        y = torch.from_numpy(np.ascontiguousarray(P_ell[ip], np.float32)).to(dev)
+        # f's upper clip, len - 1.000001, rounds to len - 1 in f32 from 34
+        # entries up: the upper neighbour is clamped into the table, as
+        # XLA's gather clamps it
+        y0, y1 = y[fl], y[(fl + 1).clamp_(max=len(k_ell) - 1)]
+        interp = y0 + frac * (y1 - y0)
+        interp = torch.where(kmag <= x0, y[0], interp)
+        interp = torch.where(kmag >= xn, y[-1], interp)
+        Pk = Pk + (interp if pole == 0 else interp * _P_n(mu2, pole))
+    return Pk.reshape(n1d, n1d, n1d // 2 + 1)
+
+
+# ---------------------------------------------------------------------------
+# (k_perp, pi) binning: the separable plan and K9 (csrc/kppi_bin.cu)
+# ---------------------------------------------------------------------------
+
+# rows of one k_perp bin a K9 block sums (csrc/kppi_bin.cu kItemRows)
+KPPI_ITEM_ROWS = 32
+
+
+class KppiPlan(NamedTuple):
+    """The (k_perp, pi) bins of an (n1d, n1d, n1d/2+1) rfft mesh, separable:
+    k_perp^2 = ix^2 + iy^2 fixes a row's bin, kz^2 the pi bin, which rises
+    with kz, so each pi bin is a contiguous kz range. On the device: `rows`,
+    the int32 ids ix * n1d + iy of the rows in a k_perp bin, sorted by bin
+    (stably); `items`, the (nitems, 2) int32 [begin, end) runs of at most
+    KPPI_ITEM_ROWS of them within one bin, a K9 block each; `item_start`,
+    the (nk + 1,) first item of each bin; `zstart`, the (npi + 1,) first kz
+    of each pi bin (the last: `kzv`, the kz in any bin, a prefix of the
+    row); `row_bin` (n1d^2,) and `z_bin` (kzlen,), each row's and kz's bin
+    or -1, for the plain version. `counts` is the exact (nk, npi) int64
+    dup-weighted mode count, read-only numpy; `nyq` the kz of the
+    self-conjugate Nyquist plane (dup 1), -1 on an odd mesh."""
+
+    rows: torch.Tensor
+    items: torch.Tensor
+    item_start: torch.Tensor
+    zstart: torch.Tensor
+    row_bin: torch.Tensor
+    z_bin: torch.Tensor
+    counts: np.ndarray
+    n1d: int
+    nk: int
+    npi: int
+    kzv: int
+    nyq: int
+
+
+def kppi_plan(n1d, kedges2, piedges2, device):
+    """Build the :class:`KppiPlan` of squared edges in units of the mesh's dk
+    (ops/power.py:_bin_kppi_sums' bins: bk = clip(searchsorted(kedges2,
+    k_perp^2, 'left') - 1, 0, Nk - 1), valid where kedges2[0] <= k_perp^2 <
+    kedges2[-1]; bpi likewise over piedges2, valid where kz^2 <
+    piedges2[-1]), on the host with numpy, then uploaded to `device`."""
+    n1d = int(n1d)
+    kedges2, piedges2 = np.asarray(kedges2), np.asarray(piedges2)
+    nk, npi = len(kedges2) - 1, len(piedges2) - 1
+    if nk < 1 or npi < 1:
+        raise ValueError('bin_kppi needs at least one k_perp and one pi bin')
+    kzlen = n1d // 2 + 1
+    i = np.arange(n1d)
+    i2 = np.where(i < n1d // 2, i, i - n1d).astype(np.int64) ** 2
+    kp2 = (i2[:, None] + i2[None, :]).astype(np.float32).reshape(-1)
+    validk = (kp2 >= kedges2[0]) & (kp2 < kedges2[-1])
+    bk = np.clip(np.searchsorted(kedges2, kp2, side='left') - 1, 0, nk - 1)
+    row_bin = np.where(validk, bk, -1)
+    rows = np.nonzero(validk)[0]
+    rows = rows[np.argsort(bk[rows], kind='stable')]
+    row_start = np.searchsorted(bk[rows], np.arange(nk + 1))
+
+    kz2 = (np.arange(kzlen, dtype=np.int64) ** 2).astype(np.float32)
+    validz = kz2 < piedges2[-1]  # a prefix: kz^2 rises along the row
+    kzv = int(validz.sum())
+    bpi = np.clip(np.searchsorted(piedges2, kz2, side='left') - 1, 0, npi - 1)
+    z_bin = np.where(validz, bpi, -1)
+    zstart = np.searchsorted(bpi[:kzv], np.arange(npi + 1))
+    nyq = n1d // 2 if n1d % 2 == 0 else -1
+    dup = np.where((np.arange(kzlen) == 0) | (np.arange(kzlen) == nyq), 1, 2)
+    zdup = np.concatenate([[0], np.cumsum(dup[:kzv])])
+    counts = np.diff(row_start)[:, None] * np.diff(zdup[zstart])[None, :]
+    counts = counts.astype(np.int64)
+    counts.flags.writeable = False
+
+    nchunk = -(-np.diff(row_start) // KPPI_ITEM_ROWS)
+    item_start = np.concatenate([[0], np.cumsum(nchunk)])
+    item = np.arange(item_start[-1])
+    ibin = np.repeat(np.arange(nk), nchunk)
+    begin = row_start[ibin] + (item - item_start[ibin]) * KPPI_ITEM_ROWS
+    end = np.minimum(begin + KPPI_ITEM_ROWS, row_start[ibin + 1])
+    items = np.stack([begin, end], 1).reshape(-1, 2)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return KppiPlan(up(rows), up(items), up(item_start), up(zstart), up(row_bin), up(z_bin),
+                    counts, n1d, nk, npi, kzv, nyq)
+
+
+# plans by (n1d, squared edges, device), at most _MAX_BIN_PLANS of them
+_KPPI_PLANS = {}
+
+
+def get_kppi_plan(n1d, kedges2, piedges2, device):
+    """:func:`kppi_plan`, cached by (n1d, edges, device)
+    (``get_kppi_plan.builds`` counts the builds)."""
+    kedges2, piedges2 = np.asarray(kedges2), np.asarray(piedges2)
+    device = torch.device(device)
+    key = (int(n1d), kedges2.dtype.str, kedges2.tobytes(), piedges2.dtype.str,
+           piedges2.tobytes(), str(device))
+    plan = _KPPI_PLANS.get(key)
+    if plan is None:
+        plan = kppi_plan(n1d, kedges2, piedges2, device)
+        if len(_KPPI_PLANS) >= _MAX_BIN_PLANS:
+            _KPPI_PLANS.clear()
+        _KPPI_PLANS[key] = plan
+        get_kppi_plan.builds += 1
+    return plan
+
+
+get_kppi_plan.builds = 0
+
+
+def _check_kppi(weights, plan):
+    n1d, kzlen = plan.n1d, plan.n1d // 2 + 1
+    if weights.dtype != torch.float32 or weights.dim() != 3 or (
+        tuple(weights.shape[:2]) != (n1d, n1d) or weights.shape[2] < kzlen
+    ):
+        raise ValueError(f'weights must be a float32 ({n1d}, {n1d}, >= {kzlen}) tensor, not '
+                         f'{weights.dtype} {tuple(weights.shape)}')
+    if weights.stride(2) != 1:
+        raise ValueError(f'weights must be contiguous along kz (strides {weights.stride()})')
+    if weights.device != plan.rows.device:
+        raise ValueError(f'weights are on {weights.device}, the plan on {plan.rows.device}')
+
+
+def bin_kppi_sums_plain(weights, plan):
+    """The (nk, npi) float64 sums of dup * w over the modes of each (k_perp,
+    pi) bin of `plan` (ops/power.py:_bin_kppi_sums' wsum): per kx plane a
+    torch ``bincount`` of the flat bk * npi + bpi index with f64 weights,
+    the planes added in order. weights: (n1d, n1d, >= n1d/2+1) float32, read
+    through its strides."""
+    _check_kppi(weights, plan)
+    n1d, nk, npi = plan.n1d, plan.nk, plan.npi
+    kzlen = n1d // 2 + 1
+    dev = weights.device
+    kz = torch.arange(kzlen, device=dev)
+    dup = torch.where((kz == 0) | (kz == plan.nyq), 1.0, 2.0).to(torch.float64)
+    zb = plan.z_bin.long()
+    rb = plan.row_bin.long().reshape(n1d, n1d)
+    out = torch.zeros(nk * npi + 1, dtype=torch.float64, device=dev)
+    for ix in range(n1d):
+        r = rb[ix][:, None]
+        idx = torch.where((r >= 0) & (zb[None, :] >= 0), r * npi + zb[None, :], nk * npi)
+        w = weights[ix, :, :kzlen].double() * dup
+        out += torch.bincount(idx.reshape(-1), weights=w.reshape(-1), minlength=nk * npi + 1)
+    return out[: nk * npi].reshape(nk, npi)
+
+
+def bin_kppi_sums(weights, plan):
+    """The (nk, npi) float64 (k_perp, pi) bin sums of dup * w of
+    :func:`bin_kppi_sums_plain`.
+
+    On CUDA tensors this launches K9 (csrc/kppi_bin.cu) and its fixed-order
+    reduction on the current stream: no atomics, so repeated calls give the
+    same bits. `weights` is read through its strides (a full real mesh's
+    [:, :, :n1d/2+1] view is not copied) and must be contiguous along kz. On
+    CPU tensors it runs :func:`bin_kppi_sums_plain`."""
+    if weights.device.type == 'cpu':
+        return bin_kppi_sums_plain(weights, plan)
+    _check_kppi(weights, plan)
+    dev = weights.device
+    nitems = plan.items.shape[0]
+    threads = min(1024, max(32, -(-plan.kzv // 32) * 32))
+    partials = torch.empty(max(nitems, 1) * plan.npi, dtype=torch.float64, device=dev)
+    out = torch.empty((plan.nk, plan.npi), dtype=torch.float64, device=dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        code = lib.kppi_bin(
+            weights.data_ptr(), weights.stride(0), weights.stride(1), plan.n1d, plan.kzv,
+            plan.nyq, plan.rows.data_ptr(), plan.items.data_ptr(), nitems,
+            plan.item_start.data_ptr(), plan.zstart.data_ptr(), plan.nk, plan.npi, threads,
+            partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'kppi_bin')
+    bin_kppi_sums.launches += 1
+    return out
+
+
+bin_kppi_sums.launches = 0
+
+
+def bin_kppi(n1d, L, kedges, pimax, Npi, weights, dtype=np.float32, fourier=True, nthread=None,
+             device=None):
+    """Mean weights and mode counts in (k_perp, pi) bins of an rfft mesh
+    (ops/power.py:bin_kppi): k_perp edges `kedges`, Npi pi bins to `pimax`,
+    in units of dk = 2 pi / L (fourier=True) or L / n1d (fourier=False).
+    Returns (weighted_counts (Nk, Npi) `dtype`, counts (Nk, Npi) int64); the
+    counts come exactly from the plan, the sums from K9. numpy weights go
+    to `device` (the card when None); tensors stay where they are."""
+    kedges = np.asarray(kedges)
+    dk = 2.0 * np.pi / L if fourier else L / n1d
+    kedges2 = ((kedges / dk) ** 2).astype(dtype)
+    piedges2 = ((np.linspace(0.0, pimax, int(Npi) + 1) / dk) ** 2).astype(dtype)
+    w = _device_tensor(weights, device, torch.float32)
+    if w.dim() == 3 and w.stride(2) != 1:
+        w = w.contiguous()
+    plan = get_kppi_plan(int(n1d), kedges2, piedges2, w.device)
+    wsum = bin_kppi_sums(w, plan).cpu().numpy()
+    counts = np.array(plan.counts)
+    with np.errstate(invalid='ignore', divide='ignore'):
+        weighted_counts = np.where(counts != 0, wsum / counts, 0.0).astype(dtype)
+    return weighted_counts, counts
 
 
 def calc_pk_from_deltak(
@@ -811,7 +1247,8 @@ def calc_pk_from_deltak(
     K3 launch (ops/power.py:calc_pk_from_deltak)."""
     poles = tuple(int(p) for p in np.asarray(poles).reshape(-1))
     ffts = [field_fft] if field2_fft is None else [field_fft, field2_fft]
-    plan, dk, res = _binned_spectra(ffts, None, 1.0, Lbox, k_bin_edges, mu_bin_edges, poles)
+    dk = 2.0 * np.pi / Lbox
+    plan, res = _binned_spectra(ffts, None, 1.0, dk, k_bin_edges, mu_bin_edges, poles)
     wsum, psums = res[(0, 0) if field2_fft is None else (0, 1)]
     return _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis)
 
@@ -828,7 +1265,8 @@ def calc_pk_pairs_from_deltak(
     nf = len(ffts)
     if pairs is None:
         pairs = tuple((i, j) for i in range(nf) for j in range(i + 1))
-    plan, dk, res = _binned_spectra(list(ffts), None, 1.0, Lbox, k_bin_edges, mu_bin_edges, poles)
+    dk = 2.0 * np.pi / Lbox
+    plan, res = _binned_spectra(list(ffts), None, 1.0, dk, k_bin_edges, mu_bin_edges, poles)
     out = {}
     for i, j in pairs:
         wsum, psums = res[(min(i, j), max(i, j))]
@@ -906,7 +1344,130 @@ def calc_power(
     ffts = [F]
     if pos2 is not None:
         ffts.append(_field_fft(pos2, Lbox, nmesh, paste, w2, interlaced, F.device)[0])
-    plan, dk, res = _binned_spectra(ffts, W, scale, Lbox, kbins, mubins, poles)
+    dk = 2.0 * np.pi / Lbox
+    plan, res = _binned_spectra(ffts, W, scale, dk, kbins, mubins, poles)
     wsum, psums = res[(0, len(ffts) - 1)]
     P = _spectrum(plan, dk, wsum, psums, Lbox, poles, squeeze_mu_axis)
     return _spectrum_table(P, kbins, mubins, poles, return_mubins, meta)
+
+
+class StagedPower:
+    """One catalog staged once for many P(k) measurements
+    (ops/power.py:StagedPower): parameter scans, RSD loops.
+
+    The points are staged once on K1's brick stage
+    (:func:`ops.grid.stage_bricks`, bricks with the fused route's z margin
+    of RSD_MARGIN cells), keeping the sort's permutation; each
+    :meth:`power` call deposits the staged columns with K1, transforms and
+    bins with K3, as :func:`calc_power` does. ``pz=`` overrides the z
+    column for one call: one device gather, pz[order], into the cached
+    layout, with no re-sort. A point whose new z leaves its brick's tile and
+    margin goes through K1's overflow path, which deposits it straight into
+    the grid, so every pz is right; :attr:`overflow` holds the overflow word
+    of the last call (its points, summed over the stages), so the share it
+    costs can be read. ``interlaced=True`` stages a second time at the
+    half-cell offset, as the JAX package does. TSC only. pos: (N, 3) or an
+    SoA (x, y, z) tuple; numpy inputs go to `device` (the card when None),
+    tensors stay where they are."""
+
+    def __init__(self, pos, lbox, nmesh=256, w=None, paste='TSC', interlaced=False,
+                 device=None):
+        if paste.upper() != 'TSC':
+            raise ValueError('StagedPower supports TSC paste only')
+        cols = _pos_columns(pos, device)
+        self.device = cols[0].device
+        self.lbox = float(lbox)
+        self.nmesh = int(nmesh)
+        self.n_part = int(cols[0].shape[0])
+        self.interlaced = bool(interlaced)
+        self._is_weighted = w is not None
+        wcol = _weights(w, self.device)
+        cols.append(torch.ones_like(cols[0]) if wcol is None else wcol)
+        offsets = [0.0] + ([0.5 * self.lbox / self.nmesh] if interlaced else [])
+        self._stages = []
+        for off in offsets:
+            staged, plan, order = stage_bricks(cols, self.nmesh, self.lbox,
+                                               margin=(0, 0, RSD_MARGIN), offset=off,
+                                               return_order=True)
+            self._stages.append((staged, plan, order, off))
+        self.overflow = torch.zeros(1, dtype=torch.int32, device=self.device)
+
+    def _staged_z(self, order, pz):
+        if len(pz) != self.n_part:
+            raise ValueError(f'pz override has {len(pz)} entries for a stage of '
+                             f'{self.n_part} particles')
+        pz = _device_tensor(pz, self.device, torch.float32).to(self.device)
+        return pz.index_select(0, order)
+
+    def _fft(self, pz=None):
+        """(rfftn of the overdensity, or the interlaced combination, and the
+        scale K3 applies: 1/N^3, or 1.0 for the interlaced field, which
+        carries its own); the overflow words of the deposits go into
+        :attr:`overflow`."""
+        self.overflow.zero_()
+        ffts = []
+        for (x, y, z, w), plan, order, off in self._stages:
+            if pz is not None:
+                z = self._staged_z(order, pz)
+            grid = torch.zeros((self.nmesh,) * 3, dtype=torch.float32, device=self.device)
+            tsc_deposit_cells(grid, x, y, z, w, plan, self.lbox, off, self.overflow)
+            ffts.append(torch.fft.rfftn(grid * _f32(grid.numel() / self.n_part) - 1.0))
+            del grid
+        if not self.interlaced:
+            return ffts[0], 1.0 / self.nmesh**3
+        d = self.lbox / self.nmesh
+        return _interlace_combine(ffts[0], ffts[1], self.nmesh, self.lbox, d), 1.0
+
+    def _window(self, compensated):
+        if not compensated:
+            return None
+        return get_W_compensated(self.lbox, self.nmesh, 'TSC', self.interlaced).astype(np.float32)
+
+    def field_fft(self, compensated=True, pz=None):
+        """The Fourier overdensity of the staged catalog (optionally with a
+        z column for this call): delta = grid (N^3 / n) - 1, rfftn, the
+        interlace combination or 1/N^3, then the window; equal to
+        :func:`get_field_fft` of the same points with this stage's
+        interlacing."""
+        F, scale = self._fft(pz)
+        W = self._window(compensated)
+        if W is not None:
+            return _scaled(F, scale, torch.from_numpy(W).to(F.device))
+        return F * _f32(scale) if scale != 1.0 else F
+
+    def power(self, kbins=None, mubins=None, k_max=None, logk=False, compensated=True,
+              poles=None, squeeze_mu_axis=True, pz=None, cross=None, pz2=None):
+        """One staged P(k, mu) / P_l measurement: the :class:`SpectrumTable`
+        of :func:`calc_power` with this stage's interlacing. `cross`, another
+        StagedPower of the same box, mesh and interlacing, gives the cross
+        spectrum; pz / pz2 override the z column of either side for this
+        call."""
+        nmesh, lbox = self.nmesh, self.lbox
+        if cross is not None and (cross.nmesh != nmesh or cross.lbox != lbox
+                                  or cross.interlaced != self.interlaced):
+            raise ValueError('cross-stage must share (lbox, nmesh, interlaced)')
+        if kbins is None:
+            kbins = nmesh
+        if k_max is None:
+            k_max = np.pi * nmesh / lbox
+        return_mubins = mubins is not None
+        if mubins is None:
+            mubins = 1
+        meta = dict(
+            Lbox=lbox, logk=logk, paste='TSC', nmesh=nmesh, compensated=compensated,
+            interlaced=self.interlaced, poles=poles, N_pos=self.n_part,
+            is_weighted=self._is_weighted, squeeze_mu_axis=squeeze_mu_axis,
+        )
+        F, scale = self._fft(pz)
+        ffts = [F]
+        if cross is not None:
+            meta['N_pos2'] = cross.n_part
+            meta['is_weighted2'] = cross._is_weighted
+            ffts.append(cross._fft(pz2)[0].to(self.device))
+        poles = tuple(int(p) for p in np.asarray(poles if poles is not None else [], np.int64))
+        kbins, mubins = get_k_mu_edges(lbox, k_max, kbins, mubins, logk)
+        dk = 2.0 * np.pi / lbox
+        W = self._window(compensated)
+        plan, res = _binned_spectra(ffts, W, scale, dk, kbins, mubins, poles)
+        P = _spectrum(plan, dk, *res[(0, len(ffts) - 1)], lbox, poles, squeeze_mu_axis)
+        return _spectrum_table(P, kbins, mubins, poles, return_mubins, meta)

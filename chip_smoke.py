@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim and ZCV paths on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV and power-spectrum paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -103,7 +103,21 @@ Phases, each printing what it measured:
    window on K8, the ZA templates in a host process a core) on a
    Gaussian IC at 512^3 in the (2000 Mpc/h)^3 box, then ``apply_zcv`` on a
    tracer of ~1e7 points drawn from the advected lattice, every stage timed;
-   outputs finite and rho_tr_ZD >= 0.9 on the monopole's bins 1-5.
+   outputs finite and rho_tr_ZD >= 0.9 on the monopole's bins 1-5;
+14. the rest of the power-spectrum surface on phase 7's ``run_hod`` mock:
+   ``StagedPower`` of all tracers at docs/hod.md's settings (550^3, poles)
+   staged once on K1's brick stage, one warm ``power()`` and five ``pz``
+   overrides (z + s vz f_v) mod lbox, each against ``calc_power`` of the
+   same points at rtol 2e-4 and timed host to host beside it, with each
+   call's overflow share; a cross of two staged tracers and an interlaced
+   stage; ``pk_to_xi`` (apply_zcv_xi's r bins) and ``project_3d_to_poles``
+   on |delta_k|^2 of the mock at 512^3 against their plain versions;
+   ``bin_kppi`` at 512^3 (64 k_perp x 32 pi bins to k_Nyq): K9
+   (``csrc/kppi_bin.cu``) against its plain version (counts equal, sums at
+   rtol 1e-11, two launches bit-equal, a full real mesh read through its
+   [:, :, :kzlen] view), by CUDA events against its byte bound and one
+   ``torch.bincount``; ``expand_poles_to_3d`` and ``get_smoothing`` at
+   512^3, timed and finite.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -181,6 +195,8 @@ from abacusutils_tpu_torch.ops.grid import (
     tsc_deposit_cells_multi,
 )
 from abacusutils_tpu_torch.ops.power import (
+    StagedPower,
+    _bin_means,
     _interlace_combine,
     _mesh_side,
     _scaled,
@@ -189,14 +205,24 @@ from abacusutils_tpu_torch.ops.power import (
     bin_pair_modes_plain,
     bin_power_modes,
     bin_power_modes_plain,
+    bin_kppi,
+    bin_kppi_sums,
+    bin_kppi_sums_plain,
+    calc_power,
+    expand_poles_to_3d,
     field_pairs,
+    get_field_fft,
     get_k_mu_edges,
+    get_kppi_plan,
     get_mode_bin_plan,
+    get_smoothing,
     get_W_compensated,
     mode_bin_plan,
     mode_bin_plan_device,
     mode_dup,
     mode_spans,
+    pk_to_xi,
+    project_3d_to_poles,
     row_spans,
 )
 from abacusutils_tpu_torch.ops import tpcf
@@ -267,6 +293,8 @@ K1_PTXAS = {}
 # {(grids, unit grid first): (registers, spill store bytes, spill load
 # bytes)} of the multi-weight gather's instances
 GATHER_PTXAS = {}
+# (registers, spill stores, spill loads) of K9's two kernels
+K9_PTXAS = {}
 # pair counting (phase 8): rp and s edges, pimax, the pi bin of xi(rp, pi)
 # and the mu bins of docs/hod.md:36-38 and scripts/tpcf/bench.py:46-48
 PAIR_BINS = np.logspace(-1, np.log10(30.0), 9)
@@ -412,11 +440,14 @@ def phase_build():
             print('ptxas:', line.strip())
     K1_PTXAS.update(ptxas_k1(log))
     GATHER_PTXAS.update(ptxas_gather(log))
+    K9_PTXAS.update(ptxas_of(log, lambda m: 'K9 rows' if 'kppi_rows' in m else (
+        'K9 reduce' if 'kppi_reduce' in m else None)))
     PAIR_PTXAS.update(ptxas_pairs(log))
     _build.lib()
     print(f'phase 1 build: {path.name} in {secs:.2f} s; K1 (kind, flush width): '
           f'(registers, spill stores, spill loads) {K1_PTXAS}; the multi-weight gather '
-          f'(grids, unit grid first): {GATHER_PTXAS}')
+          f'(grids, unit grid first): {GATHER_PTXAS}; K9: {K9_PTXAS}')
+    require(len(K9_PTXAS) == 2, f'ptxas reported {len(K9_PTXAS)} K9 kernels, not 2')
     # TSC and CIC at three flush widths; the gather of 1 to 5 grids with and
     # without a unit grid
     require(len(K1_PTXAS) == 6, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 6')
@@ -2133,6 +2164,246 @@ def phase_zcv(dev, paths, timing):
     return dict(stages=stages, peak_bytes=peak, tracers=n_tr, rho=rho[:8].tolist())
 
 
+# phase 14: StagedPower at docs/hod.md's settings on phase 7's mock; pk_to_xi,
+# project_3d_to_poles, bin_kppi, expand_poles_to_3d and get_smoothing at 512^3
+PZ_STEPS = (-1.0, -0.5, 0.5, 1.0, 2.0)
+SURFACE_NMESH = 512
+XI_RBINS = np.linspace(0.0, 200.0, 201)  # apply_zcv_xi's r bins (models/zcv/apply.py)
+POLE_NBINS_K = 256
+KPPI_NK = 64
+KPPI_NPI = 32
+SMOOTH_R = 4.0
+# f64 sums of up to ~10^5 positive f32 weights in another order: n eps is
+# 2e-11, a random walk ~1e-14
+K9_RTOL = 1e-11
+KPPI_LIBRARY_CALL = ('torch.bincount(bk * npi + bpi, weights=dup * w, minlength=nk * npi + 1) on '
+                     'the precomputed flat index and float64 weights of every mode')
+
+
+def plain_bin_kmu(n1d, dk, edges, weights, poles):
+    """bin_kmu's (k, mu) sums of one mu bin with the Legendre rows, from the
+    plain pair binning (float64 bincounts) instead of K3: (binned_poles,
+    Npoles), the pole means unscaled."""
+    kzlen = n1d // 2 + 1
+    w = weights[:, :, :kzlen].to(torch.float32)
+    zero = torch.zeros_like(w)
+    pair = [torch.complex(w, zero), torch.complex(torch.ones_like(w), zero)]
+    plan = get_mode_bin_plan(n1d, ((np.asarray(edges) / dk) ** 2).astype(np.float32),
+                             np.array([0.0, 1.0], np.float32), poles, w.device)
+    pole_w = {p: plan.pole_w[p] for p in poles if p}
+    sums, psums = bin_pair_modes_plain(pair, plan.seg, None, 1.0, plan.nk * plan.nmu, pole_w,
+                                       plan.nmu)
+    del pair, w, zero
+    out = _bin_means(plan, dk, sums[1].cpu().numpy().reshape(plan.nk, 1),
+                     psums[1].cpu().numpy(), poles)
+    return out[2], out[3]
+
+
+def check_spectrum(tag, got, ref, rtol, scale=None):
+    """A staged spectrum against calc_power's: mode counts equal, P within
+    rtol |P| (rtol `scale` for a cross spectrum, sqrt(P_ii P_jj)), each pole
+    within rtol max|pole|, outside the bins that hold only the k = 0 mode.
+    Returns the worst |d| / tolerance scale."""
+    require(np.array_equal(got['N_mode'], ref['N_mode']), f'{tag}: mode counts')
+    ok = (ref['N_mode'] > 0) & (ref['k_avg'] > 0)
+    P = ref['power']
+    den = np.abs(P) if scale is None else scale
+    rel = float(np.max(np.abs(got['power'] - P)[ok] / np.maximum(den[ok], 1e-300)))
+    pw = ref['poles']
+    rel = max(rel, float(np.max(np.abs(got['poles'] - pw)) / np.abs(pw).max()))
+    require(np.isfinite(got['power']).all() and np.isfinite(got['poles']).all(), f'{tag}: finite')
+    require(rel <= rtol, f'{tag}: differs from calc_power by {rel:.3e} (> {rtol})')
+    return rel
+
+
+def phase_surface(mock, dev, paths, timing):
+    """Phase 14: the rest of the power-spectrum surface on phase 7's run_hod
+    mock (LRG + ELG + QSO, x, y, z, vz as host numpy).
+
+    (a) StagedPower of all tracers at docs/hod.md's settings (550^3, 128
+    k-bins to 0.5 h/Mpc, poles 0, 2, 4, compensated, not interlaced): the
+    cold stage, one warm power(), then five pz overrides (z + s vz f_v) mod
+    lbox, each against calc_power of the moved points at rtol 2e-4 and timed
+    host to host beside it, with the overflow share of each call; a cross
+    spectrum of two staged tracers; one interlaced stage. (b) pk_to_xi and
+    project_3d_to_poles on |delta_k|^2 of the mock at 512^3 (apply_zcv_xi's
+    r bins; 256 k-bins), against their plain versions. (c) bin_kppi at 512^3
+    (64 k_perp and 32 pi bins to k_Nyq): K9 against its plain version,
+    bound and one torch.bincount, also through a full real mesh's view.
+    (d) expand_poles_to_3d and get_smoothing at 512^3."""
+    t0 = time.perf_counter()
+    fv = _f32(1.0 / VELZ2KMS)
+    pos = tuple(np.concatenate([mock[tr][a] for tr in WANT]).astype(np.float32) for a in 'xyz')
+    vz = np.concatenate([mock[tr]['vz'] for tr in WANT]).astype(np.float32)
+    n = len(vz)
+    nm = DOCS_NMESH
+    kw = dict(kbins=DOCS_NBINS_K, k_max=DOCS_KMAX, poles=POLES)
+
+    def calc(p, **extra):
+        return calc_power(p, LBOX, DOCS_NBINS_K, None, DOCS_KMAX, nmesh=nm, poles=POLES,
+                          device=dev, **{'interlaced': False, **extra})
+
+    # (a) StagedPower
+    staged, t_stage = sync_seconds(lambda: StagedPower(pos, LBOX, nmesh=nm, device=dev))
+    staged.power(**kw)
+    reset_launches()
+    got, t_warm = sync_seconds(lambda: staged.power(**kw))
+    launches = read_launches()
+    paths[f'StagedPower.power ({nm}^3, warm)'] = launches
+    require(launches['tsc_deposit_cells[tsc]'] == 1, f'staged K1 launches {launches}')
+    require(launches['bin_pair_modes[poles nmu=1]'] == 1, f'staged K3 launches {launches}')
+    ref, t_calc = sync_seconds(lambda: calc(pos))
+    worst = check_spectrum('(a) warm', got, ref, 2e-4)
+    over = int(staged.overflow)
+    print(f'phase 14 (a) StagedPower {n} galaxies at {nm}^3: cold stage {t_stage:.3f} s, warm '
+          f'power() {t_warm:.4f} s vs calc_power {t_calc:.4f} s host to host, overflow share '
+          f'{over / n:.3e}, worst |d| vs calc_power {worst:.3e} (<= 2e-4)')
+    launches = {}
+    for s in PZ_STEPS:
+        pz = np.mod(pos[2] + np.float32(s) * vz * np.float32(fv), np.float32(LBOX),
+                    dtype=np.float32)
+        reset_launches()
+        got, t_s = sync_seconds(lambda: staged.power(**kw, pz=pz))
+        launches = {k: launches.get(k, 0) + v for k, v in read_launches().items()}
+        over = int(staged.overflow)
+        ref, t_c = sync_seconds(lambda: calc((pos[0], pos[1], pz)))
+        rel = check_spectrum(f'(a) pz s={s}', got, ref, 2e-4)
+        print(f'phase 14 (a) pz = (z + {s} vz f_v) mod lbox: staged {t_s:.4f} s vs calc_power '
+              f'{t_c:.4f} s host to host, overflow share {over / n:.3e}, worst |d| {rel:.3e}')
+    paths[f'StagedPower.power ({nm}^3, {len(PZ_STEPS)} pz overrides)'] = launches
+    require(launches['tsc_deposit_cells[tsc]'] == len(PZ_STEPS), f'pz K1 launches {launches}')
+    del staged
+    st = {}
+    for tr in ('LRG', 'ELG'):
+        cols = tuple(np.asarray(mock[tr][a], np.float32) for a in 'xyz')
+        st[tr], t_c = sync_seconds(lambda: StagedPower(cols, LBOX, nmesh=nm, device=dev))
+        print(f'phase 14 (a) stage {tr} ({len(cols[0])} galaxies) cold {t_c:.3f} s')
+    autos = [st[tr].power(**kw)['power'] for tr in ('LRG', 'ELG')]
+    reset_launches()
+    got, t_x = sync_seconds(lambda: st['LRG'].power(**kw, cross=st['ELG']))
+    paths['StagedPower.power (cross LRG x ELG)'] = read_launches()
+    lrg, elg = ((mock[tr]['x'], mock[tr]['y'], mock[tr]['z']) for tr in ('LRG', 'ELG'))
+    ref = calc(lrg, pos2=elg)
+    rel_x = check_spectrum('(a) cross', got, ref, 2e-4, np.sqrt(np.abs(autos[0] * autos[1])))
+    del st
+    inter, t_si = sync_seconds(lambda: StagedPower(pos, LBOX, nmesh=nm, interlaced=True,
+                                                   device=dev))
+    inter.power(**kw)
+    reset_launches()
+    got, t_i = sync_seconds(lambda: inter.power(**kw))
+    paths['StagedPower.power (interlaced)'] = read_launches()
+    ref, t_ic = sync_seconds(lambda: calc(pos, interlaced=True))
+    rel_i = check_spectrum('(a) interlaced', got, ref, 2e-4)
+    print(f'phase 14 (a) cross LRG x ELG {t_x:.4f} s (worst |d| / sqrt(P_ii P_jj) {rel_x:.3e}); '
+          f'interlaced: stage {t_si:.3f} s, power() {t_i:.4f} s vs calc_power {t_ic:.4f} s, '
+          f'overflow share {int(inter.overflow) / (2 * n):.3e}, worst |d| {rel_i:.3e}')
+    del inter
+
+    # (b) pk_to_xi and project_3d_to_poles at 512^3
+    N = SURFACE_NMESH
+    F = get_field_fft(pos, LBOX, N, 'TSC', None, None, False, False, device=dev)
+    # cuFFT lays the rfft mesh out with kz slowest; the cube in the C order
+    # of the JAX package's arrays, which K9 reads along kz
+    p3d = ((F.real**2 + F.imag**2) * _f32(LBOX**3)).contiguous()
+    del F
+    reset_launches()
+    (r_binc, xi, n_xi), t_xi = sync_seconds(lambda: pk_to_xi(p3d, LBOX, XI_RBINS, POLES))
+    paths[f'pk_to_xi ({N}^3)'] = read_launches()
+    Xi = torch.fft.irfftn(p3d)
+    pxi, pn = plain_bin_kmu(N, LBOX / N, XI_RBINS, Xi, POLES)
+    pxi = pxi * N**3
+    require(np.isfinite(xi).all() and np.array_equal(n_xi, pn), 'pk_to_xi finite, counts')
+    err_xi = max(float(np.abs(xi[i] - pxi[i]).max() / np.abs(pxi[i]).max())
+                 for i in range(len(POLES)))
+    require(err_xi <= 1e-5, f'pk_to_xi differs from its plain version by {err_xi:.3e}')
+    kedges = np.linspace(0.0, np.pi * N / LBOX, POLE_NBINS_K + 1)
+    reset_launches()
+    (poles3, n_p), t_pp = sync_seconds(lambda: project_3d_to_poles(kedges, p3d, LBOX, POLES))
+    paths[f'project_3d_to_poles ({N}^3)'] = read_launches()
+    pp, ppn = plain_bin_kmu(N, 2 * np.pi / LBOX, kedges, p3d, POLES)
+    pp = pp * LBOX**3
+    require(np.isfinite(poles3).all() and np.array_equal(n_p, ppn), 'poles finite, counts')
+    err_p = max(float(np.abs(poles3[i] - pp[i]).max() / np.abs(pp[i]).max())
+                for i in range(len(POLES)))
+    require(err_p <= 1e-5, f'project_3d_to_poles differs from its plain version by {err_p:.3e}')
+    print(f'phase 14 (b) at {N}^3: pk_to_xi ({len(XI_RBINS) - 1} r bins, poles {POLES}) '
+          f'{t_xi:.4f} s, |d| vs plain {err_xi:.3e} of max|xi_l|; project_3d_to_poles '
+          f'({POLE_NBINS_K} k bins) {t_pp:.4f} s, |d| vs plain {err_p:.3e} of max|P_l|')
+
+    # (c) bin_kppi and K9 at 512^3
+    knyq = np.pi * N / LBOX
+    ke_k = np.linspace(0.0, knyq, KPPI_NK + 1)
+    reset_launches()
+    (mean, counts), t_kppi = sync_seconds(
+        lambda: bin_kppi(N, LBOX, ke_k, knyq, KPPI_NPI, p3d))
+    paths[f'bin_kppi ({N}^3)'] = read_launches()
+    require(np.isfinite(mean).all(), 'bin_kppi finite')
+    dk = 2 * np.pi / LBOX
+    plan = get_kppi_plan(N, ((ke_k / dk) ** 2).astype(np.float32),
+                         ((np.linspace(0.0, knyq, KPPI_NPI + 1) / dk) ** 2).astype(np.float32),
+                         dev)
+    got = bin_kppi_sums(p3d, plan)
+    again = bin_kppi_sums(p3d, plan)
+    ref = bin_kppi_sums_plain(p3d, plan)
+    ones = bin_kppi_sums_plain(torch.ones_like(p3d), plan).cpu().numpy()
+    counts_equal = bool(np.array_equal(plan.counts, ones.astype(np.int64)))
+    same = bool(torch.equal(got, again))
+    d = (got - ref).abs()
+    err = float(d.max())
+    rel = float((d / ref.abs().clamp_min(1e-300)).max())
+    # a full real mesh (N, N, N), contiguous, whose first kzlen planes of
+    # each row are the weights: K9 reads its [:, :, :kzlen] view in place
+    full = torch.zeros((N, N, N), dtype=torch.float32, device=dev)
+    view = full[:, :, : N // 2 + 1]
+    view.copy_(p3d)
+    strided_same = bool(torch.equal(bin_kppi_sums(view, plan), got))
+    ms = event_ms(lambda: bin_kppi_sums(p3d, plan))
+    ms_full = event_ms(lambda: bin_kppi_sums(view, plan))
+    del full, view
+    plain_ms = event_ms(lambda: bin_kppi_sums_plain(p3d, plan), reps=2)
+    kzlen = N // 2 + 1
+    rb, zb = plan.row_bin.long(), plan.z_bin.long()
+    okm = (rb[:, None] >= 0) & (zb[None, :] >= 0)
+    idx = torch.where(okm, rb[:, None] * plan.npi + zb[None, :], plan.nk * plan.npi).reshape(-1)
+    kz = torch.arange(kzlen, device=dev)
+    dup = torch.where((kz == 0) | (kz == plan.nyq), 1.0, 2.0).double()
+    wd = (p3d.double() * dup).reshape(-1)
+    lib_ms = event_ms(lambda: torch.bincount(idx, weights=wd, minlength=plan.nk * plan.npi + 1))
+    del idx, wd, okm
+    rows_in = int(plan.rows.numel())
+    in_bytes = rows_in * plan.kzv * 4 + plan.nk * plan.npi * 8
+    bound = in_bytes / HBM_BYTES_PER_S * 1e3
+    full_bound = N * N * kzlen * 4 / HBM_BYTES_PER_S * 1e3
+    print(f'phase 14 (c) bin_kppi at {N}^3 ({KPPI_NK} k_perp x {KPPI_NPI} pi bins to k_Nyq): '
+          f'{t_kppi:.4f} s host to host; K9 {ms:.4f} ms (events), through the full real mesh\'s '
+          f'view {ms_full:.4f} ms, plain {plain_ms:.4f} ms, library ({KPPI_LIBRARY_CALL}) '
+          f'{lib_ms:.4f} ms; bound {bound:.4f} ms (the {rows_in} in-bin rows x {plan.kzv} kz, '
+          f'share {bound / ms:.3f}; the whole mesh read once {full_bound:.4f} ms); counts equal '
+          f'{counts_equal} (largest {int(plan.counts.max())}, 2^24 = {2**24}), max|d| {err:.3e} '
+          f'(rel {rel:.3e} <= {K9_RTOL}), two launches bit-equal {same}, strided view equal '
+          f'{strided_same}')
+    require(counts_equal and np.array_equal(counts, plan.counts), 'K9 plan counts')
+    require(rel <= K9_RTOL, f'K9 differs from its plain version by {rel:.3e}')
+    require(same and strided_same, 'K9 is not deterministic or differs through a strided view')
+    timing['bin_kppi_sums'] = dict(
+        ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by='bytes',
+        library_ms=lib_ms, library_call=KPPI_LIBRARY_CALL, total_ms=ms_full,
+        shape=f'{N}^3 rfft mesh, {KPPI_NK} k_perp x {KPPI_NPI} pi bins to k_Nyq',
+        registers=K9_PTXAS.get('K9 rows', (None,))[0])
+
+    # (d) expand_poles_to_3d and get_smoothing at 512^3
+    kc = 0.5 * (kedges[1:] + kedges[:-1])
+    P3, t_exp = sync_seconds(lambda: expand_poles_to_3d(kc, poles3, N, LBOX, POLES, device=dev))
+    require(bool(torch.isfinite(P3).all()) and P3.shape == (N, N, N // 2 + 1), 'expand finite')
+    del P3
+    S, t_sm = sync_seconds(lambda: get_smoothing(N, LBOX, SMOOTH_R, device=dev))
+    require(bool(torch.isfinite(S).all()) and float(S.max()) == 1.0, 'get_smoothing')
+    del S, p3d
+    print(f'phase 14 (d) at {N}^3: expand_poles_to_3d {t_exp:.4f} s, get_smoothing (R '
+          f'{SMOOTH_R}) {t_sm:.4f} s host to host, both finite')
+    print(f'phase 14 in {time.perf_counter() - t0:.1f} s')
+
+
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
@@ -2153,6 +2424,8 @@ KERNELS = {
                                 'abacusutils_tpu/ops/grid.py:485'),
     'window_mode_sums': (tzw.window_mode_sums, 'abacusutils_tpu_torch/csrc/zcv_window.cu',
                          'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
+    'bin_kppi_sums': (bin_kppi_sums, 'abacusutils_tpu_torch/csrc/kppi_bin.cu',
+                      'abacusutils_tpu/ops/power.py:613'),
 }
 # the kernels line's entries: (kernel, form); a form's launches are its
 # wrapper's launches_by_form count (None: the wrapper's whole count)
@@ -2175,6 +2448,7 @@ FORMS = {
                                             'abacusutils_tpu/ops/grid.py:485'),
     'window_mode_sums': ('window_mode_sums', None,
                          'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
+    'bin_kppi_sums': ('bin_kppi_sums', None, 'abacusutils_tpu/ops/power.py:613'),
 }
 
 
@@ -2731,6 +3005,7 @@ def main():
         timing['tsc_deposit_cells[cic]']['shapes'] = shapes7[1:]
         paths8, timing8 = phase_pairs(hod, mock)
         timing.update(timing8)
+        mock14 = {tr: {a: mock[tr][a] for a in ('x', 'y', 'z', 'vz')} for tr in WANT}
         del hod, mock
         phase_prep_kernels(dev)
         paths10 = {}
@@ -2758,6 +3033,9 @@ def main():
             phase_zcv_kernels(dev))
         paths13 = {}
         phase_zcv(dev, paths13, timing)
+        paths14 = {}
+        phase_surface(mock14, dev, paths14, timing)
+        del mock14
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -2766,12 +3044,13 @@ def main():
             **paths8,
             **paths10,
             **paths13,
+            **paths14,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

@@ -1106,3 +1106,93 @@ def test_window_kernel_matches_plain(cuda_device, nmesh, nkout):
     npt.assert_array_equal(got[0], ref[0])
     assert (np.abs(got - ref) <= 1e-12 * np.maximum(ref[0], 1.0)).all()
     assert ref[0].sum() > 0
+
+
+def _kppi_edges(n1d, case):
+    """(kedges, pimax, npi) in units of the fundamental mode (L = 2 pi):
+    bins within the mesh, or k_perp edges past its corner and pi bins past
+    its Nyquist plane."""
+    if case == 'within':
+        return np.linspace(0.0, 0.5 * n1d, 9), 0.4 * n1d, 6
+    return np.linspace(0.0, 1.6 * n1d, 11), n1d // 2 + 2.5, 7
+
+
+@pytest.mark.parametrize('case', ['within', 'past the mesh'])
+@pytest.mark.parametrize('n1d', [7, 16, 31, 64])
+def test_kppi_kernel_matches_plain(cuda_device, n1d, case):
+    """K9 against its plain version (a torch bincount a kx plane) on the
+    card: counts equal to a bincount of dup over the modes, sums within 1e-12
+    of the bin's largest (f64 sums of the same f32 weights in another
+    order), two launches bit-equal, and a full real mesh read through its
+    [:, :, :kzlen] view's strides equal to the contiguous half."""
+    rng = np.random.default_rng(n1d)
+    kzlen = n1d // 2 + 1
+    full = t(rng.random((n1d, n1d, n1d)).astype(np.float32) + 0.5).to(cuda_device)
+    half = full[:, :, :kzlen].contiguous()
+    kedges, pimax, npi = _kppi_edges(n1d, case)
+    kedges2 = (kedges**2).astype(np.float32)
+    piedges2 = (np.linspace(0.0, pimax, npi + 1) ** 2).astype(np.float32)
+    plan = tpow.get_kppi_plan(n1d, kedges2, piedges2, cuda_device)
+    before = tpow.bin_kppi_sums.launches
+    got = tpow.bin_kppi_sums(half, plan)
+    again = tpow.bin_kppi_sums(half, plan)
+    strided = tpow.bin_kppi_sums(full[:, :, :kzlen], plan)
+    assert tpow.bin_kppi_sums.launches == before + 3
+    ref = tpow.bin_kppi_sums_plain(half, plan)
+    ones = tpow.bin_kppi_sums_plain(torch.ones_like(half), plan).cpu().numpy()
+    got, again, strided, ref = (a.cpu().numpy() for a in (got, again, strided, ref))
+    npt.assert_array_equal(got, again)
+    npt.assert_array_equal(got, strided)
+    npt.assert_array_equal(plan.counts, ones.astype(np.int64))
+    assert plan.counts.sum() > 0
+    assert (np.abs(got - ref) <= 1e-12 * np.abs(ref).max()).all()
+
+
+def test_kppi_wrapper_refuses_what_k9_does_not_take(cuda_device):
+    """The K9 wrapper raises on a CUDA tensor of another dtype, a mesh not
+    contiguous along kz, another shape or another device than its plan's;
+    it never falls back to the plain version."""
+    n1d = 16
+    plan = tpow.get_kppi_plan(n1d, np.array([0.0, 40.0], np.float32),
+                              np.array([0.0, 9.0, 30.0], np.float32), cuda_device)
+    w = torch.rand(n1d, n1d, n1d // 2 + 1, device=cuda_device)
+    before = tpow.bin_kppi_sums.launches
+    for bad, match in ((w.double(), 'float32'), (w[:, :8], 'float32'),
+                       (torch.rand(n1d, 9, n1d, device=cuda_device).transpose(1, 2),
+                        'contiguous along kz')):
+        with pytest.raises(ValueError, match=match):
+            tpow.bin_kppi_sums(bad, plan)
+    cpu_plan = tpow.get_kppi_plan(n1d, np.array([0.0, 40.0], np.float32),
+                                  np.array([0.0, 9.0, 30.0], np.float32), 'cpu')
+    with pytest.raises(ValueError, match='plan on cpu'):
+        tpow.bin_kppi_sums(w, cpu_plan)
+    assert tpow.bin_kppi_sums.launches == before
+
+
+@pytest.mark.parametrize('interlaced', [False, True])
+def test_staged_power_on_card_matches_cpu(cuda_device, interlaced):
+    """StagedPower on the card (K1 on the cached brick stage, a pz override
+    gathered into it, K3) against the same stage on the CPU: counts equal,
+    power within 1e-4 |P| + 1e-6 max|P| (f32 atomics and cuFFT against the
+    plain scatter and pocketfft); the overflow word counts the same points."""
+    n, nmesh, lbox = 60_000, 64, 500.0
+    rng = np.random.default_rng(4)
+    pos = (rng.random((n, 3)) * lbox).astype(np.float32)
+    w = rng.random(n).astype(np.float32) + 0.5
+    pz = (pos[:, 2] + rng.normal(0, 15.0, n).astype(np.float32)) % np.float32(lbox)
+    kw = dict(kbins=24, mubins=2, poles=[0, 2, 4])
+    for extra in ({}, {'pz': pz}):
+        tabs, over = [], []
+        for dev in (cuda_device, 'cpu'):
+            st = tpow.StagedPower(pos, lbox, nmesh=nmesh, w=w, interlaced=interlaced, device=dev)
+            tabs.append(st.power(**kw, **extra))
+            over.append(int(st.overflow))
+        got, ref = tabs
+        npt.assert_array_equal(got['N_mode'], ref['N_mode'])
+        P = ref['power']
+        assert (np.abs(got['power'] - P) <= 1e-4 * np.abs(P) + 1e-6 * np.abs(P).max()).all()
+        pw = ref['poles']
+        npt.assert_allclose(got['poles'], pw, rtol=1e-4, atol=1e-5 * np.abs(pw).max())
+        assert over[0] == over[1]
+        if extra:
+            assert over[0] > 0

@@ -372,11 +372,18 @@ def test_get_field_fft_and_pk_from_deltak_match_jax():
 
     ke, me = tpow.get_k_mu_edges(Lbox, np.pi * nmesh / Lbox, 12, 3, False)
     bj = jpow.bin_kmu(nmesh, Lbox, ke, me, np.abs(fj[0]) ** 2, poles=np.array([0, 2]))
-    bt = tpow.bin_kmu(nmesh, Lbox, ke, me, np.abs(fj[0]) ** 2, poles=[0, 2])
+    bt = tpow.bin_kmu(nmesh, Lbox, ke, me, np.abs(fj[0]) ** 2, poles=[0, 2], device='cpu')
     for a, b in zip(bt, bj):
         npt.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
-    with pytest.raises(NotImplementedError, match='ROADMAP item 8'):
-        tpow.bin_kmu(nmesh, Lbox, ke, me, np.ones((nmesh,) * 3), fourier=False)
+    # a real mesh: separation bins in units of the cell, as pk_to_xi bins xi
+    real = np.fft.irfftn(np.abs(fj[0]) ** 2).astype(np.float32)
+    re = np.linspace(0.0, Lbox / 2, 9)
+    bj = jpow.bin_kmu(nmesh, Lbox, re, me, real, poles=np.array([0, 2]), fourier=False)
+    bt = tpow.bin_kmu(nmesh, Lbox, re, me, real, poles=[0, 2], fourier=False, device='cpu')
+    npt.assert_array_equal(bt[1], bj[1])
+    npt.assert_array_equal(bt[3], bj[3])
+    for a, b in zip(bt, bj):
+        npt.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
 
     for mu in (me, np.array([0.0, 1.0])):
         pj = jpow.calc_pk_from_deltak(
@@ -468,3 +475,211 @@ def test_cic_deposit_wrapper_never_falls_back(monkeypatch):
     for kind in ('tsc', 'cic'):
         with pytest.raises(NoKernel):
             tsc_deposit_cells(grid, x, y, z, w, plan, 10.0, overflow=overflow, kind=kind)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the public surface: host helpers, field helpers, poles, xi(r)
+# ---------------------------------------------------------------------------
+
+
+def _kmag2_grids(n1d, lbox):
+    """The |k|^2 of every rfft mode: integers in units of the fundamental
+    mode (the plans' and expand_poles_to_3d's), and the window's f32 sum of
+    squared f32 k components in h/Mpc."""
+    i = np.arange(n1d)
+    f = np.where(i < n1d // 2, i, i - n1d)
+    kz = np.arange(n1d // 2 + 1)
+    ints = (f[:, None, None] ** 2 + f[None, :, None] ** 2 + kz[None, None, :] ** 2)
+    kv = f.astype(np.float32) * np.float32(2 * np.pi / lbox)
+    kzv = kz.astype(np.float32) * np.float32(2 * np.pi / lbox)
+    phys = kv[:, None, None] ** 2 + kv[None, :, None] ** 2 + kzv[None, None, :] ** 2
+    return ints.astype(np.float32), phys.astype(np.float32)
+
+
+@pytest.mark.parametrize('n1d', [31, 32])
+def test_sqrt_rn_f32_is_numpys_root(n1d):
+    """The shared root helper is bit-equal to numpy's correctly rounded f32
+    sqrt on every |k|^2 of the mesh, in both forms the port takes roots of
+    (torch's own CPU f32 sqrt is not, on AVX-512 hosts)."""
+    for k2 in _kmag2_grids(n1d, 250.0):
+        got = tpow._sqrt_rn_f32(t(k2))
+        assert got.dtype == torch.float32
+        npt.assert_array_equal(got.numpy(), np.sqrt(k2))
+
+
+def test_host_helpers_match_jax():
+    """factorial, factorial_slow, n_choose_k exactly; P_n of mu^2 up to l = 8
+    within 4 f32 ulps of its largest term (JAX's and torch's pow differ by an
+    ulp); linear_interp exactly (both numpy)."""
+    for n in range(21):
+        assert tpow.factorial(n) == jpow.factorial(n) == tpow.factorial_slow(n)
+        for k in range(n + 1):
+            assert tpow.n_choose_k(n, k) == jpow.n_choose_k(n, k)
+    with pytest.raises(ValueError):
+        tpow.factorial(21)
+    mu2 = np.random.default_rng(5).random(500).astype(np.float32)
+    mu2[:3] = (0.0, 1.0, 0.5)
+    for ell in range(9):
+        got, want = tpow.P_n(mu2, ell), jpow.P_n(mu2, ell)
+        assert got.dtype == np.float32 and got.shape == mu2.shape
+        terms = sum(abs(c) for c, _ in tpow._legendre_coeffs(ell))
+        npt.assert_allclose(got, want, rtol=0, atol=4 * np.finfo(np.float32).eps * terms)
+    x = np.linspace(0.0, 2.0, 11)
+    y = np.cos(x)
+    xd = np.linspace(-0.5, 2.5, 97)
+    npt.assert_array_equal(tpow.linear_interp(xd, x, y), jpow.linear_interp(xd, x, y))
+
+
+@pytest.mark.parametrize('n1d', [16, 31, 32])
+def test_field_helpers_match_jax(n1d):
+    """normalize_field (bit-equal: the same f32 steps and numpy's sum, then a
+    float64 torch sum for a tensor within 1 ulp), shift_field_fft (the
+    interlace combination, within 1e-5 of max|F|: exp and the phase in
+    another library), get_delta_mu2 (bit-equal), get_smoothing (within 2 f32
+    ulps: exp in another library)."""
+    rng = np.random.default_rng(n1d)
+    lbox = 120.0
+    field = rng.random((n1d,) * 3).astype(np.float32)
+    want = jpow.normalize_field(field)
+    npt.assert_array_equal(tpow.normalize_field(field, device='cpu').numpy(), want)
+    npt.assert_allclose(tpow.normalize_field(t(field)).numpy(), want, rtol=0,
+                        atol=2 * np.finfo(np.float32).eps * np.abs(want).max())
+    npt.assert_array_equal(tpow.normalize_field(field, 7.5, device='cpu').numpy(),
+                           jpow.normalize_field(field, 7.5))
+    copy = field.copy()
+    assert tpow.normalize_field(copy, inplace=True, device='cpu') is copy
+    npt.assert_array_equal(copy, want)
+
+    F, Fs = (np.fft.rfftn(rng.normal(size=(n1d,) * 3)).astype(np.complex64) for _ in range(2))
+    d = lbox / n1d
+    got = tpow.shift_field_fft(F, Fs, n1d, lbox, d, device='cpu')
+    assert got.dtype == torch.complex64
+    want = jpow.shift_field_fft(F, Fs, n1d, lbox, d)
+    npt.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+    npt.assert_array_equal(tpow.get_delta_mu2(F, n1d, device='cpu').numpy(),
+                           np.asarray(jpow.get_delta_mu2(F, n1d)))
+    got = tpow.get_smoothing(n1d, lbox, 7.0, device='cpu')
+    assert got.shape == (n1d, n1d, n1d // 2 + 1) and got.dtype == torch.float32
+    npt.assert_allclose(got.numpy(), np.asarray(jpow.get_smoothing(n1d, lbox, 7.0)), rtol=0,
+                        atol=2 * np.finfo(np.float32).eps)
+
+
+def _expand_reference(k_ell, P_ell, n1d, lbox, poles, fma):
+    """expand_poles_to_3d in numpy f32 steps; with fma=True each step XLA's
+    CPU code contracts into a fused multiply-add (|k| dk - k0, and y0 +
+    frac (y1 - y0)) is rounded once, as JAX runs it. Returns (P, floor)."""
+    kmag2, _ = _kmag2_grids(n1d, lbox)
+    kz = np.arange(n1d // 2 + 1, dtype=np.float32) ** 2
+    mu2 = np.where(kmag2 > 0, kz[None, None, :] / np.maximum(kmag2, 1), 0).astype(np.float32)
+    root, dk = np.sqrt(kmag2), np.float32(2 * np.pi / lbox)
+    kmag = root * dk
+    k_ell = k_ell.astype(np.float32)
+    x0, dx = k_ell[0], np.float32(k_ell[1] - k_ell[0])
+    if fma:
+        t_ = (root.astype(np.float64) * dk - np.float64(x0)).astype(np.float32)
+    else:
+        t_ = kmag - x0
+    f = np.clip(t_ / dx, np.float32(0), np.float32(len(k_ell) - 1.000001))
+    fl = np.floor(f).astype(np.int64)
+    frac = f - fl.astype(np.float32)
+    out = np.zeros_like(kmag)
+    for ip, pole in enumerate(poles):
+        y = P_ell[ip].astype(np.float32)
+        y0, y1 = y[fl], y[np.minimum(fl + 1, len(y) - 1)]
+        if fma:
+            v = (frac.astype(np.float64) * (y1 - y0) + y0).astype(np.float32)
+        else:
+            v = y0 + frac * (y1 - y0)
+        v = np.where(kmag <= x0, y[0], np.where(kmag >= k_ell[-1], y[-1], v))
+        if pole:
+            v = v * tpow.P_n(mu2, pole)
+        out = out + v
+    return out, fl
+
+
+@pytest.mark.parametrize('n1d', [16, 31, 32])
+def test_expand_poles_to_3d_matches_jax(n1d):
+    """expand_poles_to_3d: bit-equal to its unfused f32 steps in numpy, and to
+    JAX's program with its two fused multiply-adds emulated on every mode
+    where the floor of the table position agrees; where one rounding moves
+    that floor (f within an ulp of an integer), the two differ by at most
+    the table's largest step times the poles' Legendre bound, and such modes
+    are under 1 %. Against JAX itself: within 3e-5 of max|P| everywhere."""
+    rng = np.random.default_rng(n1d + 1)
+    lbox, poles = 100.0, (0, 2, 4)
+    k_ell = np.linspace(0.01, 0.6, 40)
+    P_ell = rng.random((3, 40)).astype(np.float32)
+    got = tpow.expand_poles_to_3d(k_ell, P_ell, n1d, lbox, poles, device='cpu').numpy()
+    plain, fl = _expand_reference(k_ell, P_ell, n1d, lbox, poles, fma=False)
+    npt.assert_array_equal(got, plain)
+    jax_emul, fl_j = _expand_reference(k_ell, P_ell, n1d, lbox, poles, fma=True)
+    want = np.asarray(jpow.expand_poles_to_3d(k_ell, P_ell, n1d, lbox, poles))
+    npt.assert_allclose(jax_emul, want, rtol=0, atol=4 * np.finfo(np.float32).eps * 3)
+    flips = fl != fl_j
+    assert flips.mean() < 0.01
+    step = np.abs(np.diff(P_ell, axis=1)).max() * 3
+    assert (np.abs(got - want)[flips] <= step).all()
+    npt.assert_allclose(got, want, rtol=0, atol=3e-5 * np.abs(want).max())
+    with pytest.raises(ValueError, match='equidistant'):
+        tpow.expand_poles_to_3d(np.geomspace(0.01, 0.6, 40), P_ell, n1d, lbox, poles,
+                                device='cpu')
+
+
+def _lattice_with_mode(nmesh, lbox, amp, mode_idx):
+    """Points at cell corners weighted 1 + amp cos(2 pi m x / L), the
+    single-mode lattice of tests/test_power.py."""
+    x = np.arange(nmesh) * (lbox / nmesh)
+    X, Y, Z = np.meshgrid(x, x, x, indexing='ij')
+    pos = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1).astype(np.float32)
+    w = (1.0 + amp * np.cos(2 * np.pi * mode_idx * X.ravel() / lbox)).astype(np.float32)
+    return pos, w
+
+
+@pytest.mark.parametrize('n1d', [16, 31, 32])
+def test_pk_to_xi_and_poles_match_jax(n1d):
+    """pk_to_xi and project_3d_to_poles on the 3-D power of the single-mode
+    lattice (tests/test_power.py:test_pk_to_xi_roundtrip) and of a random
+    field: counts equal; xi_l within 2e-5 of max|xi_l| (irfftn: pocketfft
+    here, XLA's FFT in JAX, then K3's plain sums); poles within 1e-5 of
+    max|P_l|."""
+    lbox = 100.0
+    pos, w = _lattice_with_mode(n1d, lbox, 0.2, 3)
+    F = tpow.get_field_fft(pos, lbox, n1d, 'TSC', w, None, False, False, device='cpu')
+    lattice = (tpow.get_raw_power(F).numpy() * lbox**3).astype(np.float32)
+    rng = np.random.default_rng(n1d)
+    noise = (np.abs(np.fft.rfftn(rng.normal(size=(n1d,) * 3))) ** 2).astype(np.float32)
+    r_bins = np.linspace(0, 50, 26)
+    for p3d in (lattice, noise):
+        r_binc, xi, n_xi = tpow.pk_to_xi(p3d, lbox, r_bins, poles=[0, 2, 4], device='cpu')
+        jr, jxi, jn = jpow.pk_to_xi(p3d, lbox, r_bins, poles=[0, 2, 4])
+        assert xi.shape == (3, 25) and np.isfinite(xi).all()
+        npt.assert_array_equal(r_binc, jr)
+        npt.assert_array_equal(n_xi, jn)
+        for ell in range(3):
+            npt.assert_allclose(xi[ell], jxi[ell], rtol=0, atol=2e-5 * np.abs(jxi[ell]).max())
+        kb = np.linspace(0, np.pi * n1d / lbox, 17)
+        got, n_p = tpow.project_3d_to_poles(kb, p3d / lbox**3, lbox, [0, 2], device='cpu')
+        want, jn = jpow.project_3d_to_poles(kb, p3d / lbox**3, lbox, [0, 2])
+        assert got.shape == (2, 16)
+        npt.assert_array_equal(n_p, jn)
+        for ell in range(2):
+            npt.assert_allclose(got[ell], want[ell], rtol=0, atol=1e-5 * np.abs(want[ell]).max())
+    _, xi, _ = tpow.pk_to_xi(lattice, lbox, r_bins, poles=[0, 2, 4], device='cpu')
+    assert xi[0, 0] > 0
+
+
+def test_all_holds_the_public_power_spectrum_api():
+    """ops/power.py's __all__ holds every name abacusnbody's
+    analysis/power_spectrum.py exports, plus StagedPower, each defined."""
+    import ast
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parent.parent / 'abacusnbody/analysis/power_spectrum.py'
+    names = {a.name for node in ast.walk(ast.parse(src.read_text()))
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert len(names) == 22
+    missing = (names | {'StagedPower'}) - set(tpow.__all__)
+    assert not missing
+    for name in tpow.__all__:
+        assert hasattr(tpow, name), name
