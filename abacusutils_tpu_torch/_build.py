@@ -70,9 +70,10 @@ SIGNATURES = {
     # (int64), stream
     'pair_count_all': (_P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _D, _P, _I, _I, _D, _I, _I, _I, _I,
                        _I, _P, _P, _I, _I, _I, _P, _P),
-    # kv, kzv, edges (f32), nmesh, nkout, row groups, warps, shared bytes,
-    # partials, out (f64), stream
-    'zcv_window_sums': (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # the plan's reach (int32), rows, rows a block, row values (f32),
+    # multiplicities (f64), izlo, izhi (int32), kzv, kz2, thresholds (f32),
+    # nkout, threads a block, partials, out (f64), stream
+    'zcv_window_rows': (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     # weights, their x and y strides (elements), n1d, kz in a pi bin, the
     # Nyquist kz, rows, items, nitems, item starts, pi bins' first kz, nk,
     # npi, threads a block, partials, out (f64), stream

@@ -11,9 +11,12 @@
 // ranks_device.py:_nn_keys. Those shapes fed the TPU's vector unit; here the
 // queries are grouped by halo (ops/grid.py:work_items, at most K6_THREADS
 // queries an item), each block takes one item, streams its halo's window
-// through shared-memory tiles of float64 x, y, z, and each thread keeps its
-// query's minimum in a register.
-//
+// through shared-memory tiles of float4 (x, y, z, pad) in float32, and each
+// thread keeps its query's minimum in a register. A cheap float32 test
+// (below) proves almost every candidate farther than the running minimum;
+// only the rest, and one seed neighbour a query, take the exact float64
+// chain, so the key is the minimum of the same float64 values as before.
+
 // K7 menv_annulus: for each centre i whose mass exceeds mcut,
 //   Menv[i] = sum_j m_j ([d2 <= r_out^2] - [d2 <= r_in,i^2])
 // over the halos j of the 27 cells around i's (the JAX package's sum),
@@ -53,22 +56,68 @@
 // cKDTree and of the JAX package, so the NN keys equal the host loop's f64
 // distances bit for bit and K7 classifies each pair as the tree does.
 //
-// What bounds them on the H100: float64 operations. K6 does 8 a pair
-// (3 differences, 3 products, 2 sums) over sum of (queries x window) pairs;
-// K7 9 a candidate (3 differences, 3 products, 2 sums and the compare; the
-// small box's minimum image adds a quotient, a round, a product and a
-// difference an axis) over the candidates of the 27-cell walk. The bytes
-// they read are a few per pair from shared memory and 12 or 40 a point from
-// device memory. The H100's f64 rate outside the tensor cores is 34
-// TFLOP/s, half the f32 rate, so the design keeps each pair's work to those
-// operations and a register compare. K6 makes no attempt yet to keep more
-// lanes busy on small halos (a 20-particle halo fills 14 of a block's 128
-// threads); K7's items gather the centres of a run of cells for that, but
-// at 2e6 clumped halos they hold 5 centres on average (lane occupancy 0.16
-// in a box), so each item's chain of dependent loads (its first centre's
-// cell, the 27 ranges' starts, the first tile) sets K7's time, at about 0.02
-// of the operation bound; items of 64 or 128 centres, most lanes idle, were
-// slower than a warp an item (scripts/torch/k1m_k7_compare.py).
+// What bounds them on the H100. K6: the pairs of sum (queries x window).
+// Each costs 8 float64 operations on the exact chain (3 differences, 3
+// products, 2 sums), and the filter's 9 float32 operations (3 differences, a
+// product, 2 FMAs counted as 2 each, the compare) with one 16-byte shared
+// load; the chain runs only for the candidates the filter keeps
+// (chip_smoke.py phases 9 and 10 estimate their number on the ranks slabs
+// with the filter's unfused plain mirror). K7: 9 float64 operations a
+// candidate (3 differences, 3 products, 2 sums and the compare; the small
+// box's minimum image adds a quotient, a round, a product and a difference
+// an axis) over the candidates of the 27-cell walk. The bytes they read are
+// a few per pair from shared memory and 12 or 40 a point from device
+// memory. The H100's published float64 rate outside the tensor cores, 34
+// TFLOP/s (67 in float32), counts an FMA as two operations; unfused _rn
+// adds and products issue at half of it. K6's filter moves the pairs to the
+// float32 pipe, twice as wide, with one shared load a pair. K6 makes no
+// attempt to keep more lanes busy on small halos (a 20-particle halo fills
+// 14 of a block's 128 threads): they hold a small share of the pairs. K7's
+// items gather the centres of a run of cells for that, but at 2e6 clumped
+// halos they hold 5 centres on average (lane occupancy 0.16 in a box), so
+// each item's chain of dependent loads (its first centre's cell, the 27
+// ranges' starts, the first tile) sets K7's time, at about 0.02 of the
+// operation bound; items of 64 or 128 centres, most lanes idle, were slower
+// than a warp an item (scripts/torch/k1m_k7_compare.py).
+//
+// K6's filter. Write u = 2^-24 and v = 2^-53, D^2 = Dx^2 + Dy^2 + Dz^2 for
+// the exact real differences of a query and a candidate (float32 values,
+// so exact reals), and K for the exact chain's key
+// ((dx dx + dy dy) + dz dz, every step _rn in float64, dx = fl64(Dx)).
+// (1) K >= D^2 (1 - 5v): dx carries one rounding, its square one more, and
+// the two sums one each, five factors (1 + e), |e| <= v, at most, and
+// nothing underflows: a difference of two float32 values is a multiple of
+// 2^-149, so its square is at least 2^-298, a normal double.
+// (2) The filter computes dxf = fl32(qx - sx) (not exact when the signs
+// differ or the magnitudes are more than 2x apart: relative error <= u; a
+// subnormal difference of two float32 values is exact), then
+// d2f = fma(dx, dx, fma(dy, dy, dz dz)). In round to nearest with gradual
+// underflow (nvcc without fast math keeps subnormals, and the _rn
+// intrinsics keep the association), each rounding is fl(x) = x (1 + d) + h,
+// |d| <= u, |h| <= 2^-150, and h = 0 unless the result is subnormal. The
+// product dz dz and the two FMAs round once each, so
+//   d2f <= D^2 (1 + u)^5 + 2^-150 ((1 + u)^2 + (1 + u) + 1)
+//       <= D^2 (1 + 5.0001 u) + 2^-148.
+// The unfused chain ((dx dx + (dy dy + dz dz))) obeys the same bound:
+// three products may underflow, and a sum whose result is subnormal is
+// exact (both terms are multiples of 2^-149).
+// (3) So if d2f > T with T >= best (1 + 8u) + 2^-148, then D^2 (1 + 5.0001 u)
+// > best (1 + 8u), D^2 > best (1 + 2.9u), and K >= D^2 (1 - 5v) > best: the
+// candidate cannot lower the minimum, nor tie it. In the form
+// d2f (1 - c u) - a > best, c = 8 and a = 2^-148 imply the same. T is
+// best (1 + 2^-21) + 2^-148 in float64 rounded up, then rounded up to
+// float32 (k6_threshold), refreshed only when best changes. A candidate
+// whose key equals the final minimum, or lies below the minimum at the time,
+// always passes; d2f = 0 (a duplicate, or a difference that underflows)
+// always passes, since T >= 2^-148 > 0; NaN never compares greater, so it
+// passes and the exact chain ignores it (fmin), as before.
+// The running minimum starts from one neighbour of the window (the slot
+// after the query's in the first tile, wrapped within it), so the filter
+// works from the first candidate on. The filter tests a group of K6_GROUP
+// candidates against the threshold at the group's start (a larger minimum
+// only keeps more) and branches once for the group; the kept ones take the
+// chain in order. The minimum of the same float64 values in any order is
+// the same value, so the keys are bit-equal to the plain version's.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -76,10 +125,35 @@
 namespace {
 
 constexpr int K6_THREADS = 128;  // queries of a work item
-constexpr int K6_TILE = 256;     // window particles a shared tile holds
+constexpr int K6_TILE = 512;     // window particles a shared tile holds
+constexpr int K6_GROUP = 8;      // candidates the filter tests before one branch
 
 __device__ __forceinline__ double sq3(double dx, double dy, double dz) {
     return __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)), __dmul_rn(dz, dz));
+}
+
+// the filter's float32 threshold for a running minimum `best` (see above):
+// best (1 + 2^-21) + 2^-148, rounded up twice
+__device__ __forceinline__ float k6_threshold(double best) {
+    return __double2float_ru(__fma_ru(best, 1.0 + 0x1p-21, 0x1p-148));
+}
+
+// the filter's float32 squared distance of the query to a candidate
+__device__ __forceinline__ float k6_d2f(float qx, float qy, float qz, float4 c) {
+    const float dx = __fsub_rn(qx, c.x), dy = __fsub_rn(qy, c.y), dz = __fsub_rn(qz, c.z);
+    return __fmaf_rn(dx, dx, __fmaf_rn(dy, dy, __fmul_rn(dz, dz)));
+}
+
+// the exact float64 chain for a candidate, folded into the running minimum
+__device__ __forceinline__ void k6_exact(double qx, double qy, double qz, float4 c, double& best,
+                                         float& thr) {
+    const double d2 = sq3(__dsub_rn(qx, (double)c.x), __dsub_rn(qy, (double)c.y),
+                          __dsub_rn(qz, (double)c.z));
+    const double nb = fmin(best, d2);
+    if (nb != best) {
+        best = nb;
+        thr = k6_threshold(best);
+    }
 }
 
 __global__ void __launch_bounds__(K6_THREADS)
@@ -87,7 +161,7 @@ nn_within_halo_kernel(const float* __restrict__ x, const float* __restrict__ y,
                       const float* __restrict__ z, const int* __restrict__ query,
                       const int* __restrict__ work, const int* __restrict__ pstart,
                       const int* __restrict__ pnum, double* __restrict__ nn_d2) {
-    __shared__ double sx[K6_TILE], sy[K6_TILE], sz[K6_TILE];
+    __shared__ float4 tile[K6_TILE];
     const int halo = work[3 * blockIdx.x];
     const int begin = work[3 * blockIdx.x + 1];
     const int end = work[3 * blockIdx.x + 2];
@@ -97,28 +171,51 @@ nn_within_halo_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const int q = begin + threadIdx.x;
     const bool active = q < end;
     const int qi = active ? query[q] : -1;
-    double qx = 0.0, qy = 0.0, qz = 0.0;
+    const int own = qi - w0;  // the query's slot in its window
+    float qxf = 0.f, qyf = 0.f, qzf = 0.f;
     if (active) {
-        qx = (double)x[qi];
-        qy = (double)y[qi];
-        qz = (double)z[qi];
+        qxf = x[qi];
+        qyf = y[qi];
+        qzf = z[qi];
     }
+    const double qx = qxf, qy = qyf, qz = qzf;
     double best = CUDART_INF;
+    float thr = CUDART_INF_F;
     for (int t0 = 0; t0 < wn; t0 += K6_TILE) {
         const int nt = min(K6_TILE, wn - t0);
         __syncthreads();  // the previous tile is consumed
         for (int k = threadIdx.x; k < nt; k += K6_THREADS) {
-            sx[k] = (double)x[w0 + t0 + k];
-            sy[k] = (double)y[w0 + t0 + k];
-            sz[k] = (double)z[w0 + t0 + k];
+            const int j = w0 + t0 + k;
+            tile[k] = make_float4(x[j], y[j], z[j], 0.f);
         }
         __syncthreads();
         if (!active) continue;
-        const int self = qi - w0 - t0;  // the query's own slot in this tile, if any
-        for (int k = 0; k < nt; ++k) {
-            if (k == self) continue;
-            const double d2 = sq3(__dsub_rn(qx, sx[k]), __dsub_rn(qy, sy[k]), __dsub_rn(qz, sz[k]));
-            best = fmin(best, d2);
+        if (t0 == 0 && nt > 1) {
+            // the seed: the next slot of the first tile, wrapped within it
+            // (never the query's own slot)
+            k6_exact(qx, qy, qz, tile[(own + 1) % nt], best, thr);
+        }
+        const int self = own - t0;  // the query's own slot in this tile, if any
+        const int nfull = nt & ~(K6_GROUP - 1);
+        for (int k0 = 0; k0 < nfull; k0 += K6_GROUP) {
+            // the group's candidates against the threshold at its start (a
+            // larger minimum only keeps more of them), then one branch
+            unsigned keep = 0;
+#pragma unroll
+            for (int u = 0; u < K6_GROUP; ++u) {
+                keep |= (k6_d2f(qxf, qyf, qzf, tile[k0 + u]) > thr ? 0u : 1u) << u;
+            }
+            if ((unsigned)(self - k0) < (unsigned)K6_GROUP) keep &= ~(1u << (self - k0));
+            while (keep) {
+                const int u = __ffs(keep) - 1;
+                keep &= keep - 1;
+                k6_exact(qx, qy, qz, tile[k0 + u], best, thr);
+            }
+        }
+        for (int k = nfull; k < nt; ++k) {
+            const float4 c = tile[k];
+            if (k6_d2f(qxf, qyf, qzf, c) > thr || k == self) continue;
+            k6_exact(qx, qy, qz, c, best, thr);
         }
     }
     if (active) nn_d2[qi] = best;

@@ -40,12 +40,16 @@ from ...convert import resolve_device
 from ...ops.grid import work_items
 
 __all__ = [
-    'rank_fields_device', 'seg_rank', 'nn_within_halo', 'nn_within_halo_plain', 'nn_work',
-    'K6_QUERIES',
+    'rank_fields_device', 'seg_rank', 'nn_within_halo', 'nn_within_halo_plain',
+    'nn_within_halo_filtered_plain', 'k6_threshold_plain', 'nn_work', 'K6_QUERIES',
 ]
 
 # queries of one halo a K6 work item (and block) takes
 K6_QUERIES = 128
+# csrc/prepare_sim.cu: K6's shared tile, and the candidates its filter tests
+# before one branch
+K6_TILE = 512
+K6_GROUP = 8
 # window entries of a chunk of the plain version's pairwise tile
 _PLAIN_PAIRS = 1 << 22
 
@@ -181,6 +185,82 @@ def nn_within_halo_plain(x, y, z, query, pstart, pnum, seg):
             d2 = d2.masked_fill(self_slot, float('inf'))
             out[qc] = d2.min(dim=1).values
     return out
+
+
+def k6_threshold_plain(best):
+    """K6's float32 filter threshold for a float64 running minimum `best`
+    (csrc/prepare_sim.cu:k6_threshold): at least best (1 + 2^-21) + 2^-148.
+    torch has no directed rounding, so the float64 value is raised by two
+    ulps and its float32 rounding by one more where it fell below; the
+    result may exceed the kernel's by an ulp, which keeps more candidates."""
+    t = best * (1.0 + 2.0**-21) + 2.0**-148
+    t = torch.nextafter(torch.nextafter(t, torch.full_like(t, float('inf'))),
+                        torch.full_like(t, float('inf')))
+    t32 = t.float()
+    return torch.where(t32.double() < t,
+                       torch.nextafter(t32, torch.full_like(t32, float('inf'))), t32)
+
+
+def nn_within_halo_filtered_plain(x, y, z, query, pstart, pnum, seg):
+    """K6's walk in torch, halo by halo: each query's running minimum starts
+    at the slot after its own in the first tile of :data:`K6_TILE` (wrapped
+    within it) and visits the window in order; a candidate whose float32
+    squared distance dx dx + (dy dy + dz dz) exceeds
+    :func:`k6_threshold_plain` of the minimum at the start of its group of
+    :data:`K6_GROUP` (of the candidate itself past the last full group) is
+    skipped, the rest take the exact float64 chain. The kernel fuses the
+    float32 chain into FMAs; its proof (csrc/prepare_sim.cu) bounds the
+    unfused chain alike. For finite coordinates the keys are bit-equal to
+    :func:`nn_within_halo_plain`.
+
+    Returns (the (N,) float64 keys, the float64 chains: one seed a query of
+    a window of two or more, and every kept candidate but the query
+    itself)."""
+    out = torch.zeros(x.numel(), dtype=torch.float64, device=x.device)
+    if query.numel() == 0:
+        return out, 0
+    cols = [c.to(torch.float64) for c in (x, y, z)]
+    f32 = [c.to(torch.float32) for c in (x, y, z)]
+    query = query.long()
+    qseg = seg[query].long()
+    bounds = torch.searchsorted(qseg, torch.arange(pstart.numel() + 1, device=x.device))
+    ps, pn, bounds = pstart.tolist(), pnum.tolist(), bounds.tolist()
+    chains = 0
+    for h in range(len(ps)):
+        q = query[bounds[h]:bounds[h + 1]]
+        if q.numel() == 0:
+            continue
+        n = pn[h]
+        win = [c[ps[h]:ps[h] + n] for c in cols]
+        winf = [c[ps[h]:ps[h] + n] for c in f32]
+        slots = torch.arange(n, device=x.device)
+        # the group start whose minimum each candidate is tested against
+        grouped = torch.where(slots < n // K6_GROUP * K6_GROUP, slots // K6_GROUP * K6_GROUP,
+                              slots)
+        chunk = max(1, _PLAIN_PAIRS // max(n, 1))
+        for c0 in range(0, q.numel(), chunk):
+            qc = q[c0:c0 + chunk]
+            own = qc - ps[h]
+            dx, dy, dz = (c[qc][:, None] - w[None, :] for c, w in zip(cols, win))
+            key = ((dx * dx + dy * dy) + dz * dz).masked_fill(own[:, None] == slots[None, :],
+                                                              float('inf'))
+            del dx, dy, dz
+            fx, fy, fz = (c[qc][:, None] - w[None, :] for c, w in zip(f32, winf))
+            d2f = fx * fx + (fy * fy + fz * fz)
+            del fx, fy, fz
+            inf = torch.full((qc.numel(), 1), float('inf'), dtype=torch.float64,
+                             device=x.device)
+            seed = inf
+            if n > 1:
+                seed = key.gather(1, ((own + 1) % min(n, K6_TILE))[:, None])
+                chains += qc.numel()
+            before = torch.cat([inf, torch.cummin(key, 1).values[:, :-1]], 1)
+            before = torch.minimum(before, seed)[:, grouped]
+            kept = ~(d2f > k6_threshold_plain(before)) & torch.isfinite(key)
+            chains += int(kept.sum())
+            best = torch.where(kept, key, float('inf')).min(dim=1).values
+            out[qc] = torch.minimum(best, seed[:, 0])
+    return out, chains
 
 
 def nn_within_halo(x, y, z, query, work, pstart, pnum, seg):

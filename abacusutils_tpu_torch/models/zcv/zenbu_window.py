@@ -8,9 +8,13 @@ bins. Two engines compute them:
 - 'host': :func:`_window_mode_sums_host`, a numpy copy of the JAX package's
   vectorized bincounts;
 - 'device': :func:`window_mode_sums`, which launches K8
-  (``csrc/zcv_window.cu``) on CUDA tensors and runs its plain version
-  :func:`window_mode_sums_plain` (a torch ``bincount`` a kx plane) on CPU
-  tensors. It replaces the JAX package's ``_window_sums_impl``.
+  (``csrc/zcv_window.cu``) on CUDA tensors over a row plan
+  (:func:`get_window_plan`: the distinct f32 kx^2 + ky^2 of the mesh's
+  rows with their multiplicities, each cut to its run of in-range kz) and
+  runs the plain version :func:`window_mode_sums_plain` (a torch
+  ``bincount`` a kx plane over the whole mesh) on CPU tensors. It replaces
+  the JAX package's ``_window_sums_impl``. :func:`window_mode_sums_rows_plain`
+  sums the plan's rows in torch, for the tests.
 
 'auto' takes the device at nmesh >= 256, as the JAX package does. The
 templates come from the native ZA engine (``zenbu_native``), k split over
@@ -20,6 +24,7 @@ the JAX package's ``main`` saves as ``.npz`` files, from arrays in memory.
 
 import os
 import pickle
+from typing import NamedTuple
 import subprocess
 import sys
 import tempfile
@@ -30,22 +35,21 @@ import torch
 
 from ... import _build
 from ...convert import resolve_device
-from ...ops.grid import MAX_SMEM_BYTES
 from ...ops.power import _sqrt_rn_f32, get_k_mu_edges
 from .zenbu_native import zenbu_spectra_native
 
 __all__ = [
-    'periodic_window_function', 'window_mode_sums', 'window_mode_sums_plain', 'zenbu_spectra',
-    'window_and_templates', 'K8_WARPS', 'K8_BLOCKS',
+    'periodic_window_function', 'window_mode_sums', 'window_mode_sums_plain',
+    'window_mode_sums_rows_plain', 'window_plan', 'get_window_plan', 'WindowPlan',
+    'zenbu_spectra', 'window_and_templates', 'K8_ITEM_ROWS',
 ]
 
 _PREF = (1, 5, 9)  # (2*ell + 1) for ell = 0, 2, 4
 # the seven weight rows of a mode, in K8's order
 _ROWS = 7
-# warps in a K8 block (each keeps a 7 x nkout f64 histogram) and the blocks
-# K8 aims for (a kx plane is cut into groups of rows until there are as many)
-K8_WARPS = 4
-K8_BLOCKS = 4 * 132
+# the plan rows of one bin a K8 block takes (4 a thread)
+K8_ITEM_ROWS = 1024
+K8_THREADS = 256
 
 
 def _mode_kgrids(nmesh, lbox):
@@ -112,11 +116,12 @@ def _f32_ge_edges(kout):
     return e32
 
 
-def _mode_rows(kx, ky, kz):
-    """(bin-free) |k| and the seven f32 weight rows of the modes of one kx
-    plane, in K8's arithmetic (_window_sums_impl's association; the root
-    correctly rounded, as K8's __fsqrt_rn, on every CPU)."""
-    knorm = _sqrt_rn_f32(kx * kx + ky * ky + kz * kz)
+def _mode_weights(ksq, kz):
+    """|k| and the seven f32 weight rows of modes of squared norm `ksq` (f32,
+    summed as (kx kx + ky ky) + kz kz) and rfft axis `kz`, in K8's
+    arithmetic (_window_sums_impl's association; the root correctly
+    rounded, as K8's __fsqrt_rn, on every CPU)."""
+    knorm = _sqrt_rn_f32(ksq)
     mu = torch.where(knorm > 0, kz / torch.where(knorm > 0, knorm, 1.0), 0.0)
     L2 = (3 * mu * mu - 1) / 2
     m2 = mu * mu
@@ -124,6 +129,119 @@ def _mode_rows(kx, ky, kz):
     dup = torch.where(kz > 0, 2.0, 1.0).expand_as(knorm)
     dL2, dL4 = dup * L2, dup * L4
     return knorm, (dup, dup * knorm, dL2, dL4, dL2 * L2, dL2 * L4, dL4 * L4)
+
+
+def _mode_rows(kx, ky, kz):
+    """(bin-free) |k| and the seven f32 weight rows of the modes of one kx
+    plane (:func:`_mode_weights`)."""
+    return _mode_weights(kx * kx + ky * ky + kz * kz, kz)
+
+
+def _k2_thresholds(edges):
+    """For each f32 edge e the least f32 s >= 0 whose correctly rounded root
+    is at least e: a mode of squared norm s has |k| >= e exactly when s >=
+    the threshold, since the rounded root is monotone (0 for e <= 0, inf
+    past every f32 root)."""
+    e = np.asarray(edges, np.float32)
+
+    def root(a):
+        return np.sqrt(a.astype(np.float64)).astype(np.float32)
+
+    with np.errstate(over='ignore', invalid='ignore'):
+        t = np.where(e > 0, (e.astype(np.float64) ** 2).astype(np.float32), np.float32(0))
+    for _ in range(64):
+        lower = np.maximum(np.nextafter(t, np.float32(-np.inf)), np.float32(0))
+        down = (t > 0) & (root(lower) >= e)
+        up = root(t) < e
+        if not (down.any() or up.any()):
+            return t
+        t = np.where(down, lower, np.where(up, np.nextafter(t, np.float32(np.inf)), t))
+    raise ValueError('window thresholds did not settle (edges must be finite or inf)')
+
+
+class WindowPlan(NamedTuple):
+    """K8's row plan of an rfft mesh and its f32 edges (:func:`window_plan`).
+
+    kv, kzv, edges: the tensors it was built for; thresholds: the (nkout +
+    1,) f32 squared-norm thresholds of the edges (:func:`_k2_thresholds`);
+    kz2: kzv * kzv; kxy2: the distinct f32 kx kx + ky ky over the mesh's
+    (ix, iy) rows that hold a mode in a bin, ascending; mult: the f64
+    number of rows that share each value's bits; izlo, izhi: int32, the
+    first and last kz of each value's in-bin modes (a row's squared norm
+    rises with kz, so they are one run); cut_mult: the multiplicities of
+    the distinct values with no mode in a bin; reach: (nkout,) int32, the
+    rows with kxy2 below each bin's upper threshold, a prefix of the rows
+    that holds every row with a mode in the bin; nkout; modes: the in-bin
+    modes of the rows, sum of izhi - izlo + 1."""
+
+    kv: torch.Tensor
+    kzv: torch.Tensor
+    edges: torch.Tensor
+    thresholds: torch.Tensor
+    kz2: torch.Tensor
+    kxy2: torch.Tensor
+    mult: torch.Tensor
+    izlo: torch.Tensor
+    izhi: torch.Tensor
+    cut_mult: torch.Tensor
+    reach: torch.Tensor
+    nkout: int
+    modes: int
+
+
+def _check_window_args(kv, kzv, edges, nkout):
+    nmesh = kv.shape[0]
+    for name, t, n in (('kv', kv, nmesh), ('kzv', kzv, nmesh // 2 + 1),
+                       ('edges', edges, nkout + 1)):
+        if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous() or (
+            t.device != kv.device
+        ):
+            raise ValueError(f'{name} must be a contiguous ({n},) float32 tensor on {kv.device}')
+
+
+def window_plan(kv, kzv, edges, nkout):
+    """The :class:`WindowPlan` of the mesh axes kv (nmesh,), kzv (nmesh // 2
+    + 1,) and the f32 thresholds `edges` (nkout + 1,) of
+    :func:`_f32_ge_edges`, built with torch on their device: the distinct
+    values of kv[ix] kv[ix] + kv[iy] kv[iy] (``torch.unique`` of the mesh's
+    own table, so an odd mesh's unpaired -(n + 1) / 2 dk counts as it
+    lies), each value's run of in-bin kz (its squared norms against the
+    first and last edges' thresholds, rows at a time), and the prefix of
+    the rows each bin reaches."""
+    _check_window_args(kv, kzv, edges, nkout)
+    dev = kv.device
+    thr = torch.from_numpy(_k2_thresholds(edges.cpu().numpy())).to(dev)
+    kx2 = kv * kv
+    vals, counts = torch.unique((kx2[:, None] + kx2[None, :]).reshape(-1), return_counts=True)
+    kz2 = kzv * kzv
+    # a row's squared norms rise with kz: its in-bin kz are those from the
+    # first at or above the first threshold to the last below the last one
+    lo = torch.empty(vals.numel(), dtype=torch.int32, device=dev)
+    end = torch.empty_like(lo)
+    per = max(1, (1 << 24) // kz2.numel())
+    for r0 in range(0, vals.numel(), per):
+        ksq = vals[r0:r0 + per, None] + kz2[None, :]
+        torch.sum(ksq < thr[0], 1, dtype=torch.int32, out=lo[r0:r0 + per])
+        torch.sum(ksq < thr[nkout], 1, dtype=torch.int32, out=end[r0:r0 + per])
+    keep = end > lo
+    kxy2, lo, end = vals[keep], lo[keep], end[keep]
+    # bin b reaches the rows with kxy2 below its upper threshold
+    reach = torch.searchsorted(kxy2, thr[1:], out_int32=True)
+    return WindowPlan(
+        kv, kzv, edges, thr, kz2, kxy2, counts[keep].double(), lo, end - 1,
+        counts[~keep].double(), reach, int(nkout),
+        int((end - lo).sum()),
+    )
+
+
+def get_window_plan(nmesh, lbox, kout, device):
+    """The :class:`WindowPlan` of an nmesh^3 mesh of side lbox and the output
+    edges kout on `device`. Built anew on each call: a window is computed
+    once per :func:`~.precompute.zcv_products`."""
+    kvals, kvalsr = _mode_kgrids(nmesh, lbox)
+    kv, kzv, edges = (torch.from_numpy(a).to(torch.device(device))
+                      for a in (kvals, kvalsr, _f32_ge_edges(kout)))
+    return window_plan(kv, kzv, edges, len(kout) - 1)
 
 
 def window_mode_sums_plain(kv, kzv, edges, nkout):
@@ -144,46 +262,60 @@ def window_mode_sums_plain(kv, kzv, edges, nkout):
     return out
 
 
-def _k8_launch(kv, kzv, edges, nkout):
-    nmesh = kv.shape[0]
-    for name, t, n in (('kv', kv, nmesh), ('kzv', kzv, nmesh // 2 + 1),
-                       ('edges', edges, nkout + 1)):
-        if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous() or (
-            t.device != kv.device
-        ):
-            raise ValueError(f'{name} must be a contiguous ({n},) float32 tensor on {kv.device}')
-    per_warp = 8 * _ROWS * nkout
-    warps = min(K8_WARPS, (MAX_SMEM_BYTES - 4 * (nkout + 1)) // per_warp)
-    if warps < 1:
-        raise ValueError(f'window_mode_sums: {nkout} bins need {per_warp} B of shared memory '
-                         f'a warp, over the {MAX_SMEM_BYTES} B of a block')
-    smem = warps * per_warp + 4 * (nkout + 1)
-    groups = max(1, min(nmesh, -(-K8_BLOCKS // nmesh)))
-    partials = torch.empty(nmesh * groups * _ROWS * nkout, dtype=torch.float64,
-                           device=kv.device)
-    out = torch.empty((_ROWS, nkout), dtype=torch.float64, device=kv.device)
-    lib = _build.lib()
-    with torch.cuda.device(kv.device):
-        code = lib.zcv_window_sums(
-            kv.data_ptr(), kzv.data_ptr(), edges.data_ptr(), nmesh, nkout, groups, warps, smem,
-            partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, 'zcv_window_sums')
+def window_mode_sums_rows_plain(plan):
+    """The plan's rows in torch, a mirror of what K8 sums (the tests hold
+    the plan to the plain version with it): each row's modes izlo..izhi,
+    binned by the plan's squared-norm thresholds, their seven weight rows
+    times the row's multiplicity added in f64 (``bincount``), in (7, nkout)
+    float64. Equal to :func:`window_mode_sums_plain` in the counts row; the
+    other rows are the same f32 weights summed in another order."""
+    nkout = plan.nkout
+    out = torch.zeros((_ROWS, nkout), dtype=torch.float64, device=plan.kxy2.device)
+    n = (plan.izhi - plan.izlo + 1).long()
+    if n.numel() == 0:
+        return out
+    first = torch.cumsum(n, 0) - n
+    for r0 in range(0, plan.modes, 1 << 22):
+        pos = torch.arange(r0, min(r0 + (1 << 22), plan.modes), device=out.device)
+        row = torch.searchsorted(first, pos, right=True) - 1
+        iz = plan.izlo[row].long() + (pos - first[row])
+        ksq = plan.kxy2[row] + plan.kz2[iz]
+        idx = torch.searchsorted(plan.thresholds, ksq, right=True) - 1
+        _, rows = _mode_weights(ksq, plan.kzv[iz])
+        m = plan.mult[row]
+        for r, w in enumerate(rows):
+            out[r] += torch.bincount(idx, weights=w.double() * m, minlength=nkout)[:nkout]
     return out
 
 
-def window_mode_sums(kv, kzv, edges, nkout):
+def window_mode_sums(plan):
     """The window's (7, nkout) float64 mode sums (rows: dup, dup |k|, dup
     L2, dup L4, dup L2 L2, dup L2 L4, dup L4 L4; see
-    :func:`window_mode_sums_plain`).
+    :func:`window_mode_sums_plain`) of the mesh and edges of the
+    :class:`WindowPlan` `plan`.
 
-    On CUDA tensors this launches K8 (csrc/zcv_window.cu) and its
-    fixed-order reduction on the current stream; the counts row equals the
-    plain version's exactly and repeated calls give the same bits. On CPU
-    tensors it runs :func:`window_mode_sums_plain`."""
-    if kv.device.type == 'cpu':
-        return window_mode_sums_plain(kv, kzv, edges, nkout)
-    out = _k8_launch(kv, kzv, edges, nkout)
+    On CUDA tensors this launches K8 (csrc/zcv_window.cu: each bin's prefix
+    of the plan's rows in chunks of :data:`K8_ITEM_ROWS`, then a
+    fixed-order reduction) on the current stream; the
+    counts row equals the plain version's exactly and repeated calls give
+    the same bits. On CPU tensors it runs :func:`window_mode_sums_plain`."""
+    dev = plan.kv.device
+    if dev.type == 'cpu':
+        return window_mode_sums_plain(plan.kv, plan.kzv, plan.edges, plan.nkout)
+    lib = _build.lib()
+    nkout, nrows = plan.nkout, plan.kxy2.numel()
+    nchunks = -(-nrows // K8_ITEM_ROWS)
+    partials = torch.empty(max(nkout * nchunks, 1) * _ROWS, dtype=torch.float64, device=dev)
+    out = torch.empty((_ROWS, nkout), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.zcv_window_rows(
+            plan.reach.data_ptr(), nrows, K8_ITEM_ROWS, plan.kxy2.data_ptr(),
+            plan.mult.data_ptr(), plan.izlo.data_ptr(), plan.izhi.data_ptr(),
+            plan.kzv.data_ptr(), plan.kz2.data_ptr(), plan.thresholds.data_ptr(), nkout,
+            K8_THREADS, partials.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'zcv_window_rows')
     window_mode_sums.launches += 1
     return out
 
@@ -193,13 +325,10 @@ window_mode_sums.launches = 0
 
 def _window_mode_sums_device(nmesh, lbox, kout, device):
     """(S, nmodes_out_k, keff_sum) of :func:`_window_mode_sums_host` from
-    :func:`window_mode_sums` on `device` (zenbu_window.py:
-    _window_mode_sums_device)."""
-    kvals, kvalsr = _mode_kgrids(nmesh, lbox)
-    edges = _f32_ge_edges(kout)
+    :func:`window_mode_sums` on `device` over a row plan
+    (zenbu_window.py:_window_mode_sums_device)."""
     nkout = len(kout) - 1
-    dev = resolve_device(device)
-    r = window_mode_sums(*(torch.from_numpy(a).to(dev) for a in (kvals, kvalsr, edges)), nkout)
+    r = window_mode_sums(get_window_plan(nmesh, lbox, kout, resolve_device(device)))
     r = r.cpu().numpy()
     nmodes_out_k, keff_sum = r[0], r[1]
     prod = {(0, 0): r[0], (0, 1): r[2], (0, 2): r[3],
@@ -218,8 +347,8 @@ def periodic_window_function(nmesh, lbox, kout, kin, k2weight=True, engine='auto
     (ell, k-bin) pairs).
 
     engine: 'host' (numpy bincounts), 'device' (:func:`window_mode_sums` on
-    `device`: K8 on the card, the default, or its plain version on the CPU),
-    or 'auto' (the device at nmesh >= 256).
+    `device` over a row plan: K8 on the card, the default, or the plain
+    version on the CPU), or 'auto' (the device at nmesh >= 256).
 
     Returns (window, keff).
     """

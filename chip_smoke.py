@@ -72,17 +72,24 @@ Phases, each printing what it measured:
    version and bound at that shape;
 9. K6, the nearest-neighbour distance of prepare_sim's ranks, bit-equal to
    its plain version on a 1.2e5-particle slab of scripts/hod/bench_ranks.py
-   (seed 17), and K7, the annulus mass sums of Menv, against its plain
-   version (the 27-cell sum by all pairs; rtol 1e-12, the same zeros, two
-   launches bit-equal) on 5e4 clumped halos in a box, in a light cone and
-   in a box with r_inner past r_outer (``csrc/prepare_sim.cu``);
+   (seed 17), where its filtered plain mirror (bit-equal too) counts the
+   pairs that reach K6's float64 chain, and K7, the annulus mass sums of
+   Menv, against its plain version (the 27-cell sum by all pairs; rtol
+   1e-12, the same zeros, two launches bit-equal) on 5e4 clumped halos in a
+   box, in a light cone and in a box with r_inner past r_outer
+   (``csrc/prepare_sim.cu``);
 10. the engines at real size: ``rank_fields_device`` on the bench_ranks slab
    (1.2e6 particles) and ten times it, host to host, K6 by CUDA events
-   against its bound, lane occupancy, peak memory, at the first size all
-   five rank fields held to the host per-halo loop (tie-aware) and K6 to its
-   plain version; ``do_menv_device`` on 2e6 clumped halos (docs/
-   performance.md:309) in a box and an octant light cone, K7 by events
-   against its bound and on 2,000 sampled centres against its plain version,
+   against its float64 bound and its filtered bound (the chains that the
+   filtered plain mirror counts on the first slab, their share of the pairs
+   carried to the second), alone on the items of halos of at most 64
+   particles and on the rest,
+   lane occupancy, peak memory, at the first size all five rank fields held
+   to the host per-halo loop (tie-aware) and K6 to its plain version, at
+   the second K6 to its plain version on 4,000 sampled halos;
+   ``do_menv_device`` on 2e6 clumped halos (docs/performance.md:309) in a
+   box and an octant light cone, K7 by events against its bound and on
+   2,000 sampled centres against its plain version,
    both engines on a 5e5 subset; ``shearmark_from_positions`` on 1e8
    particles at N_dim 1000, R 2 (prepare_sim's defaults), its K1 deposit,
    host Gaussian filter and ``get_shear`` timed, then K1 at nmesh 1000
@@ -90,19 +97,23 @@ Phases, each printing what it measured:
 11. ``prepare_slab_tables`` on a box slab of 2e5 halos and ~1.2e6 particles
    with ranks, Menv and the shear rank, with the device engines and with the
    'host' engines: every column equal (ranksc tie-aware, Menv rtol 1e-12),
-   then K7 on the catalog the env engine was handed;
+   then K6 and K7 on what the ranks and env engines were handed, K6
+   bit-equal to its plain version;
 12. K1's multi-weight form (``tsc_deposit_cells_multi``, the gather of
    ``csrc/tsc_gather.cu``) on the 512^3 lattice with a unit column and four
    weight columns against the plain scatter, five single-column K1
    launches and its plain walk (bit-equal), and at one column beside K1; K8
-   (``csrc/zcv_window.cu``, the window's mode sums) at nmesh 256 and 512
-   against its plain version (counts equal, two launches bit-equal) and one
-   ``torch.bincount``;
+   (``csrc/zcv_window.cu``, the window's mode sums over a row plan, whose
+   rows, modes, items and build time it prints) at nmesh 256 and 512
+   against its plain version (counts equal, two launches bit-equal), timed
+   over rounds of launches and together with its plan's build, the bound
+   of the plan's modes and of the full mesh, and one ``torch.bincount``;
 13. the ZCV cell: ``zcv_products`` (the IC filter, ``get_fields``, the
    advection and five field FFTs in RSD and real space, 15 P_ij each, the
-   window on K8, the ZA templates in a host process a core) on a
-   Gaussian IC at 512^3 in the (2000 Mpc/h)^3 box, then ``apply_zcv`` on a
-   tracer of ~1e7 points drawn from the advected lattice, every stage timed;
+   window on K8 with its row plan's build timed apart, the ZA templates in a
+   host process a core) on a Gaussian IC at 512^3 in the (2000 Mpc/h)^3
+   box, then ``apply_zcv`` on a tracer of ~1e7 points drawn from the
+   advected lattice, every stage timed;
    outputs finite and rho_tr_ZD >= 0.9 on the monopole's bins 1-5;
 14. the rest of the power-spectrum surface on phase 7's ``run_hod`` mock:
    ``StagedPower`` of all tracers at docs/hod.md's settings (550^3, poles)
@@ -306,7 +317,9 @@ N_K5_CHECK = 20_000
 # cell engine; method='tile' counts it with the all-pairs engine
 N_SPARSE = 80_000
 # the H100 SXM's f32 and f64 rates outside the tensor cores (NVIDIA's data
-# sheet), operations/s
+# sheet), operations/s. The data sheet counts an FMA as two operations, so
+# unfused _rn adds and products issue at half of these rates; the bounds
+# below divide by them all the same, as the published peaks
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 # operations a candidate pair costs up to the reject test, counted from
@@ -329,7 +342,10 @@ PAIR_FMA = {}
 # shear_R and partdown (prepare_sim.py:955-957: a 3 % A subsample of 6912^3
 # particles divided by 100); the slab of phase 11
 N_RANKS = (1_200_000, 12_000_000)
+# launches a K6 time on the small-halo items or the rest is the mean of
+K6_SPLIT_REPS = 20
 N_RANKS_CHECK = 120_000
+N_RANKS_SAMPLE = 4_000  # halos held to K6's plain version past the first size
 N_MENV = 2_000_000
 N_MENV_CLUMPS = 20_000
 MENV_SIGMA = 8.0
@@ -345,9 +361,12 @@ N_SLAB_PARTS = 1_200_000
 MPART = 2.1e9
 HUBBLE = 0.6736
 # float64 operations a K6 pair (3 differences, 3 products, 2 sums) and a K7
-# candidate (the same and the compare) cost, csrc/prepare_sim.cu
+# candidate (the same and the compare) cost, csrc/prepare_sim.cu; K6's
+# float32 filter a pair (3 differences, a product, 2 FMAs counted as 2 each,
+# the compare)
 K6_PAIR_OPS = 8
 K7_PAIR_OPS = 9
+K6_FILTER_OPS = 9
 
 
 class PhaseError(RuntimeError):
@@ -378,6 +397,12 @@ def event_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def event_runs(fn, reps, rounds):
+    """:func:`event_ms` of `fn` over `reps` calls, `rounds` times: the
+    per-round means, for their spread."""
+    return [event_ms(fn, reps) for _ in range(rounds)]
 
 
 def kernel_ms(fn, name='mode_bin', reps=5):
@@ -1322,17 +1347,31 @@ def k6_plain(inp):
     return ranks_device.nn_within_halo_plain(x, y, z, query, ps_d, pn_d, seg_d)
 
 
-def k6_bound(args):
-    """The least time (ms) of K6's work: its pairs (each query against its
-    halo's window) at 8 float64 operations (K6_PAIR_OPS) at 34 TFLOP/s, or
-    its bytes (x, y, z of every particle, each query's index and result) at
-    3.35 TB/s where those take longer. Returns (ms, bound_by, pairs)."""
+def k6_bounds(args, chains=None, chain_share=None, counted_on=None):
+    """K6's least times (ms) for rank_fields_device's arguments: every pair
+    (each query against its halo's window) on the float64 chain, 8
+    operations (K6_PAIR_OPS) at 34e12/s ('f64_ms'); or every pair through
+    the float32 filter, 9 operations (K6_FILTER_OPS) at 67e12/s, and the
+    float64 chains the walk takes ('filtered_ms'), `chains` as
+    nn_within_halo_filtered_plain counts them, or `chain_share` of the
+    pairs as counted on the slab `counted_on`; the bytes (x, y, z of every
+    particle, each query's index and result) at 3.35 TB/s. The bound is the
+    smaller operation bound, or the bytes where they take longer."""
     submask, seg, ps, pn = args[2], args[3], args[5], args[6]
     q = np.bincount(seg[submask & (seg >= 0)], minlength=len(ps))
     pairs = float((q * pn).sum())
-    t_ops = pairs * K6_PAIR_OPS / F64_OPS_PER_S * 1e3
+    if chains is not None:
+        source = 'counted on this slab'
+    else:
+        chains, source = chain_share * pairs, f'the share counted on {counted_on}'
+    f64_ms = pairs * K6_PAIR_OPS / F64_OPS_PER_S * 1e3
+    filtered_ms = (pairs * K6_FILTER_OPS / F32_OPS_PER_S
+                   + chains * K6_PAIR_OPS / F64_OPS_PER_S) * 1e3
+    t_ops = min(f64_ms, filtered_ms)
     t_bytes = (12 * len(seg) + 12 * float(q.sum())) / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes', pairs
+    return dict(pairs=pairs, f64_ms=f64_ms, filtered_ms=filtered_ms, chain_share=chains / pairs,
+                share_from=source, bound_ms=max(t_ops, t_bytes),
+                bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
 def k6_occupancy(work, pnum, small=64):
@@ -1519,19 +1558,30 @@ def check_k7(tag, kw, dev, centres=None):
 
 
 def phase_prep_kernels(dev):
-    """Phase 9: K6 and K7 against their plain versions."""
+    """Phase 9: K6 and K7 against their plain versions; the share of K6's
+    pairs that reach its float64 chain, counted by the filtered plain
+    mirror on the check slab. Returns that share."""
     t0 = time.perf_counter()
     slab = synth_slab(N_RANKS_CHECK)
-    inp = k6_inputs(rank_args(slab), dev)
+    args = rank_args(slab)
+    inp = k6_inputs(args, dev)
     got = ranks_device.nn_within_halo(*inp)
     ref = k6_plain(inp)
     q = inp[3].long()
     same = bool(torch.equal(got[q], ref[q]))
     ms = event_ms(lambda: ranks_device.nn_within_halo(*inp), 3)
     plain_ms = event_ms(lambda: k6_plain(inp), 1)
+    x, y, z, query, _, ps_d, pn_d, seg_d = inp
+    (mirror, chains), mirror_s = sync_seconds(
+        lambda: ranks_device.nn_within_halo_filtered_plain(x, y, z, query, ps_d, pn_d, seg_d))
+    mirror_same = bool(torch.equal(mirror[q], ref[q]))
+    b = k6_bounds(args, chains=chains)
     print(f'phase 9 K6 vs plain: {slab[2]} particles in {len(slab[0])} halos (seed 17), '
-          f'{q.numel()} queries, NN d^2 bit-equal {same}; K6 {ms:.4f} ms, plain {plain_ms:.4f} ms')
+          f'{q.numel()} queries, NN d^2 bit-equal {same}; K6 {ms:.4f} ms, plain {plain_ms:.4f} ms; '
+          f'the filtered plain mirror ({mirror_s * 1e3:.1f} ms) bit-equal {mirror_same}, '
+          f'{chains} float64 chains of {b["pairs"]:.4e} pairs (share {b["chain_share"]:.5f})')
     require(same, 'K6 and its plain version differ')
+    require(mirror_same, "K6's filtered plain mirror and its plain version differ")
     for lc in (False, True):
         kw = menv_catalog(N_MENV_CHECK, N_MENV_CHECK // 100, lc, SEED + 3)
         check_k7(f'phase 9 K7 vs plain, {N_MENV_CHECK} clumped halos, '
@@ -1543,14 +1593,24 @@ def phase_prep_kernels(dev):
     check_k7(f'phase 9 K7 vs plain, {N_MENV_CHECK} clumped halos, box, r_inner '
              f'{2.5 * MENV_ROUT} > r_outer', kw, dev)
     print(f'phase 9 in {time.perf_counter() - t0:.1f} s')
+    return b['chain_share']
 
 
-def phase_ranks(dev, paths, timing):
+def phase_ranks(dev, paths, timing, chain_share):
     """Phase 10 (a): rank_fields_device at the bench_ranks slab and ten times
     it, host to host (host keys, upload, K6, five sorts, download), K6 by
-    CUDA events, peak memory; at the first size all five fields held to the
-    host loop and K6 to its plain version."""
+    CUDA events against both its bounds (the float64 one, and the filtered
+    one: at the first size with the float64 chains that the filtered plain
+    mirror counts there, at the second with their share of the first
+    size's pairs), and on the items of halos of at most 64 particles alone
+    and on the rest alone, peak memory; at the first size all five fields
+    held to the host loop and K6 and the mirror to its plain version, at
+    the second K6 to its plain version on sampled halos. The mirror runs
+    the kernel's filter unfused in float32 (the kernel fuses two FMAs),
+    with a threshold that may be an ulp higher, so its count estimates the
+    kernel's chains. `chain_share` is phase 9's, printed beside."""
     recs = []
+    share = mirror_s = None
     for n_target in N_RANKS:
         slab, t_syn = sync_seconds(lambda: synth_slab(n_target))
         args = rank_args(slab)
@@ -1566,22 +1626,46 @@ def phase_ranks(dev, paths, timing):
         _, t_warm = sync_seconds(lambda: ranks_device.rank_fields_device(*args))
         inp = k6_inputs(args, dev)
         ms = event_ms(lambda: ranks_device.nn_within_halo(*inp), 3)
-        bound, by, pairs = k6_bound(args)
+        mirror = None
+        if share is None:
+            (mirror, chains), mirror_s = sync_seconds(
+                lambda: ranks_device.nn_within_halo_filtered_plain(*inp[:4], *inp[5:]))
+            b = k6_bounds(args, chains=chains)
+            share, first = b['chain_share'], f'the slab of {n} particles'
+        else:
+            b = k6_bounds(args, chain_share=share, counted_on=first)
+        bound, by, pairs = b['bound_ms'], b['bound_by'], b['pairs']
+        work = inp[4]
+        small = inp[6].long()[work[:, 0].long()] <= 64
+        split = {}
+        for part, sub in (('small', work[small].contiguous()), ('rest', work[~small].contiguous())):
+            split[part] = event_ms(lambda sub=sub: ranks_device.nn_within_halo(
+                *inp[:4], sub, *inp[5:]), K6_SPLIT_REPS)
         occ, occ_small = k6_occupancy(inp[4], inp[6])
         rec = dict(shape=f'{n} particles, {nh} halos', ms=ms, bound_ms=bound, bound_by=by,
-                   bound_share=bound / ms, pairs=pairs, lane_occupancy=occ,
-                   lane_occupancy_small_halos=occ_small, host_to_host_cold_s=t_cold,
-                   host_to_host_warm_s=t_warm, peak_bytes=peak)
+                   bound_share=bound / ms, pairs=pairs, f64_bound_ms=b['f64_ms'],
+                   filtered_bound_ms=b['filtered_ms'], chain_share=b['chain_share'],
+                   chain_share_from=b['share_from'], phase9_chain_share=chain_share,
+                   small_halo_items_ms=split['small'], other_items_ms=split['rest'],
+                   lane_occupancy=occ, lane_occupancy_small_halos=occ_small,
+                   host_to_host_cold_s=t_cold, host_to_host_warm_s=t_warm, peak_bytes=peak)
         line = (f'phase 10 {tag}: host to host cold {t_cold:.3f} s, warm {t_warm:.3f} s '
-                f'(slab built in {t_syn:.1f} s); K6 {ms:.4f} ms, bound {bound:.4f} ms by {by} '
-                f'({pairs:.4e} pairs), share {bound / ms:.3f}; lane occupancy {occ:.3f}, on '
-                f'halos of at most 64 particles {occ_small:.3f}; peak memory '
+                f'(slab built in {t_syn:.1f} s); K6 {ms:.4f} ms (items of halos of at most 64 '
+                f'particles alone {split["small"]:.4f} ms, the rest alone {split["rest"]:.4f} '
+                f'ms), bound {bound:.4f} ms by {by} ({pairs:.4e} pairs; float64 bound '
+                f'{b["f64_ms"]:.4f} ms, filtered bound {b["filtered_ms"]:.4f} ms at a chain '
+                f'share of {b["chain_share"]:.5f}, {b["share_from"]}; phase 9\'s '
+                f'{chain_share:.5f}), share {bound / ms:.3f}; lane occupancy '
+                f'{occ:.3f}, on halos of at most 64 particles {occ_small:.3f}; peak memory '
                 f'{peak / 2**30:.3f} GiB')
         if n_target == N_RANKS[0]:
             got = ranks_device.nn_within_halo(*inp)
             ref = k6_plain(inp)
             q = inp[3].long()
             require(bool(torch.equal(got[q], ref[q])), f'{tag}: K6 and its plain version differ')
+            require(bool(torch.equal(mirror[q], ref[q])),
+                    f'{tag}: the filtered plain mirror and the plain version differ')
+            line += f'; the filtered plain mirror ({mirror_s:.1f} s) bit-equal to the plain version'
             rec['plain_ms'] = event_ms(lambda: k6_plain(inp), 1)
             rec['max_abs_err'] = 0.0
             # seg_rank (two stable sorts, no kernel) on the NN key: bytes read
@@ -1596,13 +1680,28 @@ def phase_ranks(dev, paths, timing):
             line += (f'; plain K6 {rec["plain_ms"]:.1f} ms; host loop {t_host:.3f} s, all five '
                      f'fields equal (tied keys of each: {n_tied})')
             rec['host_loop_s'] = t_host
+        else:
+            # the plain version on a sample of the halos (its loop over
+            # halos costs ~0.4 ms each)
+            got = ranks_device.nn_within_halo(*inp)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            picked = torch.randperm(nh, generator=gen, device=dev)[:N_RANKS_SAMPLE]
+            query, seg_d = inp[3], inp[7]
+            sub = query[torch.isin(seg_d[query.long()], picked.to(seg_d.dtype))]
+            ref = ranks_device.nn_within_halo_plain(*inp[:3], sub, *inp[5:])
+            q = sub.long()
+            require(bool(torch.equal(got[q], ref[q])),
+                    f'{tag}: K6 and its plain version differ on sampled halos')
+            line += (f'; K6 bit-equal to its plain version on {q.numel()} queries of '
+                     f'{len(picked)} sampled halos')
         print(line)
         recs.append(rec)
     top = recs[0]
     timing['nn_within_halo'] = dict(
         ms=top['ms'], plain_ms=top['plain_ms'], max_abs_err=top['max_abs_err'],
         bound_ms=top['bound_ms'], bound_by=top['bound_by'], library_ms=None, shape=top['shape'],
-        shapes=recs)
+        shapes=recs, f64_bound_ms=top['f64_bound_ms'], filtered_bound_ms=top['filtered_bound_ms'])
 
 
 def phase_menv(dev, paths):
@@ -1767,16 +1866,33 @@ def phase_slab(paths, shearmark, dev):
         menv_calls.append(dict(args, pos=pos, mass=mass))
         return do_menv(pos, mass, **args)
 
+    rank_calls = []
+    ranks = ranks_device.rank_fields_device
+
+    def recorded_ranks(*args, **kwargs):
+        rank_calls.append(args)
+        return ranks(*args, **kwargs)
+
     menv_device.do_menv_device = recorded
+    ranks_device.rank_fields_device = recorded_ranks
     try:
         with calls_of(ranks_device, 'seg_rank') as ranked:
             dev_out, t_dev = sync_seconds(lambda: prepare_sim.prepare_slab_tables(
                 halos, parts, header, **kw))
     finally:
         menv_device.do_menv_device = do_menv
+        ranks_device.rank_fields_device = ranks
     paths[tag] = dict(read_launches(), seg_rank=ranked[0])
     require(paths[tag]['nn_within_halo'] == 1 and paths[tag]['menv_annulus'] == 1,
             f'{tag}: launches {paths[tag]}')
+    # K6 on the arguments the slab handed the ranks engine
+    ppos, _, submask, seg, _, ps, pn = rank_calls[0][:7]
+    inp = k6_inputs((np.asarray(ppos, np.float32), None, np.asarray(submask, bool),
+                     np.asarray(seg, np.int32), None, np.asarray(ps), np.asarray(pn)), dev)
+    q = inp[3].long()
+    nn_same = bool(torch.equal(ranks_device.nn_within_halo(*inp)[q], k6_plain(inp)[q]))
+    require(nn_same, f'{tag}: K6 and its plain version differ')
+    del rank_calls, inp
     host_out, t_host = sync_seconds(lambda: prepare_sim.prepare_slab_tables(
         halos, parts, header, ranks_engine='host', menv_engine='host', **kw))
     for part in ('halos', 'particles'):
@@ -1797,7 +1913,8 @@ def phase_slab(paths, shearmark, dev):
     print(f'phase 11 {tag}: {t_dev:.3f} s host to host, with the host engines {t_host:.3f} s; '
           f'{len(dev_out["halos"]["id"])} halos and {len(pa["pos"])} particles kept, '
           f'{int((pa["ranks"] > -1).sum())} with ranks; every column equal, ranksc equal at '
-          f'{same_c:.4f} of the particles and as multisets a halo; Menv max rel {rel:.3e}, '
+          f'{same_c:.4f} of the particles and as multisets a halo; K6 bit-equal to its plain '
+          f'version on {q.numel()} queries; Menv max rel {rel:.3e}, '
           f'{int((ea != 0).sum())} nonzero')
     # K7 on the catalog the slab's env engine handed it
     args = dict(menv_calls[0])
@@ -1820,6 +1937,11 @@ K8_NMESH = (256, 512)
 # (2), mu (1), L2 (4), L4 (7), dup (1), the weight rows (7); and its f64 adds
 K8_F32_OPS = 22
 K8_F64_OPS = 7
+# f64 operations of a mode of K8's row plan: the seven weights times the
+# row's multiplicity, and the seven sums
+K8_PLAN_F64_OPS = 14
+# K8's timing: rounds of launches by CUDA events, and the plan's builds
+K8_REPS, K8_ROUNDS, K8_BUILDS = 200, 5, 3
 K8_LIBRARY_CALL = ('torch.bincount(bin + row * (nkout + 1), weights=w, minlength=7 * (nkout + 1)) '
                    'over the whole mesh, on precomputed per-mode f64 weight rows')
 
@@ -1847,6 +1969,40 @@ def k1m_bound(n, nfields, nmesh):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
+def k8_bounds(nmesh, plan):
+    """K8's least times (ms) for a row plan of an nmesh^3 mesh: 'full_ms', a
+    walk of the whole mesh (every mode's bin search, 3 + log2 compares, and
+    the in-bin modes' K8_F32_OPS - 3 f32 and K8_F64_OPS f64 operations,
+    against the bytes of the k tables and edges), and 'plan_ms', the plan's
+    in-bin modes (K8_F32_OPS f32 and K8_PLAN_F64_OPS f64 operations each)
+    against the bytes of the plan's row tables (kxy2, multiplicity, izlo,
+    izhi) and k tables, each read once, and the sums written; the longer
+    time of each. The plan's items are this design's own, not the
+    function's, and are not counted. Also the mesh's in-bin modes ('n_in')
+    and the plan bound's kind."""
+    nk = plan.nkout
+    nmodes = nmesh * nmesh * (nmesh // 2 + 1)
+    n_in = int(((plan.izhi - plan.izlo + 1).double() * plan.mult).sum())
+    search = int(np.ceil(np.log2(nk + 2)))
+    out_bytes = 8 * 7 * nk
+    t32 = (nmodes * (3 + search) + n_in * (K8_F32_OPS - 3)) / F32_OPS_PER_S
+    t64 = n_in * K8_F64_OPS / F64_OPS_PER_S
+    tb = (4 * (2 * nmesh + nk + 1) + out_bytes) / HBM_BYTES_PER_S
+    p_ops = max(plan.modes * K8_F32_OPS / F32_OPS_PER_S,
+                plan.modes * K8_PLAN_F64_OPS / F64_OPS_PER_S)
+    p_bytes = (20 * plan.kxy2.numel() + 8 * (nmesh // 2 + 1) + 4 * (nk + 1)
+               + out_bytes) / HBM_BYTES_PER_S
+    return dict(full_ms=max(t32, t64, tb) * 1e3, plan_ms=max(p_ops, p_bytes) * 1e3, n_in=n_in,
+                bound_by='operations' if p_ops >= p_bytes else 'bytes')
+
+
+def k8_blocks(plan):
+    """K8's blocks that hold rows (chunks of a bin's prefix) and its grid."""
+    per = tzw.K8_ITEM_ROWS
+    busy = int(((plan.reach.long() + per - 1) // per).sum())
+    return busy, plan.nkout * (-(-plan.kxy2.numel() // per))
+
+
 def phase_zcv_kernels(dev):
     """Phase 12: K1's multi-weight gather on the 512^3 lattice (moved by up
     to half a cell) with a unit column and four weight columns: its time,
@@ -1856,7 +2012,9 @@ def phase_zcv_kernels(dev):
     (gather_deposit_plain) and to a second launch; its one-column time
     beside K1's. K8 at nmesh 256 and 512 against its plain version (counts
     equal, other rows within 1e-6 of the bin's count), two launches
-    bit-equal. Returns the kernels line's records of both."""
+    bit-equal; its time as the spread of rounds of launches, its row
+    plan's build, and the two together host to host. Returns the kernels
+    line's records of both."""
     t0 = time.perf_counter()
     n, nf = ZCV_NMESH, 5
     gen = torch.Generator(device=dev)
@@ -1944,8 +2102,17 @@ def phase_zcv_kernels(dev):
         nk = nm // 2
         kv, kz = (torch.from_numpy(a).to(dev) for a in tzw._mode_kgrids(nm, LBOX))
         edges = torch.from_numpy(tzw._f32_ge_edges(kout)).to(dev)
-        k8 = lambda: tzw.window_mode_sums(kv, kz, edges, nk)  # noqa: E731
-        ms8 = event_ms(k8)
+        builds = [sync_seconds(lambda: tzw.window_plan(kv, kz, edges, nk))
+                  for _ in range(K8_BUILDS)]
+        plan = builds[0][0]
+        builds = [b[1] * 1e3 for b in builds]
+        k8 = lambda: tzw.window_mode_sums(plan)  # noqa: E731
+        runs8 = event_runs(k8, K8_REPS, K8_ROUNDS)
+        ms8 = float(np.median(runs8))
+        # the plan's build and K8 together, host to host, as a window call
+        # pays them
+        both = [sync_seconds(lambda: tzw.window_mode_sums(tzw.window_plan(kv, kz, edges, nk)))[1]
+                * 1e3 for _ in range(K8_BUILDS)]
         a, b = k8(), k8()
         ref, p_s = sync_seconds(lambda: tzw.window_mode_sums_plain(kv, kz, edges, nk))
         same = bool(torch.equal(a, b))
@@ -1955,34 +2122,44 @@ def phase_zcv_kernels(dev):
         knorm, rows = tzw._mode_rows(kv[:, None, None], kv[None, :, None], kz[None, None, :])
         idx = torch.searchsorted(edges, knorm.reshape(-1), right=True) - 1
         idx = torch.where((idx >= 0) & (idx < nk), idx, nk)
-        n_in = int((idx < nk).sum())
         segs = torch.cat([idx + r * (nk + 1) for r in range(len(rows))])
         wts = torch.cat([w.reshape(-1).double() for w in rows])
         del knorm, rows, idx
         lib_ms = event_ms(lambda: torch.bincount(segs, weights=wts, minlength=7 * (nk + 1)), 3)
         del segs, wts
-        search = int(np.ceil(np.log2(nk + 2)))
+        bd = k8_bounds(nm, plan)
         nmodes = nm * nm * (nm // 2 + 1)
-        t32 = (nmodes * (3 + search) + n_in * (K8_F32_OPS - 3)) / F32_OPS_PER_S * 1e3
-        t64 = n_in * K8_F64_OPS / F64_OPS_PER_S * 1e3
-        tb = (4 * (2 * nm + nk + 1) + 8 * 7 * nk) / HBM_BYTES_PER_S * 1e3
-        bound = max(t32, t64, tb)
-        by = 'bytes' if tb >= max(t32, t64) else 'operations'
+        nrows = int(plan.kxy2.numel())
         r = dict(shape=f'nmesh {nm}, {nk} bins', ms=ms8, plain_ms=p_s * 1e3, library_ms=lib_ms,
-                 max_rel_err=rel, max_abs_err=float((a - ref).abs().max()), bound_ms=bound,
-                 bound_by=by, modes=nmodes, in_bin=n_in, repeat_equal=same)
+                 max_rel_err=rel, max_abs_err=float((a - ref).abs().max()),
+                 bound_ms=bd['plan_ms'], bound_by=bd['bound_by'], full_bound_ms=bd['full_ms'],
+                 modes=nmodes, in_bin=bd['n_in'], plan_rows=nrows,
+                 plan_distinct=nrows + int(plan.cut_mult.numel()), plan_modes=plan.modes,
+                 k8_blocks=k8_blocks(plan), plan_build_ms=builds[0],
+                 plan_build_runs_ms=builds, runs_ms=runs8, plan_and_kernel_ms=both,
+                 repeat_equal=same)
         k8_recs.append(r)
-        print(f'phase 12 K8 nmesh {nm} ({nmodes} modes, {n_in} in {nk} bins): {ms8:.4f} ms vs plain '
-              f'{p_s * 1e3:.1f} ms; library ({K8_LIBRARY_CALL}) {lib_ms:.4f} ms; bound {bound:.4f} '
-              f'ms ({by}), share {bound / ms8:.3f}; counts equal {counts_equal}, max |d| / count '
-              f'{rel:.3e}, two launches equal {same}')
+        print(f'phase 12 K8 nmesh {nm} ({nmodes} modes, {bd["n_in"]} in {nk} bins; the plan: '
+              f'{r["plan_distinct"]} distinct kx^2 + ky^2, {nrows} with a mode in a bin, '
+              f'{plan.modes} modes; K8 blocks with rows {r["k8_blocks"][0]} of '
+              f'{r["k8_blocks"][1]}; built in '
+              f'{", ".join(f"{t:.3f}" for t in builds)} ms): {ms8:.4f} ms (median of '
+              f'{K8_ROUNDS} rounds of {K8_REPS} launches, rounds {min(runs8):.4f}-'
+              f'{max(runs8):.4f} ms); the plan and K8 together host to host '
+              f'{", ".join(f"{t:.3f}" for t in both)} ms; plain {p_s * 1e3:.1f} ms; library '
+              f'({K8_LIBRARY_CALL}) {lib_ms:.4f} ms; bound of the plan\'s modes '
+              f'{bd["plan_ms"]:.4f} ms ({bd["bound_by"]}), share {bd["plan_ms"] / ms8:.3f}; '
+              f'full-mesh bound {bd["full_ms"]:.4f} ms, share {bd["full_ms"] / ms8:.3f}; counts '
+              f'equal {counts_equal}, max |d| / count {rel:.3e}, two launches equal {same}')
         require(counts_equal, f'K8 counts differ from the plain version at nmesh {nm}')
         require(rel <= 1e-6, f'K8 rows differ from the plain version at nmesh {nm}: {rel:.3e}')
         require(same, f'K8 is not deterministic at nmesh {nm}')
     top = k8_recs[-1]
     k8_rec = dict(ms=top['ms'], plain_ms=top['plain_ms'], max_abs_err=top['max_abs_err'],
                   bound_ms=top['bound_ms'], bound_by=top['bound_by'], library_ms=top['library_ms'],
-                  library_call=K8_LIBRARY_CALL, shape=top['shape'], shapes=k8_recs)
+                  library_call=K8_LIBRARY_CALL, shape=top['shape'], shapes=k8_recs,
+                  full_bound_ms=top['full_bound_ms'], plan_build_ms=top['plan_build_ms'],
+                  plan_and_kernel_ms=top['plan_and_kernel_ms'])
     print(f'phase 12 in {time.perf_counter() - t0:.1f} s')
     return k1m_rec, k8_rec
 
@@ -2088,7 +2265,8 @@ def phase_zcv(dev, paths, timing):
 
     wrapped = [timed(zcv_pre, 'gaussian_filter'), timed(zcv_pre, 'get_fields'),
                timed(zcv_pre, 'advected_field_ffts'), timed(zcv_pre, 'power_ij'),
-               timed(tzw, 'periodic_window_function'), timed(tzw, '_templates'),
+               timed(tzw, 'periodic_window_function'), timed(tzw, 'get_window_plan'),
+               timed(tzw, '_templates'),
                timed(zcv_apply, 'get_tracer_power'), timed(zcv_apply, 'run_zcv')]
     tag = f'zcv_products + apply_zcv ({n}^3, {n_tr} tracers)'
     for mod, name, _, run in wrapped:
@@ -2123,7 +2301,8 @@ def phase_zcv(dev, paths, timing):
         'get_fields': steps['get_fields'],
         'advection + 5 field FFTs (RSD and real)': steps['advected_field_ffts'],
         '15 P_ij (RSD and real)': steps['power_ij'],
-        'window (K8)': steps['periodic_window_function'],
+        'window (K8 and its row plan)': steps['periodic_window_function'],
+        'of it the row plan': steps['get_window_plan'],
         f'templates (host, {len(os.sched_getaffinity(0))} cores)': steps['_templates'],
         'get_tracer_power x2': steps['get_tracer_power'],
         'run_zcv': steps['run_zcv'],
@@ -2968,7 +3147,8 @@ def kernel_line(paths, timing):
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             **{k: t[k] for k in ('kernel_ms', 'in_bin_share', 'library_call', 'shape', 'shapes',
                                   'plain_shape', 'total_ms', 'registers', 'spill_stores',
-                                  'spill_loads')
+                                  'spill_loads', 'f64_bound_ms', 'filtered_bound_ms',
+                                  'full_bound_ms', 'plan_build_ms')
                if k in t},
         })
     return {'kernels': out}
@@ -3007,10 +3187,10 @@ def main():
         timing.update(timing8)
         mock14 = {tr: {a: mock[tr][a] for a in ('x', 'y', 'z', 'vz')} for tr in WANT}
         del hod, mock
-        phase_prep_kernels(dev)
+        chain_share = phase_prep_kernels(dev)
         paths10 = {}
         t10 = time.perf_counter()
-        phase_ranks(dev, paths10, timing)
+        phase_ranks(dev, paths10, timing, chain_share)
         menv_recs = phase_menv(dev, paths10)
         shearmark, k1_rec = phase_shear(dev, paths10)
         timing['tsc_deposit_cells[tsc]']['shapes'].append(k1_rec)

@@ -37,9 +37,12 @@ from abacusutils_tpu_torch.ops import power as tpow
 from abacusutils_tpu_torch.ops import tpcf as ttpcf
 from abacusutils_tpu_torch.testing import edge_points, edge_points_centred
 from torch_helpers import (  # noqa: F401
+    K6_CATALOGS,
     TRACERS,
     catalog_tensors,
     cuda_device,
+    k6_catalog,
+    k6_tensors,
     linked_inputs,
     staged_state,
     t,
@@ -885,6 +888,28 @@ def test_nn_kernel_matches_plain(cuda_device):
         npt.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize('kind', K6_CATALOGS)
+def test_nn_kernel_on_adversarial_catalogs(cuda_device, kind):
+    """K6's float32 filter on the catalogs that press its bound
+    (torch_helpers.k6_catalog: duplicated positions, neighbours whose keys
+    lie one float64 ulp apart, coordinates near 0 of both signs and near
+    2000 and +-1000, differences whose float32 squares underflow, a halo
+    over two shared tiles, a halo all at one point): bit-equal to the plain
+    version and to the filtered plain mirror."""
+    from abacusutils_tpu_torch.models.hod import ranks_device as trd
+
+    args = k6_tensors(*k6_catalog(kind), device=cuda_device)
+    x, y, z, query, work, ps_d, pn_d, seg_d = args
+    before = trd.nn_within_halo.launches
+    got = trd.nn_within_halo(*args)
+    assert trd.nn_within_halo.launches == before + 1
+    ref = trd.nn_within_halo_plain(x, y, z, query, ps_d, pn_d, seg_d)
+    mirror, _ = trd.nn_within_halo_filtered_plain(x, y, z, query, ps_d, pn_d, seg_d)
+    q = query.long()
+    assert torch.equal(got[q], ref[q]) and torch.equal(mirror[q], ref[q])
+    assert bool(torch.isfinite(got[q]).all())
+
+
 def _menv_case(name, n, seed):
     rng = np.random.default_rng(seed)
     L = {'box': 300.0, 'small box': 25.0, 'light cone': 800.0, 'box nc 1': 15.0,
@@ -1096,9 +1121,10 @@ def test_window_kernel_matches_plain(cuda_device, nmesh, nkout):
     kout = np.linspace(0.0, np.sqrt(3) * np.pi * nmesh / lbox * 0.8, nkout + 1)
     kv, kz = (torch.from_numpy(a).to(cuda_device) for a in tzw._mode_kgrids(nmesh, lbox))
     edges = torch.from_numpy(tzw._f32_ge_edges(kout)).to(cuda_device)
+    plan = tzw.window_plan(kv, kz, edges, nkout)
     before = tzw.window_mode_sums.launches
-    got = tzw.window_mode_sums(kv, kz, edges, nkout)
-    again = tzw.window_mode_sums(kv, kz, edges, nkout)
+    got = tzw.window_mode_sums(plan)
+    again = tzw.window_mode_sums(plan)
     assert tzw.window_mode_sums.launches == before + 2
     ref = tzw.window_mode_sums_plain(kv, kz, edges, nkout)
     got, again, ref = (a.cpu().numpy() for a in (got, again, ref))
@@ -1106,6 +1132,31 @@ def test_window_kernel_matches_plain(cuda_device, nmesh, nkout):
     npt.assert_array_equal(got[0], ref[0])
     assert (np.abs(got - ref) <= 1e-12 * np.maximum(ref[0], 1.0)).all()
     assert ref[0].sum() > 0
+
+
+@pytest.mark.parametrize('nmesh', [63, 127])
+def test_window_kernel_odd_mesh_log_bins(cuda_device, nmesh):
+    """K8 over the row plan of an odd mesh (an unpaired -(n + 1) / 2 dk on
+    the mesh axes) with log bins from the fundamental mode: the counts row
+    equal to the full-mesh plain version's, the other rows within 1e-12 of
+    the bin's count, two launches bit-equal."""
+    from abacusutils_tpu_torch.models.zcv import zenbu_window as tzw
+
+    lbox = 1500.0
+    kout = np.concatenate([[0.0], np.geomspace(2 * np.pi / lbox, np.pi * nmesh / lbox, 24)])
+    plan = tzw.get_window_plan(nmesh, lbox, kout, cuda_device)
+    args = (plan.kv, plan.kzv, plan.edges, plan.nkout)
+    before = tzw.window_mode_sums.launches
+    got = tzw.window_mode_sums(plan)
+    again = tzw.window_mode_sums(plan)
+    assert tzw.window_mode_sums.launches == before + 2
+    ref = tzw.window_mode_sums_plain(*args)
+    rows = tzw.window_mode_sums_rows_plain(plan)
+    got, again, ref, rows = (a.cpu().numpy() for a in (got, again, ref, rows))
+    npt.assert_array_equal(got, again)
+    npt.assert_array_equal(got[0], ref[0])
+    npt.assert_array_equal(rows[0], ref[0])
+    assert (np.abs(got - ref) <= 1e-12 * np.maximum(ref[0], 1.0)).all()
 
 
 def _kppi_edges(n1d, case):

@@ -583,9 +583,13 @@ def test_zcv_kernel_wrappers_never_fall_back(monkeypatch):
     kv = torch.empty(nmesh, **meta)
     kz = torch.empty(nmesh // 2 + 1, **meta)
     with pytest.raises(ValueError, match='edges must be'):
-        tzw.window_mode_sums(kv, kz, torch.empty(5, **meta), 8)
+        tzw.window_plan(kv, kz, torch.empty(5, **meta), 8)
+    # a plan of tensors off the CPU (its fields' values do not matter here)
+    t = torch.empty(9, **meta)
+    wplan = tzw.WindowPlan(kv, kz, t, t, kz, kv, kv.double(), kv.int(), kv.int(), t.double(),
+                           t[:8].int(), 8, 1)
     monkeypatch.setattr(_build, 'lib', no_lib)
     with pytest.raises(NoKernel):
         tsc_deposit_cells_multi(grids, plan)
     with pytest.raises(NoKernel):
-        tzw.window_mode_sums(kv, kz, torch.empty(9, **meta), 8)
+        tzw.window_mode_sums(wplan)
