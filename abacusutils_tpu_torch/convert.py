@@ -63,14 +63,18 @@ def inputs_from_numpy(halo, part, params, binplan, Wcomp, device):
     return _catalog(halo, device), _catalog(part, device), params, seg, Wcomp
 
 
-def staged_state_from_numpy(halo_data, particle_data, params, tracers, flags, device):
+def staged_state_from_numpy(halo_data, particle_data, params, tracers, flags, device,
+                            mock_dir=None):
     """The port's ``AbacusHOD`` on the staged state of a JAX ``AbacusHOD``:
-    its ``halo_data`` and ``particle_data`` column dicts (as numpy arrays),
-    its ``params`` (``z``, ``Lbox``, ``velz2kms``, ``origin``), its tracer
-    dict and ``flags``, a dict of the ``want_ranks``, ``want_shear``,
-    ``want_expvel``, ``halo_lc`` and ``z_type`` settings. Each call of
-    ``run_hod_pk_fused`` turns the per-tracer HOD parameter dicts into 0-d
-    float32 tensors on `device` with :func:`params_to_tensors`, after
+    its ``halo_data`` and ``particle_data`` column dicts (as numpy arrays;
+    the halos' ``hc``, ``hrvir`` and ``hsigma3d`` are what NFW satellites
+    read, and a secondary redshift's particle columns are empty), its
+    ``params`` (``z``, ``Lbox``, ``velz2kms``, ``origin``, ``chunk``), its
+    tracer dict, ``flags``, a dict of the ``want_ranks``, ``want_shear``,
+    ``want_expvel``, ``halo_lc`` and ``z_type`` settings, and its
+    ``mock_dir`` (where ``run_hod(write_to_disk=True)`` writes). Each call
+    of ``run_hod_pk_fused`` turns the per-tracer HOD parameter dicts into
+    0-d float32 tensors on `device` with :func:`params_to_tensors`, after
     ``prepare_tracer_params``."""
     from .models.hod.abacus_hod import AbacusHOD
 
@@ -83,6 +87,7 @@ def staged_state_from_numpy(halo_data, particle_data, params, tracers, flags, de
         params,
         {t: dict(p) for t, p in tracers.items()},
         device,
+        mock_dir=mock_dir,
         **flags,
     )
 

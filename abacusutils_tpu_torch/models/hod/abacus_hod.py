@@ -9,10 +9,16 @@ Counterpart of abacusutils_tpu/models/hod/abacus_hod.py limited to:
 - the two-step route ``run_hod`` (galaxy catalogs on the host) ->
   ``compute_power`` (P(k, mu) and Legendre poles of every tracer pair), and
   the host mass-function integrals ``compute_ngal``;
+- NFW satellites (``run_hod(want_nfw=True)``, the only satellites of a
+  secondary redshift), the ECSV catalogs of ``run_hod(write_to_disk=True)``
+  and their reader ``gal_reader`` (``io/table.py``);
 - the configuration-space statistics of a ``run_hod`` mock,
   ``compute_xirppi``, ``compute_wp`` and ``compute_multipole`` (and
   ``compute_clustering``, which picks one by ``clustering_type``), through
-  the pair counts of ``ops/tpcf.py``.
+  the pair counts of ``ops/tpcf.py``;
+- the control variates of a mock: ``apply_zcv`` (P_ell(k)) and
+  ``apply_zcv_xi`` (xi_ell(r) at the field level), on the in-memory
+  products of ``models/zcv/precompute.py``.
 
 The object is built from the staged state that the JAX ``staging()``
 returns (``convert.staged_state_from_numpy`` carries a JAX object's state
@@ -23,6 +29,7 @@ needs to the device once, stages them, and caches the stage.
 
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,11 +58,13 @@ from .population import (
     TRACER_ORDER,
     _column,
     _index,
-    _not_ported,
     _or_zeros,
     flat_catalogs,
+    halo_catalog,
     populate_flat,
+    populate_nfw,
     prepare_tracer_params,
+    write_catalogs,
 )
 
 __all__ = ['AbacusHOD']
@@ -75,14 +84,21 @@ class AbacusHOD:
     ``hrandoms``, ``hsigma3d``, optional ``hdeltac``/``hfenv``/``hshear``;
     ``ppos``, ``pvel``, ``phvel`` (P, 3); ``phmass``, ``pweights``,
     ``prandoms``, ``pinds``, optional ``pdeltac``/``pfenv``/``pshear`` and
-    the ``pranks*`` columns). params: ``z``, ``Lbox``, ``velz2kms`` and
-    ``origin`` (light cone). tracers: tracer -> HOD parameter dict.
+    the ``pranks*`` columns; NFW satellites read the halos' ``hc`` (the
+    concentration r98 / r25), ``hrvir`` (r98) and ``hsigma3d``, and no
+    particle: a secondary redshift's particle columns are empty). params:
+    ``z``, ``Lbox``, ``velz2kms``, ``origin`` (light cone) and ``chunk``
+    (-1, the default, for the whole box). tracers: tracer -> HOD parameter
+    dict. mock_dir: the catalog directory of the simulation and redshift
+    (the JAX ``staging()``'s ``mock_dir``, ``output_dir/sim_name/z{z:.3f}``),
+    which ``run_hod(write_to_disk=True)`` writes into and ``gal_reader``
+    reads; None refuses both.
     """
 
     def __init__(
         self, halo_data, particle_data, params, tracers, device, *,
         want_ranks=False, want_shear=False, want_expvel=False, halo_lc=False,
-        z_type='primary', clustering_type=None,
+        z_type='primary', clustering_type=None, mock_dir=None,
     ):
         self.halo_data = dict(halo_data)
         self.particle_data = dict(particle_data)
@@ -95,6 +111,7 @@ class AbacusHOD:
         self.halo_lc = halo_lc
         self.z_type = z_type
         self.clustering_type = clustering_type
+        self.mock_dir = None if mock_dir is None else Path(mock_dir)
         self.lbox = float(self.params['Lbox'])
         self.z_mock = self.params['z']
         self._fused_stage = None  # (key, brick stage of the box or light-cone leg)
@@ -206,17 +223,23 @@ class AbacusHOD:
         self._fused_stage = (key, stage)
         return stage
 
-    def _flat_stage(self):
+    def _flat_stage(self, particles=True):
         """Flat device catalogs in catalog order (population.flat_catalogs,
         with the shear columns the state holds), for run_hod, cached by
-        (want_ranks, device)."""
+        (want_ranks, device). Without `particles` (NFW satellites) only the
+        halos are staged, or taken from a cached stage of both; the
+        particles are then None."""
         key = (bool(self.want_ranks), self.device)
-        if self._flat_stage_cache is not None and self._flat_stage_cache[0] == key:
-            return self._flat_stage_cache[1]
+        cached = self._flat_stage_cache
+        if cached is not None and cached[0] == key and (cached[1][1] is not None or not particles):
+            return cached[1]
         self._flat_stage_cache = None
-        stage = flat_catalogs(
-            self.halo_data, self.particle_data, self.device, True, self.want_ranks
-        )
+        if particles:
+            stage = flat_catalogs(
+                self.halo_data, self.particle_data, self.device, True, self.want_ranks
+            )
+        else:
+            stage = (halo_catalog(self.halo_data, self.device, True), None)
         self._flat_stage_cache = (key, stage)
         return stage
 
@@ -343,7 +366,15 @@ class AbacusHOD:
         flat device catalogs are the light-cone leg's stage, cached; only
         the kept rows are copied to the host, into page-locked memory. The
         halo and particle shear columns are used where present, as the JAX
-        gen_gals uses them."""
+        gen_gals uses them. With want_nfw, the satellites follow NFW
+        profiles drawn on the host from the sample `NFW_draw`
+        (population.populate_nfw); the particles are not staged.
+
+        write_to_disk: one ECSV table a tracer in
+        ``{mock_dir}/galaxies{_rsd}{fn_ext}/{tracer}s.dat`` (``{tracer}s_
+        chunk{n}.dat`` when params' chunk is not -1), meta Ncent, Gal_type
+        and the tracer's HOD parameters; raises when the object has no
+        mock_dir."""
         if tracers is None:
             tracers = self.tracers
         if self.z_type == 'secondary' and not want_nfw:
@@ -351,24 +382,56 @@ class AbacusHOD:
                 'Secondary redshifts do not have particle pos/vel outputs; '
                 'only NFW profiles are supported'
             )
-        if want_nfw:
-            raise _not_ported('NFW satellites (want_nfw=True)')
-        if write_to_disk:
-            raise _not_ported(
-                'write_to_disk=True (the ECSV Table writer lives in abacusutils_tpu.io.table)'
-            )
+        if write_to_disk and tracers and self.mock_dir is None:
+            raise ValueError('write_to_disk=True needs the catalog directory: AbacusHOD(..., '
+                             'mock_dir=...)')
         if reseed:
             self._reseed_randoms(reseed)
         start = time.time()
         want = tuple(t for t in TRACER_ORDER if t in tracers)
         tparams = prepare_tracer_params({t: tracers[t] for t in want}, self.params['z'])
-        halo, part = self._flat_stage()
-        mock = populate_flat(
-            halo, part, tparams, want, bool(want_rsd), self.params['velz2kms'], self.lbox,
-            self.params.get('origin'), verbose,
-        )
+        if want_nfw:
+            halo, _ = self._flat_stage(particles=False)
+            mock = populate_nfw(
+                halo, self.halo_data, tparams, want, bool(want_rsd), self.params['velz2kms'],
+                self.lbox, self.params.get('origin'), NFW_draw, verbose,
+            )
+        else:
+            halo, part = self._flat_stage()
+            mock = populate_flat(
+                halo, part, tparams, want, bool(want_rsd), self.params['velz2kms'], self.lbox,
+                self.params.get('origin'), verbose,
+            )
         _log.info(f'HOD generated in elapsed time {time.time() - start:.2f} s.')
+        if write_to_disk and tracers:
+            write_catalogs(mock, tracers, self.mock_dir / (
+                'galaxies' + ('_rsd' if want_rsd else '') + (fn_ext or '')),
+                self.params.get('chunk', -1))
         return mock
+
+    def gal_reader(self, output_dir=None, simname=None, sim_dir=None, z_mock=None,
+                   want_rsd=True, tracers=None):
+        """The galaxy tables of run_hod(write_to_disk=True) as {tracer:
+        io.table.Table} (abacus_hod.py:gal_reader): ``{tracer}s.dat`` of
+        ``{mock_dir}/galaxies{_rsd}``, or of ``{output_dir}/{simname}/
+        z{z_mock:.3f}/galaxies{_rsd}`` when output_dir is given (simname
+        then required; z_mock defaults to the object's)."""
+        from ...io.table import Table
+
+        if tracers is None:
+            tracers = self.tracers
+        if output_dir is None:
+            if self.mock_dir is None:
+                raise ValueError('gal_reader needs output_dir and simname, or the object\'s '
+                                 'mock_dir')
+            base = self.mock_dir
+        else:
+            if simname is None:
+                raise ValueError('gal_reader: output_dir needs simname')
+            z_mock = self.z_mock if z_mock is None else z_mock
+            base = Path(output_dir) / simname / ('z%4.3f' % z_mock)
+        mock_dir = base / ('galaxies' + ('_rsd' if want_rsd else ''))
+        return {tracer: Table.read(mock_dir / f'{tracer}s.dat') for tracer in tracers}
 
     # ------------------------------------------------------------------
     def _weighted_hist(self, dims, bins):
@@ -569,6 +632,15 @@ class AbacusHOD:
         from ..zcv.apply import apply_zcv
 
         return apply_zcv(self, mock_dict, config, zcv, load_presaved=load_presaved)
+
+    def apply_zcv_xi(self, mock_dict, config, zcv, load_presaved=False):
+        """Variance-reduced xi_ell(r) of a one-tracer RSD mock by
+        field-level Zel'dovich control variates (abacus_hod.py:apply_zcv_xi)
+        on the in-memory products `zcv`; see
+        models/zcv/apply.py:apply_zcv_xi."""
+        from ..zcv.apply import apply_zcv_xi
+
+        return apply_zcv_xi(self, mock_dict, config, zcv, load_presaved=load_presaved)
 
     def compute_power(
         self, mock_dict, nbins_k, nbins_mu, k_hMpc_max, logk, poles=(), paste='TSC',

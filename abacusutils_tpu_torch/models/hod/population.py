@@ -23,7 +23,11 @@ from . import shapes
 __all__ = [
     'TRACER_ORDER',
     'prepare_tracer_params',
+    'halo_catalog',
     'flat_catalogs',
+    'populate_nfw',
+    'gen_gal_cat',
+    'write_catalogs',
     'gen_cent',
     'gen_sats',
     'gen_gals',
@@ -225,6 +229,28 @@ def _exact(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def halo_catalog(halo_data, device, shear=False):
+    """The halo half of :func:`flat_catalogs`: the staged halo columns as
+    flat tensors on `device` (x/y/z, vx/vy/vz, vdevx/..., mass, multis,
+    randoms, deltac, fenv, with `shear` the ``hshear`` column when present,
+    and cat_mass and cat_id in their own dtypes)."""
+    hd = halo_data
+    halo = {
+        'mass': _column(hd['hmass'], device), 'multis': _column(hd['hmultis'], device),
+        'randoms': _column(hd['hrandoms'], device),
+        'deltac': _or_zeros(hd, 'hdeltac', 'hmass', device),
+        'fenv': _or_zeros(hd, 'hfenv', 'hmass', device),
+        'cat_mass': _exact(hd['hmass'], device), 'cat_id': _exact(hd['hid'], device),
+    }
+    for i, a in enumerate('xyz'):
+        halo[a] = _column(hd['hpos'], device, i)
+        halo[f'v{a}'] = _column(hd['hvel'], device, i)
+        halo[f'vdev{a}'] = _column(hd['hveldev'], device, i)
+    if shear and 'hshear' in hd:
+        halo['shear'] = _column(hd['hshear'], device)
+    return halo
+
+
 def flat_catalogs(halo_data, particle_data, device, shear=False, ranks=False):
     """The staged column dicts of AbacusHOD.staging() (``hpos``, ``hvel``,
     ``hveldev``, ``hmass``, ``hid``, ... and ``ppos``, ``pvel``, ``phvel``,
@@ -235,17 +261,12 @@ def flat_catalogs(halo_data, particle_data, device, shear=False, ranks=False):
     exist, the four rank columns with `ranks`, part['hidx'], each
     particle's int32 host index, and the catalog columns ``cat_mass`` and
     ``cat_id`` in their own dtypes (run_hod's mass and id)."""
-    hd, pd = halo_data, particle_data
+    pd = particle_data
 
     def c(a, k=None):
         return _column(a, device, k)
 
-    halo = {
-        'mass': c(hd['hmass']), 'multis': c(hd['hmultis']), 'randoms': c(hd['hrandoms']),
-        'deltac': _or_zeros(hd, 'hdeltac', 'hmass', device),
-        'fenv': _or_zeros(hd, 'hfenv', 'hmass', device),
-        'cat_mass': _exact(hd['hmass'], device), 'cat_id': _exact(hd['hid'], device),
-    }
+    halo = halo_catalog(halo_data, device, shear)
     part = {
         'hmass': c(pd['phmass']), 'weights': c(pd['pweights']), 'randoms': c(pd['prandoms']),
         'deltac': _or_zeros(pd, 'pdeltac', 'phmass', device),
@@ -254,16 +275,11 @@ def flat_catalogs(halo_data, particle_data, device, shear=False, ranks=False):
         'cat_mass': _exact(pd['phmass'], device), 'cat_id': _exact(pd['phid'], device),
     }
     for i, a in enumerate('xyz'):
-        halo[a] = c(hd['hpos'], i)
-        halo[f'v{a}'] = c(hd['hvel'], i)
-        halo[f'vdev{a}'] = c(hd['hveldev'], i)
         part[a] = c(pd['ppos'], i)
         part[f'v{a}'] = c(pd['pvel'], i)
         part[f'hvel{a}'] = c(pd['phvel'], i)
-    if shear:
-        for cat, data, key in ((halo, hd, 'hshear'), (part, pd, 'pshear')):
-            if key in data:
-                cat['shear'] = c(data[key])
+    if shear and 'pshear' in pd:
+        part['shear'] = c(pd['pshear'])
     if ranks:
         for k, col in _RANK_COLUMNS:
             part[k] = c(pd[col])
@@ -410,12 +426,6 @@ def gen_sats(
     return _one(_compact([(keep, out, _exact(hmass, device), _exact(hid, device))], want))
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f'{what} is not ported yet: ROADMAP item 8 (what is left of the two-step route)'
-    )
-
-
 def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, verbose=False):
     """The two-step population on flat device catalogs (:func:`flat_catalogs`):
     the keep codes of the fused route (_cent_codes, then _sat_codes through
@@ -442,6 +452,42 @@ def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, 
     return mock
 
 
+def populate_nfw(halo, halos_array, tracer_params, want, rsd, velz2kms, lbox, origin, NFW_draw,
+                 verbose=False):
+    """The two-step population with NFW satellites (population.py:gen_gals
+    with nfw=True): the centrals' keep codes and phase space on the device
+    from the flat halo catalog `halo` (:func:`halo_catalog`), the keep codes
+    downloaded once, and the satellites of :func:`nfw.gen_sats_nfw` drawn on
+    the host from the staged halo columns `halos_array` (no particle is
+    read). Returns the gen_gals mock dict, centrals first, the columns of
+    both concatenated as numpy concatenates them (float64 positions and
+    velocities, int64 id)."""
+    from .nfw import gen_sats_nfw
+
+    device = halo['x'].device
+    params = _tensor_params(tracer_params, want, device)
+    keep_c = _cent_codes(halo, params, want)
+    cent = _compact([
+        (keep_c, _phase_space(halo, params, want, rsd, _inv_velz2kms(velz2kms), lbox,
+                              _origin(origin, device), True),
+         halo['cat_mass'], halo['cat_id']),
+    ], want)
+    sats = gen_sats_nfw(NFW_draw, halos_array, tracer_params, want, rsd, 1.0 / velz2kms, lbox,
+                        _to_host(keep_c), None)
+    mock = {}
+    for tracer in want:
+        c, sat = cent[tracer], sats[tracer]
+        td = {'Ncent': c['Ncent']}
+        for k in ('x', 'y', 'z', 'vx', 'vy', 'vz', 'mass'):
+            td[k] = np.concatenate([c[k], sat[k]])
+        td['id'] = np.concatenate([c['id'], sat['id'].astype(np.int64)])
+        if verbose:
+            print(tracer, 'number of galaxies', len(td['x']))
+            print('satellite fraction', len(sat['x']) / max(len(td['x']), 1))
+        mock[tracer] = td
+    return mock
+
+
 def gen_gals(
     halos_array, subsample, tracers, params, Nthread=None, enable_ranks=False, rsd=True,
     verbose=False, nfw=False, NFW_draw=None, device='cuda',
@@ -449,18 +495,62 @@ def gen_gals(
     """Multi-tracer population: centrals + satellites -> mock dict
     (population.py:gen_gals): per tracer {Ncent, x, y, z, vx, vy, vz, mass,
     id}, centrals first. The staged columns go to `device` (the card unless
-    the caller names another) once; only the kept rows come back. NFW
-    satellites are not ported."""
-    if nfw:
-        raise _not_ported('NFW satellites (nfw=True)')
+    the caller names another) once; only the kept rows come back. With
+    `nfw`, the satellites follow NFW profiles (:func:`populate_nfw`, drawn
+    from `NFW_draw`) and `subsample` is not read."""
     device = resolve_device(device)
     want = tuple(t for t in TRACER_ORDER if t in tracers)
     tparams = prepare_tracer_params({t: tracers[t] for t in want}, params['z'])
+    if nfw:
+        return populate_nfw(
+            halo_catalog(halos_array, device, True), halos_array, tparams, want, rsd,
+            params['velz2kms'], params['Lbox'], params['origin'], NFW_draw, verbose,
+        )
     halo, part = flat_catalogs(halos_array, subsample, device, True, enable_ranks)
     return populate_flat(
         halo, part, tparams, want, rsd, params['velz2kms'], params['Lbox'], params['origin'],
         verbose,
     )
+
+
+def write_catalogs(HOD_dict, tracers, outdir, chunk=-1):
+    """One ECSV table a tracer of the mock dict in `outdir`, made if need
+    be: ``{tracer}s.dat``, or ``{tracer}s_chunk{n}.dat`` for a chunk n other
+    than -1; the columns of the mock, meta Ncent, Gal_type and the tracer's
+    HOD parameters (abacus_hod.py:run_hod, population.py:gen_gal_cat;
+    io/table.py)."""
+    from pathlib import Path
+
+    from ...io.table import Table
+
+    outdir = Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    for tracer in tracers:
+        td = dict(HOD_dict[tracer])
+        Ncent = td.pop('Ncent')
+        name = f'{tracer}s.dat' if chunk == -1 else f'{tracer}s_chunk{chunk:d}.dat'
+        Table(td, meta={'Ncent': Ncent, 'Gal_type': tracer, **tracers[tracer]}).write(
+            outdir / name)
+
+
+def gen_gal_cat(
+    halo_data, particle_data, tracers, params, Nthread=16, enable_ranks=False, rsd=True,
+    nfw=False, NFW_draw=None, write_to_disk=False, savedir='./', verbose=False, fn_ext=None,
+    device='cuda',
+):
+    """gen_gals plus, with write_to_disk, one ECSV table a tracer
+    (population.py:gen_gal_cat): ``{savedir}/galaxies{_rsd}{fn_ext}/
+    {tracer}s.dat`` (:func:`write_catalogs`)."""
+    import os
+
+    if not isinstance(rsd, bool):
+        raise ValueError('Error: rsd has to be a boolean')
+    HOD_dict = gen_gals(halo_data, particle_data, tracers, params, Nthread, enable_ranks, rsd,
+                        verbose, nfw, NFW_draw, device)
+    if write_to_disk and tracers:
+        write_catalogs(HOD_dict, tracers, os.path.join(
+            savedir, 'galaxies' + ('_rsd' if rsd else '') + (fn_ext or '')))
+    return HOD_dict
 
 
 def wrap(x, L):

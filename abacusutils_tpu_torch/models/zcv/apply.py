@@ -1,15 +1,15 @@
-r"""apply_zcv: the ZCV-reduced P_ell(k) of an HOD mock (the k-level part of
-abacusutils_tpu/models/zcv/apply.py), on the in-memory products of
-:func:`precompute.zcv_products` instead of ``zcv_dir``'s files.
-``apply_zcv_xi`` (field level) is not ported."""
+r"""apply_zcv and apply_zcv_xi: the ZCV-reduced P_ell(k) and xi_ell(r) of an
+HOD mock (the counterpart of abacusutils_tpu/models/zcv/apply.py), on the
+in-memory products of :func:`precompute.zcv_products` instead of
+``zcv_dir``'s files."""
 
 import numpy as np
 
-from ...ops.power import get_k_mu_edges
-from .tools_cv import run_zcv
+from ...ops.power import get_k_mu_edges, pk_to_xi
+from .tools_cv import field_cube, run_zcv, run_zcv_field
 from .tracer_power import get_tracer_power
 
-__all__ = ['apply_zcv']
+__all__ = ['apply_zcv', 'apply_zcv_xi']
 
 
 def _tracer_cols(tr):
@@ -88,3 +88,66 @@ def _apply_zcv_one(ball, pos_rsd, pos_real, config, tag, zcv, load_presaved):
     return run_zcv(pk_rsd_tr_dict, zcv.pk_ij[want_rsd], pk_tr_dict, pk_ij_dict, config,
                    window=zcv.window, keff=zcv.keff, pk_ij_zenbu=zcv.templates[want_rsd],
                    lbox=zcv.meta['BoxSize'])
+
+
+def apply_zcv_xi(ball, mock_dict, config, zcv, load_presaved=False):
+    """Variance-reduced xi_ell(r) via field-level ZCV (apply.py:apply_zcv_xi).
+
+    mock_dict holds one tracer, in redshift space; its real-space
+    counterpart comes from ``ball.run_hod(ball.tracers, want_rsd=False)``.
+    The tracer's Fourier field in both spaces (get_tracer_power,
+    save_3D_power) goes into ``zcv.tracer_ffts``; load_presaved takes them
+    from there instead (raises where they are missing). run_zcv_field
+    reduces the 3-D power on the fields' device, and pk_to_xi turns the
+    reduced cube and the tracer's raw RSD cube into xi_ell(r) at r_bins =
+    0, 1, ..., 200. Returns run_zcv_field's dict with Xi_tr_tr_ell_zcv,
+    Xi_tr_tr_ell, Np_tr_tr_ell and r_binc."""
+    assert config['HOD_params']['want_rsd'], 'want_rsd=False not implemented'
+    assert len(mock_dict.keys()) == 1
+    assert len(config['power_params']['poles']) <= 3
+    assert config['power_params']['nbins_mu'] == 1
+    if 'nmesh' not in config['power_params']:
+        config['power_params']['nmesh'] = config['zcv_params']['nmesh']
+    assert config['zcv_params']['nmesh'] == config['power_params']['nmesh']
+    if not np.isclose(zcv.kcut, config['zcv_params']['kcut']):
+        raise ValueError(f'the ZCV products were made with kcut {zcv.kcut}, not '
+                         f'{config["zcv_params"]["kcut"]}')
+    nmesh = config['zcv_params']['nmesh']
+    k_bins, _ = get_k_mu_edges(ball.lbox, np.pi * nmesh / ball.lbox, nmesh // 2, 1, False)
+    if len(zcv.k_binc) != nmesh // 2 or not np.allclose(zcv.k_binc, 0.5 * (k_bins[1:] + k_bins[:-1])):
+        raise ValueError('apply_zcv_xi needs ZCV products of nmesh / 2 linear k bins to the '
+                         'Nyquist k (the binning pk_to_xi needs)')
+
+    if load_presaved:
+        missing = [rsd for rsd in (True, False) if rsd not in zcv.tracer_ffts]
+        if missing:
+            raise KeyError(f'load_presaved: zcv holds no tracer field with want_rsd {missing}')
+    else:
+        (tr,) = list(mock_dict)
+        device = zcv.field_ffts[True]['1cb'].device
+        zcv.tracer_ffts[True] = get_tracer_power(
+            _tracer_cols(mock_dict[tr]), True, config, meta=zcv.meta, device=device,
+            save_3D_power=True)
+        # real-space repopulation of the same tracer for the bias fit
+        mock_real = ball.run_hod(ball.tracers, want_rsd=False, reseed=None, write_to_disk=False)
+        zcv.tracer_ffts[False] = get_tracer_power(
+            _tracer_cols(mock_real[tr]), False, config, meta=zcv.meta, device=device,
+            save_3D_power=True)
+        del mock_real
+
+    cubes = {}
+    zcv_dict = run_zcv_field(zcv.tracer_ffts, zcv.field_ffts, config,
+                             pk_ij_zenbu=zcv.templates[True], meta=zcv.meta, out=cubes)
+
+    r_bins = np.linspace(0.0, 200.0, 201)
+    poles = config['power_params']['poles']
+    r_binc, binned_poles_zcv, Npoles = pk_to_xi(cubes.pop('P_k3D_tr_tr_zcv'), ball.lbox, r_bins,
+                                                poles=poles)
+    tr_rsd = zcv.tracer_ffts[True]
+    r_binc, binned_poles, Npoles = pk_to_xi(field_cube(tr_rsd, tr_rsd), ball.lbox, r_bins,
+                                            poles=poles)
+    zcv_dict['Xi_tr_tr_ell_zcv'] = binned_poles_zcv
+    zcv_dict['Xi_tr_tr_ell'] = binned_poles
+    zcv_dict['Np_tr_tr_ell'] = Npoles
+    zcv_dict['r_binc'] = r_binc
+    return zcv_dict

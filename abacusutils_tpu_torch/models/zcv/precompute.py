@@ -1,17 +1,21 @@
-r"""The ZCV precompute as arrays in and arrays out: what the JAX package's
-ic_fields, advect_fields and zenbu_window ``main``s write into ``zcv_dir``,
-held in memory for :func:`apply.apply_zcv`."""
+r"""The ZCV and LCV precomputes as arrays in and arrays out: what the JAX
+package's ic_fields, advect_fields, linear_fields and zenbu_window
+``main``s write into ``zcv_dir`` / ``lcv_dir``, held in memory for
+:func:`apply.apply_zcv`, :func:`apply.apply_zcv_xi` and the LCV flows of
+tools_cv."""
 
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from ...ops.power import get_k_mu_edges
 from .advect_fields import advected_field_ffts, power_ij
 from .cosmo import growth_from_meta
 from .ic_fields import gaussian_filter, get_fields
-from .zenbu_window import window_and_templates
+from .linear_fields import linear_fields
+from .zenbu_window import periodic_window_function, window_and_templates
 
-__all__ = ['ZCVProducts', 'zcv_products']
+__all__ = ['ZCVProducts', 'zcv_products', 'LCVProducts', 'lcv_products']
 
 
 @dataclass
@@ -24,7 +28,8 @@ class ZCVProducts:
     templates: {want_rsd: pk_ij_zenbu}; meta: the cosmo.get_meta dict at
     z_mock; tracer_spectra: {(tracer tag, want_rsd): pk_tr_dict}, filled by
     apply_zcv ('' is the tag of a single tracer) and read back with
-    load_presaved=True."""
+    load_presaved=True; tracer_ffts: {want_rsd: the tracer's Fourier field},
+    filled by apply_zcv_xi and read back with load_presaved=True."""
 
     field_ffts: dict
     pk_ij: dict
@@ -35,6 +40,7 @@ class ZCVProducts:
     templates: dict
     meta: dict
     tracer_spectra: dict = field(default_factory=dict)
+    tracer_ffts: dict = field(default_factory=dict)
 
 
 def zcv_products(delta_lin, disp, Lbox, nmesh, config, meta, filter_ic=True, engine='auto',
@@ -76,3 +82,50 @@ def zcv_products(delta_lin, disp, Lbox, nmesh, config, meta, filter_ic=True, eng
         templates[True] = wt['pk_ij_zenbu_rsd']
     return ZCVProducts(field_ffts, pk_ij, wt['window'], wt['keff'], wt['k_binc'], kcut,
                        templates, meta)
+
+
+@dataclass
+class LCVProducts:
+    """The LCV products of one simulation, redshift and lcv setting.
+
+    field_ffts: {'delta', 'deltamu2'}, the linear Fourier fields
+    (linear_fields.linear_field_ffts); pk_lin: their pk_lin_dict
+    (linear_fields.power_lin); window, keff, k_binc, kcut: the window
+    matrix at the power_params k bins and its binning; meta: the
+    cosmo.get_meta dict at z_mock."""
+
+    field_ffts: dict
+    pk_lin: dict
+    window: np.ndarray
+    keff: np.ndarray
+    k_binc: np.ndarray
+    kcut: float
+    meta: dict
+
+
+def lcv_products(delta_lin, Lbox, nmesh, config, meta, filter_ic=True, engine='auto',
+                 device=None):
+    """Run the LCV precompute on arrays: the linear fields and their spectra
+    (linear_fields.linear_fields) and the window of the power_params k bins
+    at their centres (zenbu_window.periodic_window_function, `engine`: K8
+    over its row plan on the card with 'device', the default from nmesh
+    256).
+
+    delta_lin: the (nmesh,)*3 linear IC density; filter_ic: apply the
+    Gaussian filter of lcv_params' kcut first, as ic_fields.main does
+    (False: it is already the filtered density of ``ic_filt_nmesh*.asdf``);
+    meta: the cosmo.get_meta dict at z_mock. numpy input goes to `device`
+    (the card when None). Returns :class:`LCVProducts`."""
+    lp, pp = config['lcv_params'], config['power_params']
+    kcut = lp['kcut']
+    if not np.isclose(Lbox, meta['BoxSize']):
+        raise ValueError(f'Lbox {Lbox} is not the simulation\'s BoxSize {meta["BoxSize"]}')
+    if filter_ic:
+        delta_lin = gaussian_filter(delta_lin, nmesh, Lbox, kcut, device)
+    pk_lin, field_ffts = linear_fields(delta_lin, Lbox, nmesh, pp, device)
+    del delta_lin
+    k_bins, _ = get_k_mu_edges(Lbox, pp['k_hMpc_max'], pp['nbins_k'], pp['nbins_mu'], pp['logk'])
+    k_binc = 0.5 * (k_bins[1:] + k_bins[:-1])
+    window, keff = periodic_window_function(nmesh, Lbox, k_bins, k_binc, k2weight=True,
+                                            engine=engine, device=field_ffts['delta'].device)
+    return LCVProducts(field_ffts, pk_lin, window, keff, k_binc, kcut, meta)

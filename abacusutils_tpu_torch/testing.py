@@ -1,10 +1,14 @@
 """Inputs that exercise the deposit's edge cases, for tests and chip_smoke.py,
-and a CPU twin of K7's walk for the tests."""
+a CPU twin of K7's walk for the tests, the NFW radial sample that
+``AbacusHOD.run_hod(want_nfw=True)`` draws from, and the reciso smoothing
+at the k bins' centres that makes the field-level LCV flow the k-level
+one's."""
 
 import numpy as np
 import torch
 
-__all__ = ['edge_points', 'edge_points_centred', 'menv_ranges', 'menv_walk']
+__all__ = ['edge_points', 'edge_points_centred', 'menv_ranges', 'menv_walk', 'nfw_draw',
+           'smoothing_at_bin_centres']
 
 
 def edge_points(n, nmesh, yb, box, rng):
@@ -183,3 +187,40 @@ def menv_walk(st, lbox, rout2, pairs=False):
         return torch.cat(found) if found else torch.zeros((0, 2), dtype=torch.int64)
     out[ci[active]] = acc[active]
     return out
+
+
+def nfw_draw(n, c_max, seed):
+    """`n` draws of x from P(x) ~ x / (1 + x)^2 on (0, c_max] (the NFW_draw
+    of run_hod(want_nfw=True)), by the inverse of its cumulative m(x) =
+    ln(1 + x) - x / (1 + x) on a table of 2e5 intervals; numpy, seeded."""
+    x = np.linspace(0.0, c_max, 200_001)
+    m = np.log1p(x) - x / (1 + x)
+    u = np.random.default_rng(seed).random(n) * m[-1]
+    return np.interp(u, m, x)
+
+
+def smoothing_at_bin_centres(k_bin_edges):
+    """A stand-in for ``ops.power.get_smoothing`` that gives every rfft mode
+    exp(-kc^2 R^2 / 2), kc the centre of the k bin that ``bin_kmu`` puts the
+    mode in (squared edges in units of the fundamental as float32,
+    searchsorted left, clipped into the first and last bin), instead of the
+    mode's own |k|. The k-level LCV flow smooths at the bin centres, so the
+    field-level flow under this stand-in is the k-level flow's arithmetic:
+    patched into ``models.zcv.tools_cv``, it shows that the two reciso flows
+    differ only by where the smoothing is taken."""
+    from .ops.power import _mode_geometry
+
+    edges = np.asarray(k_bin_edges, np.float64)
+    centres = 0.5 * (edges[1:] + edges[:-1])
+
+    def get_smoothing(n1d, L, R, dtype=np.float32, device=None):
+        n1d = int(n1d)
+        kmag2, _, _ = _mode_geometry(n1d, device)
+        dk = 2.0 * np.pi / L
+        edges2 = torch.from_numpy(((edges / dk) ** 2).astype(np.float32)).to(kmag2.device)
+        b = (torch.searchsorted(edges2, kmag2, side='left') - 1).clamp_(0, len(centres) - 1)
+        kc = torch.from_numpy(centres).to(kmag2.device)[b]
+        return torch.exp(-(kc * kc) * (R * R) / 2.0).to(torch.float32).reshape(
+            n1d, n1d, n1d // 2 + 1)
+
+    return get_smoothing

@@ -167,12 +167,15 @@ non-zero before printing either.
 """
 
 import contextlib
+import copy
+import ctypes.util
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -250,17 +253,26 @@ from abacusutils_tpu_torch.ops.tpcf import (
     stage_cells,
 )
 from abacusutils_tpu_torch.models.hod import menv_device, prepare_sim, ranks_device
+from abacusutils_tpu_torch.models.hod import nfw
+from abacusutils_tpu_torch.models.hod import population as tpop
 from abacusutils_tpu_torch.models.zcv import advect_fields as zcv_adv
 from abacusutils_tpu_torch.models.zcv import apply as zcv_apply
 from abacusutils_tpu_torch.models.zcv import cosmo as zcv_cosmo
 from abacusutils_tpu_torch.models.zcv import ic_fields as zcv_ic
 from abacusutils_tpu_torch.models.zcv import precompute as zcv_pre
+from abacusutils_tpu_torch.models.zcv import tools_cv as zcv_tools
+from abacusutils_tpu_torch.models.zcv import tracer_power as zcv_tp
 from abacusutils_tpu_torch.models.zcv import zenbu_window as tzw
 from abacusutils_tpu_torch.models.zcv.tools_cv import ZCV_FIELDS
 from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
 from abacusutils_tpu_torch.ops import grid as tgrid
 from abacusutils_tpu_torch.ops import shear as tshear
-from abacusutils_tpu_torch.testing import edge_points, menv_ranges
+from abacusutils_tpu_torch.testing import (
+    edge_points,
+    menv_ranges,
+    nfw_draw,
+    smoothing_at_bin_centres,
+)
 
 N_HALO = 10_000_000
 N_PART = 50_000_000
@@ -386,6 +398,32 @@ def sync_seconds(fn):
     return out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def timed_stages(specs, steps, calls=None):
+    """While the block runs, each function mod.name of `specs` adds its host
+    to host seconds (the device synchronised before and after) to
+    steps[name], and its calls to calls[name]. Functions with a launch
+    counter of their own are not to be wrapped (see the verify notes)."""
+    saved = []
+    for mod, name in specs:
+        fn = getattr(mod, name)
+
+        def run(*a, _fn=fn, _name=name, **k):
+            out, sec = sync_seconds(lambda: _fn(*a, **k))
+            steps[_name] = steps.get(_name, 0.0) + sec
+            if calls is not None:
+                calls[_name] = calls.get(_name, 0) + 1
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, run)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def event_ms(fn, reps=5):
     """Mean device time of `fn` over `reps` calls after one warm-up call."""
     fn()
@@ -457,6 +495,9 @@ def phase_build():
     ).stdout.strip().splitlines()[0]
     print('nvidia-smi:', smi)
     print('device:', torch.cuda.get_device_name(0), 'count', torch.cuda.device_count())
+    # the one check the next slice's format decision waits on (ROADMAP.md
+    # queue 1, item 3): a zstd library the ASDF reader could load
+    print(f"phase 1 ctypes.util.find_library('zstd'): {ctypes.util.find_library('zstd')!r}")
     path, secs, log = _build.build()
     for line in log.splitlines():
         if line.startswith('nvcc '):
@@ -1756,31 +1797,15 @@ def phase_shear(dev, paths):
     pos[:half] = cen[pick] + torch.randn((half, 3), generator=gen, device=dev) * 2.0
     del pick, cen
     steps = {}
-
-    def timed(mod, name):
-        fn = getattr(mod, name)
-
-        def run(*a, **k):
-            out, steps[name] = sync_seconds(lambda: fn(*a, **k))
-            return out
-
-        return mod, name, fn, run
-
-    wrapped = [timed(tgrid, 'tsc_parallel'), timed(tshear, 'smooth_density'),
-               timed(tshear, 'get_shear')]
     tag = f'shearmark_from_positions ({N_SHEAR} particles, {SHEAR_N}^3, R {SHEAR_R})'
-    for mod, name, _, run in wrapped:
-        setattr(mod, name, run)
-    try:
+    with timed_stages([(tgrid, 'tsc_parallel'), (tshear, 'smooth_density'),
+                       (tshear, 'get_shear')], steps):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         shearmark, t_total = sync_seconds(
             lambda: prepare_sim.shearmark_from_positions(pos, SHEAR_N, SHEAR_R, LBOX))
         paths[tag] = read_launches()
         peak = torch.cuda.max_memory_allocated()
-    finally:
-        for mod, name, fn, _ in wrapped:
-            setattr(mod, name, fn)
     require(paths[tag]['tsc_deposit_cells[tsc]'] == 1, f'{tag}: K1 launches {paths[tag]}')
     require(shearmark.shape == (SHEAR_N,) * 3 and shearmark.dtype == np.float32
             and bool(np.isfinite(shearmark).all()) and shearmark.max() > 0, 'shear field')
@@ -2212,6 +2237,30 @@ class LatticeTracers:
         return {'LRG': dict(self.real)}
 
 
+def lattice_tracers(dens, disp, n, kcut, meta, gen, n_tracer):
+    """Phase 13's tracer: Poisson draws of ~n_tracer points on the lattice
+    with weight 1 + 2 delta(z) (delta filtered at kcut), each advected by
+    the filtered displacement in RSD and in real space from the same draws.
+    Returns ({want_rsd: {'x', 'y', 'z'}: box-centred numpy columns}, the
+    count)."""
+    dev = dens.device
+    D, f_growth = zcv_cosmo.growth_from_meta(meta, ZCV_Z)
+    dfilt = zcv_ic.gaussian_filter(dens, n, LBOX, kcut)
+    lam = (1.0 + 2.0 * D * dfilt.reshape(-1)).clamp_min_(0.0)
+    lam *= n_tracer / float(lam.sum())
+    counts = torch.poisson(lam, generator=gen).long()
+    del lam, dfilt
+    pick = torch.repeat_interleave(torch.arange(n**3, device=dev), counts)
+    del counts
+    dfl = [zcv_ic.gaussian_filter(d, n, LBOX, kcut) for d in disp]
+    mocks = {}
+    for rsd in (True, False):
+        pos = zcv_adv.advected_positions(dfl, LBOX, n, D, f_growth if rsd else 0.0)
+        mocks[rsd] = {c: (p[pick] - LBOX / 2).cpu().numpy() for c, p in zip('xyz', pos)}
+        del pos
+    return mocks, int(pick.numel())
+
+
 def phase_zcv(dev, paths, timing):
     """Phase 13: the ZCV cell at full width. A Gaussian IC at 512^3 in the
     (2000 Mpc/h)^3 box; zcv_products (the IC filter, get_fields, the
@@ -2231,47 +2280,15 @@ def phase_zcv(dev, paths, timing):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 13)
     (dens, disp), t_ic = sync_seconds(lambda: gaussian_ic(n, meta, gen, dev))
+    mocks, n_tr = lattice_tracers(dens, disp, n, kcut, meta, gen, ZCV_NTRACER)
 
-    # the tracer: Poisson draws on the lattice with weight 1 + 2 delta(z)
-    D, f_growth = zcv_cosmo.growth_from_meta(meta, ZCV_Z)
-    dfilt = zcv_ic.gaussian_filter(dens, n, LBOX, kcut)
-    lam = (1.0 + 2.0 * D * dfilt.reshape(-1)).clamp_min_(0.0)
-    lam *= ZCV_NTRACER / float(lam.sum())
-    counts = torch.poisson(lam, generator=gen).long()
-    del lam, dfilt
-    pick = torch.repeat_interleave(torch.arange(n**3, device=dev), counts)
-    del counts
-    dfl = [zcv_ic.gaussian_filter(d, n, LBOX, kcut) for d in disp]
-    mocks = {}
-    for rsd in (True, False):
-        pos = zcv_adv.advected_positions(dfl, LBOX, n, D, f_growth if rsd else 0.0)
-        mocks[rsd] = {c: (p[pick] - LBOX / 2).cpu().numpy() for c, p in zip('xyz', pos)}
-        del pos
-    n_tr = int(pick.numel())
-    del pick, dfl
-
-    steps, calls = {}, {}
-
-    def timed(mod, name):
-        fn = getattr(mod, name)
-
-        def run(*a, **k):
-            out, s = sync_seconds(lambda: fn(*a, **k))
-            steps[name] = steps.get(name, 0.0) + s
-            calls[name] = calls.get(name, 0) + 1
-            return out
-
-        return mod, name, fn, run
-
-    wrapped = [timed(zcv_pre, 'gaussian_filter'), timed(zcv_pre, 'get_fields'),
-               timed(zcv_pre, 'advected_field_ffts'), timed(zcv_pre, 'power_ij'),
-               timed(tzw, 'periodic_window_function'), timed(tzw, 'get_window_plan'),
-               timed(tzw, '_templates'),
-               timed(zcv_apply, 'get_tracer_power'), timed(zcv_apply, 'run_zcv')]
+    steps = {}
     tag = f'zcv_products + apply_zcv ({n}^3, {n_tr} tracers)'
-    for mod, name, _, run in wrapped:
-        setattr(mod, name, run)
-    try:
+    with timed_stages([(zcv_pre, 'gaussian_filter'), (zcv_pre, 'get_fields'),
+                       (zcv_pre, 'advected_field_ffts'), (zcv_pre, 'power_ij'),
+                       (tzw, 'periodic_window_function'), (tzw, 'get_window_plan'),
+                       (tzw, '_templates'), (zcv_apply, 'get_tracer_power'),
+                       (zcv_apply, 'run_zcv')], steps):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         zcv, t_pre = sync_seconds(lambda: zcv_pre.zcv_products(
@@ -2280,9 +2297,6 @@ def phase_zcv(dev, paths, timing):
             LatticeTracers(mocks[False]), {'LRG': mocks[True]}, config, zcv))
         paths[tag] = read_launches()
         peak = torch.cuda.max_memory_allocated()
-    finally:
-        for mod, name, fn, _ in wrapped:
-            setattr(mod, name, fn)
     launches = paths[tag]
     require(launches['tsc_deposit_cells_multi'] == 4, f'{tag}: multi-weight K1 {launches}')
     require(launches['window_mode_sums'] == 1, f'{tag}: K8 launches {launches}')
@@ -2338,9 +2352,335 @@ def phase_zcv(dev, paths, timing):
           f'kernel-only {"not measured" if k3_kernel is None else f"{k3_kernel:.4f} ms"}')
     timing['bin_pair_modes[poles nmu=1]'].setdefault('shapes', []).append(
         dict(shape=f'15 P_ij at {n}^3, poles 0 2 4', ms=k3_ms, kernel_ms=k3_kernel))
-    del ffts, zcv, out, W
+    del ffts, W
     print(f'phase 13 in {time.perf_counter() - t0:.1f} s')
-    return dict(stages=stages, peak_bytes=peak, tracers=n_tr, rho=rho[:8].tolist())
+    # what phase 15 runs on: the products, the tracer in both spaces, the
+    # k-level result and the IC
+    return dict(zcv=zcv, mocks=mocks, out=out, dens=dens, config=config, meta=meta, n_tr=n_tr)
+
+
+# phase 15: the field-level ZCV (apply_zcv_xi) and LCV on phase 13's cell, NFW
+# satellites and the ECSV catalogs on phase 5's halos
+LCV_R = 10.0  # reciso's smoothing scale, Mpc/h (tests/test_zcv.py:132)
+N_NFW_DRAW = 1_000_000
+# halos of the write_to_disk round trip: np.savetxt writes ~16 us a galaxy
+# (8 columns), so the full catalog's ~2e7 galaxies would take minutes
+N_NFW_WRITE = 100_000
+
+
+XI_SHOW = [10, 20, 50, 100, 150]  # the r bins of xi_0 printed (bin i is [i, i + 1) Mpc/h)
+
+
+def _rounded(a, digits=4):
+    return [round(float(v), digits) for v in a]
+
+
+def _within(got, ref, rtol, atol_frac):
+    """|got - ref| <= rtol |ref| + atol_frac max|ref| everywhere, and the
+    largest |got - ref| / |ref| (0 where ref is 0)."""
+    g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    d = np.abs(g - r)
+    ok = bool((d <= rtol * np.abs(r) + atol_frac * np.abs(r).max()).all())
+    return ok, float(np.max(np.where(r != 0, d / np.abs(np.where(r != 0, r, 1)), 0)))
+
+
+def _worst(got, ref, rtol, atol_frac, k_binc, poles):
+    """The (pole, k) stack's element farthest outside rtol |ref| + atol_frac
+    max|ref|, relative to that limit: its pole, k, reference value,
+    difference and limit, and how many elements lie outside."""
+    g = np.asarray(got, np.float64).reshape(len(poles), -1)
+    r = np.asarray(ref, np.float64).reshape(len(poles), -1)
+    d = np.abs(g - r)
+    lim = rtol * np.abs(r) + atol_frac * np.abs(r).max()
+    i, j = np.unravel_index(np.argmax(d / lim), d.shape)
+    return (f'worst l={poles[i]} k={k_binc[j]:.5f} ref {r[i, j]:.6e} diff {d[i, j]:.3e} '
+            f'limit {lim[i, j]:.3e}, {int((d > lim).sum())} of {d.size} outside')
+
+
+def phase_cv_field(dev, cell, paths):
+    """Phase 15 (a) and (b): AbacusHOD.apply_zcv_xi on phase 13's products and
+    tracer (the same LatticeTracers ball and config, five fields), every
+    stage timed host to host, rho_tr_ZD >= 0.9 on the monopole's bins 1-5,
+    every xi finite, its measured poles equal to phase 13's k-level flow's;
+    then the field flow (run_zcv_field on this call's tracer fields) against
+    the k-level flow (run_zcv on phase 13's tracer spectra) on the same
+    inputs with the fields 1cb and delta, at
+    tests/test_zcv.py:test_zcv_field_vs_k_level's tolerances (the measured
+    poles rtol 2e-4, the model and cross poles 2e-3, each + 1e-4 of the
+    largest value; rho 5e-3 + 1e-3; mode counts equal; the bias rtol 1e-3
+    but the shot noise, whose ratio between the flows is Lbox^3 within 1e-2;
+    the reduced poles rtol 0.05 + 0.02 of the largest value). With all five
+    fields the two models differ by design, in the JAX package too: the RSD
+    combine_spectra of run_zcv takes the first ten templates, without
+    nabla^2 delta, and the field model adds every pair's cube. Then
+    lcv_products, get_recon_power of the same tracer, run_lcv and
+    run_lcv_field with recsym and with reciso (R 10 Mpc/h), the two flows
+    held to each other at test_lcv_field_vs_k_level's tolerances (bias rtol
+    1e-3 and the above; the reduced poles, rtol 0.05 + 0.02 of the largest
+    value, are printed, not held: on phase 13's cell at 64^3 the JAX
+    package's two flows leave that band at the same 11 of 96 low-k elements
+    as the port's). reciso's field flow smooths each mode by exp(-k^2 R^2 /
+    2) at its own |k|, the k-level flow at the bin's centre, in the JAX
+    package too: its model and cross poles are printed with their worst
+    element, not held, and a second run_lcv_field with the smoothing taken
+    at the bin centres (testing.smoothing_at_bin_centres, outside the launch
+    count) is held to every tolerance above. Each part prints before it
+    checks. The reduced cube keeps the model's k = 0 mode (the weighted
+    fields' k = 0 mode is -1), as the JAX package's does, so xi_ell of
+    apply_zcv_xi carries a constant offset."""
+    t0 = time.perf_counter()
+    zcv, mocks, config, meta = cell['zcv'], cell['mocks'], cell['config'], cell['meta']
+    n = config['zcv_params']['nmesh']
+    npairs = len(config['zcv_params']['fields']) * (len(config['zcv_params']['fields']) + 1) // 2
+    steps = {}
+    tag = f'AbacusHOD.apply_zcv_xi ({n}^3, {cell["n_tr"]} tracers)'
+    with timed_stages([(zcv_apply, 'get_tracer_power'), (zcv_apply, 'run_zcv_field'),
+                       (zcv_apply, 'pk_to_xi'), (zcv_tools, 'field_cube'),
+                       (zcv_tools, '_project_monopole'), (zcv_tools, '_fit_zcv_bias'),
+                       (zcv_tools, 'combine_field_spectra_k3D'),
+                       (zcv_tools, 'combine_field_cross_spectra_k3D'),
+                       (zcv_tools, '_field_reduce')], steps):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        xi, t_xi = sync_seconds(lambda: AbacusHOD.apply_zcv_xi(
+            LatticeTracers(mocks[False]), {'LRG': mocks[True]}, config, zcv))
+        paths[tag] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    launches = paths[tag]
+    stages = {
+        'tracer FFTs (K1, RSD and real)': steps['get_tracer_power'],
+        f'cubes Re(F_i F_j*) built ({1 + npairs} real-space, the RSD ones inside the model '
+        'and cross)': steps['field_cube'],
+        f'monopole projections ({1 + npairs}, K3)': steps['_project_monopole'],
+        'bias fit': steps['_fit_zcv_bias'],
+        'RSD model cube (f64)': steps['combine_field_spectra_k3D'],
+        'RSD cross cube (f64)': steps['combine_field_cross_spectra_k3D'],
+        '_field_reduce': steps['_field_reduce'],
+        'run_zcv_field': steps['run_zcv_field'],
+        'pk_to_xi x2': steps['pk_to_xi'],
+        'apply_zcv_xi': t_xi,
+    }
+    rho = np.asarray(xi['rho_tr_ZD'])
+    out = cell['out']
+    ok5, d5 = _within(xi['Pk_tr_tr_ell'], out['Pk_tr_tr_ell'], 2e-4, 1e-4)
+    _, dzz5 = _within(xi['Pk_ZD_ZD_ell'], out['Pk_ZD_ZD_ell'], 2e-3, 1e-4)
+    print(f'phase 15 {tag}: ' + '; '.join(f'{k} {v:.3f} s' for k, v in stages.items())
+          + f'; peak memory {peak / 2**30:.3f} GiB; launches {launches}')
+    print(f'phase 15 apply_zcv_xi, five fields: bias {_rounded(xi["bias"], 5)} (phase 13, k '
+          f'level: {_rounded(out["bias"], 5)}); rho_tr_ZD (monopole, bins 0-7) '
+          f'{_rounded(rho[0][:8])}; measured poles against phase 13 max rel {d5:.3e}, the ZD '
+          f'model {dzz5:.3e} (run_zcv\'s RSD model has no nabla^2 delta terms); xi_0 at r = '
+          f'{XI_SHOW} Mpc/h: zcv {_rounded(np.asarray(xi["Xi_tr_tr_ell_zcv"])[0][XI_SHOW], 6)}, '
+          f'raw {_rounded(np.asarray(xi["Xi_tr_tr_ell"])[0][XI_SHOW], 6)}')
+    # K3: the real-space tracer and pair monopoles, _field_reduce's cross,
+    # measured, model and reduced poles, and two pk_to_xi
+    k3 = 1 + npairs + 4 + 2
+    require(launches['tsc_deposit_cells[tsc]'] == 4, f'{tag}: tracer K1 launches {launches}')
+    require(launches['bin_pair_modes'] == k3, f'{tag}: K3 launches {launches}, not {k3}')
+    require(launches['tsc_deposit_cells_multi'] == 0 and launches['window_mode_sums'] == 0,
+            f'{tag}: launches {launches}')
+    for k in ('Xi_tr_tr_ell_zcv', 'Xi_tr_tr_ell', 'Pk_tr_tr_ell_zcv', 'rho_tr_ZD'):
+        require(bool(np.isfinite(np.asarray(xi[k], np.float64)).all()), f'{tag}: {k} not finite')
+    require(bool((rho[0][1:6] >= 0.9).all()), f'{tag}: rho_tr_ZD {rho[0][:8]} below 0.9 at low k')
+    require(ok5, f'{tag}: measured poles differ from phase 13\'s beyond rtol 2e-4 ({d5:.3e})')
+    del xi
+
+    # the two flows on the same inputs, fields 1cb and delta
+    cfg2 = copy.deepcopy(config)
+    cfg2['zcv_params']['fields'] = ['1cb', 'delta']
+    zk = zcv_tools.run_zcv(zcv.tracer_spectra[('', True)], zcv.pk_ij[True],
+                           zcv.tracer_spectra[('', False)], zcv.pk_ij[False], cfg2,
+                           window=zcv.window, keff=zcv.keff, pk_ij_zenbu=zcv.templates[True],
+                           lbox=LBOX)
+    zf = zcv_tools.run_zcv_field(zcv.tracer_ffts, zcv.field_ffts, cfg2,
+                                 pk_ij_zenbu=zcv.templates[True], meta=meta)
+    diffs, oks = {}, {}
+    for key, rtol in (('Pk_tr_tr_ell', 2e-4), ('Pk_ZD_ZD_ell', 2e-3), ('Pk_tr_ZD_ell', 2e-3)):
+        oks[key], diffs[key] = _within(zf[key], zk[key], rtol, 1e-4)
+    rf, rk = np.asarray(zf['rho_tr_ZD']), np.asarray(zk['rho_tr_ZD'])
+    bf, bk = np.asarray(zf['bias'], np.float64), np.asarray(zk['bias'], np.float64)
+    ok_b = bool(np.allclose(bf[:-1], bk[:-1], rtol=1e-3, atol=1e-6))
+    sn_ratio = float(bk[-1] / bf[-1])  # the k-level shot noise is in units of the volume
+    ok_red, _ = _within(zf['Pk_tr_tr_ell_zcv'], zk['Pk_tr_tr_ell_zcv'], 0.05, 0.02)
+    worst = {key: _worst(zf[key], zk[key], rtol, atol, zk['k_binc'], zk['poles'])
+             for key, rtol, atol in (('Pk_ZD_ZD_ell', 2e-3, 1e-4), ('Pk_tr_ZD_ell', 2e-3, 1e-4),
+                                     ('Pk_tr_tr_ell_zcv', 0.05, 0.02))}
+    print(f'phase 15 run_zcv_field vs run_zcv (1cb, delta; same inputs): max rel {diffs}, rho '
+          f'max |d| {np.abs(rf - rk).max():.3e}; bias field {bf.tolist()} k-level {bk.tolist()} '
+          f'(shot-noise ratio / Lbox^3 {sn_ratio / LBOX**3:.6f}); {worst}')
+    for key, rtol in (('Pk_tr_tr_ell', 2e-4), ('Pk_ZD_ZD_ell', 2e-3), ('Pk_tr_ZD_ell', 2e-3)):
+        require(oks[key], f'phase 15: {key} of the field flow differs from the k-level flow '
+                          f'beyond rtol {rtol} (max rel {diffs[key]:.3e})')
+    require(ok_b, f'phase 15: bias of the field flow {bf} against the k-level flow {bk}')
+    require(abs(sn_ratio / LBOX**3 - 1.0) <= 1e-2,
+            f'phase 15: shot-noise ratio {sn_ratio:.6e} is not Lbox^3 within 1e-2')
+    require(ok_red, f'phase 15: Pk_tr_tr_ell_zcv of the two flows: {worst["Pk_tr_tr_ell_zcv"]}')
+    require(bool((np.abs(rf - rk) <= 5e-3 * np.abs(rk) + 1e-3).all()),
+            f'phase 15: rho_tr_ZD of the two flows: {np.abs(rf - rk).max():.3e}')
+    require(np.array_equal(np.asarray(zf['Nk_tr_tr_ell']), np.asarray(zk['Nk_tr_tr_ell']).ravel()),
+            'phase 15: mode counts differ between the two flows')
+    del zf, zk
+
+    # (b) LCV on the same IC and tracer, the tracer shifted into [0, Lbox)
+    lcfg = copy.deepcopy(config)
+    lcfg['lcv_params'] = {'nmesh': n, 'kcut': config['zcv_params']['kcut']}
+    lcfg['HOD_params'].update(rec_algo='recsym', smoothing=LCV_R)
+    tag_l = f'lcv_products + get_recon_power + run_lcv_field ({n}^3, recsym and reciso)'
+    steps_l = {}
+    with timed_stages([(zcv_pre, 'linear_fields'), (zcv_pre, 'periodic_window_function'),
+                       (tzw, 'get_window_plan'), (zcv_tools, '_fit_lcv_bias'),
+                       (zcv_tools, '_field_reduce')], steps_l):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        lcv, t_prod = sync_seconds(lambda: zcv_pre.lcv_products(
+            cell['dens'], LBOX, n, lcfg, meta, filter_ic=True, engine='device', device=dev))
+        cols = tuple(torch.remainder(torch.from_numpy(mocks[True][c]).to(dev) + LBOX / 2, LBOX)
+                     for c in 'xyz')
+        tr_fft, t_paint = sync_seconds(lambda: zcv_tp.get_recon_power(
+            cols, None, True, lcfg, meta=meta, save_3D_power=True))
+        del cols
+        spectra, t_spec = sync_seconds(lambda: zcv_tp.get_recon_power(
+            None, None, True, lcfg, lcv.field_ffts, meta, tr_field_fft=tr_fft))
+        flows = {}
+        for rec in ('recsym', 'reciso'):
+            c = copy.deepcopy(lcfg)
+            c['HOD_params']['rec_algo'] = rec
+            lk, t_k = sync_seconds(lambda: zcv_tools.run_lcv(
+                spectra, lcv.pk_lin, c, window=lcv.window, keff=lcv.keff, meta=meta))
+            lf, t_f = sync_seconds(lambda: zcv_tools.run_lcv_field(tr_fft, lcv.field_ffts, c,
+                                                                   meta=meta))
+            flows[rec] = (lk, lf, t_k, t_f)
+        paths[tag_l] = read_launches()
+        peak_l = torch.cuda.max_memory_allocated()
+    launches = paths[tag_l]
+    print(f'phase 15 {tag_l}: lcv_products {t_prod:.3f} s (linear fields and their spectra '
+          f'{steps_l["linear_fields"]:.3f} s, window {steps_l["periodic_window_function"]:.3f} s, '
+          f'of it the row plan {steps_l["get_window_plan"]:.3f} s); tracer field (K1) '
+          f'{t_paint:.3f} s; tracer spectra (K3) {t_spec:.3f} s; bias fits '
+          f'{steps_l["_fit_lcv_bias"]:.3f} s, _field_reduce x2 {steps_l["_field_reduce"]:.3f} s; '
+          f'peak memory {peak_l / 2**30:.3f} GiB; launches {launches}')
+    # reciso's field flow again, each mode smoothed at its bin's centre
+    # (the k-level flow's arithmetic), outside the launch count
+    c = copy.deepcopy(lcfg)
+    c['HOD_params']['rec_algo'] = 'reciso'
+    k_bins_l, _ = get_k_mu_edges(LBOX, np.pi * n / LBOX, n // 2, 1, False)
+    exact_smoothing = zcv_tools.get_smoothing
+    zcv_tools.get_smoothing = smoothing_at_bin_centres(k_bins_l)
+    try:
+        lf_c = zcv_tools.run_lcv_field(tr_fft, lcv.field_ffts, c, meta=meta)
+    finally:
+        zcv_tools.get_smoothing = exact_smoothing
+    runs = [(rec, lk, lf, t_k, t_f) for rec, (lk, lf, t_k, t_f) in flows.items()]
+    runs.append(('reciso, smoothed at the bin centres', flows['reciso'][0], lf_c, None, None))
+    checks = []
+    for rec, lk, lf, t_k, t_f in runs:
+        held = rec != 'reciso'
+        diffs, worst = {}, {}
+        for key, rtol, atol in (('Pk_tr_tr_ell', 2e-4, 1e-4), ('Pk_lf_lf_ell', 2e-3, 1e-4),
+                                ('Pk_tr_lf_ell', 2e-3, 1e-4), ('Pk_tr_tr_ell_lcv', 0.05, 0.02)):
+            ok, diffs[key] = _within(lf[key], lk[key], rtol, atol)
+            worst[key] = _worst(lf[key], lk[key], rtol, atol, lk['k_binc'], lk['poles'])
+            # reciso's model and cross poles differ by design: the field
+            # flow smooths mode by mode, the k-level flow at the bin centres.
+            # The reduced poles leave the band at low k in the JAX package
+            # too (the field flow expands beta and the template mode by
+            # mode, the k-level flow windows the template): printed
+            if key == 'Pk_tr_tr_ell' or (held and key != 'Pk_tr_tr_ell_lcv'):
+                checks.append((ok, f'{tag_l} {rec}: {key} field vs k-level: {worst[key]}'))
+        rf, rk = np.asarray(lf['rho_tr_lf']), np.asarray(lk['rho_tr_lf'])
+        checks.append((bool((np.abs(rf - rk) <= 5e-3 * np.abs(rk) + 1e-3).all()),
+                       f'{tag_l} {rec}: rho_tr_lf field vs k-level {np.abs(rf - rk).max():.3e}'))
+        checks.append((abs(lf['bias'] - lk['bias']) <= 1e-3 * abs(lk['bias']),
+                       f'{tag_l} {rec}: bias field {lf["bias"]} vs k-level {lk["bias"]}'))
+        for k in ('Pk_tr_tr_ell_lcv', 'rho_tr_lf'):
+            for d in (lk, lf):
+                checks.append((bool(np.isfinite(np.asarray(d[k], np.float64)).all()),
+                               f'{tag_l} {rec}: {k} not finite'))
+        times = '' if t_k is None else f'run_lcv {t_k:.3f} s, run_lcv_field {t_f:.3f} s, '
+        print(f'phase 15 LCV {rec}: {times}bias field {lf["bias"]:.5f} k-level {lk["bias"]:.5f}, '
+              f'max rel {diffs}, rho_tr_lf (monopole, bins 0-7) field {_rounded(rf[0][:8])} '
+              f'k-level {_rounded(rk[0][:8])}; {worst}')
+    # K3: the linear pairs, the tracer spectra, and per flow the tracer and
+    # three linear monopoles and _field_reduce's four projections
+    require(launches['tsc_deposit_cells[tsc]'] == 2, f'{tag_l}: K1 launches {launches}')
+    require(launches['bin_pair_modes'] == 2 + 2 * 8, f'{tag_l}: K3 launches {launches}')
+    require(launches['window_mode_sums'] == 1, f'{tag_l}: K8 launches {launches}')
+    for ok, msg in checks:
+        require(ok, msg)
+    print(f'phase 15 (a, b) in {time.perf_counter() - t0:.1f} s')
+
+
+def phase_nfw(dev, halo5):
+    """Phase 15 (c): run_hod(want_nfw=True) with LRG, ELG and QSO on phase
+    5's 1e7 halos under z_type 'secondary' (no particles), with hc (r98 /
+    r25, 2-12), hrvir (r98, 0.2 (M / 1e12 Msun/h)^(1/3) Mpc/h) and hsigma3d
+    columns and an NFW_draw of 1e6 seeded host draws: each tracer's
+    satellite count within 5 Poisson sigma of the sum of its halos' means,
+    every satellite within its halo's hc hrvir of the centre (want_rsd off),
+    then write_to_disk and gal_reader on the first N_NFW_WRITE halos, every
+    column bit-equal and Ncent equal."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    hd = dict(halo5)
+    nh = hd['hmass'].numel()
+    hd['hc'] = 2.0 + 10.0 * torch.rand(nh, generator=gen, device=dev)
+    hd['hrvir'] = 0.2 * (hd['hmass'] / 1e12) ** (1 / 3)
+    hd['hsigma3d'] = 300.0 * (hd['hmass'] / 1e13) ** (1 / 3) * (
+        0.8 + 0.4 * torch.rand(nh, generator=gen, device=dev))
+    empty = {k: np.empty(0) for k in ('ppos', 'pvel', 'phvel', 'phmass', 'pweights', 'prandoms')}
+    empty['pinds'] = np.empty(0, np.int64)
+    params = {'z': 0.5, 'Lbox': LBOX, 'velz2kms': VELZ2KMS, 'origin': None, 'chunk': -1}
+    draw = nfw_draw(N_NFW_DRAW, float(hd['hc'].max()), SEED + 15)
+    hod = AbacusHOD(hd, empty, params, TRACERS, dev, z_type='secondary')
+    mock, t_nfw = sync_seconds(lambda: hod.run_hod(want_rsd=False, want_nfw=True,
+                                                   NFW_draw=draw))
+    tp = tpop.prepare_tracer_params(TRACERS, params['z'])
+    halo, _ = hod._flat_stage(particles=False)
+    keep = tpop._cent_codes(halo, tpop._tensor_params(tp, WANT, dev), WANT).cpu().numpy()
+    host = {k: hd[k].cpu().numpy() for k in ('hpos', 'hmass', 'hc', 'hrvir', 'hdeltac', 'hfenv',
+                                             'hid')}
+    require(np.array_equal(host['hid'], np.arange(nh)), 'phase 15: halo ids are not 0..N-1')
+    counts = {}
+    for t in WANT:
+        td, nc = mock[t], mock[t]['Ncent']
+        nsat = len(td['x']) - nc
+        mean = float(nfw.sat_means(host, tp, t, keep).clip(0, None).sum())
+        ids = td['id'][nc:]
+        pos = np.stack([td[c][nc:] for c in 'xyz'], 1)
+        r = np.sqrt(((pos - host['hpos'][ids]) ** 2).sum(1))
+        bound = host['hc'][ids].astype(np.float64) * host['hrvir'][ids]
+        inside = bool((r <= bound * (1 + 1e-9)).all())
+        counts[t] = dict(centrals=nc, satellites=nsat, expected=round(mean, 1),
+                         sigmas=round(float((nsat - mean) / np.sqrt(mean)), 3),
+                         max_r_over_rvir=float((r / host['hrvir'][ids]).max()))
+        require(abs(nsat - mean) <= 5 * np.sqrt(mean),
+                f'phase 15 NFW {t}: {nsat} satellites, {mean:.1f} expected')
+        require(inside, f'phase 15 NFW {t}: a satellite lies beyond hc hrvir of its halo')
+        require(td['x'].dtype == np.float64 and td['id'].dtype == np.int64, f'phase 15 NFW {t}')
+    print(f'phase 15 run_hod(want_nfw=True) on {nh} halos, secondary redshift, LRG + ELG + QSO: '
+          f'{t_nfw:.3f} s host to host; {counts}')
+
+    sub = {k: v[:N_NFW_WRITE] for k, v in hd.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        hod_w = AbacusHOD(sub, empty, params, TRACERS, dev, z_type='secondary',
+                          mock_dir=os.path.join(tmp, 'AbacusSummit_base_c000_ph000', 'z0.500'))
+        wmock, t_write = sync_seconds(lambda: hod_w.run_hod(want_nfw=True, NFW_draw=draw,
+                                                            write_to_disk=True))
+        back, t_read = sync_seconds(hod_w.gal_reader)
+        rows = 0
+        for t in WANT:
+            tab, td = back[t], wmock[t]
+            require(tab.meta['Ncent'] == td['Ncent'] and tab.meta['Gal_type'] == t,
+                    f'phase 15 gal_reader {t}: meta {tab.meta}')
+            require(tab.colnames == [k for k in td if k != 'Ncent'], f'phase 15 {t} columns')
+            for k in tab.colnames:
+                require(tab[k].dtype == td[k].dtype and np.array_equal(tab[k], td[k]),
+                        f'phase 15 gal_reader {t}: column {k} differs')
+            rows += len(tab)
+    print(f'phase 15 write_to_disk + gal_reader on {N_NFW_WRITE} halos ({rows} galaxies): write '
+          f'(with its run_hod) {t_write:.3f} s, read {t_read:.3f} s, every column bit-equal')
+    print(f'phase 15 (c) in {time.perf_counter() - t0:.1f} s')
 
 
 # phase 14: StagedPower at docs/hod.md's settings on phase 7's mock; pk_to_xi,
@@ -3186,6 +3526,7 @@ def main():
         paths8, timing8 = phase_pairs(hod, mock)
         timing.update(timing8)
         mock14 = {tr: {a: mock[tr][a] for a in ('x', 'y', 'z', 'vz')} for tr in WANT}
+        halo5 = hod.halo_data  # phase 15's NFW catalog
         del hod, mock
         chain_share = phase_prep_kernels(dev)
         paths10 = {}
@@ -3212,10 +3553,17 @@ def main():
         timing['tsc_deposit_cells[tsc multi-weight]'], timing['window_mode_sums'] = (
             phase_zcv_kernels(dev))
         paths13 = {}
-        phase_zcv(dev, paths13, timing)
+        cell = phase_zcv(dev, paths13, timing)
         paths14 = {}
         phase_surface(mock14, dev, paths14, timing)
         del mock14
+        t15 = time.perf_counter()
+        paths15 = {}
+        phase_cv_field(dev, cell, paths15)
+        del cell
+        phase_nfw(dev, halo5)
+        del halo5
+        print(f'phase 15 in {time.perf_counter() - t15:.1f} s')
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -3225,12 +3573,13 @@ def main():
             **paths10,
             **paths13,
             **paths14,
+            **paths15,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

@@ -1247,3 +1247,141 @@ def test_staged_power_on_card_matches_cpu(cuda_device, interlaced):
         assert over[0] == over[1]
         if extra:
             assert over[0] > 0
+
+
+def _cv_ic(nmesh, lbox, seed):
+    """A seeded Gaussian IC (sigma 0.3) and its Zel'dovich displacement in
+    units of the box, numpy f32."""
+    rng = np.random.default_rng(seed)
+    dens = rng.normal(0, 0.3, (nmesh,) * 3).astype(np.float32)
+    kf = np.fft.fftfreq(nmesh) * nmesh * (2 * np.pi / lbox)
+    kx, ky, kz = np.meshgrid(kf, kf, kf[: nmesh // 2 + 1], indexing='ij')
+    k2 = kx**2 + ky**2 + kz**2
+    k2[0, 0, 0] = 1.0
+    dk = np.fft.rfftn(dens)
+    disp = tuple((np.fft.irfftn(1j * kv / k2 * dk, s=dens.shape) / lbox * 0.02).astype(np.float32)
+                 for kv in (kx, ky, kz))
+    return dens, disp
+
+
+def _cv_config(nmesh, lbox, kind):
+    # a Savitzky-Golay window shorter than the nmesh / 2 bins, so beta is smoothed
+    cv = {'nmesh': nmesh, 'kcut': np.pi * nmesh / lbox / 2, 'sg_window': 7}
+    if kind == 'zcv':
+        cv['fields'] = ['1cb', 'delta']
+    return {
+        'sim_params': {'sim_name': 'AbacusSummit_base_c000_ph000', 'z_mock': 0.5},
+        'HOD_params': {'want_rsd': True, 'rec_algo': 'recsym', 'smoothing': 10.0},
+        f'{kind}_params': cv,
+        'power_params': {'nbins_k': nmesh // 2, 'nbins_mu': 1, 'poles': [0, 2, 4],
+                         'k_hMpc_max': np.pi * nmesh / lbox, 'logk': False,
+                         'paste': 'TSC' if kind == 'zcv' else 'CIC', 'compensated': True,
+                         'interlaced': True, 'nmesh': nmesh},
+    }
+
+
+def _assert_flow(got, ref, rho_key):
+    """A field flow on the card against the same flow on the CPU: mode counts
+    equal, bias within 1e-3, every pole stack and xi within 1e-3 |x| + 1e-4
+    max|x| (f32 atomics and cuFFT against the plain scatter and pocketfft,
+    through a least-squares bias fit), rho within 1e-3."""
+    assert set(got) == set(ref)
+    npt.assert_array_equal(got['Nk_tr_tr_ell'], ref['Nk_tr_tr_ell'])
+    npt.assert_allclose(np.asarray(got['bias']), np.asarray(ref['bias']), rtol=1e-3)
+    npt.assert_allclose(got[rho_key], ref[rho_key], rtol=0, atol=1e-3)
+    for key, r in ref.items():
+        if key.startswith(('Pk_', 'Xi_')):
+            r = np.asarray(r)
+            npt.assert_allclose(np.asarray(got[key]), r, rtol=1e-3, atol=1e-4 * np.abs(r).max(),
+                                err_msg=key)
+            assert np.isfinite(got[key]).all(), key
+
+
+class _Ball:
+    """What apply_zcv_xi re-populates from: run_hod(want_rsd=False) gives the
+    tracer at its real-space positions."""
+
+    tracers = {'LRG': {}}
+
+    def __init__(self, lbox, real):
+        self.lbox, self.real = lbox, real
+
+    def run_hod(self, tracers, want_rsd=True, reseed=None, write_to_disk=False):
+        assert not want_rsd
+        return {'LRG': dict(self.real)}
+
+
+def test_apply_zcv_xi_on_card_matches_cpu(cuda_device):
+    """apply_zcv_xi on the card (K1 for the tracer fields, K3 for every
+    projection and for pk_to_xi) against the same call on the CPU, on
+    products built on each device from one IC."""
+    from abacusutils_tpu_torch.models.zcv import cosmo
+    from abacusutils_tpu_torch.models.zcv.advect_fields import advected_field_ffts
+    from abacusutils_tpu_torch.models.zcv.apply import apply_zcv_xi
+    from abacusutils_tpu_torch.models.zcv.ic_fields import get_fields
+    from abacusutils_tpu_torch.models.zcv.precompute import ZCVProducts
+
+    nmesh, lbox = 32, 2000.0
+    config = _cv_config(nmesh, lbox, 'zcv')
+    meta = cosmo.get_meta('AbacusSummit_base_c000_ph000', redshift=0.5)
+    dens, disp = _cv_ic(nmesh, lbox, 3)
+    rng = np.random.default_rng(4)
+    real = {c: (rng.random(40_000) * lbox - lbox / 2).astype(np.float32) for c in 'xyz'}
+    rsd = dict(real, z=((real['z'] + rng.normal(0, 5.0, 40_000) + lbox / 2) % lbox
+                        - lbox / 2).astype(np.float32))
+    nk = nmesh // 2
+    k_binc = (np.arange(nk) + 0.5) * np.pi * nmesh / lbox / nk
+    outs = []
+    for dev in (cuda_device, torch.device('cpu')):
+        fields = get_fields(dens, lbox, nmesh, dev)
+        ffts = {}
+        for want_rsd in (True, False):
+            D, f = cosmo.growth_from_meta(meta, 0.5, want_rsd)
+            ffts[want_rsd] = advected_field_ffts(disp, fields, lbox, nmesh, D, f,
+                                                 config['power_params'], dev)
+        templates = {True: np.ones((15, 3, nk)) * np.linspace(1.0, 0.1, nk)}
+        zcv = ZCVProducts(ffts, {}, None, None, k_binc, config['zcv_params']['kcut'],
+                          templates, meta)
+        before = tpow.bin_pair_modes.launches
+        outs.append(apply_zcv_xi(_Ball(lbox, real), {'LRG': rsd}, config, zcv))
+        if dev.type == 'cuda':
+            assert tpow.bin_pair_modes.launches > before
+            assert zcv.tracer_ffts[True].device.type == 'cuda'
+    _assert_flow(*outs, 'rho_tr_ZD')
+    assert set(outs[0]) >= {'Xi_tr_tr_ell_zcv', 'Xi_tr_tr_ell', 'Np_tr_tr_ell', 'r_binc'}
+    npt.assert_array_equal(outs[0]['Np_tr_tr_ell'], outs[1]['Np_tr_tr_ell'])
+
+
+def test_run_lcv_field_on_card_matches_cpu(cuda_device):
+    """lcv_products (the linear fields, their spectra in one K3 launch, the
+    window on K8 over its row plan), get_recon_power with randoms (K1, CIC)
+    and run_lcv_field on the card against the same calls on the CPU."""
+    from abacusutils_tpu_torch.models.zcv import cosmo
+    from abacusutils_tpu_torch.models.zcv import zenbu_window as tzw
+    from abacusutils_tpu_torch.models.zcv.precompute import lcv_products
+    from abacusutils_tpu_torch.models.zcv.tools_cv import run_lcv, run_lcv_field
+    from abacusutils_tpu_torch.models.zcv.tracer_power import get_recon_power
+
+    nmesh, lbox = 32, 2000.0
+    config = _cv_config(nmesh, lbox, 'lcv')
+    meta = cosmo.get_meta('AbacusSummit_base_c000_ph000', redshift=0.5)
+    dens, _ = _cv_ic(nmesh, lbox, 5)
+    rng = np.random.default_rng(6)
+    tracer = (rng.random((30_000, 3)) * lbox).astype(np.float32)
+    randoms = (rng.random((90_000, 3)) * lbox).astype(np.float32)
+    field, k_level = [], []
+    for dev in (cuda_device, torch.device('cpu')):
+        before = tzw.window_mode_sums.launches
+        lcv = lcv_products(dens, lbox, nmesh, config, meta, engine='device', device=dev)
+        if dev.type == 'cuda':
+            assert tzw.window_mode_sums.launches == before + 1
+        tr = get_recon_power(tracer, randoms, True, config, meta=meta, device=dev,
+                             save_3D_power=True)
+        assert tr.device.type == dev.type
+        field.append(run_lcv_field(tr, lcv.field_ffts, config, meta=meta))
+        spectra = get_recon_power(None, None, True, config, lcv.field_ffts, meta,
+                                  tr_field_fft=tr)
+        k_level.append(run_lcv(spectra, lcv.pk_lin, config, window=lcv.window, keff=lcv.keff,
+                               meta=meta))
+    _assert_flow(*field, 'rho_tr_lf')
+    _assert_flow(*k_level, 'rho_tr_lf')

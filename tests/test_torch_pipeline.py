@@ -153,5 +153,6 @@ def test_port_imports_without_jax():
               'models.hod.menv', 'models.hod.ranks_device', 'models.hod.menv_device', 'testing',
               'models.zcv.cosmo', 'models.zcv.ic_fields', 'models.zcv.advect_fields',
               'models.zcv.tracer_power', 'models.zcv.zenbu_native', 'models.zcv.zenbu_window',
-              'models.zcv.tools_cv', 'models.zcv.precompute', 'models.zcv.apply'):
+              'models.zcv.tools_cv', 'models.zcv.precompute', 'models.zcv.apply',
+              'models.zcv.linear_fields', 'models.hod.nfw', 'io.table'):
         assert f'abacusutils_tpu_torch.{m}' in mods

@@ -199,9 +199,11 @@ def test_two_routes_agree(lc):
 
 def test_run_hod_stage_and_unported_options():
     """run_hod reuses the flat device stage and builds none on a second
-    call, and the light-cone leg leaves it alone; NFW satellites and
-    write_to_disk name the roadmap item that ports them; a secondary
-    redshift without NFW raises as in the JAX package."""
+    call, and the light-cone leg leaves it alone; NFW satellites without a
+    sample to draw from raise as in the JAX package (and take the halos of
+    the cached stage), write_to_disk without the catalog directory raises;
+    a secondary redshift without NFW raises as in the JAX package. (NFW and
+    write_to_disk themselves: tests/test_torch_nfw_table.py.)"""
     _, port = _pair(staged_state(2_000, 8_000, LBOX, seed=3), True, False)
     port.run_hod()
     stage = port._flat_stage_cache
@@ -209,11 +211,14 @@ def test_run_hod_stage_and_unported_options():
     port.run_hod(tracers={'LRG': _tracers()['LRG']})
     port.run_hod_pk_fused(nmesh=16, nbins_k=8)
     assert port._flat_stage_cache is stage
-    for kw in ({'want_nfw': True}, {'write_to_disk': True}):
-        with pytest.raises(NotImplementedError, match='ROADMAP item 8'):
-            port.run_hod(**kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP item 8'):
-        tpop.gen_gals(port.halo_data, port.particle_data, _tracers(), _params(True), nfw=True)
+    with pytest.raises(ValueError, match='NFW_draw'):
+        port.run_hod(want_nfw=True)
+    assert port._flat_stage_cache is stage
+    with pytest.raises(ValueError, match='mock_dir'):
+        port.run_hod(write_to_disk=True)
+    with pytest.raises(ValueError, match='NFW_draw'):
+        tpop.gen_gals(port.halo_data, port.particle_data, _tracers(), _params(True), nfw=True,
+                      device='cpu')
     port.z_type = 'secondary'
     with pytest.raises(RuntimeError, match='Secondary'):
         port.run_hod()
