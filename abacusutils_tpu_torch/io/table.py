@@ -45,6 +45,13 @@ class Table:
         arr = np.asarray(col)
         self.columns[name] = arr.copy() if copy else arr
 
+    def remove_column(self, name):
+        del self.columns[name]
+
+    def rename_column(self, old, new):
+        """Rename a column in place, keeping the column order."""
+        self.columns = {new if k == old else k: v for k, v in self.columns.items()}
+
     def __getitem__(self, key):
         """A column by name, a Table of the named columns, or a Table of the
         rows a slice, mask or index array selects."""

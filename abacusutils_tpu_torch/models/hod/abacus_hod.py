@@ -20,11 +20,12 @@ Counterpart of abacusutils_tpu/models/hod/abacus_hod.py limited to:
   ``apply_zcv_xi`` (xi_ell(r) at the field level), on the in-memory
   products of ``models/zcv/precompute.py``.
 
-The object is built from the staged state that the JAX ``staging()``
-returns (``convert.staged_state_from_numpy`` carries a JAX object's state
-over); reading AbacusSummit files from disk is not part of the port yet.
-Columns may be numpy arrays or tensors: the first call moves the columns it
-needs to the device once, stages them, and caches the stage.
+The object is built from a simulation on disk with
+:meth:`AbacusHOD.from_config` (the JAX constructor's arguments: the tables
+the port's ``prepare_sim.main`` wrote, staged by ``staging.py``), or from a
+staged state (``convert.staged_state_from_numpy`` carries a JAX object's
+state over). Columns may be numpy arrays or tensors: the first call moves
+the columns it needs to the device once, stages them, and caches the stage.
 """
 
 import logging
@@ -125,6 +126,42 @@ class AbacusHOD:
         # left their brick's tile (RSD moved them further than the margin),
         # deposited straight into the grid
         self.deposit_overflow = torch.zeros(1, dtype=torch.int32, device=self.device)
+
+    @classmethod
+    def from_config(cls, sim_params, HOD_params, clustering_params=None, chunk=-1, n_chunks=1,
+                    device=None):
+        """The object the JAX constructor builds from a config
+        (abacus_hod.py:33-117, with staging): `sim_params` (``sim_name``,
+        ``sim_dir``, ``subsample_dir``, ``z_mock``, ``output_dir``,
+        ``force_mt``, ``local_env``) and `HOD_params` (``tracer_flags``, each
+        traced tracer's ``<tracer>_params``, ``want_ranks``, ``want_AB``,
+        ``want_shear``, ``want_expvel``), staged from prepare_sim's tables
+        on disk (``staging.py``). clustering_params: its
+        ``clustering_type``. device: where the columns go (None: the
+        card)."""
+        from ...convert import resolve_device
+        from .prepare_sim import z_type_of
+        from .staging import staging
+
+        if chunk >= n_chunks:
+            raise ValueError('Total number of chunks needs to be larger than current chunk index')
+        flags = HOD_params['tracer_flags']
+        tracers = {k: HOD_params[k + '_params'] for k in flags if flags[k]}
+        device = resolve_device(device)
+        halo_data, particle_data, params, mock_dir = staging(sim_params, HOD_params, chunk,
+                                                             n_chunks)
+        if HOD_params.get('want_AB', False):
+            assert 'hfenv' in halo_data and 'hdeltac' in halo_data
+        return cls(
+            halo_data, particle_data, params, tracers, device,
+            want_ranks=HOD_params.get('want_ranks', False),
+            want_shear=HOD_params.get('want_shear', False),
+            want_expvel=HOD_params.get('want_expvel', False),
+            halo_lc=sim_params.get('halo_lc', False),
+            z_type=z_type_of(sim_params['z_mock'], sim_params.get('halo_lc', False)),
+            clustering_type=(clustering_params or {}).get('clustering_type'),
+            mock_dir=mock_dir,
+        )
 
     # ------------------------------------------------------------------
     def _reseed_randoms(self, reseed):

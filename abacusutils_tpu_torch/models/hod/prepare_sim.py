@@ -1,9 +1,12 @@
-r"""prepare_sim's compute: a halo slab's columns in, the staged tables out.
+r"""prepare_sim: CompaSO slabs on disk -> the staged subsample tables.
 
-Counterpart of abacusutils_tpu/models/hod/prepare_sim.py without its file
-I/O (the CompaSO catalog read, the h5 writes, ``main`` and its process
-pool): :func:`prepare_slab_tables` is the body of ``prepare_slab`` on dicts
-of numpy columns, and returns the columns that function writes.
+Counterpart of abacusutils_tpu/models/hod/prepare_sim.py.
+:func:`prepare_slab_tables` is the body of ``prepare_slab`` on dicts of
+numpy columns and returns the columns that function writes;
+:func:`prepare_slab` adds its file I/O (:func:`read_slab`, the catalog read
+through ``io/compaso.py``, then :func:`write_slab_tables`), and :func:`main`
+drives it over every slab, serially or in a process pool, after
+:func:`calc_shearmark`.
 
 - Host helpers, numpy copies of the JAX package's: the down-sampling curves
   (:func:`subsample_halos`, :func:`submask_particles`), the env padding
@@ -20,25 +23,61 @@ of numpy columns, and returns the columns that function writes.
 The random draws follow the reference's protocol exactly: ``default_rng(
 newseed + i)`` seeds the legacy ``np.random``, the halo mask is drawn, then
 one ``np.random.choice(..., replace=False)`` submask per kept halo in halo
-order (these cannot be batched without changing the stream), then the halo
+order (these cannot be batched without changing the stream; the columns
+they select are filled after them, all kept halos at once), then the halo
 randoms and the particle randoms. The engines draw nothing, so the tables
 do not depend on which engine ran.
 
-No h5py, yaml or asdf is imported: the machine with the card has none.
+Formats: the tables are written as ``.npz`` where the JAX package writes
+h5 (the machine with the card has no h5py), under the JAX package's file
+stems with ``_new.npz`` for ``_new.h5``; each holds the structured array of
+JAX's dataset (``halos``, ``particles``; the env sidecar's ``id``,
+``mass`` and ``Menv``). The config is a dict or a JSON file (no yaml on
+the card). The light-cone catalogs are not read yet (ROADMAP.md).
 """
 
+import concurrent.futures
+import glob
+import json
 import math
+import multiprocessing
+import os
+from pathlib import Path
 
 import numpy as np
 
+from ...convert import resolve_device
+from ...io.compaso import CompaSOHaloCatalog
+from ...io.read_abacus import read_asdf
 from .menv import do_Menv_from_tree
 
 __all__ = [
     'subsample_halos', 'submask_particles', 'periodic_dx', 'make_edge_pad_filter',
     'unwrap_x_for_slab', 'env_pad_slabs', 'calc_fenv_opt', 'get_vertices_cube', 'is_in_cube',
     'gen_rand', 'env_menv_periodic', 'env_menv_lc', 'shear_rank', 'shearmark_from_positions',
-    'prepare_slab_tables', 'HALO_ORDER', 'HALO_ORDER_LC', 'HALO_EXTRA',
+    'prepare_slab_tables', 'HALO_ORDER', 'HALO_ORDER_LC', 'HALO_EXTRA', 'PRIMARY_REDSHIFTS',
+    'SECONDARY_REDSHIFTS', 'SLAB_FIELDS', 'load_env_halos', 'slab_filenames', 'read_slab',
+    'write_slab_tables', 'prepare_slab', 'calc_shearmark', 'load_config', 'main', 'z_type_of',
 ]
+
+PRIMARY_REDSHIFTS = [3.0, 2.5, 2.0, 1.7, 1.4, 1.1, 0.8, 0.5, 0.4, 0.3, 0.2, 0.1, 0.0]
+SECONDARY_REDSHIFTS = [
+    0.15, 0.25, 0.35, 0.45, 0.575, 0.65, 0.725, 0.875, 0.95, 1.025, 1.175,
+    1.25, 1.325, 1.475, 1.55, 1.625, 1.85, 2.25, 2.75, 3.0, 5.0, 8.0,
+]
+_LC_LATER = 'the light-cone catalogs are not read by the port yet (ROADMAP.md, queue 1)'
+
+
+def z_type_of(z_mock, halo_lc=False):
+    """'lightcone', 'primary' (particle subsamples) or 'secondary' (none)
+    of a redshift (prepare_sim.py:925-932)."""
+    if halo_lc:
+        return 'lightcone'
+    if z_mock in PRIMARY_REDSHIFTS:
+        return 'primary'
+    if z_mock in SECONDARY_REDSHIFTS:
+        return 'secondary'
+    raise ValueError(f'illegal redshift {z_mock}')
 
 
 def _do_menv(engine, pos, mass, r_inner, r_outer, halo_lc, Lbox, nthread=1, mcut=1e11,
@@ -598,70 +637,68 @@ def prepare_slab_tables(
         ppos_all = np.asarray(parts['pos'])
         pvel_all = np.asarray(parts['vel'])
 
-        # the device engine: the RNG draws stay in the loop below in the
-        # reference's per-halo order; the rank math (no RNG) runs after it
-        # for every ranked halo at once
+        # the random draws: one submask a kept halo, in halo order (the
+        # reference's stream); the per-particle columns and the rank
+        # engines' inputs are filled after them, for every kept halo at once
+        kept = np.flatnonzero(mask_halos & (halos_pnum > 0))
+        submasks = [submask_particles(halos['N'][j] * Mpart, int(halos_pnum[j]), MT)
+                    for j in kept]
+        ps = halos_pstart[kept].astype(np.int64)
+        pn = halos_pnum[kept].astype(np.int64)
+        first = np.cumsum(pn) - pn  # each kept halo's first row in `idx`
+        idx = np.repeat(ps - first, pn) + np.arange(int(pn.sum()))
+        owner = np.repeat(kept, pn)
+        sub = np.concatenate(submasks) if submasks else np.zeros(0)
+        nsub = np.add.reduceat(sub, first) if len(kept) else np.zeros(0)
+
+        mask_parts[idx] = sub
+        downsample_parts[idx] = p_halos[owner]
+        hvel_parts[idx] = halos['v_L2com'][owner]
+        Mh_parts[idx] = halos['N'][owner] * Mpart
+        Np_parts[idx] = np.repeat(nsub, pn)
+        idh_parts[idx] = halos['id'][owner]
+        deltach_parts[idx] = halos['deltac_rank'][owner]
+        fenvh_parts[idx] = halos['fenv_rank'][owner]
+        shearh_parts[idx] = halos['shear_rank'][owner]
+        halos_pstart_new[:] = -1
+        halos_pnum_new[:] = -1
+        halos_pstart_new[kept] = np.cumsum(nsub) - nsub
+        halos_pnum_new[kept] = nsub
+
         use_device_ranks = want_ranks and ranks_engine != 'host'
-        if use_device_ranks:
-            seg_parts = np.full(len_old, -1, np.int32)
-            nsub_parts = np.zeros(len_old, np.float64)
-            hpos_parts = np.zeros((len_old, 3), np.float32)
-            r25h_parts = np.zeros(len_old, np.float32)
-            r98h_parts = np.zeros(len_old, np.float32)
-            ranked_ps, ranked_pn = [], []
-
-        start_tracker = 0
-        for j in range(nh):
-            if mask_halos[j] and halos_pnum[j] > 0:
-                ps = int(halos_pstart[j])
-                pn = int(halos_pnum[j])
-                submask = submask_particles(halos['N'][j] * Mpart, pn, MT)
-
-                sl = slice(ps, ps + pn)
-                mask_parts[sl] = submask
-                downsample_parts[sl] = p_halos[j]
-                hvel_parts[sl] = halos['v_L2com'][j]
-                Mh_parts[sl] = halos['N'][j] * Mpart
-                nsub = np.sum(submask)
-                Np_parts[sl] = nsub
-                idh_parts[sl] = halos['id'][j]
-                deltach_parts[sl] = halos['deltac_rank'][j]
-                fenvh_parts[sl] = halos['fenv_rank'][j]
-                shearh_parts[sl] = halos['shear_rank'][j]
-
-                halos_pstart_new[j] = start_tracker
-                halos_pnum_new[j] = nsub
-                start_tracker += nsub
-
-                if want_ranks:
-                    if nsub == 0:
-                        continue
-                    indices_parts = np.arange(ps, ps + pn)[submask.astype(bool)]
-                    if nsub == 1:
-                        for arr in ranks_parts:
-                            arr[indices_parts] = 0
-                        continue
-                    if use_device_ranks:
-                        seg_parts[sl] = len(ranked_ps)
-                        nsub_parts[sl] = nsub
-                        hpos_parts[sl] = halos['x_L2com'][j]
-                        r25h_parts[sl] = halos['r25_L2com'][j]
-                        r98h_parts[sl] = halos['r98_L2com'][j]
-                        ranked_ps.append(ps)
-                        ranked_pn.append(pn)
-                        continue
-                    r_, rv, rp_, rr, rc = ranks_parts
-                    _rank_fields(
-                        indices_parts, ppos_all[sl][submask.astype(bool)],
-                        pvel_all[sl][submask.astype(bool)], ppos_all[sl], halos['x_L2com'][j],
-                        halos['v_L2com'][j], halos['N'][j] * Mpart, halos['r25_L2com'][j],
-                        halos['r98_L2com'][j], h, r_, rv, rp_, rr, rc,
-                    )
+        ranked_ps = []
+        if want_ranks:
+            # a halo's one chosen particle ranks 0; halos of two or more run
+            # through the engine (the device engine: all at once after this)
+            chosen = sub.astype(bool)
+            for arr in ranks_parts:
+                arr[idx[chosen & np.repeat(nsub == 1, pn)]] = 0
+            multi = nsub >= 2
+            rows = np.repeat(multi, pn)
+            if use_device_ranks:
+                seg_parts = np.full(len_old, -1, np.int32)
+                nsub_parts = np.zeros(len_old, np.float64)
+                hpos_parts = np.zeros((len_old, 3), np.float32)
+                r25h_parts = np.zeros(len_old, np.float32)
+                r98h_parts = np.zeros(len_old, np.float32)
+                seg_parts[idx[rows]] = np.repeat(np.arange(int(multi.sum())), pn[multi])
+                nsub_parts[idx[rows]] = np.repeat(nsub[multi], pn[multi])
+                for out, col in ((hpos_parts, 'x_L2com'), (r25h_parts, 'r25_L2com'),
+                                 (r98h_parts, 'r98_L2com')):
+                    out[idx[rows]] = halos[col][owner[rows]]
+                ranked_ps, ranked_pn = ps[multi], pn[multi]
             else:
-                halos_pstart_new[j] = -1
-                halos_pnum_new[j] = -1
+                r_, rv, rp_, rr, rc = ranks_parts
+                for k in np.flatnonzero(multi):
+                    j, sl, m = kept[k], slice(ps[k], ps[k] + pn[k]), submasks[k].astype(bool)
+                    _rank_fields(
+                        np.arange(ps[k], ps[k] + pn[k])[m], ppos_all[sl][m], pvel_all[sl][m],
+                        ppos_all[sl], halos['x_L2com'][j], halos['v_L2com'][j],
+                        halos['N'][j] * Mpart, halos['r25_L2com'][j], halos['r98_L2com'][j], h,
+                        r_, rv, rp_, rr, rc,
+                    )
 
-        if use_device_ranks and ranked_ps:
+        if use_device_ranks and len(ranked_ps):
             from .ranks_device import rank_fields_device
 
             dev_ranks = rank_fields_device(
@@ -708,3 +745,229 @@ def prepare_slab_tables(
         out_parts['halo_fenv'] = fenvh_parts[mask_parts]
         out_parts['halo_shear'] = shearh_parts[mask_parts]
     return {'halos': out_halos, 'particles': out_parts, 'env': env}
+
+
+# ---------------------------------------------------------------------------
+# the file I/O of prepare_slab and main
+# ---------------------------------------------------------------------------
+
+# the halo_info fields prepare_slab reads (:318-321)
+SLAB_FIELDS = ['N', 'x_L2com', 'v_L2com', 'r90_L2com', 'r25_L2com', 'r98_L2com', 'npstartA',
+               'npoutA', 'id', 'sigmav3d_L2com']
+
+
+def load_env_halos(slabname, cleaning, filter_func=None):
+    """The env halos of one slab (prepare_sim.py:125): N, x_L2com, r98_L2com
+    and id of the halos `filter_func` keeps, those merged away dropped."""
+    halos = CompaSOHaloCatalog(slabname, fields=['N', 'x_L2com', 'r98_L2com', 'id'],
+                               cleaned=cleaning, filter_func=filter_func).halos
+    if cleaning:
+        halos = halos[halos['N'] > 0]
+    return halos
+
+
+def _zdir(simdir, simname, z_mock):
+    return f'{simdir}/{simname}/halos/z{str(z_mock).ljust(5, "0")}'
+
+
+def slab_filenames(savedir, i, newseed, MT, want_ranks):
+    """(halos, particles, env) file names of slab i: the JAX package's stems
+    (prepare_sim.py:278-290) with _new.npz for _new.h5."""
+    halos = f'{savedir}/halos_xcom_{i}_seed{newseed}_abacushod_oldfenv'
+    parts = f'{savedir}/particles_xcom_{i}_seed{newseed}_abacushod_oldfenv'
+    if MT:
+        halos += '_MT'
+        parts += '_MT'
+    if want_ranks:
+        parts += '_withranks'
+    env = f'{savedir}/env_xcom_{i}_abacushod_localenv_new.npz'
+    return halos + '_new.npz', parts + '_new.npz', env
+
+
+def read_slab(i, simdir, simname, z_mock, z_type, cleaning, want_AB, numslabs, rad_outer=10):
+    """What prepare_slab reads for box slab i: (halo columns, the A
+    particles' pos and vel or None where the redshift has none, the header,
+    the padded env's neighbour tables or None without want_AB), the
+    arguments of :func:`prepare_slab_tables`."""
+    zdir = _zdir(simdir, simname, z_mock)
+    load_parts = z_type == 'primary'
+    cat = CompaSOHaloCatalog(f'{zdir}/halo_info/halo_info_{i:03d}.asdf', fields=SLAB_FIELDS,
+                             subsamples=dict(A=True, rv=True) if load_parts else False,
+                             cleaned=cleaning)
+    halos = {k: cat.halos[k] for k in cat.halos.colnames}
+    parts = {k: cat.subsamples[k] for k in ('pos', 'vel')} if load_parts else None
+    env_halos = None
+    if want_AB:
+        x = halos['x_L2com'][:, 0]
+        if cleaning:
+            x = x[halos['N'] > 0]
+        env_halos = []
+        for islab, keep in env_pad_slabs(x, i, numslabs, cat.header['BoxSizeHMpc'], rad_outer):
+            t = load_env_halos(f'{zdir}/halo_info/halo_info_{islab:03d}.asdf', cleaning,
+                               filter_func=keep)
+            env_halos.append({k: t[k] for k in t.colnames})
+    return halos, parts, cat.header, env_halos
+
+
+def _to_struct(cols):
+    """A dict of columns (in order) as one structured array
+    (prepare_sim.py:_table_to_struct)."""
+    dt = [(k, v.dtype, v.shape[1:]) if v.ndim > 1 else (k, v.dtype) for k, v in cols.items()]
+    out = np.empty(len(next(iter(cols.values()))), dtype=dt)
+    for k, v in cols.items():
+        out[k] = v
+    return out
+
+
+def write_slab_tables(tables, halos_fn, parts_fn, env_fn):
+    """Write the tables of :func:`prepare_slab_tables`: the halos' and the
+    particles' structured arrays, and the env sidecar's three arrays."""
+    np.savez(halos_fn, halos=_to_struct(tables['halos']))
+    if tables['particles'] is not None:
+        np.savez(parts_fn, particles=_to_struct(tables['particles']))
+    if tables['env'] is not None:
+        np.savez(env_fn, **tables['env'])
+
+
+def prepare_slab(
+    i, savedir, simdir, simname, z_mock, z_type, tracer_flags, MT, want_ranks, want_AB,
+    want_shear, shearmark, cleaning, newseed, halo_lc=False, nthread=1, overwrite=1,
+    mcut=1e11, rad_outer=10, numslabs=None, ranks_engine='auto', menv_engine='auto',
+    device=None,
+):
+    """Read box slab i, compute its tables on `device` (None: the card;
+    'cpu' runs the kernels' plain versions) and write them
+    (prepare_sim.py:254). `shearmark`: the shear field, or the path of its
+    .npy file. Skips the slab when its files exist and `overwrite` is 0."""
+    if halo_lc:
+        raise NotImplementedError(_LC_LATER)
+    halos_fn, parts_fn, env_fn = slab_filenames(savedir, i, newseed, MT, want_ranks)
+    if not int(overwrite) and all(os.path.exists(f) for f in (
+            [halos_fn, parts_fn] + ([env_fn] if want_AB else []))):
+        print('files exists, skipping ', i)
+        return 0
+    print('processing slab ', i)
+    if isinstance(shearmark, (str, Path)):
+        shearmark = np.load(shearmark, mmap_mode='r')
+    halos, parts, header, env_halos = read_slab(i, simdir, simname, z_mock, z_type, cleaning,
+                                                want_AB, numslabs, rad_outer)
+    tables = prepare_slab_tables(
+        halos, parts, header, i=i, MT=MT, want_ranks=want_ranks, want_AB=want_AB,
+        want_shear=want_shear, shearmark=shearmark, newseed=newseed, halo_lc=False, mcut=mcut,
+        rad_outer=rad_outer, env_halos=env_halos, cleaning=cleaning, ranks_engine=ranks_engine,
+        menv_engine=menv_engine, nthread=nthread, device=device)
+    write_slab_tables(tables, halos_fn, parts_fn, env_fn)
+
+
+def calc_shearmark(simdir, simname, z_mock, N_dim, R, fn, partdown=100, device=None):
+    """The shear field of prepare_sim.py:calc_shearmark (:851): a random
+    1/`partdown` of the field and halo A particles (drawn from the legacy
+    np.random, file by file), painted with K1 on `device` (None: the card),
+    smoothed on the host and turned into the shear invariant; saved as
+    `fn`.npy and returned."""
+    zdir = _zdir(simdir, simname, z_mock)
+    partpos = []
+    for sub in ('field_rv_A', 'halo_rv_A'):
+        for efn in glob.glob(f'{zdir}/{sub}/*asdf'):
+            pos = read_asdf(efn, load=['pos'])['pos']
+            sel = np.random.choice(len(pos), size=int(len(pos) / partdown), replace=False)
+            partpos.append(pos[sel])
+    pos_parts = np.concatenate(partpos)
+    print('compiled all particles', len(pos_parts))
+    lbox = CompaSOHaloCatalog(zdir, fields=['N'], cleaned=True).header['BoxSizeHMpc']
+    shearmark = shearmark_from_positions(pos_parts, N_dim, R, lbox, device=device)
+    np.save(fn + '.npy', shearmark)
+    return shearmark
+
+
+def load_config(config):
+    """A prepare_sim / AbacusHOD config: a dict (copied) or the path of a
+    JSON file holding one."""
+    if isinstance(config, dict):
+        return json.loads(json.dumps(config))
+    with open(config) as f:
+        return json.load(f)
+
+
+def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, halo_lc=False,
+         overwrite=1, device=None, slabs=None):
+    """Drive prepare_slab over the superslabs (prepare_sim.py:main, :896).
+
+    path2config: the config (``sim_params``, ``HOD_params``, ``prepare_sim``)
+    as a dict or a JSON file; `params` updates it. device: where the engines
+    run (None: the card; 'cpu' their plain versions), handed to each pool
+    worker. slabs: the slab indices to process (None: all). With
+    ``prepare_sim.Nparallel_load`` > 1 the slabs run in a pool of spawned
+    processes; each slab reseeds at entry, so the tables equal the serial
+    run's. A pool that breaks raises."""
+    config = load_config(path2config)
+    if params:
+        config.update(params)
+    if alt_simname:
+        config['sim_params']['sim_name'] = alt_simname
+    if alt_z:
+        config['sim_params']['z_mock'] = alt_z
+    simname = config['sim_params']['sim_name']
+    simdir = config['sim_params']['sim_dir']
+    z_mock = float(config['sim_params']['z_mock'])
+    savedir = config['sim_params']['subsample_dir'] + simname + '/z' + str(z_mock).ljust(5, '0')
+    cleaning = config['sim_params']['cleaned_halos']
+    halo_lc = config['sim_params'].get('halo_lc', halo_lc)
+    if halo_lc:
+        raise NotImplementedError(_LC_LATER)
+    ztype = z_type_of(z_mock)
+    search_path = Path(simdir) / simname / 'halos' / ('z%4.3f' % z_mock) / 'halo_info'
+    numslabs = len(list(search_path.glob('*.asdf')))
+    if not numslabs:
+        raise ValueError(f'no halo info files found in {search_path}')
+    os.makedirs(savedir, exist_ok=True)
+    device = str(resolve_device(device))
+
+    hod = config['HOD_params']
+    tracer_flags = hod['tracer_flags']
+    MT = bool(tracer_flags['ELG'] or tracer_flags['QSO'])
+    want_ranks = hod.get('want_ranks', False)
+    want_AB = hod.get('want_AB', False)
+    want_shear = hod.get('want_shear', False)
+    shearmark = shear_fn = None
+    if want_shear:
+        if ztype != 'primary':
+            raise ValueError('redshift does not have particle data, cant compute shear')
+        Ndim, Rsm = hod.get('shear_N', 1000), hod.get('shear_R', 2)
+        partdown = hod.get('partdown', 100)
+        shear_fn = f'{savedir}/shear_N{Ndim}_R{Rsm}_down{partdown}'
+        if os.path.exists(shear_fn + '.npy'):
+            shearmark = np.load(shear_fn + '.npy')
+        else:
+            print('computing shear field')
+            shearmark = calc_shearmark(simdir, simname, z_mock, Ndim, Rsm, shear_fn, partdown,
+                                       device=device)
+
+    prep = config.get('prepare_sim', {})
+    nparallel = prep.get('Nparallel_load', 1)
+    nthread = prep.get('Nthread_per_load', 'auto')
+    nthread = (max(1, len(os.sched_getaffinity(0)) // nparallel) if nthread == 'auto'
+               else int(nthread))
+    kwargs = dict(
+        savedir=savedir, simdir=simdir, simname=simname, z_mock=z_mock, z_type=ztype,
+        tracer_flags=tracer_flags, MT=MT, want_ranks=want_ranks, want_AB=want_AB,
+        want_shear=want_shear, shearmark=shearmark, cleaning=cleaning, newseed=newseed,
+        halo_lc=False, nthread=nthread, overwrite=overwrite, numslabs=numslabs,
+        ranks_engine=prep.get('ranks_engine', 'auto'),
+        menv_engine=prep.get('menv_engine', 'auto'), device=device,
+    )
+    slabs = list(range(numslabs)) if slabs is None else list(slabs)
+    if nparallel <= 1 or len(slabs) == 1:
+        for i in slabs:
+            prepare_slab(i, **kwargs)
+        return
+    # each slab reseeds np.random at entry, so the pool's tables equal the
+    # serial run's; the workers read the shear field from its file
+    if want_shear:
+        kwargs['shearmark'] = shear_fn + '.npy'
+    with concurrent.futures.ProcessPoolExecutor(
+        max_workers=nparallel, mp_context=multiprocessing.get_context('spawn'),
+    ) as pool:
+        futures = [pool.submit(prepare_slab, i, **kwargs) for i in slabs]
+        for future in concurrent.futures.as_completed(futures):
+            future.result()

@@ -1,14 +1,22 @@
 """Inputs that exercise the deposit's edge cases, for tests and chip_smoke.py,
 a CPU twin of K7's walk for the tests, the NFW radial sample that
-``AbacusHOD.run_hod(want_nfw=True)`` draws from, and the reciso smoothing
-at the k bins' centres that makes the field-level LCV flow the k-level
-one's."""
+``AbacusHOD.run_hod(want_nfw=True)`` draws from, the reciso smoothing at
+the k bins' centres that makes the field-level LCV flow the k-level one's,
+and a synthetic AbacusSummit simulation on disk (CompaSO halo_info slabs,
+A subsamples, field particles and cleaning files in the AbacusSummit
+encodings), written with the port's own ASDF writer or another."""
+
+import math
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from .models.zcv.cosmo import get_meta
+
 __all__ = ['edge_points', 'edge_points_centred', 'menv_ranges', 'menv_walk', 'nfw_draw',
-           'smoothing_at_bin_centres']
+           'smoothing_at_bin_centres', 'summit_header', 'synthetic_compaso',
+           'write_compaso_sim', 'decoded_catalog']
 
 
 def edge_points(n, nmesh, yb, box, rng):
@@ -224,3 +232,214 @@ def smoothing_at_bin_centres(k_bin_edges):
             n1d, n1d, n1d // 2 + 1)
 
     return get_smoothing
+
+
+# ---------------------------------------------------------------------------
+# a synthetic AbacusSummit simulation on disk
+# ---------------------------------------------------------------------------
+
+INT16SCALE = 32000.0
+RV_POS_QUANTUM = 1e-6  # of the box: RVint's 20-bit position step
+RV_VEL_QUANTUM = 6000.0 / 2048  # km/s: RVint's 12-bit velocity step
+
+
+def summit_header(z=0.5):
+    """A halo_info header for AbacusSummit_base_c000_ph000 at redshift z.
+    The simulation's name, redshift, scale factor, box (2000 Mpc/h), H0,
+    Omega_M, Omega_DE, ppd, particle mass and subsample fractions are the
+    values of the JAX package's metadata, read from the port's extract
+    (models/zcv/cosmo.py:get_meta). That metadata has no velocity scale, so
+    VelZSpace_to_kms is approximated as 100 E(z) BoxSize / (1 + z), with
+    E(z) from Omega_M and Omega_DE alone (no radiation, no neutrinos)."""
+    meta = get_meta('AbacusSummit_base_c000_ph000', redshift=z)
+    header = {k: meta[k] for k in (
+        'SimName', 'Redshift', 'ScaleFactor', 'BoxSize', 'H0', 'Omega_M', 'Omega_DE', 'ppd',
+        'ParticleMassHMsun', 'ParticleSubsampleA', 'ParticleSubsampleB')}
+    ez = math.sqrt(meta['Omega_M'] * (1 + z) ** 3 + meta['Omega_DE'])
+    header.update(SimSet='AbacusSummit', BoxSizeHMpc=meta['BoxSize'],
+                  LightConeOrigins=[0.0, 0.0, 0.0],
+                  VelZSpace_to_kms=100 * ez * meta['BoxSize'] / (1 + z))
+    return header
+
+
+def _rvint(pos_box, vel_kms):
+    """RVint words of positions (box units, in [-0.5, 0.5)) and velocities
+    (km/s, clipped to the 12-bit range)."""
+    p = np.floor(pos_box / RV_POS_QUANTUM).astype(np.int32)
+    v = np.clip(np.rint(vel_kms / RV_VEL_QUANTUM), -2048, 2047).astype(np.int32)
+    return (p << 12) | (v + 2048)
+
+
+def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05, z=0.5):
+    """A synthetic CompaSO catalog of `n_slabs` x-slabs of a periodic box:
+    about `n_halo` halos (N ~ N^-2 over [35, 1e5] particles, in clumps of
+    sigma 8 Mpc/h), about `n_part` A-subsample particles laid out halo by
+    halo (each within ~0.4 r100 of its halo), `n_field` field particles, and
+    the cleaning: a `merge_frac` share of each slab's halos merged into
+    other halos of the slab (N_total 0; their A particles listed again in the
+    cleaned_rvpid file under the halo that absorbed them).
+
+    Returns {'header', 'slabs': [per slab {'halo_info': the stored halo_info
+    columns, 'clean': the cleaned_halo_info columns, 'rv_A', 'clean_rv_A',
+    'field_rv_A' (RVint words), 'merged_into' (absorbing halo or -1),
+    'clean_rows' (the rv_A row of each clean_rv_A row), 'pos_true' /
+    'vel_true' (the A particles' positions in Mpc/h and velocities in km/s
+    before encoding)}]}."""
+    header = summit_header(z)
+    box, kms = header['BoxSize'], header['VelZSpace_to_kms']
+    slabs = []
+    for s in range(n_slabs):
+        rng = np.random.default_rng([seed, s])
+        n = n_halo // n_slabs + (n_halo % n_slabs if s == n_slabs - 1 else 0)
+        xlo, xhi = -0.5 + s / n_slabs, -0.5 + (s + 1) / n_slabs
+        N = (1.0 / (1 / 35 - rng.random(n) * (1 / 35 - 1e-5))).astype(np.uint32)
+        ncl = max(1, n // 500)
+        cen = np.column_stack([rng.uniform(xlo, xhi, ncl), rng.uniform(-0.5, 0.5, (ncl, 2))])
+        pos = cen[rng.integers(0, ncl, n)] + rng.normal(0, 8.0 / box, (n, 3))
+        pos[:, 1:] = np.mod(pos[:, 1:] + 0.5, 1.0) - 0.5
+        pos[:, 0] = np.clip(pos[:, 0], xlo, xhi - 1e-6)
+        cube = np.cbrt(N / 1e3)
+        r100 = ((0.3 + 0.7 * cube) / box).astype(np.float32)
+        sig = (100.0 + 200.0 * cube) / kms
+        fa = min(1.0, n_part / n_slabs / float(N.sum()))
+        npout = rng.binomial(N, fa).astype(np.uint32)
+        npstart = np.concatenate([[0], np.cumsum(npout, dtype=np.uint64)[:-1]]).astype(np.uint64)
+        halo_info = {
+            'id': (np.uint64(s + 1) * np.uint64(10**10) + np.arange(n, dtype=np.uint64)),
+            'npstartA': npstart, 'npoutA': npout, 'N': N,
+            'x_L2com': pos.astype(np.float32),
+            'v_L2com': (rng.normal(0, 300.0, (n, 3)) / kms).astype(np.float32),
+            'r100_L2com': r100, 'sigmav3d_L2com': sig.astype(np.float32),
+            'r90_L2com_i16': (rng.uniform(0.70, 0.85, n) * INT16SCALE).astype(np.int16),
+            'r25_L2com_i16': (rng.uniform(0.15, 0.35, n) * INT16SCALE).astype(np.int16),
+            'r98_L2com_i16': (rng.uniform(0.86, 0.99, n) * INT16SCALE).astype(np.int16),
+        }
+        owner = np.repeat(np.arange(n), npout)
+        gauss = rng.standard_normal((2, len(owner), 3), dtype=np.float32)
+        ppos = pos[owner] + gauss[0] * (0.4 * r100[owner])[:, None]
+        ppos = np.mod(ppos + 0.5, 1.0) - 0.5
+        pvel = (halo_info['v_L2com'][owner] * kms
+                + gauss[1] * (sig[owner] * kms / np.sqrt(3))[:, None])
+        pvel = np.clip(pvel, -2048 * RV_VEL_QUANTUM, 2047 * RV_VEL_QUANTUM)
+
+        # the cleaning: merged halos and the halos that absorb them
+        merged = rng.random(n) < merge_frac
+        keep = np.flatnonzero(~merged)
+        into = np.full(n, -1, np.int64)
+        into[merged] = keep[rng.integers(0, len(keep), int(merged.sum()))]
+        N_total = N.copy()
+        N_total[merged] = 0
+        np.add.at(N_total, into[merged], N[merged])
+        n_merge = np.bincount(into[merged], weights=N[merged], minlength=n).astype(np.uint32)
+        nout_merge = np.bincount(into[merged], weights=npout[merged],
+                                 minlength=n).astype(np.uint32)
+        donors = np.flatnonzero(merged)
+        donors = donors[np.lexsort((donors, into[donors]))]
+        clean_rows = np.concatenate([np.arange(int(npstart[d]), int(npstart[d]) + int(npout[d]))
+                                     for d in donors] + [np.empty(0, np.int64)])
+        rv = _rvint(ppos, pvel)
+        clean = {
+            'npstartA_merge': np.concatenate([[0], np.cumsum(nout_merge, dtype=np.int64)[:-1]]),
+            'npstartB_merge': np.zeros(n, np.int64), 'npoutA_merge': nout_merge,
+            'npoutB_merge': np.zeros(n, np.uint32), 'N_total': N_total, 'N_merge': n_merge,
+            'haloindex': np.arange(n, dtype=np.uint64), 'is_merged_to': into,
+            'haloindex_mainprog': np.full(n, -1, np.int64),
+            'v_L2com_mainprog': np.zeros((n, 3), np.float32),
+        }
+        nf = n_field // n_slabs + (n_field % n_slabs if s == n_slabs - 1 else 0)
+        fpos = rng.random((nf, 3), dtype=np.float32) * np.float32([xhi - xlo, 1, 1])
+        fpos += np.float32([xlo, -0.5, -0.5])
+        fvel = np.clip(300.0 * rng.standard_normal((nf, 3), dtype=np.float32), -2048 * RV_VEL_QUANTUM,
+                       2047 * RV_VEL_QUANTUM)
+        slabs.append({
+            'halo_info': halo_info, 'clean': clean, 'rv_A': rv, 'clean_rv_A': rv[clean_rows],
+            'field_rv_A': _rvint(fpos, fvel), 'merged_into': into, 'clean_rows': clean_rows,
+            'pos_true': ppos * box, 'vel_true': pvel,
+        })
+    return {'header': header, 'slabs': slabs}
+
+
+def write_compaso_sim(root, sim, writer=None, compression='blsc'):
+    """Write `sim` (:func:`synthetic_compaso`) under `root` in the AbacusSummit
+    layout: ``<SimName>/halos/z<z>/{halo_info,halo_rv_A,field_rv_A}/*_NNN.asdf``
+    and ``cleaning/<SimName>/z<z>/{cleaned_halo_info,cleaned_rvpid}/``. The
+    writer is the port's ``write_asdf`` unless another with its arguments
+    ``(fn, tree, compression=)`` is given. Returns {'groupdir', 'files',
+    'raw_bytes' (the arrays' bytes), 'disk_bytes'}."""
+    if writer is None:
+        from .io.asdf_file import write_asdf as writer
+    header = sim['header']
+    name, zdir = header['SimName'], f'z{header["Redshift"]:4.3f}'
+    groupdir = Path(root) / name / 'halos' / zdir
+    cleandir = Path(root) / 'cleaning' / name / zdir
+    clean_header = dict(header, TimeSliceRedshiftsPrev=[0.575, 0.65, 0.725, 0.8])
+    files, raw = [], 0
+    for s, slab in enumerate(sim['slabs']):
+        for path, hdr, data in (
+            (groupdir / 'halo_info' / f'halo_info_{s:03d}.asdf', header, slab['halo_info']),
+            (groupdir / 'halo_rv_A' / f'halo_rv_A_{s:03d}.asdf', header, {'rvint': slab['rv_A']}),
+            (groupdir / 'field_rv_A' / f'field_rv_A_{s:03d}.asdf', header,
+             {'rvint': slab['field_rv_A']}),
+            (cleandir / 'cleaned_halo_info' / f'cleaned_halo_info_{s:03d}.asdf', clean_header,
+             slab['clean']),
+            (cleandir / 'cleaned_rvpid' / f'cleaned_rvpid_{s:03d}.asdf', clean_header,
+             {'rvint_A': slab['clean_rv_A']}),
+        ):
+            path.parent.mkdir(parents=True, exist_ok=True)
+            writer(path, {'header': hdr, 'data': data}, compression=compression)
+            files.append(path)
+            raw += sum(a.nbytes for a in data.values())
+    return {'groupdir': groupdir, 'files': files, 'raw_bytes': raw,
+            'disk_bytes': sum(f.stat().st_size for f in files)}
+
+
+def decoded_catalog(sim, slabs, cleaned, particles=True):
+    """What ``CompaSOHaloCatalog(<those slabs' files>, fields=[N, x_L2com,
+    v_L2com, r90_L2com, r25_L2com, r98_L2com, npstartA, npoutA, id,
+    sigmav3d_L2com], subsamples=dict(A=True, rv=True), cleaned=cleaned)``
+    returns, from the arrays `sim` was written from: (halos, particles), dicts
+    of numpy columns. The halo columns follow the encodings' decode formulas
+    (float32 arithmetic, as the loaders); the particles (each surviving
+    halo's own A particles, then those of the halos merged into it) are given
+    as their RVint words 'rvint' and their values before encoding,
+    'pos_true' and 'vel_true' (None without `particles`)."""
+    header = sim['header']
+    box, kms = header['BoxSize'], header['VelZSpace_to_kms']
+    halos, parts = [], []
+    for s in slabs:
+        slab = sim['slabs'][s]
+        h, c = slab['halo_info'], slab['clean']
+        n = len(h['N'])
+        cols = {
+            'x_L2com': h['x_L2com'] * box, 'v_L2com': h['v_L2com'] * kms,
+            **{f'r{p}_L2com': h[f'r{p}_L2com_i16'] * h['r100_L2com'] / INT16SCALE * box
+               for p in (90, 25, 98)},
+            'id': h['id'], 'sigmav3d_L2com': h['sigmav3d_L2com'] * kms,
+            'N': c['N_total'] if cleaned else h['N'],
+        }
+        # a survivor's own particles, then those of the halos merged into it
+        # (in the cleaned file's order); a merged halo keeps none
+        cols['npoutA'] = (np.where(slab['merged_into'] < 0, h['npoutA'], 0) + c['npoutA_merge']
+                          if cleaned else h['npoutA']).astype(np.uint32)
+        halos.append(cols)
+        if not particles:
+            continue
+        owner = np.repeat(np.arange(n), h['npoutA'])
+        rows = np.arange(len(owner))
+        if cleaned:
+            own = slab['merged_into'][owner] < 0
+            absorber = slab['merged_into'][owner[slab['clean_rows']]]
+            order = np.argsort(np.concatenate([2 * owner[own], 2 * absorber + 1]), kind='stable')
+            src = np.concatenate([rows[own], slab['clean_rows']])[order]
+            words = np.concatenate([slab['rv_A'][own], slab['clean_rv_A']])[order]
+        else:
+            src, words = rows, slab['rv_A']
+        parts.append({'rvint': words, 'pos_true': slab['pos_true'][src],
+                      'vel_true': slab['vel_true'][src]})
+    out = {k: np.concatenate([c[k] for c in halos]) for k in halos[0]}
+    out['npstartA'] = np.concatenate(
+        [[0], np.cumsum(out['npoutA'], dtype=np.uint64)[:-1]]).astype(np.uint64)
+    out['N'] = out['N'].astype(np.uint32)
+    if not particles:
+        return out, None
+    return out, {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV and power-spectrum paths on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV, power-spectrum and disk paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -128,7 +128,25 @@ Phases, each printing what it measured:
    rtol 1e-11, two launches bit-equal, a full real mesh read through its
    [:, :, :kzlen] view), by CUDA events against its byte bound and one
    ``torch.bincount``; ``expand_poles_to_3d`` and ``get_smoothing`` at
-   512^3, timed and finite.
+   512^3, timed and finite;
+16. the disk path, from CompaSO files the phase writes (the port's
+   ``write_asdf``, blsc zstd) into a temporary directory it removes: a
+   synthetic catalog in the AbacusSummit encodings (int16 radius ratios,
+   RVint, the cleaning files' ``clean_dt`` columns, ~5 % of the halos
+   merged; a header for ``AbacusSummit_base_c000_ph000`` at z 0.5, the
+   metadata's values with an approximate velocity scale) of
+   DISK_HALOS halos over DISK_SLABS slabs, DISK_PARTS A and DISK_FIELD
+   field particles (``testing.synthetic_compaso``); the blsc decode rate;
+   (a) ``CompaSOHaloCatalog`` of every slab, cleaned and uncleaned, against
+   the encodings' decode formulas on the arrays written (exact; particles
+   to the RVint quantum); (b) ``prepare_sim.main`` serial with ranks, env
+   and the shear (1000^3, R 2, every particle) on the device engines
+   (read, tables and write timed a slab; K6, K7 and K1 must launch), slab
+   0's tables against ``prepare_slab_tables`` on the columns in memory
+   (phase 11's rules); (c) ``main`` with ``Nparallel_load`` 2 on slabs 0-1,
+   bit-equal to the serial run; (d) ``AbacusHOD.from_config`` staging and
+   ``run_hod_pk_fused`` cold and warm (K1 and K3 must launch) against the
+   same call on ``staged_state_from_numpy`` of the staged tables.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -177,12 +195,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from abacusutils_tpu_torch import _build
-from abacusutils_tpu_torch.convert import position_columns
+from abacusutils_tpu_torch.convert import position_columns, staged_state_from_numpy
+from abacusutils_tpu_torch.io import asdf_file
+from abacusutils_tpu_torch.io.asdf_file import open_asdf
+from abacusutils_tpu_torch.io.bitpacked import unpack_rvint
+from abacusutils_tpu_torch.io.compaso import CompaSOHaloCatalog
 from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
 from abacusutils_tpu_torch.models.pipeline import (
     group_inputs2d_device,
@@ -268,10 +291,15 @@ from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
 from abacusutils_tpu_torch.ops import grid as tgrid
 from abacusutils_tpu_torch.ops import shear as tshear
 from abacusutils_tpu_torch.testing import (
+    RV_POS_QUANTUM,
+    RV_VEL_QUANTUM,
+    decoded_catalog,
     edge_points,
     menv_ranges,
     nfw_draw,
     smoothing_at_bin_centres,
+    synthetic_compaso,
+    write_compaso_sim,
 )
 
 N_HALO = 10_000_000
@@ -2923,6 +2951,235 @@ def phase_surface(mock, dev, paths, timing):
     print(f'phase 14 in {time.perf_counter() - t0:.1f} s')
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the disk path, CompaSO files -> prepare_sim -> staging -> P(k)
+# ---------------------------------------------------------------------------
+
+# 2 slabs of 1.25e6 halos (a base box has 34), 5 A particles a halo and
+# 2.5e7 field particles (~10^10 a box): the cuts of PERF.md section 4
+DISK_SLABS = 2
+DISK_HALOS = N_HALO // 4
+DISK_PARTS = N_PART // 4
+DISK_FIELD = 25_000_000
+DISK_SHEAR_N = SHEAR_N
+DISK_SEED = SEED + 16
+
+
+def disk_config(root, name, subsample, nparallel=1):
+    """The prepare_sim / AbacusHOD config of the phase's simulation: ranks,
+    env and shear (DISK_SHEAR_N^3, R 2, every particle) on, the device
+    engines, LRG + ELG + QSO with assembly bias."""
+    return {
+        'sim_params': {'sim_name': name, 'sim_dir': f'{root}/', 'subsample_dir':
+                       f'{root}/{subsample}/', 'output_dir': f'{root}/mocks/', 'z_mock': 0.5,
+                       'cleaned_halos': True},
+        'HOD_params': {'tracer_flags': dict.fromkeys(WANT, True), 'want_ranks': True,
+                       'want_AB': True, 'want_shear': True, 'shear_N': DISK_SHEAR_N,
+                       'shear_R': 2, 'partdown': 1, 'want_rsd': True,
+                       **{f'{t}_params': dict(TRACERS[t]) for t in WANT}},
+        'prepare_sim': {'Nparallel_load': nparallel},
+    }
+
+
+def same_tables(got, ref, tag):
+    """prepare_sim's tables, structured arrays or env dicts, under phase 11's
+    rules: every column exact, ranksc tie-aware, Menv at rtol 1e-12 with the
+    same zeros. Returns the share of particles whose ranksc is equal."""
+    if isinstance(ref, dict) and 'Menv' in ref:
+        for k in ('id', 'mass'):
+            require(got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]),
+                    f'{tag}: env {k} differs')
+        rel = float(np.max(np.abs(got['Menv'] - ref['Menv'])
+                           / np.maximum(np.abs(ref['Menv']), 1e-300), initial=0.0))
+        require(np.array_equal(got['Menv'] == 0, ref['Menv'] == 0) and rel <= 1e-12,
+                f'{tag}: env Menv rel {rel:.3e}')
+        return 1.0
+    names = ref.dtype.names if hasattr(ref, 'dtype') else list(ref)
+    for k in names:
+        if k != 'ranksc':
+            require(got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]),
+                    f'{tag}: {k} differs')
+    if 'ranksc' not in names:
+        return 1.0
+    oa = np.lexsort((got['ranksc'], got['halo_id']))
+    ob = np.lexsort((ref['ranksc'], ref['halo_id']))
+    require(np.array_equal(got['ranksc'][oa], ref['ranksc'][ob]), f'{tag}: ranksc multisets')
+    return float((got['ranksc'] == ref['ranksc']).mean())
+
+
+def npz_tables(savedir, i):
+    """Slab i's (halos, particles, env) as the port's prepare_sim wrote them."""
+    fh, fp, fe = prepare_sim.slab_filenames(savedir, i, 600, True, True)
+    with np.load(fh) as h, np.load(fp) as p, np.load(fe) as e:
+        return h['halos'], p['particles'], {k: e[k] for k in ('id', 'mass', 'Menv')}
+
+
+def check_disk_catalog(sim, groupdir, cleaned):
+    """(a): CompaSOHaloCatalog of every slab against the arrays the phase
+    wrote: the halo columns by the encodings' decode formulas exactly, the
+    particles to the RVint quantum. Returns the read's seconds."""
+    cat, t_read = sync_seconds(lambda: CompaSOHaloCatalog(
+        groupdir, fields=prepare_sim.SLAB_FIELDS, subsamples=dict(A=True, rv=True),
+        cleaned=cleaned))
+    halos, parts = decoded_catalog(sim, range(DISK_SLABS), cleaned)
+    for k in prepare_sim.SLAB_FIELDS:
+        require(cat.halos[k].dtype == halos[k].dtype and np.array_equal(cat.halos[k], halos[k]),
+                f'(a) cleaned={cleaned}: {k} differs from its decode formula')
+    box, eps = sim['header']['BoxSize'], float(np.finfo(np.float32).eps)
+    dpos = float(np.abs(cat.subsamples['pos'] - parts['pos_true']).max())
+    dvel = float(np.abs(cat.subsamples['vel'] - parts['vel_true']).max())
+    require(len(cat.subsamples) == len(parts['rvint'])
+            and dpos <= RV_POS_QUANTUM * box + box / 2 * eps
+            and dvel <= RV_VEL_QUANTUM / 2 + 6000 * eps,
+            f'(a) cleaned={cleaned}: particles off by {dpos} Mpc/h, {dvel} km/s')
+    print(f'phase 16 (a) CompaSOHaloCatalog cleaned={cleaned}: {len(cat.halos)} halos, '
+          f'{len(cat.subsamples)} A particles in {t_read:.3f} s; every halo column equal to its '
+          f'decode formula, particles within the RVint quantum (max |d| {dpos:.3e} Mpc/h, '
+          f'{dvel:.3f} km/s)')
+    return t_read
+
+
+def phase_disk(dev, paths):
+    """Phase 16: the disk path on the card, from files it writes itself into a
+    temporary directory (removed at the end)."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix='chip_smoke_disk_'))
+    try:
+        disk_path(dev, paths, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'phase 16 in {time.perf_counter() - t0:.1f} s')
+
+
+def disk_path(dev, paths, root):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim, t_gen = sync_seconds(lambda: synthetic_compaso(
+        DISK_SLABS, DISK_HALOS, DISK_PARTS, DISK_FIELD, seed=DISK_SEED))
+    info, t_write = sync_seconds(lambda: write_compaso_sim(root, sim))
+    name, groupdir = sim['header']['SimName'], info['groupdir']
+    n_halo = sum(len(s['halo_info']['N']) for s in sim['slabs'])
+    n_part = sum(len(s['rv_A']) for s in sim['slabs'])
+    print(f'phase 16 catalog ({name} header at z 0.5, {DISK_SLABS} slabs, {n_halo} halos, '
+          f'{n_part} A particles, {DISK_FIELD} field particles, ~5 % of the halos merged): '
+          f'drawn in {t_gen:.3f} s, written (blsc zstd, {len(info["files"])} files) in '
+          f'{t_write:.3f} s, {info["raw_bytes"]} bytes raw, {info["disk_bytes"]} on disk '
+          f'(ratio {info["disk_bytes"] / info["raw_bytes"]:.3f})')
+
+    # blsc decode rate: every block of every file, the file bytes already read
+    nbytes, t_dec = 0, 0.0
+    for fn in info['files']:
+        with open_asdf(fn) as af:
+            t1 = time.perf_counter()
+            for i in range(len(af._blocks)):
+                nbytes += len(af._read_block(i))
+            t_dec += time.perf_counter() - t1
+    print(f'phase 16 blsc decode: {nbytes} bytes in {t_dec:.3f} s, {nbytes / t_dec / 1e9:.3f} '
+          f'GB/s ({asdf_file._NTHREADS} threads, libzstd through ctypes)')
+
+    # (a) the reader
+    t_clean = check_disk_catalog(sim, groupdir, True)
+    t_raw = check_disk_catalog(sim, groupdir, False)
+
+    # (b) prepare_sim.main, serial, on the device engines
+    cfg = disk_config(root, name, 'subsamples')
+    steps, calls = {}, {}
+    tag = f'prepare_sim.main (disk, {DISK_SLABS} slabs, serial)'
+    reset_launches()
+    with timed_stages([(prepare_sim, 'read_slab'), (prepare_sim, 'prepare_slab_tables'),
+                       (prepare_sim, 'write_slab_tables'), (prepare_sim, 'calc_shearmark')],
+                      steps, calls):
+        with calls_of(ranks_device, 'seg_rank') as ranked:
+            _, t_main = sync_seconds(lambda: prepare_sim.main(cfg, device=dev))
+    paths[tag] = dict(read_launches(), seg_rank=ranked[0])
+    for k in ('nn_within_halo', 'menv_annulus', 'tsc_deposit_cells[tsc]'):
+        require(paths[tag][k] > 0, f'{tag}: no {k} launch ({paths[tag]})')
+    per = {k: steps[k] / calls[k] for k in ('read_slab', 'prepare_slab_tables',
+                                            'write_slab_tables')}
+    print(f'phase 16 (b) {tag}: {t_main:.3f} s host to host; calc_shearmark '
+          f'({DISK_FIELD + n_part} particles at {DISK_SHEAR_N}^3) '
+          f'{steps["calc_shearmark"]:.3f} s; per slab read '
+          f'{per["read_slab"]:.3f} s, tables {per["prepare_slab_tables"]:.3f} s, write '
+          f'{per["write_slab_tables"]:.3f} s; launches {paths[tag]}')
+
+    savedir = f'{root}/subsamples/{name}/z0.500'
+    shear_fn = f'{savedir}/shear_N{DISK_SHEAR_N}_R2_down1.npy'
+    halos0, parts0 = decoded_catalog(sim, [0], True)
+    parts0 = dict(zip(('pos', 'vel'), unpack_rvint(parts0['rvint'], sim['header']['BoxSize'])))
+    alive = halos0['N'] > 0
+    env = []
+    for islab, keep in prepare_sim.env_pad_slabs(halos0['x_L2com'][alive, 0], 0, DISK_SLABS,
+                                                 LBOX, 10):
+        t = decoded_catalog(sim, [islab], True, particles=False)[0]
+        t = {k: t[k][t['N'] > 0] for k in ('N', 'x_L2com', 'r98_L2com', 'id')}
+        env.append({k: v[keep(t)] for k, v in t.items()})
+    mem = prepare_sim.prepare_slab_tables(
+        halos0, parts0, sim['header'], i=0, MT=True, want_ranks=True, want_AB=True,
+        want_shear=True, shearmark=np.load(shear_fn), newseed=600, halo_lc=False,
+        env_halos=env, cleaning=True, device=dev)
+    disk = npz_tables(savedir, 0)
+    same_tables(disk[0], mem['halos'], '(b) halos')
+    same_c = same_tables(disk[1], mem['particles'], '(b) particles')
+    same_tables(disk[2], mem['env'], '(b) env')
+    menv_bits = bool(np.array_equal(disk[2]['Menv'], mem['env']['Menv']))
+    print(f'phase 16 (b) slab 0 from disk equals prepare_slab_tables on the columns in memory '
+          f'({len(disk[0])} halos, {len(disk[1])} particles kept; ranksc equal at {same_c:.4f}, '
+          f'Menv bit-equal {menv_bits})')
+    del mem, halos0, parts0, env
+
+    # (c) the pool on slabs 0-1
+    pooled = disk_config(root, name, 'pool', nparallel=2)
+    pool_dir = f'{root}/pool/{name}/z0.500'
+    os.makedirs(pool_dir)
+    os.link(shear_fn, f'{pool_dir}/{os.path.basename(shear_fn)}')
+    _, t_pool = sync_seconds(lambda: prepare_sim.main(pooled, device=dev, slabs=[0, 1]))
+    for i in (0, 1):
+        for g, r in zip(npz_tables(pool_dir, i), npz_tables(savedir, i)):
+            same = (all(np.array_equal(g[k], r[k]) for k in r) if isinstance(r, dict)
+                    else g.dtype == r.dtype and g.tobytes() == r.tobytes())
+            require(same, f'(c) slab {i}: the pool\'s tables differ from the serial run\'s')
+    print(f'phase 16 (c) main with Nparallel_load 2 (spawned workers on {dev}) on slabs 0-1: '
+          f'{t_pool:.3f} s, tables bit-equal to the serial run')
+    del sim
+
+    # (d) staging and P(k)
+    tag = 'AbacusHOD.from_config + run_hod_pk_fused (disk)'
+    reset_launches()
+    hod, t_stage = sync_seconds(lambda: AbacusHOD.from_config(
+        cfg['sim_params'], cfg['HOD_params'], device=dev))
+
+    def call(h):
+        return h.run_hod_pk_fused(nmesh=NMESH, nbins_k=NBINS_K)
+
+    (cl, n_gal), t_cold = sync_seconds(lambda: call(hod))
+    best = min(sync_seconds(lambda: [call(hod) for _ in range(5)])[1] / 5 for _ in range(3))
+    paths[tag] = read_launches()
+    for k in ('tsc_deposit_cells[tsc]', 'bin_pair_modes[no poles]'):
+        require(paths[tag][k] > 0, f'{tag}: no {k} launch ({paths[tag]})')
+    flags = dict(want_ranks=True, want_shear=True, want_expvel=False, halo_lc=False,
+                 z_type='primary')
+    twin = staged_state_from_numpy(hod.halo_data, hod.particle_data, hod.params, hod.tracers,
+                                   flags, dev)
+    cl2, n_gal2 = call(twin)
+    require(n_gal2 == n_gal and all(v > 0 for v in n_gal.values()), f'(d) n_gal {n_gal}')
+    worst, bit_equal = 0.0, True
+    for t1 in WANT:
+        for t2 in WANT:
+            a, b = cl[f'{t1}_{t2}'], cl2[f'{t1}_{t2}']
+            require(np.isfinite(a).all(), f'(d) {t1}_{t2} not finite')
+            scale = np.sqrt(np.abs(cl2[f'{t1}_{t1}'] * cl2[f'{t2}_{t2}']))
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(scale, 1e-300))))
+            bit_equal &= bool(np.array_equal(a, b))
+    require(worst <= 1e-4, f'(d) run_hod_pk_fused differs from the staged twin by {worst:.3e}')
+    peak = torch.cuda.max_memory_allocated()
+    print(f'phase 16 (d) {tag}: staging {t_stage:.3f} s ({len(hod.halo_data["hid"])} halos, '
+          f'{len(hod.particle_data["pinds"])} particles), run_hod_pk_fused cold {t_cold:.3f} s, '
+          f'warm {best:.6f} s (best mean of 3x5), n_gal {n_gal}; against the same call on '
+          f'staged_state_from_numpy of those tables: bit-equal {bit_equal}, max |d|/scale '
+          f'{worst:.3e}; launches {paths[tag]}; phase peak device memory {peak / 2**30:.3f} GiB')
+    print(f'phase 16 reads: cleaned catalog {t_clean:.3f} s, uncleaned {t_raw:.3f} s')
+
+
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
@@ -3564,6 +3821,8 @@ def main():
         phase_nfw(dev, halo5)
         del halo5
         print(f'phase 15 in {time.perf_counter() - t15:.1f} s')
+        paths16 = {}
+        phase_disk(dev, paths16)
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -3574,12 +3833,13 @@ def main():
             **paths13,
             **paths14,
             **paths15,
+            **paths16,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

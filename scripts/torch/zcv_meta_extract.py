@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Write the metadata extract the torch package's ZCV port reads.
+"""Write the metadata extract the torch package's ZCV port and its
+synthetic AbacusSummit catalog read.
 
     python scripts/torch/zcv_meta_extract.py [--out PATH]
 
@@ -11,6 +12,8 @@ needs msgpack and zstandard. This script reads them there, on the CPU, and
 writes a plain numpy ``.npz`` into ``abacusutils_tpu_torch/data/`` (by
 default): one JSON string with every scalar and table of each (simulation,
 redshift), and one (k, P) array pair for each cosmology's CLASS spectrum.
+The header keys of HEADER_KEYS feed ``abacusutils_tpu_torch.testing.
+summit_header``.
 
 Add a simulation or a redshift to SIMS / REDSHIFTS and run it again.
 """
@@ -31,6 +34,10 @@ PARAM_KEYS = (
     'SimName', 'BoxSize', 'InitialRedshift', 'H0', 'omega_b', 'omega_cdm', 'omega_ncdm',
     'N_ncdm', 'N_ur', 'n_s', 'A_s', 'alpha_s',
 )
+# the time-independent keys of a halo_info header that the synthetic
+# catalog of abacusutils_tpu_torch/testing.py takes from the metadata
+HEADER_KEYS = ('Omega_M', 'Omega_DE', 'ppd', 'ParticleMassHMsun', 'ParticleSubsampleA',
+               'ParticleSubsampleB')
 # the per-redshift keys
 STATE_KEYS = ('Redshift', 'f_growth', 'Growth', 'ScaleFactor')
 OUT = Path(__file__).resolve().parents[2] / 'abacusutils_tpu_torch' / 'data' / 'zcv_meta.npz'
@@ -42,7 +49,7 @@ def extract(sims=SIMS, redshifts=REDSHIFTS):
     for sim in sims:
         cosmo = re.search(r'_(c\d+)_', sim).group(1)
         base = get_meta(sim)
-        param = {k: base[k] for k in PARAM_KEYS}
+        param = {k: base[k] for k in PARAM_KEYS + HEADER_KEYS}
         gt = base['GrowthTable']
         param['GrowthTable'] = [[float(z), float(gt[z])] for z in sorted(gt)]
         states = {}

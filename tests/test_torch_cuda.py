@@ -1385,3 +1385,47 @@ def test_run_lcv_field_on_card_matches_cpu(cuda_device):
                                meta=meta))
     _assert_flow(*field, 'rho_tr_lf')
     _assert_flow(*k_level, 'rho_tr_lf')
+
+
+def test_prepare_sim_main_on_card_matches_cpu(cuda_device, tmp_path):
+    """prepare_sim.main on the card (K6, K7 and K1 through the device
+    engines) on a two-slab synthetic simulation written by the port's own
+    writer: the CPU run's tables (ranksc tie-aware, Menv at rtol 1e-12 with
+    the same zeros, every other column exact). Both runs rank halos on the
+    CPU's shear field; the card's field agrees with it at the shear's
+    tolerance (rtol 2e-4, atol 1e-5 of its largest value)."""
+    import glob
+    import os
+    import shutil
+
+    from abacusutils_tpu_torch.models.hod import prepare_sim as tps
+    from abacusutils_tpu_torch.testing import synthetic_compaso, write_compaso_sim
+    from torch_disk import assert_tables_equal, config
+
+    sim = synthetic_compaso(2, 4000, 30_000, 20_000, seed=9)
+    write_compaso_sim(tmp_path, sim)
+    name = sim['header']['SimName']
+    np.random.seed(3)
+    cpu_field = tps.calc_shearmark(str(tmp_path), name, 0.5, 32, 2, str(tmp_path / 'cpu'), 1,
+                                   device='cpu')
+    np.random.seed(3)
+    card_field = tps.calc_shearmark(str(tmp_path), name, 0.5, 32, 2, str(tmp_path / 'card'), 1,
+                                    device=cuda_device)
+    npt.assert_allclose(card_field, cpu_field, rtol=2e-4, atol=1e-5 * np.abs(cpu_field).max())
+    saved = {}
+    for where, device in (('cpu', 'cpu'), ('card', cuda_device)):
+        cfg = config(tmp_path, name, where)
+        saved[where] = f'{tmp_path}/{where}/{name}/z0.500'
+        os.makedirs(saved[where])
+        shutil.copy(tmp_path / 'cpu.npy', f'{saved[where]}/shear_N32_R2_down1.npy')
+        tps.main(cfg, device=device)
+    files = sorted(os.path.basename(f) for f in glob.glob(f'{saved["cpu"]}/*.npz'))
+    assert len(files) == 6
+    for fn in files:
+        with np.load(f'{saved["card"]}/{fn}') as got, np.load(f'{saved["cpu"]}/{fn}') as ref:
+            if fn.startswith('env'):
+                assert_tables_equal({k: got[k] for k in got}, {k: ref[k] for k in ref},
+                                    exact_menv=False)
+            else:
+                (key,) = ref.files
+                assert_tables_equal(got[key], ref[key])
