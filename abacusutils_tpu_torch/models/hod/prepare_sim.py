@@ -13,8 +13,8 @@ drives it over every slab, serially or in a process pool, after
   arithmetic (:func:`periodic_dx`, :func:`make_edge_pad_filter`,
   :func:`unwrap_x_for_slab`, :func:`env_pad_slabs`), :func:`calc_fenv_opt`,
   the light-cone randoms (:func:`get_vertices_cube`, :func:`is_in_cube`,
-  :func:`gen_rand`) and :func:`_rank_fields`, the per-halo cKDTree loop
-  (the ``'host'`` ranks engine).
+  :func:`gen_rand`, :func:`lc_randoms_norm`) and :func:`_rank_fields`, the
+  per-halo cKDTree loop (the ``'host'`` ranks engine).
 - The device engines: ranks (:func:`~.ranks_device.rank_fields_device`, K6
   and sorts), Menv (:func:`~.menv_device.do_menv_device`, K7) and the shear
   field (ops/grid.py:tsc_parallel, K1, then ops/shear.py), chosen by
@@ -33,7 +33,8 @@ h5 (the machine with the card has no h5py), under the JAX package's file
 stems with ``_new.npz`` for ``_new.h5``; each holds the structured array of
 JAX's dataset (``halos``, ``particles``; the env sidecar's ``id``,
 ``mass`` and ``Menv``). The config is a dict or a JSON file (no yaml on
-the card). The light-cone catalogs are not read yet (ROADMAP.md).
+the card). A light cone (``halo_lc``) is one slab, read from
+``{sim_dir}/{sim_name}/z{z}/lc_halo_info.asdf`` and ``lc_pid_rv.asdf``.
 """
 
 import concurrent.futures
@@ -54,10 +55,11 @@ from .menv import do_Menv_from_tree
 __all__ = [
     'subsample_halos', 'submask_particles', 'periodic_dx', 'make_edge_pad_filter',
     'unwrap_x_for_slab', 'env_pad_slabs', 'calc_fenv_opt', 'get_vertices_cube', 'is_in_cube',
-    'gen_rand', 'env_menv_periodic', 'env_menv_lc', 'shear_rank', 'shearmark_from_positions',
-    'prepare_slab_tables', 'HALO_ORDER', 'HALO_ORDER_LC', 'HALO_EXTRA', 'PRIMARY_REDSHIFTS',
-    'SECONDARY_REDSHIFTS', 'SLAB_FIELDS', 'load_env_halos', 'slab_filenames', 'read_slab',
-    'write_slab_tables', 'prepare_slab', 'calc_shearmark', 'load_config', 'main', 'z_type_of',
+    'gen_rand', 'env_menv_periodic', 'lc_randoms_norm', 'env_menv_lc', 'shear_rank',
+    'shearmark_from_positions', 'prepare_slab_tables', 'HALO_ORDER', 'HALO_ORDER_LC',
+    'HALO_EXTRA', 'PRIMARY_REDSHIFTS', 'SECONDARY_REDSHIFTS', 'SLAB_FIELDS', 'SLAB_FIELDS_LC',
+    'load_env_halos', 'slab_filenames', 'read_slab', 'write_slab_tables', 'prepare_slab',
+    'calc_shearmark', 'load_config', 'main', 'z_type_of',
 ]
 
 PRIMARY_REDSHIFTS = [3.0, 2.5, 2.0, 1.7, 1.4, 1.1, 0.8, 0.5, 0.4, 0.3, 0.2, 0.1, 0.0]
@@ -65,7 +67,6 @@ SECONDARY_REDSHIFTS = [
     0.15, 0.25, 0.35, 0.45, 0.575, 0.65, 0.725, 0.875, 0.95, 1.025, 1.175,
     1.25, 1.325, 1.475, 1.55, 1.625, 1.85, 2.25, 2.75, 3.0, 5.0, 8.0,
 ]
-_LC_LATER = 'the light-cone catalogs are not read by the port yet (ROADMAP.md, queue 1)'
 
 
 def z_type_of(z_mock, halo_lc=False):
@@ -375,16 +376,17 @@ def env_menv_periodic(central, env_halos, Mpart, Lbox, rad_outer, mcut, engine='
             'Menv': menv_all[:ncentral]}
 
 
-def env_menv_lc(allpos, r98, allmasses, origins, Lbox, rad_outer, mcut, mbins,
-                randoms_seed, engine='auto', nthread=1, device=None):
-    """The light cone's Menv with its randoms-normalized boundary correction,
-    ranked into fenv (the compute of prepare_sim.py:_env_halo_lc, :750-848).
-    The randoms and their ball counts stay on the host (scipy cKDTree), as in
-    the JAX package; the Menv engine is `engine`. Returns fenv_rank."""
+def lc_randoms_norm(allpos, r98, origins, Lbox, rad_outer, randoms_seed, nthread=1):
+    """The light cone's boundary correction (prepare_sim.py:_env_halo_lc,
+    :750-832): the halos within rad_outer of the footprint's edges, and for
+    each the randoms counted in its annulus (r98, rad_outer], normalized by
+    the annulus's volume times the randoms' density. Randoms are drawn
+    (:func:`gen_rand`, one batch of len(allpos) a round) until those near the
+    edges number ten times the edge halos. Host numpy and scipy's cKDTree,
+    whose ball counts (``return_length``) are the lengths of the JAX
+    package's neighbour lists. Returns (index_bounds, rand_norm)."""
     from scipy.spatial import cKDTree
 
-    allpos = np.asarray(allpos)
-    r98 = np.asarray(r98)
     origins = np.asarray(origins).reshape(-1, 3)
     alldist = np.sqrt(np.sum((allpos - origins[0]) ** 2.0, axis=1))
     offset = 10.0
@@ -440,12 +442,11 @@ def env_menv_lc(allpos, r98, allmasses, origins, Lbox, rad_outer, mcut, mbins,
 
             if randpos.shape[0] > 0:
                 tree = cKDTree(randpos)
-                inner = tree.query_ball_point(
-                    allpos[index_bounds], r=r98[index_bounds], workers=nthread
-                )
-                outer = tree.query_ball_point(allpos[index_bounds], r=rad_outer, workers=nthread)
-                for ind in range(len(index_bounds)):
-                    rand_norm[ind] += len(outer[ind]) - len(inner[ind])
+                inner = tree.query_ball_point(allpos[index_bounds], r=r98[index_bounds],
+                                              workers=nthread, return_length=True)
+                outer = tree.query_ball_point(allpos[index_bounds], r=rad_outer,
+                                              workers=nthread, return_length=True)
+                rand_norm += outer - inner
 
             repeats += 1
             count += randpos.shape[0]
@@ -454,6 +455,19 @@ def env_menv_lc(allpos, r98, allmasses, origins, Lbox, rad_outer, mcut, mbins,
         rand_norm /= (
             (rad_outer**3.0 - r98[index_bounds] ** 3.0) * 4.0 / 3.0 * np.pi * rand_n
         )
+    return index_bounds, rand_norm
+
+
+def env_menv_lc(allpos, r98, allmasses, origins, Lbox, rad_outer, mcut, mbins,
+                randoms_seed, engine='auto', nthread=1, device=None):
+    """The light cone's Menv with its randoms-normalized boundary correction
+    (:func:`lc_randoms_norm`), ranked into fenv (the compute of
+    prepare_sim.py:_env_halo_lc, :750-848); the Menv engine is `engine`.
+    Returns fenv_rank."""
+    allpos = np.asarray(allpos)
+    r98 = np.asarray(r98)
+    index_bounds, rand_norm = lc_randoms_norm(allpos, r98, origins, Lbox, rad_outer,
+                                              randoms_seed, nthread)
 
     Menv = _do_menv(engine, allpos, np.asarray(allmasses), r_inner=r98, r_outer=rad_outer,
                     halo_lc=True, Lbox=Lbox, nthread=nthread, mcut=mcut, device=device)
@@ -751,9 +765,11 @@ def prepare_slab_tables(
 # the file I/O of prepare_slab and main
 # ---------------------------------------------------------------------------
 
-# the halo_info fields prepare_slab reads (:318-321)
+# the halo_info fields prepare_slab reads (:318-321), and a light cone's
 SLAB_FIELDS = ['N', 'x_L2com', 'v_L2com', 'r90_L2com', 'r25_L2com', 'r98_L2com', 'npstartA',
                'npoutA', 'id', 'sigmav3d_L2com']
+SLAB_FIELDS_LC = ['N_interp', 'pos_interp', 'vel_interp', 'r90_L2com', 'r25_L2com', 'r98_L2com',
+                  'npstartA', 'npoutA', 'index_halo', 'sigmav3d_L2com']
 
 
 def load_env_halos(slabname, cleaning, filter_func=None):
@@ -784,20 +800,26 @@ def slab_filenames(savedir, i, newseed, MT, want_ranks):
     return halos + '_new.npz', parts + '_new.npz', env
 
 
-def read_slab(i, simdir, simname, z_mock, z_type, cleaning, want_AB, numslabs, rad_outer=10):
-    """What prepare_slab reads for box slab i: (halo columns, the A
-    particles' pos and vel or None where the redshift has none, the header,
-    the padded env's neighbour tables or None without want_AB), the
-    arguments of :func:`prepare_slab_tables`."""
+def read_slab(i, simdir, simname, z_mock, z_type, cleaning, want_AB, numslabs, rad_outer=10,
+              halo_lc=False):
+    """What prepare_slab reads for box slab i, or with `halo_lc` for the
+    light cone: (halo columns, the A particles' pos and vel or None where
+    the redshift has none, the header, the padded env's neighbour tables or
+    None without want_AB or for a light cone), the arguments of
+    :func:`prepare_slab_tables`."""
     zdir = _zdir(simdir, simname, z_mock)
-    load_parts = z_type == 'primary'
-    cat = CompaSOHaloCatalog(f'{zdir}/halo_info/halo_info_{i:03d}.asdf', fields=SLAB_FIELDS,
+    load_parts = z_type in ('primary', 'lightcone')
+    fn = (f'{simdir}/{simname}/z{str(z_mock).ljust(5, "0")}/lc_halo_info.asdf' if halo_lc
+          else f'{zdir}/halo_info/halo_info_{i:03d}.asdf')
+    cat = CompaSOHaloCatalog(fn, fields=SLAB_FIELDS_LC if halo_lc else SLAB_FIELDS,
                              subsamples=dict(A=True, rv=True) if load_parts else False,
                              cleaned=cleaning)
+    if cat.halo_lc != bool(halo_lc):
+        raise ValueError(f'{fn}: read as a light cone {cat.halo_lc}, asked for {halo_lc}')
     halos = {k: cat.halos[k] for k in cat.halos.colnames}
     parts = {k: cat.subsamples[k] for k in ('pos', 'vel')} if load_parts else None
     env_halos = None
-    if want_AB:
+    if want_AB and not halo_lc:
         x = halos['x_L2com'][:, 0]
         if cleaning:
             x = x[halos['N'] > 0]
@@ -835,25 +857,24 @@ def prepare_slab(
     mcut=1e11, rad_outer=10, numslabs=None, ranks_engine='auto', menv_engine='auto',
     device=None,
 ):
-    """Read box slab i, compute its tables on `device` (None: the card;
-    'cpu' runs the kernels' plain versions) and write them
-    (prepare_sim.py:254). `shearmark`: the shear field, or the path of its
-    .npy file. Skips the slab when its files exist and `overwrite` is 0."""
-    if halo_lc:
-        raise NotImplementedError(_LC_LATER)
+    """Read box slab i (with `halo_lc`, the light cone, slab 0), compute its
+    tables on `device` (None: the card; 'cpu' runs the kernels' plain
+    versions) and write them (prepare_sim.py:254); a light cone writes no
+    env sidecar. `shearmark`: the shear field, or the path of its .npy file.
+    Skips the slab when its files exist and `overwrite` is 0."""
     halos_fn, parts_fn, env_fn = slab_filenames(savedir, i, newseed, MT, want_ranks)
     if not int(overwrite) and all(os.path.exists(f) for f in (
-            [halos_fn, parts_fn] + ([env_fn] if want_AB else []))):
+            [halos_fn, parts_fn] + ([env_fn] if want_AB and not halo_lc else []))):
         print('files exists, skipping ', i)
         return 0
     print('processing slab ', i)
     if isinstance(shearmark, (str, Path)):
         shearmark = np.load(shearmark, mmap_mode='r')
     halos, parts, header, env_halos = read_slab(i, simdir, simname, z_mock, z_type, cleaning,
-                                                want_AB, numslabs, rad_outer)
+                                                want_AB, numslabs, rad_outer, halo_lc=halo_lc)
     tables = prepare_slab_tables(
         halos, parts, header, i=i, MT=MT, want_ranks=want_ranks, want_AB=want_AB,
-        want_shear=want_shear, shearmark=shearmark, newseed=newseed, halo_lc=False, mcut=mcut,
+        want_shear=want_shear, shearmark=shearmark, newseed=newseed, halo_lc=halo_lc, mcut=mcut,
         rad_outer=rad_outer, env_halos=env_halos, cleaning=cleaning, ranks_engine=ranks_engine,
         menv_engine=menv_engine, nthread=nthread, device=device)
     write_slab_tables(tables, halos_fn, parts_fn, env_fn)
@@ -891,7 +912,9 @@ def load_config(config):
 
 def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, halo_lc=False,
          overwrite=1, device=None, slabs=None):
-    """Drive prepare_slab over the superslabs (prepare_sim.py:main, :896).
+    """Drive prepare_slab over the superslabs, or over the light cone's one
+    file with ``sim_params.halo_lc`` (or `halo_lc`) set (prepare_sim.py:main,
+    :896).
 
     path2config: the config (``sim_params``, ``HOD_params``, ``prepare_sim``)
     as a dict or a JSON file; `params` updates it. device: where the engines
@@ -913,13 +936,14 @@ def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, ha
     savedir = config['sim_params']['subsample_dir'] + simname + '/z' + str(z_mock).ljust(5, '0')
     cleaning = config['sim_params']['cleaned_halos']
     halo_lc = config['sim_params'].get('halo_lc', halo_lc)
+    ztype = z_type_of(z_mock, halo_lc)
     if halo_lc:
-        raise NotImplementedError(_LC_LATER)
-    ztype = z_type_of(z_mock)
-    search_path = Path(simdir) / simname / 'halos' / ('z%4.3f' % z_mock) / 'halo_info'
-    numslabs = len(list(search_path.glob('*.asdf')))
-    if not numslabs:
-        raise ValueError(f'no halo info files found in {search_path}')
+        numslabs = 1  # one light-cone file (prepare_sim.py:934-937)
+    else:
+        search_path = Path(simdir) / simname / 'halos' / ('z%4.3f' % z_mock) / 'halo_info'
+        numslabs = len(list(search_path.glob('*.asdf')))
+        if not numslabs:
+            raise ValueError(f'no halo info files found in {search_path}')
     os.makedirs(savedir, exist_ok=True)
     device = str(resolve_device(device))
 
@@ -931,7 +955,7 @@ def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, ha
     want_shear = hod.get('want_shear', False)
     shearmark = shear_fn = None
     if want_shear:
-        if ztype != 'primary':
+        if ztype != 'primary' and not halo_lc:
             raise ValueError('redshift does not have particle data, cant compute shear')
         Ndim, Rsm = hod.get('shear_N', 1000), hod.get('shear_R', 2)
         partdown = hod.get('partdown', 100)
@@ -952,7 +976,7 @@ def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, ha
         savedir=savedir, simdir=simdir, simname=simname, z_mock=z_mock, z_type=ztype,
         tracer_flags=tracer_flags, MT=MT, want_ranks=want_ranks, want_AB=want_AB,
         want_shear=want_shear, shearmark=shearmark, cleaning=cleaning, newseed=newseed,
-        halo_lc=False, nthread=nthread, overwrite=overwrite, numslabs=numslabs,
+        halo_lc=halo_lc, nthread=nthread, overwrite=overwrite, numslabs=numslabs,
         ranks_engine=prep.get('ranks_engine', 'auto'),
         menv_engine=prep.get('menv_engine', 'auto'), device=device,
     )

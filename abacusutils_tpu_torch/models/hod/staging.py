@@ -7,8 +7,10 @@ fenv re-ranking from the env sidecars.
 The tables are the ``.npz`` files of the port's prepare_sim
 (``prepare_sim.slab_filenames``); the JAX package's h5 subsample
 directories are not read (the machine with the card has no h5py). The
-halo_info header comes through ``io/asdf_file.py``. The light cone waits
-with its catalogs (ROADMAP.md).
+halo_info header comes through ``io/asdf_file.py``; a light cone's
+(``halo_lc``) from its ``lc_halo_info.asdf``, whose first observer becomes
+``params['origin']``. A light cone's fenv is its tables' own (no global
+re-ranking).
 """
 
 import logging
@@ -51,13 +53,11 @@ def staging(sim_params, HOD_params, chunk=-1, n_chunks=1):
     flags and tracers of `HOD_params`, as abacus_hod.py:staging returns
     them: the same keys and dtypes, halos sorted by id, ``pinds`` the
     particles' halos, ``hfenv`` / ``pfenv`` re-ranked over every slab's env
-    sidecar when ``want_AB`` is set. `chunk` / `n_chunks` select a run of
-    slabs (-1: all, in one chunk)."""
-    if sim_params.get('halo_lc', False):
-        raise NotImplementedError('staging a light cone: its catalogs are not read by the port '
-                                  'yet (ROADMAP.md, queue 1)')
+    sidecar when ``want_AB`` is set in a box. `chunk` / `n_chunks` select a
+    run of slabs (-1: all, in one chunk); a light cone is one slab."""
+    halo_lc = sim_params.get('halo_lc', False)
     z_mock = sim_params['z_mock']
-    z_type = z_type_of(z_mock)
+    z_type = z_type_of(z_mock, halo_lc)
     flags = HOD_params['tracer_flags']
     tracers = [k for k in flags if flags[k]]
     want_ranks = HOD_params.get('want_ranks', False)
@@ -72,20 +72,25 @@ def staging(sim_params, HOD_params, chunk=-1, n_chunks=1):
         raise FileNotFoundError(f'Simulation directory {sim_dir / simname} not found.')
     if not subsample_dir.exists():
         raise FileNotFoundError(f'Subsample directory {subsample_dir} not found.')
-    halo_info_fns = sorted(
-        (sim_dir / simname / 'halos' / ('z%4.3f' % z_mock) / 'halo_info').glob('*.asdf'))
+    if halo_lc:
+        halo_info_fns = [sim_dir / simname / ('z%4.3f' % z_mock) / 'lc_halo_info.asdf']
+    else:
+        halo_info_fns = sorted(
+            (sim_dir / simname / 'halos' / ('z%4.3f' % z_mock) / 'halo_info').glob('*.asdf'))
     with open_asdf(halo_info_fns[0]) as f:
         header = dict(f['header'])
 
     params = {'z': z_mock, 'h': header['H0'] / 100.0, 'Lbox': header['BoxSize'],
-              'Mpart': header['ParticleMassHMsun'], 'origin': None, 'chunk': chunk}
+              'Mpart': header['ParticleMassHMsun'], 'chunk': chunk}
     params['velz2kms'] = header['VelZSpace_to_kms'] / params['Lbox']
+    params['origin'] = (np.array(header['LightConeOrigins']).reshape(-1, 3)[0] if halo_lc
+                        else None)
     n_jump = int(np.ceil(len(halo_info_fns) / n_chunks))
     start = (0 if chunk == -1 else chunk) * n_jump
     end = min(start + n_jump, len(halo_info_fns))
     params['numslabs'] = end - start
 
-    load_parts = z_type == 'primary'
+    load_parts = z_type in ('primary', 'lightcone')
     halo_chunks, part_chunks = [], []
     for eslab in range(start, end):
         _log.info(f'Loading simulation slab {eslab}')
@@ -165,7 +170,7 @@ def staging(sim_params, HOD_params, chunk=-1, n_chunks=1):
         particle_data['pinds'] = np.empty(0, np.int64)
 
     # global fenv re-ranking from the env sidecars (abacus_hod.py:262-320)
-    if want_AB:
+    if want_AB and not halo_lc:
         local_env = sim_params.get('local_env', {})
         mcut_env, nbins_env = local_env.get('mcut', 1e11), local_env.get('nbins', 100)
         env = {'id': [], 'mass': [], 'Menv': []}

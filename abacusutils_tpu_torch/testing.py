@@ -2,9 +2,11 @@
 a CPU twin of K7's walk for the tests, the NFW radial sample that
 ``AbacusHOD.run_hod(want_nfw=True)`` draws from, the reciso smoothing at
 the k bins' centres that makes the field-level LCV flow the k-level one's,
-and a synthetic AbacusSummit simulation on disk (CompaSO halo_info slabs,
-A subsamples, field particles and cleaning files in the AbacusSummit
-encodings), written with the port's own ASDF writer or another."""
+a synthetic AbacusSummit simulation on disk (CompaSO halo_info slabs, A and
+B subsamples with packed PIDs, field particles and cleaning files in the
+AbacusSummit encodings) and a synthetic halo light cone with a light-cone
+particle file pair, written with the port's own ASDF writer or another,
+and a pack9 encoder."""
 
 import math
 from pathlib import Path
@@ -15,8 +17,9 @@ import torch
 from .models.zcv.cosmo import get_meta
 
 __all__ = ['edge_points', 'edge_points_centred', 'menv_ranges', 'menv_walk', 'nfw_draw',
-           'smoothing_at_bin_centres', 'summit_header', 'synthetic_compaso',
-           'write_compaso_sim', 'decoded_catalog']
+           'smoothing_at_bin_centres', 'summit_header', 'rvint_words', 'pid_words',
+           'synthetic_compaso', 'write_compaso_sim', 'decoded_catalog', 'pack9_rows', 'LC_ORIGINS',
+           'LC_SHELL', 'synthetic_compaso_lc', 'write_compaso_lc', 'decoded_catalog_lc']
 
 
 def edge_points(n, nmesh, yb, box, rng):
@@ -243,26 +246,39 @@ RV_POS_QUANTUM = 1e-6  # of the box: RVint's 20-bit position step
 RV_VEL_QUANTUM = 6000.0 / 2048  # km/s: RVint's 12-bit velocity step
 
 
-def summit_header(z=0.5):
+# the observers of an AbacusSummit base box's halo light cones, Mpc/h: one
+# 10 Mpc/h outside the box's corner and its two copies one box along z and
+# along y (the AbacusSummit documentation, "Light Cones": three observers at
+# (-990, -990, -990), (-990, -990, -2990) and (-990, -2990, -990))
+LC_ORIGINS = [-990.0, -990.0, -990.0, -990.0, -990.0, -2990.0, -990.0, -2990.0, -990.0]
+# the light cone's shell around z = 0.5, in Mpc/h from the first observer:
+# about the comoving distances halfway to its neighbouring output
+# redshifts (0.45 and 0.575) in the c000 cosmology
+LC_SHELL = (1240.0, 1390.0)
+
+
+def summit_header(z=0.5, light_cone=False):
     """A halo_info header for AbacusSummit_base_c000_ph000 at redshift z.
     The simulation's name, redshift, scale factor, box (2000 Mpc/h), H0,
     Omega_M, Omega_DE, ppd, particle mass and subsample fractions are the
     values of the JAX package's metadata, read from the port's extract
     (models/zcv/cosmo.py:get_meta). That metadata has no velocity scale, so
     VelZSpace_to_kms is approximated as 100 E(z) BoxSize / (1 + z), with
-    E(z) from Omega_M and Omega_DE alone (no radiation, no neutrinos)."""
+    E(z) from Omega_M and Omega_DE alone (no radiation, no neutrinos).
+    LightConeOrigins is a box's placeholder [0, 0, 0], or with
+    `light_cone` the three observers of LC_ORIGINS."""
     meta = get_meta('AbacusSummit_base_c000_ph000', redshift=z)
     header = {k: meta[k] for k in (
         'SimName', 'Redshift', 'ScaleFactor', 'BoxSize', 'H0', 'Omega_M', 'Omega_DE', 'ppd',
         'ParticleMassHMsun', 'ParticleSubsampleA', 'ParticleSubsampleB')}
     ez = math.sqrt(meta['Omega_M'] * (1 + z) ** 3 + meta['Omega_DE'])
     header.update(SimSet='AbacusSummit', BoxSizeHMpc=meta['BoxSize'],
-                  LightConeOrigins=[0.0, 0.0, 0.0],
+                  LightConeOrigins=list(LC_ORIGINS) if light_cone else [0.0, 0.0, 0.0],
                   VelZSpace_to_kms=100 * ez * meta['BoxSize'] / (1 + z))
     return header
 
 
-def _rvint(pos_box, vel_kms):
+def rvint_words(pos_box, vel_kms):
     """RVint words of positions (box units, in [-0.5, 0.5)) and velocities
     (km/s, clipped to the 12-bit range)."""
     p = np.floor(pos_box / RV_POS_QUANTUM).astype(np.int32)
@@ -270,26 +286,70 @@ def _rvint(pos_box, vel_kms):
     return (p << 12) | (v + 2048)
 
 
+def pid_words(rng, n, ppd):
+    """`n` packed PID words, each from one raw 64-bit draw: a Lagrangian
+    index triple in [0, ppd) (15 bits each at bits 0, 16 and 32), the
+    tagged bit 48 set on about half, a 10-bit density at bits 49-58; the
+    other bits zero."""
+    u = np.uint64
+    r = rng.bit_generator.random_raw(n)
+    i0, i1, i2 = (((r >> u(15 * k)) & u(0x7FFF)) % u(int(ppd)) for k in range(3))
+    tagged, dens = (r >> u(45)) & u(1), (r >> u(46)) & u(0x3FF)
+    return i0 | (i1 << u(16)) | (i2 << u(32)) | (tagged << u(48)) | (dens << u(49))
+
+
+def _halo_particles(rng, owner, pos, v_box, r100, sig, kms, uniform=False):
+    """Particles of the halos `owner` (box units, periodic), each within
+    ~0.4 r100 of its halo, velocities the halo's plus sigma / sqrt(3) an
+    axis (km/s, clipped to RVint's range): Gaussian offsets, or with
+    `uniform` (cheaper to draw) uniform ones of the same spread."""
+    if uniform:
+        # a uniform variate on [-sqrt(3), sqrt(3)) has unit variance; float32
+        # throughout
+        f = np.float32
+        d = rng.random((2, len(owner), 3), dtype=f)
+        d -= f(0.5)
+        d *= f(2 * np.sqrt(3))
+        ppos = pos.astype(f)[owner]
+        ppos += d[0] * (f(0.4) * r100[owner])[:, None]
+        ppos -= np.floor(ppos + f(0.5))
+        pvel = v_box[owner] * f(kms)
+        pvel += d[1] * (sig[owner] * (kms / np.sqrt(3))).astype(f)[:, None]
+    else:
+        d = rng.standard_normal((2, len(owner), 3), dtype=np.float32)
+        ppos = pos[owner] + d[0] * (0.4 * r100[owner])[:, None]
+        ppos = np.mod(ppos + 0.5, 1.0) - 0.5
+        pvel = v_box[owner] * kms + d[1] * (sig[owner] * kms / np.sqrt(3))[:, None]
+    return ppos, np.clip(pvel, -2048 * RV_VEL_QUANTUM, 2047 * RV_VEL_QUANTUM)
+
+
 def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05, z=0.5):
     """A synthetic CompaSO catalog of `n_slabs` x-slabs of a periodic box:
     about `n_halo` halos (N ~ N^-2 over [35, 1e5] particles, in clumps of
     sigma 8 Mpc/h), about `n_part` A-subsample particles laid out halo by
-    halo (each within ~0.4 r100 of its halo), `n_field` field particles, and
-    the cleaning: a `merge_frac` share of each slab's halos merged into
-    other halos of the slab (N_total 0; their A particles listed again in the
-    cleaned_rvpid file under the halo that absorbed them).
+    halo (each within ~0.4 r100 of its halo), a B subsample of
+    ParticleSubsampleB / ParticleSubsampleA times as many (uniform offsets
+    of the same spread, cheaper to draw), packed PID words
+    for both, `n_field` field particles, and the cleaning: a `merge_frac`
+    share of each slab's halos merged into other halos of the slab (N_total
+    0; their particles listed again in the cleaned_rvpid file under the
+    halo that absorbed them). The B set and the PIDs come from a stream of
+    their own, so the rest does not depend on them.
 
     Returns {'header', 'slabs': [per slab {'halo_info': the stored halo_info
-    columns, 'clean': the cleaned_halo_info columns, 'rv_A', 'clean_rv_A',
-    'field_rv_A' (RVint words), 'merged_into' (absorbing halo or -1),
-    'clean_rows' (the rv_A row of each clean_rv_A row), 'pos_true' /
-    'vel_true' (the A particles' positions in Mpc/h and velocities in km/s
-    before encoding)}]}."""
+    columns, 'clean': the cleaned_halo_info columns, 'rv_A', 'rv_B',
+    'clean_rv_A', 'clean_rv_B', 'field_rv_A' (RVint words), 'pid_A',
+    'pid_B', 'clean_pid_A', 'clean_pid_B' (packed PIDs), 'merged_into'
+    (absorbing halo or -1), 'clean_rows_A' / 'clean_rows_B' (the set's row
+    of each cleaned row), 'pos_true_A' / 'vel_true_A' and the same of B
+    (positions in Mpc/h and velocities in km/s before encoding)}]}."""
     header = summit_header(z)
     box, kms = header['BoxSize'], header['VelZSpace_to_kms']
+    b_per_a = header['ParticleSubsampleB'] / header['ParticleSubsampleA']
     slabs = []
     for s in range(n_slabs):
         rng = np.random.default_rng([seed, s])
+        rng_b = np.random.default_rng([seed, s, 1])
         n = n_halo // n_slabs + (n_halo % n_slabs if s == n_slabs - 1 else 0)
         xlo, xhi = -0.5 + s / n_slabs, -0.5 + (s + 1) / n_slabs
         N = (1.0 / (1 / 35 - rng.random(n) * (1 / 35 - 1e-5))).astype(np.uint32)
@@ -314,13 +374,8 @@ def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05,
             'r25_L2com_i16': (rng.uniform(0.15, 0.35, n) * INT16SCALE).astype(np.int16),
             'r98_L2com_i16': (rng.uniform(0.86, 0.99, n) * INT16SCALE).astype(np.int16),
         }
-        owner = np.repeat(np.arange(n), npout)
-        gauss = rng.standard_normal((2, len(owner), 3), dtype=np.float32)
-        ppos = pos[owner] + gauss[0] * (0.4 * r100[owner])[:, None]
-        ppos = np.mod(ppos + 0.5, 1.0) - 0.5
-        pvel = (halo_info['v_L2com'][owner] * kms
-                + gauss[1] * (sig[owner] * kms / np.sqrt(3))[:, None])
-        pvel = np.clip(pvel, -2048 * RV_VEL_QUANTUM, 2047 * RV_VEL_QUANTUM)
+        ppos, pvel = _halo_particles(rng, np.repeat(np.arange(n), npout), pos,
+                                     halo_info['v_L2com'], r100, sig, kms)
 
         # the cleaning: merged halos and the halos that absorb them
         merged = rng.random(n) < merge_frac
@@ -331,17 +386,11 @@ def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05,
         N_total[merged] = 0
         np.add.at(N_total, into[merged], N[merged])
         n_merge = np.bincount(into[merged], weights=N[merged], minlength=n).astype(np.uint32)
-        nout_merge = np.bincount(into[merged], weights=npout[merged],
-                                 minlength=n).astype(np.uint32)
         donors = np.flatnonzero(merged)
         donors = donors[np.lexsort((donors, into[donors]))]
-        clean_rows = np.concatenate([np.arange(int(npstart[d]), int(npstart[d]) + int(npout[d]))
-                                     for d in donors] + [np.empty(0, np.int64)])
-        rv = _rvint(ppos, pvel)
         clean = {
-            'npstartA_merge': np.concatenate([[0], np.cumsum(nout_merge, dtype=np.int64)[:-1]]),
-            'npstartB_merge': np.zeros(n, np.int64), 'npoutA_merge': nout_merge,
-            'npoutB_merge': np.zeros(n, np.uint32), 'N_total': N_total, 'N_merge': n_merge,
+            'npstartA_merge': None, 'npstartB_merge': None, 'npoutA_merge': None,
+            'npoutB_merge': None, 'N_total': N_total, 'N_merge': n_merge,
             'haloindex': np.arange(n, dtype=np.uint64), 'is_merged_to': into,
             'haloindex_mainprog': np.full(n, -1, np.int64),
             'v_L2com_mainprog': np.zeros((n, 3), np.float32),
@@ -351,21 +400,41 @@ def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05,
         fpos += np.float32([xlo, -0.5, -0.5])
         fvel = np.clip(300.0 * rng.standard_normal((nf, 3), dtype=np.float32), -2048 * RV_VEL_QUANTUM,
                        2047 * RV_VEL_QUANTUM)
-        slabs.append({
-            'halo_info': halo_info, 'clean': clean, 'rv_A': rv, 'clean_rv_A': rv[clean_rows],
-            'field_rv_A': _rvint(fpos, fvel), 'merged_into': into, 'clean_rows': clean_rows,
-            'pos_true': ppos * box, 'vel_true': pvel,
-        })
+        slab = {'halo_info': halo_info, 'clean': clean, 'field_rv_A': rvint_words(fpos, fvel),
+                'merged_into': into}
+
+        # the B set and both sets' PIDs
+        npoutB = rng_b.binomial(N, min(1.0, fa * b_per_a)).astype(np.uint32)
+        halo_info['npstartB'] = np.concatenate(
+            [[0], np.cumsum(npoutB, dtype=np.uint64)[:-1]]).astype(np.uint64)
+        halo_info['npoutB'] = npoutB
+        pposB, pvelB = _halo_particles(rng_b, np.repeat(np.arange(n), npoutB), pos,
+                                       halo_info['v_L2com'], r100, sig, kms, uniform=True)
+        for ab, p, v, start, nout in (('A', ppos, pvel, npstart, npout),
+                                      ('B', pposB, pvelB, halo_info['npstartB'], npoutB)):
+            rv, pid = rvint_words(p, v), pid_words(rng_b, len(p), header['ppd'])
+            nout_merge = np.bincount(into[merged], weights=nout[merged],
+                                     minlength=n).astype(np.uint32)
+            rows = np.concatenate([np.arange(int(start[d]), int(start[d]) + int(nout[d]))
+                                   for d in donors] + [np.empty(0, np.int64)])
+            clean[f'npstart{ab}_merge'] = np.concatenate(
+                [[0], np.cumsum(nout_merge, dtype=np.int64)[:-1]])
+            clean[f'npout{ab}_merge'] = nout_merge
+            slab.update({f'rv_{ab}': rv, f'pid_{ab}': pid, f'clean_rv_{ab}': rv[rows],
+                         f'clean_pid_{ab}': pid[rows], f'clean_rows_{ab}': rows,
+                         f'pos_true_{ab}': p * box, f'vel_true_{ab}': v})
+        slabs.append(slab)
     return {'header': header, 'slabs': slabs}
 
 
 def write_compaso_sim(root, sim, writer=None, compression='blsc'):
     """Write `sim` (:func:`synthetic_compaso`) under `root` in the AbacusSummit
-    layout: ``<SimName>/halos/z<z>/{halo_info,halo_rv_A,field_rv_A}/*_NNN.asdf``
-    and ``cleaning/<SimName>/z<z>/{cleaned_halo_info,cleaned_rvpid}/``. The
-    writer is the port's ``write_asdf`` unless another with its arguments
-    ``(fn, tree, compression=)`` is given. Returns {'groupdir', 'files',
-    'raw_bytes' (the arrays' bytes), 'disk_bytes'}."""
+    layout: ``<SimName>/halos/z<z>/{halo_info,halo_rv_A,halo_rv_B,halo_pid_A,
+    halo_pid_B,field_rv_A}/*_NNN.asdf`` and ``cleaning/<SimName>/z<z>/
+    {cleaned_halo_info,cleaned_rvpid}/``. The writer is the port's
+    ``write_asdf`` unless another with its arguments ``(fn, tree,
+    compression=)`` is given. Returns {'groupdir', 'files', 'raw_bytes' (the
+    arrays' bytes), 'disk_bytes'}."""
     if writer is None:
         from .io.asdf_file import write_asdf as writer
     header = sim['header']
@@ -375,15 +444,21 @@ def write_compaso_sim(root, sim, writer=None, compression='blsc'):
     clean_header = dict(header, TimeSliceRedshiftsPrev=[0.575, 0.65, 0.725, 0.8])
     files, raw = [], 0
     for s, slab in enumerate(sim['slabs']):
+        particle_files = [
+            (groupdir / f'halo_{kind}_{ab}' / f'halo_{kind}_{ab}_{s:03d}.asdf', header,
+             {col: slab[f'{kind}_{ab}']})
+            for kind, col in (('rv', 'rvint'), ('pid', 'packedpid')) for ab in 'AB']
+        clean_words = {f'{col}_{ab}': slab[f'clean_{kind}_{ab}']
+                       for kind, col in (('rv', 'rvint'), ('pid', 'packedpid')) for ab in 'AB'}
         for path, hdr, data in (
             (groupdir / 'halo_info' / f'halo_info_{s:03d}.asdf', header, slab['halo_info']),
-            (groupdir / 'halo_rv_A' / f'halo_rv_A_{s:03d}.asdf', header, {'rvint': slab['rv_A']}),
+            *particle_files,
             (groupdir / 'field_rv_A' / f'field_rv_A_{s:03d}.asdf', header,
              {'rvint': slab['field_rv_A']}),
             (cleandir / 'cleaned_halo_info' / f'cleaned_halo_info_{s:03d}.asdf', clean_header,
              slab['clean']),
             (cleandir / 'cleaned_rvpid' / f'cleaned_rvpid_{s:03d}.asdf', clean_header,
-             {'rvint_A': slab['clean_rv_A']}),
+             clean_words),
         ):
             path.parent.mkdir(parents=True, exist_ok=True)
             writer(path, {'header': hdr, 'data': data}, compression=compression)
@@ -393,19 +468,21 @@ def write_compaso_sim(root, sim, writer=None, compression='blsc'):
             'disk_bytes': sum(f.stat().st_size for f in files)}
 
 
-def decoded_catalog(sim, slabs, cleaned, particles=True):
+def decoded_catalog(sim, slabs, cleaned, particles=True, sets='A'):
     """What ``CompaSOHaloCatalog(<those slabs' files>, fields=[N, x_L2com,
     v_L2com, r90_L2com, r25_L2com, r98_L2com, npstartA, npoutA, id,
     sigmav3d_L2com], subsamples=dict(A=True, rv=True), cleaned=cleaned)``
-    returns, from the arrays `sim` was written from: (halos, particles), dicts
-    of numpy columns. The halo columns follow the encodings' decode formulas
+    returns (with B in `sets`: the B set too, and npstartB / npoutB), from
+    the arrays `sim` was written from: (halos, particles), dicts of numpy
+    columns. The halo columns follow the encodings' decode formulas
     (float32 arithmetic, as the loaders); the particles (each surviving
-    halo's own A particles, then those of the halos merged into it) are given
-    as their RVint words 'rvint' and their values before encoding,
+    halo's own particles, then those of the halos merged into it; every
+    halo's A before every halo's B) are given as their RVint words 'rvint',
+    their packed PIDs 'packedpid' and their values before encoding,
     'pos_true' and 'vel_true' (None without `particles`)."""
     header = sim['header']
     box, kms = header['BoxSize'], header['VelZSpace_to_kms']
-    halos, parts = [], []
+    halos, parts = [], {ab: [] for ab in sets}
     for s in slabs:
         slab = sim['slabs'][s]
         h, c = slab['halo_info'], slab['clean']
@@ -417,29 +494,232 @@ def decoded_catalog(sim, slabs, cleaned, particles=True):
             'id': h['id'], 'sigmav3d_L2com': h['sigmav3d_L2com'] * kms,
             'N': c['N_total'] if cleaned else h['N'],
         }
-        # a survivor's own particles, then those of the halos merged into it
-        # (in the cleaned file's order); a merged halo keeps none
-        cols['npoutA'] = (np.where(slab['merged_into'] < 0, h['npoutA'], 0) + c['npoutA_merge']
-                          if cleaned else h['npoutA']).astype(np.uint32)
+        for ab in sets:
+            # a survivor's own particles, then those of the halos merged into
+            # it (in the cleaned file's order); a merged halo keeps none
+            own_n, merge_n = h[f'npout{ab}'], c[f'npout{ab}_merge']
+            cols[f'npout{ab}'] = (np.where(slab['merged_into'] < 0, own_n, 0) + merge_n
+                                  if cleaned else own_n).astype(np.uint32)
+            if not particles:
+                continue
+            owner = np.repeat(np.arange(n), own_n)
+            rows = np.arange(len(owner))
+            if cleaned:
+                crows = slab[f'clean_rows_{ab}']
+                own = slab['merged_into'][owner] < 0
+                absorber = slab['merged_into'][owner[crows]]
+                order = np.argsort(np.concatenate([2 * owner[own], 2 * absorber + 1]),
+                                   kind='stable')
+                src = np.concatenate([rows[own], crows])[order]
+            else:
+                src = rows
+            parts[ab].append({'rvint': slab[f'rv_{ab}'][src], 'packedpid': slab[f'pid_{ab}'][src],
+                              'pos_true': slab[f'pos_true_{ab}'][src],
+                              'vel_true': slab[f'vel_true_{ab}'][src]})
         halos.append(cols)
-        if not particles:
-            continue
-        owner = np.repeat(np.arange(n), h['npoutA'])
-        rows = np.arange(len(owner))
-        if cleaned:
-            own = slab['merged_into'][owner] < 0
-            absorber = slab['merged_into'][owner[slab['clean_rows']]]
-            order = np.argsort(np.concatenate([2 * owner[own], 2 * absorber + 1]), kind='stable')
-            src = np.concatenate([rows[own], slab['clean_rows']])[order]
-            words = np.concatenate([slab['rv_A'][own], slab['clean_rv_A']])[order]
-        else:
-            src, words = rows, slab['rv_A']
-        parts.append({'rvint': words, 'pos_true': slab['pos_true'][src],
-                      'vel_true': slab['vel_true'][src]})
     out = {k: np.concatenate([c[k] for c in halos]) for k in halos[0]}
-    out['npstartA'] = np.concatenate(
-        [[0], np.cumsum(out['npoutA'], dtype=np.uint64)[:-1]]).astype(np.uint64)
+    base = np.uint64(0)
+    for ab in sets:
+        # every halo's A, then every halo's B
+        starts = np.concatenate([[0], np.cumsum(out[f'npout{ab}'], dtype=np.uint64)])
+        out[f'npstart{ab}'] = (starts[:-1] + base).astype(np.uint64)
+        base += np.uint64(starts[-1])
     out['N'] = out['N'].astype(np.uint32)
     if not particles:
         return out, None
-    return out, {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    flat = [p for ab in sets for p in parts[ab]]
+    return out, {k: np.concatenate([p[k] for p in flat]) for k in flat[0]}
+
+
+# ---------------------------------------------------------------------------
+# pack9 rows
+# ---------------------------------------------------------------------------
+
+
+def pack9_rows(pos, vel, box, cpd, velzspace_to_kms):
+    """Encode particles as pack9 rows, a cell header (first byte 0xFF: cpd,
+    the velocity scale, the cell's x, y, z) before each non-empty cell's
+    particles, cells in x, y, z order. pos: (N, 3) in [-box/2, box/2);
+    vel: (N, 3) km/s. The position step is 1/2000 of a cell and the
+    velocity step vscale * 0.0005 / cpd * velzspace_to_kms, vscale the
+    least integer that keeps every velocity within 2000 steps. Returns
+    (rows, order): the (M, 9) uint8 rows and the particles' order in them."""
+    pos = np.asarray(pos, np.float64)
+    vel = np.asarray(vel, np.float64)
+    csize = box / cpd
+    cell = np.clip(np.floor((pos + box / 2) / csize).astype(np.int64), 0, cpd - 1)
+    key = (cell[:, 0] * cpd + cell[:, 1]) * cpd + cell[:, 2]
+    order = np.argsort(key, kind='stable')
+    key, cell, pos, vel = key[order], cell[order], pos[order], vel[order]
+    vunit = 0.0005 / cpd * velzspace_to_kms
+    vscale = max(1, math.ceil(float(np.abs(vel).max(initial=0.0)) / (2000 * vunit)))
+    centre = (cell + 0.5) * csize - box / 2
+    off = np.clip(np.rint((pos - centre) / (0.0005 * csize)), -1000, 1000)
+    dv = np.clip(np.rint(vel / (vscale * vunit)), -2000, 2000)
+    fields = np.concatenate([off, dv], 1).astype(np.int64) + 2048
+
+    first = np.ones(len(key), bool)
+    first[1:] = key[1:] != key[:-1]
+    ncell = np.cumsum(first)  # cells opened up to and including each particle's
+    rows_at = np.arange(len(key)) + ncell
+    hdr_at = rows_at[first] - 1
+    hdr = np.empty((int(first.sum()), 6), np.int64)
+    hdr[:, 0] = 0xFFF  # a first byte of 0xFF
+    hdr[:, 1] = cpd - 2000 + 2048
+    hdr[:, 2] = vscale - 2000 + 2048
+    hdr[:, 3:] = cell[first] - 2000 + 2048
+    u = np.empty((len(key) + len(hdr), 6), np.int64)
+    u[rows_at], u[hdr_at] = fields, hdr
+    out = np.empty((len(u), 9), np.uint8)
+    for j in range(3):
+        a, b = u[:, 2 * j], u[:, 2 * j + 1]
+        out[:, 3 * j] = a >> 4
+        out[:, 3 * j + 1] = (a & 0x0F) | ((b >> 8) << 4)
+        out[:, 3 * j + 2] = b & 0xFF
+    return out, order
+
+
+# ---------------------------------------------------------------------------
+# a synthetic AbacusSummit halo light cone and light-cone particle files
+# ---------------------------------------------------------------------------
+
+
+def synthetic_compaso_lc(n_halo, n_per_halo=5, n_particles=0, seed=0, z=0.5, shell=LC_SHELL):
+    """A synthetic halo light cone of AbacusSummit_base_c000_ph000 at z: about
+    `n_halo` halos in clumps (sigma 8 Mpc/h) filling the octant of the
+    `shell` (Mpc/h from the first observer of LC_ORIGINS, the three of
+    which the header carries), with the L2 stats in the encodings of
+    :func:`synthetic_compaso` (x_L2com, v_L2com, r100_L2com,
+    sigmav3d_L2com, int16 radius ratios) and the columns of halo_lc_dt:
+    N and N_interp, npstartA / npoutA (about `n_per_halo` A particles a
+    halo), index_halo (distinct int64 in no order), origin 0-5, pos_avg and
+    vel_avg (zero for about a third of the halos), pos_interp and
+    vel_interp (Mpc/h, km/s) and redshift_interp; the A particles of
+    ``lc_pid_rv.asdf`` (float32 pos and vel around their halo's position,
+    the averaged one where it has one, and packed pid); and with
+    `n_particles`, a light-cone particle file pair (RVint and packed PIDs,
+    positions in the shell).
+
+    Returns {'header', 'halos': the stored columns, 'pid_rv': {'pos', 'vel',
+    'pid'}, 'particles': {'rvint', 'packedpid', 'pos_true', 'vel_true'} or
+    None}."""
+    header = summit_header(z, light_cone=True)
+    box, kms = header['BoxSize'], header['VelZSpace_to_kms']
+    origin = np.asarray(LC_ORIGINS[:3])
+    rng = np.random.default_rng([seed, 99])
+    r_min, r_max = shell
+
+    def in_shell(n, ncl):
+        # clump centres uniform in the octant's shell volume, halos around
+        # them, radii folded back into the shell
+        r3 = rng.uniform(r_min ** 3, r_max ** 3, ncl)
+        u = np.abs(rng.standard_normal((ncl, 3)))
+        cen = u / np.linalg.norm(u, axis=1)[:, None] * np.cbrt(r3)[:, None]
+        d = cen[rng.integers(0, ncl, n)] + rng.normal(0, 8.0, (n, 3))
+        d = np.abs(d)
+        r = np.linalg.norm(d, axis=1)
+        span = r_max - r_min
+        folded = r_min + np.abs(np.mod(r - r_min + span, 2 * span) - span)
+        folded = np.minimum(folded, np.nextafter(r_max, 0))
+        return origin + d * (folded / r)[:, None]
+
+    N = (1.0 / (1 / 35 - rng.random(n_halo) * (1 / 35 - 1e-5))).astype(np.uint32)
+    pos = in_shell(n_halo, max(1, n_halo // 500))
+    cube = np.cbrt(N / 1e3)
+    r100 = ((0.3 + 0.7 * cube) / box).astype(np.float32)
+    sig = (100.0 + 200.0 * cube) / kms
+    vel = rng.normal(0, 300.0, (n_halo, 3))
+    have_avg = rng.random(n_halo) >= 1 / 3
+    pos_avg = np.where(have_avg[:, None], pos, 0.0).astype(np.float32)
+    vel_avg = np.where(have_avg[:, None], vel, 0.0).astype(np.float32)
+    # the interpolated values differ from the averaged ones where both exist
+    pos_interp = (pos + np.where(have_avg[:, None], rng.normal(0, 0.5, (n_halo, 3)), 0.0))
+    vel_interp = vel + np.where(have_avg[:, None], rng.normal(0, 20.0, (n_halo, 3)), 0.0)
+    fa = min(1.0, n_per_halo * n_halo / float(N.sum()))
+    npout = rng.binomial(N, fa).astype(np.uint32)
+    npstart = np.concatenate([[0], np.cumsum(npout, dtype=np.uint64)[:-1]]).astype(np.uint64)
+    index_halo = rng.choice(np.int64(4) * n_halo, n_halo, replace=False).astype(np.int64)
+    index_halo += np.int64(10**11)
+    halos = {
+        'N': N, 'N_interp': np.maximum(N + rng.integers(-3, 4, n_halo), 35).astype(np.uint32),
+        'npstartA': npstart, 'npoutA': npout, 'index_halo': index_halo,
+        'origin': rng.integers(0, 6, n_halo).astype(np.int8),
+        'pos_avg': pos_avg, 'pos_interp': pos_interp.astype(np.float32),
+        'vel_avg': vel_avg, 'vel_interp': vel_interp.astype(np.float32),
+        'redshift_interp': (z + rng.normal(0, 0.01, n_halo)).astype(np.float32),
+        'x_L2com': (pos / box).astype(np.float32), 'v_L2com': (vel / kms).astype(np.float32),
+        'r100_L2com': r100, 'sigmav3d_L2com': sig.astype(np.float32),
+        'r90_L2com_i16': (rng.uniform(0.70, 0.85, n_halo) * INT16SCALE).astype(np.int16),
+        'r25_L2com_i16': (rng.uniform(0.15, 0.35, n_halo) * INT16SCALE).astype(np.int16),
+        'r98_L2com_i16': (rng.uniform(0.86, 0.99, n_halo) * INT16SCALE).astype(np.int16),
+    }
+    # the A particles around each halo's position as the loader reads it
+    centre = np.where(have_avg[:, None], pos_avg, halos['pos_interp']).astype(np.float64)
+    owner = np.repeat(np.arange(n_halo), npout)
+    gauss = rng.standard_normal((2, len(owner), 3), dtype=np.float32)
+    ppos = centre[owner] + gauss[0] * (0.4 * r100[owner] * box)[:, None]
+    pvel = vel[owner] + gauss[1] * (sig[owner] * kms / np.sqrt(3))[:, None]
+    pid_rv = {'pos': ppos.astype(np.float32), 'vel': pvel.astype(np.float32),
+              'pid': pid_words(rng, len(owner), header['ppd'])}
+    particles = None
+    if n_particles:
+        p = in_shell(n_particles, max(1, n_particles // 5000)) / box
+        v = np.clip(300.0 * rng.standard_normal((n_particles, 3)), -2048 * RV_VEL_QUANTUM,
+                    2047 * RV_VEL_QUANTUM)
+        particles = {'rvint': rvint_words(p, v), 'packedpid': pid_words(rng, n_particles,
+                                                                   header['ppd']),
+                     'pos_true': p * box, 'vel_true': v}
+    return {'header': header, 'halos': halos, 'pid_rv': pid_rv, 'particles': particles}
+
+
+def write_compaso_lc(root, sim, writer=None, compression='blsc'):
+    """Write `sim` (:func:`synthetic_compaso_lc`) under `root`:
+    ``halo_light_cones/<SimName>/z<z>/{lc_halo_info,lc_pid_rv}.asdf``, and
+    its light-cone particle pair as ``lightcones/<SimName>/{rv,pid}/
+    LightCone0_{rv,pid}.asdf`` (headers with OutputType 'LightCone'). The
+    writer as in :func:`write_compaso_sim`. Returns {'groupdir', 'files',
+    'particle_files' ({'rv', 'pid'} or None), 'raw_bytes', 'disk_bytes'}."""
+    if writer is None:
+        from .io.asdf_file import write_asdf as writer
+    header = sim['header']
+    name, zdir = header['SimName'], f'z{header["Redshift"]:4.3f}'
+    groupdir = Path(root) / 'halo_light_cones' / name / zdir
+    todo = [(groupdir / 'lc_halo_info.asdf', header, sim['halos']),
+            (groupdir / 'lc_pid_rv.asdf', header, sim['pid_rv'])]
+    particle_files = None
+    if sim['particles'] is not None:
+        lc_header = dict(header, OutputType='LightCone')
+        particle_files = {k: Path(root) / 'lightcones' / name / k / f'LightCone0_{k}.asdf'
+                          for k in ('rv', 'pid')}
+        todo += [(particle_files['rv'], lc_header, {'rvint': sim['particles']['rvint']}),
+                 (particle_files['pid'], lc_header, {'packedpid': sim['particles']['packedpid']})]
+    files, raw = [], 0
+    for path, hdr, data in todo:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        writer(path, {'header': hdr, 'data': data}, compression=compression)
+        files.append(path)
+        raw += sum(a.nbytes for a in data.values())
+    return {'groupdir': groupdir, 'files': files, 'particle_files': particle_files,
+            'raw_bytes': raw, 'disk_bytes': sum(f.stat().st_size for f in files)}
+
+
+def decoded_catalog_lc(sim):
+    """What ``CompaSOHaloCatalog(<the light cone>, fields=<the keys of the
+    halos returned>, subsamples=dict(A=True, pid=True, rv=True))`` returns, from
+    the arrays `sim` was written from: (halos, particles), dicts of numpy
+    columns by the decode formulas."""
+    header = sim['header']
+    box, kms = header['BoxSize'], header['VelZSpace_to_kms']
+    h = sim['halos']
+    have_avg = np.any(h['pos_avg'], axis=1)[:, None]
+    halos = {k: h[k] for k in ('N', 'N_interp', 'npstartA', 'npoutA', 'index_halo', 'pos_avg',
+                               'vel_avg', 'redshift_interp')}
+    halos.update(
+        origin=h['origin'] % 3,
+        pos_interp=np.where(have_avg, h['pos_avg'], h['pos_interp']),
+        vel_interp=np.where(have_avg, h['vel_avg'], h['vel_interp']),
+        x_L2com=h['x_L2com'] * box, v_L2com=h['v_L2com'] * kms,
+        sigmav3d_L2com=h['sigmav3d_L2com'] * kms,
+        **{f'r{p}_L2com': h[f'r{p}_L2com_i16'] * h['r100_L2com'] / INT16SCALE * box
+           for p in (90, 25, 98)})
+    return halos, dict(sim['pid_rv'])

@@ -136,10 +136,13 @@ Phases, each printing what it measured:
    merged; a header for ``AbacusSummit_base_c000_ph000`` at z 0.5, the
    metadata's values with an approximate velocity scale) of
    DISK_HALOS halos over DISK_SLABS slabs, DISK_PARTS A and DISK_FIELD
-   field particles (``testing.synthetic_compaso``); the blsc decode rate;
-   (a) ``CompaSOHaloCatalog`` of every slab, cleaned and uncleaned, against
-   the encodings' decode formulas on the arrays written (exact; particles
-   to the RVint quantum); (b) ``prepare_sim.main`` serial with ranks, env
+   field particles, a B set of 7/3 as many and packed PIDs for both
+   (``testing.synthetic_compaso``); the blsc decode rate; (a)
+   ``CompaSOHaloCatalog`` of every slab, cleaned and uncleaned, against the
+   encodings' decode formulas on the arrays written (exact; particles to
+   the RVint quantum), and a cleaned read of slab 0's A + B with
+   ``unpack_bits=True`` against the drawn PID words (every field equal);
+   (b) ``prepare_sim.main`` serial with ranks, env
    and the shear (1000^3, R 2, every particle) on the device engines
    (read, tables and write timed a slab; K6, K7 and K1 must launch), slab
    0's tables against ``prepare_slab_tables`` on the columns in memory
@@ -147,6 +150,21 @@ Phases, each printing what it measured:
    bit-equal to the serial run; (d) ``AbacusHOD.from_config`` staging and
    ``run_hod_pk_fused`` cold and warm (K1 and K3 must launch) against the
    same call on ``staged_state_from_numpy`` of the staged tables.
+17. the light cone's disk path, from files the phase writes into a
+   temporary directory it removes: a halo light cone of LC_DISK_HALOS
+   halos in the octant of the z = 0.5 shell (three observers, the
+   AbacusSummit base boxes'), LC_DISK_PER_HALO A particles a halo in
+   ``lc_pid_rv.asdf``, and a light-cone particle pair (RVint and packed
+   PIDs, OutputType LightCone) of LC_DISK_PARTICLES
+   (``testing.synthetic_compaso_lc``, blsc zstd); (1) the readers against
+   the drawn arrays (every light-cone column bit-equal to its decode
+   formula, every PID field of the drawn words); (2) ``prepare_sim.main``
+   with ``halo_lc`` on the device engines (read, tables with the randoms
+   loop timed apart, write; K6 and K7 must launch); (3) staging by
+   ``AbacusHOD.from_config``; (4) ``run_hod``, each tracer's galaxies as
+   many as the fused call's n_gal; (5) ``run_hod_pk_fused`` cold and warm
+   (K1 and K3 must launch) against the same call on
+   ``staged_state_from_numpy`` of the staged tables.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -204,8 +222,9 @@ from abacusutils_tpu_torch import _build
 from abacusutils_tpu_torch.convert import position_columns, staged_state_from_numpy
 from abacusutils_tpu_torch.io import asdf_file
 from abacusutils_tpu_torch.io.asdf_file import open_asdf
-from abacusutils_tpu_torch.io.bitpacked import unpack_rvint
+from abacusutils_tpu_torch.io.bitpacked import unpack_pids, unpack_rvint
 from abacusutils_tpu_torch.io.compaso import CompaSOHaloCatalog
+from abacusutils_tpu_torch.io.read_abacus import read_asdf
 from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
 from abacusutils_tpu_torch.models.pipeline import (
     group_inputs2d_device,
@@ -291,14 +310,19 @@ from abacusutils_tpu_torch.models.hod.menv import do_Menv_from_tree
 from abacusutils_tpu_torch.ops import grid as tgrid
 from abacusutils_tpu_torch.ops import shear as tshear
 from abacusutils_tpu_torch.testing import (
+    LC_ORIGINS,
+    LC_SHELL,
     RV_POS_QUANTUM,
     RV_VEL_QUANTUM,
     decoded_catalog,
+    decoded_catalog_lc,
     edge_points,
     menv_ranges,
     nfw_draw,
     smoothing_at_bin_centres,
     synthetic_compaso,
+    synthetic_compaso_lc,
+    write_compaso_lc,
     write_compaso_sim,
 )
 
@@ -2963,6 +2987,7 @@ DISK_PARTS = N_PART // 4
 DISK_FIELD = 25_000_000
 DISK_SHEAR_N = SHEAR_N
 DISK_SEED = SEED + 16
+PID_KEYS = ('pid', 'lagr_pos', 'tagged', 'density', 'lagr_idx')  # unpack_pids' fields
 
 
 def disk_config(root, name, subsample, nparallel=1):
@@ -3080,6 +3105,7 @@ def disk_path(dev, paths, root):
     # (a) the reader
     t_clean = check_disk_catalog(sim, groupdir, True)
     t_raw = check_disk_catalog(sim, groupdir, False)
+    t_pids = check_disk_pids(sim, groupdir)
 
     # (b) prepare_sim.main, serial, on the device engines
     cfg = disk_config(root, name, 'subsamples')
@@ -3177,7 +3203,212 @@ def disk_path(dev, paths, root):
           f'warm {best:.6f} s (best mean of 3x5), n_gal {n_gal}; against the same call on '
           f'staged_state_from_numpy of those tables: bit-equal {bit_equal}, max |d|/scale '
           f'{worst:.3e}; launches {paths[tag]}; phase peak device memory {peak / 2**30:.3f} GiB')
-    print(f'phase 16 reads: cleaned catalog {t_clean:.3f} s, uncleaned {t_raw:.3f} s')
+    print(f'phase 16 reads: cleaned catalog {t_clean:.3f} s, uncleaned {t_raw:.3f} s, slab 0\'s '
+          f'A + B with every PID field {t_pids:.3f} s')
+
+
+def check_disk_pids(sim, groupdir):
+    """(a): CompaSOHaloCatalog of slab 0's A and B particles with their PIDs
+    (unpack_bits=True), cleaned, against the words the phase drew: packedpid
+    and the npstart / npout of both sets equal, every PID field equal to the
+    words' fields, positions and velocities within the RVint quantum.
+    Returns the read's seconds."""
+    fields = ['N', 'npstartA', 'npoutA', 'npstartB', 'npoutB']
+    cat, t_read = sync_seconds(lambda: CompaSOHaloCatalog(
+        groupdir / 'halo_info' / 'halo_info_000.asdf', fields=fields, subsamples=True,
+        unpack_bits=True, cleaned=True))
+    halos, parts = decoded_catalog(sim, [0], True, sets='AB')
+    for k in fields:
+        require(np.array_equal(cat.halos[k], halos[k]), f'(a) A + B: {k} differs')
+    words = parts['packedpid']
+    require(np.array_equal(cat.subsamples['packedpid'], words), '(a) A + B: packedpid differs')
+    want = unpack_pids(words, box=sim['header']['BoxSize'], ppd=sim['header']['ppd'],
+                       **dict.fromkeys(PID_KEYS, True))
+    for k in PID_KEYS:
+        require(cat.subsamples[k].dtype == want[k].dtype
+                and np.array_equal(cat.subsamples[k], want[k]), f'(a) A + B: {k} differs')
+    box, eps = sim['header']['BoxSize'], float(np.finfo(np.float32).eps)
+    dpos = float(np.abs(cat.subsamples['pos'] - parts['pos_true']).max())
+    dvel = float(np.abs(cat.subsamples['vel'] - parts['vel_true']).max())
+    require(dpos <= RV_POS_QUANTUM * box + box / 2 * eps
+            and dvel <= RV_VEL_QUANTUM / 2 + 6000 * eps,
+            f'(a) A + B: particles off by {dpos} Mpc/h, {dvel} km/s')
+    n_a, n_b = int(halos['npoutA'].sum()), int(halos['npoutB'].sum())
+    print(f'phase 16 (a) CompaSOHaloCatalog of slab 0, A + B, unpack_bits=True, cleaned: {n_a} A '
+          f'and {n_b} B particles in {t_read:.3f} s ({len(cat.subsamples.colnames)} columns); '
+          f'packedpid, '
+          f'{", ".join(PID_KEYS)} equal to the drawn words\' fields, positions and velocities '
+          f'within the RVint quantum')
+    return t_read
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the light cone's disk path, halo light-cone files -> P(k)
+# ---------------------------------------------------------------------------
+
+# 2.5e6 halos of an estimated ~1e7 in the octant of the z = 0.5 shell, 5 A
+# particles a halo, a light-cone particle pair of 2e7: the cuts of PERF.md
+# section 4
+LC_DISK_HALOS = 2_500_000
+LC_DISK_PER_HALO = 5
+LC_DISK_PARTICLES = 20_000_000
+LC_DISK_SEED = SEED + 17
+
+
+def lc_disk_config(root, name):
+    """Phase 16's config on the light cone: ranks and env on, no shear (a
+    light cone's shear field reads a box's field particles)."""
+    cfg = disk_config(root, name, 'lc_subsamples')
+    cfg['sim_params'].update(sim_dir=f'{root}/halo_light_cones/', halo_lc=True)
+    cfg['HOD_params']['want_shear'] = False
+    return cfg
+
+
+def check_lc_reads(sim, info):
+    """17 (1): the light cone's catalog and particle pair against the arrays
+    the phase drew: every halo column and the A particles (PIDs packed) bit-
+    equal to the decode formulas, the RVint file equal to the drawn words'
+    decode and within the quantum of the values encoded, every PID field of
+    the packedpid file equal to the drawn words'."""
+    halos, parts = decoded_catalog_lc(sim)
+    cat, t_cat = sync_seconds(lambda: CompaSOHaloCatalog(info['groupdir'], fields=list(halos),
+                                                         subsamples=True))
+    require(cat.halo_lc and cat.subsamples.colnames == ['pid', 'pos', 'vel'],
+            f'17 (1) read as a light cone {cat.halo_lc}, {cat.subsamples.colnames}')
+    for k in halos:
+        require(cat.halos[k].dtype == halos[k].dtype and np.array_equal(cat.halos[k], halos[k]),
+                f'17 (1) light-cone column {k} differs from its decode formula')
+    for k in parts:
+        require(np.array_equal(cat.subsamples[k], parts[k]), f'17 (1) lc_pid_rv {k} differs')
+    no_avg = float((~np.any(sim['halos']['pos_avg'], axis=1)).mean())
+    del cat, halos, parts
+    header, drawn = sim['header'], sim['particles']
+    box = header['BoxSize']
+    rv, t_rv = sync_seconds(lambda: read_asdf(info['particle_files']['rv'], verbose=False))
+    p, v = unpack_rvint(drawn['rvint'], box)
+    eps = float(np.finfo(np.float32).eps)
+    dpos = float(np.abs(rv['pos'] - drawn['pos_true']).max())
+    dvel = float(np.abs(rv['vel'] - drawn['vel_true']).max())
+    require(np.array_equal(rv['pos'], p) and np.array_equal(rv['vel'], v)
+            and dpos <= RV_POS_QUANTUM * box + box / 2 * eps
+            and dvel <= RV_VEL_QUANTUM / 2 + 6000 * eps, f'17 (1) RVint file: {dpos}, {dvel}')
+    frac = header['ParticleSubsampleA'] + header['ParticleSubsampleB']
+    require(rv.meta['SubsampleFraction'] == frac, '17 (1) no SubsampleFraction in the header')
+    del rv, p, v
+    pid, t_pid = sync_seconds(lambda: read_asdf(info['particle_files']['pid'],
+                                                load=PID_KEYS + ('aux',), verbose=False))
+    want = unpack_pids(drawn['packedpid'], box=box, ppd=header['ppd'],
+                       **dict.fromkeys(PID_KEYS, True))
+    for k in PID_KEYS:
+        require(pid[k].dtype == want[k].dtype and np.array_equal(pid[k], want[k]),
+                f'17 (1) packedpid file: {k} differs')
+    require(np.array_equal(pid['aux'], drawn['packedpid']), '17 (1) packedpid file: aux differs')
+    print(f'phase 17 (1) reads: CompaSOHaloCatalog(halo_lc) {t_cat:.3f} s, every light-cone '
+          f'column bit-equal to its decode formula (pos_avg zero for {no_avg:.3f} of the halos: '
+          f'pos_interp / vel_interp as stored there), lc_pid_rv as written; read_asdf RVint '
+          f'{t_rv:.3f} s (max |d| {dpos:.3e} Mpc/h, {dvel:.3f} km/s, SubsampleFraction {frac}), '
+          f'packedpid {t_pid:.3f} s, {", ".join(PID_KEYS)} equal to the drawn words\'')
+
+
+def phase_lc_disk(dev, paths):
+    """Phase 17: the light cone's disk path on the card, from files it writes
+    itself into a temporary directory (removed at the end)."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix='chip_smoke_lc_'))
+    try:
+        lc_disk_path(dev, paths, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'phase 17 in {time.perf_counter() - t0:.1f} s')
+
+
+def lc_disk_path(dev, paths, root):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim, t_gen = sync_seconds(lambda: synthetic_compaso_lc(
+        LC_DISK_HALOS, LC_DISK_PER_HALO, LC_DISK_PARTICLES, seed=LC_DISK_SEED))
+    info, t_write = sync_seconds(lambda: write_compaso_lc(root, sim))
+    name = sim['header']['SimName']
+    n_part = len(sim['pid_rv']['pid'])
+    print(f'phase 17 light cone ({name} header at z 0.5, observers {LC_ORIGINS}, shell '
+          f'{LC_SHELL} Mpc/h): {LC_DISK_HALOS} halos, {n_part} A particles, a particle pair of '
+          f'{LC_DISK_PARTICLES}; drawn in {t_gen:.3f} s, written (blsc zstd, '
+          f'{len(info["files"])} files) in {t_write:.3f} s, {info["raw_bytes"]} bytes raw, '
+          f'{info["disk_bytes"]} on disk')
+    check_lc_reads(sim, info)
+    del sim
+
+    # (2) prepare_sim.main on the light cone, the device engines
+    cfg = lc_disk_config(root, name)
+    steps, calls = {}, {}
+    tag = 'prepare_sim.main (light cone)'
+    reset_launches()
+    with timed_stages([(prepare_sim, 'read_slab'), (prepare_sim, 'prepare_slab_tables'),
+                       (prepare_sim, 'write_slab_tables'), (prepare_sim, 'lc_randoms_norm')],
+                      steps, calls):
+        with calls_of(ranks_device, 'seg_rank') as ranked:
+            _, t_main = sync_seconds(lambda: prepare_sim.main(cfg, device=dev))
+    paths[tag] = dict(read_launches(), seg_rank=ranked[0])
+    for k in ('nn_within_halo', 'menv_annulus'):
+        require(paths[tag][k] > 0, f'{tag}: no {k} launch ({paths[tag]})')
+    require(calls.get('lc_randoms_norm') == 1, f'{tag}: randoms loop ran {calls} times')
+    savedir = f'{root}/lc_subsamples/{name}/z0.500'
+    fh, fp, fe = prepare_sim.slab_filenames(savedir, 0, 600, True, True)
+    require(os.path.exists(fh) and os.path.exists(fp) and not os.path.exists(fe),
+            f'{tag}: files {sorted(os.listdir(savedir))}')
+    with np.load(fh) as h:
+        halos = h['halos']
+    require(list(halos.dtype.names) == prepare_sim.HALO_ORDER_LC + prepare_sim.HALO_EXTRA
+            and np.abs(halos['fenv_rank']).max() > 0.4, f'{tag}: halo table {halos.dtype}')
+    print(f'phase 17 (2) {tag}: {t_main:.3f} s host to host; read {steps["read_slab"]:.3f} s, '
+          f'tables {steps["prepare_slab_tables"]:.3f} s (of which the randoms loop '
+          f'{steps["lc_randoms_norm"]:.3f} s), write {steps["write_slab_tables"]:.3f} s; '
+          f'{len(halos)} halos kept; launches {paths[tag]}')
+    del halos
+
+    # (3)-(5) staging, run_hod and run_hod_pk_fused
+    tag = 'AbacusHOD.from_config + run_hod + run_hod_pk_fused (light cone)'
+    reset_launches()
+    hod, t_stage = sync_seconds(lambda: AbacusHOD.from_config(
+        cfg['sim_params'], cfg['HOD_params'], device=dev))
+    require(hod.halo_lc and hod.halo_data['hid'].dtype == np.int64,
+            '17 (3) staged ids are not int64')
+    mock, t_hod = sync_seconds(lambda: hod.run_hod())
+
+    def call(h):
+        return h.run_hod_pk_fused(nmesh=NMESH, nbins_k=NBINS_K)
+
+    (cl, n_gal), t_cold = sync_seconds(lambda: call(hod))
+    best = min(sync_seconds(lambda: [call(hod) for _ in range(5)])[1] / 5 for _ in range(3))
+    paths[tag] = read_launches()
+    for k in ('tsc_deposit_cells[tsc]', 'bin_pair_modes[no poles]'):
+        require(paths[tag][k] > 0, f'{tag}: no {k} launch ({paths[tag]})')
+    counts = {t: len(mock[t]['x']) for t in mock}
+    require(counts == {t: int(v) for t, v in n_gal.items()} and all(counts.values()),
+            f'17 (4) run_hod counts {counts}, run_hod_pk_fused n_gal {n_gal}')
+    flags = dict(want_ranks=True, want_shear=False, want_expvel=False, halo_lc=True,
+                 z_type='lightcone')
+    twin = staged_state_from_numpy(hod.halo_data, hod.particle_data, hod.params, hod.tracers,
+                                   flags, dev)
+    cl2, n_gal2 = call(twin)
+    require(n_gal2 == n_gal, f'17 (5) n_gal {n_gal} against the twin\'s {n_gal2}')
+    worst, bit_equal = 0.0, True
+    for t1 in WANT:
+        for t2 in WANT:
+            a, b = cl[f'{t1}_{t2}'], cl2[f'{t1}_{t2}']
+            require(np.isfinite(a).all(), f'17 (5) {t1}_{t2} not finite')
+            scale = np.sqrt(np.abs(cl2[f'{t1}_{t1}'] * cl2[f'{t2}_{t2}']))
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(scale, 1e-300))))
+            bit_equal &= bool(np.array_equal(a, b))
+    require(worst <= 1e-4, f'17 (5) run_hod_pk_fused differs from the staged twin by {worst:.3e}')
+    peak = torch.cuda.max_memory_allocated()
+    print(f'phase 17 (3)-(5) {tag}: staging {t_stage:.3f} s ({len(hod.halo_data["hid"])} halos, '
+          f'{len(hod.particle_data["pinds"])} particles, origin {hod.params["origin"]}); run_hod '
+          f'{t_hod:.3f} s, galaxies {counts} equal to the fused call\'s n_gal; '
+          f'run_hod_pk_fused cold {t_cold:.3f} s, warm {best:.6f} s (best mean of 3x5); against '
+          f'the same call on staged_state_from_numpy of those tables: bit-equal {bit_equal}, max '
+          f'|d|/scale {worst:.3e}; launches {paths[tag]}; phase peak device memory '
+          f'{peak / 2**30:.3f} GiB')
 
 
 KERNELS = {
@@ -3823,6 +4054,8 @@ def main():
         print(f'phase 15 in {time.perf_counter() - t15:.1f} s')
         paths16 = {}
         phase_disk(dev, paths16)
+        paths17 = {}
+        phase_lc_disk(dev, paths17)
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -3834,12 +4067,13 @@ def main():
             **paths14,
             **paths15,
             **paths16,
+            **paths17,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

@@ -111,13 +111,12 @@ def test_read_asdf_matches_jax(sims):
 
 def test_what_is_not_ported_raises(sims):
     _, groupdir, _ = sims
-    # SO_radius, and two fields outside prepare_sim's list that the JAX
-    # package loads (ROADMAP 3c brings them with their parity tests)
-    for kw in (dict(fields='DEFAULT_FIELDS'), dict(fields=['SO_radius']),
+    # SO_radius, two fields outside prepare_sim's list that the JAX package
+    # loads, the presets and convert_units=False (ROADMAP 3c brings them
+    # with their parity tests)
+    for kw in (dict(fields='DEFAULT_FIELDS'), dict(fields='all'), dict(fields=['SO_radius']),
                dict(fields=['r10_L2com']), dict(fields=['vcirc_max_L2com']),
-               dict(fields=FIELDS, subsamples=True), dict(fields=FIELDS, subsamples=dict(B=True)),
-               dict(fields=FIELDS, subsamples=dict(A=True, pid=True)),
-               dict(fields=FIELDS, halo_lc=True), dict(fields=FIELDS, passthrough=True)):
+               dict(fields=FIELDS, convert_units=False)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             CompaSOHaloCatalog(groupdir, **kw)
     with pytest.raises(FileNotFoundError, match='cleaning'):

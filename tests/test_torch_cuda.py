@@ -1429,3 +1429,121 @@ def test_prepare_sim_main_on_card_matches_cpu(cuda_device, tmp_path):
             else:
                 (key,) = ref.files
                 assert_tables_equal(got[key], ref[key])
+
+
+def test_particle_readers_on_card_host(cuda_device, tmp_path):
+    """The readers of this slice on the card's machine (its numpy, libzstd
+    and file system), files written by the port's own writer: the light
+    cone's catalog equal to the arrays it was written from (pos_interp /
+    vel_interp where pos_avg is zero, origin modulo 3, packed PIDs), its
+    particle pair through read_asdf (RVint and every PID field of the
+    drawn words, SubsampleFraction A + B), a box's A + B particles with
+    unpack_bits=True and passthrough equal to the drawn words, and pack9
+    rows decoded to the values they encode, to the quanta."""
+    from abacusutils_tpu_torch.io import bitpacked
+    from abacusutils_tpu_torch.io.compaso import CompaSOHaloCatalog
+    from abacusutils_tpu_torch.io.pack9 import unpack_pack9
+    from abacusutils_tpu_torch.io.read_abacus import read_asdf
+    from abacusutils_tpu_torch.testing import (
+        decoded_catalog,
+        decoded_catalog_lc,
+        pack9_rows,
+        synthetic_compaso,
+        synthetic_compaso_lc,
+        write_compaso_lc,
+        write_compaso_sim,
+    )
+
+    lc = synthetic_compaso_lc(5000, n_particles=40_000, seed=3)
+    info = write_compaso_lc(tmp_path, lc)
+    halos, parts = decoded_catalog_lc(lc)
+    cat = CompaSOHaloCatalog(info['groupdir'], fields=list(halos), subsamples=True)
+    assert cat.halo_lc and cat.subsamples.colnames == ['pid', 'pos', 'vel']
+    for k in halos:
+        assert cat.halos[k].dtype == halos[k].dtype, k
+        npt.assert_array_equal(cat.halos[k], halos[k], err_msg=k)
+    for k in parts:
+        npt.assert_array_equal(cat.subsamples[k], parts[k], err_msg=k)
+    header = lc['header']
+    box, ppd = header['BoxSize'], header['ppd']
+    words = lc['particles']['packedpid']
+    rv = read_asdf(info['particle_files']['rv'], verbose=False)
+    p, v = bitpacked.unpack_rvint(lc['particles']['rvint'], box)
+    npt.assert_array_equal(rv['pos'], p)
+    npt.assert_array_equal(rv['vel'], v)
+    frac = header['ParticleSubsampleA'] + header['ParticleSubsampleB']
+    assert rv.meta['SubsampleFraction'] == frac
+    fields = ('pid', 'lagr_pos', 'tagged', 'density', 'lagr_idx')
+    pid = read_asdf(info['particle_files']['pid'], load=fields + ('aux',), verbose=False)
+    want = bitpacked.unpack_pids(words, box=box, ppd=ppd, **dict.fromkeys(fields, True))
+    for k in fields:
+        npt.assert_array_equal(pid[k], want[k], err_msg=k)
+    npt.assert_array_equal(pid['aux'], words)
+
+    sim = synthetic_compaso(2, 3000, 20_000, 2000, seed=4)
+    groupdir = write_compaso_sim(tmp_path / 'box', sim)['groupdir']
+    for cleaned in (True, False):
+        hal, par = decoded_catalog(sim, range(2), cleaned, sets='AB')
+        got = CompaSOHaloCatalog(groupdir, fields=['N', 'npstartA', 'npoutA', 'npstartB',
+                                                   'npoutB'], cleaned=cleaned,
+                                 subsamples=True, unpack_bits=True)
+        npt.assert_array_equal(got.subsamples['packedpid'], par['packedpid'])
+        want = bitpacked.unpack_pids(par['packedpid'], box=box, ppd=ppd,
+                                     **dict.fromkeys(fields, True))
+        for k in fields:
+            npt.assert_array_equal(got.subsamples[k], want[k], err_msg=k)
+        raw = CompaSOHaloCatalog(groupdir, fields='all', cleaned=cleaned, subsamples=True,
+                                 passthrough=True)
+        npt.assert_array_equal(raw.subsamples['rvint'], par['rvint'])
+        npt.assert_array_equal(raw.subsamples['packedpid'], par['packedpid'])
+
+    rng = np.random.default_rng(5)
+    pos = (rng.random((20_000, 3)) - 0.5) * box
+    vel = rng.normal(0, 400.0, (20_000, 3))
+    rows, order = pack9_rows(pos, vel, box, 1701, header['VelZSpace_to_kms'])
+    dp, dv = unpack_pack9(rows, box, header['VelZSpace_to_kms'], float_dtype=np.float64)
+    assert np.abs(dp - pos[order]).max() <= 0.0005 * box / 1701 / 2 * (1 + 1e-9)
+    assert np.abs(dv - vel[order]).max() < 5.0
+
+
+def test_prepare_sim_lc_on_card_matches_cpu(cuda_device, tmp_path):
+    """prepare_sim.main of a synthetic halo light cone (port-written) on the
+    card (K6 and K7 through the device engines) and on the CPU (their plain
+    versions): the same files, every column equal but fenv_rank, which is
+    tie-aware (Menv at rtol 1e-12 can swap halos of equal Menv); then
+    AbacusHOD.from_config's run_hod_pk_fused on each, within 1e-4 of the
+    spectra's scale, n_gal equal."""
+    import glob
+    import os
+
+    from abacusutils_tpu_torch.models.hod import prepare_sim as tps
+    from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
+    from abacusutils_tpu_torch.testing import synthetic_compaso_lc, write_compaso_lc
+    from torch_disk import assert_fenv_tie_aware, config
+
+    sim = synthetic_compaso_lc(20_000, seed=7)
+    write_compaso_lc(tmp_path, sim)
+    name = sim['header']['SimName']
+    saved, spectra = {}, {}
+    for where, device in (('cpu', 'cpu'), ('card', cuda_device)):
+        cfg = config(tmp_path, name, where)
+        cfg['sim_params'].update(sim_dir=f'{tmp_path}/halo_light_cones/', halo_lc=True)
+        cfg['HOD_params']['want_shear'] = False
+        saved[where] = f'{tmp_path}/{where}/{name}/z0.500'
+        tps.main(cfg, device=device)
+        hod = AbacusHOD.from_config(cfg['sim_params'], cfg['HOD_params'], device=device)
+        spectra[where] = hod.run_hod_pk_fused(nmesh=64, nbins_k=32)
+    files = sorted(os.path.basename(f) for f in glob.glob(f'{saved["cpu"]}/*.npz'))
+    assert len(files) == 2
+    tables = {}
+    for fn in files:
+        with np.load(f'{saved["card"]}/{fn}') as got, np.load(f'{saved["cpu"]}/{fn}') as ref:
+            (key,) = ref.files
+            tables[key] = got[key], ref[key]
+    assert_fenv_tie_aware(tables, sim['halos']['N_interp'], sim['header']['ParticleMassHMsun'])
+    (cl, ng), (cl_c, ng_c) = spectra['card'], spectra['cpu']
+    assert ng == ng_c
+    for t1 in ng:
+        for t2 in ng:
+            scale = np.sqrt(np.abs(cl_c[f'{t1}_{t1}'] * cl_c[f'{t2}_{t2}']))
+            assert (np.abs(cl[f'{t1}_{t2}'] - cl_c[f'{t1}_{t2}']) <= 1e-4 * scale).all()

@@ -181,12 +181,6 @@ def test_from_config_run_hod_pk_fused_matches_jax(disk):
 
 def test_refusals(disk):
     _, _, cfg, _ = disk
-    lc = json.loads(json.dumps(cfg['port_host']))
-    lc['sim_params']['halo_lc'] = True
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tps.main(lc, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        staging(lc['sim_params'], lc['HOD_params'])
     bad = json.loads(json.dumps(cfg['port_host']))
     bad['sim_params']['z_mock'] = 0.55
     with pytest.raises(ValueError, match='redshift'):

@@ -3,13 +3,15 @@
 x-slabs of ~2,000 halos each in the AbacusSummit encodings (int16 radius
 ratios, RVint subsamples, blsc blocks, cleaning files with ~5 % of the
 halos merged), drawn by abacusutils_tpu_torch.testing.synthetic_compaso and
-written with the JAX package's write_asdf; and the configs that run both
-packages' prepare_sim and AbacusHOD on it."""
+written with the JAX package's write_asdf; the configs that run both
+packages' prepare_sim and AbacusHOD on it, and the rules that hold their
+tables equal."""
 
 import multiprocessing
 import os
 
 import numpy as np
+from numpy.lib import recfunctions
 
 from abacusutils_tpu_torch.testing import synthetic_compaso, write_compaso_sim
 from torch_helpers import TRACERS
@@ -88,3 +90,30 @@ def assert_tables_equal(got, ref, exact_menv=True):
         ob = np.lexsort((ref['ranksc'], ref['halo_id']))
         np.testing.assert_array_equal(got['ranksc'][oa], ref['ranksc'][ob])
         assert (got['ranksc'] == ref['ranksc']).mean() > 0.9
+
+
+def assert_fenv_tie_aware(tables, all_n, mpart, mcut=1e11):
+    """A light cone's tables ({'halos': (got, ref), 'particles': (got,
+    ref)}) from engines whose Menv differ at rtol 1e-12: every column but
+    the fenv ranks under the rules of assert_tables_equal, fenv_rank
+    tie-aware. Such Menv can swap the ranks of halos of equal Menv (those of
+    one clump with the same neighbours), and a swap's partner may be a halo
+    the tables dropped: the halos that differ are few, each by at most one
+    rank step of its mass bin (calc_fenv_opt's bins of N * mpart over
+    `all_n`, the N of every halo ranked), and each particle carries its
+    halo's rank."""
+    (gh, rh), (gp, rp) = tables['halos'], tables['particles']
+    assert_tables_equal(recfunctions.drop_fields(gh, 'fenv_rank', usemask=False),
+                        recfunctions.drop_fields(rh, 'fenv_rank', usemask=False))
+    assert_tables_equal(recfunctions.drop_fields(gp, 'halo_fenv', usemask=False),
+                        recfunctions.drop_fields(rp, 'halo_fenv', usemask=False))
+    mbins = np.logspace(np.log10(mcut), 15.5, 101)
+    in_bin = np.bincount(np.searchsorted(mbins, np.asarray(all_n) * mpart), minlength=102)
+    diff = gh['fenv_rank'] != rh['fenv_rank']
+    assert diff.mean() <= 0.01
+    step = 1.0 / (in_bin[np.searchsorted(mbins, rh['N'][diff] * mpart)] - 1)
+    assert np.all(np.abs(gh['fenv_rank'][diff] - rh['fenv_rank'][diff]) <= step * (1 + 1e-9))
+    for h, p in ((gh, gp), (rh, rp)):
+        order = np.argsort(h['id'])
+        at = order[np.searchsorted(h['id'], p['halo_id'], sorter=order)]
+        np.testing.assert_array_equal(p['halo_fenv'], h['fenv_rank'][at])
