@@ -2,17 +2,25 @@
 abacusutils_tpu/io/compaso.py:CompaSOHaloCatalog): periodic boxes and halo
 light cones.
 
-- Halo fields: the halo_info columns prepare_sim reads (``N``, ``id``,
-  ``npstartA``, ``npoutA``, ``x_L2com``, ``v_L2com``, ``sigmav3d_L2com``
-  and the radii ``r25_L2com``, ``r90_L2com``, ``r98_L2com``, int16 ratios
-  of ``r100_L2com``), ``npstartB`` / ``npoutB``, the cleaning files'
-  ``N_total`` and the A and B ``npstart*_merge`` / ``npout*_merge``, and
-  the light cone's columns (``halo_lc_dt``: ``N_interp``, ``index_halo``,
-  ``pos_avg``, ``vel_avg``, ``redshift_interp`` as stored, ``origin``
-  modulo 3, and ``pos_interp`` / ``vel_interp``, which take the averaged
-  value of every halo whose ``pos_avg`` is not zero). The unit conversions
-  are the JAX package's loaders' (compaso.py:_build_loaders), in the same
-  float32 arithmetic, so each column is bit-equal to it.
+- Halo fields: every field of the JAX package's loaders
+  (compaso.py:_build_loaders), in the same float32 arithmetic, so each
+  column is bit-equal to it: the int16 radius ratios of ``r100{suf}``
+  (``r10`` ... ``r98``, ``rvcirc_max``), the velocity dispersions
+  (``sigmav{Min,Maj,rad,tan}{suf}`` as int16 ratios of ``sigmav3d{suf}``,
+  ``Maj`` stored as ``Max``; ``sigmavMid{suf}`` derived from the loaded
+  ``sigmav3d``, ``sigmavMaj`` and ``sigmavMin``), ``sigmar{suf}`` and
+  ``sigman{suf}``, positions and radii times the box, velocities times
+  VelZSpace_to_kms, the integer and SO columns, the euler16 eigenvectors
+  (:func:`unpack_euler16`), the cleaning files' columns (progenitor columns
+  ``NumTimeSliceRedshiftsPrev`` wide) and the light cone's columns
+  (``origin`` modulo 3; ``pos_interp`` / ``vel_interp`` take the averaged
+  value of every halo whose ``pos_avg`` is not zero). {suf} is ``_com`` or
+  ``_L2com``. ``fields`` takes a list, a name, ``'DEFAULT_FIELDS'``
+  (user_dt, plus clean_dt when cleaned, halo_lc_dt on a light cone) or
+  ``'all'`` (clean_dt_progen in place of clean_dt). A field derived from
+  other halo fields loads them into the slab's working set only: they
+  reach ``halos`` when asked for.
+- ``convert_units=False``: the box and the velocity scale are 1.0.
 - ``cleaned=True`` (the cleaning files found as compaso.py:_locate_cleaning_files
   finds them; ``N_total`` takes the place of ``N``, halos merged away keep
   N = 0) and ``cleaned=False``. A light cone is cleaned already: it reads
@@ -27,15 +35,11 @@ light cones.
 - ``unpack_bits`` (True, a PID field name or a list of them): the fields
   of the packed PIDs (io/bitpacked.py); ``passthrough``: the columns as
   stored, and raw ``rvint`` / ``packedpid`` particles.
-- ``filter_func`` (a function of a slab's halo Table returning a mask) and
-  ``header``.
-
-The other halo fields (``DEFAULT_FIELDS``, ``'all'``, the other radii, the
-euler16 eigenvectors, the SO and progenitor columns) and
-``convert_units=False`` raise NotImplementedError: they are queued in
-ROADMAP.md (queue 1, item 3c).
+- ``filter_func`` (a function of a slab's halo Table returning a mask),
+  ``header`` and ``nbytes``.
 """
 
+import re
 import warnings
 from pathlib import Path, PurePath
 
@@ -45,11 +49,75 @@ from . import bitpacked
 from .asdf_file import open_asdf
 from .table import Table
 
-__all__ = ['CompaSOHaloCatalog', 'clean_dt', 'halo_lc_dt']
+__all__ = ['CompaSOHaloCatalog', 'unpack_euler16', 'user_dt', 'clean_dt', 'clean_dt_progen',
+           'halo_lc_dt']
 
 INT16SCALE = 32000.0
 
-# the cleaning files' columns (AbacusSummit data model; compaso.py:111)
+# euler16 eigenvector compression constants (Abacus HaloStat format)
+EULER_ABIN = 45
+EULER_TBIN = 11
+EULER_NORM = 1.8477590650225735122  # 1/sqrt(1-1/sqrt(2))
+
+
+def unpack_euler16(packed):
+    """Decode euler16-compressed orthonormal eigenvector triples
+    (compaso.py:unpack_euler16): the 16-bit code is az-bin + 45 * (t-r bin
+    + 121 * cap), cap in 0..11 selecting the major axis' dominant
+    coordinate and the signs and order of the other two, the minor axis
+    rebuilt from its azimuth bin by orthogonality. Returns (minor, middle,
+    major), each (N, 3) float64."""
+    packed = np.asarray(packed)
+    N = len(packed)
+
+    rest, iaz = np.divmod(packed, EULER_ABIN)
+    cap, tr = np.divmod(rest, EULER_TBIN * EULER_TBIN)
+    it = np.floor(np.sqrt(tr)).astype(int)
+    ir = tr - it * it
+
+    t = (it + 0.5) / EULER_TBIN
+    r = (ir + 0.5) / (it + 0.5) - 1.0
+
+    t = t / EULER_NORM
+    t = t * np.sqrt(2.0 - t * t) / (1.0 - t * t)  # back to yy/zz
+
+    yy = t
+    xx = r * t
+    norm = 1.0 / np.sqrt(1.0 + xx * xx + yy * yy)
+    zz = norm
+    yy = yy * norm
+    xx = xx * norm
+
+    major = np.zeros((N, 3))
+    sgn = np.where((cap % 4) % 2 == 0, 1.0, -1.0)
+    swap = (cap % 4) >= 2  # whether xx and yy are swapped
+    a = np.where(swap, xx, sgn * yy)
+    b = np.where(swap, sgn * yy, xx)
+    axis = cap // 4  # the coordinate that carries zz
+    for ax in range(3):
+        m = axis == ax
+        major[m, ax] = zz[m]
+        major[m, (ax + 1) % 3] = a[m]
+        major[m, (ax + 2) % 3] = b[m]
+
+    az = (iaz + 0.5) * (np.pi / EULER_ABIN)
+    cx = np.cos(az)
+    cy = np.sin(az)
+
+    minor = np.zeros((N, 3))
+    for ax, (i, j, k) in zip(range(3), [(1, 2, 0), (2, 0, 1), (0, 1, 2)]):
+        m = axis == ax
+        minor[m, i] = cx[m]
+        minor[m, j] = cy[m]
+        minor[m, k] = (minor[m, i] * major[m, i] + minor[m, j] * major[m, j]) / (-major[m, k])
+    minor /= np.linalg.norm(minor, axis=1)[:, None]
+
+    middle = np.cross(minor, major)
+    middle /= np.linalg.norm(middle, axis=1)[:, None]
+    return minor, middle, major
+
+
+# the AbacusSummit data model's tables (compaso.py:111-250)
 clean_dt = np.dtype(
     [
         ('npstartA_merge', np.int64),
@@ -66,7 +134,25 @@ clean_dt = np.dtype(
     align=True,
 )
 
-# the light cones' own columns (compaso.py:146)
+clean_dt_progen = np.dtype(
+    [
+        ('npstartA_merge', np.int64),
+        ('npstartB_merge', np.int64),
+        ('npoutA_merge', np.uint32),
+        ('npoutB_merge', np.uint32),
+        ('N_total', np.uint32),
+        ('N_merge', np.uint32),
+        ('haloindex', np.uint64),
+        ('is_merged_to', np.int64),
+        ('N_mainprog', np.uint32),
+        ('vcirc_max_L2com_mainprog', np.float32),
+        ('sigmav3d_L2com_mainprog', np.float32),
+        ('haloindex_mainprog', np.int64),
+        ('v_L2com_mainprog', np.float32, 3),
+    ],
+    align=True,
+)
+
 halo_lc_dt = np.dtype(
     [
         ('N', np.uint32),
@@ -84,70 +170,137 @@ halo_lc_dt = np.dtype(
     align=True,
 )
 
-_LATER = 'ROADMAP.md, queue 1'
+
+def _so(com):
+    return 'SO_L2max' if com == '_L2com' else 'SO'
 
 
-def _column(name):
-    return lambda raw, box, kms: raw(name)
+user_dt = np.dtype(
+    [('id', np.uint64), ('npstartA', np.uint64), ('npstartB', np.uint64), ('npoutA', np.uint32),
+     ('npoutB', np.uint32), ('ntaggedA', np.uint32), ('ntaggedB', np.uint32), ('N', np.uint32),
+     ('L2_N', np.uint32, 5), ('L0_N', np.uint32)]
+    + [f for com in ('_com', '_L2com') for f in (
+        [(f'x{com}', np.float32, 3), (f'v{com}', np.float32, 3)]
+        + [(f'{n}{com}', np.float32) for n in ('sigmav3d', 'meanSpeed', 'sigmav3d_r50',
+                                               'meanSpeed_r50', 'r100', 'vcirc_max')]
+        + [(f'{_so(com)}_central_particle', np.float32, 3),
+           (f'{_so(com)}_central_density', np.float32), (f'{_so(com)}_radius', np.float32)])]
+    + [f for com in ('_com', '_L2com') for f in (
+        [(f'sigmav{w}{com}', np.float32) for w in ('Min', 'Mid', 'Maj')]
+        + [(f'r{p}{com}', np.float32) for p in (10, 25, 33, 50, 67, 75, 90, 95, 98)]
+        + [(f'sigmar{com}', np.float32, 3), (f'sigman{com}', np.float32, 3)]
+        + [(f'sigma{rnv}_eigenvecs{w}{com}', np.float32, 3)
+           for rnv in 'rvn' for w in ('Min', 'Mid', 'Maj')]
+        + [(f'sigmavrad{com}', np.float32), (f'sigmavtan{com}', np.float32),
+           (f'rvcirc_max{com}', np.float32)])],
+    align=True,
+)
+
+_SUF = r'(?P<suf>_(?:L2)?com)'
 
 
-def _radius(name):
-    # an int16 ratio of r100, in box units
-    return lambda raw, box, kms: raw(name + '_i16') * raw('r100_L2com') / INT16SCALE * box
+def _sigmav(m, raw, halos, box, kms):
+    stem = m['kind'].replace('Maj', 'Max')
+    return raw(stem + '_to_sigmav3d' + m['suf'] + '_i16') * raw('sigmav3d' + m['suf']) \
+        / INT16SCALE * kms
 
 
-def _lc_interp(pv):
+def _sigmav_mid(m, raw, halos, box, kms):
+    suf = m['suf']
+    return np.sqrt(halos('sigmav3d' + suf) ** 2 - halos('sigmavMaj' + suf) ** 2
+                   - halos('sigmavMin' + suf) ** 2)
+
+
+def _lc_interp(m, raw, halos, box, kms):
     # the averaged position or velocity where the halo has one (pos_avg not
-    # zero), else the interpolated one (compaso.py:574)
-    def load(raw, box, kms):
-        have_avg = np.any(np.atleast_2d(raw('pos_avg')), axis=1)[:, None]
-        return np.where(have_avg, raw(f'{pv}_avg'), raw(f'{pv}_interp'))
-    return load
+    # zero), else the interpolated one; both columns decode together
+    have_avg = np.any(np.atleast_2d(raw('pos_avg')), axis=1)[:, None]
+    return {f'{pv}_interp': np.where(have_avg, raw(f'{pv}_avg'), raw(f'{pv}_interp'))
+            for pv in ('pos', 'vel')}
 
 
-# field -> (dtype of the loaded column, its value from the slab's raw columns
-# `raw`, the box size and the velocity scale): the JAX package's loaders
-# (compaso.py:_build_loaders) and the dtypes of its user_dt / clean_dt /
-# halo_lc_dt, for the fields ported so far
-_LOADERS = {
-    'N': (np.uint32, _column('N')),
-    'npoutA': (np.uint32, _column('npoutA')),
-    'npoutB': (np.uint32, _column('npoutB')),
-    'id': (np.uint64, _column('id')),
-    'npstartA': (np.uint64, _column('npstartA')),
-    'npstartB': (np.uint64, _column('npstartB')),
-    'x_L2com': ((np.float32, 3), lambda raw, box, kms: raw('x_L2com') * box),
-    'v_L2com': ((np.float32, 3), lambda raw, box, kms: raw('v_L2com') * kms),
-    'sigmav3d_L2com': (np.float32, lambda raw, box, kms: raw('sigmav3d_L2com') * kms),
-    'r25_L2com': (np.float32, _radius('r25_L2com')),
-    'r90_L2com': (np.float32, _radius('r90_L2com')),
-    'r98_L2com': (np.float32, _radius('r98_L2com')),
-    'N_total': (np.uint32, _column('N_total')),
-    'npoutA_merge': (np.uint32, _column('npoutA_merge')),
-    'npoutB_merge': (np.uint32, _column('npoutB_merge')),
-    'npstartA_merge': (np.int64, _column('npstartA_merge')),
-    'npstartB_merge': (np.int64, _column('npstartB_merge')),
-    'N_interp': (np.uint32, _column('N_interp')),
-    'index_halo': (np.int64, _column('index_halo')),
-    'pos_avg': ((np.float32, 3), _column('pos_avg')),
-    'vel_avg': ((np.float32, 3), _column('vel_avg')),
-    'redshift_interp': (np.float32, _column('redshift_interp')),
-    'origin': (np.int8, lambda raw, box, kms: raw('origin') % 3),
-    'pos_interp': ((np.float32, 3), _lc_interp('pos')),
-    'vel_interp': ((np.float32, 3), _lc_interp('vel')),
-}
-_CLEAN_FIELDS = ('N_total', 'npstartA_merge', 'npoutA_merge', 'npstartB_merge', 'npoutB_merge')
+def _eigvecs(m, raw, halos, box, kms):
+    # one euler16 word a halo holds the three eigenvectors
+    vecs = unpack_euler16(raw(m['base'] + m['suf'] + '_u16'))
+    return {m['base'] + w + m['suf']: v for w, v in zip(('Min', 'Mid', 'Maj'), vecs)}
 
 
-def _field_loader(field):
-    """(dtype, loader) of a halo field; NotImplementedError for a field the
-    port does not load yet."""
-    if field not in _LOADERS:
-        raise NotImplementedError(
-            f'halo field {field!r} is not ported yet (the rest of CompaSOHaloCatalog\'s '
-            f'fields, {_LATER})')
-    dt, loader = _LOADERS[field]
-    return np.dtype(dt), loader
+_STORED = ('id|npstartA|npstartB|npoutA|npoutB|ntaggedA|ntaggedB|N|L2_N|L0_N|N_total|N_merge'
+           '|npstartA_merge|npstartB_merge|npoutA_merge|npoutB_merge|npoutA_L0L1|npoutB_L0L1'
+           '|is_merged_to|N_mainprog|vcirc_max_L2com_mainprog|sigmav3d_L2com_mainprog|haloindex'
+           '|haloindex_mainprog|v_L2com_mainprog')
+
+# (pattern, loader(match, raw, halos, box, kms), the halo fields it derives
+# from): compaso.py:_build_loaders, pattern for pattern. raw(name) reads a
+# stored column of the slab, halos(name) a loaded halo field; a loader
+# returns the column, or a dict of the columns one read decodes together.
+# The JAX package finds sigmavMid's halo fields by probing its loader
+# (_ColumnProbe); here they are listed.
+_LOADERS = [
+    (re.compile(r'(?:r\d{1,2}|rvcirc_max)' + _SUF),
+     lambda m, raw, halos, box, kms: raw(m[0] + '_i16') * raw('r100' + m['suf']) / INT16SCALE
+     * box, ()),
+    (re.compile(r'(?P<kind>sigmav(?:Min|Maj|rad|tan))' + _SUF), _sigmav, ()),
+    (re.compile(r'sigmavMid' + _SUF), _sigmav_mid,
+     ('sigmav3d{suf}', 'sigmavMaj{suf}', 'sigmavMin{suf}')),
+    (re.compile(r'sigmar' + _SUF),
+     lambda m, raw, halos, box, kms: raw(m[0] + '_i16') * np.reshape(raw('r100' + m['suf']),
+                                                                     (-1, 1)) / INT16SCALE * box,
+     ()),
+    (re.compile(r'sigman' + _SUF),
+     lambda m, raw, halos, box, kms: raw(m[0] + '_i16') / INT16SCALE, ()),
+    (re.compile(r'(x|r100)' + _SUF), lambda m, raw, halos, box, kms: raw(m[0]) * box, ()),
+    (re.compile(r'(v|sigmav3d|meanSpeed|sigmav3d_r50|meanSpeed_r50|vcirc_max)' + _SUF),
+     lambda m, raw, halos, box, kms: raw(m[0]) * kms, ()),
+    (re.compile(_STORED), lambda m, raw, halos, box, kms: raw(m[0]), ()),
+    (re.compile(r'SO(?:_L2max)?(?:_central_particle|_radius)'),
+     lambda m, raw, halos, box, kms: raw(m[0]) * box, ()),
+    (re.compile(r'SO(?:_L2max)?(?:_central_density)'),
+     lambda m, raw, halos, box, kms: raw(m[0]), ()),
+    (re.compile(r'N_interp|index_halo|pos_avg|vel_avg|redshift_interp'),
+     lambda m, raw, halos, box, kms: raw(m[0]), ()),
+    (re.compile(r'origin'), lambda m, raw, halos, box, kms: raw(m[0]) % 3, ()),
+    (re.compile(r'(?P<pv>pos|vel)_interp'), _lc_interp, ()),
+    (re.compile(r'(?P<base>sigma(?:r|n|v)_eigenvecs)(?P<which>Min|Mid|Maj)' + _SUF), _eigvecs,
+     ()),
+]
+
+# the progenitor columns, one value a previous time slice
+# (compaso.py:968-977)
+_PROGEN_WIDE = ('N_mainprog', 'vcirc_max_L2com_mainprog', 'sigmav3d_L2com_mainprog')
+
+
+def _match_loader(field):
+    """(match, loader, the halo fields it derives from) of a halo field;
+    KeyError for a field no pattern matches (compaso.py:_match_loader)."""
+    found = [(m, fn, deps) for pat, fn, deps in _LOADERS for m in [pat.fullmatch(field)] if m]
+    if not found:
+        raise KeyError(f'No loader pattern matches halo field "{field}"')
+    if len(found) > 1:
+        raise KeyError(f'Field "{field}" matches multiple loader patterns')
+    m, fn, deps = found[0]
+    return m, fn, [d.format(suf=m['suf']) for d in deps]
+
+
+def _plan_field_loads(fields):
+    """(load order, the fields loaded only as dependencies): each field after
+    the halo fields it derives from (compaso.py:_plan_field_loads)."""
+    order, placed = [], set()
+
+    def visit(field, stack=()):
+        if field in placed:
+            return
+        if field in stack:
+            raise KeyError(f'Circular dependency while loading "{field}"')
+        for dep in _match_loader(field)[2]:
+            visit(dep, stack + (field,))
+        placed.add(field)
+        order.append(field)
+
+    for f in fields:
+        visit(f)
+    requested = set(fields)
+    return order, [f for f in order if f not in requested]
 
 
 def _slab_id(fn):
@@ -289,8 +442,7 @@ class CompaSOHaloCatalog:
         if kwargs:
             raise ValueError(f'CompaSOHaloCatalog got unexpected keyword arguments: '
                              f'{sorted(kwargs)}')
-        if convert_units is not True:
-            raise NotImplementedError(f'convert_units=False is not ported yet ({_LATER})')
+        self.convert_units = convert_units
         self.cleaned = bool(cleaned)
         if halo_lc is None:
             halo_lc = self._is_path_halo_lc(path if isinstance(path, (PurePath, str)) else path[0])
@@ -382,17 +534,21 @@ class CompaSOHaloCatalog:
                 return on_disk, on_disk_clean
             wanted = {fields} if isinstance(fields, str) else set(fields)
             return [c for c in on_disk if c in wanted], [c for c in on_disk_clean if c in wanted]
-        if isinstance(fields, str) and fields in ('DEFAULT_FIELDS', 'all'):
-            raise NotImplementedError(
-                f'fields={fields!r}: list the fields; the rest of CompaSOHaloCatalog\'s fields '
-                f'is not ported yet ({_LATER})')
-        wanted = [fields] if isinstance(fields, str) else list(fields)
+        presets = {'DEFAULT_FIELDS': clean_dt, 'all': clean_dt_progen}
+        if isinstance(fields, str) and fields in presets:
+            wanted = list(user_dt.names)
+            if self._read_clean:
+                wanted += list(presets[fields].names)
+            if self.halo_lc:
+                wanted += list(halo_lc_dt.names)
+        else:
+            wanted = [fields] if isinstance(fields, str) else list(fields)
         from_clean = []
         if self._read_clean:
             wanted = [f for f in wanted if f != 'N']
             if 'N_total' not in wanted:
                 wanted.append('N_total')
-            from_clean = [n for n in clean_dt.names if n in set(wanted)]
+            from_clean = [n for n in clean_dt_progen.names if n in set(wanted)]
             wanted = [f for f in wanted if f not in from_clean]
         if self.halo_lc:
             # a light cone holds the L2 halo stats and its own columns
@@ -402,18 +558,37 @@ class CompaSOHaloCatalog:
                 wanted += [c for c in (f'npstart{ab}', f'npout{ab}') if c not in wanted]
                 from_clean += [c for c in (f'npstart{ab}_merge', f'npout{ab}_merge')
                                if c not in from_clean]
-        for f in from_clean:
-            if f not in _CLEAN_FIELDS:
-                raise NotImplementedError(f'cleaning field {f!r} is not ported yet ({_LATER})')
-        for f in wanted:
-            _field_loader(f)
+        _plan_field_loads(wanted + from_clean)  # KeyError for a field without a loader
         return wanted, from_clean
+
+    def _field_dtype(self, field, af):
+        """The loaded column's dtype (compaso.py:_field_dt): clean_dt_progen's
+        for a cleaning column, halo_lc_dt's or user_dt's for the rest, the
+        progenitor columns NumTimeSliceRedshiftsPrev wide; a field outside
+        the tables (npoutA_L0L1, npoutB_L0L1) keeps its stored dtype."""
+        if field in clean_dt_progen.names:
+            dt = clean_dt_progen[field]
+            if field in _PROGEN_WIDE and 'NumTimeSliceRedshiftsPrev' in self.header:
+                dt = np.dtype((dt, self.header['NumTimeSliceRedshiftsPrev']))
+            return dt
+        for table in (halo_lc_dt, user_dt):
+            if field in table.names:
+                return table[field]
+        return np.asarray(af[self.data_key][field]).dtype
 
     def _read_halo_info(self):
         """Read and convert the requested columns of every slab into
         ``self.halos``, each slab filtered by ``filter_func``; returns the
-        halos kept per slab."""
-        box, kms = self.header['BoxSize'], self.header['VelZSpace_to_kms']
+        halos kept per slab. The halo fields a requested field derives from
+        are loaded into the slab's working set (and the filter's view) and
+        dropped after it."""
+        if self.convert_units:
+            box, kms = self.header['BoxSize'], self.header['VelZSpace_to_kms']
+        else:
+            box, kms = 1.0, 1.0
+        requested = self.fields + self.cleaned_fields
+        order, extra = ([], []) if self.passthrough else _plan_field_loads(requested)
+        needed = set(order)
         per_slab, counts = [], []
         cleaned_fns = self.cleaned_halo_fns or [None] * len(self.halo_fns)
         for fn, cfn in zip(self.halo_fns, cleaned_fns):
@@ -424,19 +599,27 @@ class CompaSOHaloCatalog:
 
                     def read(name, af=af, caf=caf, raw=raw):
                         if name not in raw:
-                            holder = caf if name in self.cleaned_fields else af
+                            if self.passthrough:
+                                holder = caf if name in self.cleaned_fields else af
+                            else:
+                                holder = (caf if caf is not None and name in clean_dt_progen.names
+                                          else af)
                             raw[name] = np.asarray(holder[self.data_key][name])
                         return raw[name]
 
                     cols = {}
-                    for field in self.fields + self.cleaned_fields:
-                        if self.passthrough:
-                            cols[field] = np.array(read(field))
+                    if self.passthrough:
+                        cols = {field: np.array(read(field)) for field in requested}
+                    for field in order:
+                        if field in cols:
                             continue
-                        dt, loader = _field_loader(field)
-                        value = loader(read, box, kms)
-                        cols[field] = np.empty(len(value), dtype=dt)
-                        cols[field][...] = value
+                        m, loader, _ = _match_loader(field)
+                        value = loader(m, read, cols.__getitem__, box, kms)
+                        for name, v in (value.items() if isinstance(value, dict)
+                                        else [(field, value)]):
+                            if name in needed:
+                                cols[name] = np.empty(len(v), dtype=self._field_dtype(name, af))
+                                cols[name][...] = v
                 finally:
                     if caf is not None:
                         caf.close()
@@ -446,8 +629,8 @@ class CompaSOHaloCatalog:
                     view.rename_column('N_total', 'N')
                 mask = np.asarray(self.filter_func(view))
                 cols = {k: v[mask] for k, v in cols.items()}
-            per_slab.append(cols)
-            counts.append(len(next(iter(cols.values()))) if cols else 0)
+            per_slab.append({k: cols[k] for k in requested})
+            counts.append(len(cols[requested[0]]) if requested else 0)
         self.halos = Table(
             {k: np.concatenate([c[k] for c in per_slab]) for k in per_slab[0]},
             meta=self.header, copy=False)
@@ -561,6 +744,12 @@ class CompaSOHaloCatalog:
             data = af[self.data_key]
             for name in self.load_pidrv:
                 self.subsamples.add_column(np.asarray(data[name]), name=name, copy=False)
+
+    def nbytes(self, halos=True, subsamples=True):
+        """The bytes of the halo and / or subsample columns
+        (compaso.py:nbytes)."""
+        tables = [t for t, keep in ((self.halos, halos), (self.subsamples, subsamples)) if keep]
+        return sum(t[c].nbytes for t in tables for c in t.columns)
 
     def __repr__(self):
         title = f'{self.header["SimName"]} @ z={self.header["Redshift"]:.5g}'

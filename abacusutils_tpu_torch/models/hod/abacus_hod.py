@@ -323,7 +323,7 @@ class AbacusHOD:
         set, the light-cone leg runs instead."""
         if mesh is not None or slab is not None:
             raise NotImplementedError(
-                'sharded fused P(k) (mesh=, slab=) is not ported yet: ROADMAP item 12 (multi-GPU)'
+                'sharded fused P(k) (mesh=, slab=) is not ported yet: ROADMAP.md queue 1, item 6 (multi-GPU)'
             )
         if tracers is None:
             tracers = self.tracers
@@ -661,19 +661,19 @@ class AbacusHOD:
 
         return self._pair_loop(mock_dict, fn)
 
-    def apply_zcv(self, mock_dict, config, zcv, load_presaved=False):
+    def apply_zcv(self, mock_dict, config, zcv=None, load_presaved=False):
         """Variance-reduced P_ell(k) of the mock's tracers by Zel'dovich
-        control variates (abacus_hod.py:apply_zcv) on the in-memory products
-        `zcv` of models/zcv/precompute.py:zcv_products; see
+        control variates (abacus_hod.py:apply_zcv) on the products `zcv` of
+        models/zcv/precompute.py (None: read from config's zcv_dir); see
         models/zcv/apply.py:apply_zcv."""
         from ..zcv.apply import apply_zcv
 
         return apply_zcv(self, mock_dict, config, zcv, load_presaved=load_presaved)
 
-    def apply_zcv_xi(self, mock_dict, config, zcv, load_presaved=False):
+    def apply_zcv_xi(self, mock_dict, config, zcv=None, load_presaved=False):
         """Variance-reduced xi_ell(r) of a one-tracer RSD mock by
         field-level Zel'dovich control variates (abacus_hod.py:apply_zcv_xi)
-        on the in-memory products `zcv`; see
+        on the products `zcv` (None: read from config's zcv_dir); see
         models/zcv/apply.py:apply_zcv_xi."""
         from ..zcv.apply import apply_zcv_xi
 

@@ -39,7 +39,6 @@ the card). A light cone (``halo_lc``) is one slab, read from
 
 import concurrent.futures
 import glob
-import json
 import math
 import multiprocessing
 import os
@@ -47,6 +46,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ...config import load_config
 from ...convert import resolve_device
 from ...io.compaso import CompaSOHaloCatalog
 from ...io.read_abacus import read_asdf
@@ -899,15 +899,6 @@ def calc_shearmark(simdir, simname, z_mock, N_dim, R, fn, partdown=100, device=N
     shearmark = shearmark_from_positions(pos_parts, N_dim, R, lbox, device=device)
     np.save(fn + '.npy', shearmark)
     return shearmark
-
-
-def load_config(config):
-    """A prepare_sim / AbacusHOD config: a dict (copied) or the path of a
-    JSON file holding one."""
-    if isinstance(config, dict):
-        return json.loads(json.dumps(config))
-    with open(config) as f:
-        return json.load(f)
 
 
 def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, halo_lc=False,

@@ -7,13 +7,22 @@ the f32 order of operations of ``main``; :func:`advected_field_ffts`
 deposits the five fields (1cb, delta, delta^2, s^2, nabla^2 delta) on it
 through K1's multi-weight form (``ops/power.py:get_field_ffts``: one launch
 a stage); :func:`power_ij` bins every auto and cross spectrum with poles in
-one K3 launch. No file is read or written.
+one K3 launch. :func:`main` is the chain's advection step on files: it
+reads ``ic_filt`` and ``fields`` of ic_fields.main and writes the Fourier
+fields, the P_ij table and, with save_3D_power, the pair cubes, under
+JAX's names, columns and headers.
 """
+
+import os
+import warnings
 
 import numpy as np
 import torch
 
+from ...config import load_config
 from ...convert import resolve_device
+from ...io.asdf_file import open_asdf
+from ...metadata import get_meta
 from ...ops.grid import _f32
 from ...ops.power import (
     calc_pk_pairs_from_deltak,
@@ -21,9 +30,12 @@ from ...ops.power import (
     get_k_mu_edges,
     get_W_compensated,
 )
-from .tools_cv import ZCV_FIELDS
+from .cosmo import growth_from_meta
+from .files import k_tag, read_data, read_fft, sim_dirs
+from .ic_fields import compress_asdf
+from .tools_cv import ZCV_FIELDS, field_cube
 
-__all__ = ['advected_positions', 'advected_field_ffts', 'field_growth', 'power_ij']
+__all__ = ['advected_positions', 'advected_field_ffts', 'field_growth', 'power_ij', 'main']
 
 
 def field_growth(D):
@@ -108,3 +120,117 @@ def power_ij(field_ffts, Lbox, power_params, D):
             pk_ij_dict[f'P_ell_{kn_ij}'] = np.asarray(P['binned_poles']) * scale
             pk_ij_dict[f'N_ell_{kn_ij}'] = np.asarray(P['N_mode_poles'])
     return pk_ij_dict
+
+
+def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
+         only_requested_fields=False, mesh=None, device=None):
+    """Advect the five fields to z_mock and write, under ``zcv_dir/<sim>/z<z>/``,
+    ``advected_{field}_field{rsd}_fft_nmesh{n}.asdf`` ({field}_Re and
+    {field}_Im, f32) and ``power{rsd}_ij_<k tag>.asdf`` (power_ij's table), or
+    with save_3D_power the pair cubes ``power{rsd}_{fi}_{fj}_nmesh{n}.asdf``
+    (advect_fields.py:main). Files that exist are skipped; an existing P_ij
+    table is read back and returned. path2config: a config dict or JSON
+    file; only_requested_fields: zcv_params' fields only. The paint (K1's
+    multi-weight form), FFTs and binning (K3) run on `device` (the card when
+    None). `mesh` (a sharded advection) raises: ROADMAP.md queue 1, item 6
+    (multi-GPU). Returns the P_ij dict (k_binc and mu_binc alone with
+    save_3D_power)."""
+    if mesh is not None:
+        raise NotImplementedError('the sharded advection (mesh=) is not ported yet: ROADMAP.md '
+                                  'queue 1, item 6 (multi-GPU)')
+    config = load_config(path2config)
+    zp, pp = config['zcv_params'], config['power_params']
+    nmesh, kcut = zp['nmesh'], zp['kcut']
+    if only_requested_fields:
+        keynames = list(zp['fields'])
+        warnings.warn('Saving only requested fields.')
+    else:
+        keynames = list(ZCV_FIELDS)
+    sim_name = alt_simname or config['sim_params']['sim_name']
+    z_this = config['sim_params']['z_mock']
+    rsd_str = '_rsd' if want_rsd else ''
+    dev = resolve_device(device)
+
+    meta = get_meta(sim_name, redshift=z_this)
+    Lbox = meta['BoxSize']
+    k_bin_edges, mu_bin_edges = get_k_mu_edges(Lbox, pp['k_hMpc_max'], pp['nbins_k'],
+                                               pp['nbins_mu'], pp['logk'])
+    save_dir, save_z_dir = sim_dirs(zp['zcv_dir'], sim_name, z_this)
+    os.makedirs(save_z_dir, exist_ok=True)
+    ic_fn = save_dir / f'ic_filt_nmesh{nmesh:d}.asdf'
+    fields_fn = save_dir / f'fields_nmesh{nmesh:d}.asdf'
+    fft_fns = {kn: save_z_dir / f'advected_{kn}_field{rsd_str}_fft_nmesh{nmesh:d}.asdf'
+               for kn in keynames}
+    tag = k_tag(Lbox, nmesh, pp['k_hMpc_max'], pp['nbins_k'], pp['nbins_mu'], pp['logk'])
+    power_ij_fn = save_z_dir / f'power{rsd_str}_ij_{tag}.asdf'
+
+    D, f_growth = growth_from_meta(meta, z_this, want_rsd=want_rsd)
+    print('D = ', D)
+    field_D = field_growth(D)
+
+    ffts = {}
+    todo = [kn for kn in keynames if not os.path.exists(fft_fns[kn])]
+    if todo:
+        with open_asdf(ic_fn) as f:
+            header = f['header']
+            assert header['nmesh'] == nmesh, f'Mismatch in the file: {ic_fn}'
+            assert np.isclose(header['kcut'], kcut), f'Mismatch in the file: {ic_fn}'
+            disp = [np.asarray(f['data'][f'disp_{a}']) for a in 'xyz']
+        pos = advected_positions(disp, Lbox, nmesh, D, f_growth, dev)
+        del disp
+        ws = []
+        for kn in todo:
+            if kn == '1cb':
+                ws.append(None)
+                continue
+            with open_asdf(fields_fn) as f:
+                assert f['header']['nmesh'] == nmesh
+                assert np.isclose(f['header']['kcut'], kcut)
+                ws.append(np.asarray(f['data'][kn]).reshape(-1))
+        W = (get_W_compensated(Lbox, nmesh, pp['paste'], pp['interlaced'])
+             if pp['compensated'] else None)
+        new = get_field_ffts(pos, Lbox, nmesh, pp['paste'], ws, W, pp['compensated'],
+                             pp['interlaced'], dev)
+        del pos, ws
+        header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut,
+                  'compensated': pp['compensated'], 'interlaced': pp['interlaced'],
+                  'paste': pp['paste']}
+        for kn, F in zip(todo, new):
+            print(kn)
+            compress_asdf(fft_fns[kn], {f'{kn}_Re': F.real, f'{kn}_Im': F.imag}, header)
+            ffts[kn] = F
+        del new
+
+    def load_fft(kn):
+        if kn in ffts:
+            return ffts[kn]
+        with open_asdf(fft_fns[kn]) as f:
+            h = f['header']
+            for key, val in (('sim_name', sim_name), ('nmesh', nmesh),
+                             ('compensated', pp['compensated']),
+                             ('interlaced', pp['interlaced']), ('paste', pp['paste'])):
+                assert h[key] == val, f'Mismatch in the file: {fft_fns[kn]}'
+            assert np.isclose(h['Lbox'], Lbox) and np.isclose(h['kcut'], kcut)
+        return read_fft(fft_fns[kn], kn, dev)
+
+    if os.path.exists(power_ij_fn) and not save_3D_power:
+        return read_data(power_ij_fn)
+
+    header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut}
+    if not save_3D_power:
+        pk_ij_dict = power_ij({kn: load_fft(kn) for kn in keynames}, Lbox, pp, D)
+        compress_asdf(power_ij_fn, pk_ij_dict, header)
+        return pk_ij_dict
+
+    for i in range(len(keynames)):
+        for j in range(i + 1):
+            fn = save_z_dir / f'power{rsd_str}_{keynames[i]}_{keynames[j]}_nmesh{nmesh:d}.asdf'
+            if os.path.exists(fn):
+                continue
+            print('Computing cross-correlation of', keynames[i], keynames[j])
+            cube = field_cube(load_fft(keynames[i]), load_fft(keynames[j]),
+                              field_D[i] * field_D[j])
+            compress_asdf(fn, {f'P_k3D_{keynames[i]}_{keynames[j]}': cube}, header)
+            del cube
+    return {'k_binc': (k_bin_edges[1:] + k_bin_edges[:-1]) * 0.5,
+            'mu_binc': (mu_bin_edges[1:] + mu_bin_edges[:-1]) * 0.5}

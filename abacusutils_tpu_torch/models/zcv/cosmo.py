@@ -1,62 +1,13 @@
-"""Growth factors and cosmology from the package's metadata extract
-(the counterpart of abacusutils_tpu/models/zcv/cosmo.py).
-
-The JAX package reads them with ``get_meta`` from its ASDF metadata bundle,
-whose reader needs msgpack and zstandard. The port reads a numpy extract of
-the same values, ``data/zcv_meta.npz``, written by
-``scripts/torch/zcv_meta_extract.py``: per simulation the box size, initial
-redshift, cosmology and growth table, per redshift ``f_growth``, and the
-cosmology's CLASS linear P(k).
+"""Growth factors and the zenbu/zcv cosmology config from the metadata
+registry (the counterpart of abacusutils_tpu/models/zcv/cosmo.py):
+``get_meta`` is abacusutils_tpu_torch.metadata's.
 """
-
-import json
-from functools import cache
-from pathlib import Path
 
 import numpy as np
 
-__all__ = ['META_EXTRACT', 'get_meta', 'growth_factors', 'growth_from_meta', 'get_meta_cfg']
+from ...metadata import get_meta
 
-META_EXTRACT = Path(__file__).resolve().parents[2] / 'data' / 'zcv_meta.npz'
-_SCRIPT = 'scripts/torch/zcv_meta_extract.py'
-
-
-@cache
-def _extract():
-    with np.load(META_EXTRACT) as f:
-        tree = json.loads(str(f['meta_json']))
-        arrays = {k: f[k] for k in f.files if k != 'meta_json'}
-    return tree, arrays
-
-
-def get_meta(sim_name, redshift=None):
-    """The extract's metadata of `sim_name` (at `redshift` when given) in the
-    layout of the JAX package's ``get_meta``: ``GrowthTable`` a dict of
-    redshift -> D, ``CLASS_power_spectrum`` a dict of the 'k (h/Mpc)' and
-    'P (Mpc/h)^3' arrays. Raises for a simulation or redshift the extract
-    does not hold."""
-    tree, arrays = _extract()
-    if sim_name not in tree:
-        raise ValueError(
-            f'simulation {sim_name!r} is not in the metadata extract {META_EXTRACT.name} '
-            f'({", ".join(tree)}); add it to {_SCRIPT} and run it'
-        )
-    rec = tree[sim_name]
-    meta = dict(rec['param'])
-    meta['GrowthTable'] = {z: d for z, d in meta['GrowthTable']}
-    cosmo = rec['class']
-    meta['CLASS_power_spectrum'] = {
-        'k (h/Mpc)': arrays[f'class_k_{cosmo}'], 'P (Mpc/h)^3': arrays[f'class_p_{cosmo}'],
-    }
-    if redshift is not None:
-        key = f'z{float(redshift):.3f}'
-        if key not in rec['state']:
-            raise ValueError(
-                f'redshift {redshift} of {sim_name!r} is not in the metadata extract '
-                f'{META_EXTRACT.name} ({", ".join(rec["state"])}); add it to {_SCRIPT} and run it'
-            )
-        meta.update(rec['state'][key])
-    return meta
+__all__ = ['get_meta', 'growth_factors', 'growth_from_meta', 'get_meta_cfg']
 
 
 def _table_lookup(table, z):

@@ -6,18 +6,26 @@ the linear IC density with ``torch.fft`` and elementwise tensor ops, in the
 f32 arithmetic of the JAX package's ``_fields_jit``. s^2 is accumulated one
 s_ij component at a time (as ``ops/shear.py`` does), so the working set is a
 few grids instead of six complex ones. numpy inputs go to `device` (the card
-when None); tensors stay where they are. The ASDF ``main``, ``load_dens``
-and ``load_disp`` are not ported, nor is the slab-sharded
-``get_fields_sharded``.
+when None); tensors stay where they are. :func:`main` is the first file
+step of the ZCV chain: the filtered IC and the bias fields, written under
+``zcv_dir`` with JAX's file names, columns and headers. The slab-sharded
+``get_fields_sharded`` is not ported (ROADMAP.md queue 1, item 6).
 """
+
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ...config import load_config
 from ...convert import resolve_device
+from ...io.asdf_file import open_asdf, write_asdf
+from ...metadata import get_meta
 from ...ops.grid import _f32
 
-__all__ = ['get_fields', 'gaussian_filter', 'filter_field', 'get_n2_fft', 'get_sij_fft']
+__all__ = ['get_fields', 'gaussian_filter', 'filter_field', 'get_n2_fft', 'get_sij_fft',
+           'compress_asdf', 'load_dens', 'load_disp', 'main']
 
 # s_ij components (i, j) and their factor in s^2 = sum_ij s_ij^2, in the
 # order of ic_fields.py:_fields_jit
@@ -116,3 +124,82 @@ def get_fields(delta_lin, Lbox, nmesh, device=None):
 
     n2 = torch.fft.irfftn(-k2 * delta_fft, s=shape)
     return d, d2, s2, n2
+
+
+# ---------------------------------------------------------------------------
+# the file layer (ic_fields.py:compress_asdf, load_dens, load_disp, main)
+# ---------------------------------------------------------------------------
+
+
+def compress_asdf(asdf_fn, table, header):
+    """Write the columns `table` and `header` to a blsc-compressed ASDF file
+    (ic_fields.py:compress_asdf); tensors are copied to the host."""
+    data = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in dict(table).items()}
+    write_asdf(str(asdf_fn), {'data': data, 'header': dict(header)}, compression='blsc')
+
+
+def load_dens(ic_dir, sim_name, nmesh):
+    """The IC density ``ic_dens_N{nmesh}.asdf`` of `sim_name` under `ic_dir`."""
+    with open_asdf(Path(ic_dir) / sim_name / f'ic_dens_N{nmesh:d}.asdf') as f:
+        return np.asarray(f['data']['density'])
+
+
+def load_disp(ic_dir, sim_name, nmesh):
+    """The IC displacement ``ic_disp_N{nmesh}.asdf`` of `sim_name` under
+    `ic_dir`, its three components in units of the box."""
+    with open_asdf(Path(ic_dir) / sim_name / f'ic_disp_N{nmesh:d}.asdf') as f:
+        Lbox = f['header']['BoxSize']
+        disp = np.asarray(f['data']['displacements'])
+        return disp[..., 0] / Lbox, disp[..., 1] / Lbox, disp[..., 2] / Lbox
+
+
+def cv_params(config):
+    """(the zcv or lcv section of `config`, the name of its directory key):
+    zcv_params when there is one, else lcv_params (ic_fields.py:main)."""
+    if 'zcv_params' in config:
+        return config['zcv_params'], 'zcv_dir'
+    return config['lcv_params'], 'lcv_dir'
+
+
+def main(path2config, alt_simname=None, verbose=False, device=None):
+    """Write the filtered IC ``ic_filt_nmesh{n}.asdf`` (dens and disp_x,
+    disp_y, disp_z, Gaussian-filtered at kcut) and the bias fields
+    ``fields_nmesh{n}.asdf`` (delta, delta2, nabla2, tidal2) under
+    ``zcv_dir/<sim_name>`` (or lcv_dir), skipping each file that exists
+    (ic_fields.py:main). path2config: a config dict or JSON file; the IC is
+    read from ``ic_dir``'s ``ic_dens_N{n}.asdf`` / ``ic_disp_N{n}.asdf``.
+    The filters and fields run on `device` (the card when None)."""
+    config = load_config(path2config)
+    cv, dir_key = cv_params(config)
+    zcv_dir, ic_dir, nmesh, kcut = cv[dir_key], cv['ic_dir'], cv['nmesh'], cv['kcut']
+    sim_name = alt_simname or config['sim_params']['sim_name']
+    z_this = config['sim_params']['z_mock']
+    dev = resolve_device(device)
+
+    save_dir = Path(zcv_dir) / sim_name
+    os.makedirs(save_dir, exist_ok=True)
+    Lbox = get_meta(sim_name, redshift=z_this)['BoxSize']
+    ic_fn = save_dir / f'ic_filt_nmesh{nmesh:d}.asdf'
+    fields_fn = save_dir / f'fields_nmesh{nmesh:d}.asdf'
+    header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut}
+
+    if os.path.exists(ic_fn):
+        with open_asdf(ic_fn) as f:
+            dens = np.asarray(f['data']['dens'])
+    else:
+        dens = gaussian_filter(load_dens(ic_dir, sim_name, nmesh), nmesh, Lbox, kcut, dev)
+        disp = [gaussian_filter(d, nmesh, Lbox, kcut, dev)
+                for d in load_disp(ic_dir, sim_name, nmesh)]
+        compress_asdf(ic_fn, {'dens': dens, 'disp_x': disp[0], 'disp_y': disp[1],
+                              'disp_z': disp[2]}, header)
+        del disp
+        if verbose:
+            print('Saved filtered displacement and density fields')
+
+    if os.path.exists(fields_fn):
+        print('Already saved fields for this simulation')
+        return
+    d, d2, s2, n2 = get_fields(dens, Lbox, nmesh, dev)
+    compress_asdf(fields_fn, {'delta': d, 'delta2': d2, 'nabla2': n2, 'tidal2': s2}, header)
+    print('Saved all filtered fields for this simulation')

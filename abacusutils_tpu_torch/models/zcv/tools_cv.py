@@ -17,7 +17,7 @@ projected to poles by K3 (``ops/power.py:project_3d_to_poles``) and
 dropped, and the model cubes are accumulated in float64 in the JAX
 package's order. The reduced 3-D power is returned in a dict the caller
 passes (`out`) instead of an ASDF file. Box size, CLASS P(k) and growth
-come from the package's metadata extract (``cosmo.py``).
+come from the package's metadata registry (``cosmo.py``).
 """
 
 import warnings
@@ -327,7 +327,7 @@ class _FlowSetup:
     `field_level`, the linear nmesh / 2 bins to the Nyquist k that pk_to_xi
     needs, whatever the config says) and the presaved-file directories
     (tools_cv.py:_FlowSetup). meta: the cosmo.get_meta dict at z_mock (None:
-    the extract's, read for LCV)."""
+    the registry's, read for LCV)."""
 
     def __init__(self, config, kind='zcv', field_level=False, lbox=None, meta=None):
         cv = config[f'{kind}_params']
@@ -472,7 +472,7 @@ def run_zcv(power_rsd_tr_dict, power_rsd_ij_dict, power_tr_dict, power_ij_dict, 
     (zenbu_window.window_and_templates); pk_ij_zenbu: the templates of the
     requested space (RSD when config's want_rsd, else real space). Each
     that is None is loaded from its npz under zcv_dir, as the JAX package
-    does. lbox: the box size (None: the metadata extract's)."""
+    does. lbox: the box size (None: the metadata registry's)."""
     s = _FlowSetup(config, lbox=lbox)
     keynames = _zcv_fields(config)
 
@@ -666,7 +666,7 @@ def run_zcv_field(tracer_ffts, field_ffts, config, pk_ij_zenbu=None, meta=None, 
     returns them; field_ffts: {want_rsd: {field: rfft mesh}}, the advected
     fields of precompute.ZCVProducts; pk_ij_zenbu: the RSD templates at the
     flow's k bins (None: the npz under zcv_dir); meta: the cosmo.get_meta
-    dict at z_mock, which gives the box size (None: the extract's). Every
+    dict at z_mock, which gives the box size (None: the registry's). Every
     cube is built on the fields' device: the real-space tracer and pair
     cubes are projected to their monopoles for the bias fit and dropped one
     by one, and the RSD model and cross cubes are accumulated in float64.
@@ -777,7 +777,7 @@ def run_lcv(power_rsd_tr_dict, power_lin_dict, config, window=None, keff=None, m
     power_lin_dict: the linear fields' (linear_fields.linear_fields,
     precompute.LCVProducts.pk_lin); window, keff: the window matrix at the
     config's k bins (None: the npz under lcv_dir); meta: the cosmo.get_meta
-    dict at z_mock (None: the extract's)."""
+    dict at z_mock (None: the registry's)."""
     s = _FlowSetup(config, 'lcv', meta=meta)
     rec_algo, R = _lcv_recon(config)
     assert s.want_rsd, 'Real space not implemented'
@@ -869,7 +869,7 @@ def run_lcv_field(tr_fft, lin_ffts, config, meta=None, out=None):
     tr_fft: the reconstructed tracer's rfft mesh
     (tracer_power.get_recon_power(save_3D_power=True)); lin_ffts: the
     linear fields {'delta', 'deltamu2'} (precompute.LCVProducts.field_ffts);
-    meta: the cosmo.get_meta dict at z_mock (None: the extract's). out: a
+    meta: the cosmo.get_meta dict at z_mock (None: the registry's). out: a
     dict that receives the reduced 3-D power under 'P_k3D_tr_tr_lcv' (the
     JAX package writes it to power_rsd_LCV_tr_{rec_algo}_nmesh*.asdf)."""
     s = _FlowSetup(config, 'lcv', field_level=True, meta=meta)

@@ -19,7 +19,8 @@ bins. Two engines compute them:
 'auto' takes the device at nmesh >= 256, as the JAX package does. The
 templates come from the native ZA engine (``zenbu_native``), k split over
 processes (:func:`_templates`). :func:`window_and_templates` returns what
-the JAX package's ``main`` saves as ``.npz`` files, from arrays in memory.
+the JAX package's ``main`` saves as ``.npz`` files, from arrays in memory;
+:func:`main` writes those files.
 """
 
 import os
@@ -34,14 +35,17 @@ import numpy as np
 import torch
 
 from ... import _build
+from ...config import load_config
 from ...convert import resolve_device
+from ...metadata import get_meta
 from ...ops.power import _sqrt_rn_f32, get_k_mu_edges
+from .files import k_tag, sim_dirs
 from .zenbu_native import zenbu_spectra_native
 
 __all__ = [
     'periodic_window_function', 'window_mode_sums', 'window_mode_sums_plain',
     'window_mode_sums_rows_plain', 'window_plan', 'get_window_plan', 'WindowPlan',
-    'zenbu_spectra', 'window_and_templates', 'K8_ITEM_ROWS',
+    'zenbu_spectra', 'window_and_templates', 'K8_ITEM_ROWS', 'main',
 ]
 
 _PREF = (1, 5, 9)  # (2*ell + 1) for ell = 0, 2, 4
@@ -469,7 +473,7 @@ def window_and_templates(nmesh, Lbox, power_params, kcut, z, meta, want_rsd=True
     arrays: the window of the power_params k bins at their centres
     (:func:`periodic_window_function`, `engine` on `device`) and, for RSD
     and real space (real space only when want_rsd is False), the template
-    table of the extract's CLASS P(k) scaled from z = 1 to the initial
+    table of the metadata's CLASS P(k) scaled from z = 1 to the initial
     redshift (:func:`_templates`). meta: the :func:`cosmo.get_meta` dict of
     the simulation at z.
 
@@ -492,3 +496,53 @@ def window_and_templates(nmesh, Lbox, power_params, kcut, z, meta, want_rsd=True
     for rsd, tab in zip(rsds, tabs):
         out['pk_ij_zenbu_rsd' if rsd else 'pk_ij_zenbu'] = tab
     return out
+
+
+def main(path2config, alt_simname=None, want_xi=False, engine='auto', device=None):
+    """Write the window matrix ``zcv_dir/<sim>/window_<k tag>.npz`` (window,
+    keff) and the ZA templates ``zcv_dir/<sim>/z<z>/zenbu_pk{rsd}_ij_lpt_<k
+    tag>.npz`` (pk_ij_zenbu, k_binc, kcut) of RSD and real space (real space
+    only when HOD_params' want_rsd is False), skipping the files that exist
+    (zenbu_window.py:main). The k bins are power_params', or with want_xi
+    nmesh / 2 linear bins to the Nyquist k. The templates of both spaces are
+    built in one :func:`_templates` call; the window runs on `engine` and
+    `device` (:func:`periodic_window_function`)."""
+    config = load_config(path2config)
+    zp, pp = config['zcv_params'], config['power_params']
+    nmesh, kcut = zp['nmesh'], zp['kcut']
+    sim_name = alt_simname or config['sim_params']['sim_name']
+    z_this = config['sim_params']['z_mock']
+    meta = get_meta(sim_name, redshift=z_this)
+    Lbox = meta['BoxSize']
+    if want_xi:
+        k_hMpc_max, logk, n_k_bins, n_mu_bins = np.pi * nmesh / Lbox, False, nmesh // 2, 1
+    else:
+        k_hMpc_max, logk = pp['k_hMpc_max'], pp['logk']
+        n_k_bins, n_mu_bins = pp['nbins_k'], pp['nbins_mu']
+    save_dir, save_z_dir = sim_dirs(zp['zcv_dir'], sim_name, z_this)
+    os.makedirs(save_z_dir, exist_ok=True)
+    k_bins, _ = get_k_mu_edges(Lbox, k_hMpc_max, n_k_bins, n_mu_bins, logk)
+    k_binc = 0.5 * (k_bins[1:] + k_bins[:-1])
+    tag = k_tag(Lbox, nmesh, k_hMpc_max, n_k_bins, n_mu_bins, logk)
+
+    window_fn = save_dir / f'window_{tag}.npz'
+    if not os.path.exists(window_fn):
+        window, keff = periodic_window_function(nmesh, Lbox, k_bins, k_binc, k2weight=True,
+                                                engine=engine, device=device)
+        np.savez(window_fn, window=window, keff=keff)
+        print('Saved window function')
+
+    rsds = [True, False] if config['HOD_params'].get('want_rsd', True) else [False]
+    fns = {rsd: save_z_dir / f'zenbu_pk{"_rsd" if rsd else ""}_ij_lpt_{tag}.npz' for rsd in rsds}
+    todo = [rsd for rsd in rsds if not os.path.exists(fns[rsd])]
+    if not todo:
+        return
+    kth = np.asarray(meta['CLASS_power_spectrum']['k (h/Mpc)'])
+    pk_th = np.asarray(meta['CLASS_power_spectrum']['P (Mpc/h)^3'])
+    z_ic = meta['InitialRedshift']
+    p_m_lin = (meta['GrowthTable'][z_ic] / meta['GrowthTable'][1.0]) ** 2 * pk_th
+    cfg = {'sim_name': sim_name, 'surrogate_gaussian_cutoff': kcut, 'z_ic': z_ic}
+    tabs = _templates(k_binc, z_this, cfg, kth, p_m_lin, todo, dict(nmax=8, ngauss=8))
+    for rsd, tab in zip(todo, tabs):
+        np.savez(fns[rsd], pk_ij_zenbu=tab, k_binc=k_binc, kcut=kcut)
+        print('Saved ZeNBu templates', fns[rsd])

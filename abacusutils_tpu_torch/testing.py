@@ -14,11 +14,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .models.zcv.cosmo import get_meta
+from .metadata import get_meta
 
 __all__ = ['edge_points', 'edge_points_centred', 'menv_ranges', 'menv_walk', 'nfw_draw',
            'smoothing_at_bin_centres', 'summit_header', 'rvint_words', 'pid_words',
-           'synthetic_compaso', 'write_compaso_sim', 'decoded_catalog', 'pack9_rows', 'LC_ORIGINS',
+           'synthetic_compaso', 'write_compaso_sim', 'decoded_catalog', 'decoded_fields',
+           'TIME_SLICE_PREV', 'pack9_rows', 'LC_ORIGINS',
            'LC_SHELL', 'synthetic_compaso_lc', 'write_compaso_lc', 'decoded_catalog_lc']
 
 
@@ -261,8 +262,8 @@ def summit_header(z=0.5, light_cone=False):
     """A halo_info header for AbacusSummit_base_c000_ph000 at redshift z.
     The simulation's name, redshift, scale factor, box (2000 Mpc/h), H0,
     Omega_M, Omega_DE, ppd, particle mass and subsample fractions are the
-    values of the JAX package's metadata, read from the port's extract
-    (models/zcv/cosmo.py:get_meta). That metadata has no velocity scale, so
+    values of the metadata registry (abacusutils_tpu_torch.metadata:
+    get_meta). That metadata has no velocity scale, so
     VelZSpace_to_kms is approximated as 100 E(z) BoxSize / (1 + z), with
     E(z) from Omega_M and Omega_DE alone (no radiation, no neutrinos).
     LightConeOrigins is a box's placeholder [0, 0, 0], or with
@@ -323,6 +324,80 @@ def _halo_particles(rng, owner, pos, v_box, r100, sig, kms, uniform=False):
     return ppos, np.clip(pvel, -2048 * RV_VEL_QUANTUM, 2047 * RV_VEL_QUANTUM)
 
 
+# the previous time slices of the cleaning files' headers, and so the width
+# of their progenitor columns
+TIME_SLICE_PREV = [0.575, 0.65, 0.725, 0.8]
+# the int16 radius ratios of r100 (io/compaso.py:user_dt)
+RADII = (10, 25, 33, 50, 67, 75, 90, 95, 98)
+EULER16_CODES = 45 * 121 * 12  # the valid euler16 words: 0 .. EULER16_CODES - 1
+
+
+def _halo_stats(rng, n, sufs, have):
+    """The AbacusSummit halo_info columns of every halo statistic of the
+    centre-of-mass definitions `sufs` ('_com', '_L2com') that `have` does
+    not hold yet, in their encodings: x and r100 in box units, v, sigmav3d,
+    meanSpeed, sigmav3d_r50, meanSpeed_r50 and vcirc_max in units of
+    VelZSpace_to_kms, the int16 ratios of r100 (r10 ... r98, rvcirc_max,
+    sigmar 3 wide) and of sigmav3d (sigmav{Min,Max,rad,tan}), sigman 3 wide
+    of 32000, the euler16 words of the three eigenvector sets and the SO
+    columns (central particle and radius in box units, density as stored).
+    `have` supplies the values the new ones scatter around (x_L2com,
+    v_L2com, r100_L2com, sigmav3d_L2com). float32 draws, cheap at 10^6
+    halos."""
+    f = np.float32
+    cols = {}
+
+    def put(name, value):
+        if name not in have:
+            cols[name] = value
+
+    def ratio(lo, hi, shape=None):
+        u = rng.random(n if shape is None else (n, shape), dtype=f)
+        return (u * f(hi - lo) + f(lo)) * f(INT16SCALE)
+
+    x0, v0 = have['x_L2com'], have['v_L2com']
+    r0, s0 = have['r100_L2com'], have['sigmav3d_L2com']
+    for suf in sufs:
+        so = 'SO_L2max' if suf == '_L2com' else 'SO'
+        jitter = (rng.random((n, 3), dtype=f) - f(0.5)) * (f(0.1) * r0)[:, None]
+        put(f'x{suf}', x0 + jitter)
+        put(f'v{suf}', v0 * f(1.02))
+        r100 = r0 * f(1.05)
+        put(f'r100{suf}', r100)
+        sig = s0 * f(0.98)
+        put(f'sigmav3d{suf}', sig)
+        for name, scale in (('meanSpeed', 1.1), ('sigmav3d_r50', 1.2), ('meanSpeed_r50', 1.15),
+                            ('vcirc_max', 1.4)):
+            put(f'{name}{suf}', s0 * f(scale) * (f(0.9) + f(0.2) * rng.random(n, dtype=f)))
+        for p in RADII:
+            put(f'r{p}{suf}_i16', ratio(0.6 * p / 100, 0.7 * p / 100 + 0.3).astype(np.int16))
+        put(f'rvcirc_max{suf}_i16', ratio(0.1, 0.9).astype(np.int16))
+        put(f'sigmar{suf}_i16', ratio(0.1, 0.9, 3).astype(np.int16))
+        put(f'sigman{suf}_i16', ratio(-0.9, 0.9, 3).astype(np.int16))
+        # Min and Max bound sigmav3d^2 - Max^2 - Min^2 >= 0: Mid is real
+        for w, lo, hi in (('Min', 0.2, 0.45), ('Max', 0.5, 0.7), ('rad', 0.3, 0.8),
+                          ('tan', 0.3, 0.8)):
+            put(f'sigmav{w}_to_sigmav3d{suf}_i16', ratio(lo, hi).astype(np.int16))
+        for rnv in 'rnv':
+            put(f'sigma{rnv}_eigenvecs{suf}_u16',
+                rng.integers(0, EULER16_CODES, n, dtype=np.uint16))
+        put(f'{so}_central_particle', x0 + jitter * f(0.5))
+        put(f'{so}_central_density', rng.random(n, dtype=f) * f(1e4) + f(200))
+        put(f'{so}_radius', r100 * f(0.9))
+    return cols
+
+
+def _halo_counts(rng, N):
+    """The integer columns of halo_info besides N and the subsample
+    indices: ntagged{A,B}, L2_N (5 wide: the largest L2 group first),
+    L0_N, npout{A,B}_L0L1."""
+    n = len(N)
+    l2 = (N[:, None] * (rng.random((n, 5)) ** (np.arange(5) + 1))).astype(np.uint32)
+    return {'ntaggedA': (N // 7).astype(np.uint32), 'ntaggedB': (N // 11).astype(np.uint32),
+            'L2_N': l2, 'L0_N': (N * 1.3).astype(np.uint32),
+            'npoutA_L0L1': (N // 5).astype(np.uint32), 'npoutB_L0L1': (N // 3).astype(np.uint32)}
+
+
 def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05, z=0.5):
     """A synthetic CompaSO catalog of `n_slabs` x-slabs of a periodic box:
     about `n_halo` halos (N ~ N^-2 over [35, 1e5] particles, in clumps of
@@ -334,7 +409,10 @@ def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05,
     share of each slab's halos merged into other halos of the slab (N_total
     0; their particles listed again in the cleaned_rvpid file under the
     halo that absorbed them). The B set and the PIDs come from a stream of
-    their own, so the rest does not depend on them.
+    their own, so the rest does not depend on them; every other halo
+    statistic of io/compaso.py:user_dt (:func:`_halo_stats`,
+    :func:`_halo_counts`) and the cleaning files' progenitor columns
+    (TIME_SLICE_PREV wide) from a third.
 
     Returns {'header', 'slabs': [per slab {'halo_info': the stored halo_info
     columns, 'clean': the cleaned_halo_info columns, 'rv_A', 'rv_B',
@@ -350,6 +428,7 @@ def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05,
     for s in range(n_slabs):
         rng = np.random.default_rng([seed, s])
         rng_b = np.random.default_rng([seed, s, 1])
+        rng_s = np.random.default_rng([seed, s, 2])
         n = n_halo // n_slabs + (n_halo % n_slabs if s == n_slabs - 1 else 0)
         xlo, xhi = -0.5 + s / n_slabs, -0.5 + (s + 1) / n_slabs
         N = (1.0 / (1 / 35 - rng.random(n) * (1 / 35 - 1e-5))).astype(np.uint32)
@@ -423,6 +502,15 @@ def synthetic_compaso(n_slabs, n_halo, n_part, n_field, seed=0, merge_frac=0.05,
             slab.update({f'rv_{ab}': rv, f'pid_{ab}': pid, f'clean_rv_{ab}': rv[rows],
                          f'clean_pid_{ab}': pid[rows], f'clean_rows_{ab}': rows,
                          f'pos_true_{ab}': p * box, f'vel_true_{ab}': v})
+
+        # every other halo statistic and the progenitor columns
+        halo_info.update(_halo_stats(rng_s, n, ('_com', '_L2com'), halo_info))
+        halo_info.update(_halo_counts(rng_s, N))
+        nprev = len(TIME_SLICE_PREV)
+        clean.update(
+            N_mainprog=(N[:, None] * rng_s.random((n, nprev), dtype=np.float32)).astype(np.uint32),
+            vcirc_max_L2com_mainprog=rng_s.random((n, nprev), dtype=np.float32) * np.float32(300),
+            sigmav3d_L2com_mainprog=rng_s.random((n, nprev), dtype=np.float32) * np.float32(250))
         slabs.append(slab)
     return {'header': header, 'slabs': slabs}
 
@@ -441,7 +529,7 @@ def write_compaso_sim(root, sim, writer=None, compression='blsc'):
     name, zdir = header['SimName'], f'z{header["Redshift"]:4.3f}'
     groupdir = Path(root) / name / 'halos' / zdir
     cleandir = Path(root) / 'cleaning' / name / zdir
-    clean_header = dict(header, TimeSliceRedshiftsPrev=[0.575, 0.65, 0.725, 0.8])
+    clean_header = dict(header, TimeSliceRedshiftsPrev=list(TIME_SLICE_PREV))
     files, raw = [], 0
     for s, slab in enumerate(sim['slabs']):
         particle_files = [
@@ -531,6 +619,73 @@ def decoded_catalog(sim, slabs, cleaned, particles=True, sets='A'):
     return out, {k: np.concatenate([p[k] for p in flat]) for k in flat[0]}
 
 
+def decoded_fields(stored, clean, header, fields, convert_units=True):
+    """The halo fields `fields` of a catalog slab decoded from its stored
+    columns by the AbacusSummit formulas, written out field by field in
+    numpy (no loader table): `stored` the halo_info columns, `clean` the
+    cleaned_halo_info columns or None, `header` the catalog's header (its
+    BoxSize and VelZSpace_to_kms, 1.0 each without `convert_units`).
+    Returns {field: column} with io/compaso.py's dtypes."""
+    from .io.compaso import clean_dt_progen, halo_lc_dt, unpack_euler16, user_dt
+
+    box = header['BoxSize'] if convert_units else 1.0
+    kms = header['VelZSpace_to_kms'] if convert_units else 1.0
+    clean = clean or {}
+    col = {**stored, **clean}.__getitem__
+    euler = {}  # one decode a word column
+
+    def value(f):
+        suf = '_L2com' if f.endswith('_L2com') else '_com' if f.endswith('_com') else ''
+        stem = f[:len(f) - len(suf)] if suf else f
+        if stem in ('x', 'r100'):
+            return col(f) * box
+        if stem in ('v', 'sigmav3d', 'meanSpeed', 'sigmav3d_r50', 'meanSpeed_r50', 'vcirc_max'):
+            return col(f) * kms
+        if stem == 'rvcirc_max' or (stem[:1] == 'r' and stem[1:].isdigit()):
+            return col(f + '_i16') * col('r100' + suf) / INT16SCALE * box
+        if stem == 'sigmavMid':
+            s3, smaj, smin = (out_dtype(value(g + suf), g + suf)
+                              for g in ('sigmav3d', 'sigmavMaj', 'sigmavMin'))
+            return np.sqrt(s3 ** 2 - smaj ** 2 - smin ** 2)
+        if stem in ('sigmavMin', 'sigmavMaj', 'sigmavrad', 'sigmavtan'):
+            on_disk = stem.replace('Maj', 'Max')
+            return col(f'{on_disk}_to_sigmav3d{suf}_i16') * col('sigmav3d' + suf) / INT16SCALE * kms
+        if stem == 'sigmar':
+            return col(f + '_i16') * col('r100' + suf)[:, None] / INT16SCALE * box
+        if stem == 'sigman':
+            return col(f + '_i16') / INT16SCALE
+        if '_eigenvecs' in stem:
+            word = stem[:-3] + suf + '_u16'
+            if word not in euler:
+                euler[word] = dict(zip(('Min', 'Mid', 'Maj'), unpack_euler16(col(word))))
+            return euler[word][stem[-3:]]
+        if f.startswith('SO') and f.endswith(('_central_particle', '_radius')):
+            return col(f) * box
+        if f == 'origin':
+            return col(f) % 3
+        if f in ('pos_interp', 'vel_interp'):
+            have_avg = np.any(col('pos_avg'), axis=1)[:, None]
+            return np.where(have_avg, col(f[:3] + '_avg'), col(f))
+        return col(f)
+
+    def out_dtype(v, f):
+        if f in clean_dt_progen.names and f in clean:
+            dt = clean_dt_progen[f]
+            if np.ndim(clean[f]) == 2 and f not in ('v_L2com_mainprog',):
+                dt = np.dtype((dt, clean[f].shape[1]))
+        elif f in halo_lc_dt.names:
+            dt = halo_lc_dt[f]
+        elif f in user_dt.names:
+            dt = user_dt[f]
+        else:
+            dt = np.asarray(v).dtype
+        out = np.empty(len(v), dtype=dt)
+        out[...] = v
+        return out
+
+    return {f: out_dtype(value(f), f) for f in fields}
+
+
 # ---------------------------------------------------------------------------
 # pack9 rows
 # ---------------------------------------------------------------------------
@@ -589,8 +744,8 @@ def synthetic_compaso_lc(n_halo, n_per_halo=5, n_particles=0, seed=0, z=0.5, she
     `n_halo` halos in clumps (sigma 8 Mpc/h) filling the octant of the
     `shell` (Mpc/h from the first observer of LC_ORIGINS, the three of
     which the header carries), with the L2 stats in the encodings of
-    :func:`synthetic_compaso` (x_L2com, v_L2com, r100_L2com,
-    sigmav3d_L2com, int16 radius ratios) and the columns of halo_lc_dt:
+    :func:`synthetic_compaso` (every L2 statistic of io/compaso.py:user_dt,
+    L2_N among them) and the columns of halo_lc_dt:
     N and N_interp, npstartA / npoutA (about `n_per_halo` A particles a
     halo), index_halo (distinct int64 in no order), origin 0-5, pos_avg and
     vel_avg (zero for about a third of the halos), pos_interp and
@@ -653,6 +808,8 @@ def synthetic_compaso_lc(n_halo, n_per_halo=5, n_particles=0, seed=0, z=0.5, she
         'r25_L2com_i16': (rng.uniform(0.15, 0.35, n_halo) * INT16SCALE).astype(np.int16),
         'r98_L2com_i16': (rng.uniform(0.86, 0.99, n_halo) * INT16SCALE).astype(np.int16),
     }
+    halos.update(_halo_stats(np.random.default_rng([seed, 99, 2]), n_halo, ('_L2com',), halos))
+    halos['L2_N'] = _halo_counts(np.random.default_rng([seed, 99, 3]), N)['L2_N']
     # the A particles around each halo's position as the loader reads it
     centre = np.where(have_avg[:, None], pos_avg, halos['pos_interp']).astype(np.float64)
     owner = np.repeat(np.arange(n_halo), npout)

@@ -140,8 +140,11 @@ Phases, each printing what it measured:
    (``testing.synthetic_compaso``); the blsc decode rate; (a)
    ``CompaSOHaloCatalog`` of every slab, cleaned and uncleaned, against the
    encodings' decode formulas on the arrays written (exact; particles to
-   the RVint quantum), and a cleaned read of slab 0's A + B with
-   ``unpack_bits=True`` against the drawn PID words (every field equal);
+   the RVint quantum), a cleaned read of slab 0's A + B with
+   ``unpack_bits=True`` against the drawn PID words (every field equal),
+   and slab 0 with ``fields='all'``, cleaned, and uncleaned with
+   ``convert_units=False``, every column bit-equal to the drawn columns'
+   decode (``testing.decoded_fields``);
    (b) ``prepare_sim.main`` serial with ranks, env
    and the shear (1000^3, R 2, every particle) on the device engines
    (read, tables and write timed a slab; K6, K7 and K1 must launch), slab
@@ -158,13 +161,23 @@ Phases, each printing what it measured:
    PIDs, OutputType LightCone) of LC_DISK_PARTICLES
    (``testing.synthetic_compaso_lc``, blsc zstd); (1) the readers against
    the drawn arrays (every light-cone column bit-equal to its decode
-   formula, every PID field of the drawn words); (2) ``prepare_sim.main``
+   formula, and with ``fields='all'`` to ``testing.decoded_fields``, every
+   PID field of the drawn words); (2) ``prepare_sim.main``
    with ``halo_lc`` on the device engines (read, tables with the randoms
    loop timed apart, write; K6 and K7 must launch); (3) staging by
    ``AbacusHOD.from_config``; (4) ``run_hod``, each tracer's galaxies as
    many as the fused call's n_gal; (5) ``run_hod_pk_fused`` cold and warm
    (K1 and K3 must launch) against the same call on
    ``staged_state_from_numpy`` of the staged tables.
+18. the ZCV chain through disk at 256^3 (``phase_zcv_disk``): the IC
+   written as files, ``ic_fields.main``, ``advect_fields.main`` in RSD and
+   real space, ``zenbu_window.main`` (the window on K8; the templates are
+   phase 13's first 128 k columns, written first and skipped),
+   ``linear_fields.main``, ``ZCVProducts.from_dir`` /
+   ``LCVProducts.from_dir`` held against the same IC's arrays in memory,
+   and ``apply_zcv`` with ``zcv=None`` cold and with
+   ``load_presaved=True``; each main's time, the bytes written, the read
+   time, and the launches of K1, K1 multi-weight, K3 and K8 on the path.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -301,6 +314,7 @@ from abacusutils_tpu_torch.models.zcv import advect_fields as zcv_adv
 from abacusutils_tpu_torch.models.zcv import apply as zcv_apply
 from abacusutils_tpu_torch.models.zcv import cosmo as zcv_cosmo
 from abacusutils_tpu_torch.models.zcv import ic_fields as zcv_ic
+from abacusutils_tpu_torch.models.zcv import linear_fields as zcv_lin
 from abacusutils_tpu_torch.models.zcv import precompute as zcv_pre
 from abacusutils_tpu_torch.models.zcv import tools_cv as zcv_tools
 from abacusutils_tpu_torch.models.zcv import tracer_power as zcv_tp
@@ -316,6 +330,7 @@ from abacusutils_tpu_torch.testing import (
     RV_VEL_QUANTUM,
     decoded_catalog,
     decoded_catalog_lc,
+    decoded_fields,
     edge_points,
     menv_ranges,
     nfw_draw,
@@ -539,6 +554,9 @@ def binning_line(tag, form, wrap_ms, k_ms, plain_ms, err, bound, share, lib_ms):
                 library_call=LIBRARY_CALL)
 
 
+CARD = ['']  # nvidia-smi's name and power limit of the card, printed beside times
+
+
 def phase_build():
     print('torch', torch.__version__, 'cuda', torch.version.cuda, 'python', sys.version.split()[0])
     smi = subprocess.run(
@@ -546,9 +564,10 @@ def phase_build():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print('nvidia-smi:', smi)
+    CARD[0] = smi
     print('device:', torch.cuda.get_device_name(0), 'count', torch.cuda.device_count())
-    # the one check the next slice's format decision waits on (ROADMAP.md
-    # queue 1, item 3): a zstd library the ASDF reader could load
+    # the zstd library the ASDF reader's Blosc decoder loads at first use
+    # (io/blosc.py), or None where the card machine has none
     print(f"phase 1 ctypes.util.find_library('zstd'): {ctypes.util.find_library('zstd')!r}")
     path, secs, log = _build.build()
     for line in log.splitlines():
@@ -2411,6 +2430,208 @@ def phase_zcv(dev, paths, timing):
     return dict(zcv=zcv, mocks=mocks, out=out, dens=dens, config=config, meta=meta, n_tr=n_tr)
 
 
+def write_ic(root, sim, dens, disp):
+    """The IC as the chain's ``main`` reads it: ``ic_dens_N{n}.asdf``
+    ('density') and ``ic_disp_N{n}.asdf`` ('displacements' in Mpc/h, n^3 x
+    3, header BoxSize) under root/<sim>/. Returns (the IC as load_dens and
+    load_disp give it back, bytes written)."""
+    n = dens.shape[0]
+    ic = Path(root) / sim
+    ic.mkdir(parents=True)
+    zcv_ic.compress_asdf(ic / f'ic_dens_N{n}.asdf', {'density': dens}, {'BoxSize': LBOX})
+    d = torch.stack([c * LBOX for c in disp], -1)
+    zcv_ic.compress_asdf(ic / f'ic_disp_N{n}.asdf', {'displacements': d}, {'BoxSize': LBOX})
+    del d
+    back = (zcv_ic.load_dens(root, sim, n), zcv_ic.load_disp(root, sim, n))
+    return back, sum(f.stat().st_size for f in ic.iterdir())
+
+
+# phase 18: the ZCV chain on files at 256^3
+DISK_ZCV_NMESH = 256
+DISK_ZCV_SEED = SEED + 18
+
+
+def phase_zcv_disk(dev, paths, tpl13):
+    """Phase 18: the ZCV chain through disk at 256^3, from a Gaussian IC of
+    its own written as ic_dens / ic_disp files: ic_fields.main (the IC
+    filter, get_fields), advect_fields.main in RSD and real space (the
+    advection, five field FFTs by K1's multi-weight form, the 15 P_ij by
+    K3, each written), zenbu_window.main (the window on K8),
+    linear_fields.main; ZCVProducts.from_dir and LCVProducts.from_dir read
+    the products back, held against the same IC's arrays computed in
+    memory (the advected FFTs, P_ij, pk_lin); then AbacusHOD-style
+    apply_zcv with zcv=None on ~1e7 tracers Poisson-sampled from the
+    advected lattice (phase 13's sampling), cold and with
+    load_presaved=True. Every step timed host to host. The cell takes
+    phase 13's kcut (the Nyquist k of 256^3) and nmesh / 2 linear k bins
+    to its Nyquist k: the first 128 of phase 13's, so its ZA templates are
+    phase 13's first 128 columns (each k is computed alone), written into
+    zcv_dir before zenbu_window.main, which skips existing files. Phase 13
+    stays in memory at 512^3: through disk there it added 148.6 s (the
+    first card run of this phase's design), over the 150 s the disk route
+    was allowed to add with the rest of the script (PERF.md). tpl13:
+    (phase 13's templates by want_rsd, its k_binc, its kcut). The files
+    live in a temporary directory, removed at the end."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix='chip_smoke_zcv_'))
+    try:
+        zcv_disk_chain(dev, paths, tpl13, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'phase 18 in {time.perf_counter() - t0:.1f} s')
+
+
+def zcv_disk_chain(dev, paths, tpl13, root):
+    n = DISK_ZCV_NMESH
+    config = zcv_config(n)
+    templates13, k_binc13, kcut = tpl13
+    config['zcv_params']['kcut'] = kcut
+    config['zcv_params'].update(zcv_dir=str(root / 'zcv'), ic_dir=str(root / 'ic'))
+    config['lcv_params'] = {'nmesh': n, 'kcut': kcut, 'lcv_dir': str(root / 'zcv'),
+                            'ic_dir': str(root / 'ic')}
+    cfg = root / 'zcv.json'
+    cfg.write_text(json.dumps(config))
+    meta = zcv_cosmo.get_meta(ZCV_SIM, redshift=ZCV_Z)
+    kb, _ = get_k_mu_edges(LBOX, np.pi * n / LBOX, n // 2, 1, False)
+    k_binc = 0.5 * (kb[1:] + kb[:-1])
+    require(np.array_equal(k_binc, k_binc13[:n // 2]), 'phase 18: k bins are not phase 13\'s')
+    zz = root / 'zcv' / ZCV_SIM / f'z{ZCV_Z:.3f}'
+    zz.mkdir(parents=True)
+    for rsd, tab in templates13.items():
+        np.savez(zz / f'zenbu_pk{"_rsd" if rsd else ""}_ij_lpt_nmesh{n}.npz',
+                 pk_ij_zenbu=tab[..., :n // 2], k_binc=k_binc, kcut=kcut)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DISK_ZCV_SEED)
+    (dens, disp), t_ic = sync_seconds(lambda: gaussian_ic(n, meta, gen, dev))
+    mocks, n_tr = lattice_tracers(dens, disp, n, kcut, meta, gen, ZCV_NTRACER)
+    ((dens_np, disp_np), ic_bytes), t_icw = sync_seconds(lambda: write_ic(root / 'ic', ZCV_SIM,
+                                                                         dens.cpu().numpy(),
+                                                                         disp))
+    del disp
+
+    steps, calls, times = {}, {}, {}
+    tag = f'ZCV chain from disk + apply_zcv ({n}^3, {n_tr} tracers)'
+    with timed_stages([(zcv_ic, 'gaussian_filter'), (zcv_ic, 'get_fields'),
+                       (zcv_adv, 'get_field_ffts'), (zcv_adv, 'power_ij'),
+                       (tzw, 'periodic_window_function'), (tzw, 'get_window_plan'),
+                       (zcv_apply, 'get_tracer_power'),
+                       (zcv_apply, 'run_zcv'), (zcv_ic, 'compress_asdf'),
+                       (zcv_adv, 'compress_asdf'), (zcv_lin, 'compress_asdf'),
+                       (zcv_tp, 'compress_asdf'), (zcv_pre, 'read_fft'),
+                       (zcv_pre, 'read_data'), (zcv_adv, 'read_fft')], steps, calls):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, times['ic_fields.main'] = sync_seconds(lambda: zcv_ic.main(str(cfg), device=dev))
+        for rsd in (True, False):
+            _, times[f'advect_fields.main(want_rsd={rsd})'] = sync_seconds(
+                lambda: zcv_adv.main(str(cfg), want_rsd=rsd, device=dev))
+        _, times['zenbu_window.main'] = sync_seconds(
+            lambda: tzw.main(str(cfg), engine='device', device=dev))
+        _, times['linear_fields.main'] = sync_seconds(
+            lambda: zcv_lin.main(str(cfg), device=dev))
+        written = sum(f.stat().st_size for f in (root / 'zcv').rglob('*') if f.is_file())
+        read0 = steps.get('read_fft', 0.0) + steps.get('read_data', 0.0)
+        zcv, times['ZCVProducts.from_dir'] = sync_seconds(
+            lambda: zcv_pre.ZCVProducts.from_dir(str(cfg), device=dev))
+        t_read = steps.get('read_fft', 0.0) + steps.get('read_data', 0.0) - read0
+        lcv, times['LCVProducts.from_dir'] = sync_seconds(
+            lambda: zcv_pre.LCVProducts.from_dir(str(cfg), device=dev))
+        ball = LatticeTracers(mocks[False])
+        ball.device = dev
+        out, times['apply_zcv (cold, zcv=None)'] = sync_seconds(lambda: zcv_apply.apply_zcv(
+            ball, {'LRG': mocks[True]}, copy.deepcopy(config)))
+        paths[tag] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    launches = paths[tag]
+    # K1 multi-weight: two stages (interlaced) a space; K8: the window (the
+    # LCV products read the same file: one k binning); K1: the tracer,
+    # interlaced, in both spaces; K3: the P_ij of each space, pk_lin, the
+    # tracer spectra of each space
+    require(launches['tsc_deposit_cells_multi'] == 4, f'{tag}: multi-weight K1 {launches}')
+    require(launches['window_mode_sums'] == 1, f'{tag}: K8 launches {launches}')
+    require(launches['tsc_deposit_cells[tsc]'] == 4, f'{tag}: tracer K1 launches {launches}')
+    require(launches['bin_pair_modes'] == 5, f'{tag}: K3 launches {launches}')
+    again, times['apply_zcv (load_presaved=True)'] = sync_seconds(lambda: zcv_apply.apply_zcv(
+        ball, {'LRG': mocks[True]}, copy.deepcopy(config), load_presaved=True))
+    for k, v in out.items():
+        require(bool(np.isfinite(np.asarray(v, np.float64)).all()), f'{tag}: {k} is not finite')
+        require(np.array_equal(np.asarray(again[k]), np.asarray(v)),
+                f'{tag}: load_presaved gives another {k}')
+    for d in (*zcv.pk_ij.values(), *zcv.tracer_spectra.values()):
+        for k, v in d.items():
+            require(bool(np.isfinite(np.asarray(v, np.float64)).all()), f'{tag}: {k} not finite')
+    rho = np.asarray(out['rho_tr_ZD'])[0]
+    require((rho[1:6] >= 0.9).all(), f'{tag}: rho_tr_ZD {rho[:8]} below 0.9 at low k')
+
+    # the same IC in memory: the filter, the fields, the advection and P_ij
+    filt = zcv_ic.gaussian_filter(dens_np, n, LBOX, kcut, dev)
+    dfl = [zcv_ic.gaussian_filter(d, n, LBOX, kcut, dev) for d in disp_np]
+    fields = zcv_ic.get_fields(filt, LBOX, n, dev)
+    worst_fft, worst_pk, bit_equal = 0.0, 0.0, True
+    for rsd in (True, False):
+        D, f = zcv_cosmo.growth_from_meta(meta, ZCV_Z, rsd)
+        mem = zcv_adv.advected_field_ffts(dfl, fields, LBOX, n, D, f, config['power_params'], dev)
+        for kn, F in mem.items():
+            G = zcv.field_ffts[rsd][kn]
+            bit_equal &= bool(torch.equal(F, G))
+            worst_fft = max(worst_fft, float((F - G).abs().max() / F.abs().max()))
+        pk = zcv_adv.power_ij(mem, LBOX, config['power_params'], D)
+        del mem
+        for k, v in pk.items():
+            r, g = np.asarray(v), np.asarray(zcv.pk_ij[rsd][k])
+            bit_equal &= bool(np.array_equal(r, g))
+            if k.startswith('P_'):
+                worst_pk = max(worst_pk, float(np.abs(g - r).max() / np.abs(r).max()))
+            elif k.startswith('N_'):
+                require(np.array_equal(r, g), f'{tag}: {k} mode counts differ from memory')
+    pk_lin_mem, _ = zcv_lin.linear_fields(filt, LBOX, n, config['power_params'], dev)
+    worst_lin = max(float(np.abs(np.asarray(lcv.pk_lin[k]) - np.asarray(v)).max()
+                          / max(np.abs(np.asarray(v)).max(), 1e-300))
+                    for k, v in pk_lin_mem.items() if k.startswith('P_'))
+    del filt, dfl, fields, pk_lin_mem
+    # the file round trip is exact: any difference is the device arithmetic
+    # of two runs; held at 1e-6 of the largest mode / value
+    require(worst_fft <= 1e-6 and worst_pk <= 1e-6 and worst_lin <= 1e-6,
+            f'{tag}: products from disk differ from memory: FFTs {worst_fft:.3e}, P_ij '
+            f'{worst_pk:.3e}, pk_lin {worst_lin:.3e}')
+    stages = {
+        'IC (Gaussian field, displacement)': t_ic,
+        f'IC files written ({ic_bytes} bytes) and read back': t_icw,
+        **times,
+        'of the mains: IC filter (4 fields)': steps['gaussian_filter'],
+        'get_fields': steps['get_fields'],
+        'advection + 5 field FFTs (RSD and real)': steps['get_field_ffts'],
+        '15 P_ij (RSD and real)': steps['power_ij'],
+        'window (K8 and its row plan)': steps['periodic_window_function'],
+        'of it the row plan': steps['get_window_plan'],
+        f'writes ({calls["compress_asdf"]} files)': steps['compress_asdf'],
+        'from_dir reads': t_read,
+        'get_tracer_power x2': steps['get_tracer_power'],
+        'run_zcv x2': steps['run_zcv'],
+    }
+    print(f'phase 18 {tag} [{CARD[0]}]: '
+          + '; '.join(f'{k} {v:.3f} s' for k, v in stages.items())
+          + f'; {written} bytes written under zcv_dir, read back at '
+          f'{written / max(t_read, 1e-9) / 1e9:.3f} GB/s (the advected fields, P_ij, window, '
+          f'templates); peak memory {peak / 2**30:.3f} GiB; launches {launches}')
+    print(f'phase 18 products from disk against memory: the advected FFTs max|d|/max '
+          f'{worst_fft:.3e}, P_ij {worst_pk:.3e}, pk_lin {worst_lin:.3e} (held at 1e-6), '
+          f'bit-equal {bit_equal}; apply_zcv with load_presaved=True equal to the cold call')
+    # get_fields: the forward FFT, six inverse for s_ij and one for nabla^2
+    # delta; delta and delta^2 from delta, s^2 from six components. The IC
+    # filter: a forward and an inverse FFT a field, four fields
+    fields_bound, fields_bytes = fft_bound(n, 8, 7, 3)
+    filter_bound, filter_bytes = fft_bound(n, 8, 0, 0)
+    print(f'phase 18 bounds at 3.35 TB/s: get_fields {fields_bound:.4f} ms '
+          f'({fields_bytes / 1e9:.2f} GB), share {fields_bound / 1e3 / steps["get_fields"]:.3f} '
+          f'of its host-to-host time; the IC filter (4 fields) {filter_bound:.4f} ms '
+          f'({filter_bytes / 1e9:.2f} GB), share '
+          f'{filter_bound / 1e3 / steps["gaussian_filter"]:.3f}')
+    print(f'phase 18 rho_tr_ZD (monopole, bins 0-7) {np.round(rho[:8], 4).tolist()}; bias '
+          f'{np.round(np.asarray(out["bias"]), 4).tolist()}')
+    del lcv, zcv, out, again
+
+
 # phase 15: the field-level ZCV (apply_zcv_xi) and LCV on phase 13's cell, NFW
 # satellites and the ECSV catalogs on phase 5's halos
 LCV_R = 10.0  # reciso's smoothing scale, Mpc/h (tests/test_zcv.py:132)
@@ -3106,6 +3327,7 @@ def disk_path(dev, paths, root):
     t_clean = check_disk_catalog(sim, groupdir, True)
     t_raw = check_disk_catalog(sim, groupdir, False)
     t_pids = check_disk_pids(sim, groupdir)
+    t_all = check_all_fields(sim, groupdir)
 
     # (b) prepare_sim.main, serial, on the device engines
     cfg = disk_config(root, name, 'subsamples')
@@ -3204,7 +3426,8 @@ def disk_path(dev, paths, root):
           f'staged_state_from_numpy of those tables: bit-equal {bit_equal}, max |d|/scale '
           f'{worst:.3e}; launches {paths[tag]}; phase peak device memory {peak / 2**30:.3f} GiB')
     print(f'phase 16 reads: cleaned catalog {t_clean:.3f} s, uncleaned {t_raw:.3f} s, slab 0\'s '
-          f'A + B with every PID field {t_pids:.3f} s')
+          f'A + B with every PID field {t_pids:.3f} s, slab 0 with fields=\'all\' '
+          + ', '.join(f'{k} {v:.3f} s' for k, v in t_all.items()))
 
 
 def check_disk_pids(sim, groupdir):
@@ -3240,6 +3463,33 @@ def check_disk_pids(sim, groupdir):
           f'{", ".join(PID_KEYS)} equal to the drawn words\' fields, positions and velocities '
           f'within the RVint quantum')
     return t_read
+
+
+def check_all_fields(sim, groupdir):
+    """(a): CompaSOHaloCatalog of slab 0 with fields='all', cleaned, and
+    uncleaned with convert_units=False, against the drawn columns decoded
+    field by field in numpy (testing.decoded_fields): every column
+    bit-equal. Host numpy: no kernel. Returns {read: seconds}."""
+    fn = groupdir / 'halo_info' / 'halo_info_000.asdf'
+    slab = sim['slabs'][0]
+    out = {}
+    for cleaned, units in ((True, True), (False, False)):
+        tag = f'cleaned={cleaned}' + ('' if units else ', convert_units=False')
+        cat, out[tag] = sync_seconds(lambda: CompaSOHaloCatalog(
+            fn, fields='all', cleaned=cleaned, convert_units=units))
+        names = [c if c != 'N' or not cleaned else 'N_total' for c in cat.halos.colnames]
+        want = decoded_fields(slab['halo_info'], slab['clean'] if cleaned else None, cat.header,
+                              names, units)
+        for c, n in zip(cat.halos.colnames, names):
+            require(want[n].dtype == cat.halos[c].dtype
+                    and want[n].tobytes() == cat.halos[c].tobytes(),
+                    f'(a) fields=all {tag}: {c} differs from its decode')
+        print(f'phase 16 (a) [{CARD[0]}] CompaSOHaloCatalog of slab 0, fields=\'all\', {tag}: '
+              f'{len(cat.halos)} halos, {len(cat.halos.colnames)} columns in {out[tag]:.3f} s, '
+              f'nbytes {cat.nbytes()} ({cat.nbytes(subsamples=False)} of halos); every column '
+              f'bit-equal to the drawn columns\' decode')
+        del cat, want
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3282,6 +3532,13 @@ def check_lc_reads(sim, info):
         require(np.array_equal(cat.subsamples[k], parts[k]), f'17 (1) lc_pid_rv {k} differs')
     no_avg = float((~np.any(sim['halos']['pos_avg'], axis=1)).mean())
     del cat, halos, parts
+    cat, t_all = sync_seconds(lambda: CompaSOHaloCatalog(info['groupdir'], fields='all'))
+    want = decoded_fields(sim['halos'], None, cat.header, cat.halos.colnames)
+    for k in cat.halos.colnames:
+        require(want[k].dtype == cat.halos[k].dtype and want[k].tobytes() == cat.halos[k].tobytes(),
+                f'17 (1) fields=all: {k} differs from its decode')
+    n_all, nbytes_all = len(cat.halos.colnames), cat.nbytes()
+    del cat, want
     header, drawn = sim['header'], sim['particles']
     box = header['BoxSize']
     rv, t_rv = sync_seconds(lambda: read_asdf(info['particle_files']['rv'], verbose=False))
@@ -3305,7 +3562,9 @@ def check_lc_reads(sim, info):
     require(np.array_equal(pid['aux'], drawn['packedpid']), '17 (1) packedpid file: aux differs')
     print(f'phase 17 (1) reads: CompaSOHaloCatalog(halo_lc) {t_cat:.3f} s, every light-cone '
           f'column bit-equal to its decode formula (pos_avg zero for {no_avg:.3f} of the halos: '
-          f'pos_interp / vel_interp as stored there), lc_pid_rv as written; read_asdf RVint '
+          f'pos_interp / vel_interp as stored there), lc_pid_rv as written; fields=\'all\' '
+          f'{t_all:.3f} s ({n_all} columns, nbytes {nbytes_all}, every one bit-equal to its '
+          f'decode); read_asdf RVint '
           f'{t_rv:.3f} s (max |d| {dpos:.3e} Mpc/h, {dvel:.3f} km/s, SubsampleFraction {frac}), '
           f'packedpid {t_pid:.3f} s, {", ".join(PID_KEYS)} equal to the drawn words\'')
 
@@ -4048,6 +4307,7 @@ def main():
         t15 = time.perf_counter()
         paths15 = {}
         phase_cv_field(dev, cell, paths15)
+        tpl13 = (cell['zcv'].templates, cell['zcv'].k_binc, cell['config']['zcv_params']['kcut'])
         del cell
         phase_nfw(dev, halo5)
         del halo5
@@ -4056,6 +4316,9 @@ def main():
         phase_disk(dev, paths16)
         paths17 = {}
         phase_lc_disk(dev, paths17)
+        paths18 = {}
+        phase_zcv_disk(dev, paths18, tpl13)
+        del tpl13
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -4068,12 +4331,13 @@ def main():
             **paths15,
             **paths16,
             **paths17,
+            **paths18,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

@@ -157,5 +157,5 @@ def test_staged_state_and_unported_options():
     port.run_hod_pk_fused(nmesh=24, nbins_k=9)
     assert tpipe.make_bin_plan_arrays.builds - builds <= 1
     for kw in ({'mesh': object()}, {'slab': True}):
-        with pytest.raises(NotImplementedError, match='ROADMAP item 12'):
+        with pytest.raises(NotImplementedError, match=r'ROADMAP.md queue 1, item 6 \(multi-GPU\)'):
             port.run_hod_pk_fused(**kw)

@@ -109,15 +109,15 @@ def test_read_asdf_matches_jax(sims):
                 assert ref.meta == got.meta
 
 
-def test_what_is_not_ported_raises(sims):
+def test_what_was_refused_matches_jax(sims):
+    """The presets, SO_radius, r10_L2com, vcirc_max_L2com and
+    convert_units=False, which the port refused before the rest of the halo
+    fields were ported, load bit-equal to JAX's; a missing cleaning
+    directory raises."""
     _, groupdir, _ = sims
-    # SO_radius, two fields outside prepare_sim's list that the JAX package
-    # loads, the presets and convert_units=False (ROADMAP 3c brings them
-    # with their parity tests)
     for kw in (dict(fields='DEFAULT_FIELDS'), dict(fields='all'), dict(fields=['SO_radius']),
                dict(fields=['r10_L2com']), dict(fields=['vcirc_max_L2com']),
                dict(fields=FIELDS, convert_units=False)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            CompaSOHaloCatalog(groupdir, **kw)
+        _assert_catalogs_equal(JaxCatalog(groupdir, **kw), CompaSOHaloCatalog(groupdir, **kw))
     with pytest.raises(FileNotFoundError, match='cleaning'):
         CompaSOHaloCatalog(groupdir, fields=FIELDS, cleandir=groupdir / 'nowhere')

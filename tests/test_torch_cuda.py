@@ -1547,3 +1547,123 @@ def test_prepare_sim_lc_on_card_matches_cpu(cuda_device, tmp_path):
         for t2 in ng:
             scale = np.sqrt(np.abs(cl_c[f'{t1}_{t1}'] * cl_c[f'{t2}_{t2}']))
             assert (np.abs(cl[f'{t1}_{t2}'] - cl_c[f'{t1}_{t2}']) <= 1e-4 * scale).all()
+
+
+def test_all_fields_read_on_card_host(cuda_device, tmp_path):
+    """CompaSOHaloCatalog(fields='all'), cleaned and not, on the card
+    machine (host numpy and its zstd): every column equal to the drawn
+    columns decoded field by field."""
+    from abacusutils_tpu_torch.io.compaso import CompaSOHaloCatalog
+    from abacusutils_tpu_torch.testing import decoded_fields, synthetic_compaso, write_compaso_sim
+
+    sim = synthetic_compaso(2, 4000, 8000, 500, seed=21)
+    groupdir = write_compaso_sim(tmp_path, sim)['groupdir']
+    for cleaned in (True, False):
+        for convert_units in (True, False):
+            cat = CompaSOHaloCatalog(groupdir, fields='all', cleaned=cleaned,
+                                     convert_units=convert_units)
+            names = [c if c != 'N' or not cleaned else 'N_total' for c in cat.halos.colnames]
+            per = [decoded_fields(s['halo_info'], s['clean'] if cleaned else None, cat.header,
+                                  names, convert_units) for s in sim['slabs']]
+            for c, n in zip(cat.halos.colnames, names):
+                want = np.concatenate([p[n] for p in per])
+                assert want.dtype == cat.halos[c].dtype and want.tobytes() == cat.halos[c].tobytes(), c
+            assert cat.nbytes() == sum(v.nbytes for v in cat.halos.columns.values())
+
+
+def test_get_meta_without_msgpack(cuda_device):
+    """The metadata registry with the msgpack package blocked: bundled,
+    synthesized and per-redshift entries."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ('import sys; sys.modules["msgpack"] = None\n'
+            'import abacusutils_tpu_torch.metadata as m\n'
+            'a = m.get_meta("AbacusSummit_base_c000_ph000", 0.5)\n'
+            'b = m.get_meta("AbacusSummit_base_c000_ph002", 0.8)\n'
+            'c = m.get_meta("Abacus_DESI2_c000_ph300", "z2.000")\n'
+            'assert a["BoxSize"] == b["BoxSize"] == 2000.0 and 0 < a["f_growth"] < b["f_growth"]\n'
+            'assert len(c["CLASS_power_spectrum"]["k (h/Mpc)"]) > 100\n'
+            'print("ok")')
+    root = Path(__file__).resolve().parents[1]  # the package's checkout
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
+                         check=True, cwd=root)
+    assert out.stdout.strip() == 'ok'
+
+
+class _DeviceBall(_Ball):
+    def __init__(self, lbox, real, device):
+        super().__init__(lbox, real)
+        self.device = device
+
+
+def test_zcv_chain_from_disk_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """The ZCV chain on files at nmesh 32 on the card and on the CPU:
+    ic_fields.main from ic_dens / ic_disp files, advect_fields.main in RSD
+    and real space (K1's multi-weight form, K3), zenbu_window.main (K8 and
+    the templates on a coarse q grid), then apply_zcv with zcv=None (K1,
+    K3): the files' spectra and the reduced poles of both within the
+    tolerance of a card flow against the CPU's; each kernel launched on
+    the card."""
+    import functools
+    import json
+
+    from abacusutils_tpu_torch.io.asdf_file import write_asdf
+    from abacusutils_tpu_torch.models.zcv import advect_fields, ic_fields, zenbu_native, zenbu_window
+    from abacusutils_tpu_torch.models.zcv.apply import apply_zcv
+    from abacusutils_tpu_torch.models.zcv.files import read_data
+    from abacusutils_tpu_torch.ops import grid as tgrid
+
+    qgrid = np.concatenate([np.geomspace(1e-2, 20.0, 40, endpoint=False), np.arange(20.0, 600.0, 3.0)])
+    monkeypatch.setattr(zenbu_native, 'ZAQFuncs',
+                        functools.partial(zenbu_native.ZAQFuncs, qgrid=qgrid, nk=768))
+    zenbu_native._QF_CACHE.clear()
+    nmesh, lbox = 32, 2000.0
+    dens, disp = _cv_ic(nmesh, lbox, 8)
+    sim = 'AbacusSummit_base_c000_ph000'
+    ic = tmp_path / 'ic' / sim
+    ic.mkdir(parents=True)
+    write_asdf(ic / f'ic_dens_N{nmesh}.asdf', {'data': {'density': dens}, 'header': {'BoxSize': lbox}})
+    write_asdf(ic / f'ic_disp_N{nmesh}.asdf',
+               {'data': {'displacements': np.stack(disp, -1) * np.float32(lbox)},
+                'header': {'BoxSize': lbox}})
+    rng = np.random.default_rng(5)
+    real = {c: (rng.random(40_000) * lbox - lbox / 2).astype(np.float32) for c in 'xyz'}
+    rsd = dict(real, z=((real['z'] + rng.normal(0, 5.0, 40_000) + lbox / 2) % lbox
+                        - lbox / 2).astype(np.float32))
+    out, tables = {}, {}
+    try:
+        for where, dev in (('card', cuda_device), ('cpu', torch.device('cpu'))):
+            config = _cv_config(nmesh, lbox, 'zcv')
+            config['zcv_params'].update(zcv_dir=str(tmp_path / where), ic_dir=str(tmp_path / 'ic'))
+            cfg = tmp_path / f'{where}.json'
+            cfg.write_text(json.dumps(config))
+            k1m, k3 = tgrid.tsc_deposit_cells_multi.launches, tpow.bin_pair_modes.launches
+            k8, k1 = zenbu_window.window_mode_sums.launches, tgrid.tsc_deposit_cells.launches
+            ic_fields.main(str(cfg), device=dev)
+            for want_rsd in (True, False):
+                advect_fields.main(str(cfg), want_rsd=want_rsd, device=dev)
+            zenbu_window.main(str(cfg), engine='device', device=dev)
+            out[where] = apply_zcv(_DeviceBall(lbox, real, dev), {'LRG': rsd}, config)
+            if where == 'card':
+                assert tgrid.tsc_deposit_cells_multi.launches - k1m == 4
+                assert zenbu_window.window_mode_sums.launches - k8 == 1
+                assert tgrid.tsc_deposit_cells.launches - k1 == 4
+                assert tpow.bin_pair_modes.launches - k3 == 4
+            zz = tmp_path / where / sim / 'z0.500'
+            tables[where] = {s: read_data(zz / f'power{s}_ij_nmesh{nmesh}.asdf') for s in ('_rsd', '')}
+    finally:
+        zenbu_native._QF_CACHE.clear()
+    for s in ('_rsd', ''):
+        for key, r in tables['cpu'][s].items():
+            if key.startswith('N_'):
+                npt.assert_array_equal(tables['card'][s][key], r)
+            elif key.startswith('P_') and '_1cb_1cb' in key or key.endswith('delta_delta'):
+                npt.assert_allclose(tables['card'][s][key], r, rtol=1e-3, atol=1e-4 * np.abs(r).max(),
+                                    err_msg=key)
+    for key in ('Pk_tr_tr_ell', 'Pk_tr_tr_ell_zcv'):
+        r = np.asarray(out['cpu'][key])
+        npt.assert_allclose(np.asarray(out['card'][key]), r, rtol=1e-3, atol=1e-4 * np.abs(r).max(),
+                            err_msg=key)
+        assert np.isfinite(out['card'][key]).all()

@@ -1,5 +1,4 @@
-"""Port parity for the Zel'dovich control variates: the metadata extract,
-ic_fields, the advection, the multi-field FFTs, the 15 P_ij and the tracer
+"""Port parity for the Zel'dovich control variates: ic_fields, the advection, the multi-field FFTs, the 15 P_ij and the tracer
 spectra, the window engines, the ZA templates, run_zcv and apply_zcv of
 abacusutils_tpu_torch against abacusutils_tpu (JAX on the CPU) on the same
 inputs.
@@ -10,7 +9,7 @@ read back with the JAX package's own reader. Both packages' ZA q-functions
 run on a coarse q grid (QGRID) while the fixture is in use: the templates
 are then cheap, and both sides compute the same table.
 
-Tolerances: the extract equal to get_meta; ic fields within 1e-5 of each
+Tolerances: ic fields within 1e-5 of each
 field's largest value (f32 FFTs of two libraries); advected positions
 bit-equal; F-field FFTs equal to F single calls (the same plain deposit on
 the CPU) and within 1e-5 of the largest mode of JAX's get_field_fft; the
@@ -35,10 +34,8 @@ import pytest
 import torch
 
 from abacusutils_tpu.io.asdf_file import open_asdf
-from abacusutils_tpu.metadata import get_meta as jget_meta
 from abacusutils_tpu.models.hod.abacus_hod import AbacusHOD as JaxAbacusHOD
 from abacusutils_tpu.models.zcv import apply as japply
-from abacusutils_tpu.models.zcv import cosmo as jcosmo
 from abacusutils_tpu.models.zcv import ic_fields as jic
 from abacusutils_tpu.models.zcv import tools_cv as jtools
 from abacusutils_tpu.models.zcv import tracer_power as jtp
@@ -144,39 +141,6 @@ def _assert_spectra(got, ref, what, autos, lbox=LBOX, nmesh=NMESH):
 def _autos(pk):
     return {k[6:].split('_')[0]: np.asarray(v) for k, v in pk.items()
             if k.startswith('P_kmu_') and len(set(k[6:].split('_'))) == 1}
-
-
-# ---------------------------------------------------------------------------
-# the metadata extract
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize('sim', ['AbacusSummit_base_c000_ph000', SIM])
-@pytest.mark.parametrize('z', [0.5, 0.8])
-def test_meta_extract_equals_get_meta(sim, z):
-    ref, got = jget_meta(sim, redshift=z), tcosmo.get_meta(sim, redshift=z)
-    for k in ('BoxSize', 'InitialRedshift', 'f_growth', 'H0', 'omega_b', 'omega_cdm',
-              'omega_ncdm', 'N_ncdm', 'N_ur', 'n_s', 'A_s', 'alpha_s', 'SimName'):
-        assert got[k] == ref[k], k
-    assert got['GrowthTable'] == ref['GrowthTable']
-    for k in ('k (h/Mpc)', 'P (Mpc/h)^3'):
-        npt.assert_array_equal(got['CLASS_power_spectrum'][k],
-                               np.asarray(ref['CLASS_power_spectrum'][k]))
-    for rsd in (True, False):
-        assert tcosmo.growth_factors(sim, z, rsd) == jcosmo.growth_factors(sim, z, rsd)
-    assert tcosmo.get_meta_cfg(sim, z) == jcosmo.get_meta_cfg(sim, z)
-
-
-def test_meta_extract_refuses_what_it_lacks():
-    with pytest.raises(ValueError, match='zcv_meta_extract.py'):
-        tcosmo.get_meta('AbacusSummit_base_c001_ph000')
-    with pytest.raises(ValueError, match='zcv_meta_extract.py'):
-        tcosmo.get_meta(SIM, redshift=1.1)
-
-
-# ---------------------------------------------------------------------------
-# ic_fields
-# ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize('nmesh,lbox', [(24, 500.0), (16, 2000.0)])
@@ -444,7 +408,7 @@ def test_templates_in_processes_report_a_failure(monkeypatch):
     monkeypatch.setattr(tzw.subprocess, 'Popen', spy)
     cfg = {'sim_name': 'AbacusSummit_base_c001_ph000', 'surrogate_gaussian_cutoff': 0.2}
     kth = np.geomspace(1e-3, 1.0, 50)
-    with pytest.raises(RuntimeError, match='zcv_meta_extract.py'):
+    with pytest.raises(RuntimeError, match='is not in metadata files'):
         tzw._templates(np.array([0.01, 0.02]), Z, cfg, kth, kth**-1, [True], {})
     assert len(started) == 2 and all(p.poll() is not None for p in started)
 
