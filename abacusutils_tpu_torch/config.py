@@ -4,7 +4,11 @@ JSON once, outside the port.)"""
 
 import json
 
-__all__ = ['load_config']
+__all__ = ['load_config', 'DEFAULT_CONFIG']
+
+# the default --path2config of the command lines (the JAX package's
+# config/abacus_hod.yaml, as JSON)
+DEFAULT_CONFIG = 'config/abacus_hod.json'
 
 
 def load_config(config):

@@ -37,7 +37,7 @@ from .asdf_yaml import ASDF_TAG, ASTROPY_TAG, Tagged
 from .blosc import ChunkedBloscDecoder
 from .table import Table
 
-__all__ = ['AsdfFile', 'NDArrayRef', 'open_asdf', 'write_asdf']
+__all__ = ['AsdfFile', 'NDArrayRef', 'open_asdf', 'write_asdf', 'set_nthreads']
 
 BLOCK_MAGIC = b'\xd3BLK'
 INDEX_MAGIC = b'#ASDF BLOCK INDEX'
@@ -61,6 +61,14 @@ _DTYPE_NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 # threads that decompress (and compress) a block's Blosc chunks
 _NTHREADS = 4
+
+
+def set_nthreads(nthreads):
+    """The number of threads that decode (and encode) a block's Blosc
+    chunks, at least 1 (io/asdf_file.py:set_nthreads; libzstd releases the
+    GIL)."""
+    global _NTHREADS
+    _NTHREADS = max(1, int(nthreads))
 
 
 class NDArrayRef:

@@ -45,6 +45,10 @@ class Table:
         arr = np.asarray(col)
         self.columns[name] = arr.copy() if copy else arr
 
+    def __setitem__(self, name, col):
+        """Add or replace the column `name` (not copied)."""
+        self.add_column(col, name=name, copy=False)
+
     def remove_column(self, name):
         del self.columns[name]
 

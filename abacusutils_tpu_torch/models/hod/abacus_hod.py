@@ -99,7 +99,7 @@ class AbacusHOD:
     def __init__(
         self, halo_data, particle_data, params, tracers, device, *,
         want_ranks=False, want_shear=False, want_expvel=False, halo_lc=False,
-        z_type='primary', clustering_type=None, mock_dir=None,
+        z_type='primary', clustering_type=None, mock_dir=None, want_rsd=True,
     ):
         self.halo_data = dict(halo_data)
         self.particle_data = dict(particle_data)
@@ -112,6 +112,7 @@ class AbacusHOD:
         self.halo_lc = halo_lc
         self.z_type = z_type
         self.clustering_type = clustering_type
+        self.want_rsd = want_rsd
         self.mock_dir = None if mock_dir is None else Path(mock_dir)
         self.lbox = float(self.params['Lbox'])
         self.z_mock = self.params['z']
@@ -136,9 +137,11 @@ class AbacusHOD:
         ``force_mt``, ``local_env``) and `HOD_params` (``tracer_flags``, each
         traced tracer's ``<tracer>_params``, ``want_ranks``, ``want_AB``,
         ``want_shear``, ``want_expvel``), staged from prepare_sim's tables
-        on disk (``staging.py``). clustering_params: its
-        ``clustering_type``. device: where the columns go (None: the
-        card)."""
+        on disk (``staging.py``); ``want_rsd`` becomes the attribute the
+        samplers' lnprob reads. clustering_params, where given, sets ``pimax``,
+        ``pi_bin_size``, ``rpbins`` (logspace of its ``bin_params``) and
+        ``clustering_type``, as JAX's constructor does (abacus_hod.py:73-82).
+        device: where the columns go (None: the card)."""
         from ...convert import resolve_device
         from .prepare_sim import z_type_of
         from .staging import staging
@@ -152,16 +155,23 @@ class AbacusHOD:
                                                              n_chunks)
         if HOD_params.get('want_AB', False):
             assert 'hfenv' in halo_data and 'hdeltac' in halo_data
-        return cls(
+        hod = cls(
             halo_data, particle_data, params, tracers, device,
             want_ranks=HOD_params.get('want_ranks', False),
             want_shear=HOD_params.get('want_shear', False),
             want_expvel=HOD_params.get('want_expvel', False),
             halo_lc=sim_params.get('halo_lc', False),
             z_type=z_type_of(sim_params['z_mock'], sim_params.get('halo_lc', False)),
-            clustering_type=(clustering_params or {}).get('clustering_type'),
-            mock_dir=mock_dir,
+            mock_dir=mock_dir, want_rsd=HOD_params['want_rsd'],
         )
+        if clustering_params is not None:
+            hod.pimax = clustering_params.get('pimax', None)
+            hod.pi_bin_size = clustering_params.get('pi_bin_size', None)
+            bin_params = clustering_params['bin_params']
+            hod.rpbins = np.logspace(bin_params['logmin'], bin_params['logmax'],
+                                     bin_params['nbins'] + 1)
+            hod.clustering_type = clustering_params.get('clustering_type', None)
+        return hod
 
     # ------------------------------------------------------------------
     def _reseed_randoms(self, reseed):

@@ -29,6 +29,7 @@ __all__ = [
     'gen_gal_cat',
     'write_catalogs',
     'gen_cent',
+    'compute_cent_keep',
     'gen_sats',
     'gen_gals',
     'wrap',
@@ -391,6 +392,12 @@ def gen_cent(
     )
     cats = _compact([(keep, out, _exact(mass, device), _exact(ids, device))], want)
     return _one(cats), keep.cpu().numpy()
+
+
+def compute_cent_keep(*args, **kwargs):
+    """The central keep codes alone (population.py:compute_cent_keep): the
+    second result of :func:`gen_cent` on the same arguments."""
+    return gen_cent(*args, **kwargs)[1]
 
 
 def gen_sats(

@@ -6,7 +6,9 @@ numpy columns and returns the columns that function writes;
 :func:`prepare_slab` adds its file I/O (:func:`read_slab`, the catalog read
 through ``io/compaso.py``, then :func:`write_slab_tables`), and :func:`main`
 drives it over every slab, serially or in a process pool, after
-:func:`calc_shearmark`.
+:func:`calc_shearmark`. The command line is JAX's (``python -m
+abacusutils_tpu_torch.models.hod.prepare_sim --path2config cfg.json``, plus
+``--device``).
 
 - Host helpers, numpy copies of the JAX package's: the down-sampling curves
   (:func:`subsample_halos`, :func:`submask_particles`), the env padding
@@ -46,7 +48,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ...config import load_config
+from ...config import DEFAULT_CONFIG, load_config
 from ...convert import resolve_device
 from ...io.compaso import CompaSOHaloCatalog
 from ...io.read_abacus import read_asdf
@@ -986,3 +988,29 @@ def main(path2config, params=None, alt_simname=None, alt_z=None, newseed=600, ha
         futures = [pool.submit(prepare_slab, i, **kwargs) for i in slabs]
         for future in concurrent.futures.as_completed(futures):
             future.result()
+
+
+def _cli(argv=None):
+    """The command line of prepare_sim.py's ``__main__`` (its flags and
+    defaults; --path2config a JSON file), with --device."""
+    import argparse
+
+    from .utils import ArgParseFormatter
+
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=ArgParseFormatter)
+    parser.add_argument('--path2config', help='Path to the config file (JSON)',
+                        default=DEFAULT_CONFIG)
+    parser.add_argument('--alt_simname', help='alternative simname to process')
+    parser.add_argument('--alt_z', help='alternative z to process, like "0.8"', type=float)
+    parser.add_argument('--newseed', help='alternative random number seed, positive integer',
+                        default=600, type=int)
+    parser.add_argument('--overwrite', help='overwrite existing subsamples', default=1, type=int)
+    parser.add_argument('--halo_lc', help='process the light cone halo catalogs', default=False,
+                        action='store_true')
+    parser.add_argument('--device', help='torch device of the engines (default: the card)')
+    main(**vars(parser.parse_args(argv)))
+    print('done')
+
+
+if __name__ == '__main__':
+    _cli()

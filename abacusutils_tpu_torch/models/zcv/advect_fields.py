@@ -19,7 +19,7 @@ import warnings
 import numpy as np
 import torch
 
-from ...config import load_config
+from ...config import DEFAULT_CONFIG, load_config
 from ...convert import resolve_device
 from ...io.asdf_file import open_asdf
 from ...metadata import get_meta
@@ -234,3 +234,30 @@ def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
             del cube
     return {'k_binc': (k_bin_edges[1:] + k_bin_edges[:-1]) * 0.5,
             'mu_binc': (mu_bin_edges[1:] + mu_bin_edges[:-1]) * 0.5}
+
+
+def _cli(argv=None):
+    """The command line of advect_fields.py:_cli, with --device: --want_rsd
+    runs the RSD and the real-space advection, in that order."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--path2config', help='Path to the config file (JSON)',
+                        default=DEFAULT_CONFIG)
+    parser.add_argument('--want_rsd', action='store_true', help='Include RSD effects?')
+    parser.add_argument('--alt_simname', help='Alternative simulation name')
+    parser.add_argument('--save_3D_power', action='store_true',
+                        help='Record full 3D power spectrum')
+    parser.add_argument('--only_requested_fields', action='store_true',
+                        help='Save only the fields requested in the config')
+    parser.add_argument('--device', help='torch device of the advection (default: the card)')
+    args = vars(parser.parse_args(argv))
+    if args.pop('want_rsd'):
+        for want_rsd in (True, False):
+            main(want_rsd=want_rsd, **args)
+    else:
+        main(want_rsd=False, **args)
+
+
+if __name__ == '__main__':
+    _cli()

@@ -18,14 +18,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ...config import load_config
+from ...config import DEFAULT_CONFIG, load_config
 from ...convert import resolve_device
 from ...io.asdf_file import open_asdf, write_asdf
 from ...metadata import get_meta
 from ...ops.grid import _f32
 
 __all__ = ['get_fields', 'gaussian_filter', 'filter_field', 'get_n2_fft', 'get_sij_fft',
-           'compress_asdf', 'load_dens', 'load_disp', 'main']
+           'add_ij', 'get_dk_to_s2', 'get_dk_to_n2', 'compress_asdf', 'load_dens', 'load_disp',
+           'main']
 
 # s_ij components (i, j) and their factor in s^2 = sum_ij s_ij^2, in the
 # order of ic_fields.py:_fields_jit
@@ -92,6 +93,36 @@ def get_sij_fft(i_comp, j_comp, delta_k, n1d, L, device=None):
     if i_comp == j_comp:
         sij = sij - delta_k * _f32(1.0 / 3.0)
     return sij
+
+
+def add_ij(final_field, field_to_add, n1d, factor=1.0, dtype=np.float32):
+    """final_field += factor * field_to_add^2, in place, `factor` rounded to
+    `dtype` (ic_fields.py:add_ij); numpy arrays or tensors."""
+    if isinstance(final_field, torch.Tensor):
+        final_field += float(dtype(factor)) * field_to_add**2
+    else:
+        final_field += dtype(factor) * np.asarray(field_to_add) ** 2
+    return final_field
+
+
+def get_dk_to_s2(delta_k, nmesh, lbox, device=None):
+    """s^2 = s_ij s^ij from the density's rfft, not mean-subtracted
+    (ic_fields.py:get_dk_to_s2): an f32 tensor on delta_k's device (the card
+    for numpy input when `device` is None)."""
+    delta_k = _grid(delta_k, device).to(torch.complex64)
+    shape = (int(nmesh),) * 3
+    tidesq = torch.zeros(shape, dtype=torch.float32, device=delta_k.device)
+    for i, j, factor in SIJ:
+        sij = torch.fft.irfftn(get_sij_fft(i, j, delta_k, nmesh, lbox), s=shape)
+        add_ij(tidesq, sij, nmesh, factor)
+    return tidesq
+
+
+def get_dk_to_n2(delta_k, nmesh, lbox, device=None):
+    """nabla^2 delta = IFFT(-k^2 delta_k) (ic_fields.py:get_dk_to_n2): an f32
+    tensor on delta_k's device."""
+    delta_k = _grid(delta_k, device).to(torch.complex64)
+    return torch.fft.irfftn(get_n2_fft(delta_k, nmesh, lbox), s=(int(nmesh),) * 3)
 
 
 def get_fields(delta_lin, Lbox, nmesh, device=None):
@@ -203,3 +234,19 @@ def main(path2config, alt_simname=None, verbose=False, device=None):
     d, d2, s2, n2 = get_fields(dens, Lbox, nmesh, dev)
     compress_asdf(fields_fn, {'delta': d, 'delta2': d2, 'nabla2': n2, 'tidal2': s2}, header)
     print('Saved all filtered fields for this simulation')
+
+
+def _cli(argv=None):
+    """The command line of ic_fields.py's ``__main__``, with --device."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--path2config', default=DEFAULT_CONFIG)
+    parser.add_argument('--alt_simname')
+    parser.add_argument('--verbose', action='store_true')
+    parser.add_argument('--device', help='torch device of the fields (default: the card)')
+    return main(**vars(parser.parse_args(argv)))
+
+
+if __name__ == '__main__':
+    _cli()

@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from ...config import load_config
+from ...config import DEFAULT_CONFIG, load_config
 from ...convert import resolve_device
 from ...io.asdf_file import open_asdf
 from ...metadata import get_meta
@@ -113,3 +113,21 @@ def main(path2config, alt_simname=None, save_3D_power=False, device=None):
     pk_lin_dict = power_lin(field_ffts, Lbox, pp)
     compress_asdf(save_dir / f'power_lin_{tag}.asdf', pk_lin_dict, header)
     return pk_lin_dict
+
+
+def _cli(argv=None):
+    """The command line of linear_fields.py:_cli, with --device."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--path2config', help='Path to the config file (JSON)',
+                        default=DEFAULT_CONFIG)
+    parser.add_argument('--alt_simname', help='Alternative simulation name')
+    parser.add_argument('--save_3D_power', action='store_true',
+                        help='Record full 3D power spectrum')
+    parser.add_argument('--device', help='torch device of the fields (default: the card)')
+    return main(**vars(parser.parse_args(argv)))
+
+
+if __name__ == '__main__':
+    _cli()

@@ -257,6 +257,12 @@ def measure_2pt_bias_lcv(
     return minimize(loss, 1.0)
 
 
+def get_cfg(sim_name, z_this, nmesh):
+    """The cfg dict of the zenbu / ZCV layer (tools_cv.py:get_cfg):
+    cosmo.get_meta_cfg's; `nmesh` is unused, as there."""
+    return get_meta_cfg(sim_name, z_this)
+
+
 def read_power_dict(power_tr_dict, power_ij_dict, want_rsd, keynames, poles):
     """Marshal the spectra dicts into zenbu-shaped arrays."""
     k = np.asarray(power_tr_dict['k_binc']).flatten()

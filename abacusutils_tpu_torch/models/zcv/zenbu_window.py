@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ... import _build
-from ...config import load_config
+from ...config import DEFAULT_CONFIG, load_config
 from ...convert import resolve_device
 from ...metadata import get_meta
 from ...ops.power import _sqrt_rn_f32, get_k_mu_edges
@@ -45,7 +45,7 @@ from .zenbu_native import zenbu_spectra_native
 __all__ = [
     'periodic_window_function', 'window_mode_sums', 'window_mode_sums_plain',
     'window_mode_sums_rows_plain', 'window_plan', 'get_window_plan', 'WindowPlan',
-    'zenbu_spectra', 'window_and_templates', 'K8_ITEM_ROWS', 'main',
+    'zenbu_spectra', 'window_and_templates', 'K8_ITEM_ROWS', 'main', 'meshgrid',
 ]
 
 _PREF = (1, 5, 9)  # (2*ell + 1) for ell = 0, 2, 4
@@ -546,3 +546,35 @@ def main(path2config, alt_simname=None, want_xi=False, engine='auto', device=Non
     for rsd, tab in zip(todo, tabs):
         np.savez(fns[rsd], pk_ij_zenbu=tab, k_binc=k_binc, kcut=kcut)
         print('Saved ZeNBu templates', fns[rsd])
+
+
+def meshgrid(x, y, z):
+    """A 3-D mesh of the shape (y.size, x.size, z.size) with xx[i, j, k] =
+    x[i], yy[i, j, k] = y[j], zz[i, j, k] = z[k] (zenbu_window.py:meshgrid,
+    the reference's quirk kept; callers pass axes of equal length)."""
+    shape = (y.size, x.size, z.size)
+    xx = np.empty(shape, dtype=x.dtype)
+    yy = np.empty(shape, dtype=y.dtype)
+    zz = np.empty(shape, dtype=z.dtype)
+    xx[:] = x[: y.size, None, None]
+    yy[:] = y[None, : x.size, None]
+    zz[:] = z[None, None, :]
+    return xx, yy, zz
+
+
+def _cli(argv=None):
+    """The command line of zenbu_window.py:_cli, with --device."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--path2config', help='Path to the config file (JSON)',
+                        default=DEFAULT_CONFIG)
+    parser.add_argument('--alt_simname', help='Alternative simulation name')
+    parser.add_argument('--want_xi', action='store_true',
+                        help='Set up parameters for Xi computation')
+    parser.add_argument('--device', help='torch device of the window (default: the card)')
+    return main(**vars(parser.parse_args(argv)))
+
+
+if __name__ == '__main__':
+    _cli()

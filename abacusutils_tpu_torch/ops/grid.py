@@ -74,6 +74,7 @@ __all__ = [
     'gather_key',
     'stage_gather',
     'tsc_parallel',
+    'partition_parallel',
     'cic_serial',
     'rightwrap',
     'blocks_per_sm',
@@ -715,6 +716,36 @@ def tsc_parallel(pos, densgrid, box, weights=None, nthread=-1, wrap=True, nparti
     out = _paint_pos(pos, nmesh, box, weights, offset, 'tsc', wrap, device).cpu().numpy()
     densgrid += out
     return None
+
+
+def partition_parallel(pos, npartition, boxsize, weights=None, coord=0, nthread=-1, sort=False):
+    """Partition (N, 3) positions into `npartition` stripes along `coord`
+    (ops/grid.py:partition_parallel, which abacusnbody/analysis/tsc.py
+    exports). Host numpy, as there, element for element: a stable sort by
+    stripe and, with `sort`, each stripe ordered by `coord` with numpy's
+    default argsort. K1 needs no stripes; this serves callers that do.
+    Returns (sorted positions, stripe starts of length npartition + 1, the
+    weights in the same order or None)."""
+    pos = np.asarray(pos)
+    assert pos.shape[1] == 3
+    dtype = pos.dtype.type
+    inv_pwidth = dtype(npartition / boxsize)
+    keys = np.minimum((pos[:, coord] * inv_pwidth).astype(np.int32), npartition - 1)
+    order = np.argsort(keys, kind='stable')
+    psort = pos[order]
+    counts = np.bincount(keys, minlength=npartition)
+    starts = np.empty(npartition + 1, dtype=np.int64)
+    starts[0] = 0
+    np.cumsum(counts, out=starts[1:])
+    wsort = weights[order] if weights is not None else None
+    if sort:
+        for i in range(npartition):
+            seg = slice(starts[i], starts[i + 1])
+            iord = psort[seg][:, coord].argsort()
+            psort[seg] = psort[seg][iord]
+            if wsort is not None:
+                wsort[seg] = wsort[seg][iord]
+    return psort, starts, wsort
 
 
 def rightwrap(x, L):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV, power-spectrum and disk paths on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV, power-spectrum and disk paths and its scripts on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -130,8 +130,8 @@ Phases, each printing what it measured:
    ``torch.bincount``; ``expand_poles_to_3d`` and ``get_smoothing`` at
    512^3, timed and finite;
 16. the disk path, from CompaSO files the phase writes (the port's
-   ``write_asdf``, blsc zstd) into a temporary directory it removes: a
-   synthetic catalog in the AbacusSummit encodings (int16 radius ratios,
+   ``write_asdf``, blsc zstd) into a temporary directory that main removes
+   after phase 19, whose scripts read it: a synthetic catalog in the AbacusSummit encodings (int16 radius ratios,
    RVint, the cleaning files' ``clean_dt`` columns, ~5 % of the halos
    merged; a header for ``AbacusSummit_base_c000_ph000`` at z 0.5, the
    metadata's values with an approximate velocity scale) of
@@ -145,16 +145,17 @@ Phases, each printing what it measured:
    and slab 0 with ``fields='all'``, cleaned, and uncleaned with
    ``convert_units=False``, every column bit-equal to the drawn columns'
    decode (``testing.decoded_fields``);
-   (b) ``prepare_sim.main`` serial with ranks, env
+   (b) ``prepare_sim.main`` serial through its command line (``_cli``,
+   a JSON config) with ranks, env
    and the shear (1000^3, R 2, every particle) on the device engines
    (read, tables and write timed a slab; K6, K7 and K1 must launch), slab
    0's tables against ``prepare_slab_tables`` on the columns in memory
-   (phase 11's rules); (c) ``main`` with ``Nparallel_load`` 2 on slabs 0-1,
+   (phase 11's rules); (c) ``_cli`` with ``Nparallel_load`` 2 on slabs 0-1,
    bit-equal to the serial run; (d) ``AbacusHOD.from_config`` staging and
    ``run_hod_pk_fused`` cold and warm (K1 and K3 must launch) against the
    same call on ``staged_state_from_numpy`` of the staged tables.
 17. the light cone's disk path, from files the phase writes into a
-   temporary directory it removes: a halo light cone of LC_DISK_HALOS
+   temporary directory (kept, as phase 16's, for phase 19): a halo light cone of LC_DISK_HALOS
    halos in the octant of the z = 0.5 shell (three observers, the
    AbacusSummit base boxes'), LC_DISK_PER_HALO A particles a halo in
    ``lc_pid_rv.asdf``, and a light-cone particle pair (RVint and packed
@@ -162,22 +163,42 @@ Phases, each printing what it measured:
    (``testing.synthetic_compaso_lc``, blsc zstd); (1) the readers against
    the drawn arrays (every light-cone column bit-equal to its decode
    formula, and with ``fields='all'`` to ``testing.decoded_fields``, every
-   PID field of the drawn words); (2) ``prepare_sim.main``
-   with ``halo_lc`` on the device engines (read, tables with the randoms
+   PID field of the drawn words); (2) ``prepare_sim._cli --halo_lc``
+   on the device engines (read, tables with the randoms
    loop timed apart, write; K6 and K7 must launch); (3) staging by
    ``AbacusHOD.from_config``; (4) ``run_hod``, each tracer's galaxies as
    many as the fused call's n_gal; (5) ``run_hod_pk_fused`` cold and warm
    (K1 and K3 must launch) against the same call on
    ``staged_state_from_numpy`` of the staged tables.
 18. the ZCV chain through disk at 256^3 (``phase_zcv_disk``): the IC
-   written as files, ``ic_fields.main``, ``advect_fields.main`` in RSD and
-   real space, ``zenbu_window.main`` (the window on K8; the templates are
+   written as files, then each main through its command line (``_cli``):
+   ``ic_fields``, ``advect_fields --want_rsd`` (RSD, then real space),
+   ``zenbu_window`` (the window on K8; the templates are
    phase 13's first 128 k columns, written first and skipped),
-   ``linear_fields.main``, ``ZCVProducts.from_dir`` /
+   ``linear_fields``; ``ZCVProducts.from_dir`` /
    ``LCVProducts.from_dir`` held against the same IC's arrays in memory,
    and ``apply_zcv`` with ``zcv=None`` cold and with
    ``load_presaved=True``; each main's time, the bytes written, the read
    time, and the launches of K1, K1 multi-weight, K3 and K8 on the path.
+19. the HOD and emulator scripts of ``scripts/torch/``, each through its
+   own ``main`` or ``run`` (``phase_scripts``): (a) ``emulator/generate_cf.py`` on phase
+   16's redshift directory at the default ndens (the 8e5 most massive
+   halos, one K4 launch), the file read back (npairs, xi = npairs / RR - 1,
+   the zname), and K4 equal to its plain version on a 5e4-halo selection;
+   (b) ``hod/run_hod.py`` (ntest 2) on phase 16's prepared box with
+   xi(rp, pi) at docs/hod.md's bins, its first mock's xirppi written as
+   the data vector with an identity covariance, then
+   ``hod/run_emcee.py:lnprob`` at the same parameters (exactly 0) and with
+   LRG's logM_cut + 0.05 (below 0); (c) ``hod/run_lc_hod.py`` on phase 17's
+   light cone, its catalogs written; (d) ``hod/bench_multitracer.py`` at its
+   cell (1e7 halos, 5e7 particles, nmesh 256; its JSON line; K1 six times
+   and K3 once a call), one warm step under ``utils/profiling.py``'s
+   ``device_trace`` (the trace names K1's and K3's kernels) and one under
+   ``stage_timer`` (within 20 % of step_seconds); (e)
+   ``hod/bench_ranks.py:run`` at 1.2e6 particles with the host loop (0 key
+   and 0 NN flips); (f) ``native/pipe_client`` built with gcc under
+   ``build/``, fed by ``python -m abacusutils_tpu_torch.io.pipe_asdf``
+   with N and x_L2com of a halo_info file: its lines equal the port's read.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -1401,46 +1422,25 @@ def phase_pairs(hod, mock):
 # ---------------------------------------------------------------------------
 
 
-def synth_slab(n_target, seed=17):
-    """scripts/hod/bench_ranks.py:synth_slab: halos of power-law sizes (P(n) ~
-    n^-2 over [20, 4000] particles), each a Gaussian clump of particles, 70 %
-    of them selected (at least two a halo)."""
-    rng = np.random.default_rng(seed)
-    u = rng.random(int(n_target / 55) * 2)
-    lo, hi = 20.0, 4000.0
-    sizes = (lo ** -1 - u * (lo ** -1 - hi ** -1)) ** -1
-    pn = sizes.astype(np.int64)
-    pn = pn[np.cumsum(pn) <= n_target]
-    ps = np.concatenate([[0], np.cumsum(pn)])[:-1]
-    n = int(pn.sum())
-    n_halo = len(pn)
-    hpos = (rng.random((n_halo, 3)) * 500).astype(np.float32)
-    hvel = rng.normal(0, 300, (n_halo, 3)).astype(np.float32)
-    N = (pn * rng.uniform(5, 20, n_halo)).astype(np.int64)
-    r25 = (rng.random(n_halo) * 0.2 + 0.05).astype(np.float32)
-    r98 = (r25 * rng.uniform(1.5, 5.5, n_halo)).astype(np.float32)
-    ppos = np.empty((n, 3), np.float32)
-    pvel = np.empty((n, 3), np.float32)
-    submask = np.zeros(n, bool)
-    for j in range(n_halo):
-        sl = slice(ps[j], ps[j] + pn[j])
-        ppos[sl] = hpos[j] + rng.normal(0, 0.4, (pn[j], 3)).astype(np.float32)
-        pvel[sl] = hvel[j] + rng.normal(0, 120, (pn[j], 3)).astype(np.float32)
-        m = rng.random(pn[j]) < 0.7
-        if m.sum() < 2:
-            m[:2] = True
-        submask[sl] = m
-    return ps, pn, n, hpos, hvel, N, r25, r98, ppos, pvel, submask
+def torch_script(rel):
+    """The script scripts/torch/<rel>.py, imported from its file as the
+    module a user runs."""
+    import importlib.util
+
+    name = 'chip_smoke_script_' + rel.replace('/', '_')
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, Path(__file__).resolve().parent / 'scripts' / 'torch' / f'{rel}.py')
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
 
 
-def rank_args(slab):
-    """rank_fields_device's arguments for a synth_slab, every halo ranked
-    (scripts/hod/bench_ranks.py:run's per-particle columns)."""
-    ps, pn, n, hpos, hvel, N, r25, r98, ppos, pvel, submask = slab
-    owner = np.repeat(np.arange(len(pn)), pn)
-    nsub = np.bincount(owner, weights=submask, minlength=len(pn))
-    return (ppos, pvel, submask, owner.astype(np.int32), nsub[owner], ps, pn, hpos[owner],
-            hvel[owner], (N * MPART)[owner].astype(np.float64), r25[owner], r98[owner], HUBBLE)
+# the ranks slab of scripts/torch/hod/bench_ranks.py (the JAX script's,
+# draw for draw), its rank_fields_device arguments and its host loop
+synth_slab = torch_script('hod/bench_ranks').synth_slab
+rank_args = torch_script('hod/bench_ranks').rank_args
+host_rank_loop = torch_script('hod/bench_ranks').host_rank_loop
 
 
 def k6_inputs(args, dev):
@@ -1529,20 +1529,6 @@ def check_ranks_host(dev_ranks, host_ranks, args, dev):
                 f'{name}: the rank multisets of a halo differ from the host loop')
         n_tied.append(int(tied.sum()))
     return n_tied
-
-
-def host_rank_loop(slab):
-    """The 'host' engine: prepare_sim._rank_fields halo by halo."""
-    ps, pn, n, hpos, hvel, N, r25, r98, ppos, pvel, submask = slab
-    out = [np.full(n, -1.0) for _ in range(5)]
-    with np.errstate(invalid='ignore', divide='ignore'):
-        for j in range(len(ps)):
-            sl = slice(ps[j], ps[j] + pn[j])
-            m = submask[sl]
-            prepare_sim._rank_fields(
-                np.arange(ps[j], ps[j] + pn[j])[m], ppos[sl][m], pvel[sl][m], ppos[sl], hpos[j],
-                hvel[j], N[j] * MPART, r25[j], r98[j], HUBBLE, *out)
-    return out
 
 
 def menv_catalog(n, nclump, lc, seed):
@@ -2521,14 +2507,14 @@ def zcv_disk_chain(dev, paths, tpl13, root):
                        (zcv_pre, 'read_data'), (zcv_adv, 'read_fft')], steps, calls):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        _, times['ic_fields.main'] = sync_seconds(lambda: zcv_ic.main(str(cfg), device=dev))
-        for rsd in (True, False):
-            _, times[f'advect_fields.main(want_rsd={rsd})'] = sync_seconds(
-                lambda: zcv_adv.main(str(cfg), want_rsd=rsd, device=dev))
-        _, times['zenbu_window.main'] = sync_seconds(
-            lambda: tzw.main(str(cfg), engine='device', device=dev))
-        _, times['linear_fields.main'] = sync_seconds(
-            lambda: zcv_lin.main(str(cfg), device=dev))
+        # each main through its command line
+        argv = ['--path2config', str(cfg), '--device', str(dev)]
+        _, times['ic_fields._cli'] = sync_seconds(lambda: zcv_ic._cli(argv))
+        _, times['advect_fields._cli --want_rsd (RSD, then real space)'] = sync_seconds(
+            lambda: zcv_adv._cli(argv + ['--want_rsd']))
+        # nmesh 256: the window's 'auto' engine is the device's (K8)
+        _, times['zenbu_window._cli'] = sync_seconds(lambda: tzw._cli(argv))
+        _, times['linear_fields._cli'] = sync_seconds(lambda: zcv_lin._cli(argv))
         written = sum(f.stat().st_size for f in (root / 'zcv').rglob('*') if f.is_file())
         read0 = steps.get('read_fft', 0.0) + steps.get('read_data', 0.0)
         zcv, times['ZCVProducts.from_dir'] = sync_seconds(
@@ -3285,16 +3271,15 @@ def check_disk_catalog(sim, groupdir, cleaned):
     return t_read
 
 
-def phase_disk(dev, paths):
-    """Phase 16: the disk path on the card, from files it writes itself into a
-    temporary directory (removed at the end)."""
+def phase_disk(dev, paths, root):
+    """Phase 16: the disk path on the card, from files it writes itself under
+    `root` (a temporary directory that main removes after phase 19, whose
+    scripts read this tree). Returns the simulation's name, redshift
+    directory and config."""
     t0 = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix='chip_smoke_disk_'))
-    try:
-        disk_path(dev, paths, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    tree = disk_path(dev, paths, root)
     print(f'phase 16 in {time.perf_counter() - t0:.1f} s')
+    return tree
 
 
 def disk_path(dev, paths, root):
@@ -3329,16 +3314,20 @@ def disk_path(dev, paths, root):
     t_pids = check_disk_pids(sim, groupdir)
     t_all = check_all_fields(sim, groupdir)
 
-    # (b) prepare_sim.main, serial, on the device engines
+    # (b) prepare_sim.main, serial, on the device engines, through its
+    # command line
     cfg = disk_config(root, name, 'subsamples')
+    cfg_fn = root / 'prepare_sim.json'
+    cfg_fn.write_text(json.dumps(cfg))
     steps, calls = {}, {}
-    tag = f'prepare_sim.main (disk, {DISK_SLABS} slabs, serial)'
+    tag = f'prepare_sim._cli (disk, {DISK_SLABS} slabs, serial)'
     reset_launches()
     with timed_stages([(prepare_sim, 'read_slab'), (prepare_sim, 'prepare_slab_tables'),
                        (prepare_sim, 'write_slab_tables'), (prepare_sim, 'calc_shearmark')],
                       steps, calls):
         with calls_of(ranks_device, 'seg_rank') as ranked:
-            _, t_main = sync_seconds(lambda: prepare_sim.main(cfg, device=dev))
+            _, t_main = sync_seconds(lambda: prepare_sim._cli(
+                ['--path2config', str(cfg_fn), '--device', str(dev)]))
     paths[tag] = dict(read_launches(), seg_rank=ranked[0])
     for k in ('nn_within_halo', 'menv_annulus', 'tsc_deposit_cells[tsc]'):
         require(paths[tag][k] > 0, f'{tag}: no {k} launch ({paths[tag]})')
@@ -3380,13 +3369,16 @@ def disk_path(dev, paths, root):
     pool_dir = f'{root}/pool/{name}/z0.500'
     os.makedirs(pool_dir)
     os.link(shear_fn, f'{pool_dir}/{os.path.basename(shear_fn)}')
-    _, t_pool = sync_seconds(lambda: prepare_sim.main(pooled, device=dev, slabs=[0, 1]))
+    pooled_fn = root / 'prepare_sim_pool.json'
+    pooled_fn.write_text(json.dumps(pooled))
+    _, t_pool = sync_seconds(lambda: prepare_sim._cli(
+        ['--path2config', str(pooled_fn), '--device', str(dev)]))
     for i in (0, 1):
         for g, r in zip(npz_tables(pool_dir, i), npz_tables(savedir, i)):
             same = (all(np.array_equal(g[k], r[k]) for k in r) if isinstance(r, dict)
                     else g.dtype == r.dtype and g.tobytes() == r.tobytes())
             require(same, f'(c) slab {i}: the pool\'s tables differ from the serial run\'s')
-    print(f'phase 16 (c) main with Nparallel_load 2 (spawned workers on {dev}) on slabs 0-1: '
+    print(f'phase 16 (c) _cli with Nparallel_load 2 (spawned workers on {dev}) on slabs 0-1: '
           f'{t_pool:.3f} s, tables bit-equal to the serial run')
     del sim
 
@@ -3428,6 +3420,7 @@ def disk_path(dev, paths, root):
     print(f'phase 16 reads: cleaned catalog {t_clean:.3f} s, uncleaned {t_raw:.3f} s, slab 0\'s '
           f'A + B with every PID field {t_pids:.3f} s, slab 0 with fields=\'all\' '
           + ', '.join(f'{k} {v:.3f} s' for k, v in t_all.items()))
+    return {'name': name, 'groupdir': groupdir, 'config': cfg}
 
 
 def check_disk_pids(sim, groupdir):
@@ -3569,16 +3562,14 @@ def check_lc_reads(sim, info):
           f'packedpid {t_pid:.3f} s, {", ".join(PID_KEYS)} equal to the drawn words\'')
 
 
-def phase_lc_disk(dev, paths):
+def phase_lc_disk(dev, paths, root):
     """Phase 17: the light cone's disk path on the card, from files it writes
-    itself into a temporary directory (removed at the end)."""
+    itself under `root` (removed by main after phase 19). Returns the
+    light cone's config."""
     t0 = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix='chip_smoke_lc_'))
-    try:
-        lc_disk_path(dev, paths, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    cfg = lc_disk_path(dev, paths, root)
     print(f'phase 17 in {time.perf_counter() - t0:.1f} s')
+    return cfg
 
 
 def lc_disk_path(dev, paths, root):
@@ -3597,16 +3588,20 @@ def lc_disk_path(dev, paths, root):
     check_lc_reads(sim, info)
     del sim
 
-    # (2) prepare_sim.main on the light cone, the device engines
+    # (2) prepare_sim.main on the light cone, the device engines, through its
+    # command line
     cfg = lc_disk_config(root, name)
+    cfg_fn = root / 'prepare_sim_lc.json'
+    cfg_fn.write_text(json.dumps(cfg))
     steps, calls = {}, {}
-    tag = 'prepare_sim.main (light cone)'
+    tag = 'prepare_sim._cli --halo_lc (light cone)'
     reset_launches()
     with timed_stages([(prepare_sim, 'read_slab'), (prepare_sim, 'prepare_slab_tables'),
                        (prepare_sim, 'write_slab_tables'), (prepare_sim, 'lc_randoms_norm')],
                       steps, calls):
         with calls_of(ranks_device, 'seg_rank') as ranked:
-            _, t_main = sync_seconds(lambda: prepare_sim.main(cfg, device=dev))
+            _, t_main = sync_seconds(lambda: prepare_sim._cli(
+                ['--path2config', str(cfg_fn), '--halo_lc', '--device', str(dev)]))
     paths[tag] = dict(read_launches(), seg_rank=ranked[0])
     for k in ('nn_within_halo', 'menv_annulus'):
         require(paths[tag][k] > 0, f'{tag}: no {k} launch ({paths[tag]})')
@@ -3668,6 +3663,239 @@ def lc_disk_path(dev, paths, root):
           f'the same call on staged_state_from_numpy of those tables: bit-equal {bit_equal}, max '
           f'|d|/scale {worst:.3e}; launches {paths[tag]}; phase peak device memory '
           f'{peak / 2**30:.3f} GiB')
+    return cfg
+
+
+# phase 19: the scripts of scripts/torch/hod and emulator on phase 16's and 17's trees
+GCF_CHECK_HALOS = 50_000  # generate_cf's selection held against K4's plain version
+SCRIPT_CLUSTERING = {'clustering_type': 'xirppi', 'pimax': 30, 'pi_bin_size': 5,
+                     'bin_params': {'logmin': -1.0, 'logmax': float(np.log10(30.0)), 'nbins': 8}}
+N_BENCH_RANKS = 1_200_000
+K1_KERNEL, K3_KERNEL = 'tsc_deposit_bricks_kernel', 'mode_bin_pairs_kernel'
+
+
+def phase_scripts(dev, paths, disk16, cfg17):
+    """Phase 19: each script of scripts/torch/ through its own main or run,
+    on the trees phases 16 and 17 left: (a) generate_cf.main at the default
+    ndens, (b) run_hod.py's main and run_emcee.lnprob, (c) run_lc_hod.main,
+    (d) bench_multitracer.main with a warm step under device_trace and
+    stage_timer, (e) bench_ranks.run, (f) pipe_asdf into the C client.
+    Scratch files go to a temporary directory, removed at the end."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_scripts_'))
+    times = {}
+    try:
+        times['(a) generate_cf'] = sync_seconds(lambda: scripts_cf(dev, paths, disk16, tmp))[1]
+        times['(b) run_hod + lnprob'] = sync_seconds(
+            lambda: scripts_hod(dev, paths, disk16, tmp))[1]
+        times['(c) run_lc_hod'] = sync_seconds(lambda: scripts_lc(dev, paths, cfg17, tmp))[1]
+        times['(d) bench_multitracer'] = sync_seconds(
+            lambda: scripts_multitracer(dev, paths, tmp))[1]
+        times['(e) bench_ranks'] = sync_seconds(lambda: scripts_ranks(dev, paths))[1]
+        times['(f) pipe_asdf'] = sync_seconds(lambda: scripts_pipe(disk16, tmp))[1]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f'phase 19 in {time.perf_counter() - t0:.1f} s [{CARD[0]}]: '
+          + ', '.join(f'{k} {v:.3f} s' for k, v in times.items()))
+
+
+def scripts_cf(dev, paths, disk16, tmp):
+    """(a) generate_cf.main on phase 16's redshift directory (both slabs) at
+    the default ndens, on K4; the file read back; the counts of a
+    GCF_CHECK_HALOS selection of the same catalog held against K4's plain
+    version."""
+    gcf = torch_script('emulator/generate_cf')
+    groupdir = disk16['groupdir']
+    tag = 'scripts/torch/emulator/generate_cf.py main (ndens 1e-4)'
+    reset_launches()
+    fn, t_main = sync_seconds(lambda: gcf.main(groupdir, outdir=tmp / 'cf', device=dev))
+    paths[tag] = read_launches()
+    require(paths[tag]['pair_count_cells[smu]'] == 1 and paths[tag]['count_pairs_all'] == 0,
+            f'{tag}: launches {paths[tag]}')
+    with open_asdf(fn) as af:
+        data = af['data']
+        npairs = np.asarray(data['npairs'])
+        xi = np.asarray(data['xi'])
+        meta = dict(data.meta)
+    box = float(meta['BoxSize'])
+    n = int(box**3 * gcf.DEFAULT_NDENS)
+    rr = n * (n - 1) / box**3 * 4 / 3 * np.pi * np.diff(gcf.RBINS**3)
+    require(npairs.dtype == np.uint64 and npairs.shape == (len(gcf.RBINS) - 1,)
+            and int(npairs.sum()) > 0, f'{tag}: npairs {npairs}')
+    require(np.array_equal(xi, npairs / rr - 1) and meta['zname'] == groupdir.name,
+            f'{tag}: xi or zname of {fn.name} ({meta["zname"]})')
+    # K4 against its plain version on a smaller selection, on the stage the
+    # dispatch builds
+    cat = gcf.prepare_cat(groupdir, GCF_CHECK_HALOS / box**3)
+    cf = gcf.generate_cf(cat, device=dev)
+    soa = tuple(np.ascontiguousarray(cat.halos['x_L2com'][:, i] % box, np.float64)
+                for i in range(3))
+    nc, refine = tpcf.cell_grid(box, float(gcf.RBINS[-1]), GCF_CHECK_HALOS)
+    st = tpcf._get_stage(soa, box, nc, dev, tpcf.default_span(nc, refine, GCF_CHECK_HALOS))
+    thr = edges_f32(np.asarray(gcf.RBINS, np.float64) ** 2)
+    plain, t_plain = sync_seconds(lambda: count_pairs_cells_plain(
+        st, None, thr, 1, 'smu', 1.0, max_pairs=1 << 24))
+    plain = plain.cpu().numpy().reshape(-1)
+    require(np.array_equal(plain, cf['npairs'].astype(np.int64)),
+            f'{tag}: K4 {cf["npairs"]} against plain {plain} on {GCF_CHECK_HALOS} halos')
+    print(f'phase 19 (a) {tag}: the {n} most massive halos of both slabs, {t_main:.3f} s host '
+          f'to host, {int(npairs.sum())} ordered pairs in {len(npairs)} r bins, xi '
+          f'{np.round(xi, 4).tolist()} read back from {fn.name}; on {GCF_CHECK_HALOS} halos K4 '
+          f'equal to its plain version ({nc}^3 cells, plain {t_plain:.3f} s); launches '
+          f'{paths[tag]}')
+
+
+def scripts_hod(dev, paths, disk16, tmp):
+    """(b) run_hod.py's main (ntest=2) on phase 16's prepared box, xi(rp, pi)
+    at the bins of docs/hod.md; its first mock's xirppi as the data vector
+    with an identity covariance; run_emcee.lnprob at the config's
+    parameters (0 exactly: the pre-attached randoms give the same mock and
+    K4's counts are integers), then with LRG's logM_cut + 0.05 (below 0)."""
+    cfg = dict(disk16['config'], clustering_params=SCRIPT_CLUSTERING)
+    cfg_fn = tmp / 'run_hod.json'
+    cfg_fn.write_text(json.dumps(cfg))
+    rh = torch_script('hod/run_hod')
+    tag = 'scripts/torch/hod/run_hod.py main (ntest=2)'
+    reset_launches()
+    out, t_main = sync_seconds(lambda: rh.main(str(cfg_fn), ntest=2, device=dev))
+    paths[tag] = read_launches()
+    require(paths[tag]['pair_count_cells[rppi]'] + paths[tag]['count_pairs_all'] == 18,
+            f'{tag}: 3 autos and 3 crosses a round, 3 rounds: launches {paths[tag]}')
+    combos = {}
+    for combo, xi in out['xirppi'].items():
+        np.savez(tmp / f'{combo}_xi.npz', xirppi=xi)
+        np.savez(tmp / f'{combo}_cov.npz', cov=np.eye(xi.size))
+        combos[combo] = {'path2power': str(tmp / f'{combo}_xi.npz'),
+                         'path2cov': str(tmp / f'{combo}_cov.npz')}
+    em = torch_script('hod/run_emcee')
+    data = em.Data({'tracer_combos': combos}, cfg['HOD_params'])
+    ball = AbacusHOD.from_config(cfg['sim_params'], cfg['HOD_params'], cfg['clustering_params'],
+                                 device=dev)
+    p0 = np.array([cfg['HOD_params']['LRG_params']['logM_cut']])
+    tag_l = 'scripts/torch/hod/run_emcee.py lnprob'
+    reset_launches()
+    l0 = em.lnprob(p0, {'logM_cut': 0}, {'logM_cut': 'LRG'}, data, ball)
+    paths[tag_l] = read_launches()
+    l1 = em.lnprob(p0 + 0.05, {'logM_cut': 0}, {'logM_cut': 'LRG'}, data, ball)
+    require(l0 == 0.0, f'{tag_l}: {l0} at the data\'s own parameters')
+    require(l1 < 0.0, f'{tag_l}: {l1} after logM_cut + 0.05')
+    counts = {t: len(m['x']) for t, m in out['mock'].items()}
+    print(f'phase 19 (b) {tag}: {t_main:.3f} s host to host (staging included), galaxies '
+          f'{counts}, first xi {out["xi_first"]:.3f} s, run_hod {np.round(out["run_hod"], 3)} s, '
+          f'xi {np.round(out["xi"], 3)} s; lnprob {l0} at the data\'s parameters, {l1:.6g} at '
+          f'logM_cut + 0.05; launches {paths[tag]}, lnprob {paths[tag_l]}')
+
+
+def scripts_lc(dev, paths, cfg17, tmp):
+    """(c) run_lc_hod.main on phase 17's light cone, catalogs written (the
+    run_lc_hod's default) into the mock directory."""
+    cfg = copy.deepcopy(cfg17)
+    cfg['sim_params']['output_dir'] = str(tmp / 'lc_mocks') + '/'
+    cfg_fn = tmp / 'run_lc_hod.json'
+    cfg_fn.write_text(json.dumps(cfg))
+    lc = torch_script('hod/run_lc_hod')
+    tag = 'scripts/torch/hod/run_lc_hod.py main'
+    reset_launches()
+    mock, t_main = sync_seconds(lambda: lc.main(str(cfg_fn), device=dev))
+    paths[tag] = read_launches()
+    counts = {t: len(m['x']) for t, m in mock.items()}
+    written = sorted((tmp / 'lc_mocks').rglob('*.dat'))
+    require(list(counts) == list(WANT) and all(counts.values()) and len(written) == len(WANT),
+            f'{tag}: galaxies {counts}, files {written}')
+    print(f'phase 19 (c) {tag}: {t_main:.3f} s host to host (staging and the ECSV writes '
+          f'included), galaxies {counts}, {sum(f.stat().st_size for f in written)} bytes in '
+          f'{len(written)} catalogs; launches {paths[tag]}')
+
+
+def scripts_multitracer(dev, paths, tmp):
+    """(d) bench_multitracer.main at its cell: K1 six times and K3 once a
+    call, six finite spectra; one warm step under profiling.device_trace
+    (the trace names K1's and K3's kernels) and one under
+    profiling.stage_timer (within 20 % of bench_multitracer's step_seconds)."""
+    from abacusutils_tpu_torch.utils import profiling
+
+    bm = torch_script('hod/bench_multitracer')
+    tag = 'scripts/torch/hod/bench_multitracer.py main'
+    reset_launches()
+    record, step, spectra = bm.main(device=dev)
+    paths[tag] = read_launches()
+    calls = 1 + 5
+    require(paths[tag]['tsc_deposit_cells[tsc]'] == 6 * calls
+            and paths[tag]['bin_pair_modes[no poles]'] == calls,
+            f'{tag}: K1 6 and K3 1 a call over {calls} calls: launches {paths[tag]}')
+    require(len(spectra) == 6 and all(bool(torch.isfinite(v).all()) for v in spectra.values()),
+            f'{tag}: spectra {list(spectra)}')
+    with profiling.device_trace(tmp / 'trace') as fn:
+        step()
+        torch.cuda.synchronize()
+    text = Path(fn).read_text()
+    require(K1_KERNEL in text and K3_KERNEL in text,
+            f'{tag}: the trace names K1 {K1_KERNEL in text}, K3 {K3_KERNEL in text}')
+    timings = profiling.Timings()
+    with profiling.stage_timer('step', timings, device=dev):
+        step()
+    step_s = record['detail']['step_seconds']
+    require(abs(timings['step'] - step_s) <= 0.2 * step_s,
+            f'{tag}: stage_timer {timings["step"]:.6f} s against step_seconds {step_s:.6f} s')
+    print(f'phase 19 (d) {tag}: step {step_s:.6f} s, {record["value"]:.4g} galaxies/s, staging '
+          f'{record["detail"]["staging_seconds"]:.3f} s warm, '
+          f'{record["detail"]["staging_first_call_seconds"]:.3f} s cold; stage_timer of one warm '
+          f'step {timings["step"]:.6f} s; device_trace ({os.path.getsize(fn)} bytes) names '
+          f'{K1_KERNEL} and {K3_KERNEL}; launches {paths[tag]}')
+
+
+def scripts_ranks(dev, paths):
+    """(e) bench_ranks.run at 1.2e6 particles with the host loop: 0 key and 0
+    NN flips."""
+    br = torch_script('hod/bench_ranks')
+    tag = 'scripts/torch/hod/bench_ranks.py run'
+    reset_launches()
+    out = br.run(N_BENCH_RANKS, host=True, verbose=False, device=dev)
+    paths[tag] = read_launches()
+    require(paths[tag]['nn_within_halo'] == 2, f'{tag}: launches {paths[tag]}')
+    require(out['key_flips'] == 0 and out['nn_flips'] == 0, f'{tag}: flips {out}')
+    print(f'phase 19 (e) {tag}: {out}; launches {paths[tag]}')
+
+
+def scripts_pipe(disk16, tmp):
+    """(f) native/pipe_client built with gcc, fed by ``python -m
+    abacusutils_tpu_torch.io.pipe_asdf`` with N and x_L2com of phase 16's
+    first halo_info file: its lines equal the first and last five values
+    of the port's own read."""
+    repo = Path(__file__).resolve().parent
+    client = repo / 'build' / 'pipe_client' / 'client'
+    client.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run(['gcc', '-O2', '-o', str(client), str(repo / 'native/pipe_client/client.c')],
+                   check=True)
+    fn = disk16['groupdir'] / 'halo_info' / 'halo_info_000.asdf'
+    t0 = time.perf_counter()
+    src = subprocess.Popen([sys.executable, '-m', 'abacusutils_tpu_torch.io.pipe_asdf', '-f',
+                            'N', '-f', 'x_L2com', str(fn)], cwd=repo, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE)
+    try:
+        res = subprocess.run([str(client)], stdin=src.stdout, capture_output=True, text=True,
+                             timeout=300)
+        src.stdout.close()
+        err = src.communicate(timeout=300)[1].decode()
+    finally:
+        if src.poll() is None:
+            src.kill()
+            src.wait()
+    t_pipe = time.perf_counter() - t0
+    require(src.returncode == 0 and res.returncode == 0,
+            f'(f) pipe_asdf rc {src.returncode}, client rc {res.returncode}: {err} {res.stderr}')
+    with open_asdf(fn) as af:
+        N = np.asarray(af['data']['N'])
+        x = np.asarray(af['data']['x_L2com'])
+    want = (['First and last 5 N:'] + [f'{v}' for v in N[:5]] + [f'{v}' for v in N[::-1][:5]]
+            + ['First and last 5 x_com:']
+            + ['({:f},{:f},{:f})'.format(*map(float, r)) for r in x[:5]]
+            + ['({:f},{:f},{:f})'.format(*map(float, r)) for r in x[::-1][:5]])
+    require(res.stdout.splitlines() == want, f'(f) the client printed {res.stdout!r}')
+    print(f'phase 19 (f) python -m abacusutils_tpu_torch.io.pipe_asdf -f N -f x_L2com '
+          f'{fn.name} | client: {len(N)} halos piped in {t_pipe:.3f} s (the interpreter\'s '
+          f'start included); the client\'s 22 lines equal the port\'s read; '
+          + ' '.join(line for line in err.splitlines() if 'Processed' in line))
 
 
 KERNELS = {
@@ -4248,6 +4476,7 @@ def main():
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
+    roots = []
     try:
         phase_build()
         seg, _ = make_bin_plan_arrays(NMESH, LBOX, NBINS_K, dev)
@@ -4313,12 +4542,16 @@ def main():
         del halo5
         print(f'phase 15 in {time.perf_counter() - t15:.1f} s')
         paths16 = {}
-        phase_disk(dev, paths16)
+        roots.append(Path(tempfile.mkdtemp(prefix='chip_smoke_disk_')))
+        disk16 = phase_disk(dev, paths16, roots[-1])
         paths17 = {}
-        phase_lc_disk(dev, paths17)
+        roots.append(Path(tempfile.mkdtemp(prefix='chip_smoke_lc_')))
+        cfg17 = phase_lc_disk(dev, paths17, roots[-1])
         paths18 = {}
         phase_zcv_disk(dev, paths18, tpl13)
         del tpl13
+        paths19 = {}
+        phase_scripts(dev, paths19, disk16, cfg17)
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -4332,12 +4565,17 @@ def main():
             **paths16,
             **paths17,
             **paths18,
+            **paths19,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
-    print(f'chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    finally:
+        # phases 16 and 17 leave their trees for phase 19's scripts
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    print(f'chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

@@ -123,12 +123,16 @@ def test_inputs_from_numpy():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax and the JAX package blocked,
-    and none imports h5py, yaml, asdf, msgpack or zstandard (the GPU machine
-    has none)."""
+    """Every module of the port and every script under scripts/torch/hod and
+    scripts/torch/emulator imports with jax and the JAX package blocked, and
+    none imports h5py, yaml, asdf, msgpack, zstandard, emcee or dynesty at
+    module level (the GPU machine has none)."""
+    files = [*(REPO / 'abacusutils_tpu_torch').rglob('*.py'),
+             *(REPO / 'scripts' / 'torch' / 'hod').glob('*.py'),
+             *(REPO / 'scripts' / 'torch' / 'emulator').glob('*.py')]
     mods = sorted(
         '.'.join(f.relative_to(REPO).with_suffix('').parts).removesuffix('.__init__')
-        for f in (REPO / 'abacusutils_tpu_torch').rglob('*.py')
+        for f in files
     )
     code = (
         "import sys\n"
@@ -140,7 +144,7 @@ def test_port_imports_without_jax():
         "assert not any(k == 'jax' or k.startswith(('jax.', 'abacusutils_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "assert not any(k in sys.modules for k in ('h5py', 'yaml', 'asdf', 'msgpack', "
-        "'zstandard'))\n"
+        "'zstandard', 'emcee', 'dynesty'))\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -154,5 +158,10 @@ def test_port_imports_without_jax():
               'models.zcv.cosmo', 'models.zcv.ic_fields', 'models.zcv.advect_fields',
               'models.zcv.tracer_power', 'models.zcv.zenbu_native', 'models.zcv.zenbu_window',
               'models.zcv.tools_cv', 'models.zcv.precompute', 'models.zcv.apply',
-              'models.zcv.linear_fields', 'models.hod.nfw', 'io.table'):
+              'models.zcv.linear_fields', 'models.hod.nfw', 'io.table', 'io.pipe_asdf',
+              'utils.profiling', 'utils.taskfarm', 'models.hod.utils'):
         assert f'abacusutils_tpu_torch.{m}' in mods
+    for m in ('hod.likelihood', 'hod.run_hod', 'hod.run_lc_hod', 'hod.run_emcee',
+              'hod.run_nested', 'hod.plot_chains', 'hod.bench_ranks', 'hod.bench_multitracer',
+              'emulator.generate_cf'):
+        assert f'scripts.torch.{m}' in mods

@@ -1,8 +1,25 @@
 """Shared pieces of the abacusutils_tpu_torch parity tests."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+
+def _share_the_cores():
+    """Give each pytest-xdist worker its share of the host's cores for
+    torch's intra-op threads. Every worker imports this module when it
+    collects the tests. By default each torch process starts an OpenMP pool
+    of every core, and the spin-waits of six such pools take the cores from
+    each other: a pair-count test of 8.6 s alone took 280 s beside five
+    copies of itself, and 8.2 s with one thread each."""
+    workers = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))
+    if workers > 1:
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+
+
+_share_the_cores()
 
 
 @pytest.fixture
