@@ -38,9 +38,10 @@ _D = ctypes.c_double
 # C signatures of the entry points in csrc/ (all return a cudaError_t as int)
 SIGNATURES = {
     # grid, x, y, z, w, work, nitems, nmesh, brick (x, y, z), margin (x, y,
-    # z), box, offset, kind, wrap, overflow, stream
+    # z), box, offset, kind, wrap, overflow, slab planes (0: the periodic
+    # grid), the slab's x0 and halo planes, fault, stream
     'tsc_deposit_bricks': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-                           _P, _P),
+                           _P, _I, _I, _I, _P, _P),
     # kind, nmesh, shared bytes, out blocks
     'tsc_deposit_blocks_per_sm': (_I, _I, _I, _P),
     # grids, packed points, weight columns, unit grid first, starts, nmesh,
@@ -54,9 +55,10 @@ SIGNATURES = {
     # complex elements), seg, non-empty groups of four rows, their count, row
     # spans, W, scale, n1d, nbins, nmu, pole degrees (array of ints), npoles,
     # blocks, warps, histogram copies a warp, shared bytes, device, partials,
-    # out, out is f64, stream
+    # out, out is f64, the rows along y of the fields and the plan (n1d, or a
+    # ky slab's), the slab's first global iy, stream
     'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _I, _P, _P, _F, _I, _I, _I,
-                       ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
+                       ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     # the first side's sorted x, y, z, the second side's, its cell starts, the
     # work list, nitems, the walk's rows, nrows, nc, groups a row, nc / lbox,
     # lbox, squared edges, nb1, nb2, aux, mode, use_wrap, skip_self, histogram
@@ -66,10 +68,11 @@ SIGNATURES = {
                          _F, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
     # x1, y1, z1, n1, x2, y2, z2, n2, rows of the second set a block, lbox,
     # the round's threshold, squared edges, nb1, nb2, aux, mode, skip_self,
-    # is f64, one period, histogram copies, the bin table (as above), out
+    # the first set's first row in the second (skip_self's index offset), is
+    # f64, one period, histogram copies, the bin table (as above), out
     # (int64), stream
     'pair_count_all': (_P, _P, _P, _I, _P, _P, _P, _I, _I, _D, _D, _P, _I, _I, _D, _I, _I, _I, _I,
-                       _I, _P, _P, _I, _I, _I, _P, _P),
+                       _I, _I, _P, _P, _I, _I, _I, _P, _P),
     # the plan's reach (int32), rows, rows a block, row values (f32),
     # multiplicities (f64), izlo, izhi (int32), kzv, kz2, thresholds (f32),
     # nkout, threads a block, partials, out (f64), stream

@@ -64,6 +64,13 @@
 // memory pipe, not device memory. Per 32 modes the pole form at T = 3
 // scans and merges 18 values and makes 18 shared read-modify-writes.
 //
+// A ky slab: the meshes may be the rows y0 .. y0 + ny of the full
+// (n1d, n1d, n1d/2+1) spectrum, laid out (n1d, ny, n1d/2+1) as the y-sharded
+// output of parallel/fft.py:slab_rfftn is, with a plan of those rows
+// (ops/power.py:mode_bin_plan_device(yslab=)): seg and the row spans index
+// the slab's rows, W and |k| the global iy = y0 + local iy. ny = n1d and
+// y0 = 0 is the whole mesh.
+//
 // T (1..8) and NP (0..4) are template parameters, so the field, pair and
 // pole loops unroll into registers. Host-side, each instance's shared-memory
 // attribute is set once per device; the wrapper caches the occupancy.
@@ -198,7 +205,7 @@ mode_bin_pairs_kernel(Fields f, long long sx, long long sy, long long sz,
                       const int* __restrict__ seg, const int* __restrict__ groups, int ngroups,
                       const int* __restrict__ bounds, const float* __restrict__ W, float scale,
                       int n1d, int nbins, int nmu, Poles poles, int copies,
-                      float* __restrict__ partials) {
+                      float* __restrict__ partials, int ny, int y0) {
     constexpr int NPAIR = T * (T + 1) / 2;
     constexpr int U = unroll<T>();
     const int nk = NP > 0 ? nbins / nmu : 0;
@@ -223,13 +230,14 @@ mode_bin_pairs_kernel(Fields f, long long sx, long long sy, long long sz,
 
     const bool even = (n1d & 1) == 0;
     const int half = n1d / 2;
-    const int gpx = (n1d + kRows - 1) / kRows;  // groups along iy
+    const int gpx = (ny + kRows - 1) / kRows;  // groups along the slab's iy
     for (int item = blockIdx.x * nwarps + warp; item < ngroups; item += gridDim.x * nwarps) {
         const int gid = groups[item];
         const int ix = gid / gpx;
-        const int iy = (gid - ix * gpx) * kRows + trow;
-        const int r = ix * n1d + iy;
-        const bool row_ok = iy < n1d;
+        const int ly = (gid - ix * gpx) * kRows + trow;  // the row in the slab
+        const int iy = y0 + ly;                          // and in the mesh
+        const int r = ix * ny + ly;
+        const bool row_ok = ly < ny;
         const int lo = row_ok ? bounds[2 * r] : 0;
         const int hi = row_ok ? bounds[2 * r + 1] : 0;
         const int klo = (int)__reduce_min_sync(kFull, hi > lo ? (unsigned)lo : 0xffffffffu);
@@ -239,7 +247,7 @@ mode_bin_pairs_kernel(Fields f, long long sx, long long sy, long long sz,
         const int fy = iy < half ? iy : iy - n1d;
         const int kperp2 = fx * fx + fy * fy;
         const int* srow = seg + (long long)r * kzlen;
-        const long long frow = ix * sx + iy * sy;
+        const long long frow = ix * sx + ly * sy;
 
         for (int k0 = klo; k0 < khi; k0 += kCols * U) {
             int s[U];
@@ -352,7 +360,8 @@ mode_bin_reduce_kernel(const float* __restrict__ partials, int nblocks, int H,
 }
 
 using KernelFn = void (*)(Fields, long long, long long, long long, const int*, const int*, int,
-                          const int*, const float*, float, int, int, int, Poles, int, float*);
+                          const int*, const float*, float, int, int, int, Poles, int, float*, int,
+                          int);
 
 template <int T>
 KernelFn kernel_np(int npoles) {
@@ -437,14 +446,18 @@ extern "C" int mode_bin_pairs_occupancy(int nfields, int npoles, int warps, int 
 // four rows `groups` (ngroups ids ix * ceil(n1d / 4) + iy / 4) with each
 // row's kz span (`bounds`, [lo, hi) a row), then the reduction of the
 // `blocks` partials (scratch of blocks x H floats) into `out`: H = npairs x
-// (nbins + npoles x nbins / nmu) doubles, or floats when out_f64 is 0.
+// (nbins + npoles x nbins / nmu) doubles, or floats when out_f64 is 0. The
+// meshes, seg and the row spans hold the ny rows of the ky slab that starts
+// at global row y0 (ny = n1d, y0 = 0: the whole mesh; groups are then
+// ix * ceil(ny / 4) + local iy / 4).
 extern "C" int mode_bin_pairs(const void* const* fields, int nfields, long long sx, long long sy,
                               long long sz, const int* seg, const int* groups, int ngroups,
                               const int* bounds, const float* W, float scale, int n1d, int nbins,
                               int nmu, const int* pole_degrees, int npoles, int blocks, int warps,
                               int copies, int smem, int dev, float* partials, void* out,
-                              int out_f64, void* stream) {
+                              int out_f64, int ny, int y0, void* stream) {
     if (npoles > 0 && (nmu < 1 || nbins % nmu != 0)) return (int)cudaErrorInvalidValue;
+    if (ny < 1 || y0 < 0 || y0 + ny > n1d) return (int)cudaErrorInvalidValue;
     if (blocks < 1 || warps < 1 || warps > 8 || (copies != 1 && copies != kRows)) {
         return (int)cudaErrorInvalidValue;
     }
@@ -461,8 +474,8 @@ extern "C" int mode_bin_pairs(const void* const* fields, int nfields, long long 
         poles.odd[q] = l % 2;
     }
     const cudaStream_t s = (cudaStream_t)stream;
-    void* args[] = {&f,  &sx,    &sy,  &sz,    &seg, &groups, &ngroups, &bounds,
-                    &W,  &scale, &n1d, &nbins, &nmu, &poles,  &copies, &partials};
+    void* args[] = {&f,     &sx,  &sy,    &sz,  &seg,   &groups, &ngroups,  &bounds, &W,
+                    &scale, &n1d, &nbins, &nmu, &poles, &copies, &partials, &ny,     &y0};
     e = cudaLaunchKernel((const void*)fn, dim3(blocks), dim3(32 * warps), args, (size_t)smem, s);
     if (e != cudaSuccess) return (int)e;
     const int npairs = nfields * (nfields + 1) / 2;

@@ -525,8 +525,9 @@ pair_count_all_kernel(const T* __restrict__ x1, const T* __restrict__ y1, const 
                       int n1, const T* __restrict__ x2, const T* __restrict__ y2,
                       const T* __restrict__ z2, int n2, int jchunk, T lbox, T tround,
                       const T* __restrict__ edges2, int nb1, int nb2, T aux, int skip_self,
-                      int ncopy, const T* __restrict__ lut_edge, const int* __restrict__ lut_base, int ncell,
-                      int shift, int key0, unsigned long long* __restrict__ out) {
+                      int row0, int ncopy, const T* __restrict__ lut_edge,
+                      const int* __restrict__ lut_base, int ncell, int shift, int key0,
+                      unsigned long long* __restrict__ out) {
     __shared__ T tx[K5_TILE], ty[K5_TILE], tz[K5_TILE];
     extern __shared__ __align__(16) unsigned char dyn[];
     const int nbins = nb1 * nb2;
@@ -544,7 +545,9 @@ pair_count_all_kernel(const T* __restrict__ x1, const T* __restrict__ y1, const 
     for (int r = 0; r < K5_POINTS; ++r) {
         const long long i = ((long long)blockIdx.x * K5_POINTS + r) * K5_THREADS + t;
         const bool active = i < n1;
-        ia[r] = active && skip_self ? (int)i : -1;
+        // the row's index in the second set: a shard of an autocorrelation
+        // starts at row0 there
+        ia[r] = active && skip_self ? (int)i + row0 : -1;
         px[r] = active ? x1[i] : Ar<T>::nan();
         py[r] = active ? y1[i] : (T)0;
         pz[r] = active ? z1[i] : (T)0;
@@ -599,7 +602,7 @@ struct AllArgs {
     const void* edges2;
     int nb1, nb2;
     double aux;
-    int skip_self, ncopy;
+    int skip_self, row0, ncopy;
     const void* lut_edge;
     const int* lut_base;
     int ncell, shift, key0;
@@ -621,8 +624,8 @@ cudaError_t launch_all(const AllArgs& a) {
     kernel<<<grid, K5_THREADS, smem, a.s>>>(
         (const T*)a.x1, (const T*)a.y1, (const T*)a.z1, a.n1, (const T*)a.x2, (const T*)a.y2,
         (const T*)a.z2, a.n2, a.jchunk, (T)a.lbox, (T)a.tround, (const T*)a.edges2, a.nb1, a.nb2,
-        (T)a.aux, a.skip_self, a.ncopy, (const T*)a.lut_edge, a.lut_base, a.ncell, a.shift, a.key0,
-        a.out);
+        (T)a.aux, a.skip_self, a.row0, a.ncopy, (const T*)a.lut_edge, a.lut_base, a.ncell, a.shift,
+        a.key0, a.out);
     return cudaGetLastError();
 }
 
@@ -676,18 +679,21 @@ extern "C" int pair_count_cells(const float* ax, const float* ay, const float* a
 // takes 512 rows of the first set and `jchunk` of the second. The columns and
 // edges are float (is_f64 = 0) or double (1). one_period: every difference
 // lies within 1.5 lbox and `tround` is the largest value whose quotient by
-// lbox rounds to 0.
+// lbox rounds to 0. skip_self skips pair (i, j) where row0 + i == j: the
+// first set is rows row0 .. row0 + n1 of the second (a shard of an
+// autocorrelation), or the second itself with row0 = 0.
 extern "C" int pair_count_all(const void* x1, const void* y1, const void* z1, int n1,
                               const void* x2, const void* y2, const void* z2, int n2, int jchunk,
                               double lbox, double tround, const void* edges2, int nb1, int nb2,
-                              double aux, int mode, int skip_self, int is_f64, int one_period,
+                              double aux, int mode, int skip_self, int row0, int is_f64,
+                              int one_period,
                               int ncopy, const void* lut_edge, const int* lut_base, int ncell,
                               int shift, int key0, unsigned long long* out, void* stream) {
     if (n1 <= 0 || n2 <= 0) return (int)cudaSuccess;
     if (ncopy != 1 && ncopy != K5_THREADS / 32) return (int)cudaErrorInvalidValue;
     const AllArgs a = {x1, y1, z1, n1, x2, y2, z2, n2, jchunk, lbox, tround, edges2,
-                       nb1, nb2, aux, skip_self, ncopy, lut_edge, lut_base, ncell, shift, key0,
-                       out, (cudaStream_t)stream};
+                       nb1, nb2, aux, skip_self, row0, ncopy, lut_edge, lut_base, ncell, shift,
+                       key0, out, (cudaStream_t)stream};
     switch (2 * mode + (is_f64 ? 1 : 0)) {
         case 0: return (int)launch_all_period<float, MODE_RPPI>(a, one_period);
         case 1: return (int)launch_all_period<double, MODE_RPPI>(a, one_period);

@@ -43,6 +43,17 @@
 // it into an FMA: it is then the staging key's cell bit for bit, and points
 // leave their tile only when they moved.
 //
+// Slab mode (SLAB, a template parameter) writes an x-slab of a sharded grid,
+// the counterpart of parallel/fft.py:paint_slab and of paint_grouped_yb_multi's
+// slab_x0 addressing: the destination is nx planes (nx, nmesh, nmesh) whose
+// plane 0 is global plane x0 - h, the core the xl = nx - 2h planes from x0.
+// It wraps in y and z; in x it takes no wrap, only the image of each stencil
+// centre nearest the core's middle, ((ix - x0 + s) mod nmesh) - s + h with
+// s = (nmesh - xl) / 2 (ops/grid.py:slab_plane). The bricks tile the slab's
+// planes (ops/grid.py:brick_key with slab=). A point whose cloud leaves the
+// nx planes adds nothing and is counted in *fault: the caller raises,
+// nothing wraps silently.
+//
 // K1's multi-weight form (the ZCV advection's five weight columns on one
 // point set) is a separate kernel, a gather without atomics:
 // csrc/tsc_gather.cu.
@@ -67,6 +78,12 @@ struct Bricks {
     int bx, by, bz;  // brick interior, cells
     int nby, nbz;    // bricks along y and z
     int mx, my, mz;  // margins, cells
+};
+
+// the slab of slab mode: nx planes, plane 0 is global plane x0 - h; s is
+// (nmesh - (nx - 2h)) / 2, the reach of the centres' minimum image
+struct Slab {
+    int nx, x0, h, s;
 };
 
 __device__ __forceinline__ int floor_mod(int i, int n) {
@@ -101,12 +118,13 @@ __device__ __forceinline__ int axis_cloud(float p, float box, float offset, floa
     return (int)i0;
 }
 
-template <int KIND, int V>
+template <int KIND, int V, bool SLAB>
 __global__ void __launch_bounds__(THREADS)
 tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
                           const float* __restrict__ y, const float* __restrict__ z,
                           const float* __restrict__ w, const int* __restrict__ work,
-                          Bricks g, float box, float offset, int wrap, int* __restrict__ overflow) {
+                          Bricks g, float box, float offset, int wrap, int* __restrict__ overflow,
+                          Slab sl, int* __restrict__ fault) {
     extern __shared__ float tile[];
     const int brick = work[3 * blockIdx.x];
     const int begin = work[3 * blockIdx.x + 1];
@@ -114,7 +132,8 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
     if (begin >= end) return;  // uniform across the block
 
     const int n = g.nmesh;
-    // the unreduced grid cell of tile entry 0 along each axis
+    // the unreduced grid cell of tile entry 0 along each axis (in slab mode
+    // along x the slab's plane, not reduced)
     const int ox = (brick / (g.nby * g.nbz)) * g.bx - 1 - g.mx;
     const int oy = ((brick / g.nbz) % g.nby) * g.by - 1 - g.my;
     const int oz = (brick % g.nbz) * g.bz - 1 - g.mz;
@@ -126,7 +145,7 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
     __syncthreads();
 
     const float inv_h = __fdiv_rn((float)n, box);
-    int over = 0;
+    int over = 0, bad = 0;
     // each thread takes a contiguous run of the item's points, so the lanes
     // of a warp work on points far apart in the sorted order
     const int chunk = (end - begin + THREADS - 1) / THREADS;
@@ -135,15 +154,25 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
         const float wp = w[p];
         if (wp == 0.f) continue;
         float wx[3], wy[3], wz[3];
-        const int ix = axis_cloud<KIND>(x[p], box, offset, inv_h, wrap, wx);
+        int ix = axis_cloud<KIND>(x[p], box, offset, inv_h, wrap, wx);
         const int iy = axis_cloud<KIND>(y[p], box, offset, inv_h, wrap, wy);
         const int iz = axis_cloud<KIND>(z[p], box, offset, inv_h, wrap, wz);
+        if (SLAB) {
+            // the centre's plane of the slab, minimum-imaged; a cloud that
+            // leaves the slab is a fault
+            ix = floor_mod(ix - sl.x0 + sl.s, n) - sl.s + sl.h;
+            if (ix < 1 || ix + 1 >= sl.nx) {
+                ++bad;
+                continue;
+            }
+        }
         // tile entry of the stencil's first cell: entry t holds grid cell
-        // (o + t) mod n, so any periodic image of the cell will do
-        const int lx = floor_mod(ix - 1 - ox, n);
+        // (o + t) mod n, so any periodic image of the cell will do (in slab
+        // mode the slab's plane o + t along x)
+        const int lx = SLAB ? ix - 1 - ox : floor_mod(ix - 1 - ox, n);
         const int ly = floor_mod(iy - 1 - oy, n);
         const int lz = floor_mod(iz - 1 - oz, n);
-        if (lx + 2 < tx && ly + 2 < ty && lz + 2 < tz) {
+        if (lx >= 0 && lx + 2 < tx && ly + 2 < ty && lz + 2 < tz) {
             float* t0 = tile + (lx * ty + ly) * tz + lz;
             for (int a = 0; a < 3; ++a) {
                 for (int b = 0; b < 3; ++b) {
@@ -157,7 +186,7 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
             int gz[3];
             for (int k = 0; k < 3; ++k) gz[k] = floor_mod(iz + k - 1, n);
             for (int a = 0; a < 3; ++a) {
-                const size_t gx = floor_mod(ix + a - 1, n);
+                const size_t gx = SLAB ? ix + a - 1 : floor_mod(ix + a - 1, n);
                 for (int b = 0; b < 3; ++b) {
                     const float wab = __fmul_rn(__fmul_rn(wx[a], wy[b]), wp);
                     float* row = grid + (gx * n + floor_mod(iy + b - 1, n)) * n;
@@ -168,6 +197,10 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
     }
     over = __reduce_add_sync(0xffffffffu, over);
     if ((threadIdx.x & 31) == 0 && over) atomicAdd(overflow, over);
+    if (SLAB) {
+        bad = __reduce_add_sync(0xffffffffu, bad);
+        if ((threadIdx.x & 31) == 0 && bad) atomicAdd(fault, bad);
+    }
     __syncthreads();
 
     // flush: V-wide atomics (float4, float2 or float) on the aligned groups of
@@ -187,7 +220,9 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
             any |= v[c] != 0.f;
         }
         if (!any) continue;
-        const size_t gx = floor_mod(ox + r / ty, n);
+        const int px = ox + r / ty;  // a slab's plane, or the unreduced grid x
+        if (SLAB && (px < 0 || px >= sl.nx)) continue;  // no point writes there
+        const size_t gx = SLAB ? px : floor_mod(px, n);
         const size_t gy = floor_mod(oy + r % ty, n);
         float* dst = grid + (gx * n + gy) * n + floor_mod(g0, n);
         if constexpr (V == 4) {
@@ -200,27 +235,41 @@ tsc_deposit_bricks_kernel(float* __restrict__ grid, const float* __restrict__ x,
     }
 }
 
+template <int KIND, int V, bool SLAB>
+cudaError_t launch_form(float* grid, const float* x, const float* y, const float* z,
+                        const float* w, const int* work, int nitems, const Bricks& g, float box,
+                        float offset, int wrap, int* overflow, const Slab& sl, int* fault,
+                        cudaStream_t stream) {
+    const size_t smem = sizeof(float) * (size_t)(g.bx + 2 + 2 * g.mx) * (g.by + 2 + 2 * g.my) *
+                        (g.bz + 2 + 2 * g.mz);
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V, SLAB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    tsc_deposit_bricks_kernel<KIND, V, SLAB><<<nitems, THREADS, smem, stream>>>(
+        grid, x, y, z, w, work, g, box, offset, wrap, overflow, sl, fault);
+    return cudaGetLastError();
+}
+
+// the periodic grid (sl.nx == 0) or slab mode
 template <int KIND, int V>
 cudaError_t launch(float* grid, const float* x, const float* y, const float* z, const float* w,
                    const int* work, int nitems, const Bricks& g, float box, float offset,
-                   int wrap, int* overflow, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * (size_t)(g.bx + 2 + 2 * g.mx) * (g.by + 2 + 2 * g.my) *
-                        (g.bz + 2 + 2 * g.mz);
-    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    tsc_deposit_bricks_kernel<KIND, V><<<nitems, THREADS, smem, stream>>>(
-        grid, x, y, z, w, work, g, box, offset, wrap, overflow);
-    return cudaGetLastError();
+                   int wrap, int* overflow, const Slab& sl, int* fault, cudaStream_t stream) {
+    if (sl.nx > 0) {
+        return launch_form<KIND, V, true>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                          overflow, sl, fault, stream);
+    }
+    return launch_form<KIND, V, false>(grid, x, y, z, w, work, nitems, g, box, offset, wrap,
+                                       overflow, sl, fault, stream);
 }
 
 template <int KIND, int V>
 cudaError_t blocks_per_sm(int smem, int* blocks) {
-    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V>,
+    cudaError_t e = cudaFuncSetAttribute(tsc_deposit_bricks_kernel<KIND, V, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, tsc_deposit_bricks_kernel<KIND, V>, THREADS, smem);
+        blocks, tsc_deposit_bricks_kernel<KIND, V, false>, THREADS, smem);
 }
 
 // the widest flush group that divides nmesh
@@ -238,9 +287,10 @@ int flush_width(int nmesh) { return nmesh % 4 == 0 ? 4 : nmesh % 2 == 0 ? 2 : 1;
 template <int KIND>
 cudaError_t launch_kind(int nmesh, float* grid, const float* x, const float* y, const float* z,
                         const float* w, const int* work, int nitems, const Bricks& g, float box,
-                        float offset, int wrap, int* overflow, cudaStream_t stream) {
+                        float offset, int wrap, int* overflow, const Slab& sl, int* fault,
+                        cudaStream_t stream) {
     K1_DISPATCH(KIND, nmesh, launch, grid, x, y, z, w, work, nitems, g, box, offset, wrap,
-                overflow, stream)
+                overflow, sl, fault, stream)
 }
 
 template <int KIND>
@@ -252,19 +302,27 @@ cudaError_t blocks_kind(int nmesh, int smem, int* blocks) {
 
 // ---- host entries ----
 
-// grid: nmesh^3 f32; w: the weight column; kind: 0 TSC, 1 CIC; wrap: 1 wraps
-// each coordinate once into [0, box)
+// grid: nmesh^3 f32, or in slab mode (slab_nx > 0) the slab_nx x nmesh^2
+// planes whose plane 0 is global plane slab_x0 - slab_h; w: the weight
+// column; kind: 0 TSC, 1 CIC; wrap: 1 wraps each coordinate once into
+// [0, box); fault (slab mode): gains the points whose cloud leaves the slab
 extern "C" int tsc_deposit_bricks(float* grid, const float* x, const float* y, const float* z,
                                   const float* w, const int* work, int nitems, int nmesh, int bx,
                                   int by, int bz, int mx, int my, int mz, float box, float offset,
-                                  int kind, int wrap, int* overflow, void* stream) {
+                                  int kind, int wrap, int* overflow, int slab_nx, int slab_x0,
+                                  int slab_h, int* fault, void* stream) {
     const Bricks g{nmesh, bx, by, bz, (nmesh + by - 1) / by, (nmesh + bz - 1) / bz, mx, my, mz};
+    const Slab sl{slab_nx, slab_x0, slab_h, (nmesh - (slab_nx - 2 * slab_h)) / 2};
+    if (slab_nx > 0 && (fault == nullptr || slab_h < 1 || slab_x0 < 0 || slab_x0 >= nmesh ||
+                        slab_nx < 2 * slab_h + 1 || slab_nx > nmesh + 2 * slab_h)) {
+        return (int)cudaErrorInvalidValue;
+    }
     const cudaStream_t s = (cudaStream_t)stream;
     switch (kind) {
         case 0: return (int)launch_kind<0>(nmesh, grid, x, y, z, w, work, nitems, g, box, offset,
-                                           wrap, overflow, s);
+                                           wrap, overflow, sl, fault, s);
         case 1: return (int)launch_kind<1>(nmesh, grid, x, y, z, w, work, nitems, g, box, offset,
-                                           wrap, overflow, s);
+                                           wrap, overflow, sl, fault, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -206,6 +206,44 @@ class AbacusHOD:
         tp = prepare_tracer_params({t: tracers[t] for t in want}, self.params['z'])
         return {t: params_to_tensors(tp[t], self.device) for t in want}
 
+    def _box_columns(self, dev=None):
+        """The box leg's halo and particle columns by name: float32 on `dev`
+        (the host index int32), or the host arrays as they are when dev is
+        None (the shard-local stage uploads each rank's rows itself). A
+        missing deltac or fenv column is zeros."""
+        hd, pd = self.halo_data, self.particle_data
+
+        def c(a, k=None):
+            if dev is None:
+                return a if k is None else a[:, k]
+            return _column(a, dev, k)
+
+        def opt(data, key, like):
+            if dev is not None:
+                return _or_zeros(data, key, like, dev)
+            return data[key] if key in data else np.zeros(len(data[like]), np.float32)
+
+        halo = {
+            'x': c(hd['hpos'], 0), 'y': c(hd['hpos'], 1), 'z': c(hd['hpos'], 2),
+            'vz': c(hd['hvel'], 2), 'vdevz': c(hd['hveldev'], 2), 'mass': c(hd['hmass']),
+            'multis': c(hd['hmultis']), 'randoms': c(hd['hrandoms']),
+            'deltac': opt(hd, 'hdeltac', 'hmass'), 'fenv': opt(hd, 'hfenv', 'hmass'),
+        }
+        part = {
+            'x': c(pd['ppos'], 0), 'y': c(pd['ppos'], 1), 'z': c(pd['ppos'], 2),
+            'vz': c(pd['pvel'], 2), 'hvelz': c(pd['phvel'], 2), 'hmass': c(pd['phmass']),
+            'weights': c(pd['pweights']), 'randoms': c(pd['prandoms']),
+            'deltac': opt(pd, 'pdeltac', 'phmass'), 'fenv': opt(pd, 'pfenv', 'phmass'),
+            'hidx': pd['pinds'] if dev is None else _index(pd['pinds'], dev),
+        }
+        if self.want_shear:
+            halo['shear'] = c(hd['hshear'])
+            part['shear'] = c(pd['pshear'])
+        if self.want_ranks:
+            for k, col in _RANK_COLUMNS:
+                part[k] = c(pd[col])
+        return halo, part
+
     def _box_stage(self, nmesh, yb):
         """(halo_g, part_g, plan_h, plan_p) of the box leg, staged by the
         bricks of the objects' cells before RSD (with a z margin) and cached
@@ -215,33 +253,26 @@ class AbacusHOD:
         if self._fused_stage is not None and self._fused_stage[0] == key:
             return self._fused_stage[1]
         self._fused_stage = None  # free the old stage before building the new one
-        hd, pd, dev = self.halo_data, self.particle_data, self.device
+        stage = group_inputs2d_linked_device(*self._box_columns(self.device), nmesh, self.lbox,
+                                             yb)
+        self._fused_stage = (key, stage)
+        return stage
 
-        def c(a, k=None):
-            return _column(a, dev, k)
+    def _box_stage_sharded(self, nmesh, yb, mesh, slab):
+        """The box leg's shard-local stage over `mesh`
+        (parallel.mesh.group_inputs2d_linked_sharded: this rank's x-slab of
+        cells, uploaded alone, and the global conformity link), cached by
+        (nmesh, yb, want_shear, want_ranks, mesh, slab) as JAX keys its
+        stage by the mesh."""
+        from ...parallel.mesh import group_inputs2d_linked_sharded
 
-        halo = {
-            'x': c(hd['hpos'], 0), 'y': c(hd['hpos'], 1), 'z': c(hd['hpos'], 2),
-            'vz': c(hd['hvel'], 2), 'vdevz': c(hd['hveldev'], 2), 'mass': c(hd['hmass']),
-            'multis': c(hd['hmultis']), 'randoms': c(hd['hrandoms']),
-            'deltac': _or_zeros(hd, 'hdeltac', 'hmass', dev),
-            'fenv': _or_zeros(hd, 'hfenv', 'hmass', dev),
-        }
-        part = {
-            'x': c(pd['ppos'], 0), 'y': c(pd['ppos'], 1), 'z': c(pd['ppos'], 2),
-            'vz': c(pd['pvel'], 2), 'hvelz': c(pd['phvel'], 2), 'hmass': c(pd['phmass']),
-            'weights': c(pd['pweights']), 'randoms': c(pd['prandoms']),
-            'deltac': _or_zeros(pd, 'pdeltac', 'phmass', dev),
-            'fenv': _or_zeros(pd, 'pfenv', 'phmass', dev),
-            'hidx': _index(pd['pinds'], dev),
-        }
-        if self.want_shear:
-            halo['shear'] = c(hd['hshear'])
-            part['shear'] = c(pd['pshear'])
-        if self.want_ranks:
-            for k, col in _RANK_COLUMNS:
-                part[k] = c(pd[col])
-        stage = group_inputs2d_linked_device(halo, part, nmesh, self.lbox, yb)
+        key = ('sharded', int(nmesh), yb, bool(self.want_shear), bool(self.want_ranks), mesh,
+               bool(slab))
+        if self._fused_stage is not None and self._fused_stage[0] == key:
+            return self._fused_stage[1]
+        self._fused_stage = None
+        stage = group_inputs2d_linked_sharded(*self._box_columns(), nmesh, self.lbox, mesh, yb,
+                                              slab)
         self._fused_stage = (key, stage)
         return stage
 
@@ -330,14 +361,23 @@ class AbacusHOD:
         n_gal)``: clustering has the compute_power keys ('{t1}_{t2}',
         '{t1}_{t2}_modes', both orders of each cross pair, 'k_binc') as
         numpy arrays; n_gal maps tracer -> galaxy count. With ``halo_lc``
-        set, the light-cone leg runs instead."""
-        if mesh is not None or slab is not None:
-            raise NotImplementedError(
-                'sharded fused P(k) (mesh=, slab=) is not ported yet: ROADMAP.md queue 1, item 6 (multi-GPU)'
-            )
+        set, the light-cone leg runs instead.
+
+        `mesh` (``parallel.mesh.make_mesh``; every rank calls with the same
+        state) runs the same step sharded over its ranks
+        (``parallel.mesh.hod_pk_fused_sharded``: each rank stages and
+        populates its x-slab of cells, the ELG conformity codes meet in an
+        int8 all_gather, the deposits or the bin sums in all_reduces), with
+        the same spectra and galaxy counts on every rank. `slab` (sharded
+        runs only; None: nmesh >= 512) keeps the grid itself sharded: K1's
+        slab mode, one-plane halo exchange, the transpose FFT and K3 over
+        each rank's ky rows, ~1/ranks of the grid memory a rank. The mesh's
+        device is the object's."""
         if tracers is None:
             tracers = self.tracers
         if self.halo_lc:
+            if mesh is not None:
+                raise NotImplementedError('fused light-cone P(k) is single-device; drop mesh=')
             return self._run_hod_pk_fused_lc(
                 tracers, want_rsd, nmesh, nbins_k, yb, reseed, compensated
             )
@@ -349,6 +389,9 @@ class AbacusHOD:
         if reseed:
             self._reseed_randoms(reseed)
         nbins_k = nmesh // 2 if nbins_k is None else nbins_k
+        if mesh is not None:
+            return self._run_hod_pk_fused_sharded(tracers, want_rsd, nmesh, nbins_k, yb,
+                                                  compensated, mesh, slab)
 
         halo_g, part_g, plan_h, plan_p = self._box_stage(nmesh, yb)
         seg, counts = make_bin_plan_arrays(nmesh, self.lbox, nbins_k, self.device)
@@ -361,6 +404,35 @@ class AbacusHOD:
             overflow=self.deposit_overflow,
         )
         return self._clustering(spectra, ng, want, nmesh, nbins_k, counts)
+
+    def _run_hod_pk_fused_sharded(self, tracers, want_rsd, nmesh, nbins_k, yb, compensated,
+                                  mesh, slab):
+        """The box leg over `mesh` (run_hod_pk_fused(mesh=)): the
+        shard-local stage (:meth:`_box_stage_sharded`), then
+        parallel.mesh.hod_pk_fused_sharded; the full plan's seg in the
+        replicated-grid mode, the ranks' ky-slab plans' counts in slab mode."""
+        from ...parallel.mesh import hod_pk_fused_sharded, mesh_device
+
+        dev = self.device
+        if dev.type == 'cuda' and dev.index is None:  # 'cuda' is the current card
+            dev = torch.device('cuda', torch.cuda.current_device())
+        if mesh_device(mesh) != dev:
+            raise ValueError(f'the mesh computes on {mesh_device(mesh)}, the object on {dev}')
+        if slab is None:
+            slab = nmesh >= 512
+        stage = self._box_stage_sharded(nmesh, yb, mesh, slab)
+        seg = counts = None
+        if not slab:
+            seg, counts = make_bin_plan_arrays(nmesh, self.lbox, nbins_k, self.device)
+        want = tuple(t for t in TRACER_ORDER if t in tracers)
+        self.deposit_overflow.zero_()
+        spectra, ng, slab_counts = hod_pk_fused_sharded(
+            mesh, stage, self._tracer_tensors(tracers, want), seg,
+            self._wcomp(nmesh, compensated), self.lbox, float(self.params['velz2kms']), want,
+            int(nmesh), int(nbins_k), rsd=bool(want_rsd), overflow=self.deposit_overflow,
+        )
+        return self._clustering(spectra, ng, want, nmesh, nbins_k,
+                                counts if slab_counts is None else slab_counts)
 
     def _run_hod_pk_fused_lc(
         self, tracers, want_rsd, nmesh, nbins_k, yb, reseed, compensated,

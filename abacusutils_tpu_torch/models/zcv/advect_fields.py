@@ -10,7 +10,9 @@ a stage); :func:`power_ij` bins every auto and cross spectrum with poles in
 one K3 launch. :func:`main` is the chain's advection step on files: it
 reads ``ic_filt`` and ``fields`` of ic_fields.main and writes the Fourier
 fields, the P_ij table and, with save_3D_power, the pair cubes, under
-JAX's names, columns and headers.
+JAX's names, columns and headers; with ``mesh=`` each field is painted and
+transformed sharded over the mesh (``parallel/fft.py:field_fft_slab``),
+gathered, and written by rank 0.
 """
 
 import os
@@ -132,12 +134,11 @@ def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
     table is read back and returned. path2config: a config dict or JSON
     file; only_requested_fields: zcv_params' fields only. The paint (K1's
     multi-weight form), FFTs and binning (K3) run on `device` (the card when
-    None). `mesh` (a sharded advection) raises: ROADMAP.md queue 1, item 6
-    (multi-GPU). Returns the P_ij dict (k_binc and mu_binc alone with
+    None). With `mesh` (``parallel.mesh.make_mesh``; every rank calls main
+    with the same config) each field is ``field_fft_slab`` (TSC only) on the
+    mesh's devices, gathered on every rank; rank 0 writes the files and the
+    ranks wait for it. Returns the P_ij dict (k_binc and mu_binc alone with
     save_3D_power)."""
-    if mesh is not None:
-        raise NotImplementedError('the sharded advection (mesh=) is not ported yet: ROADMAP.md '
-                                  'queue 1, item 6 (multi-GPU)')
     config = load_config(path2config)
     zp, pp = config['zcv_params'], config['power_params']
     nmesh, kcut = zp['nmesh'], zp['kcut']
@@ -149,7 +150,12 @@ def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
     sim_name = alt_simname or config['sim_params']['sim_name']
     z_this = config['sim_params']['z_mock']
     rsd_str = '_rsd' if want_rsd else ''
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ...parallel.mesh import mesh_device, mesh_rank
+
+        dev, writer = mesh_device(mesh), mesh_rank(mesh) == 0
+    else:
+        dev, writer = resolve_device(device), True
 
     meta = get_meta(sim_name, redshift=z_this)
     Lbox = meta['BoxSize']
@@ -189,17 +195,22 @@ def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
                 ws.append(np.asarray(f['data'][kn]).reshape(-1))
         W = (get_W_compensated(Lbox, nmesh, pp['paste'], pp['interlaced'])
              if pp['compensated'] else None)
-        new = get_field_ffts(pos, Lbox, nmesh, pp['paste'], ws, W, pp['compensated'],
-                             pp['interlaced'], dev)
+        if mesh is None:
+            new = get_field_ffts(pos, Lbox, nmesh, pp['paste'], ws, W, pp['compensated'],
+                                 pp['interlaced'], dev)
+        else:
+            new = _sharded_ffts(pos, Lbox, nmesh, pp, ws, mesh)
         del pos, ws
         header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut,
                   'compensated': pp['compensated'], 'interlaced': pp['interlaced'],
                   'paste': pp['paste']}
         for kn, F in zip(todo, new):
             print(kn)
-            compress_asdf(fft_fns[kn], {f'{kn}_Re': F.real, f'{kn}_Im': F.imag}, header)
+            if writer:
+                compress_asdf(fft_fns[kn], {f'{kn}_Re': F.real, f'{kn}_Im': F.imag}, header)
             ffts[kn] = F
         del new
+        _wait_for_writer(mesh)
 
     def load_fft(kn):
         if kn in ffts:
@@ -219,7 +230,9 @@ def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
     header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut}
     if not save_3D_power:
         pk_ij_dict = power_ij({kn: load_fft(kn) for kn in keynames}, Lbox, pp, D)
-        compress_asdf(power_ij_fn, pk_ij_dict, header)
+        if writer:
+            compress_asdf(power_ij_fn, pk_ij_dict, header)
+        _wait_for_writer(mesh)
         return pk_ij_dict
 
     for i in range(len(keynames)):
@@ -230,10 +243,34 @@ def main(path2config, want_rsd=False, alt_simname=None, save_3D_power=False,
             print('Computing cross-correlation of', keynames[i], keynames[j])
             cube = field_cube(load_fft(keynames[i]), load_fft(keynames[j]),
                               field_D[i] * field_D[j])
-            compress_asdf(fn, {f'P_k3D_{keynames[i]}_{keynames[j]}': cube}, header)
+            if writer:
+                compress_asdf(fn, {f'P_k3D_{keynames[i]}_{keynames[j]}': cube}, header)
             del cube
+    _wait_for_writer(mesh)
     return {'k_binc': (k_bin_edges[1:] + k_bin_edges[:-1]) * 0.5,
             'mu_binc': (mu_bin_edges[1:] + mu_bin_edges[:-1]) * 0.5}
+
+
+def _sharded_ffts(pos, Lbox, nmesh, pp, ws, mesh):
+    """Each weight column's Fourier field by ``parallel.fft.field_fft_slab``
+    (ws None: unit weight), gathered whole on every rank (advect_fields.py:
+    main's mesh= route)."""
+    from ...parallel.fft import field_fft_slab, gather_slab
+
+    return [gather_slab(field_fft_slab(pos, Lbox, nmesh, mesh, w=w, paste=pp['paste'],
+                                       compensated=pp['compensated'],
+                                       interlaced=pp['interlaced']), mesh)
+            for w in ws]
+
+
+def _wait_for_writer(mesh):
+    """Hold every rank of `mesh` until rank 0 has written its files."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from ...parallel.mesh import _group
+
+        dist.barrier(group=_group(mesh))
 
 
 def _cli(argv=None):

@@ -8,8 +8,10 @@ s_ij component at a time (as ``ops/shear.py`` does), so the working set is a
 few grids instead of six complex ones. numpy inputs go to `device` (the card
 when None); tensors stay where they are. :func:`main` is the first file
 step of the ZCV chain: the filtered IC and the bias fields, written under
-``zcv_dir`` with JAX's file names, columns and headers. The slab-sharded
-``get_fields_sharded`` is not ported (ROADMAP.md queue 1, item 6).
+``zcv_dir`` with JAX's file names, columns and headers.
+:func:`get_fields_sharded` computes the same fields with the grid sharded
+in x-slabs over a device mesh (``parallel/fft.py``'s transpose FFTs), and
+``get_fields(mesh=)`` gathers them.
 """
 
 import os
@@ -24,9 +26,9 @@ from ...io.asdf_file import open_asdf, write_asdf
 from ...metadata import get_meta
 from ...ops.grid import _f32
 
-__all__ = ['get_fields', 'gaussian_filter', 'filter_field', 'get_n2_fft', 'get_sij_fft',
-           'add_ij', 'get_dk_to_s2', 'get_dk_to_n2', 'compress_asdf', 'load_dens', 'load_disp',
-           'main']
+__all__ = ['get_fields', 'get_fields_sharded', 'gaussian_filter', 'filter_field', 'get_n2_fft',
+           'get_sij_fft', 'add_ij', 'get_dk_to_s2', 'get_dk_to_n2', 'compress_asdf',
+           'load_dens', 'load_disp', 'main']
 
 # s_ij components (i, j) and their factor in s^2 = sum_ij s_ij^2, in the
 # order of ic_fields.py:_fields_jit
@@ -125,12 +127,20 @@ def get_dk_to_n2(delta_k, nmesh, lbox, device=None):
     return torch.fft.irfftn(get_n2_fft(delta_k, nmesh, lbox), s=(int(nmesh),) * 3)
 
 
-def get_fields(delta_lin, Lbox, nmesh, device=None):
+def get_fields(delta_lin, Lbox, nmesh, device=None, mesh=None):
     """(delta, delta^2, s^2, nabla^2 delta) of the linear density
     (ic_fields.py:get_fields / _fields_jit): delta and delta^2 with their
     means subtracted, s^2 = sum_ij s_ij^2 with the factors (1, 2, 2, 1, 2,
     1) and its mean subtracted, nabla^2 delta = IFFT(-k^2 delta_k). Four f32
-    (nmesh,)*3 tensors on the input's device."""
+    (nmesh,)*3 tensors on the input's device. With `mesh` (a
+    ``parallel.mesh.make_mesh`` mesh) the fields are computed sharded
+    (:func:`get_fields_sharded`) and gathered: the whole fields on every
+    rank's device."""
+    if mesh is not None:
+        from ...parallel.fft import gather_slab
+
+        return tuple(gather_slab(f, mesh, dim=0)
+                     for f in get_fields_sharded(delta_lin, Lbox, nmesh, mesh))
     delta_lin = _grid(delta_lin, device).to(torch.float32)
     shape = (int(nmesh),) * 3
     delta_fft = torch.fft.rfftn(delta_lin)
@@ -155,6 +165,54 @@ def get_fields(delta_lin, Lbox, nmesh, device=None):
 
     n2 = torch.fft.irfftn(-k2 * delta_fft, s=shape)
     return d, d2, s2, n2
+
+
+def get_fields_sharded(delta_lin, Lbox, nmesh, mesh):
+    """:func:`get_fields` with the density grid sharded end to end
+    (ic_fields.py:get_fields_sharded): each rank uploads its x-slab of
+    `delta_lin` (numpy or a tensor, the whole grid on every rank), the
+    forward transform is ``parallel.fft.slab_rfftn``, the k-space products
+    take the rank's ky rows, each inverse is a slab irfftn, and the field
+    means meet in all_reduces. Returns four ``parallel.mesh.LocalSlab``
+    pieces: the rank's (nmesh / n, nmesh, nmesh) x-slabs and their first
+    plane. A rank's memory is ~1/n of :func:`get_fields`'."""
+    from ...parallel.fft import slab_irfftn, slab_rfftn
+    from ...parallel.mesh import LocalSlab, _xl, all_reduce, mesh_device, mesh_rank
+
+    nmesh = int(nmesh)
+    xl = _xl(nmesh, mesh, False)
+    x0 = mesh_rank(mesh) * xl
+    dev = mesh_device(mesh)
+    if isinstance(delta_lin, torch.Tensor):
+        slab = delta_lin[x0:x0 + xl].to(dev, torch.float32)
+    else:
+        slab = torch.from_numpy(np.ascontiguousarray(np.asarray(delta_lin)[x0:x0 + xl],
+                                                     np.float32)).to(dev)
+    n3 = float(nmesh) ** 3
+
+    def mean(f):
+        return all_reduce(f.sum().reshape(1), mesh)[0] / _f32(n3)
+
+    delta_fft = slab_rfftn(slab, mesh)
+    d = slab - mean(slab)
+    d2 = slab * slab
+    d2 -= mean(d2)
+    kv, kz = _kvec(nmesh, float(Lbox), dev)
+    ks = (kv[:, None, None], kv[None, x0:x0 + xl, None], kz[None, None, :])
+    k2 = _k2(ks)
+    inv_k2 = _inv_k2(k2)
+    third = _f32(1.0 / 3.0)
+    s2 = torch.zeros_like(slab)
+    for i, j, factor in SIJ:
+        w = ks[i] * ks[j] * inv_k2
+        if i == j:
+            w = w - third
+        sij = slab_irfftn(delta_fft * w, mesh, nmesh)
+        s2 += factor * (sij * sij)
+        del sij
+    s2 -= mean(s2)
+    n2 = slab_irfftn(-k2 * delta_fft, mesh, nmesh)
+    return tuple(LocalSlab(f, x0) for f in (d, d2, s2, n2))
 
 
 # ---------------------------------------------------------------------------

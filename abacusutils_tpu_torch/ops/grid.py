@@ -14,7 +14,10 @@ Counterpart of abacusutils_tpu/ops/grid.py for the HOD and P(k) routes:
   brick's tile, the kernel's overflow word.
 - :func:`tsc_deposit_cells` launches the brick-tile deposit K1
   (``csrc/tsc_deposit.cu``) on CUDA tensors and runs the plain versions on
-  CPU tensors.
+  CPU tensors. Its slab mode (a plan staged with ``slab=(x0, h, nx)``)
+  deposits into the nx x-planes of a sharded grid whose plane 0 is global
+  plane x0 - h (parallel/fft.py:paint_slab, ``paint_grouped_yb_multi``'s
+  ``slab_x0``); :func:`paint_slab_plain` is its plain version.
 - :func:`paint_3d` is the public paint (``ops/grid.py:paint_3d``): stage and
   K1 on CUDA tensors, the plain scatter on CPU tensors.
 - :func:`tsc_deposit_cells_multi` is K1's multi-weight form, the
@@ -61,6 +64,8 @@ __all__ = [
     'stage_bricks',
     'work_items',
     'paint_3d_plain',
+    'paint_slab_plain',
+    'slab_plane',
     'overflow_count_plain',
     'paint_3d',
     'tsc_deposit_cells',
@@ -205,17 +210,35 @@ def _cells(p, nmesh, box, offset, shift, wrap):
     return torch.remainder(torch.floor(q + 0.5).to(torch.int32), nmesh)
 
 
-def brick_key(px, py, pz, nmesh, brick, box, offset=0.0, shift=0.0, kind='tsc', wrap=None):
+def slab_plane(cx, nmesh, slab):
+    """The plane of an x-slab `slab` = (x0, h, nx) (nx planes, plane 0 the
+    global plane x0 - h; its core is the xl = nx - 2h planes from x0) of each
+    stencil centre `cx` (taken modulo nmesh): ((cx - x0 + s) mod nmesh) - s +
+    h with s = (nmesh - xl) // 2, the image of the centre nearest the core's
+    middle (K1's slab mode). One slab of the whole grid (xl = nmesh) takes
+    every centre as it is."""
+    x0, h, nx = slab
+    s = (nmesh - (nx - 2 * h)) // 2
+    return torch.remainder(cx - x0 + s, nmesh) - s + h
+
+
+def brick_key(px, py, pz, nmesh, brick, box, offset=0.0, shift=0.0, kind='tsc', wrap=None,
+              slab=None):
     """Brick index (int32) of each point's cell, x-major: ((cx // bx) * nby +
     cy // by) * nbz + cz // bz, with nb = ceil(nmesh / b) bricks an axis (the
     last one ragged). `shift` is added to each coordinate first. The cell is
     K1's for `kind` and `wrap` (by default TSC wraps once before the offset,
     CIC does not wrap). With brick (1, yb, nmesh) this is
-    ops/grid.py:cell_key_2d."""
+    ops/grid.py:cell_key_2d. With `slab` = (x0, h, nx) the bricks tile the
+    slab's nx planes along x (:func:`slab_plane`, clamped into them, so a
+    point whose cloud leaves the slab reaches K1 and is counted a fault)."""
     wrap = _wrap(kind, wrap)
     bx, by, bz = brick
     nby, nbz = -(-nmesh // by), -(-nmesh // bz)
-    key = torch.div(_cells(px, nmesh, box, offset, shift, wrap), bx, rounding_mode='floor')
+    cx = _cells(px, nmesh, box, offset, shift, wrap)
+    if slab is not None:
+        cx = slab_plane(cx, nmesh, slab).clamp_(0, slab[2] - 1)
+    key = torch.div(cx, bx, rounding_mode='floor')
     key = key * nby + torch.div(_cells(py, nmesh, box, offset, shift, wrap), by,
                                 rounding_mode='floor')
     return key * nbz + torch.div(_cells(pz, nmesh, box, offset, shift, wrap), bz,
@@ -227,20 +250,40 @@ class BrickPlan(NamedTuple):
     (brick, begin, end) list on the points' device (items past the last
     hold begin = end = 0 and do nothing), the bricks tile an nmesh^3 grid
     with interiors `brick` and per-axis `margin` cells for points that move
-    after staging."""
+    after staging. `slab` = (x0, h, nx): the bricks tile the nx planes of an
+    x-slab whose plane 0 is global plane x0 - h (K1's slab mode), or None."""
 
     work: torch.Tensor
     nmesh: int
     brick: tuple
     margin: tuple
+    slab: tuple = None
 
     @property
     def nbricks(self):
-        return _nbricks(self.nmesh, self.brick)
+        return _nbricks(self.nmesh, self.brick, self.slab)
+
+    @property
+    def grid_shape(self):
+        """The shape of the grid K1 deposits this plan's points into."""
+        n = self.nmesh
+        return (n, n, n) if self.slab is None else (self.slab[2], n, n)
 
 
-def _nbricks(nmesh, brick):
-    return math.prod(-(-nmesh // b) for b in brick)
+def _nbricks(nmesh, brick, slab=None):
+    nx = nmesh if slab is None else slab[2]
+    return math.prod(-(-a // b) for a, b in zip((nx, nmesh, nmesh), brick))
+
+
+def _check_slab(nmesh, slab):
+    """`slab` as a tuple of ints (x0, h, nx), or None; raises unless
+    0 <= x0 < nmesh, h >= 1 and 2 h + 1 <= nx <= nmesh + 2 h."""
+    if slab is None:
+        return None
+    x0, h, nx = (int(v) for v in slab)
+    if not (0 <= x0 < nmesh and h >= 1 and 2 * h + 1 <= nx <= nmesh + 2 * h):
+        raise ValueError(f'slab (x0, h, nx) = {slab} outside an nmesh of {nmesh}')
+    return x0, h, nx
 
 
 def _work_list(skey, nbricks, max_points):
@@ -281,7 +324,7 @@ def work_items(starts, n, max_points):
 
 def stage_bricks(
     cols, nmesh, box, brick=None, margin=(0, 0, 0), offset=0.0, shift=0.0, kind='tsc',
-    xi=0, yi=1, zi=2, max_points=None, return_order=False, wrap=None,
+    xi=0, yi=1, zi=2, max_points=None, return_order=False, wrap=None, slab=None,
 ):
     """Sort the columns by the brick of their cell (:func:`brick_key` of
     cols[xi], cols[yi], cols[zi]; stable, so points of one brick keep their
@@ -295,16 +338,19 @@ def stage_bricks(
     deposited right, straight into the grid. max_points: the most points a
     work item takes (default max(MIN_ITEM_POINTS, ITEM_SPLIT x N / the
     number of bricks)). `kind`, `wrap`, `offset` and `shift` pick the cell as
-    K1 computes it."""
+    K1 computes it. slab: (x0, h, nx) for K1's slab mode (see
+    :class:`BrickPlan`), or None."""
     margin = tuple(int(m) for m in margin)
+    slab = _check_slab(nmesh, slab)
     brick = brick_shape(nmesh, margin=margin) if brick is None else tuple(int(b) for b in brick)
     n = cols[0].shape[0]
-    nbricks = _nbricks(nmesh, brick)
+    nbricks = _nbricks(nmesh, brick, slab)
     if max_points is None:
         max_points = max(MIN_ITEM_POINTS, ITEM_SPLIT * -(-n // nbricks))
-    key = brick_key(cols[xi], cols[yi], cols[zi], nmesh, brick, box, offset, shift, kind, wrap)
+    key = brick_key(cols[xi], cols[yi], cols[zi], nmesh, brick, box, offset, shift, kind, wrap,
+                    slab)
     skey, order = torch.sort(key, stable=True)
-    plan = BrickPlan(_work_list(skey, nbricks, int(max_points)), nmesh, brick, margin)
+    plan = BrickPlan(_work_list(skey, nbricks, int(max_points)), nmesh, brick, margin, slab)
     staged = [c.index_select(0, order) for c in cols]
     return (staged, plan, order) if return_order else (staged, plan)
 
@@ -332,101 +378,166 @@ def paint_3d_plain(grid, px, py, pz, weights, nmesh, box, offset=0.0, kind='tsc'
     return grid
 
 
+def _slab_fault(ix, nmesh, slab):
+    """The slab plane of each centre `ix` (:func:`slab_plane`) and whether its
+    3-plane cloud leaves the slab's nx planes (a fault)."""
+    sx = slab_plane(ix, nmesh, slab)
+    return sx, (sx < 1) | (sx + 1 >= slab[2])
+
+
+def paint_slab_plain(grid, px, py, pz, weights, nmesh, box, slab, offset=0.0, kind='tsc',
+                     wrap=None):
+    """K1's slab mode in PyTorch: accumulate the 27-point clouds into the
+    (nx, nmesh, nmesh) f32 `grid`, the x-slab `slab` = (x0, h, nx) whose plane
+    0 is global plane x0 - h, in place. y and z wrap; along x each cloud
+    lands on the planes around its centre's :func:`slab_plane` (the minimum
+    image, as parallel/fft.py:paint_slab's `rel`). A point whose cloud leaves
+    the slab adds nothing. Returns the count of such points of non-zero
+    weight (a 0-d int64 tensor), the kernel's fault word."""
+    wrap = _wrap(kind, wrap)
+    ix, wx = axis_cloud(px, box, offset, nmesh, wrap, kind)
+    iy, wy = axis_cloud(py, box, offset, nmesh, wrap, kind)
+    iz, wz = axis_cloud(pz, box, offset, nmesh, wrap, kind)
+    sx, bad = _slab_fault(ix, nmesh, slab)
+    w = torch.where(bad, 0.0, weights.to(torch.float32))
+    sx = torch.where(bad, 1, sx)
+    fx = [sx + o for o in (-1, 0, 1)]
+    fy = [torch.remainder(iy + o, nmesh) for o in (-1, 0, 1)]
+    fz = [torch.remainder(iz + o, nmesh) for o in (-1, 0, 1)]
+    flat = grid.view(-1)
+    for a in range(3):
+        for b in range(3):
+            wab = wx[a] * wy[b]
+            fab = (fx[a] * nmesh + fy[b]) * nmesh
+            for c in range(3):
+                flat.index_add_(0, fab + fz[c], wab * wz[c] * w)
+    return (bad & (weights != 0)).sum()
+
+
 def overflow_count_plain(x, y, z, w, plan, box, offset=0.0, kind='tsc', wrap=None):
     """The overflow word of K1 for points staged by `plan`: the number of
     points of non-zero weight whose 27-point stencil leaves their brick's
-    tile (the brick, one ghost layer and the margin on each side). Returns a
-    0-d int64 tensor."""
+    tile (the brick, one ghost layer and the margin on each side). In slab
+    mode a point whose cloud leaves the slab is a fault, not an overflow
+    (:func:`paint_slab_plain` counts those). Returns a 0-d int64 tensor."""
     kind, wrap = _kind(kind), _wrap(kind, wrap)
     nmesh = plan.nmesh
     work = plan.work.long()
     # each point's brick, from the items that cover it
     brick = torch.repeat_interleave(work[:, 0], work[:, 2] - work[:, 1], output_size=x.shape[0])
-    nb = [-(-nmesh // b) for b in plan.brick]
+    nx = plan.grid_shape[0]
+    nb = [-(-a // b) for a, b in zip((nx, nmesh, nmesh), plan.brick)]
     bidx = (torch.div(brick, nb[1] * nb[2], rounding_mode='floor'),
             torch.div(brick, nb[2], rounding_mode='floor') % nb[1], brick % nb[2])
-    inside = w != 0
-    for p, b, m, j in zip((x, y, z), plan.brick, plan.margin, bidx):
+    counted = w != 0
+    inside = counted
+    for axis, (p, b, m, j) in enumerate(zip((x, y, z), plan.brick, plan.margin, bidx)):
         i0, _ = axis_cloud(p, box, offset, nmesh, wrap, kind)
-        first = torch.remainder(i0 - 1 - (j * b - 1 - m), nmesh)
+        if axis == 0 and plan.slab is not None:
+            sx, bad = _slab_fault(i0, nmesh, plan.slab)
+            counted = counted & ~bad
+            first = sx - 1 - (j * b - 1 - m)
+            inside = inside & (first >= 0)
+        else:
+            first = torch.remainder(i0 - 1 - (j * b - 1 - m), nmesh)
         inside = inside & (first + 2 < b + 2 + 2 * m)
-    return ((w != 0) & ~inside).sum()
+    return (counted & ~inside).sum()
 
 
-def _check_deposit(grid, cols, plan, nmesh, overflow):
+def _check_deposit(grid, cols, plan, overflow, fault):
     n = cols[0].shape[0]
     for name, t in zip(('x', 'y', 'z', 'w'), cols):
         if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f'{name} must be a contiguous ({n},) float32 tensor')
         if t.device != grid.device:
             raise ValueError(f'{name} is on {t.device}, grid on {grid.device}')
-    if grid.dtype != torch.float32 or grid.shape != (nmesh,) * 3 or not grid.is_contiguous():
-        raise ValueError(f'grid must be a contiguous ({nmesh},)*3 float32 tensor')
+    shape = plan.grid_shape
+    if grid.dtype != torch.float32 or grid.shape != shape or not grid.is_contiguous():
+        raise ValueError(f'grid must be a contiguous {shape} float32 tensor')
     work = plan.work
     if work.dtype != torch.int32 or work.dim() != 2 or work.shape[1] != 3 or (
         work.device != grid.device
     ):
         raise ValueError(f'plan.work must be an (nitems, 3) int32 tensor on {grid.device}')
-    if overflow is not None and (
-        overflow.dtype != torch.int32 or overflow.numel() != 1 or overflow.device != grid.device
-    ):
-        raise ValueError(f'overflow must be a one-element int32 tensor on {grid.device}')
+    for name, word in (('overflow', overflow), ('fault', fault)):
+        if word is not None and (
+            word.dtype != torch.int32 or word.numel() != 1 or word.device != grid.device
+        ):
+            raise ValueError(f'{name} must be a one-element int32 tensor on {grid.device}')
 
 
-def _launch(grid, x, y, z, w, plan, box, offset, overflow, kind, wrap):
-    """One K1 launch of the weight column `w` into `grid`."""
+def _launch(grid, x, y, z, w, plan, box, offset, overflow, kind, wrap, fault):
+    """One K1 launch of the weight column `w` into `grid` (the slab's planes
+    in slab mode)."""
     if overflow is None:
         overflow = torch.zeros(1, dtype=torch.int32, device=grid.device)
     work = plan.work.contiguous()
+    x0, h, nx = plan.slab or (0, 0, 0)
     lib = _build.lib()
     with torch.cuda.device(grid.device):
         code = lib.tsc_deposit_bricks(
             grid.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), w.data_ptr(),
             work.data_ptr(), work.shape[0], plan.nmesh, *plan.brick, *plan.margin, _f32(box),
-            _f32(offset), KINDS.index(kind), int(wrap), overflow.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            _f32(offset), KINDS.index(kind), int(wrap), overflow.data_ptr(), nx, x0, h,
+            None if fault is None else fault.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, 'tsc_deposit_bricks')
 
 
 def tsc_deposit_cells(grid, x, y, z, w, plan, box, offset=0.0, overflow=None, kind='tsc',
-                      wrap=None):
+                      wrap=None, fault=None):
     """Add the TSC (or CIC) deposit of brick-sorted points into `grid` in
     place.
 
     x, y, z, w: (N,) f32 in the order of :func:`stage_bricks`; plan: its
     :class:`BrickPlan` (the points may have moved since: K1 deposits a point
     whose stencil leaves its tile straight into the grid); grid:
-    (plan.nmesh,)*3 f32, contiguous. `overflow`, an int32 (1,) tensor, gains
-    the number of such points (:func:`overflow_count_plain`). `wrap`: see
+    plan.grid_shape f32, contiguous: (nmesh,)*3, or in slab mode the slab's
+    (nx, nmesh, nmesh) planes. `overflow`, an int32 (1,) tensor, gains the
+    number of such points (:func:`overflow_count_plain`). `wrap`: see
     :func:`paint_3d_plain`; the points must have been staged with it.
+    `fault` (slab mode), an int32 (1,) tensor, gains the points whose cloud
+    leaves the slab, which add nothing; without it such a point raises, after
+    a wait for the device.
 
     On CUDA tensors this launches K1 (csrc/tsc_deposit.cu) on the current
     stream, without waiting for the device. On CPU tensors it runs
-    :func:`paint_3d_plain` (and :func:`overflow_count_plain` when
-    `overflow` is given). Returns `grid`."""
+    :func:`paint_3d_plain` or :func:`paint_slab_plain` (and
+    :func:`overflow_count_plain` when `overflow` is given). Returns `grid`."""
     kind, wrap = _kind(kind), _wrap(kind, wrap)
     nmesh = plan.nmesh
+    own = fault is None and plan.slab is not None
+    if own:
+        fault = torch.zeros(1, dtype=torch.int32, device=grid.device)
     if grid.device.type == 'cpu':
         if overflow is not None:
             overflow += overflow_count_plain(x, y, z, w, plan, box, offset, kind, wrap).to(
                 torch.int32)
-        return paint_3d_plain(grid, x, y, z, w, nmesh, box, offset, kind, wrap)
-    tile = tile_bytes(plan.brick, plan.margin)
-    if tile > MAX_SMEM_BYTES:
-        raise ValueError(f'tsc_deposit_cells: a {tile} B tile is over {MAX_SMEM_BYTES} B')
-    _check_deposit(grid, (x, y, z, w), plan, nmesh, overflow)
-    if plan.work.shape[0] == 0:  # no points: nothing to launch
-        return grid
-    _launch(grid, x, y, z, w, plan, box, offset, overflow, kind, wrap)
-    tsc_deposit_cells.launches += 1
-    tsc_deposit_cells.launches_by_form[kind] += 1
+        if plan.slab is None:
+            return paint_3d_plain(grid, x, y, z, w, nmesh, box, offset, kind, wrap)
+        fault += paint_slab_plain(grid, x, y, z, w, nmesh, box, plan.slab, offset, kind,
+                                  wrap).to(torch.int32)
+    else:
+        tile = tile_bytes(plan.brick, plan.margin)
+        if tile > MAX_SMEM_BYTES:
+            raise ValueError(f'tsc_deposit_cells: a {tile} B tile is over {MAX_SMEM_BYTES} B')
+        _check_deposit(grid, (x, y, z, w), plan, overflow, fault)
+        if plan.work.shape[0] == 0:  # no points: nothing to launch
+            return grid
+        _launch(grid, x, y, z, w, plan, box, offset, overflow, kind, wrap, fault)
+        tsc_deposit_cells.launches += 1
+        form = kind if plan.slab is None else f'{kind} slab'
+        tsc_deposit_cells.launches_by_form[form] += 1
+    if own and int(fault):
+        raise ValueError(f'tsc_deposit_cells: {int(fault)} points have clouds outside the slab '
+                         f'{plan.slab} (x0, h, nx)')
     return grid
 
 
 tsc_deposit_cells.launches = 0
-# launches of each kind, within `launches`
-tsc_deposit_cells.launches_by_form = dict.fromkeys(KINDS, 0)
+# launches of each kind, and of each kind's slab mode ('tsc slab', 'cic
+# slab'), within `launches`
+tsc_deposit_cells.launches_by_form = dict.fromkeys(KINDS + tuple(f'{k} slab' for k in KINDS), 0)
 
 
 def blocks_per_sm(plan, kind='tsc'):

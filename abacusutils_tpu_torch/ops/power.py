@@ -14,7 +14,9 @@ Counterpart of abacusutils_tpu/ops/power.py:
   Legendre pole weights); :func:`get_mode_bin_plan` caches its plans with
   their row spans (:class:`RowSpans`: the kz interval of each (ix, iy) row
   that holds its in-bin modes), which :func:`mode_spans` hands to the
-  binning kernel.
+  binning kernel. A plan of ``yslab=(y0, y1)`` holds the ky rows y0 .. y1
+  of the mesh, the piece of a y-sharded spectrum one rank bins
+  (parallel/fft.py); the binning takes the same ``yslab``.
 - :func:`bin_power_modes_plain` is the bin sum of ``_segsum_matmul`` as one
   float64 ``torch.bincount``; :func:`bin_power_modes` launches the binning
   kernel (``csrc/mode_bin_pairs.cu``) at one field without poles (K2) on
@@ -292,17 +294,30 @@ def _sqrt_rn_f32(x):
     return torch.sqrt(x.double()).float()
 
 
-def _mode_geometry(n1d, device):
+def _yrows(n1d, yslab):
+    """(y0, ny) of the ky rows `yslab` = (y0, y1) of an n1d mesh (None: all
+    of them); raises outside the mesh."""
+    if yslab is None:
+        return 0, int(n1d)
+    y0, y1 = (int(v) for v in yslab)
+    if not 0 <= y0 < y1 <= n1d:
+        raise ValueError(f'yslab {tuple(yslab)} outside the {n1d} rows of the mesh')
+    return y0, y1 - y0
+
+
+def _mode_geometry(n1d, device, yslab=None):
     """Flat f32 |k|^2 (in units of the fundamental mode), mu^2 and dup of
-    every rfft mode, in the host build's arithmetic: |k|^2 is the integer
-    sum of squares rounded once to f32, mu^2 = kz^2 / |k|^2 one IEEE f32
-    division (0 at k = 0)."""
+    every rfft mode (of the ky rows `yslab`, when given), in the host
+    build's arithmetic: |k|^2 is the integer sum of squares rounded once to
+    f32, mu^2 = kz^2 / |k|^2 one IEEE f32 division (0 at k = 0)."""
     kzlen = n1d // 2 + 1
+    y0, ny = _yrows(n1d, yslab)
     i = torch.arange(n1d, dtype=torch.int32, device=device)
     i2 = torch.where(i < n1d // 2, i, i - n1d) ** 2
     kz = torch.arange(kzlen, dtype=torch.int32, device=device)
     kz2 = kz * kz
-    kmag2 = (i2[:, None, None] + i2[None, :, None] + kz2[None, None, :]).to(torch.float32)
+    kmag2 = (i2[:, None, None] + i2[None, y0:y0 + ny, None]
+             + kz2[None, None, :]).to(torch.float32)
     kz2f = kz2.to(torch.float32).expand_as(kmag2)
     mu2 = torch.where(kmag2 > 0, kz2f / kmag2.clamp_min(1.0), 0.0)
     single = (kz == 0) | ((kz == kzlen - 1) if n1d % 2 == 0 else False)
@@ -319,7 +334,7 @@ def _pole_weight(mu2, dup, pole):
     return (2 * pole + 1) * pw * dup
 
 
-def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cuda'):
+def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cuda', yslab=None):
     """The mode-bin plan of a (n1d, n1d, n1d/2+1) rfft mesh, built with
     torch on `device`, the card unless the caller names another
     (ops/power.py:_mode_bin_plan_device and the host build of
@@ -331,12 +346,17 @@ def mode_bin_plan_device(n1d, kedges2, muedges2, poles=(), device='cuda'):
     dup-weighted mode counts and |k| sums; pole_w maps each non-zero pole
     l to its f32 per-mode weight (2l+1) L_l(mu) dup. seg and counts are
     bit-identical to :func:`mode_bin_plan` (the bin is
-    searchsorted(side='left') - 1 on the same f32 values)."""
+    searchsorted(side='left') - 1 on the same f32 values).
+
+    yslab=(y0, y1): the plan of the ky rows y0 .. y1 alone (ops/power.py's
+    _ModeBinPlan(yslab=)): seg and pole_w are the full plan's for those rows,
+    (n1d, y1 - y0, n1d/2+1) flat; counts and ksum count their modes, so the
+    slabs' counts of a split of the rows add up to the full plan's."""
     kedges2 = np.asarray(kedges2, np.float32)
     muedges2 = np.asarray(muedges2, np.float32)
     Nk, Nmu = len(kedges2) - 1, len(muedges2) - 1
     device = resolve_device(device)
-    kflat, muflat, dup = _mode_geometry(int(n1d), device)
+    kflat, muflat, dup = _mode_geometry(int(n1d), device, yslab)
     ke = torch.from_numpy(kedges2).to(device)
     me = torch.from_numpy(muedges2).to(device)
     valid = (kflat >= float(kedges2[0])) & (kflat < float(kedges2[-1]))
@@ -373,7 +393,8 @@ class RowSpans(NamedTuple):
 
 class ModeBinPlan(NamedTuple):
     """A cached mode-bin plan: seg, pole_w and the row spans on the device,
-    counts and ksum as read-only (Nk, Nmu) float64 numpy arrays."""
+    counts and ksum as read-only (Nk, Nmu) float64 numpy arrays; `yslab`
+    the (y0, y1) ky rows it holds, or None for the whole mesh."""
 
     seg: torch.Tensor
     counts: np.ndarray
@@ -382,10 +403,12 @@ class ModeBinPlan(NamedTuple):
     nk: int
     nmu: int
     spans: RowSpans
+    yslab: tuple = None
 
 
-# plans by (n1d, squared edges, poles, device), at most _MAX_BIN_PLANS of
-# them (ops/power.py:_get_mode_bin_plan's bounded cache)
+# plans by (n1d, squared edges, poles, device, ky slab), the most recently
+# used _MAX_BIN_PLANS of them (ops/power.py:_get_mode_bin_plan's bounded
+# cache; a multi-tracer loop and a ky-slab split hold several at once)
 _BIN_PLANS = {}
 _MAX_BIN_PLANS = 4
 
@@ -399,78 +422,99 @@ def _mesh_side(nmodes):
     raise ValueError(f'{nmodes} modes are no (n1d, n1d, n1d/2+1) rfft mesh')
 
 
-def row_spans(seg, nbins):
+def row_spans(seg, nbins, ny=None):
     """The :class:`RowSpans` of `seg` (one int32 bin per mode of an rfft
-    mesh), built with torch where seg lies (one host sync, for the count of
-    non-empty rows). A row's span runs from its first in-bin mode to its
-    last, so it holds every one of them whatever seg is; for a plan's seg
-    (bins by |k|, which grows with kz along a row) it holds nothing else."""
-    n1d = _mesh_side(seg.numel())
+    mesh, or of its ny ky rows: a (n1d, ny, n1d/2+1) slab), built with torch
+    where seg lies (one host sync, for the count of non-empty rows). A row's
+    span runs from its first in-bin mode to its last, so it holds every one
+    of them whatever seg is; for a plan's seg (bins by |k|, which grows with
+    kz along a row) it holds nothing else. Group ids count the slab's rows:
+    ix * ceil(ny / 4) + iy // 4."""
+    if ny is None:
+        n1d = ny = _mesh_side(seg.numel())
+    else:
+        n1d = _slab_side(seg.numel(), ny)
     kzlen = n1d // 2 + 1
-    s = seg.reshape(n1d * n1d, kzlen)
+    s = seg.reshape(n1d * ny, kzlen)
     valid = (s >= 0) & (s < nbins)
     kz = torch.arange(kzlen, dtype=torch.int32, device=seg.device)
     lo = torch.where(valid, kz, kzlen).amin(1)
     hi = torch.where(valid, kz + 1, 0).amax(1)
     lo = torch.where(hi > 0, lo, 0)
-    gpx = -(-n1d // SPAN_GROUP)
+    gpx = -(-ny // SPAN_GROUP)
     full = torch.zeros((n1d, gpx * SPAN_GROUP), dtype=torch.bool, device=seg.device)
-    full[:, :n1d] = (hi > 0).reshape(n1d, n1d)
+    full[:, :ny] = (hi > 0).reshape(n1d, ny)
     groups = torch.nonzero(full.reshape(n1d * gpx, SPAN_GROUP).any(1)).reshape(-1)
     return RowSpans(torch.stack([lo, hi], 1).to(torch.int32).contiguous(),
                     groups.to(torch.int32))
 
 
-def mode_spans(seg, nbins):
-    """The row spans the binning kernel walks for `seg`: those of the cached
-    plan whose seg is this very tensor (identity, not equality) and whose
-    bins number `nbins`; otherwise built anew by :func:`row_spans`, each
-    build counted in ``mode_spans.builds``."""
+def _slab_side(nmodes, ny):
+    """n1d of an (n1d, ny, n1d/2+1) ky slab of `nmodes` modes."""
+    guess = round((2 * nmodes / ny) ** 0.5)
+    for n in range(max(guess - 2, 1), guess + 3):
+        if n * ny * (n // 2 + 1) == nmodes:
+            return n
+    raise ValueError(f'{nmodes} modes are no (n1d, {ny}, n1d/2+1) slab of an rfft mesh')
+
+
+def mode_spans(seg, nbins, ny=None):
+    """The row spans the binning kernel walks for `seg` (of a whole mesh, or
+    of a slab of `ny` ky rows): those of the cached plan whose seg is this
+    very tensor (identity, not equality) and whose bins number `nbins`;
+    otherwise built anew by :func:`row_spans`, each build counted in
+    ``mode_spans.builds``."""
     for plan in _BIN_PLANS.values():
         if plan.seg is seg and plan.nk * plan.nmu == nbins:
             return plan.spans
     mode_spans.builds += 1
-    return row_spans(seg, nbins)
+    return row_spans(seg, nbins, ny)
 
 
 mode_spans.builds = 0
 
 
-def get_mode_bin_plan(n1d, kedges2, muedges2, poles, device):
+def get_mode_bin_plan(n1d, kedges2, muedges2, poles, device, yslab=None):
     """The :class:`ModeBinPlan` of :func:`mode_bin_plan_device` with its row
-    spans (:func:`row_spans`), cached by (n1d, edges, poles, device) as
-    ops/power.py:_get_mode_bin_plan keys it (``get_mode_bin_plan.builds``
+    spans (:func:`row_spans`), cached by (n1d, edges, poles, device, yslab)
+    as ops/power.py:_get_mode_bin_plan keys it (``get_mode_bin_plan.builds``
     counts the builds)."""
     kedges2 = np.asarray(kedges2, np.float32)
     muedges2 = np.asarray(muedges2, np.float32)
     poles = tuple(int(p) for p in poles)
     device = torch.device(device)
-    key = (int(n1d), kedges2.tobytes(), muedges2.tobytes(), poles, str(device))
-    plan = _BIN_PLANS.get(key)
+    if yslab is not None:
+        yslab = tuple(int(v) for v in yslab)
+        _yrows(n1d, yslab)
+    key = (int(n1d), kedges2.tobytes(), muedges2.tobytes(), poles, str(device), yslab)
+    plan = _BIN_PLANS.pop(key, None)
     if plan is None:
-        seg, counts, ksum, pole_w = mode_bin_plan_device(n1d, kedges2, muedges2, poles, device)
+        seg, counts, ksum, pole_w = mode_bin_plan_device(n1d, kedges2, muedges2, poles, device,
+                                                         yslab)
         host = []
         for a in (counts, ksum):
             a = a.cpu().numpy()
             a.flags.writeable = False
             host.append(a)
         nk, nmu = len(kedges2) - 1, len(muedges2) - 1
-        plan = ModeBinPlan(seg, *host, pole_w, nk, nmu, row_spans(seg, nk * nmu))
-        if len(_BIN_PLANS) >= _MAX_BIN_PLANS:
-            _BIN_PLANS.clear()
-        _BIN_PLANS[key] = plan
+        ny = _yrows(n1d, yslab)[1]
+        plan = ModeBinPlan(seg, *host, pole_w, nk, nmu, row_spans(seg, nk * nmu, ny), yslab)
+        while len(_BIN_PLANS) >= _MAX_BIN_PLANS:
+            del _BIN_PLANS[next(iter(_BIN_PLANS))]  # the least recently used
         get_mode_bin_plan.builds += 1
+    _BIN_PLANS[key] = plan
     return plan
 
 
 get_mode_bin_plan.builds = 0
 
 
-def _check_mesh(delta_k, seg, W):
+def _check_mesh(delta_k, seg, W, yslab=None):
     n1d = delta_k.shape[0]
-    shape = (n1d, n1d, n1d // 2 + 1)
+    shape = (n1d, _yrows(n1d, yslab)[1], n1d // 2 + 1)
     if delta_k.dtype != torch.complex64 or tuple(delta_k.shape) != shape:
-        raise ValueError(f'delta_k must be a complex64 {shape} rfft mesh')
+        raise ValueError(f'delta_k must be a complex64 {shape} rfft mesh'
+                         + ('' if yslab is None else f' (the ky rows {tuple(yslab)})'))
     if seg.dtype != torch.int32 or seg.numel() != delta_k.numel():
         raise ValueError(f'seg must hold one int32 bin per mode ({delta_k.numel()})')
     if W is not None and (W.dtype != torch.float32 or W.shape != (n1d,)):
@@ -478,22 +522,33 @@ def _check_mesh(delta_k, seg, W):
     return n1d
 
 
-def _scaled(dk, scale, W):
-    """dk * scale / (W[ix] W[iy] W[kz]) in the kernels' f32 order."""
+def _scaled(dk, scale, W, y0=0):
+    """dk * scale / (W[ix] W[iy] W[kz]) in the kernels' f32 order; dk may
+    be the ky rows y0 .. of a mesh."""
     dk = dk * _f32(scale)
     if W is None:
         return dk
-    n1d = dk.shape[0]
-    return dk / (W[:, None, None] * W[None, :, None] * W[None, None, : n1d // 2 + 1])
+    n1d, ny = dk.shape[:2]
+    return dk / (W[:, None, None] * W[None, y0:y0 + ny, None] * W[None, None, : n1d // 2 + 1])
 
 
-def bin_power_modes_plain(delta_k, seg, W, scale, nbins):
+def _slab_dup(n1d, ny, device):
+    """:func:`mode_dup` of the (n1d, ny, n1d/2+1) modes of ny ky rows (dup
+    depends on kz alone)."""
+    kzlen = n1d // 2 + 1
+    dup = torch.from_numpy(mode_dup(n1d)[:kzlen]).to(device)
+    return dup.repeat(n1d * ny)
+
+
+def bin_power_modes_plain(delta_k, seg, W, scale, nbins, yslab=None):
     """Sum dup * |delta_k * scale / (W[ix] W[iy] W[kz])|^2 over the modes of
     each bin (W=None: no compensation); the contraction of
-    ops/power.py:_segsum_matmul, accumulated in float64. Returns (nbins,) f32."""
-    n1d = _check_mesh(delta_k, seg, W)
-    p3d = _scaled(delta_k, scale, W).abs() ** 2
-    dup = torch.from_numpy(mode_dup(n1d)).to(p3d.device)
+    ops/power.py:_segsum_matmul, accumulated in float64. delta_k and seg may
+    be the ky rows `yslab` = (y0, y1) of the mesh. Returns (nbins,) f32."""
+    n1d = _check_mesh(delta_k, seg, W, yslab)
+    y0, ny = _yrows(n1d, yslab)
+    p3d = _scaled(delta_k, scale, W, y0).abs() ** 2
+    dup = _slab_dup(n1d, ny, p3d.device)
     sums = torch.bincount(
         seg.reshape(-1).long(), weights=(p3d.reshape(-1) * dup).double(), minlength=nbins + 1
     )
@@ -545,7 +600,7 @@ def _bin_grid(lib, device, nfields, npoles, H, kzlen):
     return grid
 
 
-def _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, out_dtype):
+def _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, out_dtype, yslab=None):
     """Launch the binning kernel of csrc/mode_bin_pairs.cu over the row
     spans of `seg` (:func:`mode_spans`) on the current stream, then its
     fixed-order reduction. The fields are read through their strides; only
@@ -553,7 +608,8 @@ def _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, out_dtype):
     len(poles) x nbins / nmu)) sums as `out_dtype`."""
     device = deltas[0].device
     n1d = deltas[0].shape[0]
-    spans = mode_spans(seg, nbins)
+    y0, ny = _yrows(n1d, yslab)
+    spans = mode_spans(seg, nbins, ny)
     if len({d.stride() for d in deltas}) > 1:
         deltas = [d.contiguous() for d in deltas]
     seg = seg.contiguous()
@@ -572,25 +628,27 @@ def _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, out_dtype):
             ptrs, len(deltas), *deltas[0].stride(), seg.data_ptr(), spans.groups.data_ptr(),
             ngroups, spans.bounds.data_ptr(), None if W is None else W.data_ptr(), _f32(scale), n1d,
             nbins, max(int(nmu), 1), degs, len(poles), blocks, warps, copies, smem, device.index,
-            partials.data_ptr(), out.data_ptr(), int(out_dtype == torch.float64),
+            partials.data_ptr(), out.data_ptr(), int(out_dtype == torch.float64), ny, y0,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, 'mode_bin_pairs')
     return out
 
 
-def bin_power_modes(delta_k, seg, W, scale, nbins):
+def bin_power_modes(delta_k, seg, W, scale, nbins, yslab=None):
     """Binned power of a (n1d, n1d, n1d/2+1) complex64 rfft mesh: for each
     of `nbins` bins, the sum over its modes (seg == bin) of
     dup * |delta_k * scale / (W[ix] W[iy] W[kz])|^2. Returns (nbins,) f32.
+    With `yslab` = (y0, y1), delta_k and seg are those ky rows of the mesh,
+    (n1d, y1 - y0, n1d/2+1) (a plan of ``yslab``).
 
     On CUDA tensors this launches the binning kernel at one field without
     poles (K2, csrc/mode_bin_pairs.cu) on the current stream, reading
     delta_k through its strides; on CPU tensors it runs
     :func:`bin_power_modes_plain`."""
     if delta_k.device.type == 'cpu':
-        return bin_power_modes_plain(delta_k, seg, W, scale, nbins)
-    n1d = _check_mesh(delta_k, seg, W)
+        return bin_power_modes_plain(delta_k, seg, W, scale, nbins, yslab)
+    n1d = _check_mesh(delta_k, seg, W, yslab)
     if not 0 < nbins <= MAX_BINS:
         raise ValueError(f'bin_power_modes: nbins={nbins} outside (0, {MAX_BINS}]')
     _check_smem('bin_power_modes', 1, 0, nbins, 1, n1d)
@@ -598,7 +656,7 @@ def bin_power_modes(delta_k, seg, W, scale, nbins):
         if t is not None and t.device != delta_k.device:
             raise ValueError(f'{name} is on {t.device}, delta_k on {delta_k.device}')
     lib = _build.lib()
-    out = _bin_launch(lib, [delta_k], seg, W, scale, nbins, (), 1, torch.float32)
+    out = _bin_launch(lib, [delta_k], seg, W, scale, nbins, (), 1, torch.float32, yslab)
     bin_power_modes.launches += 1
     return out
 
@@ -612,10 +670,10 @@ def field_pairs(nfields):
     return [(i, j) for i in range(nfields) for j in range(i, nfields)]
 
 
-def _check_fields(deltas, seg, W, nbins, pole_w, nmu):
+def _check_fields(deltas, seg, W, nbins, pole_w, nmu, yslab=None):
     if not 1 <= len(deltas) <= MAX_FIELDS:
         raise ValueError(f'bin_pair_modes takes 1 to {MAX_FIELDS} fields, not {len(deltas)}')
-    n1d = _check_mesh(deltas[0], seg, W)
+    n1d = _check_mesh(deltas[0], seg, W, yslab)
     for d in deltas[1:]:
         if d.dtype != deltas[0].dtype or d.shape != deltas[0].shape:
             raise ValueError('every field must be a complex64 rfft mesh of one shape')
@@ -632,7 +690,7 @@ def _check_fields(deltas, seg, W, nbins, pole_w, nmu):
     return n1d
 
 
-def bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
+def bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w=None, nmu=1, yslab=None):
     """For every pair (i, j), i <= j, of the (n1d, n1d, n1d/2+1) complex64
     rfft meshes `deltas` (in :func:`field_pairs` order), sum
     dup * Re(d_i conj(d_j)) over the modes of each bin, where
@@ -644,12 +702,13 @@ def bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     the non-zero poles (:func:`mode_bin_plan_device`), it also sums
     pole_w[l] * Re(d_i conj(d_j)) into the k-bin seg // nmu of every mode
     in a bin (ops/power.py:_bin_kmu_planned's kbounds) and returns
-    (sums, pole_sums), pole_sums (npairs, len(pole_w), nbins // nmu)."""
+    (sums, pole_sums), pole_sums (npairs, len(pole_w), nbins // nmu).
+    With `yslab` = (y0, y1) the meshes, seg and pole_w are those ky rows."""
     deltas = tuple(deltas)
-    _check_fields(deltas, seg, W, nbins, pole_w, nmu)
-    scaled = [_scaled(dk, scale, W) for dk in deltas]
-    n1d = deltas[0].shape[0]
-    dup = torch.from_numpy(mode_dup(n1d)).to(seg.device)
+    n1d = _check_fields(deltas, seg, W, nbins, pole_w, nmu, yslab)
+    y0, ny = _yrows(n1d, yslab)
+    scaled = [_scaled(dk, scale, W, y0) for dk in deltas]
+    dup = _slab_dup(n1d, ny, seg.device)
     seg = seg.reshape(-1).long()
     pairs = field_pairs(len(deltas))
     out = torch.empty((len(pairs), nbins), dtype=torch.float64, device=seg.device)
@@ -667,10 +726,10 @@ def bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     return (out, pout) if pole_w else out
 
 
-def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
+def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1, yslab=None):
     """All auto and cross bin sums of the rfft meshes `deltas` in one pass
     over the modes, with the Legendre pole rows when `pole_w` is given:
-    the contract of :func:`bin_pair_modes_plain`.
+    the contract of :func:`bin_pair_modes_plain` (ky rows `yslab` too).
 
     On CUDA tensors this launches K3 (csrc/mode_bin_pairs.cu) on the current
     stream; the kernel evaluates each pole's weight in registers from the
@@ -678,8 +737,8 @@ def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     tensors it runs :func:`bin_pair_modes_plain`."""
     deltas = tuple(deltas)
     if deltas and deltas[0].device.type == 'cpu':
-        return bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w, nmu)
-    n1d = _check_fields(deltas, seg, W, nbins, pole_w, nmu)
+        return bin_pair_modes_plain(deltas, seg, W, scale, nbins, pole_w, nmu, yslab)
+    n1d = _check_fields(deltas, seg, W, nbins, pole_w, nmu, yslab)
     poles = list(pole_w or {})
     if len(poles) > MAX_POLES:
         raise ValueError(f'bin_pair_modes takes at most {MAX_POLES} non-zero poles')
@@ -691,10 +750,10 @@ def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
     lib = _build.lib()
     npairs = len(deltas) * (len(deltas) + 1) // 2
     nk = nbins // nmu if poles else 0
-    out = _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, torch.float64)
+    out = _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, torch.float64, yslab)
     out = out.reshape(npairs, nbins + len(poles) * nk)
     bin_pair_modes.launches += 1
-    form = f'poles nmu={nmu}' if poles else 'no poles'
+    form = (f'poles nmu={nmu}' if poles else 'no poles') + ('' if yslab is None else ' ky slab')
     bin_pair_modes.launches_by_form[form] = bin_pair_modes.launches_by_form.get(form, 0) + 1
     if not poles:
         return out
@@ -702,7 +761,8 @@ def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1):
 
 
 bin_pair_modes.launches = 0
-# launches of each form ('no poles', 'poles nmu=<Nmu>'), within `launches`
+# launches of each form ('no poles', 'poles nmu=<Nmu>', each with ' ky slab'
+# when it bins a slab of ky rows), within `launches`
 bin_pair_modes.launches_by_form = {}
 
 

@@ -604,12 +604,17 @@ def _lbox_as(dtype, lbox):
     return _f32(lbox) if dtype == torch.float32 else float(lbox)
 
 
-def count_pairs_all_plain(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0, max_pairs=1 << 22):
+def count_pairs_all_plain(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0, max_pairs=1 << 22,
+                          row0=None):
     """K5's plain version: all pairs of cols1 = (x, y, z) against cols2
     (None: an autocorrelation, i == j excluded), a tile of cols1 rows at a
     time, with the per-pair minimum image in the columns' type, binned by
-    `edges2` (the squared edges, taken in that type) and `nb2`; int64 (nb1 * nb2,) counts."""
+    `edges2` (the squared edges, taken in that type) and `nb2`; int64 (nb1 * nb2,) counts.
+    row0: cols1 are the rows row0 .. of cols2, a shard of an autocorrelation,
+    and the pair of row row0 + i with itself is excluded."""
     autocorr = cols2 is None
+    skip = autocorr or row0 is not None
+    row0 = 0 if row0 is None else int(row0)
     x2, y2, z2 = cols1 if autocorr else cols2
     n1, n2 = cols1[0].shape[0], x2.shape[0]
     dev, dtype = x2.device, x2.dtype
@@ -625,8 +630,8 @@ def count_pairs_all_plain(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0, max_pa
         dy = _min_image_plain(y1 - y2[None, :], lb)
         adz = _min_image_plain(z1 - z2[None, :], lb).abs()
         flat = _bins_plain(dx, dy, adz, edges2, nb2, mode, aux)
-        if autocorr:
-            i = torch.arange(i0, i0 + x1.shape[0], device=dev)
+        if skip:
+            i = torch.arange(row0 + i0, row0 + i0 + x1.shape[0], device=dev)
             flat = torch.where(i[:, None] != j[None, :], flat, nbins)
         total += torch.bincount(flat.reshape(-1), minlength=nbins + 1)
     return total[:-1]
@@ -851,12 +856,14 @@ def _outside_box(cols1, cols2, lbox):
                 or (hi.astype(np.float32) >= np.float32(lbox)).any())
 
 
-def count_pairs_all(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0):
+def count_pairs_all(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0, row0=None):
     """Ordered pair counts over all pairs of cols1 = (x, y, z) and cols2
     (None: the autocorrelation, i == j excluded) with the per-pair minimum
     image, computed in the columns' type (float32 or float64); `edges2` holds
-    the nb1 + 1 squared edges. Returns the int64 (nb1 * nb2,) counts on the
-    columns' device.
+    the nb1 + 1 squared edges. row0: cols1 are the rows row0 .. of cols2 (a
+    row shard of an autocorrelation), and the pair of a row with itself is
+    excluded by its index in cols2. Returns the int64 (nb1 * nb2,) counts on
+    the columns' device.
 
     On CUDA tensors this launches K5 (csrc/pair_count.cu) on the current
     stream, after one reduction that tells whether the columns lie within
@@ -868,8 +875,11 @@ def count_pairs_all(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0):
         raise ValueError(f'columns must be float32 or float64, not {dtype}')
     edges2 = _edges_tensor(edges2, dtype, dev)
     nb1, nb2 = edges2.numel() - 1, int(nb2)
+    if row0 is not None and (
+            cols2 is None or not 0 <= row0 <= cols2[0].shape[0] - cols1[0].shape[0]):
+        raise ValueError(f'row0={row0}: cols1 must be rows of cols2')
     if dev.type == 'cpu':
-        return count_pairs_all_plain(cols1, cols2, edges2, nb2, mode, lbox, aux)
+        return count_pairs_all_plain(cols1, cols2, edges2, nb2, mode, lbox, aux, row0=row0)
     _check_columns(cols1, dtype, dev, 'cols1')
     b = cols1 if cols2 is None else cols2
     _check_columns(b, dtype, dev, 'cols2')
@@ -890,13 +900,14 @@ def count_pairs_all(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0):
     jchunk = -(-jchunk // K5_THREADS) * K5_THREADS
     jchunk = min(jchunk, ((1 << 31) - 1) // K5_ROWS // K5_THREADS * K5_THREADS)
     one_period = _one_period(cols1, cols2, lbox)
-    skip_self = int(cols2 is None and float(edges_host[0]) <= 0.0)
+    skip_self = int((cols2 is None or row0 is not None) and float(edges_host[0]) <= 0.0)
     lib = _build.lib()
     with torch.cuda.device(dev):
         code = lib.pair_count_all(
             *(c.data_ptr() for c in cols1), n1, *(c.data_ptr() for c in b), n2, jchunk,
             _lbox_as(dtype, lbox), round_threshold(_lbox_as(dtype, lbox), f64),
-            edges2.data_ptr(), nb1, nb2, float(aux), MODES.index(mode), skip_self, int(f64),
+            edges2.data_ptr(), nb1, nb2, float(aux), MODES.index(mode), skip_self, row0 or 0,
+            int(f64),
             int(one_period), ncopy, lut_edge.data_ptr() if ncell else None,
             lut_base.data_ptr() if ncell else None, ncell, shift, key0, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -904,12 +915,17 @@ def count_pairs_all(cols1, cols2, edges2, nb2, mode, lbox, aux=0.0):
     _build.check(code, 'pair_count_all')
     count_pairs_all.launches += 1
     count_pairs_all.launches_by_form[mode] += 1
+    if row0 is not None:
+        count_pairs_all.launches_by_form[f'{mode} row offset'] += 1
     count_pairs_all.launches_one_period += int(one_period)
     return out
 
 
 count_pairs_all.launches = 0
-count_pairs_all.launches_by_form = dict.fromkeys(MODES, 0)
+# launches of each mode, and within them those of a row shard of an
+# autocorrelation ('<mode> row offset')
+count_pairs_all.launches_by_form = dict.fromkeys(MODES + tuple(f'{m} row offset' for m in MODES),
+                                                 0)
 count_pairs_all.launches_one_period = 0
 
 

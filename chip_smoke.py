@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV, power-spectrum and disk paths and its scripts on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's HOD, P(k), pair-count, prepare_sim, ZCV, power-spectrum, disk and sharded paths and its scripts on the GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -199,6 +199,21 @@ Phases, each printing what it measured:
    and 0 NN flips); (f) ``native/pipe_client`` built with gcc under
    ``build/``, fed by ``python -m abacusutils_tpu_torch.io.pipe_asdf``
    with N and x_L2com of a halo_info file: its lines equal the port's read.
+20. the sharded path (``abacusutils_tpu_torch/parallel``) at world size
+   torch.cuda.device_count() over NCCL (a rank in this process on one card;
+   with more, a spawned rank a card): K1's slab mode (one and two halo
+   planes) and the binning over ky slabs at each rank's geometry of a 4-way
+   split at 512^3 against their plain versions, the four slabs' bins adding
+   up to the whole mesh's; then through the entry points, each against the
+   unsharded call: ``AbacusHOD.run_hod_pk_fused(mesh=)`` on phase 5's
+   catalog, replicated at 256^3 and slab at 512^3 (the spectra at 2e-4 of
+   their scale, n_gal equal; K1's slab mode and K3 over the ky slab at that
+   shape against their plain versions); ``calc_power_sharded`` in both modes
+   at 512^3 on phase 7's LRGs; ``field_fft_slab`` +
+   ``calc_pk_from_deltak_slab`` and ``get_fields_sharded`` at 512^3 on
+   phase 13's IC; the sharded pair counts on phase 8's sparse QSOs, equal
+   to the all-pairs counts, and K5 with the rank's row offset against its
+   plain version; each path's seconds, launches and peak memory a rank.
 
 Each K4 line ("K4 <mode> <pair>: ...") gives the time by CUDA events, the
 grid and the work items, the candidate pairs the walk evaluates and the
@@ -261,6 +276,7 @@ from abacusutils_tpu_torch.io.compaso import CompaSOHaloCatalog
 from abacusutils_tpu_torch.io.read_abacus import read_asdf
 from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
 from abacusutils_tpu_torch.models.pipeline import (
+    _tracer_zw,
     group_inputs2d_device,
     hod_pk_fused_yb,
     make_bin_plan_arrays,
@@ -298,6 +314,7 @@ from abacusutils_tpu_torch.ops.power import (
     bin_kppi,
     bin_kppi_sums,
     bin_kppi_sums_plain,
+    calc_pk_from_deltak,
     calc_power,
     expand_poles_to_3d,
     field_pairs,
@@ -606,9 +623,9 @@ def phase_build():
           f'(registers, spill stores, spill loads) {K1_PTXAS}; the multi-weight gather '
           f'(grids, unit grid first): {GATHER_PTXAS}; K9: {K9_PTXAS}')
     require(len(K9_PTXAS) == 2, f'ptxas reported {len(K9_PTXAS)} K9 kernels, not 2')
-    # TSC and CIC at three flush widths; the gather of 1 to 5 grids with and
-    # without a unit grid
-    require(len(K1_PTXAS) == 6, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 6')
+    # TSC and CIC at three flush widths, each on the periodic grid and in slab
+    # mode; the gather of 1 to 5 grids with and without a unit grid
+    require(len(K1_PTXAS) == 12, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 12')
     require(len(GATHER_PTXAS) == 10, f'ptxas reported {len(GATHER_PTXAS)} gather instances, not 10')
     atomics = sass_atomics(path)
     print(f'phase 1 build: atomic opcodes in the SASS of K1 and its multi-weight gather {atomics}')
@@ -635,8 +652,9 @@ def ptxas_k1(log):
     """{(kind, flush width): (registers, spill store bytes, spill load bytes)}
     of the K1 instantiations in the build's -Xptxas -v log."""
     def name(entry):
-        k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)EE', entry)
-        return k and (KINDS[int(k.group(1))], int(k.group(2)))
+        k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)ELb(\d)EE', entry)
+        return k and ((KINDS[int(k.group(1))], int(k.group(2)))
+                      + (('slab',) if k.group(3) == '1' else ()))
 
     return ptxas_of(log, name)
 
@@ -713,9 +731,10 @@ def sass_atomics(lib):
     for line in res.stdout.splitlines():
         m = re.search(r'Function : (\S+)', line)
         if m:
-            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)EE', m.group(1))
+            k = re.search(r'tsc_deposit_bricks_kernelILi(\d)ELi(\d)ELb(\d)EE', m.group(1))
             g = re.search(r'tsc_gather_kernelILi(\d)ELb(\d)EE', m.group(1))
-            func = (f'K1[{KINDS[int(k.group(1))]}, {k.group(2)}]' if k
+            func = (f'K1[{KINDS[int(k.group(1))]}, {k.group(2)}'
+                    f'{", slab" if k.group(3) == "1" else ""}]' if k
                     else f'gather[{g.group(1)}, unit {g.group(2)}]' if g else None)
             if func:
                 out[func] = {}
@@ -1339,6 +1358,7 @@ def phase_pairs(hod, mock):
     last = tracers[-1]
     pick = np.sort(rng.choice(counts[last], N_SPARSE, replace=False))
     sparse = {last: {a: mock[last][a][pick] for a in 'xyz'}}
+    PHASE20_INPUTS['qso'] = np.stack([sparse[last][a] for a in 'xyz'], 1)
     past = int(sum(((sparse[last][a] < 0) | (sparse[last][a] >= LBOX)).sum() for a in 'xyz'))
     engine, other = ('pair_count_all', 'pair_count_cells') if past else (
         'pair_count_cells', 'pair_count_all')
@@ -3898,6 +3918,490 @@ def scripts_pipe(disk16, tmp):
           + ' '.join(line for line in err.splitlines() if 'Processed' in line))
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the sharded path (parallel/) over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_SPLIT = 4  # the slab kernels' geometries: a 4-way split
+SHARD_NMESH = 512
+SHARD_FUSED_NMESH = 256  # run_hod_pk_fused(mesh=, slab=False)
+SHARD_K1_POINTS = 2_000_000  # points of each rank's slab in K1's geometry check
+SHARD_PK_KBINS = SHARD_NMESH // 2
+SHARD_SEED = SEED + 20
+SHARD_K5_PLAIN = 8_000  # rows of the block K5's plain version counts
+
+
+def slab_points(nmesh, ndev, rank, h, n, gen, dev):
+    """n points on the card whose TSC centre lies in rank's x-slab of an
+    ndev-way split or within h - 1 cells past it (K1's f32 cell), y and z
+    over the box, weights in [0, 1)."""
+    xl = nmesh // ndev
+    lo = rank * xl - (h - 1)
+    cell = torch.randint(lo, (rank + 1) * xl + (h - 1), (n,), generator=gen, device=dev)
+    x = torch.remainder((cell + torch.rand(n, generator=gen, device=dev) - 0.5) * (LBOX / nmesh),
+                        LBOX)
+    i0, _ = tgrid.axis_cloud(x, LBOX, 0.0, nmesh)
+    keep = torch.remainder(i0 - lo, nmesh) < xl + 2 * (h - 1)
+    cols = [x[keep].contiguous()] + [torch.rand(int(keep.sum()), generator=gen, device=dev) * LBOX
+                                     for _ in range(2)]
+    return cols + [torch.rand(cols[0].numel(), generator=gen, device=dev)]
+
+
+def slab_k1_check(tag, deps, nmesh, slab):
+    """K1's slab mode on `deps` ((x, y, z, w, plan) into one slab) against
+    paint_slab_plain: no fault, max|d| <= 1e-5 max|grid|. Returns (ms,
+    plain_ms, max|d|, points, kept points) by CUDA events."""
+    shape = deps[0][4].grid_shape
+    dev = deps[0][0].device
+    gk, gp = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+    fault = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def k1():
+        gk.zero_()
+        for x, y, z, w, plan in deps:
+            tsc_deposit_cells(gk, x, y, z, w, plan, LBOX, fault=fault)
+
+    def p1():
+        gp.zero_()
+        return sum(int(tgrid.paint_slab_plain(gp, x, y, z, w, nmesh, LBOX, slab))
+                   for x, y, z, w, _ in deps)
+
+    ms, plain_ms = event_ms(k1), event_ms(p1, reps=1)
+    fault.zero_()
+    k1()
+    bad = p1()
+    err = float((gk - gp).abs().max())
+    require(int(fault) == bad == 0, f'{tag}: faults {int(fault)} (plain {bad})')
+    require(err <= 1e-5 * float(gp.abs().max()), f'{tag}: K1 slab mode off by {err:.3e}')
+    n = sum(int(d[3].numel()) for d in deps)
+    kept = sum(int((d[3] != 0).sum()) for d in deps)
+    return ms, plain_ms, err, n, kept
+
+
+def slab_bin_bound(seg, nbins, ny, nfields, npoles, nk):
+    """The binning's byte bound over a ky slab (binning_bound's count on the
+    slab's plan: the in-bin modes' seg and fields, the row groups, W, the f64
+    sums) and the in-bin share."""
+    n_in = int(((seg >= 0) & (seg < nbins)).sum())
+    groups = row_spans(seg, nbins, ny).groups.numel()
+    npairs = nfields * (nfields + 1) // 2
+    out = 8 * npairs * (nbins + npoles * nk)
+    nbytes = n_in * (4 + 8 * nfields) + 36 * groups + 4 * SHARD_NMESH + out
+    return nbytes / HBM_BYTES_PER_S * 1e3, n_in / seg.numel()
+
+
+def slab_bin_check(tag, deltas, plan, W, scale, yslab, poles):
+    """The binning kernel over a ky slab against its plain version (autos at
+    rtol 1e-5, crosses at 1e-5 sqrt(P_ii P_jj), pole rows at 1e-5 of their
+    largest), timed by CUDA events, with its bound and one torch.bincount of
+    precomputed per-mode weights. Returns (record, the kernel's sums)."""
+    nbins = plan.nk * plan.nmu
+    pole_w = {p: plan.pole_w[p] for p in poles if p != 0} or None
+
+    def kern():
+        return bin_pair_modes(deltas, plan.seg, W, scale, nbins, pole_w, plan.nmu, yslab=yslab)
+
+    def plain():
+        return bin_pair_modes_plain(deltas, plan.seg, W, scale, nbins, pole_w, plan.nmu, yslab)
+
+    ms, k_ms, plain_ms = event_ms(kern), kernel_ms(kern), event_ms(plain, reps=1)
+    got, ref = kern(), plain()
+    got, ref = (got, ref) if pole_w else ((got,), (ref,))
+    pairs = field_pairs(len(deltas))
+    auto = {i: ref[0][p].abs() for p, (i, j) in enumerate(pairs) if i == j}
+    tol = torch.stack([1e-5 * (auto[i] * auto[j]).sqrt() for i, j in pairs])
+    err = float((got[0] - ref[0]).abs().max())
+    require(bool(((got[0] - ref[0]).abs() <= tol).all()), f'{tag}: binning off by {err:.3e}')
+    if pole_w:
+        perr = float((got[1] - ref[1]).abs().max())
+        require(perr <= 1e-5 * float(ref[1].abs().max()), f'{tag}: pole rows off by {perr:.3e}')
+        err = max(err, perr)
+    ny = yslab[1] - yslab[0]
+    bound, share = slab_bin_bound(plan.seg, nbins, ny, len(deltas), len(pole_w or ()), plan.nk)
+    dup = torch.from_numpy(mode_dup(SHARD_NMESH)[:SHARD_NMESH // 2 + 1]).to(plan.seg.device)
+    w = torch.cat([(deltas[i].real * deltas[j].real + deltas[i].imag * deltas[j].imag)
+                   .mul_(dup).reshape(-1) for i, j in pairs])
+    segs = torch.cat([plan.seg.reshape(-1) + p * (nbins + 1) for p in range(len(pairs))])
+    lib_ms = event_ms(lambda: torch.bincount(segs, weights=w,
+                                             minlength=len(pairs) * (nbins + 1)))
+    del w, segs
+    rec = binning_line(tag, f'{len(deltas)} fields, ky rows {yslab},', ms, k_ms, plain_ms, err,
+                       bound, share, lib_ms)
+    return rec, got
+
+
+def sharded_kernel_checks(dev):
+    """K1's slab mode (the fused step's one halo plane and paint_slab's two)
+    and the binning over ky slabs at each rank's geometry of a 4-way split at
+    512^3, each against its plain version; the four slabs' bins add up to the
+    whole mesh's."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SHARD_SEED)
+    n, ndev = SHARD_NMESH, SHARD_SPLIT
+    xl = n // ndev
+    for h in (1, 2):
+        for r in range(ndev):
+            cols = slab_points(n, ndev, r, h, SHARD_K1_POINTS, gen, dev)
+            slab = (r * xl, h, xl + 2 * h)
+            (x, y, z, w), plan = stage_bricks(cols, n, LBOX, slab=slab)
+            ms, plain_ms, err, pts, _ = slab_k1_check(f'K1 slab {r} of {ndev}, h {h}',
+                                                      [(x, y, z, w, plan)], n, slab)
+            print(f'phase 20 K1 slab mode, rank {r} of {ndev} at {n}^3, {h} halo plane(s) a side '
+                  f'({plan.grid_shape[0]} planes, {pts} points): {ms:.4f} ms vs plain '
+                  f'{plain_ms:.4f} ms, max|d| {err:.3e}, no fault')
+    kedges, muedges = get_k_mu_edges(LBOX, np.pi * n / LBOX, SHARD_PK_KBINS, 1, False)
+    dk = 2 * np.pi / LBOX
+    k2, m2 = ((kedges / dk) ** 2).astype(np.float32), (muedges**2).astype(np.float32)
+    fields = [torch.fft.rfftn(torch.randn((n,) * 3, generator=gen, device=dev)) for _ in range(3)]
+    W = torch.from_numpy(get_W_compensated(LBOX, n, 'TSC', False).astype(np.float32)).to(dev)
+    for poles, nf in (((), 3), ((0, 2, 4), 1)):
+        full = get_mode_bin_plan(n, k2, m2, poles, dev)
+        pole_w = {p: full.pole_w[p] for p in poles if p != 0} or None
+        whole = bin_pair_modes(fields[:nf], full.seg, W, 1.0 / n**3, SHARD_PK_KBINS, pole_w)
+        whole = whole if pole_w else (whole,)
+        total = None
+        for r in range(ndev):
+            ys = (r * xl, (r + 1) * xl)
+            plan = get_mode_bin_plan(n, k2, m2, poles, dev, yslab=ys)
+            local = [f[:, ys[0]:ys[1]].contiguous() for f in fields[:nf]]
+            _, got = slab_bin_check(f'phase 20 K3 ky slab {r} of {ndev}', local, plan, W,
+                                    1.0 / n**3, ys, poles)
+            total = list(got) if total is None else [a + g for a, g in zip(total, got)]
+        for a, b in zip(total, whole):
+            d = float((a - b).abs().max())
+            require(d <= 1e-5 * float(b.abs().max()), f'the ky slabs\' bins differ by {d:.3e}')
+        print(f'phase 20: the {ndev} ky slabs\' bins ({nf} field(s), poles {poles}) add up to the '
+              f'whole mesh\'s')
+    del fields
+
+
+def shard_lattice(dev):
+    """Phase 13's IC at 512^3 (its seed) and the advected lattice of its
+    filtered displacement in real space, as JAX's advect_fields paints it:
+    (delta, the (x, y, z) columns in [0, L))."""
+    meta = zcv_cosmo.get_meta(ZCV_SIM, redshift=ZCV_Z)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    n = SHARD_NMESH
+    dens, disp = gaussian_ic(n, meta, gen, dev)
+    kcut = zcv_config(n)['zcv_params']['kcut']
+    dfl = [zcv_ic.gaussian_filter(d, n, LBOX, kcut) for d in disp]
+    D, _ = zcv_cosmo.growth_from_meta(meta, ZCV_Z)
+    return dens, zcv_adv.advected_positions(dfl, LBOX, n, D, 0.0)
+
+
+def _close(tag, got, ref, rtol, atol_frac):
+    got, ref = np.asarray(got), np.asarray(ref)
+    bad = np.abs(got - ref) > rtol * np.abs(ref) + atol_frac * np.abs(ref).max()
+    i = np.unravel_index(int(np.argmax(np.abs(got - ref))), got.shape)
+    require(not bad.any(), f'{tag}: {int(bad.sum())} values off, the worst at {i}: {got[i]!r} '
+                           f'against {ref[i]!r}')
+
+
+def pk_reading(got, ref):
+    """(worst bin, its |relative difference|) of P(k) against `ref`."""
+    rel = np.abs(np.ravel(got['power']) / np.ravel(ref['power']) - 1)
+    return int(np.argmax(rel)), float(rel.max())
+
+
+def sharded_paths(mesh, pk_pos, qso, out):
+    """Phase 20's main paths through the entry points, each against the
+    unsharded call, with its launches (counted from 0 just before it), host
+    to host seconds and this rank's peak memory. Fills `out` (paths,
+    timings); returns the records the kernels line takes."""
+    from abacusutils_tpu_torch.parallel import fft as pfft
+    from abacusutils_tpu_torch.parallel import mesh as pmesh
+
+    dev = pmesh.mesh_device(mesh)
+    world, rank = pmesh.mesh_size(mesh), pmesh.mesh_rank(mesh)
+    paths, recs = out.setdefault('paths', {}), {}
+
+    def run(tag, fn):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res, sec = sync_seconds(fn)
+        paths[tag] = read_launches()
+        print(f'phase 20 {tag}: {sec:.3f} s host to host on {world} rank(s), peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB a rank, launches '
+              f'{({k: v for k, v in paths[tag].items() if v})}')
+        return res
+
+    # (a) run_hod_pk_fused(mesh=) on phase 5's catalog, replicated at 256^3
+    # and slab at 512^3, against the unsharded call
+    state = fused_state(dev)
+    params = {'z': 0.5, 'Lbox': LBOX, 'velz2kms': VELZ2KMS, 'origin': None}
+    hod = AbacusHOD(*state, params, TRACERS, dev)
+    del state
+    for nmesh, slab in ((SHARD_FUSED_NMESH, False), (SHARD_NMESH, True)):
+        hod.run_hod_pk_fused(nmesh=nmesh)
+        ref = run(f'AbacusHOD.run_hod_pk_fused(), {nmesh}^3, unsharded',
+                  lambda: hod.run_hod_pk_fused(nmesh=nmesh))
+        tag = f'AbacusHOD.run_hod_pk_fused(mesh=, slab={slab}), {nmesh}^3'
+        run(f'{tag}, cold (shard-local staging)',
+            lambda: hod.run_hod_pk_fused(nmesh=nmesh, mesh=mesh, slab=slab))
+        got = run(tag, lambda: hod.run_hod_pk_fused(nmesh=nmesh, mesh=mesh, slab=slab))
+        launches = paths[tag]
+        form = 'tsc slab' if slab else 'tsc'
+        k3 = 'bin_pair_modes[no poles ky slab]' if slab else 'bin_pair_modes[no poles]'
+        require(launches[f'tsc_deposit_cells[{form}]'] == 2 * len(WANT) and launches[k3] == 1,
+                f'{tag}: launches {launches}')
+        require(got[1] == ref[1], f'{tag}: n_gal {got[1]} != {ref[1]}')
+        for t1 in WANT:
+            for t2 in WANT:
+                key = f'{t1}_{t2}'
+                require(np.array_equal(got[0][key + '_modes'], ref[0][key + '_modes']), key)
+                scale = (np.abs(ref[0][key]) if t1 == t2
+                         else np.sqrt(np.abs(ref[0][f'{t1}_{t1}'] * ref[0][f'{t2}_{t2}'])))
+                d = np.abs(got[0][key] - ref[0][key])
+                require((d <= 2e-4 * scale).all(), f'{tag}: {key} off by '
+                        f'{float(np.max(d / np.maximum(scale, 1e-300))):.3e} of its scale')
+        stage = hod._fused_stage[1]
+        print(f'phase 20 {tag}: equal to the unsharded call (spectra at 2e-4 of their scale, '
+              f'n_gal {got[1]}); this rank stages {stage.halo_g["x"].numel()} halos, '
+              f'{stage.part_g["x"].numel()} particles, its grid {stage.plan_h.grid_shape}')
+        if slab:
+            # K1's slab mode and the ky-slab binning at this path's shapes
+            # (every rank runs them, for their collectives; rank 0's records
+            # are kept)
+            halo_g, part_g = stage.halo_g, stage.part_g
+            tp = hod._tracer_tensors(TRACERS, WANT)
+            keep_c = tpop._cent_codes(halo_g, tp, WANT)
+            glob = torch.zeros(stage.nhalo_max, dtype=torch.int8, device=dev)
+            glob[:keep_c.numel()] = keep_c
+            glob = pmesh.all_gather_rows(glob, mesh)
+            keep_s = tpop._sat_codes(part_g, tp, WANT, glob[part_g['hkeep_at']])
+            tr = _tracer_zw(halo_g, part_g, tp, WANT, True, _f32(1.0 / VELZ2KMS), keep_c, keep_s)
+            half = _f32(np.float32(LBOX) / 2)
+            z_c, w_c, z_s, w_s = tr['LRG']
+            deps = [(halo_g['x'] + half, halo_g['y'] + half, z_c + half, w_c, stage.plan_h),
+                    (part_g['x'] + half, part_g['y'] + half, z_s + half, w_s, stage.plan_p)]
+            xl = nmesh // world
+            ms, plain_ms, err, pts, kept = slab_k1_check(f'{tag} K1', deps, nmesh,
+                                                         stage.plan_h.slab)
+            nbytes = 4 * pts + 12 * kept + 4 * (xl + 2) * nmesh * nmesh
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f'phase 20 K1 slab mode at {tag}, LRG (2 launches, {stage.plan_h.grid_shape[0]} '
+                  f'planes): {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes, '
+                  f'share {bound / ms:.3f}), max|d| {err:.3e}; {CARD[0]}')
+            recs['tsc_deposit_cells[tsc slab]'] = dict(
+                ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by='bytes',
+                library_ms=None, shape=f'{tag}, LRG, {pts} points')
+            dels = []
+            for t in WANT:
+                z_c, w_c, z_s, w_s = tr[t]
+                grid = torch.zeros(stage.plan_h.grid_shape, device=dev)
+                for (x, y, _, _, plan), z, w in zip(deps, (z_c, z_s), (w_c, w_s)):
+                    tsc_deposit_cells(grid, x, y, z + half, w, plan, LBOX)
+                core = pfft.fold_halos(grid, 1, mesh)
+                dels.append(pfft.slab_rfftn(core * (_f32(float(nmesh) ** 3) / got[1][t]) - 1.0,
+                                            mesh))
+            W = torch.from_numpy(get_W_compensated(LBOX, nmesh, 'TSC', False)
+                                 .astype(np.float32)).to(dev)
+            plan, yslab, _ = pmesh._fused_slab_bins(mesh, nmesh, LBOX, nmesh // 2)
+            recs['bin_pair_modes[no poles ky slab]'], _ = slab_bin_check(
+                f'phase 20 K3 ky slab at {tag}', dels, plan, W, 1.0 / nmesh**3, yslab, ())
+            del dels, tr, deps, glob
+        del ref, got
+    del hod
+    gc_cuda()
+
+    # (b) calc_power_sharded, replicated and slab, on phase 7's LRG mock
+    n = SHARD_NMESH
+
+    def single(pos):
+        return calc_power(pos, LBOX, kbins=SHARD_PK_KBINS, mubins=1, nmesh=n, compensated=False,
+                          interlaced=False, poles=[0, 2, 4], device=dev)
+
+    # the slab path paints x + L / 2 (paint_slab's centring, as JAX's), and
+    # is held to calc_power of those f32 coordinates; against the
+    # coordinates as given its reading is printed: the rounding of x + L / 2
+    # moves bin 0 (the k = 0 mode and the six fundamental modes) by a fixed
+    # amount for given inputs
+    raw = single(pk_pos)
+    centred = single(pk_pos + np.float32(LBOX / 2))
+    for slab in (False, True):
+        tag = f'calc_power_sharded(slab={slab}), {n}^3, {len(pk_pos)} LRGs'
+        got = run(tag, lambda: pmesh.calc_power_sharded(pk_pos, LBOX, mesh, nmesh=n,
+                                                         kbins=SHARD_PK_KBINS, poles=(0, 2, 4),
+                                                         slab=slab))
+        form = 'tsc slab' if slab else 'tsc'
+        k3 = 'bin_pair_modes[poles nmu=1' + (' ky slab]' if slab else ']')
+        require(paths[tag][f'tsc_deposit_cells[{form}]'] == 1 and paths[tag][k3] == 1,
+                f'{tag}: launches {paths[tag]}')
+        ref = centred if slab else raw
+        readings = [('the f32 coordinates it paints', ref)] + (
+            [('the coordinates as given (not held)', raw)] if slab else [])
+        for name, r in readings:
+            i, rel = pk_reading(got, r)
+            print(f'phase 20 {tag}: P(k) against calc_power of {name}: worst bin {i} off by '
+                  f'{rel:.3e} relative (N_mode {int(np.ravel(r["N_mode"])[i])})')
+        _close(tag, np.ravel(got['power']), np.ravel(ref['power']), 3e-4, 0.0)
+        _close(tag + ' poles', got['poles'], ref['poles'], 3e-4, 1e-5)
+        require(np.array_equal(np.ravel(got['N_mode']), np.ravel(ref['N_mode'])), tag)
+    del raw, centred
+    # the binning of calc_power_sharded_slab at its shape
+    bins = pfft._slab_bins(n, *get_k_mu_edges(LBOX, np.pi * n / LBOX, SHARD_PK_KBINS, 1,
+                                              False), 2 * np.pi / LBOX, (0, 2, 4), mesh)
+    core = pfft.paint_slab(*pfft.shard_slabs(mesh, pk_pos, None, n, LBOX), n, LBOX, mesh)
+    dl = pfft.slab_rfftn(core * _f32(np.float32(n) ** 3 / np.float32(len(pk_pos))) - 1.0,
+                         mesh)
+    recs['bin_pair_modes[poles nmu=1 ky slab]'], _ = slab_bin_check(
+        f'phase 20 K3 poles ky slab at calc_power_sharded_slab', [dl], bins.plan, None,
+        1.0 / n**3, bins.yslab, (0, 2, 4))
+    del core, dl
+    print(f'phase 20 calc_power_sharded: both modes equal calc_power of the coordinates each '
+          f'paints (rtol 3e-4, poles atol 1e-5 of the largest, N_mode equal)')
+
+    # (c) field_fft_slab + calc_pk_from_deltak_slab and get_fields_sharded
+    # on phase 13's IC
+    dens, pos = shard_lattice(dev)
+    w = dens.reshape(-1)
+    tag = f'field_fft_slab + calc_pk_from_deltak_slab, {n}^3 lattice'
+    kedges, muedges = get_k_mu_edges(LBOX, np.pi * n / LBOX, SHARD_PK_KBINS, 1, False)
+
+    def field_path():
+        f = pfft.field_fft_slab(pos, LBOX, n, mesh, w=w, compensated=True)
+        return f, pfft.calc_pk_from_deltak_slab(f, LBOX, kedges, muedges, mesh, poles=[0, 2, 4])
+
+    f, pk = run(tag, field_path)
+    require(paths[tag]['tsc_deposit_cells[tsc slab]'] == 1
+            and paths[tag]['bin_pair_modes[poles nmu=1 ky slab]'] == 1, f'{tag}: {paths[tag]}')
+    Wc = get_W_compensated(LBOX, n, 'TSC', False)
+    ref = get_field_fft(pos, LBOX, n, 'TSC', w, Wc, True, False)
+    full = pfft.gather_slab(f, mesh)
+    d = float((full - ref).abs().max())
+    require(d <= 2e-4 * float(ref.abs().max()), f'{tag}: the field off by {d:.3e}')
+    pk1 = calc_pk_from_deltak(full, LBOX, kedges, muedges, poles=[0, 2, 4])
+    _close(tag, pk['power'], pk1['power'], 3e-4, 1e-6)
+    _close(tag + ' poles', pk['binned_poles'], pk1['binned_poles'], 3e-4, 1e-5)
+    del full, ref, f, pos
+    tag = f'get_fields_sharded, {n}^3'
+    pieces = run(tag, lambda: zcv_ic.get_fields_sharded(dens, LBOX, n, mesh))
+    for name, p, r in zip(('delta', 'delta^2', 's^2', 'nabla^2 delta'), pieces,
+                          zcv_ic.get_fields(dens, LBOX, n)):
+        g = pfft.gather_slab(p, mesh, dim=0)
+        bad = ((g - r).abs() > 2e-5 * r.abs().max() + 1e-4 * r.abs()).sum()
+        require(int(bad) == 0, f'{tag}: {name} off in {int(bad)} cells')
+    print(f'phase 20 field_fft_slab, calc_pk_from_deltak_slab and get_fields_sharded equal the '
+          f'unsharded calls (the field at 2e-4 of its largest, P(k) rtol 3e-4, the fields at '
+          f'2e-5 of their scale + rtol 1e-4)')
+    del pieces, dens, w
+
+    # (d) the sharded pair counts on phase 8's sparse QSO sample
+    tag = f'pair_counts_rppi_sharded + pair_counts_smu_sharded ({len(qso)} {WANT[-1]})'
+    dd, ds = run(tag, lambda: (
+        pmesh.pair_counts_rppi_sharded(qso, PAIR_BINS, PIMAX, LBOX, mesh),
+        pmesh.pair_counts_smu_sharded(qso, PAIR_BINS, NMU, LBOX, mesh)))
+    require(paths[tag]['pair_count_all[rppi row offset]'] == 1
+            and paths[tag]['pair_count_all[smu row offset]'] == 1, f'{tag}: {paths[tag]}')
+    cols = position_columns(tuple(qso[:, i] for i in range(3)), dev)
+    require(np.array_equal(dd, pair_counts_rppi(tuple(cols), PAIR_BINS, PIMAX, LBOX,
+                                                method='tile'))
+            and np.array_equal(ds, tpcf.pair_counts_smu(tuple(cols), PAIR_BINS, NMU, LBOX,
+                                                        method='tile')),
+            f'{tag}: the counts differ from the unsharded all-pairs counts')
+    print(f'phase 20 {tag}: equal to the unsharded counts, {int(dd.sum())} (rp, pi) and '
+          f'{int(ds.sum())} (s, mu) ordered pairs')
+    # K5 with the rank's row offset at this path's shape; its plain version
+    # on the block's first SHARD_K5_PLAIN rows, with their offset
+    a, b = pmesh.row_block(len(qso), mesh)
+    thr = tpcf.edges_f32(np.asarray(PAIR_BINS, np.float64) ** 2)
+    for mode, nb2, aux in pair_modes():
+        def k5(rows=(a, b), mode=mode, nb2=nb2, aux=aux):
+            part = [c[rows[0]:rows[1]] for c in cols]
+            return count_pairs_all(part, cols, thr, nb2, mode, LBOX, aux, row0=rows[0])
+
+        def p5(mode=mode, nb2=nb2, aux=aux):
+            part = [c[a:a + SHARD_K5_PLAIN] for c in cols]
+            return count_pairs_all_plain(part, cols, thr, nb2, mode, LBOX, aux,
+                                         max_pairs=1 << 26, row0=a)
+
+        ms, plain_ms = event_ms(k5), event_ms(p5, reps=1)
+        sub = (a, min(a + SHARD_K5_PLAIN, b))
+        require(torch.equal(k5(sub), p5()), f'K5 {mode} with a row offset differs from plain')
+        bound, by = k5_bound(b - a, len(qso), mode, (len(PAIR_BINS) - 1) * nb2, torch.float32)
+        print(f'phase 20 K5 {mode} with a row offset ({b - a} x {len(qso)}): {ms:.4f} ms, bound '
+              f'{bound:.4f} ms by {by} (share {bound / ms:.3f}); plain {plain_ms:.4f} ms on '
+              f'{sub[1] - sub[0]} x {len(qso)}, bins equal to the kernel\'s there')
+        recs[f'pair_count_all[{mode} row offset]'] = pair_record(
+            ms, plain_ms, bound, by, shape=f'{b - a} x {len(qso)}',
+            plain_shape=f'{sub[1] - sub[0]} x {len(qso)}')
+    out['timing'] = recs
+    return recs
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_rank(rank, world, store, data_dir, result):
+    """One rank of phase 20's world: join it over NCCL, build the mesh, run
+    the main paths, leave it. Rank 0 writes what it found to `result` (JSON)."""
+    import torch.distributed as dist
+
+    from abacusutils_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    init_world(rank, world, f'file://{store}', 'cuda')
+    out = {}
+    try:
+        mesh = make_mesh()
+        pk_pos = np.load(Path(data_dir) / 'pk_pos.npy')
+        qso = np.load(Path(data_dir) / 'qso.npy')
+        sharded_paths(mesh, pk_pos, qso, out)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        Path(result).write_text(json.dumps(out))
+
+
+def _sharded_spawned(rank, world, store, data_dir, result):
+    torch.cuda.set_device(rank)
+    _build.lib()
+    sharded_rank(rank, world, store, data_dir, result)
+
+
+def phase_sharded(dev, paths, timing, pk_pos, qso):
+    """Phase 20: the sharded path on torch.distributed at world size
+    torch.cuda.device_count() over NCCL (one rank in this process on one
+    card; with more cards, a spawned rank a card): the slab kernels at a
+    4-way split's geometries, then run_hod_pk_fused(mesh=) (replicated at
+    256^3, slab at 512^3), calc_power_sharded in both modes at 512^3 on
+    phase 7's LRGs, field_fft_slab + calc_pk_from_deltak_slab and
+    get_fields_sharded at 512^3 on phase 13's IC, and the sharded pair counts
+    on phase 8's sparse QSOs, each against the unsharded call."""
+    t0 = time.perf_counter()
+    sharded_kernel_checks(dev)
+    world = torch.cuda.device_count()
+    root = Path(tempfile.mkdtemp(prefix='chip_smoke_world_'))
+    try:
+        if world == 1:
+            import torch.distributed as dist
+
+            from abacusutils_tpu_torch.parallel.mesh import init_world, make_mesh
+
+            init_world(0, 1, f'file://{root / "store"}', 'cuda', 0)
+            out = {}
+            try:
+                sharded_paths(make_mesh(), pk_pos, qso, out)
+            finally:
+                dist.destroy_process_group()
+        else:
+            np.save(root / 'pk_pos.npy', pk_pos)
+            np.save(root / 'qso.npy', qso)
+            torch.multiprocessing.spawn(
+                _sharded_spawned, args=(world, str(root / 'store'), str(root),
+                                        str(root / 'out.json')), nprocs=world, join=True)
+            out = json.loads((root / 'out.json').read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    paths.update(out['paths'])
+    timing.update(out['timing'])
+    print(f'phase 20 in {time.perf_counter() - t0:.1f} s on {world} rank(s); {CARD[0]}')
+
+
 KERNELS = {
     'tsc_deposit_cells': (tsc_deposit_cells, 'abacusutils_tpu_torch/csrc/tsc_deposit.cu',
                           'abacusutils_tpu/ops/grid_pallas.py:92'),
@@ -3943,7 +4447,20 @@ FORMS = {
     'window_mode_sums': ('window_mode_sums', None,
                          'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
     'bin_kppi_sums': ('bin_kppi_sums', None, 'abacusutils_tpu/ops/power.py:613'),
+    'tsc_deposit_cells[tsc slab]': ('tsc_deposit_cells', 'tsc slab',
+                                    'abacusutils_tpu/parallel/fft.py:57'),
+    'bin_pair_modes[no poles ky slab]': ('bin_pair_modes', 'no poles ky slab',
+                                         'abacusutils_tpu/parallel/fft.py:193'),
+    'bin_pair_modes[poles nmu=1 ky slab]': ('bin_pair_modes', 'poles nmu=1 ky slab',
+                                            'abacusutils_tpu/parallel/fft.py:193'),
+    'pair_count_all[rppi row offset]': ('count_pairs_all', 'rppi row offset',
+                                        'abacusutils_tpu/parallel/mesh.py:633'),
+    'pair_count_all[smu row offset]': ('count_pairs_all', 'smu row offset',
+                                       'abacusutils_tpu/parallel/mesh.py:687'),
 }
+# what phase 20 takes from the earlier phases: phase 8's sparse QSO sample
+# ('qso') and phase 7's LRG positions ('pk_pos'), (N, 3) numpy
+PHASE20_INPUTS = {}
 
 
 def reset_launches():
@@ -4502,6 +5019,8 @@ def main():
         paths8, timing8 = phase_pairs(hod, mock)
         timing.update(timing8)
         mock14 = {tr: {a: mock[tr][a] for a in ('x', 'y', 'z', 'vz')} for tr in WANT}
+        PHASE20_INPUTS['pk_pos'] = np.stack([mock['LRG'][a] for a in 'xyz'], 1).astype(
+            np.float32)
         halo5 = hod.halo_data  # phase 15's NFW catalog
         del hod, mock
         chain_share = phase_prep_kernels(dev)
@@ -4552,6 +5071,9 @@ def main():
         del tpl13
         paths19 = {}
         phase_scripts(dev, paths19, disk16, cfg17)
+        paths20 = {}
+        phase_sharded(dev, paths20, timing, PHASE20_INPUTS.pop('pk_pos'),
+                      PHASE20_INPUTS.pop('qso'))
         kernels = kernel_line({
             'hod_pk_fused_yb': step_launches,
             'AbacusHOD.run_hod_pk_fused': box[0],
@@ -4566,6 +5088,7 @@ def main():
             **paths17,
             **paths18,
             **paths19,
+            **paths20,
         }, timing)
         require(mode_spans.builds == 0, f'{mode_spans.builds} row-span builds outside a plan')
     except PhaseError as e:
@@ -4575,7 +5098,7 @@ def main():
         # phases 16 and 17 leave their trees for phase 19's scripts
         for root in roots:
             shutil.rmtree(root, ignore_errors=True)
-    print(f'chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s, row-span builds '
+    print(f'chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s, row-span builds '
           f'outside a plan {mode_spans.builds}')
     print(json.dumps(kernels))
     print(json.dumps({

@@ -19,7 +19,7 @@ from abacusutils_tpu.models.hod.abacus_hod import AbacusHOD as JaxAbacusHOD
 from abacusutils_tpu_torch.convert import staged_state_from_numpy
 from abacusutils_tpu_torch.models import pipeline as tpipe
 from abacusutils_tpu_torch.models.hod.abacus_hod import AbacusHOD
-from torch_helpers import TRACERS, staged_state
+from torch_helpers import TRACERS, gloo_mesh, staged_state  # noqa: F401
 
 LBOX = 500.0
 NMESH = 32
@@ -143,19 +143,26 @@ def test_lc_reseed_restages():
     assert got[1] != before[1]
 
 
-def test_staged_state_and_unported_options():
+def test_staged_state_and_unported_options(gloo_mesh):
     """The conversion keeps the columns on the host until the first call,
     the bin plan is built once for repeated calls, and the sharded options
-    name the roadmap item that ports them."""
+    route through parallel.mesh: on a world of one gloo rank, mesh= gives
+    the unsharded spectra in both modes (slab alone, without a mesh, is the
+    unsharded call, as in JAX); the light cone refuses mesh= as JAX's does."""
     halo, part = _state(2_000, 8_000, seed=3)
     _, port = _pair((halo, part), False, True, False)
     assert isinstance(port, AbacusHOD) and port._fused_stage is None
     assert port.want_shear and not port.halo_lc and port.lbox == LBOX
     assert all(isinstance(v, np.ndarray) for v in port.halo_data.values())
     builds = tpipe.make_bin_plan_arrays.builds
-    port.run_hod_pk_fused(nmesh=24, nbins_k=9)
+    want = port.run_hod_pk_fused(nmesh=24, nbins_k=9)
     port.run_hod_pk_fused(nmesh=24, nbins_k=9)
     assert tpipe.make_bin_plan_arrays.builds - builds <= 1
-    for kw in ({'mesh': object()}, {'slab': True}):
-        with pytest.raises(NotImplementedError, match=r'ROADMAP.md queue 1, item 6 \(multi-GPU\)'):
-            port.run_hod_pk_fused(**kw)
+    _assert_clustering(port.run_hod_pk_fused(nmesh=24, nbins_k=9, slab=True), want)
+    for slab in (False, True):
+        _assert_clustering(port.run_hod_pk_fused(nmesh=24, nbins_k=9, mesh=gloo_mesh, slab=slab),
+                           want)
+        assert port._fused_stage[0][-2:] == (gloo_mesh, slab)
+    _, lc = _pair((halo, part), True, False, False)
+    with pytest.raises(NotImplementedError, match='single-device'):
+        lc.run_hod_pk_fused(nmesh=24, mesh=gloo_mesh)

@@ -52,6 +52,7 @@ from abacusutils_tpu_torch.models.zcv import zenbu_native as tzn
 from abacusutils_tpu_torch.models.zcv import zenbu_window as tzw
 from abacusutils_tpu_torch.models.zcv.precompute import LCVProducts, ZCVProducts
 from common import make_synthetic_zcv_dir
+from torch_helpers import gloo_mesh  # noqa: F401
 from test_torch_zcv import APPLY_RTOL, PK_RTOL, QGRID, _assert_spectra, _autos, _balls, _floor
 
 SIM, Z, NMESH, LBOX = 'AbacusSummit_base_c000_ph006', 0.8, 16, 2000.0
@@ -414,6 +415,29 @@ def test_lcv_main_and_from_dir_match_jax(tmp_path):
             ).is_file()
 
 
-def test_mesh_is_refused(chain):
-    with pytest.raises(NotImplementedError, match=r'queue 1, item 6 \(multi-GPU\)'):
-        tadv.main(chain['cfg'], mesh=object(), device='cpu')
+def test_mesh_is_refused(chain, gloo_mesh, tmp_path):
+    """advect_fields.main(mesh=) is no longer refused: on a world of one gloo
+    rank it paints and transforms each field with parallel/fft.py's
+    field_fft_slab and writes the Fourier fields the unsharded main writes,
+    within tests/test_parallel.py's budget for JAX's sharded advection
+    (atol 1e-4 of the scale, rtol 1e-3)."""
+    out = {}
+    for tag, mesh in (('single', None), ('slab', gloo_mesh)):
+        d = tmp_path / tag
+        shutil.copytree(chain['pdir'], d)
+        zdir = d / SIM / f'z{Z:.3f}'
+        for fn in [*zdir.glob('advected_*'), *zdir.glob('power*')]:
+            fn.unlink()
+        config = copy.deepcopy(chain['pconfig'])
+        config['zcv_params'].update(zcv_dir=str(d), ic_dir=str(d))
+        tadv.main(_json(config, tmp_path / f'{tag}.json'), want_rsd=False, mesh=mesh,
+                  device='cpu')
+        out[tag] = zdir
+    for kn in ('1cb', 'delta', 'delta2', 'tidal2', 'nabla2'):
+        vals = {}
+        for tag, zdir in out.items():
+            with topen(zdir / f'advected_{kn}_field_fft_nmesh{NMESH}.asdf') as f:
+                data = f['data']
+                vals[tag] = np.asarray(data[f'{kn}_Re']) + 1j * np.asarray(data[f'{kn}_Im'])
+        scale = np.abs(vals['single']).max()
+        npt.assert_allclose(vals['slab'], vals['single'], atol=1e-4 * scale, rtol=1e-3, err_msg=kn)

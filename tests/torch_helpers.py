@@ -204,3 +204,18 @@ def k6_tensors(ppos, ps, pn, submask, device='cpu'):
     query, work = trd.nn_work(seg, t(submask).to(device), len(ps))
     return (x, y, z, query, work, t(ps.astype(np.int32)).to(device),
             t(pn.astype(np.int32)).to(device), seg)
+
+
+@pytest.fixture
+def gloo_mesh(tmp_path):
+    """The port's mesh over a gloo world of this process alone (a file
+    store under the test's tmp directory), torn down after the test."""
+    import torch.distributed as dist
+
+    from abacusutils_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    init_world(0, 1, f'file://{tmp_path / "store"}', 'cpu')
+    try:
+        yield make_mesh('cpu')
+    finally:
+        dist.destroy_process_group()
