@@ -56,9 +56,10 @@ SIGNATURES = {
     # spans, W, scale, n1d, nbins, nmu, pole degrees (array of ints), npoles,
     # blocks, warps, histogram copies a warp, shared bytes, device, partials,
     # out, out is f64, the rows along y of the fields and the plan (n1d, or a
-    # ky slab's), the slab's first global iy, stream
+    # ky slab's), the slab's first global iy, the groups run along x (1) or
+    # y (0), stream
     'mode_bin_pairs': (ctypes.POINTER(_P), _I, _L, _L, _L, _P, _P, _I, _P, _P, _F, _I, _I, _I,
-                       ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P),
+                       ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     # the first side's sorted x, y, z, the second side's, its cell starts, the
     # work list, nitems, the walk's rows, nrows, nc, groups a row, nc / lbox,
     # lbox, squared edges, nb1, nb2, aux, mode, use_wrap, skip_self, histogram

@@ -29,17 +29,27 @@
 //
 // - Row spans. Along kz in one (ix, iy) row |k|^2 grows, so a plan's in-bin
 //   modes of a row form one interval [lo, hi). The plan keeps these spans
-//   (ops/power.py:row_spans) and the list of non-empty groups of four
-//   neighbouring rows (iy0 .. iy0+3 at one ix). A warp takes one group as a
-//   tile of 4 rows x 8 kz, and only in-span modes read seg and the fields.
-//   In cuFFT's rfftn layout (iy fastest, then ix, kz slowest) the four rows'
-//   values at one kz fill one 32-byte sector, and seg (kz fastest) gives a
-//   full sector a row: every sector a warp loads is used whole. A mode in a
-//   span whose seg is outside every bin is skipped, so any seg gives the
-//   right sums.
-// - Index arithmetic once a tile: ix, iy, scale / (W[ix] W[iy]) and the
-//   64-bit bases; 1 / W[kz] comes from shared memory, so a mode costs no
-//   division (one fast one for mu^2 in the pole form).
+//   (ops/power.py:row_spans) and two lists of the non-empty groups of four
+//   neighbouring rows: along y (iy0 .. iy0+3 at one ix) and along x (ix0 ..
+//   ix0+3 at one iy). A warp takes one group as a tile of 4 rows x 8 kz, and
+//   only in-span modes read seg and the fields. The launch takes the list
+//   whose four rows lie side by side in memory, so that the rows' values at
+//   one kz fill one 32-byte sector:
+//   - along y where sx >= sy: cuFFT's rfftn layout (iy fastest, then ix, kz
+//     slowest), and kz-contiguous meshes, where a row's 8 kz fill two
+//     sectors either way;
+//   - along x where sx < sy: the ky slabs of parallel/fft.py:slab_rfftn,
+//     whose last fft runs along x and leaves x fastest. Along y there, each
+//     lane's 8 bytes take a sector of their own: 4x the bytes, and 3.43 ms
+//     against 0.77 along x for three 512^3 meshes on an H100.
+//   seg (kz fastest) gives a full sector a row on either list: every sector
+//   a warp loads is used whole. A mode in a span whose seg is outside every
+//   bin is skipped, so any seg gives the right sums.
+// - Index arithmetic once a row of the tile (each lane computes its own
+//   row's): ix, iy, scale / (W[ix] W[iy]), the pole form's kx^2 + ky^2 and
+//   the 64-bit bases; 1 / W[kz] comes from shared memory, so a mode costs no
+//   division (one fast one for mu^2 in the pole form). The ragged last group
+//   of either list (iy >= ny, or ix >= n1d: n1d = 45 or 550) has empty rows.
 // - Run-aggregated adds. Along kz in a row, seg and the k-bin seg / nmu do
 //   not decrease, so equal bins form runs of lanes. A segmented scan over
 //   each row's 8 lanes (__shfl_up_sync, as many steps as the longest run
@@ -66,11 +76,22 @@
 //
 // A ky slab: the meshes may be the rows y0 .. y0 + ny of the full
 // (n1d, n1d, n1d/2+1) spectrum, laid out (n1d, ny, n1d/2+1) as the y-sharded
-// output of parallel/fft.py:slab_rfftn is, with a plan of those rows
-// (ops/power.py:mode_bin_plan_device(yslab=)): seg and the row spans index
-// the slab's rows, W and |k| the global iy = y0 + local iy. ny = n1d and
-// y0 = 0 is the whole mesh.
+// output of parallel/fft.py:slab_rfftn is (x fastest: the x-grouped list),
+// with a plan of those rows (ops/power.py:mode_bin_plan_device(yslab=)): seg
+// and the row spans index the slab's rows, W and |k| the global iy = y0 +
+// local iy. ny = n1d and y0 = 0 is the whole mesh.
 //
+// What holds the x-grouped form back (NVIDIA H100 80GB HBM3, 700 W; three
+// 512^3 meshes, scripts/torch/bin_compare.py): 0.77 ms, against 0.60 on the
+// same rows made kz-contiguous and 0.76 for the y-grouped form on rfftn's
+// y-fastest layout. On either fast-axis layout a warp's load of 4 rows x 8
+// kz takes eight 32-byte sectors from eight lines a kz plane apart, where
+// kz-contiguous rows give four 64-byte runs; a pitch that is no power of
+// two does not help (0.83 ms), so it is the lines and DRAM pages a load
+// touches, not channel aliasing. Tiles of 8 rows x 4 kz along the fast axis
+// would touch four. The pole form at T = 1 is held by its scans and merges
+// on any layout (0.70 ms on slab_rfftn's, 0.69 contiguous).
+
 // T (1..8) and NP (0..4) are template parameters, so the field, pair and
 // pole loops unroll into registers. Host-side, each instance's shared-memory
 // attribute is set once per device; the wrapper caches the occupancy.
@@ -205,7 +226,7 @@ mode_bin_pairs_kernel(Fields f, long long sx, long long sy, long long sz,
                       const int* __restrict__ seg, const int* __restrict__ groups, int ngroups,
                       const int* __restrict__ bounds, const float* __restrict__ W, float scale,
                       int n1d, int nbins, int nmu, Poles poles, int copies,
-                      float* __restrict__ partials, int ny, int y0) {
+                      float* __restrict__ partials, int ny, int y0, int xgroups) {
     constexpr int NPAIR = T * (T + 1) / 2;
     constexpr int U = unroll<T>();
     const int nk = NP > 0 ? nbins / nmu : 0;
@@ -230,14 +251,23 @@ mode_bin_pairs_kernel(Fields f, long long sx, long long sy, long long sz,
 
     const bool even = (n1d & 1) == 0;
     const int half = n1d / 2;
-    const int gpx = (ny + kRows - 1) / kRows;  // groups along the slab's iy
+    const int gpy = (ny + kRows - 1) / kRows;   // groups of the y list an ix
+    const int gpx = (n1d + kRows - 1) / kRows;  // groups of the x list an iy
     for (int item = blockIdx.x * nwarps + warp; item < ngroups; item += gridDim.x * nwarps) {
         const int gid = groups[item];
-        const int ix = gid / gpx;
-        const int ly = (gid - ix * gpx) * kRows + trow;  // the row in the slab
-        const int iy = y0 + ly;                          // and in the mesh
+        int ix, ly;  // the row in the slab (ly: its local iy)
+        bool row_ok;
+        if (xgroups) {  // id ly * gpx + ix / 4: the tile's rows run along x
+            ly = gid / gpx;
+            ix = (gid - ly * gpx) * kRows + trow;
+            row_ok = ix < n1d;
+        } else {  // id ix * gpy + ly / 4: they run along y
+            ix = gid / gpy;
+            ly = (gid - ix * gpy) * kRows + trow;
+            row_ok = ly < ny;
+        }
+        const int iy = y0 + ly;  // the row's iy in the mesh
         const int r = ix * ny + ly;
-        const bool row_ok = ly < ny;
         const int lo = row_ok ? bounds[2 * r] : 0;
         const int hi = row_ok ? bounds[2 * r + 1] : 0;
         const int klo = (int)__reduce_min_sync(kFull, hi > lo ? (unsigned)lo : 0xffffffffu);
@@ -361,7 +391,7 @@ mode_bin_reduce_kernel(const float* __restrict__ partials, int nblocks, int H,
 
 using KernelFn = void (*)(Fields, long long, long long, long long, const int*, const int*, int,
                           const int*, const float*, float, int, int, int, Poles, int, float*, int,
-                          int);
+                          int, int);
 
 template <int T>
 KernelFn kernel_np(int npoles) {
@@ -443,19 +473,19 @@ extern "C" int mode_bin_pairs_occupancy(int nfields, int npoles, int warps, int 
 
 // Launch the binning of `nfields` meshes (an array of pointers, read through
 // the element strides sx, sy, sz they share) over the non-empty groups of
-// four rows `groups` (ngroups ids ix * ceil(n1d / 4) + iy / 4) with each
-// row's kz span (`bounds`, [lo, hi) a row), then the reduction of the
-// `blocks` partials (scratch of blocks x H floats) into `out`: H = npairs x
-// (nbins + npoles x nbins / nmu) doubles, or floats when out_f64 is 0. The
-// meshes, seg and the row spans hold the ny rows of the ky slab that starts
-// at global row y0 (ny = n1d, y0 = 0: the whole mesh; groups are then
-// ix * ceil(ny / 4) + local iy / 4).
+// four rows `groups` with each row's kz span (`bounds`, [lo, hi) a row), then
+// the reduction of the `blocks` partials (scratch of blocks x H floats) into
+// `out`: H = npairs x (nbins + npoles x nbins / nmu) doubles, or floats when
+// out_f64 is 0. The meshes, seg and the row spans hold the ny rows of the ky
+// slab that starts at global row y0 (ny = n1d, y0 = 0: the whole mesh).
+// Group ids count the slab's rows: ix * ceil(ny / 4) + iy / 4 (four rows
+// along y) with xgroups 0, iy * ceil(n1d / 4) + ix / 4 (along x) with 1.
 extern "C" int mode_bin_pairs(const void* const* fields, int nfields, long long sx, long long sy,
                               long long sz, const int* seg, const int* groups, int ngroups,
                               const int* bounds, const float* W, float scale, int n1d, int nbins,
                               int nmu, const int* pole_degrees, int npoles, int blocks, int warps,
                               int copies, int smem, int dev, float* partials, void* out,
-                              int out_f64, int ny, int y0, void* stream) {
+                              int out_f64, int ny, int y0, int xgroups, void* stream) {
     if (npoles > 0 && (nmu < 1 || nbins % nmu != 0)) return (int)cudaErrorInvalidValue;
     if (ny < 1 || y0 < 0 || y0 + ny > n1d) return (int)cudaErrorInvalidValue;
     if (blocks < 1 || warps < 1 || warps > 8 || (copies != 1 && copies != kRows)) {
@@ -474,8 +504,9 @@ extern "C" int mode_bin_pairs(const void* const* fields, int nfields, long long 
         poles.odd[q] = l % 2;
     }
     const cudaStream_t s = (cudaStream_t)stream;
-    void* args[] = {&f,     &sx,  &sy,    &sz,  &seg,   &groups, &ngroups,  &bounds, &W,
-                    &scale, &n1d, &nbins, &nmu, &poles, &copies, &partials, &ny,     &y0};
+    void* args[] = {&f,     &sx,  &sy,    &sz,  &seg,   &groups,   &ngroups, &bounds, &W,
+                    &scale, &n1d, &nbins, &nmu, &poles, &copies, &partials, &ny,     &y0,
+                    &xgroups};
     e = cudaLaunchKernel((const void*)fn, dim3(blocks), dim3(32 * warps), args, (size_t)smem, s);
     if (e != cudaSuccess) return (int)e;
     const int npairs = nfields * (nfields + 1) / 2;

@@ -13,8 +13,10 @@ Counterpart of abacusutils_tpu/ops/power.py:
   is given (``_mode_bin_plan_device`` and the host build's ``ksum`` and
   Legendre pole weights); :func:`get_mode_bin_plan` caches its plans with
   their row spans (:class:`RowSpans`: the kz interval of each (ix, iy) row
-  that holds its in-bin modes), which :func:`mode_spans` hands to the
-  binning kernel. A plan of ``yslab=(y0, y1)`` holds the ky rows y0 .. y1
+  that holds its in-bin modes, and the kernel's work lists of groups of four
+  rows along y and along x), which :func:`mode_spans` hands to the binning
+  kernel; :func:`span_groups` picks the list the fields' layout reads in
+  whole sectors. A plan of ``yslab=(y0, y1)`` holds the ky rows y0 .. y1
   of the mesh, the piece of a y-sharded spectrum one rank bins
   (parallel/fft.py); the binning takes the same ``yslab``.
 - :func:`bin_power_modes_plain` is the bin sum of ``_segsum_matmul`` as one
@@ -84,6 +86,7 @@ __all__ = [
     'RowSpans',
     'row_spans',
     'mode_spans',
+    'span_groups',
     'mode_dup',
     'bin_power_modes_plain',
     'bin_power_modes',
@@ -384,11 +387,14 @@ class RowSpans(NamedTuple):
     [lo, hi) kz interval of each (ix, iy) row that holds its modes with
     0 <= seg < nbins ([0, 0) for a row without one); `groups` the int32 ids
     ix * ceil(n1d / 4) + iy // 4, in order, of the groups of four
-    neighbouring rows (iy // 4 alike) that hold any: the binning kernel's
-    work list, a group a warp."""
+    neighbouring rows along y (iy // 4 alike) that hold any, and `xgroups`
+    the ids iy * ceil(n1d / 4) + ix // 4 of the groups of four neighbouring
+    rows along x (ix // 4 alike): the binning kernel's two work lists, a
+    group a warp (:func:`span_groups` picks one)."""
 
     bounds: torch.Tensor
     groups: torch.Tensor
+    xgroups: torch.Tensor
 
 
 class ModeBinPlan(NamedTuple):
@@ -429,7 +435,8 @@ def row_spans(seg, nbins, ny=None):
     span runs from its first in-bin mode to its last, so it holds every one
     of them whatever seg is; for a plan's seg (bins by |k|, which grows with
     kz along a row) it holds nothing else. Group ids count the slab's rows:
-    ix * ceil(ny / 4) + iy // 4."""
+    ix * ceil(ny / 4) + iy // 4 along y, iy * ceil(n1d / 4) + ix // 4 along
+    x (iy local to the slab)."""
     if ny is None:
         n1d = ny = _mesh_side(seg.numel())
     else:
@@ -441,12 +448,30 @@ def row_spans(seg, nbins, ny=None):
     lo = torch.where(valid, kz, kzlen).amin(1)
     hi = torch.where(valid, kz + 1, 0).amax(1)
     lo = torch.where(hi > 0, lo, 0)
-    gpx = -(-ny // SPAN_GROUP)
-    full = torch.zeros((n1d, gpx * SPAN_GROUP), dtype=torch.bool, device=seg.device)
-    full[:, :ny] = (hi > 0).reshape(n1d, ny)
-    groups = torch.nonzero(full.reshape(n1d * gpx, SPAN_GROUP).any(1)).reshape(-1)
+    rows = (hi > 0).reshape(n1d, ny)
     return RowSpans(torch.stack([lo, hi], 1).to(torch.int32).contiguous(),
-                    groups.to(torch.int32))
+                    _nonempty_groups(rows), _nonempty_groups(rows.t()))
+
+
+def _nonempty_groups(rows):
+    """The int32 ids a * ceil(nb / 4) + b // 4, in order, of the groups of
+    four neighbouring rows along b of the (na, nb) bool `rows` that hold
+    any true row."""
+    na, nb = rows.shape
+    per = -(-nb // SPAN_GROUP)
+    full = torch.zeros((na, per * SPAN_GROUP), dtype=torch.bool, device=rows.device)
+    full[:, :nb] = rows
+    return torch.nonzero(full.reshape(na * per, SPAN_GROUP).any(1)).reshape(-1).to(torch.int32)
+
+
+def span_groups(spans, strides):
+    """The work list of :class:`RowSpans` `spans` that the binning kernel
+    reads in whole sectors from fields of element `strides` (x, y, z), and
+    whether its groups run along x: `xgroups` where x is faster than y (the
+    ky slabs of parallel/fft.py:slab_rfftn), else `groups` (cuFFT's rfftn
+    layout, iy fastest, and kz-contiguous meshes)."""
+    along_x = strides[0] < strides[1]
+    return (spans.xgroups if along_x else spans.groups), along_x
 
 
 def _slab_side(nmodes, ny):
@@ -603,36 +628,39 @@ def _bin_grid(lib, device, nfields, npoles, H, kzlen):
 def _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, out_dtype, yslab=None):
     """Launch the binning kernel of csrc/mode_bin_pairs.cu over the row
     spans of `seg` (:func:`mode_spans`) on the current stream, then its
-    fixed-order reduction. The fields are read through their strides; only
-    fields of mixed layouts are copied. Returns the flat (npairs x (nbins +
-    len(poles) x nbins / nmu)) sums as `out_dtype`."""
+    fixed-order reduction. The fields are read through their strides, over
+    the work list their layout reads in whole sectors (:func:`span_groups`);
+    only fields of mixed layouts are copied. Returns the flat (npairs x
+    (nbins + len(poles) x nbins / nmu)) sums as `out_dtype`, and whether the
+    groups ran along x."""
     device = deltas[0].device
     n1d = deltas[0].shape[0]
     y0, ny = _yrows(n1d, yslab)
     spans = mode_spans(seg, nbins, ny)
     if len({d.stride() for d in deltas}) > 1:
         deltas = [d.contiguous() for d in deltas]
+    groups, along_x = span_groups(spans, deltas[0].stride())
     seg = seg.contiguous()
     W = None if W is None else W.contiguous()
     H = _hist_floats(len(deltas), len(poles), nbins, nmu)
     with torch.cuda.device(device):
         warps, copies, smem, most = _bin_grid(lib, device, len(deltas), len(poles), H,
                                               n1d // 2 + 1)
-        ngroups = spans.groups.numel()
+        ngroups = groups.numel()
         blocks = max(1, min(most, -(-ngroups // warps)))
         partials = torch.empty(blocks * H, dtype=torch.float32, device=device)
         out = torch.empty(H, dtype=out_dtype, device=device)
         ptrs = (ctypes.c_void_p * MAX_FIELDS)(*[d.data_ptr() for d in deltas])
         degs = (ctypes.c_int * MAX_POLES)(*poles)
         code = lib.mode_bin_pairs(
-            ptrs, len(deltas), *deltas[0].stride(), seg.data_ptr(), spans.groups.data_ptr(),
+            ptrs, len(deltas), *deltas[0].stride(), seg.data_ptr(), groups.data_ptr(),
             ngroups, spans.bounds.data_ptr(), None if W is None else W.data_ptr(), _f32(scale), n1d,
             nbins, max(int(nmu), 1), degs, len(poles), blocks, warps, copies, smem, device.index,
             partials.data_ptr(), out.data_ptr(), int(out_dtype == torch.float64), ny, y0,
-            torch.cuda.current_stream().cuda_stream,
+            int(along_x), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, 'mode_bin_pairs')
-    return out
+    return out, along_x
 
 
 def bin_power_modes(delta_k, seg, W, scale, nbins, yslab=None):
@@ -656,7 +684,7 @@ def bin_power_modes(delta_k, seg, W, scale, nbins, yslab=None):
         if t is not None and t.device != delta_k.device:
             raise ValueError(f'{name} is on {t.device}, delta_k on {delta_k.device}')
     lib = _build.lib()
-    out = _bin_launch(lib, [delta_k], seg, W, scale, nbins, (), 1, torch.float32, yslab)
+    out, _ = _bin_launch(lib, [delta_k], seg, W, scale, nbins, (), 1, torch.float32, yslab)
     bin_power_modes.launches += 1
     return out
 
@@ -750,10 +778,12 @@ def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1, yslab=None)
     lib = _build.lib()
     npairs = len(deltas) * (len(deltas) + 1) // 2
     nk = nbins // nmu if poles else 0
-    out = _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, torch.float64, yslab)
+    out, along_x = _bin_launch(lib, deltas, seg, W, scale, nbins, poles, nmu, torch.float64,
+                               yslab)
     out = out.reshape(npairs, nbins + len(poles) * nk)
     bin_pair_modes.launches += 1
-    form = (f'poles nmu={nmu}' if poles else 'no poles') + ('' if yslab is None else ' ky slab')
+    form = ((f'poles nmu={nmu}' if poles else 'no poles') + ('' if yslab is None else ' ky slab')
+            + (' x-grouped' if along_x else ''))
     bin_pair_modes.launches_by_form[form] = bin_pair_modes.launches_by_form.get(form, 0) + 1
     if not poles:
         return out
@@ -762,7 +792,8 @@ def bin_pair_modes(deltas, seg, W, scale, nbins, pole_w=None, nmu=1, yslab=None)
 
 bin_pair_modes.launches = 0
 # launches of each form ('no poles', 'poles nmu=<Nmu>', each with ' ky slab'
-# when it bins a slab of ky rows), within `launches`
+# when it bins a slab of ky rows and then ' x-grouped' when its work list
+# runs along x), within `launches`
 bin_pair_modes.launches_by_form = {}
 
 

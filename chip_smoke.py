@@ -203,12 +203,17 @@ Phases, each printing what it measured:
    torch.cuda.device_count() over NCCL (a rank in this process on one card;
    with more, a spawned rank a card): K1's slab mode (one and two halo
    planes) and the binning over ky slabs at each rank's geometry of a 4-way
-   split at 512^3 against their plain versions, the four slabs' bins adding
-   up to the whole mesh's; then through the entry points, each against the
-   unsharded call: ``AbacusHOD.run_hod_pk_fused(mesh=)`` on phase 5's
-   catalog, replicated at 256^3 and slab at 512^3 (the spectra at 2e-4 of
-   their scale, n_gal equal; K1's slab mode and K3 over the ky slab at that
-   shape against their plain versions); ``calc_power_sharded`` in both modes
+   split at 512^3 (laid out x fastest, as ``slab_rfftn`` leaves them)
+   against their plain versions, the four slabs' bins adding up to the
+   whole mesh's; then through the entry points, each against the unsharded
+   call: ``AbacusHOD.run_hod_pk_fused(mesh=)`` on phase 5's catalog,
+   replicated at 256^3 and slab at 512^3 (the spectra at 2e-4 of their
+   scale, n_gal equal; K1's slab mode and K3 over the ky slab at that shape
+   against their plain versions); every K3 over a ky slab is timed on
+   ``slab_rfftn``'s layout (the groups along x) beside the same rows made
+   contiguous and laid out as ``rfftn`` lays a mesh, held within 1.5x of
+   the contiguous copy, and its peak-memory rise under one field's bytes
+   (no hidden copy); ``calc_power_sharded`` in both modes
    at 512^3 on phase 7's LRGs; ``field_fft_slab`` +
    ``calc_pk_from_deltak_slab`` and ``get_fields_sharded`` at 512^3 on
    phase 13's IC; the sharded pair counts on phase 8's sparse QSOs, equal
@@ -331,6 +336,7 @@ from abacusutils_tpu_torch.ops.power import (
     pk_to_xi,
     project_3d_to_poles,
     row_spans,
+    span_groups,
 )
 from abacusutils_tpu_torch.ops import tpcf
 from abacusutils_tpu_torch.ops.tpcf import (
@@ -1921,6 +1927,18 @@ def fft_bound(n, ffts, reads, writes):
     (the k-space factors folded into the FFTs' inputs)."""
     real, half = 4 * n**3, 8 * n * n * (n // 2 + 1)
     nbytes = ffts * (real + half) + (reads + writes) * real
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def slab_fft_bound(n, world):
+    """The least time (ms) and bytes of parallel/fft.py:slab_rfftn of an n^3
+    grid on one of `world` ranks: fft_bound's bytes of the rfft along z (the
+    real grid read, its half spectrum written) and of the ffts along y and x
+    (the half spectrum read and written by each), a rank's share, at 3.35
+    TB/s (the all-to-all's traffic between cards not counted)."""
+    _, rfft_bytes = fft_bound(n, 1, 0, 0)
+    half = 8 * n * n * (n // 2 + 1)
+    nbytes = (rfft_bytes + 4 * half) / world
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
@@ -3978,12 +3996,12 @@ def slab_k1_check(tag, deps, nmesh, slab):
     return ms, plain_ms, err, n, kept
 
 
-def slab_bin_bound(seg, nbins, ny, nfields, npoles, nk):
+def slab_bin_bound(seg, nbins, ny, nfields, npoles, nk, strides):
     """The binning's byte bound over a ky slab (binning_bound's count on the
-    slab's plan: the in-bin modes' seg and fields, the row groups, W, the f64
-    sums) and the in-bin share."""
+    slab's plan: the in-bin modes' seg and fields, the row groups of the list
+    the fields' `strides` take, W, the f64 sums) and the in-bin share."""
     n_in = int(((seg >= 0) & (seg < nbins)).sum())
-    groups = row_spans(seg, nbins, ny).groups.numel()
+    groups = span_groups(row_spans(seg, nbins, ny), strides)[0].numel()
     npairs = nfields * (nfields + 1) // 2
     out = 8 * npairs * (nbins + npoles * nk)
     nbytes = n_in * (4 + 8 * nfields) + 36 * groups + 4 * SHARD_NMESH + out
@@ -4017,7 +4035,8 @@ def slab_bin_check(tag, deltas, plan, W, scale, yslab, poles):
         require(perr <= 1e-5 * float(ref[1].abs().max()), f'{tag}: pole rows off by {perr:.3e}')
         err = max(err, perr)
     ny = yslab[1] - yslab[0]
-    bound, share = slab_bin_bound(plan.seg, nbins, ny, len(deltas), len(pole_w or ()), plan.nk)
+    bound, share = slab_bin_bound(plan.seg, nbins, ny, len(deltas), len(pole_w or ()), plan.nk,
+                                  deltas[0].stride())
     dup = torch.from_numpy(mode_dup(SHARD_NMESH)[:SHARD_NMESH // 2 + 1]).to(plan.seg.device)
     w = torch.cat([(deltas[i].real * deltas[j].real + deltas[i].imag * deltas[j].imag)
                    .mul_(dup).reshape(-1) for i, j in pairs])
@@ -4027,7 +4046,78 @@ def slab_bin_check(tag, deltas, plan, W, scale, yslab, poles):
     del w, segs
     rec = binning_line(tag, f'{len(deltas)} fields, ky rows {yslab},', ms, k_ms, plain_ms, err,
                        bound, share, lib_ms)
+    rec.update(slab_layout_check(tag, deltas, plan, W, scale, yslab, pole_w))
     return rec, got
+
+
+RFFTN_ORDER = {}  # rfftn's axes, slowest first, by n1d
+
+
+def x_fastest(rows):
+    """A copy of the (n1d, ny, n1d/2+1) `rows` laid out as slab_rfftn leaves
+    a rank's ky rows: x fastest, then y, kz slowest."""
+    n1d, ny, kzlen = rows.shape
+    out = torch.empty((kzlen, ny, n1d), dtype=rows.dtype, device=rows.device)
+    return out.permute(2, 1, 0).copy_(rows)
+
+
+def rfftn_layout(rows):
+    """A copy of `rows` in the axis order torch.fft.rfftn gives a whole
+    (n1d,)^3 mesh on this card (asked once an n1d)."""
+    n1d = rows.shape[0]
+    if n1d not in RFFTN_ORDER:
+        strides = torch.fft.rfftn(torch.zeros((n1d,) * 3, device=rows.device)).stride()
+        RFFTN_ORDER[n1d] = sorted(range(3), key=lambda a: -strides[a])  # slowest axis first
+    order = RFFTN_ORDER[n1d]
+    out = torch.empty([rows.shape[a] for a in order], dtype=rows.dtype, device=rows.device)
+    return out.permute([order.index(a) for a in range(3)]).copy_(rows)
+
+
+def slab_layout_check(tag, deltas, plan, W, scale, yslab, pole_w):
+    """The binning over a ky slab on the fields' own layout beside the same
+    rows made contiguous, timed in turns (own, contiguous, contiguous, own;
+    CUDA events over 10 calls each; the faster turn of each counts, as host
+    stalls only lengthen a turn), and laid out as rfftn lays a mesh (the
+    groups along y). Requires the fields' own layout within 1.5x of the
+    contiguous copy where they lie x fastest (a guard against the groups
+    along y on slab_rfftn's layout) and the call's peak-memory rise under
+    one field's bytes (no copy of the fields). Returns the kernels line's
+    extra keys."""
+    nbins = plan.nk * plan.nmu
+
+    def on(fields):
+        return lambda: bin_pair_modes(fields, plan.seg, W, scale, nbins, pole_w, plan.nmu,
+                                      yslab=yslab)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    on(deltas)()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    field_bytes = deltas[0].numel() * deltas[0].element_size()
+    along_x = span_groups(plan.spans, deltas[0].stride())[1]
+    cont = [d.contiguous() for d in deltas]
+    turns = {'own': [], 'contiguous': []}
+    for name in ('own', 'contiguous', 'contiguous', 'own'):
+        turns[name].append(event_ms(on(deltas if name == 'own' else cont), reps=10))
+    del cont
+    ms, cont_ms = (min(turns[k]) for k in ('own', 'contiguous'))
+    lay = [rfftn_layout(d) for d in deltas]
+    rfftn_ms, rfftn_strides = event_ms(on(lay), reps=10), lay[0].stride()
+    del lay
+    print(f'{tag}: layouts, the fields\' own (strides {deltas[0].stride()}, groups along '
+          f'{"x" if along_x else "y"}) {ms:.4f} ms, the rows made contiguous {cont_ms:.4f} ms '
+          f'({ms / cont_ms:.3f}x; turns {turns}), rfftn\'s layout (strides {rfftn_strides}) '
+          f'{rfftn_ms:.4f} ms (events); peak-memory rise {rise} B, one field {field_bytes} B; '
+          f'{CARD[0]}')
+    if along_x:
+        require(ms <= 1.5 * cont_ms, f'{tag}: {ms:.4f} ms on slab_rfftn\'s layout, over 1.5x '
+                                     f'the contiguous copy\'s {cont_ms:.4f}')
+    require(rise < field_bytes, f'{tag}: the call\'s memory rose {rise} B, one field is '
+                                f'{field_bytes} B')
+    return dict(own_layout_ms=ms, contiguous_ms=cont_ms, rfftn_layout_ms=rfftn_ms,
+                peak_rise_bytes=rise, groups_along='x' if along_x else 'y')
 
 
 def sharded_kernel_checks(dev):
@@ -4063,7 +4153,7 @@ def sharded_kernel_checks(dev):
         for r in range(ndev):
             ys = (r * xl, (r + 1) * xl)
             plan = get_mode_bin_plan(n, k2, m2, poles, dev, yslab=ys)
-            local = [f[:, ys[0]:ys[1]].contiguous() for f in fields[:nf]]
+            local = [x_fastest(f[:, ys[0]:ys[1]]) for f in fields[:nf]]
             _, got = slab_bin_check(f'phase 20 K3 ky slab {r} of {ndev}', local, plan, W,
                                     1.0 / n**3, ys, poles)
             total = list(got) if total is None else [a + g for a, g in zip(total, got)]
@@ -4142,7 +4232,7 @@ def sharded_paths(mesh, pk_pos, qso, out):
         got = run(tag, lambda: hod.run_hod_pk_fused(nmesh=nmesh, mesh=mesh, slab=slab))
         launches = paths[tag]
         form = 'tsc slab' if slab else 'tsc'
-        k3 = 'bin_pair_modes[no poles ky slab]' if slab else 'bin_pair_modes[no poles]'
+        k3 = 'bin_pair_modes[no poles ky slab x-grouped]' if slab else 'bin_pair_modes[no poles]'
         require(launches[f'tsc_deposit_cells[{form}]'] == 2 * len(WANT) and launches[k3] == 1,
                 f'{tag}: launches {launches}')
         require(got[1] == ref[1], f'{tag}: n_gal {got[1]} != {ref[1]}')
@@ -4198,7 +4288,7 @@ def sharded_paths(mesh, pk_pos, qso, out):
             W = torch.from_numpy(get_W_compensated(LBOX, nmesh, 'TSC', False)
                                  .astype(np.float32)).to(dev)
             plan, yslab, _ = pmesh._fused_slab_bins(mesh, nmesh, LBOX, nmesh // 2)
-            recs['bin_pair_modes[no poles ky slab]'], _ = slab_bin_check(
+            recs['bin_pair_modes[no poles ky slab x-grouped]'], _ = slab_bin_check(
                 f'phase 20 K3 ky slab at {tag}', dels, plan, W, 1.0 / nmesh**3, yslab, ())
             del dels, tr, deps, glob
         del ref, got
@@ -4225,7 +4315,7 @@ def sharded_paths(mesh, pk_pos, qso, out):
                                                          kbins=SHARD_PK_KBINS, poles=(0, 2, 4),
                                                          slab=slab))
         form = 'tsc slab' if slab else 'tsc'
-        k3 = 'bin_pair_modes[poles nmu=1' + (' ky slab]' if slab else ']')
+        k3 = 'bin_pair_modes[poles nmu=1' + (' ky slab x-grouped]' if slab else ']')
         require(paths[tag][f'tsc_deposit_cells[{form}]'] == 1 and paths[tag][k3] == 1,
                 f'{tag}: launches {paths[tag]}')
         ref = centred if slab else raw
@@ -4243,12 +4333,21 @@ def sharded_paths(mesh, pk_pos, qso, out):
     bins = pfft._slab_bins(n, *get_k_mu_edges(LBOX, np.pi * n / LBOX, SHARD_PK_KBINS, 1,
                                               False), 2 * np.pi / LBOX, (0, 2, 4), mesh)
     core = pfft.paint_slab(*pfft.shard_slabs(mesh, pk_pos, None, n, LBOX), n, LBOX, mesh)
-    dl = pfft.slab_rfftn(core * _f32(np.float32(n) ** 3 / np.float32(len(pk_pos))) - 1.0,
-                         mesh)
-    recs['bin_pair_modes[poles nmu=1 ky slab]'], _ = slab_bin_check(
+    delta = core * _f32(np.float32(n) ** 3 / np.float32(len(pk_pos))) - 1.0
+    del core
+    dl = pfft.slab_rfftn(delta, mesh)
+    fft_ms = event_ms(lambda: pfft.slab_rfftn(delta, mesh))
+    whole_ms = event_ms(lambda: torch.fft.rfftn(delta)) if world == 1 else None
+    bound, nbytes = slab_fft_bound(n, world)
+    print(f'phase 20 slab_rfftn at {n}^3 on rank {rank} of {world}: {fft_ms:.4f} ms (events), '
+          f'bound {bound:.4f} ms (bytes, {nbytes:.0f}; share {bound / fft_ms:.3f}), rfftn of the '
+          f'whole grid ' + ('not run (a rank holds a slab)' if whole_ms is None else
+                            f'{whole_ms:.4f} ms') + f'; output strides {dl.stride()}; {CARD[0]}')
+    del delta
+    recs['bin_pair_modes[poles nmu=1 ky slab x-grouped]'], _ = slab_bin_check(
         f'phase 20 K3 poles ky slab at calc_power_sharded_slab', [dl], bins.plan, None,
         1.0 / n**3, bins.yslab, (0, 2, 4))
-    del core, dl
+    del dl
     print(f'phase 20 calc_power_sharded: both modes equal calc_power of the coordinates each '
           f'paints (rtol 3e-4, poles atol 1e-5 of the largest, N_mode equal)')
 
@@ -4265,7 +4364,8 @@ def sharded_paths(mesh, pk_pos, qso, out):
 
     f, pk = run(tag, field_path)
     require(paths[tag]['tsc_deposit_cells[tsc slab]'] == 1
-            and paths[tag]['bin_pair_modes[poles nmu=1 ky slab]'] == 1, f'{tag}: {paths[tag]}')
+            and paths[tag]['bin_pair_modes[poles nmu=1 ky slab x-grouped]'] == 1,
+            f'{tag}: {paths[tag]}')
     Wc = get_W_compensated(LBOX, n, 'TSC', False)
     ref = get_field_fft(pos, LBOX, n, 'TSC', w, Wc, True, False)
     full = pfft.gather_slab(f, mesh)
@@ -4449,10 +4549,11 @@ FORMS = {
     'bin_kppi_sums': ('bin_kppi_sums', None, 'abacusutils_tpu/ops/power.py:613'),
     'tsc_deposit_cells[tsc slab]': ('tsc_deposit_cells', 'tsc slab',
                                     'abacusutils_tpu/parallel/fft.py:57'),
-    'bin_pair_modes[no poles ky slab]': ('bin_pair_modes', 'no poles ky slab',
-                                         'abacusutils_tpu/parallel/fft.py:193'),
-    'bin_pair_modes[poles nmu=1 ky slab]': ('bin_pair_modes', 'poles nmu=1 ky slab',
-                                            'abacusutils_tpu/parallel/fft.py:193'),
+    'bin_pair_modes[no poles ky slab x-grouped]': ('bin_pair_modes', 'no poles ky slab x-grouped',
+                                                   'abacusutils_tpu/parallel/fft.py:193'),
+    'bin_pair_modes[poles nmu=1 ky slab x-grouped]': ('bin_pair_modes',
+                                                      'poles nmu=1 ky slab x-grouped',
+                                                      'abacusutils_tpu/parallel/fft.py:193'),
     'pair_count_all[rppi row offset]': ('count_pairs_all', 'rppi row offset',
                                         'abacusutils_tpu/parallel/mesh.py:633'),
     'pair_count_all[smu row offset]': ('count_pairs_all', 'smu row offset',

@@ -18,7 +18,16 @@ shapes the main paths run:
    k-bins to 0.5 h/Mpc, no window (``compute_power`` at docs/hod.md's
    settings, phase 7 b);
 4. the same at 256^3 with 4 mu bins and the interlaced TSC window (phase
-   7 d).
+   7 d);
+5. over ky slabs at 512^3, 256 k-bins to Nyquist (the sharded path, phase
+   20): 3 meshes without poles and the TSC window over the whole mesh's
+   rows (``run_hod_pk_fused(mesh=, slab=True)`` on one card) and over
+   ranks 0 and 1 of a 4-way split, and 1 mesh with poles 0, 2, 4, no
+   window (``calc_power_sharded_slab``), each laid out as
+   ``parallel/fft.py:slab_rfftn`` leaves a rank's rows (x fastest), then
+   the same rows made contiguous and laid out as rfftn lays a mesh; and
+   the whole mesh's rows x fastest with a pitch of n1d + 4 along x (strides
+   that are no powers of two).
 
 For each tree and shape, in the order old, new, new, old: the wrapper's
 time by CUDA events (5 calls after a warm-up; host work between the
@@ -30,12 +39,14 @@ gives the in-bin share of the modes and the bound (chip_smoke.binning_bound:
 the bytes of the in-bin modes' seg and fields, the non-empty row groups'
 spans, W and the sums, at 3.35 TB/s); each tree's line its share of the
 kernel-only time. The trees' sums are checked against each
-other, and this tree's two launches for bit-identity. This tree's kernel
-is then timed with each histogram layout forced (one a warp, the four tile
-rows' run ends merged first; one for each tile row). The layout of
-cuFFT's rfftn output at 256^3 and 550^3 is printed, and the SASS atomics of
-each tree's binning kernels (cuobjdump -sass). Everything goes to --out as
-JSON.
+other (within 1e-5 of each pair's largest; bit for bit where both trees walk
+the groups along y: every layout but slab_rfftn's), and this tree's two
+launches for bit-identity. On whole meshes this tree's kernel is then timed
+with each histogram layout forced (one a warp, the four tile rows' run ends
+merged first; one for each tile row). The layouts of cuFFT's rfftn output at
+256^3 and 550^3 and of slab_rfftn's on one rank at 512^3 are printed, and
+the SASS atomics of each tree's binning kernels (cuobjdump -sass).
+Everything goes to --out as JSON.
 """
 
 import argparse
@@ -63,15 +74,31 @@ import chip_smoke as cs  # noqa: E402
 LBOX = cs.LBOX
 SEED = cs.SEED
 # (tag, kind, n1d, k_max (None: Nyquist), k-bins, mu-bins, poles, fields,
-#  window (paste, interlaced) or None, scale)
+#  window (paste, interlaced) or None, scale, ky rows (y0, y1) or None (the
+#  whole mesh), layout: None (rfftn's output as it is), 'slab_rfftn' (x
+#  fastest, then y, kz slowest), 'contiguous' or 'rfftn' (copies))
 SHAPES = [
-    ('K2, 256^3 (phase 4)', 'power', 256, None, 128, 1, (), 1, ('TSC', False), 256.0**-3),
+    ('K2, 256^3 (phase 4)', 'power', 256, None, 128, 1, (), 1, ('TSC', False), 256.0**-3, None,
+     None),
     ('K3 no poles, T=3, 256^3 (phase 5)', 'pairs', 256, None, 128, 1, (), 3, ('TSC', False),
-     256.0**-3),
+     256.0**-3, None, None),
     ('K3 poles nmu=1, T=3, 550^3 (phase 7 b)', 'pairs', 550, 0.5, 128, 1, (0, 2, 4), 3, None,
-     550.0**-3),
+     550.0**-3, None, None),
     ('K3 poles nmu=4, T=3, 256^3 (phase 7 d)', 'pairs', 256, None, 128, 4, (0, 2, 4), 3,
-     ('TSC', True), 1.0),
+     ('TSC', True), 1.0, None, None),
+] + [
+    (f'K3 {form}, 512^3 ky rows {ys}, {layout} layout (phase 20)', 'pairs', 512, None, 256, 1,
+     poles, nf, window, 512.0**-3, ys, layout)
+    for form, poles, nf, window, rows in (
+        ('no poles, T=3', (), 3, ('TSC', False), ((0, 512), (0, 128), (128, 256))),
+        ('poles nmu=1, T=1', (0, 2, 4), 1, None, ((0, 512),)))
+    for ys in rows
+    for layout in ('slab_rfftn', 'contiguous', 'rfftn')
+] + [
+    # slab_rfftn's layout with each x row padded by 4 elements, so that the
+    # y and kz strides are no powers of two
+    ('K3 no poles, T=3, 512^3 ky rows (0, 512), slab_rfftn layout, x pitch 516', 'pairs', 512,
+     None, 256, 1, (), 3, ('TSC', False), 512.0**-3, (0, 512), 'slab_rfftn padded'),
 ]
 RESULTS = []
 
@@ -112,12 +139,12 @@ def profile_ms(fn, reps=5):
 
 def inputs(mod, dev, shape):
     """The shape's plan (from `mod`, a tree's ops.power), fields and call."""
-    tag, kind, n1d, kmax, nk, nmu, poles, nf, window, scale = shape
+    tag, kind, n1d, kmax, nk, nmu, poles, nf, window, scale, ys, _ = shape
     kmax = np.pi * n1d / LBOX if kmax is None else kmax
     ke, me = mod.get_k_mu_edges(LBOX, kmax, nk, nmu, False)
     dk = 2 * np.pi / LBOX
     plan = mod.get_mode_bin_plan(n1d, ((ke / dk) ** 2).astype(np.float32),
-                                 (me**2).astype(np.float32), poles, dev)
+                                 (me**2).astype(np.float32), poles, dev, ys)
     W = None
     if window:
         W = torch.from_numpy(
@@ -137,15 +164,33 @@ def fields(dev, n1d, nf):
     return out
 
 
+def laid_out(dks, ys, layout):
+    """The ky rows `ys` of the meshes `dks`, in `layout` (None: as they are)."""
+    if layout is None:
+        return dks
+    rows = [d[:, ys[0]:ys[1]] for d in dks]
+    if layout == 'contiguous':
+        return [r.contiguous() for r in rows]
+    if layout == 'slab_rfftn padded':
+        n1d, ny, kzlen = rows[0].shape
+        return [torch.empty((kzlen, ny, n1d + 4), dtype=r.dtype, device=r.device)[..., :n1d]
+                .permute(2, 1, 0).copy_(r) for r in rows]
+    return [(cs.x_fastest if layout == 'slab_rfftn' else cs.rfftn_layout)(r) for r in rows]
+
+
 def flat(res, npairs):
     if isinstance(res, tuple):
         return torch.cat([a.reshape(npairs, -1).double() for a in res], 1)
     return res.reshape(npairs, -1).double()
 
 
-def run_shape(trees, dev, shape):
-    tag, kind, n1d, _, _, nmu, _, nf, window, _ = shape
-    dks = fields(dev, n1d, nf)
+def run_shape(trees, dev, shape, cache):
+    tag, kind, n1d, _, _, nmu, poles, nf, window, _, ys, layout = shape
+    if cache.get('key') != (n1d, nf):
+        cache.clear()
+        torch.cuda.empty_cache()
+        cache.update(key=(n1d, nf), dks=fields(dev, n1d, nf))
+    dks = laid_out(cache['dks'], ys, layout)
     npairs = nf * (nf + 1) // 2
     calls = {}
     for name, mod in trees.items():
@@ -157,10 +202,17 @@ def run_shape(trees, dev, shape):
         else:
             calls[name] = (lambda mod=mod, plan=plan, W=W, scale=scale, nbins=nbins,
                            pole_w=pole_w: mod.bin_pair_modes(dks, plan.seg, W, scale, nbins,
-                                                             pole_w, nmu))
+                                                             pole_w, nmu, yslab=ys))
     nout = npairs * (nbins + (len(pole_w) * plan.nk if pole_w else 0))
-    bound, share = cs.binning_bound(plan.seg, nbins, nf, window is not None,
-                                    nout * (4 if kind == 'power' else 8))
+    if ys is None:
+        bound, share = cs.binning_bound(plan.seg, nbins, nf, window is not None,
+                                        nout * (4 if kind == 'power' else 8))
+    else:
+        bound, share = cs.slab_bin_bound(plan.seg, nbins, ys[1] - ys[0], nf, len(pole_w or ()),
+                                         plan.nk, dks[0].stride())
+    along_x = dks[0].stride()[0] < dks[0].stride()[1]
+    print(f'{tag}: strides {dks[0].stride()} (the new tree\'s groups along '
+          f'{"x" if along_x else "y"})', flush=True)
     print(f'{tag}: in-bin share of the modes {share:.4f}; bound {bound:.4f} ms', flush=True)
     names = list(trees)
     order = names + names[::-1]
@@ -191,6 +243,7 @@ def run_shape(trees, dev, shape):
                    kernel_ms=k_ms, kernel_runs=kern, binning_kernels=by_kernel,
                    other_kernels=other, bound_ms=bound, bound_share=bound / k_ms if k_ms else None,
                    in_bin_share=share, rel_diff_to_first=rel,
+                   bit_identical_to_first=bool(torch.equal(got, ref)),
                    bit_identical_repeat=bool(torch.equal(got, again)))
         RESULTS.append(rec)
         others = ', '.join(f'{_short(k)} {v:.4f}' for k, v in other.items()) or 'none'
@@ -198,14 +251,16 @@ def run_shape(trees, dev, shape):
               f'{", ".join(f"{_short(k)} {v:.4f}" for k, v in by_kernel.items())}), wrapper '
               f'{rec["wrapper_ms"]:.4f} ms (events), runs {[round(x, 4) for x in wrap[n]]}; '
               f'share of bound {bound / k_ms if k_ms else float("nan"):.3f}; other kernels: '
-              f'{others}; rel diff to {names[0]} {rel:.2e}; repeat bit-identical '
+              f'{others}; rel diff to {names[0]} {rel:.2e}, bit-identical '
+              f'{rec["bit_identical_to_first"]}; repeat bit-identical '
               f'{rec["bit_identical_repeat"]}', flush=True)
         if rel > 1e-5:
             raise SystemExit(f'{tag} {n}: sums differ from {names[0]} by {rel:.3e}')
-    if 'new' in trees:
+        if not along_x and not rec['bit_identical_to_first']:
+            raise SystemExit(f'{tag} {n}: the groups along y give other bits than {names[0]}')
+    if 'new' in trees and ys is None:
         histogram_layouts(trees['new'], calls['new'], tag, bound)
     del dks
-    torch.cuda.empty_cache()
 
 
 def histogram_layouts(mod, call, tag, bound):
@@ -237,12 +292,17 @@ def _short(name):
 
 
 def layouts(dev):
-    """Whether cuFFT's rfftn output is C-contiguous at the main paths' meshes."""
-    for n1d in (256, 550):
-        dk = torch.fft.rfftn(torch.zeros((n1d,) * 3, device=dev))
-        print(f'rfftn output at {n1d}^3: shape {tuple(dk.shape)}, strides {dk.stride()}, '
+    """Whether cuFFT's rfftn output is C-contiguous at the main paths'
+    meshes, and the layout of slab_rfftn's output on one rank at 512^3 (its
+    three passes: rfft along z, fft along y, fft along x)."""
+    for name, n1d, fn in (
+            ('rfftn', 256, torch.fft.rfftn), ('rfftn', 550, torch.fft.rfftn),
+            ('slab_rfftn, one rank,', 512, lambda g: torch.fft.fft(
+                torch.fft.fft(torch.fft.rfft(g, dim=2), dim=1), dim=0))):
+        dk = fn(torch.zeros((n1d,) * 3, device=dev))
+        print(f'{name} output at {n1d}^3: shape {tuple(dk.shape)}, strides {dk.stride()}, '
               f'contiguous {dk.is_contiguous()}', flush=True)
-        RESULTS.append(dict(shape=f'rfftn {n1d}^3', strides=list(dk.stride()),
+        RESULTS.append(dict(shape=f'{name} {n1d}^3', strides=list(dk.stride()),
                             contiguous=dk.is_contiguous()))
         del dk
 
@@ -295,8 +355,9 @@ def main():
     sass_summary(path, 'new')
     trees['new'] = importlib.import_module('abacusutils_tpu_torch.ops.power')
     layouts(dev)
+    cache = {}
     for shape in SHAPES:
-        run_shape(trees, dev, shape)
+        run_shape(trees, dev, shape, cache)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({'card': smi, 'torch': torch.__version__,
                                'package': abacusutils_tpu_torch.__name__, 'results': RESULTS},

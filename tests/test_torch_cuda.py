@@ -1789,8 +1789,9 @@ def test_slab_deposit_kernel_faults_and_overflow(cuda_device):
 @pytest.mark.parametrize('n1d,ndev', [(48, 4), (45, 3)])
 def test_slab_binning_kernel_matches_plain(cuda_device, n1d, ndev, npoles):
     """The binning kernel over each ky slab of an ndev-way split (the plan of
-    yslab=, W read at y0 + iy, the pole rows' |k| from the global iy)
-    against its plain version, and the slabs' sums add up to the whole
+    yslab=, W read at y0 + iy, the pole rows' |k| from the global iy), on
+    contiguous slabs (the groups along y) and on x-fastest copies (along
+    x), against its plain version, and the slabs' sums add up to the whole
     mesh's binning."""
     lbox, nk, nmu = 700.0, n1d // 2, 2 if npoles else 1
     kedges, muedges = tpow.get_k_mu_edges(lbox, np.pi * n1d / lbox, nk, nmu, False)
@@ -1819,16 +1820,120 @@ def test_slab_binning_kernel_matches_plain(cuda_device, n1d, ndev, npoles):
         ref = bin_pair_modes_plain([d.cpu() for d in local], sp.seg.cpu(), W.cpu(), 1.0 / n1d**3,
                                    nk * nmu, {p: v.cpu() for p, v in sp.pole_w.items()} or None,
                                    nmu, yslab=ys)
+        # the same rows laid out x fastest, as parallel/fft.py:slab_rfftn
+        # leaves them: the work list along x
+        xf = [_x_fastest(r) for r in local]
+        before = bin_pair_modes.launches_by_form.get(f'{key} x-grouped', 0)
+        got_x = bin_pair_modes(xf, sp.seg, W, 1.0 / n1d**3, nk * nmu, sp.pole_w or None, nmu,
+                               yslab=ys)
+        assert bin_pair_modes.launches_by_form[f'{key} x-grouped'] == before + 1
         got = got if npoles else (got,)
+        got_x = got_x if npoles else (got_x,)
         ref = ref if npoles else (ref,)
-        for g, f in zip(got, ref):
-            g, f = g.cpu().numpy(), f.numpy()
+        for g, gx, f in zip(got, got_x, ref):
+            g, gx, f = g.cpu().numpy(), gx.cpu().numpy(), f.numpy()
             npt.assert_allclose(g, f, rtol=1e-5, atol=1e-5 * np.abs(f).max())
+            npt.assert_allclose(gx, f, rtol=1e-5, atol=1e-5 * np.abs(f).max())
         total = [g.clone() for g in got] if total is None else [a + g for a, g in zip(total, got)]
     want = want if npoles else (want,)
     for a, f in zip(total, want):
         f = f.cpu().numpy()
         npt.assert_allclose(a.cpu().numpy(), f, rtol=1e-5, atol=1e-5 * np.abs(f).max())
+
+
+def _x_fastest(rows):
+    """A copy of the (n1d, ny, n1d/2+1) `rows` laid out x fastest, then y,
+    kz slowest."""
+    n1d, ny, kzlen = rows.shape
+    out = torch.empty((kzlen, ny, n1d), dtype=rows.dtype, device=rows.device)
+    return out.permute(2, 1, 0).copy_(rows)
+
+
+def _rank_spectra(grids, split):
+    """What parallel/fft.py:slab_rfftn leaves on each rank of a `split`-way
+    split of the ky rows (ceil(n1d / split) a rank, the last one ragged):
+    the rfft along z and fft along y of the whole grids, the rank's rows made
+    contiguous (the transpose's all_to_all_single and cat), then the fft
+    along x. Returns [((y0, y1), [field a grid])]."""
+    n1d = grids[0].shape[0]
+    cs = [torch.fft.fft(torch.fft.rfft(g, dim=2), dim=1) for g in grids]
+    yl = -(-n1d // split)
+    return [((y0, min(y0 + yl, n1d)),
+             [torch.fft.fft(c[:, y0:y0 + yl].contiguous(), dim=0) for c in cs])
+            for y0 in range(0, n1d, yl)]
+
+
+@pytest.mark.parametrize('npoles', [0, 2])
+@pytest.mark.parametrize('nfields', [1, 3])
+@pytest.mark.parametrize('n1d', [45, 48])
+def test_slab_binning_kernel_on_slab_rfftn_output(cuda_device, tmp_path, n1d, nfields, npoles):
+    """The binning kernel on parallel/fft.py:slab_rfftn's own output at world
+    size one, and on each rank's rows of a 3- and a 4-way split laid out as
+    slab_rfftn lays them: the launch runs the groups along x (counted under
+    its ' x-grouped' form), equals its plain version at the tolerances of
+    test_slab_binning_kernel_matches_plain, gives the same bits twice, and
+    the slabs' sums add up to the whole mesh's binning."""
+    import torch.distributed as dist
+
+    from abacusutils_tpu_torch.parallel.fft import slab_rfftn
+    from abacusutils_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    lbox, nk, nmu = 700.0, n1d // 2, 2 if npoles else 1
+    kedges, muedges = tpow.get_k_mu_edges(lbox, np.pi * n1d / lbox, nk, nmu, False)
+    dk = 2 * np.pi / lbox
+    k2, m2 = ((kedges / dk) ** 2).astype(np.float32), (muedges**2).astype(np.float32)
+    poles = (2, 4)[:npoles]
+    rng = np.random.default_rng(10 * n1d + nfields + npoles)
+    base = rng.normal(size=(n1d,) * 3).astype(np.float32)
+    grids = [t(base + 0.5 * rng.normal(size=base.shape).astype(np.float32)).to(cuda_device)
+             for _ in range(nfields)]
+    W = t(get_W_compensated(lbox, n1d, 'TSC', False).astype(np.float32)).to(cuda_device)
+    scale = 1.0 / n1d**3
+    full = tpow.get_mode_bin_plan(n1d, k2, m2, poles, cuda_device)
+    want = bin_pair_modes([torch.fft.rfftn(g) for g in grids], full.seg, W, scale, nk * nmu,
+                          full.pole_w or None, nmu)
+    want = [w.cpu().numpy() for w in (want if npoles else (want,))]
+    init_world(0, 1, f'file://{tmp_path / "store"}', 'cuda', 0)
+    try:
+        whole = [slab_rfftn(g, make_mesh()) for g in grids]
+    finally:
+        dist.destroy_process_group()
+    assert whole[0].stride()[0] == 1, whole[0].stride()
+    key = f'{"poles nmu=2" if npoles else "no poles"} ky slab x-grouped'
+    for split, ranks in ((1, [((0, n1d), whole)]), (3, _rank_spectra(grids, 3)),
+                         (4, _rank_spectra(grids, 4))):
+        total = None
+        for ys, fields in ranks:
+            sp = tpow.get_mode_bin_plan(n1d, k2, m2, poles, cuda_device, yslab=ys)
+            pole_w = sp.pole_w or None
+
+            def run():
+                return bin_pair_modes(fields, sp.seg, W, scale, nk * nmu, pole_w, nmu, yslab=ys)
+
+            before = bin_pair_modes.launches_by_form.get(key, 0)
+            got = run()
+            assert bin_pair_modes.launches_by_form[key] == before + 1, (split, ys)
+            again = run()
+            got, again = (got, again) if npoles else ((got,), (again,))
+            assert all(torch.equal(a, g) for a, g in zip(again, got)), (split, ys)
+            ref = bin_pair_modes_plain([f.cpu() for f in fields], sp.seg.cpu(), W.cpu(), scale,
+                                       nk * nmu, {p: v.cpu() for p, v in sp.pole_w.items()}
+                                       or None, nmu, yslab=ys)
+            ref = ref if npoles else (ref,)
+            for g, f in zip(got, ref):
+                f = f.numpy()
+                npt.assert_allclose(g.cpu().numpy(), f, rtol=1e-5, atol=1e-5 * np.abs(f).max(),
+                                    err_msg=f'{split}-way, rows {ys}')
+            if nfields == 1 and not npoles:
+                k2_got = bin_power_modes(fields[0], sp.seg, W, scale, nk, yslab=ys)
+                f = ref[0][0].numpy()
+                npt.assert_allclose(k2_got.cpu().numpy(), f, rtol=1e-5,
+                                    atol=1e-5 * np.abs(f).max())
+            total = [g.clone() for g in got] if total is None else [a + g for a, g in
+                                                                   zip(total, got)]
+        for a, f in zip(total, want):
+            npt.assert_allclose(a.cpu().numpy(), f, rtol=1e-5, atol=1e-5 * np.abs(f).max(),
+                                err_msg=f'{split}-way')
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64], ids=['f32', 'f64'])
