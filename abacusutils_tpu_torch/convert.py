@@ -16,6 +16,8 @@ caller names none: the card.
 import numpy as np
 import torch
 
+from .utils.profiling import count_copy
+
 __all__ = [
     'resolve_device', 'params_to_tensors', 'inputs_from_numpy', 'staged_state_from_numpy',
     'position_columns', 'mock_from_numpy',
@@ -40,7 +42,7 @@ def params_to_tensors(params, device):
     copies nothing from the host. All values travel in one copy."""
     keys = list(params)
     vals = torch.tensor([float(np.float32(params[k])) for k in keys], dtype=torch.float32)
-    return dict(zip(keys, vals.to(device).unbind(0)))
+    return dict(zip(keys, count_copy(vals, vals.to(device)).unbind(0)))
 
 
 def _catalog(cat, device):

@@ -45,6 +45,7 @@ from ...ops.power import (
     get_W_compensated,
 )
 from ...ops.tpcf import calc_multipole_fast, calc_wp_fast, calc_xirppi_fast
+from ...utils import profiling
 from ..pipeline import (
     RSD_MARGIN,
     group_inputs2d_linked_device,
@@ -250,13 +251,14 @@ class AbacusHOD:
         by (nmesh, yb, want_shear, want_ranks, device): the staged column
         set depends on the flags, so toggling one restages."""
         key = (int(nmesh), yb, bool(self.want_shear), bool(self.want_ranks), self.device)
-        if self._fused_stage is not None and self._fused_stage[0] == key:
-            return self._fused_stage[1]
-        self._fused_stage = None  # free the old stage before building the new one
-        stage = group_inputs2d_linked_device(*self._box_columns(self.device), nmesh, self.lbox,
-                                             yb)
-        self._fused_stage = (key, stage)
-        return stage
+        with profiling.span('abacus.stage'):
+            if self._fused_stage is not None and self._fused_stage[0] == key:
+                return self._fused_stage[1]
+            self._fused_stage = None  # free the old stage before building the new one
+            stage = group_inputs2d_linked_device(*self._box_columns(self.device), nmesh,
+                                                 self.lbox, yb)
+            self._fused_stage = (key, stage)
+            return stage
 
     def _box_stage_sharded(self, nmesh, yb, mesh, slab):
         """The box leg's shard-local stage over `mesh`
@@ -285,21 +287,22 @@ class AbacusHOD:
         staged halo order. Cached with the box leg's stage, by (nmesh, yb,
         want_shear, want_ranks, device)."""
         key = ('lc', int(nmesh), yb, bool(self.want_shear), bool(self.want_ranks), self.device)
-        if self._fused_stage is not None and self._fused_stage[0] == key:
-            return self._fused_stage[1]
-        self._fused_stage = None
-        halo, part = flat_catalogs(
-            self.halo_data, self.particle_data, self.device, self.want_shear, self.want_ranks
-        )
-        for cat in (halo, part):
-            del cat['cat_mass'], cat['cat_id']
-        halo_g, part_g, plan_h, plan_p = group_inputs2d_linked_device(
-            halo, part, nmesh, self.lbox, yb, margin=(RSD_MARGIN,) * 3, shift=0.0
-        )
-        part_g['hidx'] = part_g.pop('hkeep_at')
-        stage = (halo_g, part_g, plan_h, plan_p)
-        self._fused_stage = (key, stage)
-        return stage
+        with profiling.span('abacus.stage'):
+            if self._fused_stage is not None and self._fused_stage[0] == key:
+                return self._fused_stage[1]
+            self._fused_stage = None
+            halo, part = flat_catalogs(
+                self.halo_data, self.particle_data, self.device, self.want_shear, self.want_ranks
+            )
+            for cat in (halo, part):
+                del cat['cat_mass'], cat['cat_id']
+            halo_g, part_g, plan_h, plan_p = group_inputs2d_linked_device(
+                halo, part, nmesh, self.lbox, yb, margin=(RSD_MARGIN,) * 3, shift=0.0
+            )
+            part_g['hidx'] = part_g.pop('hkeep_at')
+            stage = (halo_g, part_g, plan_h, plan_p)
+            self._fused_stage = (key, stage)
+            return stage
 
     def _flat_stage(self, particles=True):
         """Flat device catalogs in catalog order (population.flat_catalogs,
@@ -308,42 +311,47 @@ class AbacusHOD:
         halos are staged, or taken from a cached stage of both; the
         particles are then None."""
         key = (bool(self.want_ranks), self.device)
-        cached = self._flat_stage_cache
-        if cached is not None and cached[0] == key and (cached[1][1] is not None or not particles):
-            return cached[1]
-        self._flat_stage_cache = None
-        if particles:
-            stage = flat_catalogs(
-                self.halo_data, self.particle_data, self.device, True, self.want_ranks
-            )
-        else:
-            stage = (halo_catalog(self.halo_data, self.device, True), None)
-        self._flat_stage_cache = (key, stage)
-        return stage
+        with profiling.span('abacus.stage'):
+            cached = self._flat_stage_cache
+            if cached is not None and cached[0] == key and (
+                    cached[1][1] is not None or not particles):
+                return cached[1]
+            self._flat_stage_cache = None
+            if particles:
+                stage = flat_catalogs(
+                    self.halo_data, self.particle_data, self.device, True, self.want_ranks
+                )
+            else:
+                stage = (halo_catalog(self.halo_data, self.device, True), None)
+            self._flat_stage_cache = (key, stage)
+            return stage
 
     def _clustering(self, spectra, ng, want, nmesh, nbins_k, counts):
         """The compute_power key schema from the device bin sums (waits for
         the device)."""
-        wsum = torch.stack(list(spectra.values())).cpu().numpy()
-        ng = torch.stack([ng[t] for t in want]).cpu().numpy()
-        lbox = self.lbox
-        kedges, _ = get_k_mu_edges(lbox, np.pi * nmesh / lbox, nbins_k, 1, False)
-        clustering = {'k_binc': 0.5 * (kedges[1:] + kedges[:-1])}
-        nonzero = counts != 0
-        for (t1, t2), w in zip(spectra, wsum):
-            P = np.divide(w, counts, out=np.zeros_like(w), where=nonzero) * lbox**3
-            clustering[f'{t1}_{t2}'] = P
-            clustering[f'{t1}_{t2}_modes'] = counts
-            if t1 != t2:
-                clustering[f'{t2}_{t1}'] = P
-                clustering[f'{t2}_{t1}_modes'] = counts
-        return clustering, {t: float(n) for t, n in zip(want, ng)}
+        with profiling.span('abacus.spectrum'):
+            wsum = torch.stack(list(spectra.values()))
+            wsum = profiling.count_copy(wsum, wsum.cpu()).numpy()
+            ng = torch.stack([ng[t] for t in want])
+            ng = profiling.count_copy(ng, ng.cpu()).numpy()
+            lbox = self.lbox
+            kedges, _ = get_k_mu_edges(lbox, np.pi * nmesh / lbox, nbins_k, 1, False)
+            clustering = {'k_binc': 0.5 * (kedges[1:] + kedges[:-1])}
+            nonzero = counts != 0
+            for (t1, t2), w in zip(spectra, wsum):
+                P = np.divide(w, counts, out=np.zeros_like(w), where=nonzero) * lbox**3
+                clustering[f'{t1}_{t2}'] = P
+                clustering[f'{t1}_{t2}_modes'] = counts
+                if t1 != t2:
+                    clustering[f'{t2}_{t1}'] = P
+                    clustering[f'{t2}_{t1}_modes'] = counts
+            return clustering, {t: float(n) for t, n in zip(want, ng)}
 
     def _wcomp(self, nmesh, compensated):
         if not compensated:
             return None
         W = get_W_compensated(self.lbox, nmesh, 'TSC', False).astype(np.float32)
-        return torch.from_numpy(W).to(self.device)
+        return profiling.count_copy(W, torch.from_numpy(W).to(self.device))
 
     def run_hod_pk_fused(
         self, tracers=None, want_rsd=True, nmesh=256, nbins_k=None, yb=None, reseed=None,
@@ -394,12 +402,14 @@ class AbacusHOD:
                                                   compensated, mesh, slab)
 
         halo_g, part_g, plan_h, plan_p = self._box_stage(nmesh, yb)
-        seg, counts = make_bin_plan_arrays(nmesh, self.lbox, nbins_k, self.device)
         want = tuple(t for t in TRACER_ORDER if t in tracers)
+        with profiling.span('abacus.prepare'):
+            seg, counts = make_bin_plan_arrays(nmesh, self.lbox, nbins_k, self.device)
+            params = self._tracer_tensors(tracers, want)
+            wcomp = self._wcomp(nmesh, compensated)
         self.deposit_overflow.zero_()
         spectra, ng = hod_pk_fused_multi(
-            halo_g, part_g, self._tracer_tensors(tracers, want), seg,
-            self._wcomp(nmesh, compensated), self.lbox, float(self.params['velz2kms']), want,
+            halo_g, part_g, params, seg, wcomp, self.lbox, float(self.params['velz2kms']), want,
             int(nmesh), yb, int(nbins_k), plan_h, plan_p, rsd=bool(want_rsd),
             overflow=self.deposit_overflow,
         )
@@ -452,22 +462,26 @@ class AbacusHOD:
 
         halo, part, plan_h, plan_p = self._lc_stage(nmesh, yb)
         want = tuple(t for t in TRACER_ORDER if t in tracers)
-        origin = torch.from_numpy(np.asarray(self.params['origin'], np.float32)).to(self.device)
+        with profiling.span('abacus.prepare'):
+            params = self._tracer_tensors(tracers, want)
+            origin = np.asarray(self.params['origin'], np.float32)
+            origin = profiling.count_copy(origin, torch.from_numpy(origin).to(self.device))
+            seg, counts = make_bin_plan_arrays(nmesh, lbox, nbins_k, self.device)
+            wcomp = self._wcomp(nmesh, compensated)
         # 1.0 / velz2kms in f64 on the host, then f32 (abacus_hod.py:999)
         tr, ng = populate_lc_multi(
-            halo, part, self._tracer_tensors(tracers, want), want, bool(want_rsd),
-            _f32(1.0 / float(self.params['velz2kms'])), origin,
+            halo, part, params, want, bool(want_rsd), _f32(1.0 / float(self.params['velz2kms'])),
+            origin,
         )
         groups = {}
         for tracer in want:
             xc, yc, zc, wc, xs, ys, zs, ws = tr.pop(tracer)
             groups[tracer] = [(xc, yc, zc, wc, plan_h), (xs, ys, zs, ws, plan_p)]
 
-        seg, counts = make_bin_plan_arrays(nmesh, lbox, nbins_k, self.device)
         self.deposit_overflow.zero_()
         spectra, ng = pk_grouped_multi(
-            groups, ng, seg, self._wcomp(nmesh, compensated), lbox, int(nmesh), yb,
-            int(nbins_k), want, overflow=self.deposit_overflow,
+            groups, ng, seg, wcomp, lbox, int(nmesh), yb, int(nbins_k), want,
+            overflow=self.deposit_overflow,
         )
         return self._clustering(spectra, ng, want, nmesh, nbins_k, counts)
 
@@ -508,7 +522,8 @@ class AbacusHOD:
             self._reseed_randoms(reseed)
         start = time.time()
         want = tuple(t for t in TRACER_ORDER if t in tracers)
-        tparams = prepare_tracer_params({t: tracers[t] for t in want}, self.params['z'])
+        with profiling.span('abacus.prepare'):
+            tparams = prepare_tracer_params({t: tracers[t] for t in want}, self.params['z'])
         if want_nfw:
             halo, _ = self._flat_stage(particles=False)
             mock = populate_nfw(
@@ -697,17 +712,20 @@ class AbacusHOD:
         and crosses of a mock (and wp, xi and the multipoles within one call)
         share one stage a tracer (abacus_hod.py:_pair_loop)."""
         def col(a):
-            if isinstance(a, torch.Tensor):
-                return a.to(self.device, torch.float32)
-            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+            return profiling.count_copy(a, a.to(self.device, torch.float32))
 
-        staged = {tr: tuple(col(d[c]) for c in ('x', 'y', 'z')) for tr, d in mock_dict.items()}
+        with profiling.span('abacus.upload'):
+            staged = {tr: tuple(col(d[c]) for c in ('x', 'y', 'z'))
+                      for tr, d in mock_dict.items()}
         out = {}
         keys = list(mock_dict.keys())
         for i1, tr1 in enumerate(keys):
             for i2 in range(i1, len(keys)):
                 tr2 = keys[i2]
-                out[f'{tr1}_{tr2}'] = fn(staged[tr1], None if i1 == i2 else staged[tr2])
+                with profiling.span('abacus.pairs'):
+                    out[f'{tr1}_{tr2}'] = fn(staged[tr1], None if i1 == i2 else staged[tr2])
                 if i1 != i2 and symmetrize:
                     out[f'{tr2}_{tr1}'] = out[f'{tr1}_{tr2}']
         return out
@@ -786,20 +804,22 @@ class AbacusHOD:
             ffts.append(F)
         kbins, mubins = get_k_mu_edges(lbox, k_hMpc_max, nbins_k, nbins_mu, logk)
         dk = 2.0 * np.pi / lbox
-        plan, res = _binned_spectra(ffts, W, scale, dk, kbins, mubins, poles)
+        with profiling.span('abacus.bin'):
+            plan, res = _binned_spectra(ffts, W, scale, dk, kbins, mubins, poles)
         clustering = {}
-        for i1, tr1 in enumerate(keys):
-            for i2 in range(i1, len(keys)):
-                tr2 = keys[i2]
-                P = _spectrum(plan, dk, *res[(i1, i2)], lbox, poles, True)
-                cols = {'': P['power'], '_modes': P['N_mode']}
-                if poles:
-                    cols['_ell'] = np.asarray(P['binned_poles']).T
-                    cols['_ell_modes'] = P['N_mode_poles']
-                for suffix, v in cols.items():
-                    clustering[f'{tr1}_{tr2}{suffix}'] = v
-                    if i1 != i2:
-                        clustering[f'{tr2}_{tr1}{suffix}'] = v
+        with profiling.span('abacus.spectrum'):
+            for i1, tr1 in enumerate(keys):
+                for i2 in range(i1, len(keys)):
+                    tr2 = keys[i2]
+                    P = _spectrum(plan, dk, *res[(i1, i2)], lbox, poles, True)
+                    cols = {'': P['power'], '_modes': P['N_mode']}
+                    if poles:
+                        cols['_ell'] = np.asarray(P['binned_poles']).T
+                        cols['_ell_modes'] = P['N_mode_poles']
+                    for suffix, v in cols.items():
+                        clustering[f'{tr1}_{tr2}{suffix}'] = v
+                        if i1 != i2:
+                            clustering[f'{tr2}_{tr1}{suffix}'] = v
         clustering['k_binc'] = (kbins[1:] + kbins[:-1]) * 0.5
         mu_binc = (mubins[1:] + mubins[:-1]) * 0.5
         clustering['mu_binc'] = np.broadcast_to(mu_binc, P['power'].shape)[0]

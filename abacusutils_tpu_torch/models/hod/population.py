@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...convert import params_to_tensors, resolve_device
+from ...utils import profiling
 from . import shapes
 
 __all__ = [
@@ -310,7 +311,8 @@ def _to_host(t):
     if t.device.type == 'cpu':
         return t.numpy()
     buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    buf.copy_(t)
+    profiling.count('pinned_bytes', buf.nbytes)
+    profiling.count_copy(t, buf.copy_(t))
     return buf.numpy()
 
 
@@ -323,19 +325,20 @@ def _compact(parts, want):
     flatnonzero order, gathered into one block per tracer, and only they
     are copied to the host; id is int64."""
     result = {}
-    for tracer in want:
-        code = TRACER_ORDER.index(tracer) + 1
-        sels = [torch.nonzero(keep == code).squeeze(1) for keep, *_ in parts]
+    with profiling.span('abacus.compact'):
+        for tracer in want:
+            code = TRACER_ORDER.index(tracer) + 1
+            sels = [torch.nonzero(keep == code).squeeze(1) for keep, *_ in parts]
 
-        def rows(get):
-            return torch.cat([get(part).index_select(0, s) for part, s in zip(parts, sels)])
+            def rows(get):
+                return torch.cat([get(part).index_select(0, s) for part, s in zip(parts, sels)])
 
-        phase = torch.stack([rows(lambda part, k=k: part[1][tracer][k]) for k in range(6)])
-        td = {'Ncent': int(sels[0].numel())}
-        td.update(zip(('x', 'y', 'z', 'vx', 'vy', 'vz'), _to_host(phase)))
-        td['mass'] = _to_host(rows(lambda part: part[2]))
-        td['id'] = _to_host(rows(lambda part: part[3]).to(torch.int64))
-        result[tracer] = td
+            phase = torch.stack([rows(lambda part, k=k: part[1][tracer][k]) for k in range(6)])
+            td = {'Ncent': int(sels[0].numel())}
+            td.update(zip(('x', 'y', 'z', 'vx', 'vy', 'vz'), _to_host(phase)))
+            td['mass'] = _to_host(rows(lambda part: part[2]))
+            td['id'] = _to_host(rows(lambda part: part[3]).to(torch.int64))
+            result[tracer] = td
     return result
 
 
@@ -346,7 +349,8 @@ def _tensor_params(tracer_params, want, device):
 def _origin(origin, device):
     if origin is None:
         return None
-    return torch.from_numpy(np.asarray(origin, np.float32).reshape(3)).to(device)
+    origin = np.asarray(origin, np.float32).reshape(3)
+    return profiling.count_copy(origin, torch.from_numpy(origin).to(device))
 
 
 def _inv_velz2kms(velz2kms):
@@ -440,16 +444,17 @@ def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, 
     Returns the gen_gals mock dict: per tracer {Ncent, x, y, z, vx, vy, vz,
     mass, id}, centrals first."""
     device = halo['x'].device
-    params = _tensor_params(tracer_params, want, device)
-    inv = _inv_velz2kms(velz2kms)
-    org = _origin(origin, device)
-    keep_c = _cent_codes(halo, params, want)
-    keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+    with profiling.span('abacus.populate'):
+        params = _tensor_params(tracer_params, want, device)
+        inv = _inv_velz2kms(velz2kms)
+        org = _origin(origin, device)
+        keep_c = _cent_codes(halo, params, want)
+        keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+        phase_c = _phase_space(halo, params, want, rsd, inv, lbox, org, True)
+        phase_s = _phase_space(part, params, want, rsd, inv, lbox, org, False)
     mock = _compact([
-        (keep_c, _phase_space(halo, params, want, rsd, inv, lbox, org, True),
-         halo['cat_mass'], halo['cat_id']),
-        (keep_s, _phase_space(part, params, want, rsd, inv, lbox, org, False),
-         part['cat_mass'], part['cat_id']),
+        (keep_c, phase_c, halo['cat_mass'], halo['cat_id']),
+        (keep_s, phase_s, part['cat_mass'], part['cat_id']),
     ], want)
     if verbose:
         for tracer, td in mock.items():

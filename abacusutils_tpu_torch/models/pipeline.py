@@ -39,6 +39,7 @@ from ..ops.power import (
     get_k_mu_edges,
     get_mode_bin_plan,
 )
+from ..utils import profiling
 from .hod.population import (
     TRACER_ORDER,
     _apply_rsd,
@@ -223,9 +224,10 @@ def populate_weights_multi(halo, part, params, want, rsd, inv_velz2kms):
     through part['hkeep_at'] (ELG conformity). Returns
     {tracer: (z_c, w_c, z_s, w_s)} and the central keep codes
     (models/pipeline.py:populate_weights_multi)."""
-    keep_c = _cent_codes(halo, params, want)
-    keep_s = _sat_codes(part, params, want, keep_c[part['hkeep_at']])
-    return _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s), keep_c
+    with profiling.span('abacus.populate'):
+        keep_c = _cent_codes(halo, params, want)
+        keep_s = _sat_codes(part, params, want, keep_c[part['hkeep_at']])
+        return _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s), keep_c
 
 
 def _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k):
@@ -259,19 +261,23 @@ def hod_pk_fused_multi(
     tr, _ = populate_weights_multi(halo_g, part_g, params, want, rsd, inv_velz2kms)
     half_l = _f32(np.float32(lbox) / 2)
     device = halo_g['x'].device
-    xy = [
-        (halo_g['x'] + half_l, halo_g['y'] + half_l, plan_h),
-        (part_g['x'] + half_l, part_g['y'] + half_l, plan_p),
-    ]
+    with profiling.span('abacus.deposit'):
+        xy = [
+            (halo_g['x'] + half_l, halo_g['y'] + half_l, plan_h),
+            (part_g['x'] + half_l, part_g['y'] + half_l, plan_p),
+        ]
     deltas, n_gal = [], {}
     for tracer in want:
         z_c, w_c, z_s, w_s = tr[tracer]
-        grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
-        for (x, y, plan), z, w in zip(xy, (z_c, z_s), (w_c, w_s)):
-            tsc_deposit_cells(grid, x, y, z + half_l, w, plan, lbox, 0.0, overflow)
-        n_gal[tracer] = w_c.sum() + w_s.sum()
-        deltas.append(_delta_k(grid, n_gal[tracer]))
-    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k), n_gal
+        with profiling.span('abacus.deposit'):
+            grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
+            for (x, y, plan), z, w in zip(xy, (z_c, z_s), (w_c, w_s)):
+                tsc_deposit_cells(grid, x, y, z + half_l, w, plan, lbox, 0.0, overflow)
+            n_gal[tracer] = w_c.sum() + w_s.sum()
+        with profiling.span('abacus.transform'):
+            deltas.append(_delta_k(grid, n_gal[tracer]))
+    with profiling.span('abacus.bin'):
+        return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k), n_gal
 
 
 def populate_lc_multi(halo, part, params, want, rsd, inv_velz2kms, origin):
@@ -285,28 +291,30 @@ def populate_lc_multi(halo, part, params, want, rsd, inv_velz2kms, origin):
     deltac, fenv (+shear); part: x/y/z, vx/vy/vz, hvelx/hvely/hvelz, hmass,
     weights, randoms, deltac, fenv, hidx (+shear, +rank columns).
     Returns ({tracer: (xc, yc, zc, wc, xs, ys, zs, ws)}, {tracer: n_gal})."""
-    keep_c = _cent_codes(halo, params, want)
-    keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
-    out, n_gal = {}, {}
-    for code, tracer in enumerate(TRACER_ORDER, 1):
-        if tracer not in want:
-            continue
-        p = params[tracer]
-        vc = [halo[f'v{a}'] + p['alpha_c'] * halo[f'vdev{a}'] for a in 'xyz']
-        xc, yc, zc = _apply_rsd(
-            halo['x'], halo['y'], halo['z'], *vc, rsd, inv_velz2kms, None, origin
-        )
-        wc = (keep_c == code).to(torch.float32)
-        vs = [
-            part[f'hvel{a}'] + p['alpha_s'] * (part[f'v{a}'] - part[f'hvel{a}']) for a in 'xyz'
-        ]
-        xs, ys, zs = _apply_rsd(
-            part['x'], part['y'], part['z'], *vs, rsd, inv_velz2kms, None, origin
-        )
-        ws = (keep_s == code).to(torch.float32)
-        out[tracer] = (xc, yc, zc, wc, xs, ys, zs, ws)
-        n_gal[tracer] = wc.sum() + ws.sum()
-    return out, n_gal
+    with profiling.span('abacus.populate'):
+        keep_c = _cent_codes(halo, params, want)
+        keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+        out, n_gal = {}, {}
+        for code, tracer in enumerate(TRACER_ORDER, 1):
+            if tracer not in want:
+                continue
+            p = params[tracer]
+            vc = [halo[f'v{a}'] + p['alpha_c'] * halo[f'vdev{a}'] for a in 'xyz']
+            xc, yc, zc = _apply_rsd(
+                halo['x'], halo['y'], halo['z'], *vc, rsd, inv_velz2kms, None, origin
+            )
+            wc = (keep_c == code).to(torch.float32)
+            vs = [
+                part[f'hvel{a}'] + p['alpha_s'] * (part[f'v{a}'] - part[f'hvel{a}'])
+                for a in 'xyz'
+            ]
+            xs, ys, zs = _apply_rsd(
+                part['x'], part['y'], part['z'], *vs, rsd, inv_velz2kms, None, origin
+            )
+            ws = (keep_s == code).to(torch.float32)
+            out[tracer] = (xc, yc, zc, wc, xs, ys, zs, ws)
+            n_gal[tracer] = wc.sum() + ws.sum()
+        return out, n_gal
 
 
 def pk_grouped_multi(groups, n_gal, seg, Wcomp, lbox, nmesh, yb, nbins_k, want, overflow=None):
@@ -321,11 +329,14 @@ def pk_grouped_multi(groups, n_gal, seg, Wcomp, lbox, nmesh, yb, nbins_k, want, 
     device = groups[want[0]][0][0].device
     deltas = []
     for tracer in want:
-        grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
-        for x, y, z, w, plan in groups[tracer]:
-            tsc_deposit_cells(grid, x, y, z, w, plan, lbox, 0.0, overflow)
-        deltas.append(_delta_k(grid, n_gal[tracer]))
-    return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k), n_gal
+        with profiling.span('abacus.deposit'):
+            grid = torch.zeros((nmesh,) * 3, dtype=torch.float32, device=device)
+            for x, y, z, w, plan in groups[tracer]:
+                tsc_deposit_cells(grid, x, y, z, w, plan, lbox, 0.0, overflow)
+        with profiling.span('abacus.transform'):
+            deltas.append(_delta_k(grid, n_gal[tracer]))
+    with profiling.span('abacus.bin'):
+        return _pair_spectra(deltas, want, seg, Wcomp, nmesh, nbins_k), n_gal
 
 
 _EXAMPLE_PARAMS = {

@@ -66,6 +66,7 @@ import torch
 
 from .. import _build
 from ..convert import resolve_device
+from ..utils import profiling
 from .grid import (
     MAX_SMEM_BYTES,
     RSD_MARGIN,
@@ -816,7 +817,7 @@ def _pos_columns(pos, device):
             out.append(c.to(torch.float32).contiguous())
         else:
             a = np.ascontiguousarray(c, dtype=np.float32)
-            out.append(torch.from_numpy(a).to(resolve_device(device)))
+            out.append(profiling.count_copy(a, torch.from_numpy(a).to(resolve_device(device))))
     return out
 
 
@@ -824,8 +825,9 @@ def _weights(w, device):
     if w is None:
         return None
     if isinstance(w, torch.Tensor):
-        return w.to(device, torch.float32).contiguous()
-    return torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)).to(device)
+        return profiling.count_copy(w, w.to(device, torch.float32).contiguous())
+    w = np.ascontiguousarray(w, dtype=np.float32)
+    return profiling.count_copy(w, torch.from_numpy(w).to(device))
 
 
 def get_field(pos, Lbox, nmesh, paste, w=None, d=0.0, device=None, overflow=None):
@@ -891,12 +893,15 @@ def _field_fft(pos, Lbox, nmesh, paste, w, interlaced, device=None, overflow=Non
     scale: (rfftn(field), 1/N^3), or (the interlaced combination, which
     carries its own 0.5/N^3, 1.0). K3 applies scale and window per mode.
     Host columns are uploaded once, for both paints of an interlaced field."""
-    pos = _pos_columns(pos, device)
-    w = _weights(w, pos[0].device)
+    with profiling.span('abacus.upload'):
+        pos = _pos_columns(pos, device)
+        w = _weights(w, pos[0].device)
     if interlaced:
         return get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device, overflow), 1.0
-    field = get_field(pos, Lbox, nmesh, paste, w, device=device, overflow=overflow)
-    return torch.fft.rfftn(field), 1.0 / field.numel()
+    with profiling.span('abacus.deposit'):
+        field = get_field(pos, Lbox, nmesh, paste, w, device=device, overflow=overflow)
+    with profiling.span('abacus.transform'):
+        return torch.fft.rfftn(field), 1.0 / field.numel()
 
 
 def get_interlaced_field_fft(pos, Lbox, nmesh, paste, w, device=None, overflow=None):
@@ -987,11 +992,15 @@ def _binned_spectra(ffts, W, scale, dk, kedges, muedges, poles):
     plan = _plan_for(n1d, dk, kedges, muedges, poles, device)
     nbins = plan.nk * plan.nmu
     pole_w = {p: plan.pole_w[p] for p in poles if p != 0}
-    Wt = None if W is None else torch.as_tensor(np.asarray(W, np.float32), device=device)
+    Wt = None
+    if W is not None:
+        W = np.asarray(W, np.float32)
+        Wt = profiling.count_copy(W, torch.as_tensor(W, device=device))
     out = bin_pair_modes(ffts, plan.seg, Wt, scale, nbins, pole_w or None, plan.nmu)
     sums, psums = out if pole_w else (out, None)
-    sums = sums.cpu().numpy().reshape(-1, plan.nk, plan.nmu)
-    psums = np.zeros((len(sums), 0, plan.nk)) if psums is None else psums.cpu().numpy()
+    sums = profiling.count_copy(sums, sums.cpu()).numpy().reshape(-1, plan.nk, plan.nmu)
+    psums = (np.zeros((len(sums), 0, plan.nk)) if psums is None
+             else profiling.count_copy(psums, psums.cpu()).numpy())
     return plan, {ij: (sums[p], psums[p]) for p, ij in enumerate(field_pairs(len(ffts)))}
 
 

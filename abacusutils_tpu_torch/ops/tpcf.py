@@ -75,6 +75,7 @@ import torch
 
 from .. import _build
 from ..convert import resolve_device
+from ..utils import profiling
 from .grid import _f32, work_items
 
 __all__ = [
@@ -390,16 +391,17 @@ def _stage_key(pos):
 def _get_stage(pos, lbox, nc, device=None, span=None):
     span = default_span(nc) if span is None else span
     key = _stage_key(pos)
-    if key is not None:
-        for ent in _stage_cache:
-            if ent[0] == key and ent[1] == (lbox, nc, span):
-                return ent[2]
-    st = stage_cells(*_wrapped_columns(pos, lbox, device), lbox, nc, span)
-    if key is not None:
-        # hold a reference to pos so the ids in the key cannot be recycled
-        _stage_cache.insert(0, (key, (lbox, nc, span), st, pos))
-        del _stage_cache[_STAGE_CACHE_LEN:]
-    return st
+    with profiling.span('abacus.cell_stage'):
+        if key is not None:
+            for ent in _stage_cache:
+                if ent[0] == key and ent[1] == (lbox, nc, span):
+                    return ent[2]
+        st = stage_cells(*_wrapped_columns(pos, lbox, device), lbox, nc, span)
+        if key is not None:
+            # hold a reference to pos so the ids in the key cannot be recycled
+            _stage_cache.insert(0, (key, (lbox, nc, span), st, pos))
+            del _stage_cache[_STAGE_CACHE_LEN:]
+        return st
 
 
 def cell_grid(lbox, rmax, n_sparse):
@@ -952,7 +954,12 @@ def _cell_pair_counts(pos1, pos2, lbox, rmax, edges2, aux, mode, nb1, nb2, metho
     if _block_overflows(side_a, side_b, walk):
         return None
     counts = count_pairs_cells(side_a, None if autocorr else side_b, thr, nb2, mode, aux)
-    return counts.cpu().numpy().reshape(nb1, nb2)
+    return _host_counts(counts, nb1, nb2)
+
+
+def _host_counts(counts, nb1, nb2):
+    """The flat counts on the host, as an (nb1, nb2) array."""
+    return profiling.count_copy(counts, counts.cpu()).numpy().reshape(nb1, nb2)
 
 
 def _check_tiled_feasible(n1, n2, lbox, rmax, method=None):
@@ -1008,7 +1015,7 @@ def _pair_counts(pos1, pos2, edges, nb2, mode, lbox, rmax, aux, method, device, 
         cols2 = None if autocorr else _raw_columns(pos2, dtype, cols1[0].device)
     thr = edges_f32(edges2) if dtype == torch.float32 else edges2
     counts = count_pairs_all(cols1, cols2, thr, nb2, mode, lbox, aux)
-    return counts.cpu().numpy().reshape(nb1, nb2)
+    return _host_counts(counts, nb1, nb2)
 
 
 def pair_counts_rppi(pos1, rpbins, pimax, lbox, pos2=None, method=None, device=None,

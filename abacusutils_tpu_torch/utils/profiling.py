@@ -1,13 +1,22 @@
-"""Stage timing and device traces (the counterpart of
-abacusutils_tpu/utils/profiling.py).
+"""Stage timing, device traces, the program's spans and its transfer
+counters (the counterpart of abacusutils_tpu/utils/profiling.py).
 
 :func:`stage_timer` times a block by the host's clock, synchronising the
 CUDA device before and after so that the interval holds the block's kernels
 and not only their launches; on a CPU run it synchronises nothing.
 :func:`device_trace` records a ``torch.profiler`` trace of CPU and CUDA
 activity around a block and writes it as a Chrome / Perfetto JSON file.
+
+:func:`span` names a step of the program (``abacus.populate``,
+``abacus.deposit``, ...) on the profiler's timeline, where a trace is being
+recorded, and costs one check where none is; it never waits for the
+device. :data:`counters` counts, always, the bytes the evaluation paths
+copy between the host and a card (``h2d_bytes``, ``d2h_bytes``) and the
+page-locked host memory they allocate (``pinned_bytes``).
 """
 
+import collections
+import contextlib
 import logging
 import os
 import time
@@ -15,7 +24,15 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ['stage_timer', 'device_trace', 'Timings']
+__all__ = ['stage_timer', 'device_trace', 'Timings', 'span', 'counters', 'count', 'count_copy']
+
+# {name: int}: the program's counters since the process started; read a
+# difference of two snapshots (dict(counters)) for a stretch of work
+counters = collections.Counter()
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
+_Range = torch._C._profiler._RecordFunctionFast
 
 
 class Timings(dict):
@@ -84,3 +101,44 @@ def device_trace(logdir):
     with profile(activities=activities) as prof:
         yield fn
     prof.export_chrome_trace(fn)
+
+
+def span(name):
+    """A context naming a step of the program on the profiler's timeline.
+
+    Under a running ``torch.profiler`` (:func:`device_trace`, or any other)
+    the step is a host range of the launching thread, on the clock of the
+    CUDA activity the profiler records: in the Perfetto view of
+    :func:`device_trace`'s file it is a slice of that thread, and the flow
+    arrows of the launches inside it lead to their kernels and copies.
+    Spans nest; every name starts with ``abacus.``. A span is a range of
+    the function scope, not a ``record_function`` user annotation, which
+    the profiler would mirror on the device's rows as one interval from
+    the first to the last kernel launched inside it: the device rows hold
+    only device work. Without a profiler the span is a shared no-op: one
+    check, no range entered, nothing synchronised.
+
+    >>> with span('abacus.populate'): keep = codes(halo, params)
+    """
+    if not _profiling():
+        return _NO_SPAN
+    return _Range(name)
+
+
+def count(name, n=1):
+    """Add `n` to ``counters[name]``."""
+    counters[name] += n
+
+
+def count_copy(src, dst):
+    """Count `dst`, the copy of `src` (a tensor, or a host array), in
+    ``counters['h2d_bytes']`` or ``counters['d2h_bytes']`` where the copy
+    crossed between the host and a card, by its bytes; nothing where both
+    lie on the host, or both on a card. Returns `dst`.
+
+    >>> t = count_copy(a, torch.from_numpy(a).to(device))
+    """
+    on_host = [not isinstance(a, torch.Tensor) or a.device.type == 'cpu' for a in (src, dst)]
+    if on_host[0] != on_host[1]:
+        counters['d2h_bytes' if on_host[1] else 'h2d_bytes'] += dst.nbytes
+    return dst

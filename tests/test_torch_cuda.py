@@ -1999,3 +1999,32 @@ def test_abacus_hod_mesh_on_the_default_device(cuda_device):
                     assert (np.abs(got[key] - r) <= 2e-4 * scale).all(), (slab, key)
     finally:
         dist.destroy_process_group()
+
+
+def test_two_step_xirppi_counts_its_transfers(cuda_device):
+    """run_hod -> compute_xirppi on the card, the flat stage cached: the
+    transfer counters read 48 B a galaxy and the fixed bytes, exactly. Up:
+    the prepared HOD parameters (4 B each) and the mock's x, y, z (12 B a
+    galaxy); down: six float32 phase-space columns, the float32 mass and the
+    int64 id (36 B a galaxy, each through a page-locked buffer of its own
+    size) and the int64 (rp, unit pi) counts."""
+    from abacusutils_tpu_torch.utils import profiling
+
+    halo, part = staged_state(30_000, 120_000, 500.0, seed=43)
+    halo['hmass'], part['phmass'] = (a.astype(np.float32) for a in (halo['hmass'], part['phmass']))
+    params = {'z': 0.5, 'Lbox': 500.0, 'velz2kms': 100.0, 'origin': None}
+    tracers = {'LRG': TRACERS['LRG']}
+    hod = staged_state_from_numpy(halo, part, params, tracers, dict(halo_lc=False), cuda_device)
+    rpbins = np.logspace(-1, np.log10(30), 9)
+    hod.compute_xirppi(hod.run_hod(), rpbins, 30, 5)
+    before = dict(profiling.counters)
+    mock = hod.run_hod()
+    hod.compute_xirppi(mock, rpbins, 30, 5)
+    got = {k: profiling.counters[k] - before.get(k, 0)
+           for k in ('h2d_bytes', 'd2h_bytes', 'pinned_bytes')}
+    ngal = len(mock['LRG']['x'])
+    assert ngal > 1000
+    nparams = len(prepare_tracer_params(tracers, 0.5)['LRG'])
+    counts = 8 * (len(rpbins) - 1) * 30
+    assert got == {'h2d_bytes': 4 * nparams + 12 * ngal, 'd2h_bytes': 36 * ngal + counts,
+                   'pinned_bytes': 36 * ngal}
