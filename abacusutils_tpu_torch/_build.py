@@ -82,6 +82,11 @@ SIGNATURES = {
     # Nyquist kz, rows, items, nitems, item starts, pi bins' first kz, nk,
     # npi, threads a block, partials, out (f64), stream
     'kppi_bin': (_P, _L, _L, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P),
+    # satellites (0: centrals), the columns (array of pointers, population.py
+    # CODE_COLUMNS), host_at, the central codes and their count, the
+    # parameters (array of pointers, 3 x population.py CODE_PARAMS), the
+    # tracers' bitmask, n, out (int8), stream
+    'hod_keep_codes': (_I, ctypes.POINTER(_P), _P, _P, _L, ctypes.POINTER(_P), _I, _L, _P, _P),
     # x, y, z (f32), query, work, nitems, pstart, pnum, nn_d2 (f64), stream
     'nn_within_halo': (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     # x, y, z, m, rin2 (f64, sorted by cell), cells (3, n), n, starts, ukeys

@@ -3,7 +3,9 @@ r"""Central/satellite galaxy population (elementwise PyTorch).
 Counterpart of abacusutils_tpu/models/hod/population.py: the markers
 ``_cent_marker`` and ``_sat_base`` for LRG, ELG (with conformity and the
 shear terms) and QSO, the priority keep codes ``_cent_codes`` /
-``_sat_codes`` (shared with the fused route of models/pipeline.py),
+``_sat_codes`` (shared with the fused route of models/pipeline.py; on the
+card one launch each of csrc/hod_codes.cu, :func:`keep_codes_kernel`, on
+the CPU their plain versions ``cent_codes_plain`` / ``sat_codes_plain``),
 ``_apply_rsd`` (plane-parallel z and the light-cone line of sight),
 ``_rank_multiplier``, the host function ``prepare_tracer_params``, and the
 two-step population ``gen_cent``, ``gen_sats`` and ``gen_gals`` with
@@ -14,9 +16,12 @@ Markers take 0-d float32 parameter tensors (``convert.params_to_tensors``),
 so their scalar arithmetic runs in float32, as under jax.jit.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
+from ... import _build
 from ...convert import params_to_tensors, resolve_device
 from ...utils import profiling
 from . import shapes
@@ -153,9 +158,10 @@ def prepare_tracer_params(tracers, z):
     return out
 
 
-def _cent_codes(halo, params, want):
+def cent_codes_plain(halo, params, want):
     """Central priority keep codes (int8) over stacked tracer markers (one
-    random per halo, reference gen_cent GRAND_HOD.py:213-252)."""
+    random per halo, reference gen_cent GRAND_HOD.py:213-252): a chain of
+    elementwise PyTorch ops."""
     marker = torch.zeros_like(halo['mass'])
     keep_c = torch.zeros(halo['mass'].shape, dtype=torch.int8, device=halo['mass'].device)
     for code, tracer in enumerate(TRACER_ORDER, 1):
@@ -170,11 +176,12 @@ def _cent_codes(halo, params, want):
     return keep_c
 
 
-def _sat_codes(part, params, want, keep_cent_p):
+def sat_codes_plain(part, params, want, keep_cent_p):
     """Satellite priority keep codes (int8; reference gen_sats
     GRAND_HOD.py:948-1095); `keep_cent_p` is each particle's host-central
     code (conformity). Rank decorations multiply the base rate when the
-    staged columns are present (reference GRAND_HOD.py:1042-1050)."""
+    staged columns are present (reference GRAND_HOD.py:1042-1050). A chain
+    of elementwise PyTorch ops."""
     marker = torch.zeros_like(part['hmass'])
     keep_s = torch.zeros(part['hmass'].shape, dtype=torch.int8, device=part['hmass'].device)
     for code, tracer in enumerate(TRACER_ORDER, 1):
@@ -192,6 +199,156 @@ def _sat_codes(part, params, want, keep_cent_p):
         marker = marker + base
         keep_s.masked_fill_((keep_s == 0) & (part['randoms'] <= marker), code)
     return keep_s
+
+
+def _cent_codes(halo, params, want):
+    """Central priority keep codes (int8) of :func:`cent_codes_plain`. On
+    CUDA tensors one launch of csrc/hod_codes.cu (:func:`keep_codes_kernel`),
+    equal bit for bit; on CPU tensors the plain version."""
+    if halo['mass'].device.type == 'cpu':
+        return cent_codes_plain(halo, params, want)
+    return keep_codes_kernel(halo, params, want, 'centrals')
+
+
+def _sat_codes(part, params, want, keep_cent, host_at=None):
+    """Satellite priority keep codes (int8) of :func:`sat_codes_plain`.
+    `keep_cent` holds each particle's host-central code, or, with `host_at`
+    (int32, a row a particle), the table of central codes that
+    keep_cent[host_at] reads. On CUDA tensors one launch of
+    csrc/hod_codes.cu (:func:`keep_codes_kernel`), which reads the table
+    itself, equal bit for bit; on CPU tensors the plain version on the
+    gathered codes."""
+    if part['hmass'].device.type == 'cpu':
+        return sat_codes_plain(part, params, want,
+                               keep_cent if host_at is None else keep_cent[host_at])
+    return keep_codes_kernel(part, params, want, 'satellites', keep_cent, host_at)
+
+
+CODE_FORMS = ('centrals', 'satellites')
+# the kernel's columns, in order: the centrals' key and the satellites' key
+# (None: the form has no such column)
+CODE_COLUMNS = (
+    ('mass', 'hmass'), ('multis', 'weights'), ('randoms', 'randoms'), ('deltac', 'deltac'),
+    ('fenv', 'fenv'), ('shear', 'shear'), (None, 'ranks'), (None, 'ranksv'), (None, 'ranksp'),
+    (None, 'ranksr'),
+)
+# the kernel's parameter slots of a tracer, in order
+CODE_PARAMS = (
+    'logM_cut', 'Acent', 'Bcent', 'Ccent', 'sigma', 'ic', 'p_max', 'Q', 'gamma', 'logM1', 'Asat',
+    'Bsat', 'Csat', 'alpha', 'kappa', 'A_s', 'logM1_EL', 'alpha_EL', 'logM1_EE', 'alpha_EE', 's',
+    's_v', 's_p', 's_r',
+)
+# the parameters each form's marker reads (_cent_marker, then * ic;
+# _sat_base, then * ic), and the rank factors (_rank_multiplier)
+_MARKER_PARAMS = {
+    'centrals': {
+        'LRG': ('logM_cut', 'Acent', 'Bcent', 'sigma', 'ic'),
+        'ELG': ('logM_cut', 'Acent', 'Bcent', 'Ccent', 'p_max', 'Q', 'sigma', 'gamma', 'ic'),
+        'QSO': ('logM_cut', 'Acent', 'Bcent', 'sigma', 'ic'),
+    },
+    'satellites': {
+        'LRG': ('logM1', 'Asat', 'Bsat', 'logM_cut', 'Acent', 'Bcent', 'sigma', 'alpha', 'kappa',
+                'ic'),
+        'ELG': ('logM_cut', 'Acent', 'Bcent', 'Ccent', 'logM1', 'Asat', 'Bsat', 'Csat', 'kappa',
+                'alpha', 'A_s', 'logM1_EL', 'alpha_EL', 'logM1_EE', 'alpha_EE', 'ic'),
+        'QSO': ('logM1', 'Asat', 'Bsat', 'logM_cut', 'Acent', 'Bcent', 'kappa', 'alpha', 'ic'),
+    },
+}
+_RANK_PARAMS = ('s', 's_v', 's_p', 's_r')
+
+
+def code_columns(cat, form):
+    """The columns of `cat` that the keep-code kernel reads for `form`, in
+    CODE_COLUMNS order, None where the catalog has none (shear) or the form
+    reads none (the rank columns of centrals)."""
+    i = CODE_FORMS.index(form)
+    return [cat.get(keys[i]) if keys[i] else None for keys in CODE_COLUMNS]
+
+
+def code_params(params, want, form, ranks=False):
+    """The keep-code kernel's parameter slots: for each tracer of
+    TRACER_ORDER, in CODE_PARAMS order, the value params[tracer][key] of
+    each key the form's marker reads (with `ranks`, the satellites' rank
+    factors too), None for the other keys and for every key of a tracer not
+    in `want` (centrals have no rank factors). The values are the plain
+    version's own 0-d tensors."""
+    slots = []
+    for tracer in TRACER_ORDER:
+        read = ()
+        if tracer in want:
+            read = _MARKER_PARAMS[form][tracer] + (
+                _RANK_PARAMS if ranks and form == 'satellites' else ())
+        slots += [params[tracer][k] if k in read else None for k in CODE_PARAMS]
+    return slots
+
+
+def _checked_ptr(a, name, dtype, dev, shape=None):
+    """The device address of tensor `a`, after checking it is a contiguous
+    `dtype` tensor on `dev` (of `shape`, where given)."""
+    if not isinstance(a, torch.Tensor) or a.dtype != dtype or a.device != dev or (
+            not a.is_contiguous()) or (shape is not None and a.shape != shape):
+        of = f'{tuple(shape)} ' if shape is not None else ''
+        raise ValueError(f'{name} must be a contiguous {of}{dtype} tensor on {dev}')
+    return a.data_ptr()
+
+
+def keep_codes_kernel(cat, params, want, form, keep_cent=None, host_at=None):
+    """The int8 keep codes of `cat`'s objects from one launch of
+    csrc/hod_codes.cu on the current stream: form 'centrals' those of
+    :func:`cent_codes_plain`, 'satellites' those of :func:`sat_codes_plain`
+    on keep_cent[host_at] (keep_cent itself where host_at is None), bit for
+    bit. Columns: :func:`code_columns`, contiguous float32 on one card; the
+    shear and the rank columns may be absent. Parameters: the 0-d float32
+    tensors on that card that :func:`code_params` picks, read by the kernel
+    where they lie (no copy, no sync). keep_cent (int8) and host_at (int32)
+    are read only where ELG is wanted; a host_at past keep_cent stops the
+    kernel with a device-side trap, as ATen's gather asserts. No objects, no
+    launch."""
+    sat = form == 'satellites'
+    cols = code_columns(cat, form)
+    mass = cols[0]
+    if not isinstance(mass, torch.Tensor) or mass.device.type != 'cuda':
+        raise ValueError(f'the keep-code kernel takes CUDA tensors, not {type(mass).__name__} '
+                         f'on {getattr(mass, "device", None)}')
+    n, dev = mass.numel(), mass.device
+    names = [keys[CODE_FORMS.index(form)] for keys in CODE_COLUMNS]
+    col_ptrs = [None if c is None else _checked_ptr(c, k, torch.float32, dev, (n,))
+                for k, c in zip(names, cols)]
+    ranks = sat and cols[6] is not None
+    if sat and (cols[6] is None) != all(c is None for c in cols[6:]):
+        raise ValueError('the rank columns come four together or not at all')
+    cent_ptr = at_ptr = None
+    ncent = 0
+    if sat and 'ELG' in want:
+        if keep_cent is None:
+            raise ValueError('ELG satellites need their hosts\' central codes')
+        if host_at is None:
+            cent_ptr = _checked_ptr(keep_cent, 'keep_cent', torch.int8, dev, (n,))
+        else:
+            cent_ptr = _checked_ptr(keep_cent, 'keep_cent', torch.int8, dev)
+            at_ptr = _checked_ptr(host_at, 'host_at', torch.int32, dev, (n,))
+        ncent = keep_cent.numel()
+    par_ptrs = [None if v is None else _checked_ptr(v, 'a parameter', torch.float32, dev, ())
+                for v in code_params(params, want, form, ranks)]
+    out = torch.empty(n, dtype=torch.int8, device=dev)
+    if n == 0:
+        return out
+    mask = sum(1 << i for i, tracer in enumerate(TRACER_ORDER) if tracer in want)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        code = lib.hod_keep_codes(
+            int(sat), (ctypes.c_void_p * len(col_ptrs))(*col_ptrs), at_ptr, cent_ptr, ncent,
+            (ctypes.c_void_p * len(par_ptrs))(*par_ptrs), mask, n, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, 'hod_keep_codes')
+    keep_codes_kernel.launches += 1
+    keep_codes_kernel.launches_by_form[form] += 1
+    return out
+
+
+keep_codes_kernel.launches = 0
+keep_codes_kernel.launches_by_form = dict.fromkeys(CODE_FORMS, 0)
 
 
 _RANK_COLUMNS = (('ranks', 'pranks'), ('ranksv', 'pranksv'), ('ranksp', 'pranksp'),
@@ -440,7 +597,7 @@ def gen_sats(
 def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, verbose=False):
     """The two-step population on flat device catalogs (:func:`flat_catalogs`):
     the keep codes of the fused route (_cent_codes, then _sat_codes through
-    part['hidx']), the phase space of every object, and the compaction.
+    host_at=part['hidx']), the phase space of every object, and the compaction.
     Returns the gen_gals mock dict: per tracer {Ncent, x, y, z, vx, vy, vz,
     mass, id}, centrals first."""
     device = halo['x'].device
@@ -449,7 +606,7 @@ def populate_flat(halo, part, tracer_params, want, rsd, velz2kms, lbox, origin, 
         inv = _inv_velz2kms(velz2kms)
         org = _origin(origin, device)
         keep_c = _cent_codes(halo, params, want)
-        keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+        keep_s = _sat_codes(part, params, want, keep_c, host_at=part['hidx'])
         phase_c = _phase_space(halo, params, want, rsd, inv, lbox, org, True)
         phase_s = _phase_space(part, params, want, rsd, inv, lbox, org, False)
     mock = _compact([

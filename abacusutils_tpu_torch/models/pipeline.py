@@ -226,7 +226,7 @@ def populate_weights_multi(halo, part, params, want, rsd, inv_velz2kms):
     (models/pipeline.py:populate_weights_multi)."""
     with profiling.span('abacus.populate'):
         keep_c = _cent_codes(halo, params, want)
-        keep_s = _sat_codes(part, params, want, keep_c[part['hkeep_at']])
+        keep_s = _sat_codes(part, params, want, keep_c, host_at=part['hkeep_at'])
         return _tracer_zw(halo, part, params, want, rsd, inv_velz2kms, keep_c, keep_s), keep_c
 
 
@@ -293,7 +293,7 @@ def populate_lc_multi(halo, part, params, want, rsd, inv_velz2kms, origin):
     Returns ({tracer: (xc, yc, zc, wc, xs, ys, zs, ws)}, {tracer: n_gal})."""
     with profiling.span('abacus.populate'):
         keep_c = _cent_codes(halo, params, want)
-        keep_s = _sat_codes(part, params, want, keep_c[part['hidx']])
+        keep_s = _sat_codes(part, params, want, keep_c, host_at=part['hidx'])
         out, n_gal = {}, {}
         for code, tracer in enumerate(TRACER_ORDER, 1):
             if tracer not in want:

@@ -418,7 +418,7 @@ def hod_pk_fused_sharded(mesh, stage, params, seg, Wcomp, lbox, velz2kms, want, 
     glob = torch.zeros(stage.nhalo_max, dtype=torch.int8, device=dev)
     glob[:keep_c.numel()] = keep_c
     glob = all_gather_rows(glob, mesh)
-    keep_s = _sat_codes(part_g, params, want, glob[part_g['hkeep_at']])
+    keep_s = _sat_codes(part_g, params, want, glob, host_at=part_g['hkeep_at'])
     del glob
     tr = _tracer_zw(halo_g, part_g, params, want, rsd, inv_velz2kms, keep_c, keep_s)
     half = _f32(np.float32(lbox) / 2)

@@ -41,6 +41,11 @@ Phases, each printing what it measured:
    velocities, an origin outside the box corner): the same, on catalogs
    staged once by brick with a margin on every axis, two K1 launches per
    tracer;
+6b. the populate's keep codes (``csrc/hod_codes.cu``) at the same sizes,
+   three tracers: one launch on the halos and one on the particles (the
+   host codes read through host_at), the codes equal to their plain
+   versions' bit for bit, the kernel timed by CUDA events and by the
+   profiler against its byte bound and the plain versions' time;
 7. the two-step route on the box catalog of phase 5 (with halo and
    particle ids): (a) ``AbacusHOD.run_hod``, timed host to host, each
    tracer's galaxy count equal to phase 5's n_gal; (b) ``compute_power`` at
@@ -429,6 +434,8 @@ K1_PTXAS = {}
 GATHER_PTXAS = {}
 # (registers, spill stores, spill loads) of K9's two kernels
 K9_PTXAS = {}
+# (registers, spill stores, spill loads) of the keep codes' two instances
+CODES_PTXAS = {}
 # pair counting (phase 8): rp and s edges, pimax, the pi bin of xi(rp, pi)
 # and the mu bins of docs/hod.md:36-38 and scripts/tpcf/bench.py:46-48
 PAIR_BINS = np.logspace(-1, np.log10(30.0), 9)
@@ -624,11 +631,15 @@ def phase_build():
     K9_PTXAS.update(ptxas_of(log, lambda m: 'K9 rows' if 'kppi_rows' in m else (
         'K9 reduce' if 'kppi_reduce' in m else None)))
     PAIR_PTXAS.update(ptxas_pairs(log))
+    CODES_PTXAS.update(ptxas_of(log, lambda m: (
+        ('satellites' if 'ILb1E' in m else 'centrals') if 'hod_keep_codes_kernel' in m else None)))
     _build.lib()
     print(f'phase 1 build: {path.name} in {secs:.2f} s; K1 (kind, flush width): '
           f'(registers, spill stores, spill loads) {K1_PTXAS}; the multi-weight gather '
           f'(grids, unit grid first): {GATHER_PTXAS}; K9: {K9_PTXAS}')
     require(len(K9_PTXAS) == 2, f'ptxas reported {len(K9_PTXAS)} K9 kernels, not 2')
+    require(len(CODES_PTXAS) == 2,
+            f'ptxas reported {len(CODES_PTXAS)} keep-code kernels, not 2: {CODES_PTXAS}')
     # TSC and CIC at three flush widths, each on the periodic grid and in slab
     # mode; the gather of 1 to 5 grids with and without a unit grid
     require(len(K1_PTXAS) == 12, f'ptxas reported {len(K1_PTXAS)} K1 instantiations, not 12')
@@ -4259,7 +4270,7 @@ def sharded_paths(mesh, pk_pos, qso, out):
             glob = torch.zeros(stage.nhalo_max, dtype=torch.int8, device=dev)
             glob[:keep_c.numel()] = keep_c
             glob = pmesh.all_gather_rows(glob, mesh)
-            keep_s = tpop._sat_codes(part_g, tp, WANT, glob[part_g['hkeep_at']])
+            keep_s = tpop._sat_codes(part_g, tp, WANT, glob, host_at=part_g['hkeep_at'])
             tr = _tracer_zw(halo_g, part_g, tp, WANT, True, _f32(1.0 / VELZ2KMS), keep_c, keep_s)
             half = _f32(np.float32(LBOX) / 2)
             z_c, w_c, z_s, w_s = tr['LRG']
@@ -4524,6 +4535,8 @@ KERNELS = {
                          'abacusutils_tpu/models/zcv/zenbu_window.py:96'),
     'bin_kppi_sums': (bin_kppi_sums, 'abacusutils_tpu_torch/csrc/kppi_bin.cu',
                       'abacusutils_tpu/ops/power.py:613'),
+    'hod_keep_codes': (tpop.keep_codes_kernel, 'abacusutils_tpu_torch/csrc/hod_codes.cu',
+                       'abacusutils_tpu/models/pipeline.py:546'),
 }
 # the kernels line's entries: (kernel, form); a form's launches are its
 # wrapper's launches_by_form count (None: the wrapper's whole count)
@@ -4558,6 +4571,11 @@ FORMS = {
                                         'abacusutils_tpu/parallel/mesh.py:633'),
     'pair_count_all[smu row offset]': ('count_pairs_all', 'smu row offset',
                                        'abacusutils_tpu/parallel/mesh.py:687'),
+    # no TPU kernel: the elementwise jnp code XLA fuses
+    'hod_keep_codes[centrals]': ('hod_keep_codes', 'centrals',
+                                 'abacusutils_tpu/models/pipeline.py:546'),
+    'hod_keep_codes[satellites]': ('hod_keep_codes', 'satellites',
+                                   'abacusutils_tpu/models/pipeline.py:567'),
 }
 # what phase 20 takes from the earlier phases: phase 8's sparse QSO sample
 # ('qso') and phase 7's LRG positions ('pk_pos'), (N, 3) numpy
@@ -4696,6 +4714,9 @@ def check_fused(phase, hod, stage_fn, k1_per_call, cats_fn, seg, W):
     require(launches['tsc_deposit_cells'] == k1_per_call * n_calls, f'K1 launches {launches}')
     require(launches['bin_pair_modes'] == n_calls, f'K3 launches {launches}')
     require(launches['bin_power_modes'] == 0, f'K2 launches {launches}')
+    require(launches['hod_keep_codes[centrals]'] == n_calls
+            and launches['hod_keep_codes[satellites]'] == n_calls,
+            f'keep-code launches {launches}, not one a form a call')
     require(make_bin_plan_arrays.builds == builds, 'the bin plan was rebuilt')
     require(mode_spans.builds == spans, 'the calls built row spans')
     require(all(n > 0 for n in n_gal.values()), f'empty tracer {n_gal}')
@@ -4792,6 +4813,77 @@ def phase_fused(dev, seg, W):
     require(k1_lc['overflow_share'] < 0.01, 'light cone: over 1 % of the galaxies left their tile')
     del hod
     return box, lc[:4] + (k1_lc,), box_hod
+
+
+def codes_bound(n_halo, n_part):
+    """The keep codes' least time (ms) a form, by the bytes at 3.35 TB/s:
+    a halo reads mass, multis, randoms, deltac and fenv (20 B) and writes
+    its code (1 B); a particle reads hmass, weights, randoms, deltac, fenv
+    and host_at (24 B) and writes its code, and the halos' code table is
+    read once (n_halo B)."""
+    return {'centrals': 21 * n_halo / HBM_BYTES_PER_S * 1e3,
+            'satellites': (25 * n_part + n_halo) / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_codes(dev, timing):
+    """Phase 6b: the keep codes at the benchmark's sizes (phase 5's
+    catalog, flat; LRG, ELG and QSO with assembly bias): one launch a form,
+    the codes equal to the plain versions' bit for bit, then each form's
+    time by CUDA events (20 calls) and by the profiler against its byte
+    bound, and the plain versions' time (the satellites' with the old
+    gather of the host codes)."""
+    t0 = time.perf_counter()
+    halo, part = tpop.flat_catalogs(*fused_state(dev), dev)
+    tp = tpop._tensor_params(tpop.prepare_tracer_params(TRACERS, 0.5), WANT, dev)
+    hidx = part['hidx']
+
+    def cent():
+        return tpop._cent_codes(halo, tp, WANT)
+
+    def sat(keep_c):
+        return tpop._sat_codes(part, tp, WANT, keep_c, host_at=hidx)
+
+    reset_launches()
+    keep_c = cent()
+    keep_s = sat(keep_c)
+    launches = read_launches()
+    require(launches['hod_keep_codes[centrals]'] == 1
+            and launches['hod_keep_codes[satellites]'] == 1,
+            f'phase 6b: keep-code launches {launches}')
+    plain_c = tpop.cent_codes_plain(halo, tp, WANT)
+    plain_s = tpop.sat_codes_plain(part, tp, WANT, plain_c[hidx])
+    diff = {'centrals': int((keep_c != plain_c).sum()),
+            'satellites': int((keep_s != plain_s).sum())}
+    shares = {form: (torch.bincount(k.long(), minlength=4).double() / k.numel()).tolist()
+              for form, k in (('centrals', keep_c), ('satellites', keep_s))}
+    del plain_c, plain_s
+    bounds = codes_bound(N_HALO, N_PART)
+    runs = {
+        'centrals': (cent, lambda: tpop.cent_codes_plain(halo, tp, WANT), N_HALO),
+        'satellites': (lambda: sat(keep_c),
+                       lambda: tpop.sat_codes_plain(part, tp, WANT, keep_c[hidx]), N_PART),
+    }
+    for form, (fn, plain, n) in runs.items():
+        ms = event_ms(fn, 20)
+        k_ms = kernel_ms(fn, 'hod_keep_codes', 20)
+        plain_ms = event_ms(plain, 5)
+        reg = CODES_PTXAS.get(form)
+        print(f'phase 6b keep codes, {form}, {n} objects: {ms:.4f} ms by events, kernel '
+              f'{k_ms if k_ms is None else round(k_ms, 4)} ms by the profiler; bound '
+              f'{bounds[form]:.4f} ms (bytes), share {bounds[form] / ms:.3f}; plain '
+              f'{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); codes 0-3 '
+              f'{[round(x, 6) for x in shares[form]]}; '
+              f'differing codes {diff[form]}; (registers, spill stores, spill loads) {reg}; '
+              f'{CARD[0]}')
+        timing[f'hod_keep_codes[{form}]'] = dict(
+            ms=ms, kernel_ms=k_ms, plain_ms=plain_ms, max_abs_err=diff[form],
+            bound_ms=bounds[form], bound_by='bytes', library_ms=None,
+            shape=f'{n} objects, {len(WANT)} tracers', registers=reg and reg[0],
+            spill_stores=reg and reg[1], spill_loads=reg and reg[2])
+    require(diff['centrals'] == 0 and diff['satellites'] == 0,
+            f'phase 6b: keep codes differ from the plain versions: {diff}')
+    require(all(sum(sh[1:]) > 0 for sh in shares.values()), f'phase 6b: nothing kept {shares}')
+    print(f'phase 6b in {time.perf_counter() - t0:.1f} s')
 
 
 def mock_columns(mock, dev):
@@ -5107,6 +5199,7 @@ def main():
         step_launches, timing = phase_step(dev, seg, W)
         timing['tsc_deposit_cells[tsc]'] = timing.pop('tsc_deposit_cells')
         box, lc, hod = phase_fused(dev, seg, W)
+        phase_codes(dev, timing)
         timing['bin_pair_modes[no poles]'] = box[1]
         timing['tsc_deposit_cells[tsc]']['shapes'] += [box[4], lc[4]]
         print(f'K3 at the light-cone call shapes: {lc[1]["ms"]:.4f} ms vs plain '

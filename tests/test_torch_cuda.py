@@ -26,6 +26,7 @@ from abacusutils_tpu_torch.ops.grid import (
     tsc_deposit_cells,
 )
 from abacusutils_tpu_torch.convert import params_to_tensors, staged_state_from_numpy
+from abacusutils_tpu_torch.models.hod import population as tpop
 from abacusutils_tpu_torch.models.hod.population import prepare_tracer_params
 from abacusutils_tpu_torch.ops.power import (
     bin_pair_modes,
@@ -39,10 +40,12 @@ from abacusutils_tpu_torch.ops import power as tpow
 from abacusutils_tpu_torch.ops import tpcf as ttpcf
 from abacusutils_tpu_torch.testing import edge_points, edge_points_centred
 from torch_helpers import (  # noqa: F401
+    CODE_WANTS,
     K6_CATALOGS,
     gloo_mesh,
     TRACERS,
     catalog_tensors,
+    code_catalogs,
     cuda_device,
     k6_catalog,
     k6_tensors,
@@ -2028,3 +2031,132 @@ def test_two_step_xirppi_counts_its_transfers(cuda_device):
     counts = 8 * (len(rpbins) - 1) * 30
     assert got == {'h2d_bytes': 4 * nparams + 12 * ngal, 'd2h_bytes': 36 * ngal + counts,
                    'pinned_bytes': 36 * ngal}
+
+
+def _code_levels(cat, tp, want, form, host_codes=None):
+    """The running marker sums the plain keep codes compare each random
+    with, one a wanted tracer, by the plain version's own ops."""
+    levels, marker = [], torch.zeros_like(cat['mass' if form == 'centrals' else 'hmass'])
+    for tracer in tpop.TRACER_ORDER:
+        if tracer not in want:
+            continue
+        p = tp[tracer]
+        if form == 'centrals':
+            m = tpop._cent_marker(tracer, p, cat['mass'], cat['deltac'], cat['fenv'],
+                                  cat.get('shear', 0.0)) * cat['multis']
+        else:
+            m = tpop._sat_base(tracer, p, cat['hmass'], cat['deltac'], cat['fenv'],
+                               cat.get('shear', 0.0), host_codes) * cat['weights'] * p['ic']
+            if 'ranks' in cat:
+                m = m * tpop._rank_multiplier(p, cat)
+        marker = marker + m
+        levels.append(marker)
+    return levels
+
+
+def _tie_randoms(cat, levels, every=7):
+    """Set every `every`-th object's random to one of its marker levels,
+    exactly, the levels taken in turn: a tie that <= keeps."""
+    idx = torch.arange(0, cat['randoms'].numel(), every, device=cat['randoms'].device)
+    for j, level in enumerate(levels):
+        sel = idx[j::len(levels)]
+        cat['randoms'][sel] = level[sel]
+
+
+def _kernel_and_plain_codes(halo, part, hidx, tp, want):
+    """Both forms by the kernel (the satellites through host_at and through
+    a per-particle column) and by the plain versions; checks one launch a
+    form a call."""
+    counts = tpop.keep_codes_kernel.launches_by_form
+    before = dict(counts)
+    keep_c = tpop._cent_codes(halo, tp, want)
+    assert counts['centrals'] == before['centrals'] + 1
+    keep_s = tpop._sat_codes(part, tp, want, keep_c, host_at=hidx)
+    keep_s2 = tpop._sat_codes(part, tp, want, keep_c[hidx])
+    assert counts['satellites'] == before['satellites'] + 2
+    plain_c = tpop.cent_codes_plain(halo, tp, want)
+    plain_s = tpop.sat_codes_plain(part, tp, want, plain_c[hidx])
+    return (keep_c, keep_s, keep_s2), (plain_c, plain_s)
+
+
+@pytest.mark.parametrize('ranks', [False, True], ids=['no ranks', 'ranks'])
+@pytest.mark.parametrize('want', CODE_WANTS, ids='+'.join)
+def test_keep_code_kernel_matches_plain(cuda_device, want, ranks):
+    """csrc/hod_codes.cu against the plain ATen chain, bit for bit, on 1e6
+    halos and 5e6 particles (neither a multiple of the kernel's 4 objects a
+    thread) with deltac, fenv and shear, every tracer subset, with and
+    without the rank columns; every 7th random set exactly to one of its
+    marker levels (a tie); the satellites read their host codes through
+    host_at and from a per-particle column."""
+    halo, part, hidx, tp = code_catalogs(1_000_003, 5_000_001, seed=len(want) + 10 * ranks,
+                                         device=cuda_device, ranks=ranks)
+    _tie_randoms(halo, _code_levels(halo, tp, want, 'centrals'))
+    host = tpop.cent_codes_plain(halo, tp, want)[hidx]
+    _tie_randoms(part, _code_levels(part, tp, want, 'satellites', host))
+    (keep_c, keep_s, keep_s2), (plain_c, plain_s) = _kernel_and_plain_codes(
+        halo, part, hidx, tp, want)
+    for got, ref, form in ((keep_c, plain_c, 'centrals'), (keep_s, plain_s, 'satellites'),
+                           (keep_s2, plain_s, 'satellites, per-particle host codes')):
+        assert got.dtype == torch.int8
+        assert torch.equal(got, ref), f'{form}: {int((got != ref).sum())} codes differ'
+    for got in (plain_c, plain_s):
+        codes = set(got.unique().tolist())
+        assert {tpop.TRACER_ORDER.index(w) + 1 for w in want} | {0} == codes
+
+
+def test_keep_code_kernel_edges(cuda_device):
+    """The kernel's edges, each against the plain version: no objects (no
+    launch), 1 to 9 objects (the scalar tail of a thread), columns that
+    start 4 B past a 16-B boundary (no float4 loads), halos at
+    x = M - kappa Mcut < 0, = 0 and just above, no shear column, and
+    every wrong argument refused before a launch."""
+    halo, part, hidx, tp = code_catalogs(20_011, 80_013, seed=3, device=cuda_device, shear=False)
+    want = tpop.TRACER_ORDER
+    counts = tpop.keep_codes_kernel.launches_by_form
+    before = dict(counts)
+    empty_h = {k: v[:0] for k, v in halo.items()}
+    empty_p = {k: v[:0] for k, v in part.items()}
+    assert tpop._cent_codes(empty_h, tp, want).shape == (0,)
+    assert tpop._sat_codes(empty_p, tp, want, torch.zeros(0, dtype=torch.int8,
+                                                           device=cuda_device),
+                           host_at=hidx[:0]).shape == (0,)
+    assert counts == before
+    # x < 0, x = 0 and x > 0 of each tracer's satellite power law at the
+    # halo's own deltac and fenv: masses at kappa 10**logM_cut and one ulp
+    # either side (the f32 sum of logM_cut is recomputed as the kernel does)
+    for i, tracer in enumerate(tpop.TRACER_ORDER):
+        p = tp[tracer]
+        lc = p['logM_cut'] + p['Acent'] * part['deltac'] + p['Bcent'] * part['fenv']
+        edge = p['kappa'] * 10**lc
+        sl = slice(3 * i * 1000, (3 * i + 3) * 1000)
+        part['hmass'][sl] = torch.cat([torch.nextafter(edge[sl][:1000], edge[sl][:1000] * 0),
+                                       edge[sl][1000:2000],
+                                       torch.nextafter(edge[sl][2000:], edge[sl][2000:] * 2)])
+    for n in (1, 2, 3, 4, 5, 7, 9, 20_011):
+        h = {k: v[:n] for k, v in halo.items()}
+        m = min(4 * n, part['hmass'].numel())
+        pt = {k: v[:m] for k, v in part.items()}
+        (kc, ks, ks2), (pc, ps) = _kernel_and_plain_codes(h, pt, hidx[:m] % n, tp, want)
+        assert torch.equal(kc, pc) and torch.equal(ks, ps) and torch.equal(ks2, ps), n
+    # one float past a 16-B boundary: the scalar loads
+    h = {k: v[1:] for k, v in halo.items()}
+    pt = {k: v[1:] for k, v in part.items()}
+    assert all(v.data_ptr() % 16 == 4 for v in (*h.values(), *pt.values()))
+    (kc, ks, ks2), (pc, ps) = _kernel_and_plain_codes(h, pt, (hidx[1:] - 1).clamp(min=0), tp,
+                                                      want)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps) and torch.equal(ks2, ps)
+    before = dict(counts)
+    bad = dict(halo, randoms=halo['randoms'].double())
+    with pytest.raises(ValueError, match='randoms'):
+        tpop._cent_codes(bad, tp, want)
+    with pytest.raises(ValueError, match='mass'):
+        tpop._cent_codes(dict(halo, mass=halo['mass'][::2]), tp, want)
+    with pytest.raises(ValueError, match='host_at'):
+        tpop._sat_codes(part, tp, want, torch.zeros(20_011, dtype=torch.int8,
+                                                    device=cuda_device), host_at=hidx.long())
+    with pytest.raises(ValueError, match='parameter'):
+        tpop._cent_codes(halo, {k: {kk: vv.double() for kk, vv in v.items()}
+                                for k, v in tp.items()}, want)
+    with pytest.raises(ValueError, match='central codes'):
+        tpop._sat_codes(part, tp, ('ELG',), None)
+    assert counts == before

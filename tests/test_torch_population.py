@@ -13,6 +13,8 @@ marker by up to ~1e-7 absolute. Markers are held at rtol 5e-5 plus atol 1e-6,
 and a keep code may differ only where the random number and the marker tie
 to that precision."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +25,12 @@ import torch
 from abacusutils_tpu.models import pipeline as jpipe
 from abacusutils_tpu.models.hod import population as jpop
 from abacusutils_tpu.models.hod import shapes as jshapes
+from abacusutils_tpu_torch import _build
 from abacusutils_tpu_torch.convert import params_to_tensors
 from abacusutils_tpu_torch.models import pipeline as tpipe
 from abacusutils_tpu_torch.models.hod import population as tpop
 from abacusutils_tpu_torch.models.hod import shapes as tshapes
-from torch_helpers import t
+from torch_helpers import CODE_WANTS, code_catalogs, t
 
 MARKER_RTOL = 5e-5
 MARKER_ATOL = 1e-6
@@ -166,3 +169,120 @@ def test_populate_weights_matches(rsd):
     flips = _flips(keep_c, np.asarray(ref[1]), halo['randoms'], m_c)
     flips += _flips(keep_s, np.asarray(ref[3]), part['randoms'], m_s)
     print(f'populate keep-code flips (all near ties): {flips}')
+
+
+def _no_kernel_launched():
+    assert tpop.keep_codes_kernel.launches == 0
+    assert tpop.keep_codes_kernel.launches_by_form == {'centrals': 0, 'satellites': 0}
+
+
+@pytest.mark.parametrize('want', CODE_WANTS, ids='+'.join)
+def test_keep_code_dispatch_on_cpu_is_the_plain_chain(want):
+    """_cent_codes / _sat_codes on CPU tensors return exactly the plain
+    versions' codes; with host_at= the satellites' equal the plain version
+    on the gathered host codes, and on a per-particle column; no launch is
+    counted."""
+    halo, part, hidx, tp = code_catalogs(3_001, 12_003, seed=5, ranks=True)
+    keep_c = tpop._cent_codes(halo, tp, want)
+    assert keep_c.dtype == torch.int8
+    assert torch.equal(keep_c, tpop.cent_codes_plain(halo, tp, want))
+    keep_s = tpop._sat_codes(part, tp, want, keep_c, host_at=hidx)
+    assert torch.equal(keep_s, tpop.sat_codes_plain(part, tp, want, keep_c[hidx.long()]))
+    assert torch.equal(tpop._sat_codes(part, tp, want, keep_c[hidx.long()]), keep_s)
+    codes = {TRACER_CODE[w] for w in want}
+    assert codes <= set(keep_c.unique().tolist()) and codes <= set(keep_s.unique().tolist())
+    _no_kernel_launched()
+
+
+TRACER_CODE = {tracer: code for code, tracer in enumerate(tpop.TRACER_ORDER, 1)}
+
+
+class _Reads(dict):
+    """A parameter dict that records the keys read from it."""
+
+    def __init__(self, d):
+        super().__init__(d)
+        self.read = set()
+
+    def __getitem__(self, k):
+        self.read.add(k)
+        return super().__getitem__(k)
+
+
+@pytest.mark.parametrize('ranks', [False, True], ids=['no ranks', 'ranks'])
+@pytest.mark.parametrize('form', tpop.CODE_FORMS)
+def test_code_params_are_what_the_plain_markers_read(form, ranks):
+    """code_params gives each tracer's CODE_PARAMS slots in the kernel's
+    order: the plain version's own 0-d float32 tensors for exactly the keys
+    its marker reads (run on a dict that records them), None for every
+    other key and every tracer not wanted."""
+    halo, part, hidx, tp = code_catalogs(500, 2_000, seed=6, ranks=ranks)
+    for tracer in tpop.TRACER_ORDER:
+        rec = {k: _Reads(v) for k, v in tp.items()}
+        if form == 'centrals':
+            tpop.cent_codes_plain(halo, rec, (tracer,))
+        else:
+            tpop.sat_codes_plain(part, rec, (tracer,), torch.zeros(2_000, dtype=torch.int8))
+        slots = tpop.code_params(tp, (tracer,), form, ranks)
+        assert len(slots) == len(tpop.TRACER_ORDER) * len(tpop.CODE_PARAMS)
+        for i, other in enumerate(tpop.TRACER_ORDER):
+            mine = slots[i * len(tpop.CODE_PARAMS):(i + 1) * len(tpop.CODE_PARAMS)]
+            picked = {k for k, v in zip(tpop.CODE_PARAMS, mine) if v is not None}
+            assert picked == (rec[tracer].read if other == tracer else set()), other
+            for k, v in zip(tpop.CODE_PARAMS, mine):
+                if v is not None:
+                    assert v is tp[tracer][k] and v.dtype == torch.float32 and v.shape == ()
+    # every tracer at once: each tracer's slots where they were alone
+    full = tpop.code_params(tp, tpop.TRACER_ORDER, form, ranks)
+    for i, tracer in enumerate(tpop.TRACER_ORDER):
+        alone = tpop.code_params(tp, (tracer,), form, ranks)
+        n = len(tpop.CODE_PARAMS)
+        assert full[i * n:(i + 1) * n] == alone[i * n:(i + 1) * n]
+
+
+def test_code_tables_match_the_kernel_source():
+    """CODE_PARAMS is the parameter enum of csrc/hod_codes.cu, in order, and
+    the kernel's tracer, parameter and column counts are the wrapper's."""
+    src = (_build.CSRC / 'hod_codes.cu').read_text()
+    enum = re.search(r'enum \{\s*(LOGM_CUT[^}]*)\}', src).group(1)
+    assert [w.strip() for w in enum.split(',') if w.strip()] == [
+        k.upper() for k in tpop.CODE_PARAMS]
+    for name, n in (('kTracers', len(tpop.TRACER_ORDER)), ('kParams', len(tpop.CODE_PARAMS)),
+                    ('kCols', len(tpop.CODE_COLUMNS))):
+        assert int(re.search(rf'{name} = (\d+);', src).group(1)) == n
+    assert len(_build.SIGNATURES['hod_keep_codes']) == 10
+
+
+@pytest.mark.parametrize('shear', [False, True], ids=['no shear', 'shear'])
+@pytest.mark.parametrize('form', tpop.CODE_FORMS)
+def test_code_columns_in_kernel_order(form, shear):
+    """code_columns hands the kernel the catalog's own tensors in
+    CODE_COLUMNS order, None where the catalog has no shear or the form no
+    rank columns."""
+    halo, part, _, _ = code_catalogs(400, 1_600, seed=7, shear=shear, ranks=True)
+    cat = halo if form == 'centrals' else part
+    want = {
+        'centrals': ('mass', 'multis', 'randoms', 'deltac', 'fenv', 'shear', None, None, None,
+                     None),
+        'satellites': ('hmass', 'weights', 'randoms', 'deltac', 'fenv', 'shear', 'ranks',
+                       'ranksv', 'ranksp', 'ranksr'),
+    }[form]
+    cols = tpop.code_columns(cat, form)
+    assert len(cols) == len(want)
+    for key, col in zip(want, cols):
+        if key is None or (key == 'shear' and not shear):
+            assert col is None
+        else:
+            assert col is cat[key]
+
+
+def test_keep_code_kernel_refuses_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors only: on CPU tensors it
+    raises before any launch (the dispatchers never call it there)."""
+    halo, part, hidx, tp = code_catalogs(100, 400, seed=8)
+    with pytest.raises(ValueError, match='CUDA'):
+        tpop.keep_codes_kernel(halo, tp, tpop.TRACER_ORDER, 'centrals')
+    with pytest.raises(ValueError, match='CUDA'):
+        tpop.keep_codes_kernel(part, tp, tpop.TRACER_ORDER, 'satellites',
+                               torch.zeros(100, dtype=torch.int8), hidx)
+    _no_kernel_launched()

@@ -1,5 +1,6 @@
 """Shared pieces of the abacusutils_tpu_torch parity tests."""
 
+import itertools
 import os
 
 import numpy as np
@@ -55,6 +56,55 @@ TRACERS = {
         'alpha_c': 0.2, 'alpha_s': 1.0,
     },
 }
+
+
+# every tracer subset the keep codes take
+CODE_WANTS = [w for r in (1, 2, 3) for w in itertools.combinations(('LRG', 'ELG', 'QSO'), r)]
+# assembly bias, shear terms, the ELG conformity branches and the rank
+# factors, set on every test tracer for the keep codes
+CODE_EXTRAS = dict(
+    Acent=0.05, Asat=-0.1, Bcent=0.03, Bsat=0.05, Ccent=0.1, Csat=-0.1, s=0.4, s_v=-0.3, s_p=0.2,
+    s_r=-0.1, logM1_EE=13.1, alpha_EE=0.9, logM1_EL=13.9, alpha_EL=0.7,
+)
+
+
+def code_catalogs(n_halo, n_part, seed, device='cpu', shear=True, ranks=False):
+    """Flat float32 catalogs of the keep codes on `device`: halos (mass,
+    multis, randoms, deltac, fenv, with `shear` a shear column) and
+    particles (hmass, weights, randoms and their host's deltac, fenv and
+    shear, with `ranks` the four rank columns), each particle's int32 host
+    row, and TRACERS with CODE_EXTRAS as prepare_tracer_params fills them
+    and params_to_tensors puts them on `device`. Masses span 1e11-1e15, so
+    x = M - kappa Mcut < 0 for many objects, and every code occurs."""
+    from abacusutils_tpu_torch.convert import params_to_tensors
+    from abacusutils_tpu_torch.models.hod.population import prepare_tracer_params
+
+    rng = np.random.default_rng(seed)
+    hidx = rng.integers(0, n_halo, n_part)
+    halo = {
+        'mass': 10 ** (11 + 4 * rng.random(n_halo) ** 2),
+        'multis': 1.0 + (rng.random(n_halo) < 0.1),
+        'randoms': rng.random(n_halo),
+        'deltac': rng.uniform(-0.5, 0.5, n_halo),
+        'fenv': rng.uniform(-0.5, 0.5, n_halo),
+        'shear': rng.uniform(-0.5, 0.5, n_halo),
+    }
+    part = {
+        'hmass': halo['mass'][hidx], 'weights': rng.uniform(0.2, 3.0, n_part),
+        'randoms': rng.random(n_part),
+    }
+    for k in ('deltac', 'fenv', 'shear'):
+        part[k] = halo[k][hidx]
+    if not shear:
+        del halo['shear'], part['shear']
+    if ranks:
+        for k in ('ranks', 'ranksv', 'ranksp', 'ranksr'):
+            part[k] = rng.uniform(-0.5, 0.5, n_part)
+    tp = prepare_tracer_params({k: dict(v, **CODE_EXTRAS) for k, v in TRACERS.items()}, z=0.5)
+    halo, part = ({k: t(v.astype(np.float32)).to(device) for k, v in cat.items()}
+                  for cat in (halo, part))
+    return (halo, part, t(hidx.astype(np.int32)).to(device),
+            {k: params_to_tensors(v, device) for k, v in tp.items()})
 
 
 def linked_inputs(n_halo, n_part, lbox, seed):
