@@ -6,8 +6,8 @@ Everything a cell names is found by name under the benchmark's folder:
 configuration is its ``file``, its traffic ``traffic/<name>.json``, the
 traffic's statistic ``stats/<statistic>.py``, each per-layer metric
 ``metrics/<name>.py`` and the cell's comparison limits
-``limits/<cell>.json``. Adding a cell, a configuration, a traffic mix or a
-metric adds files and entries and edits none.
+``limits/<cell>.json``. Adding a cell, a configuration, a traffic mix, a
+statistic or a metric adds files and entries and edits none.
 
 A traffic file holds: ``statistic`` (the module), ``call`` (its keyword
 arguments), ``tracers`` (each tracer's fiducial HOD parameters), ``walk``
@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from benchmark import catalog, trace
+from benchmark import catalog, spans, trace
 from benchmark.reference.precision import Precision
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -165,6 +165,9 @@ def run(cell, seed, seconds, traced, device='cuda', t_process=None, control=None
     failed = 0
     prof = trace.profile() if traced else None
     if prof is not None:
+        from abacusutils_tpu_torch.utils import profiling
+
+        counted = dict(profiling.counters)
         prof.__enter__()
         span = torch.profiler.record_function(trace.WINDOW)
         span.__enter__()
@@ -196,9 +199,11 @@ def run(cell, seed, seconds, traced, device='cuda', t_process=None, control=None
     _sync(device)
     tr = None
     if prof is not None:
+        counted = spans.window_counters(counted, dict(profiling.counters))
         span.__exit__(None, None, None)
         prof.__exit__(None, None, None)
         tr = trace.from_profiler(prof, window_s, len(lat), work)
+        tr.counters = counted
         del prof
     peak = torch.cuda.max_memory_allocated(device) if device.type == 'cuda' else 0
 

@@ -1,18 +1,19 @@
-"""The program's spans in a traced window: device and idle seconds by the
-innermost ``abacus.*`` span, and the program's counters over the window.
+"""The program's spans in a traced window: the events they are read from,
+the innermost ``abacus.*`` span at a time, and the program's counters over
+the window.
 
 The program names its steps with ``abacus.*`` host ranges
 (``abacusutils_tpu_torch.utils.profiling.span``): ranges of the function
 scope, which the profiler does not mirror on the device's rows, so they
-add no device event. Spans nest and never overlap on a thread. Here
+add no device event. Spans nest and never overlap on a thread.
+``benchmark.trace.reduce`` reads them in its one pass over the window:
 
 - each device operation (kernel, copy, set) of the window goes to the
   innermost span open on the thread that launched it when its launch ran:
   the CUDA runtime or driver call (``cudaLaunchKernel``, ``cuLaunchKernel``,
   ``cudaMemcpyAsync``, ...) with the operation's correlation id; the
   host's other events count by another series of ids. Device time by
-  span plus the unspanned rest is the window's device time, as
-  ``benchmark.trace.reduce`` sums it;
+  span plus the unspanned rest is the window's device time;
 - each idle gap between device operations is split among the spans open
   during it, each piece to the innermost span over it: a gap from the end
   of one evaluation's work to the start of the next runs through several
@@ -28,12 +29,18 @@ from typing import NamedTuple
 
 import torch
 
-from benchmark.trace import WINDOW, _field, _union
-
 PREFIX = 'abacus.'
 # the names of the host events that launch device work: the CUDA runtime's
 # and driver's calls
 LAUNCH = 'cu'
+
+
+def _field(e, *names):
+    for n in names:
+        f = getattr(e, n, None)
+        if f is not None:
+            return f()
+    raise AttributeError(names[0])
 
 
 class Event(NamedTuple):
@@ -112,44 +119,6 @@ class Timeline:
                     out[name] += min(e, b) - max(s, a)
                 i += 1
         return out
-
-
-class Spans(NamedTuple):
-    device: dict  # {span: device seconds of the operations it launched}
-    rest_s: float  # device seconds launched outside every span
-    idle: dict  # {span: idle seconds with the span innermost}
-
-
-def attribute(evs):
-    """The :class:`Spans` of a window from `evs` (:func:`events`): the
-    ``benchmark.window`` host range, or every event's extent without one.
-    The device operations are those ``benchmark.trace.reduce`` counts:
-    device events other than spans' annotations, clipped to the window."""
-    win = [(e.start, e.end) for e in evs if not e.device and e.name == WINDOW]
-    lo, hi = win[0] if win else (min(e.start for e in evs), max(e.end for e in evs))
-    timeline = Timeline([e for e in evs if not e.device and e.name.startswith(PREFIX)])
-    launch = {e.corr: e for e in evs if not e.device and e.name.startswith(LAUNCH)}
-    device, rest = defaultdict(float), 0.0
-    busy = []
-    for e in evs:
-        if not e.device or e.end <= lo or e.start >= hi or e.name.startswith(('bench.', PREFIX)):
-            continue
-        s, t = max(e.start, lo), min(e.end, hi)
-        busy.append((s, t))
-        by = launch.get(e.corr)
-        span = None if by is None else timeline.at(by.start, by.thread)
-        if span is None:
-            rest += (t - s) / 1e6
-        else:
-            device[span] += (t - s) / 1e6
-    idle = defaultdict(float)
-    edge = lo
-    for s, t in _union(busy) + [[hi, hi]]:
-        if s > edge:
-            for span, us in timeline.overlaps(edge, s).items():
-                idle[span] += us / 1e6
-        edge = max(edge, t)
-    return Spans(dict(device), rest, dict(idle))
 
 
 def window_counters(before, after):

@@ -9,6 +9,9 @@ from benchmark.reference import hod as ref_hod
 from benchmark.reference import mesh as ref_mesh
 from benchmark.stats import common
 
+# the CPU tests' small size: a 32^3 mesh of 16 k bins on the shared small box
+SMALL = {'call': {'nmesh': 32, 'nbins_k': 16}}
+
 
 def evaluate(hod, tracers, call):
     """The program's answer: ({'pk', 'modes', 'n_gal'}, None)."""

@@ -1,28 +1,23 @@
 """Small sizes of the benchmark's cells for the CPU tests: the port's plain
 PyTorch paths and the reference agree there as they do at the cells' own
-sizes on the card."""
+sizes on the card.
+
+Every cell runs on a box of 10^4 halos (the light cone keeps its octant)
+with a 32^3 field and one warm-up; a statistic changes its call's sizes, or
+the catalog's, by its module's ``SMALL`` (``benchmark/stats/__init__.py``)."""
 
 import torch
 
 from benchmark import harness
 
-# a box of 10^4 halos (the light cone keeps its octant), a 32^3 field;
-# meshes of 32 (fused) and 40 (two-step) cells; the LRG pair counts on 4,000
-# halos, where the all-pairs plain count stays quick
 _CONFIG = {'n_halo': 10_000, 'n_part': 50_000, 'field': {'ngrid': 32, 'bias': 1.3}}
-_CALL = {
-    'pk_fused': {'nmesh': 32, 'nbins_k': 16},
-    'xirppi': {},
-    'power': {'num_cells': 40, 'nbins_k': 16, 'k_hMpc_max': 0.06},
-}
-_SMALLER = {'xirppi': {'n_halo': 4_000, 'n_part': 20_000}}
 
 
 def overrides(cell):
-    stat = cell.traffic['statistic']
-    call = dict(cell.traffic['call'], **_CALL[stat])
-    return {'config': dict(_CONFIG, **_SMALLER.get(stat, {})),
-            'traffic': {'call': call, 'warmup': 1}}
+    small = getattr(cell.stat, 'SMALL', {})
+    return {'config': dict(_CONFIG, **small.get('config', {})),
+            'traffic': {'call': dict(cell.traffic['call'], **small.get('call', {})),
+                        'warmup': 1}}
 
 
 def run(name, seconds=1.0, seed=2**31 + 7, control=None, root=harness.ROOT):

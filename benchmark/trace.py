@@ -7,9 +7,13 @@ around each call into the program. Afterwards the raw Kineto events give:
 
 - the device operations (kernels, copies, sets), their names and
   intervals; busy_s is the length of their union inside the window;
-- the idle gaps between them, each named by the innermost host span and
-  the innermost host operation running at its middle;
-- device time by operation name, which the metric modules group.
+- the idle gaps between them, each named by the innermost host span and,
+  at its middle, the innermost of the program's ``abacus.*`` spans open
+  there or, where none is, the innermost host operation running;
+- device time by operation name, which the metric modules group;
+- the program's spans and counters (``benchmark.spans``): device and idle
+  seconds by span, and the counters' growth over the window, which the
+  harness sets.
 
 Nothing is written to disk; the events stay in memory.
 """
@@ -19,36 +23,23 @@ from collections import defaultdict
 
 import torch
 
+from benchmark import spans
+
 WINDOW = 'benchmark.window'
+# host ranges that the profiler may mirror on the device's rows: the
+# benchmark's own and the program's spans, not device work
+_ANNOTATIONS = ('bench.', 'abacus.')
 _TOP = 10
-
-
-def _field(e, *names):
-    for n in names:
-        f = getattr(e, n, None)
-        if f is not None:
-            return f()
-    raise AttributeError(names[0])
-
-
-def _events(prof):
-    """(name, is_device, start_us, end_us) of every Kineto event."""
-    cuda = torch.autograd.DeviceType.CUDA
-    out = []
-    for e in prof.profiler.kineto_results.events():
-        try:
-            start = _field(e, 'start_ns') / 1e3
-            dur = _field(e, 'duration_ns') / 1e3
-        except AttributeError:
-            start, dur = _field(e, 'start_us'), _field(e, 'duration_us')
-        out.append((e.name(), e.device_type() == cuda, float(start), float(start + dur)))
-    return out
 
 
 class Trace:
     """What the metrics read: the window's length and busy time (s), the
     evaluations in it, device seconds by operation name, and each
-    evaluation's work (the statistic's ``work``)."""
+    evaluation's work (the statistic's ``work``). From the program's spans
+    (set by :func:`reduce`): ``span_device`` and ``span_idle`` ({span: s})
+    and ``span_rest`` (device seconds launched under no span); from its
+    counters (set by the harness, None untraced): ``counters`` ({name:
+    growth over the window})."""
 
     def __init__(self, window_s, busy_s, evals, device, work, breakdown=None):
         self.window_s = window_s
@@ -57,6 +48,7 @@ class Trace:
         self.device = dict(device)
         self.work = list(work)
         self.breakdown = breakdown or {}
+        self.span_device = self.span_idle = self.span_rest = self.counters = None
 
     def device_seconds(self, keys):
         """Device seconds of the operations whose names hold one of `keys`
@@ -94,38 +86,57 @@ def _index(evs):
 
 
 def reduce(events, window_s, evals, work):
-    """The Trace of a window from `events` ((name, is_device, start_us,
-    end_us), as :func:`_events` gives them)."""
-    win = [(s, e) for n, d, s, e in events if not d and n == WINDOW]
-    lo, hi = (win[0] if win else (min(s for *_, s, _ in events), max(e for *_, e in events)))
-    # the spans' own device-side annotations are not device work
-    dev = [(n, max(s, lo), min(e, hi)) for n, d, s, e in events
-           if d and e > lo and s < hi and not n.startswith('bench.') and n != WINDOW]
-    by_name = defaultdict(float)
-    for n, s, e in dev:
-        by_name[n] += (e - s) / 1e6
-    busy = _union([(s, e) for _, s, e in dev])
-    busy_s = sum(e - s for s, e in busy) / 1e6
-    host = [(n, s, e) for n, d, s, e in events if not d and n != WINDOW and e > s]
-    spans = _index([h for h in host if h[0].startswith('bench.')])
+    """The Trace of a window from `events` (``benchmark.spans.Event``, as
+    ``spans.events`` gives them): the ``benchmark.window`` host range, or
+    every event's extent without one. One pass over its device operations
+    gives device time by name and by the program's launching span, and one
+    walk over its idle gaps names them and splits them among the spans."""
+    win = [(e.start, e.end) for e in events if not e.device and e.name == WINDOW]
+    lo, hi = win[0] if win else (min(e.start for e in events), max(e.end for e in events))
+    timeline = spans.Timeline([e for e in events
+                               if not e.device and e.name.startswith(spans.PREFIX)])
+    launch = {e.corr: e for e in events if not e.device and e.name.startswith(spans.LAUNCH)}
+    by_name, by_span, rest = defaultdict(float), defaultdict(float), 0.0
+    busy = []
+    for e in events:
+        # the spans' own device-side annotations are not device work
+        if (not e.device or e.end <= lo or e.start >= hi or e.name.startswith(_ANNOTATIONS)
+                or e.name == WINDOW):
+            continue
+        s, t = max(e.start, lo), min(e.end, hi)
+        busy.append((s, t))
+        by_name[e.name] += (t - s) / 1e6
+        by = launch.get(e.corr)
+        span = None if by is None else timeline.at(by.start, by.thread)
+        if span is None:
+            rest += (t - s) / 1e6
+        else:
+            by_span[span] += (t - s) / 1e6
+    busy = _union(busy)
+    busy_s = sum(t - s for s, t in busy) / 1e6
+    host = [(e.name, e.start, e.end) for e in events
+            if not e.device and e.name != WINDOW and e.end > e.start]
+    benches = _index([h for h in host if h[0].startswith('bench.')])
     ops = _index([h for h in host if not h[0].startswith('bench.')])
-    gaps = []
+    idle, span_idle = defaultdict(float), defaultdict(float)
     edge = lo
-    for s, e in busy + [[hi, hi]]:
+    for s, t in busy + [[hi, hi]]:
         if s > edge:
-            gaps.append((edge, s))
-        edge = max(edge, e)
-    idle = defaultdict(float)
-    for s, e in gaps:
-        mid = 0.5 * (s + e)
-        span, op = _innermost(spans, mid, 8), _innermost(ops, mid, 64)
-        idle[f'{span or "host"} / {op or "python"}'] += (e - s) / 1e6
+            mid = 0.5 * (edge + s)
+            bench = _innermost(benches, mid, 8)
+            op = timeline.at(mid) or _innermost(ops, mid, 64)
+            idle[f'{bench or "host"} / {op or "python"}'] += (s - edge) / 1e6
+            for span, us in timeline.overlaps(edge, s).items():
+                span_idle[span] += us / 1e6
+        edge = max(edge, t)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:_TOP]
     breakdown = {
         'device_ops': [[n[:160], s] for n, s in top],
         'idle_gaps': [[n[:160], s] for n, s in sorted(idle.items(), key=lambda kv: -kv[1])[:_TOP]],
     }
-    return Trace(window_s, busy_s, evals, by_name, work, breakdown)
+    tr = Trace(window_s, busy_s, evals, by_name, work, breakdown)
+    tr.span_device, tr.span_idle, tr.span_rest = dict(by_span), dict(span_idle), rest
+    return tr
 
 
 def profile():
@@ -135,4 +146,4 @@ def profile():
 
 
 def from_profiler(prof, window_s, evals, work):
-    return reduce(_events(prof), window_s, evals, work)
+    return reduce(spans.events(prof), window_s, evals, work)
