@@ -9,6 +9,9 @@ from benchmark.reference import hod as ref_hod
 from benchmark.reference import mesh as ref_mesh
 from benchmark.stats import common
 
+# the AbacusHOD method whose return value is the answer (the tests' answer fault)
+PRODUCES = 'run_hod_pk_fused'
+
 # the CPU tests' small size: a 32^3 mesh of 16 k bins on the shared small box
 SMALL = {'call': {'nmesh': 32, 'nbins_k': 16}}
 

@@ -9,6 +9,9 @@ from benchmark.reference import hod as ref_hod
 from benchmark.reference import mesh as ref_mesh
 from benchmark.stats import common
 
+# the AbacusHOD method whose return value is the answer (the tests' answer fault)
+PRODUCES = 'compute_power'
+
 # the CPU tests' small size: a 40^3 mesh, 16 k bins to k = 0.06 h/Mpc
 SMALL = {'call': {'num_cells': 40, 'nbins_k': 16, 'k_hMpc_max': 0.06}}
 

@@ -11,6 +11,9 @@ from benchmark.reference import hod as ref_hod
 from benchmark.reference import pairs as ref_pairs
 from benchmark.stats import common
 
+# the AbacusHOD method whose return value is the answer (the tests' answer fault)
+PRODUCES = 'compute_xirppi'
+
 # the CPU tests' small size: the cell's own call on 4,000 halos, where the
 # reference's pair count stays quick
 SMALL = {'config': {'n_halo': 4_000, 'n_part': 20_000}}

@@ -8,7 +8,12 @@ with the first one's result); half of the batch left out with the mean
 taken over the rest (half of the galaxies dropped, the rest counted double);
 an answer altered where it is produced (a spectrum bin, or one galaxy's
 position). One card does all the work of a cell, so no exchange between
-cards can be left out."""
+cards can be left out.
+
+A fourth fault, ``answer``, alters the statistic's own answer in every cell
+whose statistic names the AbacusHOD method that produces it (``PRODUCES``
+in ``stats/<statistic>.py``): a statistic added as files brings its fault
+with it."""
 
 import functools
 
@@ -19,6 +24,7 @@ import torch
 from abacusutils_tpu_torch.models import pipeline
 from abacusutils_tpu_torch.models.hod import abacus_hod
 from benchmark import harness
+from benchmark.stats import common
 from benchmark.tests import tiny
 
 CELLS = tiny.cells()
@@ -83,8 +89,41 @@ def _mock_fault(monkeypatch, fault):
     monkeypatch.setattr(HOD, 'run_hod', broken)
 
 
-def _break(monkeypatch, stat, fault):
-    if fault == 'stale':
+def _pair_key(key):
+    parts = key.split('_')
+    return len(parts) == 2 and all(p in common.TRACER_ORDER for p in parts)
+
+
+def alter_answer(monkeypatch, method):
+    """AbacusHOD.`method` returns the answer doubled in one bin: the middle
+    bin of its first tracer pair's array ('LRG_LRG', ...), in the dict it
+    returns or the first item of the tuple it returns. The middle, as the
+    ends of a binned statistic are its least certain bins: a few modes at
+    the lowest k, a correlation near nought at the widest separations."""
+    orig = getattr(HOD, method)
+
+    @functools.wraps(orig)
+    def altered(self, *a, **k):
+        out = orig(self, *a, **k)
+        answer = out[0] if isinstance(out, tuple) else out
+        key = next(k for k in answer if _pair_key(k))
+        v = np.array(answer[key])
+        v.flat[v.size // 2] *= 2.0
+        answer[key] = v
+        return out
+
+    monkeypatch.setattr(HOD, method, altered)
+
+
+def _produces(name):
+    return getattr(harness.Cell(name).stat, 'PRODUCES', None)
+
+
+def _break(monkeypatch, name, fault):
+    stat = _stat(name)
+    if fault == 'answer':
+        alter_answer(monkeypatch, _produces(name))
+    elif fault == 'stale':
         _first_answer(monkeypatch, 'run_hod_pk_fused' if stat == 'pk_fused' else 'run_hod')
     elif stat == 'pk_fused':
         (_half_deposit if fault == 'half' else _alter_spectrum)(monkeypatch)
@@ -92,10 +131,11 @@ def _break(monkeypatch, stat, fault):
         _mock_fault(monkeypatch, fault)
 
 
-@pytest.mark.parametrize('fault', ['stale', 'half', 'altered'])
-@pytest.mark.parametrize('name', CELLS)
+@pytest.mark.parametrize('name,fault', [(n, f) for n in CELLS
+                                        for f in ('stale', 'half', 'altered')]
+                         + [(n, 'answer') for n in CELLS if _produces(n)])
 def test_fault_is_not_correct(monkeypatch, name, fault):
-    _break(monkeypatch, _stat(name), fault)
+    _break(monkeypatch, name, fault)
     result, _ = tiny.run(name, seconds=1.5)
     assert result['attempted'] >= 2
     assert not result['correct'], result['checks']
